@@ -20,8 +20,9 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    (d_model 2048, 16 heads of 128, 8 layers, seq_len 2048, vocab 32768,
    random weights from a seed) through ``InferenceWorker`` and the
    predictor's ``POST /predict`` on a local port, checks every score,
-   checks that the K1 launch count grew by ``n_layers`` per scored query,
-   and holds the served scores against the same model with attention
+   times a window of some hundreds of scored queries sent by several
+   clients at once, checks that the K1 launch count grew by ``n_layers``
+   per scored query, and holds the served scores against the same model with attention
    switched to the plain version;
 5. prints a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": ...}`` line.
@@ -58,6 +59,10 @@ TOL_LSE = (1e-4, 1e-6)
 # attention outputs differ by bf16 ulps per layer, carried through eight
 # layers of a bf16 residual stream, then averaged over the query's tokens.
 TOL_SCORE = 2e-2
+# The throughput window: single-query requests of 2 to seq_len + 1 ids,
+# sent by this many client threads at once.
+WINDOW_REQUESTS = 384
+WINDOW_CLIENTS = 8
 
 
 class SmokeFailure(Exception):
@@ -245,6 +250,42 @@ def profile_predict(torch, model, query, card) -> None:
               f"x{n:<4d} {key[:90]}", flush=True)
 
 
+def throughput_window(np, url, ids, seq_len, card, n_requests=WINDOW_REQUESTS,
+                      clients=WINDOW_CLIENTS) -> int:
+    """The scoring service's rate: ``n_requests`` single-query requests
+    of random lengths, sent by ``clients`` threads at once. Checks each
+    answer and prints latency percentiles and tokens scored per second;
+    returns the number of queries scored."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    lengths = np.random.default_rng(SEED + 2).integers(
+        2, seq_len + 2, size=n_requests).tolist()
+    queries = [ids(n) for n in lengths]
+
+    def one(q):
+        status, body, dt = post(url + "/predict", {"query": q})
+        check(status == 200, f"/predict answered {status}")
+        p = body["prediction"]
+        check(isinstance(p, float) and math.isfinite(p),
+              f"non-finite score {p}")
+        return dt
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        lat = sorted(pool.map(one, queries))
+    secs = time.perf_counter() - t0
+    n_tok = sum(min(n, seq_len + 1) - 1 for n in lengths)
+    pct = {p: lat[min(len(lat) - 1, int(p / 100 * len(lat)))] * 1e3
+           for p in (50, 90, 99)}
+    print(f"slice: window of {n_requests} single-query requests from "
+          f"{clients} clients: {n_tok} tokens scored in {secs:.4f} s = "
+          f"{n_tok / secs:.1f} tokens/s, {n_requests / secs:.2f} queries/s; "
+          f"latency p50 {pct[50]:.2f} ms, p90 {pct[90]:.2f} ms, p99 "
+          f"{pct[99]:.2f} ms (one padded {seq_len}-position forward per "
+          f"query) on {card}", flush=True)
+    return n_requests
+
+
 def slice_phase(torch, np, attn, card):
     from rafiki_torch.models import TorchTransformerLM
     from rafiki_torch.predictor import PredictorService
@@ -290,6 +331,7 @@ def slice_phase(torch, np, attn, card):
             latencies.append(dt)
             tokens.append(sum(min(len(q), t + 1) - 1 for q in queries
                               if len(q) >= 2))
+        window = throughput_window(np, app.url, ids, t, card)
         launches = attn.flash_attention.launches
         status, body, _ = post(app.url + "/predict", {})
         check(status == 400, "an empty body must get 400")
@@ -303,21 +345,18 @@ def slice_phase(torch, np, attn, card):
               f"non-finite score {p}")
         if len(q) < 2:
             check(p == 0.0, "a query of fewer than 2 ids must score 0.0")
-    check(launches == L * len(scored),
-          f"K1 launched {launches} times for {len(scored)} scored queries "
+    n_scored = len(scored) + window
+    check(launches == L * n_scored,
+          f"K1 launched {launches} times for {n_scored} scored queries "
           f"of {L} layers: some layer did not go through the kernel")
     print(f"slice: {len(requests)} POST /predict requests, {len(served)} "
-          f"queries ({len(scored)} scored), K1 launches {launches} = "
-          f"{L} x {len(scored)}", flush=True)
+          f"queries ({len(scored)} scored), then {window} scored queries "
+          f"in the window; K1 launches {launches} = {L} x {n_scored}",
+          flush=True)
     print("slice: per-request latency ms " + ", ".join(
-        f"{x * 1e3:.1f}" for x in latencies) + f" (the first pays the "
-        f"card's first-use costs) on {card}", flush=True)
-    # Requests after the first: sequential, one padded t-position forward
-    # per scored query.
-    n_tok, secs = sum(tokens[1:]), sum(latencies[1:])
-    print(f"slice: {n_tok} tokens scored in {secs:.4f} s = "
-          f"{n_tok / secs:.1f} tokens/s after the first request (one padded "
-          f"{t}-position forward per scored query) on {card}", flush=True)
+        f"{x * 1e3:.1f}" for x in latencies) + f" (smoke requests, one at "
+        f"a time; the first pays the card's first-use costs) on {card}",
+        flush=True)
 
     model = worker.model
     model.attention = attn.flash_attention_reference

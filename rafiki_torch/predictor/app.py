@@ -64,7 +64,7 @@ class PredictorService:
         return [ensemble_predictions([p[i] for p in per_worker])
                 for i in range(len(queries))]
 
-    def _predict(self, params, body, ctx):
+    def _predict(self, body):
         if not body:
             return 400, {"error": "missing JSON body"}
         single = "queries" not in body

@@ -1,34 +1,25 @@
 """JSON-over-HTTP service plumbing on the stdlib ``http.server``.
 
-The port's copy of ``rafiki_tpu/utils/service.py`` without its metrics,
-trace and fault hooks: a route table with ``<param>`` captures, JSON
-bodies in and out, a cap on the body size, graceful start and stop.
+The port's copy of ``rafiki_tpu/utils/service.py`` reduced to what its
+one route needs: routes matched on exact ``(method, path)``, JSON bodies
+in and out, a cap on the body size, graceful start and stop.
 
-A handler is ``handler(params, body, ctx) -> (status, obj)``. It may
-raise ``HttpError`` for a chosen status; a ``ValueError`` answers 400
-and any other exception 500.
+A handler is ``handler(body) -> (status, obj)``. It may raise
+``HttpError`` for a chosen status; a ``ValueError`` answers 400 and any
+other exception 500.
 """
 
 from __future__ import annotations
 
 import json
 import logging
-import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
-from urllib.parse import parse_qs, urlparse
 
 _log = logging.getLogger(__name__)
 
-Handler = Callable[[Dict[str, str], Optional[Dict[str, Any]],
-                    "RequestContext"], Tuple[int, Any]]
-
-
-class RequestContext:
-    def __init__(self, headers, query: Dict[str, List[str]]):
-        self.headers = headers
-        self.query = query
+Handler = Callable[[Optional[Dict[str, Any]]], Tuple[int, Any]]
 
 
 class HttpError(Exception):
@@ -36,11 +27,6 @@ class HttpError(Exception):
         super().__init__(message)
         self.status = status
         self.message = message
-
-
-def _compile(path: str) -> re.Pattern:
-    # "/jobs/<id>/stop" -> ^/jobs/(?P<id>[^/]+)/stop$
-    return re.compile("^" + re.sub(r"<(\w+)>", r"(?P<\1>[^/]+)", path) + "$")
 
 
 class JsonHttpServer:
@@ -51,8 +37,8 @@ class JsonHttpServer:
                  name: str = "http", max_body: int = 64 << 20):
         self.name = name
         self.max_body = max_body
-        self._routes = [(method.upper(), _compile(path), handler)
-                        for method, path, handler in routes]
+        self._routes = {(method.upper(), path): handler
+                        for method, path, handler in routes}
         outer = self
 
         class _Handler(BaseHTTPRequestHandler):
@@ -62,7 +48,6 @@ class JsonHttpServer:
                 _log.debug("%s " + fmt, name, *args)
 
             def _dispatch(self, method: str):
-                parsed = urlparse(self.path)
                 length = int(self.headers.get("Content-Length") or 0)
                 if length > outer.max_body:
                     self.close_connection = True
@@ -76,26 +61,21 @@ class JsonHttpServer:
                     except json.JSONDecodeError:
                         self._reply(400, {"error": "invalid JSON body"})
                         return
-                ctx = RequestContext(self.headers, parse_qs(parsed.query))
-                for m, pattern, handler in outer._routes:
-                    match = pattern.match(parsed.path) if m == method \
-                        else None
-                    if match is None:
-                        continue
-                    try:
-                        status, obj = handler(match.groupdict(), body, ctx)
-                    except HttpError as e:
-                        status, obj = e.status, {"error": e.message}
-                    except ValueError as e:
-                        status, obj = 400, {"error": str(e)}
-                    except Exception as e:  # the server keeps serving
-                        _log.exception("%s %s failed", method, parsed.path)
-                        status, obj = 500, {
-                            "error": f"{type(e).__name__}: {e}"}
-                    self._reply(status, obj)
+                handler = outer._routes.get((method, self.path))
+                if handler is None:
+                    self._reply(404, {"error": f"no route {method} "
+                                               f"{self.path}"})
                     return
-                self._reply(404, {"error": f"no route {method} "
-                                           f"{parsed.path}"})
+                try:
+                    status, obj = handler(body)
+                except HttpError as e:
+                    status, obj = e.status, {"error": e.message}
+                except ValueError as e:
+                    status, obj = 400, {"error": str(e)}
+                except Exception as e:  # the server keeps serving
+                    _log.exception("%s %s failed", method, self.path)
+                    status, obj = 500, {"error": f"{type(e).__name__}: {e}"}
+                self._reply(status, obj)
 
             def _reply(self, status: int, obj: Any):
                 data = json.dumps(obj).encode()
@@ -104,9 +84,6 @@ class JsonHttpServer:
                 self.send_header("Content-Length", str(len(data)))
                 self.end_headers()
                 self.wfile.write(data)
-
-            def do_GET(self):
-                self._dispatch("GET")
 
             def do_POST(self):
                 self._dispatch("POST")

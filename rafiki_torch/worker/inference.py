@@ -3,9 +3,9 @@
 The counterpart of ``InferenceWorker`` in
 ``rafiki_tpu/worker/inference.py``, reduced to what serving one model in
 one process needs: the worker loads the model on its device, takes
-queries from an in-process queue, coalesces what is waiting into one
-``model.predict`` call of at most ``max_batch`` queries, and hands each
-caller its own predictions. The reference's bus, meta store, param
+queries from an in-process queue, hands what is already waiting to one
+``model.predict`` call without waiting for more, and gives each caller
+its own predictions. The reference's bus, meta store, param
 store, stacking and pipelining are not ported yet.
 """
 
@@ -32,11 +32,8 @@ class InferenceWorker:
     """
 
     def __init__(self, model_class: Type[BaseModel], knobs: Dict[str, Any],
-                 params: Params, *, device: DeviceLike = None,
-                 max_batch: int = 64, batch_timeout: float = 0.002):
+                 params: Params, *, device: DeviceLike = None):
         self.device = resolve_device(device)
-        self.max_batch = max_batch
-        self.batch_timeout = batch_timeout
         self.model = model_class(device=self.device,
                                  **model_class.validate_knobs(knobs))
         self.model.load_parameters(params)
@@ -81,19 +78,17 @@ class InferenceWorker:
 
     def _take_batch(self, first) -> Tuple[List[Tuple[List[Any], Future]],
                                           bool]:
-        """``first`` plus whatever else waits, up to ``max_batch``
-        queries; the flag says a stop was asked for."""
-        batch, n = [first], len(first[0])
-        while n < self.max_batch:
+        """``first`` plus whatever is already queued, taken without
+        waiting; the flag says a stop was asked for."""
+        batch = [first]
+        while True:
             try:
-                item = self._queue.get(timeout=self.batch_timeout)
+                item = self._queue.get_nowait()
             except queue.Empty:
-                break
+                return batch, False
             if item is None:
                 return batch, True
             batch.append(item)
-            n += len(item[0])
-        return batch, False
 
     def _serve(self) -> None:
         stop = False
