@@ -36,6 +36,12 @@ _ENTRY = {
     "flash_fwd": ("flash_fwd",
                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                   + [ctypes.c_void_p]),
+    "flash_bwd_dq": ("flash_bwd_dq",
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                     + [ctypes.c_void_p]),
+    "flash_bwd_dkv": ("flash_bwd_dkv",
+                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                      + [ctypes.c_void_p]),
 }
 
 

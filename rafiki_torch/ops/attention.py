@@ -4,16 +4,23 @@ All functions take ``(batch, heads, seq, head_dim)`` tensors, as the
 reference does.
 
 - ``naive_attention`` — the O(T²) numerical ground truth.
-- ``flash_attention`` — the flash-attention forward. On a CUDA tensor it
-  launches the hand-written Hopper kernel ``csrc/flash_fwd.cu`` (K1, the
-  port of the reference's Pallas ``_flash_kernel``); on a CPU tensor it
-  runs ``flash_attention_reference``, the same algorithm in PyTorch ops.
-  There is no fallback between the two: a CUDA tensor either reaches the
-  kernel or the call raises.
+- ``flash_attention`` — flash attention with its gradient, the
+  counterpart of the reference's ``_flash`` and its ``custom_vjp``. On
+  CUDA tensors the forward launches K1 (``csrc/flash_fwd.cu``, the port
+  of the Pallas ``_flash_kernel``) and the backward launches K2
+  (``csrc/flash_bwd_dq.cu``, the port of ``_flash_dq_kernel``) and K3
+  (``csrc/flash_bwd_dkv.cu``, the port of ``_flash_dkv_kernel``); on CPU
+  tensors each runs its plain version. There is no fallback between the
+  two: a CUDA tensor either reaches the kernels or the call raises.
+- ``flash_attention_plain`` — the same function and gradient on the
+  plain versions whatever the device, to hold the kernels' path against.
 - ``flash_attention_reference`` — the plain version of K1: online softmax
   over kv tiles of ``BLOCK_KV`` keys, end-aligned causal masking, the
   same ``lse`` residual, the same tile skipping per ``BLOCK_Q`` query
   rows.
+- ``flash_attention_dq_reference`` and ``flash_attention_dkv_reference``
+  — the plain versions of K2 and K3: the softmax regenerated from the
+  saved ``lse``, over the same tiles.
 
 Masking follows the reference kernel. Out-of-range keys do not exist
 for the softmax. A causally hidden key scores ``NEG_INF``; the
@@ -26,12 +33,19 @@ kernel gives it where its blocks pad no key (its padded keys score
 ``NEG_INF`` and would join the mean). A row with no visible key for
 another reason (left padding inside its causal window, or ``Tq > Tkv``)
 depends on the tiling, in the reference as here.
+
+The backward, like the reference's, keeps only the keys that are in
+range, causally visible and kept by ``kv_mask``: on every other key the
+regenerated ``p`` is zero (selected, never multiplied: there
+``exp(s·scale − lse)`` may be ``inf``). So a row with no such key gets a
+zero gradient and passes none to ``k`` and ``v``, where the naive
+attention's gradient would spread its mean over them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -163,49 +177,234 @@ def flash_attention_reference(q, k, v, *, causal: bool = False,
     return out
 
 
-def _launch(q, k, v, bias, causal: bool) -> Tuple[torch.Tensor,
-                                                   torch.Tensor]:
-    """Launch K1 on the current stream; returns (o, lse)."""
+def _backward_tiles(q, k, v, do, lse, delta, causal: bool, kv_mask):
+    """Per kv tile of ``BLOCK_KV`` keys ``j0:j1``: the regenerated
+    softmax ``p = exp(s·scale − lse)`` and ``ds = p ⊙ (dp − delta)·scale``
+    (f32) of query rows ``r0:`` against those keys, with ``dp = do·vᵀ``.
+    ``p`` is zero on keys hidden by the causal mask or by ``kv_mask``.
+    Under ``causal`` the rows start at the first ``BLOCK_Q`` tile that
+    sees the kv tile, as the kernels skip tiles; yields
+    ``(j0, j1, r0, p, ds)``."""
+    _check(q, k, v, kv_mask)
+    tq, d = q.shape[2], q.shape[3]
+    tkv = k.shape[2]
+    dev = q.device
+    scale = 1.0 / math.sqrt(d)
+    shift = tkv - tq
+    for j0 in range(0, tkv, BLOCK_KV):
+        j1 = min(j0 + BLOCK_KV, tkv)
+        r0 = 0
+        if causal:
+            # q tile i sees key j0 iff j0 <= (i + 1)·BLOCK_Q − 1 + shift.
+            r0 = max(0, (j0 - shift) // BLOCK_Q) * BLOCK_Q
+            if r0 >= tq:
+                break
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, r0:].float(),
+                         k[:, :, j0:j1].float()) * scale
+        p = torch.exp(s - lse[:, :, r0:, None])
+        valid = None
+        if causal:
+            rows = torch.arange(r0, tq, device=dev)
+            cols = torch.arange(j0, j1, device=dev)
+            valid = rows[:, None] + shift >= cols[None, :]
+        if kv_mask is not None:
+            keep = kv_mask[:, None, None, j0:j1]
+            valid = keep if valid is None else valid & keep
+        if valid is not None:
+            p = torch.where(valid, p, torch.zeros((), device=dev))
+        dp = torch.einsum("bhqd,bhkd->bhqk", do[:, :, r0:].float(),
+                          v[:, :, j0:j1].float())
+        yield j0, j1, r0, p, p * (dp - delta[:, :, r0:, None]) * scale
+
+
+def flash_attention_dq_reference(q, k, v, do, lse, delta, *,
+                                 causal: bool = False, kv_mask=None):
+    """The plain PyTorch version of the K2 kernel: ``dq`` in q's dtype,
+    ``dq = Σ_tiles ds·k`` with ``ds`` cast to k's dtype and f32 sums."""
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for j0, j1, r0, _, ds in _backward_tiles(q, k, v, do, lse, delta,
+                                             causal, kv_mask):
+        dq[:, :, r0:] += torch.einsum("bhqk,bhkd->bhqd",
+                                      ds.to(k.dtype).float(),
+                                      k[:, :, j0:j1].float())
+    return dq.to(q.dtype)
+
+
+def flash_attention_dkv_reference(q, k, v, do, lse, delta, *,
+                                  causal: bool = False, kv_mask=None):
+    """The plain PyTorch version of the K3 kernel: ``(dk, dv)`` in k's
+    and v's dtypes, ``dv = pᵀ·do`` with ``p`` cast to do's dtype and
+    ``dk = dsᵀ·q`` with ``ds`` cast to q's dtype, f32 sums."""
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for j0, j1, r0, p, ds in _backward_tiles(q, k, v, do, lse, delta,
+                                             causal, kv_mask):
+        dv[:, :, j0:j1] = torch.einsum("bhqk,bhqd->bhkd",
+                                       p.to(do.dtype).float(),
+                                       do[:, :, r0:].float())
+        dk[:, :, j0:j1] = torch.einsum("bhqk,bhqd->bhkd",
+                                       ds.to(q.dtype).float(),
+                                       q[:, :, r0:].float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch(name: str, ins, bias, outs, causal: bool) -> None:
+    """Launch the kernel of ``csrc/<name>.cu`` on the current stream.
+
+    ``ins`` are (name, tensor) pairs, q and k first; the C entry point
+    takes the inputs, the bias, the outputs, then B, H, Tq, Tkv, D,
+    causal, dtype and the stream."""
     from ._build import load_kernel
 
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for what, t in ins:
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous for the kernel")
+            raise ValueError(f"{what} must be contiguous for the kernel")
+    q, k = ins[0][1], ins[1][1]
     b, h, tq, d = q.shape
-    tkv = k.shape[2]
-    lib = load_kernel("flash_fwd")
-    o = torch.empty_like(q)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    lib = load_kernel(name)
     with torch.cuda.device(q.device):
-        err = lib.flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        err = getattr(lib, name)(
+            *(t.data_ptr() for _, t in ins),
             None if bias is None else bias.data_ptr(),
-            o.data_ptr(), lse.data_ptr(),
-            b, h, tq, tkv, d, int(bool(causal)), _DTYPE_CODES[q.dtype],
+            *(t.data_ptr() for t in outs),
+            b, h, tq, k.shape[2], d, int(bool(causal)),
+            _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _on_card(q) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def _flash_forward(q, k, v, causal: bool, kv_mask):
+    """(o, lse): K1 on CUDA tensors, its plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal,
+                                         kv_mask=kv_mask, return_lse=True)
+    _on_card(q)
+    b, h, tq, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    _launch("flash_fwd", [("q", q), ("k", k), ("v", v)], _kv_bias(kv_mask),
+            [o, lse], causal)
     flash_attention.launches += 1
     return o, lse
 
 
+def _check_backward(q, do, lse, delta) -> None:
+    b, h, tq, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError("do must have q's shape and dtype")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, tq) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 (B, H, Tq)")
+
+
+def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool = False,
+                       kv_mask=None):
+    """``dq`` of flash attention from the forward's ``lse`` and
+    ``delta = rowsum(do ⊙ o)``: the Hopper kernel K2 on CUDA tensors
+    (``flash_attention_dq.launches`` counts its launches), its plain
+    version on CPU tensors."""
+    _check(q, k, v, kv_mask)
+    _check_backward(q, do, lse, delta)
+    if q.device.type == "cpu":
+        return flash_attention_dq_reference(q, k, v, do, lse, delta,
+                                            causal=causal, kv_mask=kv_mask)
+    _on_card(q)
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq", [("q", q), ("k", k), ("v", v), ("do", do),
+                             ("lse", lse), ("delta", delta)],
+            _kv_bias(kv_mask), [dq], causal)
+    flash_attention_dq.launches += 1
+    return dq
+
+
+def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
+                        kv_mask=None):
+    """``(dk, dv)`` of flash attention: the Hopper kernel K3 on CUDA
+    tensors (``flash_attention_dkv.launches`` counts its launches), its
+    plain version on CPU tensors."""
+    _check(q, k, v, kv_mask)
+    _check_backward(q, do, lse, delta)
+    if q.device.type == "cpu":
+        return flash_attention_dkv_reference(q, k, v, do, lse, delta,
+                                             causal=causal, kv_mask=kv_mask)
+    _on_card(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkv", [("q", q), ("k", k), ("v", v), ("do", do),
+                              ("lse", lse), ("delta", delta)],
+            _kv_bias(kv_mask), [dk, dv], causal)
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with its gradient, the counterpart of the
+    reference's ``_flash`` and its ``custom_vjp``: the forward saves
+    ``o`` and ``lse``, the backward regenerates the softmax from them.
+    ``plain`` runs the plain versions whatever the device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, plain):
+        if plain:
+            o, lse = flash_attention_reference(q, k, v, causal=causal,
+                                               kv_mask=kv_mask,
+                                               return_lse=True)
+        else:
+            o, lse = _flash_forward(q, k, v, causal, kv_mask)
+        ctx.save_for_backward(q, k, v, o, lse, kv_mask)
+        ctx.causal, ctx.plain = causal, plain
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _):
+        q, k, v, o, lse, kv_mask = ctx.saved_tensors
+        do = do.contiguous()
+        # delta = rowsum(do ⊙ o) in f32, outside the kernels as in the
+        # reference's ``_flash_backward``.
+        delta = (do.float() * o.float()).sum(-1)
+        if ctx.plain:
+            dq_fn = flash_attention_dq_reference
+            dkv_fn = flash_attention_dkv_reference
+        else:
+            dq_fn, dkv_fn = flash_attention_dq, flash_attention_dkv
+        dq = dq_fn(q, k, v, do, lse, delta, causal=ctx.causal,
+                   kv_mask=kv_mask)
+        dk, dv = dkv_fn(q, k, v, do, lse, delta, causal=ctx.causal,
+                        kv_mask=kv_mask)
+        # No gradient for the mask, as the reference gives none.
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False, kv_mask=None,
                     return_lse: bool = False):
-    """Flash-attention forward: ``(o, lse)`` if ``return_lse`` else ``o``.
+    """Flash attention: ``(o, lse)`` if ``return_lse`` else ``o``, with
+    a gradient to q, k and v.
 
-    CUDA tensors go to the Hopper kernel K1 (``flash_attention.launches``
-    counts its launches); CPU tensors go to the plain version. Any other
-    device, dtype or shape the kernel does not take raises.
+    CUDA tensors go to the Hopper kernels: K1 for the forward
+    (``flash_attention.launches``), K2 and K3 for the backward; CPU
+    tensors go to their plain versions. Any other device, dtype or shape
+    the kernels do not take raises.
     """
     _check(q, k, v, kv_mask)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal,
-                                         kv_mask=kv_mask,
-                                         return_lse=return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    o, lse = _launch(q, k, v, _kv_bias(kv_mask), causal)
+    o, lse = _Flash.apply(q, k, v, kv_mask, causal, False)
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = False, kv_mask=None,
+                          return_lse: bool = False):
+    """``flash_attention`` on the plain versions of K1, K2 and K3 on any
+    device: what a check holds the kernels' path against."""
+    _check(q, k, v, kv_mask)
+    o, lse = _Flash.apply(q, k, v, kv_mask, causal, True)
     return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0
+flash_attention_dq.launches = 0
+flash_attention_dkv.launches = 0

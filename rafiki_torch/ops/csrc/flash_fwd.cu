@@ -49,112 +49,17 @@
 // tiling, in the reference as here; the port's plain version
 // (`flash_attention_reference`) uses this kernel's tiling.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 64;   // query rows per block
-constexpr int BKV = 64;  // keys per tile
+using namespace flash;
 
 // ---------------------------------------------------------------- bf16
 
 constexpr int MMA_THREADS = 128;  // 4 warps x 16 rows
-constexpr int PAD = 8;            // bf16 padding per shared-memory row
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8. `trans` hands each thread the transposed
-// fragment (the B operand from a row-major K x N tile).
-template <bool trans>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const __nv_bfloat16* p) {
-  if (trans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)));
-}
-
-// c += a·b for one m16n8k16 tile: a 16x16 row-major, b 16x8 column-major.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [row0, row0 + ROWS) of a (T, D) matrix into shared memory with row
-// stride DP + PAD, zero past T and past D. `vec` (D % 8 == 0 and 16-byte
-// aligned rows): 16-byte `cp.async` copies that land while the block
-// computes, complete at the next `cp_async_wait`; otherwise plain loads.
-template <int ROWS, int DP>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int row0, int T, int D,
-                                               bool vec) {
-  constexpr int LD = DP + PAD;
-  if (vec) {
-    constexpr int CH = DP / 8;
-    for (int i = threadIdx.x; i < ROWS * CH; i += blockDim.x) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const bool in = row0 + r < T && c < D;
-      const __nv_bfloat16* from = in ? src + (size_t)(row0 + r) * D + c : src;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                   ::"r"(smem_addr(dst + r * LD + c)), "l"(from),
-                   "r"(in ? 16 : 0));
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * DP; i += blockDim.x) {
-      const int r = i / DP, c = i % DP;
-      __nv_bfloat16 val = __float2bfloat16(0.f);
-      if (row0 + r < T && c < D) val = src[(size_t)(row0 + r) * D + c];
-      dst[r * LD + c] = val;
-    }
-  }
-}
-
-// Index of one past the last kv tile a block of query rows [q0, q0+BQ)
-// must visit.
-__device__ __forceinline__ int kv_tiles(int q0, int Tq, int Tkv, int causal) {
-  int n = (Tkv + BKV - 1) / BKV;
-  if (causal) {
-    const int last = min(q0 + BQ - 1, Tq - 1) + (Tkv - Tq);
-    n = last < 0 ? 0 : min(n, last / BKV + 1);
-  }
-  return n;
-}
 
 // The masked score of query row `row` against key `col`.
 __device__ __forceinline__ float mask_score(float s, int row, int col,
@@ -469,10 +374,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
       flash_fwd_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  const int vec = D % 8 == 0 &&
-                  ((reinterpret_cast<uintptr_t>(q) |
-                    reinterpret_cast<uintptr_t>(k) |
-                    reinterpret_cast<uintptr_t>(v)) % 16) == 0;
+  const int vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
   flash_fwd_bf16_kernel<DP><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),

@@ -38,7 +38,11 @@ def _env():
 
 def test_importing_the_port_loads_no_jax():
     mods = list(_port_modules())
-    assert "rafiki_torch.models.lm" in mods
+    for mod in ("rafiki_torch.models.lm", "rafiki_torch.ops.attention",
+                "rafiki_torch.model.optim", "rafiki_torch.model.logger",
+                "rafiki_torch.model.loop_ckpt", "rafiki_torch.observe",
+                "rafiki_torch.observe.profiling", "rafiki_torch.datasets.synth"):
+        assert mod in mods, mod
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"
             f"    importlib.import_module(m)\n"

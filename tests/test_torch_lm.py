@@ -109,13 +109,6 @@ def test_bridge_uses_torch_linear_layout():
                                   p["layers/w2"][1].T)
 
 
-def test_train_is_left_to_the_next_slice():
-    tm = TorchTransformerLM(device="cpu",
-                            **TorchTransformerLM.validate_knobs(TINY))
-    with pytest.raises(NotImplementedError, match="backward"):
-        tm.train("unused.npz")
-
-
 def test_predict_before_load_raises():
     tm = TorchTransformerLM(device="cpu",
                             **TorchTransformerLM.validate_knobs(TINY))
