@@ -14,17 +14,22 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
 3. kernel phase, forward: runs K1 (``flash_fwd.cu``) against its plain
    PyTorch version ``flash_attention_reference`` on the card at the
    flagship shape and at ragged, cross, ``kv_mask``, f32 and small-head
-   shapes, comparing ``o`` and ``lse`` with the tolerances stated below,
-   and times the kernel, the plain version and, as a yardstick only,
-   ``torch.nn.functional.scaled_dot_product_attention``;
+   shapes, comparing ``o`` and ``lse`` with the tolerances stated below:
+   every bf16 case on both bf16 variants, ``wgmma`` (which
+   ``flash_attention`` must pick there) and ``mma_sync`` (forced), f32 on
+   ``f32``. It times the two bf16 variants in turns (mma.sync, wgmma,
+   wgmma, mma.sync), the plain version and, as a yardstick only,
+   ``torch.nn.functional.scaled_dot_product_attention``, and the host's
+   cost of one K1 launch of each variant;
 4. kernel phase, backward: runs K2 (``flash_bwd_dq.cu``) and K3
    (``flash_bwd_dkv.cu``) against their plain versions at the flagship
    train shape (8, 16, 2048, 2048, 128) and at ragged, cross causal,
    ``kv_mask`` (one example fully padded), head_dim 80 and f32 shapes,
-   holds K1 against its plain version at the train shape too, and times
-   both kernels, their plain versions and, as the yardstick,
-   ``torch.autograd.grad`` of ``scaled_dot_product_attention`` (dq, dk
-   and dv together, so its time covers K2 and K3 at once);
+   holds K1's wgmma variant against its plain version at the train shape
+   too, and times both kernels, their plain versions and, as the
+   yardstick, ``torch.autograd.grad`` of ``scaled_dot_product_attention``
+   (dq, dk and dv together, so its time covers K2 and K3 at once), and
+   K1's two bf16 variants in turns beside ``scaled_dot_product_attention``;
 5. train phase: trains ``TorchTransformerLM`` at flagship width
    (d_model 2048, 16 heads of 128, 8 layers, seq_len 2048, vocab 32768,
    batch 8, ``remat`` "dots", initialised on the card from the ``seed``
@@ -32,15 +37,17 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    stream; checks that every logged loss is finite, that the second
    chunk's mean loss is below the first's, and the launches per step
    (K2 and K3 once per layer, K1 twice: the forward and its rerun under
-   "dots"); prints the step time, tokens per second, ``chip_util`` and
+   "dots", every one on the wgmma variant); prints the step time, tokens
+   per second, ``chip_util`` and
    peak memory; profiles one step; and holds one step's loss and
    gradients against the same step on ``flash_attention_plain``;
 6. serve phase: serves the trained parameters (``dump_parameters()``)
    through ``InferenceWorker`` and the predictor's ``POST /predict`` on
    a local port, checks every score, times a window of some hundreds of
    scored queries sent by several clients at once, checks that the K1
-   launch count grew by ``n_layers`` per scored query and that K2 and
-   K3 never ran, and holds the served scores against the same model with
+   launch count grew by ``n_layers`` per scored query, all on the wgmma
+   variant, and that K2 and K3 never ran, and holds the served scores
+   against the same model with
    attention switched to the plain version;
 7. prints a ``{"kernels": [...]}`` line, in which ``library_covers``
    names the kernels whose work one library call does, and, last, the
@@ -154,6 +161,57 @@ def time_ms(torch, fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def graph_ms(torch, fn, n: int) -> float:
+    """Mean device time of ``fn`` over ``n`` runs captured in one CUDA
+    graph: the host's cost of a launch (tens of microseconds through the
+    Python wrapper, near K1's own time at the serve shape) stays out."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / n
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def host_us(torch, fn, n: int = 200) -> float:
+    """The host's cost of one call of ``fn``: wall time of ``n`` calls
+    without a synchronise, divided by ``n``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def k1_variants(torch, attn, q, k, v, n: int):
+    """K1's two bf16 variants on q, k, v (causal), timed in turns
+    (mma.sync, wgmma, wgmma, mma.sync) as CUDA graphs; returns the mean
+    ms of each."""
+    fns = {x: (lambda x=x: attn._flash_forward(q, k, v, True, None,
+                                               variant=x))
+           for x in ("wgmma", "mma_sync")}
+    runs = {"wgmma": [], "mma_sync": []}
+    for x in ("mma_sync", "wgmma", "wgmma", "mma_sync"):
+        runs[x].append(graph_ms(torch, fns[x], n))
+    return {x: sum(r) / len(r) for x, r in runs.items()}, fns
+
+
 def causal_pairs(tq, tkv, causal):
     """The (query, key) pairs the mask lets through (end-aligned)."""
     if not causal:
@@ -218,44 +276,72 @@ def kernel_phase(torch, attn):
         if lengths is not None:
             mask = (torch.arange(tkv, device="cuda")[None, :]
                     < torch.tensor(lengths, device="cuda")[:, None])
-        o, lse = attn.flash_attention(q, k, v, causal=causal, kv_mask=mask,
-                                      return_lse=True)
-        torch.cuda.synchronize()
         ro, rl = attn.flash_attention_reference(q, k, v, causal=causal,
                                                 kv_mask=mask,
                                                 return_lse=True)
-        err_o = (o.float() - ro.float()).abs()
-        err_l = (lse - rl).abs()
-        atol, rtol = TOL_O[str(dt).split(".")[1]]
-        ok_o = bool((err_o <= atol + rtol * ro.float().abs()).all())
-        ok_l = bool((err_l <= TOL_LSE[0] + TOL_LSE[1] * rl.abs()).all())
-        print(f"kernel K1 {name:15s} ({b},{h},{tq},{tkv},{d}) "
-              f"{str(dt)[6:]:8s} causal={causal!s:5s} "
-              f"mask={lengths is not None!s:5s} max|do|={err_o.max().item():.3e}"
-              f" max|dlse|={err_l.max().item():.3e} "
-              f"{'ok' if ok_o and ok_l else 'MISMATCH'}", flush=True)
-        check(ok_o and ok_l, f"K1 disagrees with its plain version ({name})")
-        check(bool(torch.isfinite(o.float()).all()), f"K1 non-finite ({name})")
-        if name == "flagship":
-            flagship = (q, k, v, float(err_o.max()))
+        auto = "wgmma" if dt == bf16 else "f32"
+        check(attn.flash_forward_variant(q, k, v) == auto,
+              f"K1 would take {attn.flash_forward_variant(q, k, v)} for "
+              f"{name}, not {auto}")
+        for variant in ((auto, "mma_sync") if dt == bf16 else (auto,)):
+            total = attn.flash_attention.launches
+            count = attn.flash_attention.variant_launches[variant]
+            if variant == auto:
+                o, lse = attn.flash_attention(q, k, v, causal=causal,
+                                              kv_mask=mask, return_lse=True)
+            else:
+                o, lse = attn._flash_forward(q, k, v, causal, mask,
+                                             variant=variant)
+            torch.cuda.synchronize()
+            check(attn.flash_attention.launches == total + 1
+                  and attn.flash_attention.variant_launches[variant]
+                  == count + 1, f"K1 {variant} did not launch ({name})")
+            err_o = (o.float() - ro.float()).abs()
+            err_l = (lse - rl).abs()
+            atol, rtol = TOL_O[str(dt).split(".")[1]]
+            ok_o = bool((err_o <= atol + rtol * ro.float().abs()).all())
+            ok_l = bool((err_l <= TOL_LSE[0] + TOL_LSE[1] * rl.abs()).all())
+            print(f"kernel K1 {variant:8s} {name:15s} ({b},{h},{tq},{tkv},"
+                  f"{d}) {str(dt)[6:]:8s} causal={causal!s:5s} "
+                  f"mask={lengths is not None!s:5s} "
+                  f"max|do|={err_o.max().item():.3e} "
+                  f"max|dlse|={err_l.max().item():.3e} "
+                  f"{'ok' if ok_o and ok_l else 'MISMATCH'}", flush=True)
+            check(ok_o and ok_l,
+                  f"K1 {variant} disagrees with its plain version ({name})")
+            check(bool(torch.isfinite(o.float()).all()),
+                  f"K1 {variant} non-finite ({name})")
+            if name == "flagship" and variant == "wgmma":
+                flagship = (q, k, v, float(err_o.max()))
 
     q, k, v, err = flagship
     b, h, t, d = q.shape
-    ms = time_ms(torch, lambda: attn.flash_attention(q, k, v, causal=True), 50)
+    ms, fns = k1_variants(torch, attn, q, k, v, 50)
     plain_ms = time_ms(torch, lambda: attn.flash_attention_reference(
         q, k, v, causal=True), 5)
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+    lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), 50)
+    host = {x: host_us(torch, fn) for x, fn in fns.items()}
     bound_ms, bound_by = attention_bound(b, h, t, t, d, True, 2)
-    tflops = 4.0 * b * h * (t * (t + 1) / 2) * d / (ms * 1e-3) / 1e12
-    print(f"kernel K1 flagship (1,16,2048,2048,128) bf16 causal: "
-          f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} "
-          f"ms, scaled_dot_product_attention {lib_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}; 989 TFLOP/s bf16, 3.35 TB/s)",
+    tf = {x: 4.0 * b * h * (t * (t + 1) / 2) * d / (m * 1e-3) / 1e12
+          for x, m in ms.items()}
+    print(f"kernel K1 flagship (1,16,2048,2048,128) bf16 causal, CUDA-graph "
+          f"device time: wgmma {ms['wgmma']:.4f} ms ({tf['wgmma']:.1f} "
+          f"TFLOP/s), mma.sync {ms['mma_sync']:.4f} ms "
+          f"({tf['mma_sync']:.1f} TFLOP/s) (in turns: mma.sync, wgmma, "
+          f"wgmma, mma.sync), plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; 989 TFLOP/s bf16, 3.35 TB/s); "
+          f"host cost of one launch through the wrapper: wgmma "
+          f"{host['wgmma']:.1f} us, mma.sync {host['mma_sync']:.1f} us",
           flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    check(ms["wgmma"] < ms["mma_sync"],
+          "K1's wgmma variant is not faster than mma.sync (serve shape)")
+    return {"max_abs_err": err, "ms": ms["wgmma"], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "library_covers": ["flash_fwd (K1)"]}
+            "library_ms": lib_ms, "library_covers": ["flash_fwd (K1)"],
+            "variant": "wgmma", "mma_sync_ms": ms["mma_sync"],
+            "host_us": host["wgmma"], "mma_sync_host_us": host["mma_sync"]}
 
 
 def backward_phase(torch, attn):
@@ -315,8 +401,12 @@ def backward_phase(torch, attn):
         if name == "flagship train":
             # K1 at the shape every train step gives it, against the
             # plain o and lse computed above.
+            wg = attn.flash_attention.variant_launches["wgmma"]
             ko, kl = attn.flash_attention(q, k, v, causal=True,
                                           return_lse=True)
+            torch.cuda.synchronize()
+            check(attn.flash_attention.variant_launches["wgmma"] == wg + 1,
+                  "K1 did not take the wgmma variant at the train shape")
             err_o = (ko.float() - o.float()).abs()
             err_l = (kl - lse).abs()
             atol, rtol = TOL_O["bfloat16"]
@@ -338,13 +428,12 @@ def backward_phase(torch, attn):
         q, k, v, do, lse, delta, causal=True), 3)
     plain_kv = time_ms(torch, lambda: attn.flash_attention_dkv_reference(
         q, k, v, do, lse, delta, causal=True), 3)
-    k1_ms = time_ms(torch, lambda: attn.flash_attention(q, k, v, causal=True),
-                    20)
+    k1_ms, _ = k1_variants(torch, attn, q, k, v, 20)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     lib_ms = time_ms(torch, lambda: torch.autograd.grad(
         out, (qg, kg, vg), do, retain_graph=True), 20)
-    lib_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+    lib_fwd_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), 20)
     (b2_ms, b2_by), (b3_ms, b3_by) = backward_bounds(b, h, t, t, d, True, 2)
     b1_ms, _ = attention_bound(b, h, t, t, d, True, 2)
@@ -356,16 +445,25 @@ def backward_phase(torch, attn):
           f"({tf(4, ms_kv):.1f} TFLOP/s, bound {b3_ms:.4f} ms, plain "
           f"{plain_kv:.4f} ms); K2 + K3 {ms_q + ms_kv:.4f} ms against "
           f"autograd.grad of scaled_dot_product_attention (dq, dk, dv) "
-          f"{lib_ms:.4f} ms ({lib_ms / (ms_q + ms_kv):.2f}x); K1 "
-          f"{k1_ms:.4f} ms ({tf(2, k1_ms):.1f} TFLOP/s, bound {b1_ms:.4f} "
-          f"ms, scaled_dot_product_attention {lib_fwd_ms:.4f} ms, "
-          f"max|do|={k1_errs[0]:.3e} max|dlse|={k1_errs[1]:.3e} against "
-          f"its plain version, ok) (989 TFLOP/s bf16, 3.35 TB/s)",
-          flush=True)
+          f"{lib_ms:.4f} ms ({lib_ms / (ms_q + ms_kv):.2f}x); K1 wgmma "
+          f"{k1_ms['wgmma']:.4f} ms ({tf(2, k1_ms['wgmma']):.1f} TFLOP/s), "
+          f"mma.sync {k1_ms['mma_sync']:.4f} ms "
+          f"({tf(2, k1_ms['mma_sync']):.1f} TFLOP/s) (CUDA graphs, in "
+          f"turns), bound {b1_ms:.4f} ms, scaled_dot_product_attention "
+          f"{lib_fwd_ms:.4f} ms, wgmma max|do|={k1_errs[0]:.3e} "
+          f"max|dlse|={k1_errs[1]:.3e} against its plain version, ok) "
+          f"(989 TFLOP/s bf16, 3.35 TB/s)", flush=True)
+    check(k1_ms["wgmma"] < k1_ms["mma_sync"],
+          "K1's wgmma variant is not faster than mma.sync (train shape)")
     # The library call computes dq, dk and dv at once: its time covers
     # K2 and K3 together.
     both = ["flash_bwd_dq (K2)", "flash_bwd_dkv (K3)"]
-    return ({"max_abs_err": errs["dq"], "ms": ms_q, "plain_ms": plain_q,
+    k1_train = {"train_ms": k1_ms["wgmma"], "train_bound_ms": b1_ms,
+                "train_library_ms": lib_fwd_ms,
+                "train_mma_sync_ms": k1_ms["mma_sync"],
+                "train_max_abs_err": k1_errs[0]}
+    return (k1_train,
+            {"max_abs_err": errs["dq"], "ms": ms_q, "plain_ms": plain_q,
              "bound_ms": b2_ms, "bound_by": b2_by, "library_ms": lib_ms,
              "library_covers": both},
             {"max_abs_err": max(errs["dk"], errs["dv"]), "ms": ms_kv,
@@ -374,12 +472,16 @@ def backward_phase(torch, attn):
 
 
 def launch_counts(attn):
+    """(K1, K2, K3, K1 on its wgmma variant)."""
     return (attn.flash_attention.launches, attn.flash_attention_dq.launches,
-            attn.flash_attention_dkv.launches)
+            attn.flash_attention_dkv.launches,
+            attn.flash_attention.variant_launches["wgmma"])
 
 
 def reset_launch_counts(attn):
     attn.flash_attention.launches = 0
+    for variant in attn.flash_attention.variant_launches:
+        attn.flash_attention.variant_launches[variant] = 0
     attn.flash_attention_dq.launches = 0
     attn.flash_attention_dkv.launches = 0
 
@@ -454,12 +556,12 @@ def train_phase(torch, np, attn, card):
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[1] < losses[0], f"the chunk loss did not fall: {losses}")
     per_step = [n / TRAIN_STEPS for n in launches]
-    print(f"train: launches per step K1 {per_step[0]:g}, K2 {per_step[1]:g}, "
-          f"K3 {per_step[2]:g} ({L} layers, remat {knobs['remat']!r})",
-          flush=True)
-    check(per_step == [2 * L, L, L],
+    print(f"train: launches per step K1 {per_step[0]:g} (wgmma "
+          f"{per_step[3]:g}), K2 {per_step[1]:g}, K3 {per_step[2]:g} ({L} "
+          f"layers, remat {knobs['remat']!r})", flush=True)
+    check(per_step == [2 * L, L, L, 2 * L],
           f"launches per step {per_step}: expected K1 {2 * L} (the forward "
-          f"and its rerun under 'dots'), K2 {L}, K3 {L}")
+          f"and its rerun under 'dots'), all on wgmma, K2 {L}, K3 {L}")
     chunk_secs = records[1][0] - records[0][0]
     step_ms = chunk_secs / k_disp * 1e3
     util = records[1][1].get("chip_util")
@@ -655,11 +757,13 @@ def slice_phase(torch, np, attn, card, params):
     check(launches[0] == L * n_scored,
           f"K1 launched {launches[0]} times for {n_scored} scored queries "
           f"of {L} layers: some layer did not go through the kernel")
-    check(launches[1:] == (0, 0), f"serving launched K2/K3 {launches[1:]}")
+    check(launches[3] == launches[0],
+          f"only {launches[3]} of {launches[0]} K1 launches took wgmma")
+    check(launches[1:3] == (0, 0), f"serving launched K2/K3 {launches[1:3]}")
     print(f"slice: {len(requests)} POST /predict requests, {len(served)} "
           f"queries ({len(scored)} scored), then {window} scored queries "
           f"in the window; K1 launches {launches[0]} = {L} x {n_scored}, "
-          f"K2 and K3 none", flush=True)
+          f"all on wgmma, K2 and K3 none", flush=True)
     print("slice: per-request latency ms " + ", ".join(
         f"{x * 1e3:.1f}" for x in latencies) + f" (smoke requests, one at "
         f"a time; the first pays the card's first-use costs) on {card}",
@@ -708,7 +812,7 @@ def main() -> int:
             print(f"build: {name}.cu: {ptxas_summary(_build.build_log(name))}",
                   flush=True)
         k1 = kernel_phase(torch, attn)
-        k2, k3 = backward_phase(torch, attn)
+        k1_train, k2, k3 = backward_phase(torch, attn)
         params, train_launches = train_phase(torch, np, attn, card)
         serve_launches = slice_phase(torch, np, attn, card, params)
     except Exception:
@@ -718,7 +822,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict(name="flash_fwd (K1)", route="cuda", source=src + "flash_fwd.cu",
              replaces="rafiki_tpu/ops/attention.py:162",
-             launches=train_launches[0] + serve_launches, **k1),
+             launches=train_launches[0] + serve_launches, **k1, **k1_train),
         dict(name="flash_bwd_dq (K2)", route="cuda",
              source=src + "flash_bwd_dq.cu",
              replaces="rafiki_tpu/ops/attention.py:338",

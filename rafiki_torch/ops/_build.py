@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # are c_void_p, so ctypes never cuts them to 32 bits.
 _ENTRY = {
     "flash_fwd": ("flash_fwd",
-                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                   + [ctypes.c_void_p]),
     "flash_bwd_dq": ("flash_bwd_dq",
                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7

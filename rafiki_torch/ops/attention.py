@@ -7,7 +7,8 @@ reference does.
 - ``flash_attention`` — flash attention with its gradient, the
   counterpart of the reference's ``_flash`` and its ``custom_vjp``. On
   CUDA tensors the forward launches K1 (``csrc/flash_fwd.cu``, the port
-  of the Pallas ``_flash_kernel``) and the backward launches K2
+  of the Pallas ``_flash_kernel``; ``flash_forward_variant`` picks its
+  variant by the shape) and the backward launches K2
   (``csrc/flash_bwd_dq.cu``, the port of ``_flash_dq_kernel``) and K3
   (``csrc/flash_bwd_dkv.cu``, the port of ``_flash_dkv_kernel``); on CPU
   tensors each runs its plain version. There is no fallback between the
@@ -61,6 +62,12 @@ BLOCK_KV = 64
 MAX_HEAD_DIM = 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# K1's variants (csrc/flash_fwd.cu), in the order of preference, with the
+# codes its C entry point takes: bf16 on `wgmma` fed by TMA, bf16 on
+# `mma.sync` for what TMA cannot address, f32 on FMA.
+K1_VARIANTS = ("wgmma", "mma_sync", "f32")
+_VARIANT_CODES = {"f32": 0, "mma_sync": 1, "wgmma": 2}
 
 
 def naive_attention(q, k, v, *, causal: bool = False, kv_mask=None):
@@ -248,12 +255,12 @@ def flash_attention_dkv_reference(q, k, v, do, lse, delta, *,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _launch(name: str, ins, bias, outs, causal: bool) -> None:
+def _launch(name: str, ins, bias, outs, causal: bool, extra=()) -> None:
     """Launch the kernel of ``csrc/<name>.cu`` on the current stream.
 
     ``ins`` are (name, tensor) pairs, q and k first; the C entry point
     takes the inputs, the bias, the outputs, then B, H, Tq, Tkv, D,
-    causal, dtype and the stream."""
+    causal, dtype, the ints of ``extra`` and the stream."""
     from ._build import load_kernel
 
     for what, t in ins:
@@ -268,7 +275,7 @@ def _launch(name: str, ins, bias, outs, causal: bool) -> None:
             None if bias is None else bias.data_ptr(),
             *(t.data_ptr() for t in outs),
             b, h, tq, k.shape[2], d, int(bool(causal)),
-            _DTYPE_CODES[q.dtype],
+            _DTYPE_CODES[q.dtype], *extra,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -279,8 +286,38 @@ def _on_card(q) -> None:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
-def _flash_forward(q, k, v, causal: bool, kv_mask):
-    """(o, lse): K1 on CUDA tensors, its plain version on CPU tensors."""
+def _k1_takes(variant: str, q, k, v) -> bool:
+    """Whether K1's ``variant`` can take these inputs. TMA, which feeds
+    the wgmma variant, needs 16-byte row strides (D % 8 == 0 in bf16)
+    and 16-byte aligned bases; ``o`` comes from the allocator, aligned."""
+    if variant == "f32":
+        return q.dtype == torch.float32
+    if q.dtype != torch.bfloat16:
+        return False
+    if variant == "mma_sync":
+        return True
+    return q.shape[-1] % 8 == 0 and all(t.data_ptr() % 16 == 0
+                                        for t in (q, k, v))
+
+
+def flash_forward_variant(q, k, v) -> str:
+    """The variant of K1 that ``flash_attention`` takes for these inputs:
+    the first of ``K1_VARIANTS`` that can take them. Head dims up to
+    ``MAX_HEAD_DIM`` (checked by every entry point) fit all three."""
+    return next(x for x in K1_VARIANTS if _k1_takes(x, q, k, v))
+
+
+def _flash_forward(q, k, v, causal: bool, kv_mask, variant=None):
+    """(o, lse): K1 on CUDA tensors, its plain version on CPU tensors.
+
+    ``variant`` forces one of ``K1_VARIANTS`` (for checks on the card);
+    one that cannot take the inputs raises ``ValueError``. By default
+    ``flash_forward_variant`` picks it."""
+    if variant is None:
+        variant = flash_forward_variant(q, k, v)
+    elif variant not in K1_VARIANTS or not _k1_takes(variant, q, k, v):
+        raise ValueError(f"K1 variant {variant!r} cannot take {q.dtype} "
+                         f"head_dim {q.shape[-1]} at these addresses")
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          kv_mask=kv_mask, return_lse=True)
@@ -289,8 +326,9 @@ def _flash_forward(q, k, v, causal: bool, kv_mask):
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", [("q", q), ("k", k), ("v", v)], _kv_bias(kv_mask),
-            [o, lse], causal)
+            [o, lse], causal, (_VARIANT_CODES[variant],))
     flash_attention.launches += 1
+    flash_attention.variant_launches[variant] += 1
     return o, lse
 
 
@@ -387,7 +425,8 @@ def flash_attention(q, k, v, *, causal: bool = False, kv_mask=None,
     a gradient to q, k and v.
 
     CUDA tensors go to the Hopper kernels: K1 for the forward
-    (``flash_attention.launches``), K2 and K3 for the backward; CPU
+    (``flash_attention.launches``, and by variant
+    ``flash_attention.variant_launches``), K2 and K3 for the backward; CPU
     tensors go to their plain versions. Any other device, dtype or shape
     the kernels do not take raises.
     """
@@ -406,5 +445,6 @@ def flash_attention_plain(q, k, v, *, causal: bool = False, kv_mask=None,
 
 
 flash_attention.launches = 0
+flash_attention.variant_launches = dict.fromkeys(K1_VARIANTS, 0)
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0

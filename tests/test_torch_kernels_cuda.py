@@ -5,6 +5,12 @@ card and without JAX, run them without the JAX test configuration:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
+K1 has three variants (``attention.K1_VARIANTS``); bf16 inputs run on
+both of theirs: ``wgmma``, which ``flash_attention`` picks for every bf16
+shape with D % 8 == 0 and aligned bases, and ``mma_sync``, forced here
+(``_flash_forward(..., variant=)``) and picked by ``flash_attention``
+for D % 8 != 0 or a misaligned base.
+
 Tolerances as in ``chip_smoke.py``: |kernel - plain| <= atol + rtol·|plain|
 with bf16 (1e-3, 1.6e-2) (two bf16 ulps: the sums run in another order
 before rounding), f32 (1e-5, 1e-5), lse (1e-4, 1e-6). The gradients of
@@ -39,30 +45,89 @@ def _close(a, b, atol, rtol):
                  <= atol + rtol * b.float().abs()).all())
 
 
-@pytest.mark.parametrize("shape", [(1, 4, 256, 256, 128), (2, 3, 77, 200, 64),
-                                   (2, 2, 200, 77, 32), (1, 2, 65, 65, 80)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("masked", [False, True])
-def test_flash_fwd_matches_plain(card, shape, dtype, causal, masked):
+def _k1(q, k, v, causal, mask, variant):
+    """K1's ``variant`` on q, k, v, through ``flash_attention`` where the
+    shape picks that variant, forced otherwise; checks that the launch
+    went to it."""
+    total = attn.flash_attention.launches
+    counts = dict(attn.flash_attention.variant_launches)
+    if attn.flash_forward_variant(q, k, v) == variant:
+        o, lse = attn.flash_attention(q, k, v, causal=causal, kv_mask=mask,
+                                      return_lse=True)
+    else:
+        o, lse = attn._flash_forward(q, k, v, causal, mask, variant=variant)
+    torch.cuda.synchronize()
+    counts[variant] += 1
+    assert attn.flash_attention.launches == total + 1
+    assert attn.flash_attention.variant_launches == counts
+    return o, lse
+
+
+def _fwd_inputs(card, shape, dtype, masked, offset=0):
     b, h, tq, tkv, d = shape
     gen = torch.Generator(device=card).manual_seed(tq * 7 + d)
     q, k, v = (torch.randn(b, h, t, d, device=card, generator=gen).to(dtype)
                for t in (tq, tkv, tkv))
+    if offset:
+        # The same values, `offset` elements past an aligned allocation.
+        q = torch.cat([q.new_zeros(offset), q.flatten()])[offset:].view(
+            q.shape)
     mask = None
     if masked:
         lengths = torch.tensor([tkv, tkv // 3][:b], device=card)
         mask = torch.arange(tkv, device=card)[None, :] < lengths[:, None]
-    before = attn.flash_attention.launches
-    o, lse = attn.flash_attention(q, k, v, causal=causal, kv_mask=mask,
-                                  return_lse=True)
-    torch.cuda.synchronize()
-    assert attn.flash_attention.launches == before + 1
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 256, 256, 128), (2, 3, 77, 200, 64),
+                                   (2, 2, 200, 77, 32), (1, 2, 65, 65, 80)])
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "wgmma"),
+                                           (torch.bfloat16, "mma_sync"),
+                                           (torch.float32, "f32")])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_fwd_matches_plain(card, shape, dtype, variant, causal, masked):
+    q, k, v, mask = _fwd_inputs(card, shape, dtype, masked)
+    # Every bf16 shape here has D % 8 == 0 and aligned bases: wgmma.
+    auto = "wgmma" if dtype == torch.bfloat16 else "f32"
+    assert attn.flash_forward_variant(q, k, v) == auto
+    o, lse = _k1(q, k, v, causal, mask, variant)
     ro, rl = attn.flash_attention_reference(q, k, v, causal=causal,
                                             kv_mask=mask, return_lse=True)
     assert o.dtype == dtype and o.shape == q.shape
     assert _close(o, ro, *TOL[dtype])
     assert _close(lse, rl, 1e-4, 1e-6)
+
+
+@pytest.mark.parametrize("shape,offset", [((2, 2, 90, 150, 36), 0),
+                                          ((1, 3, 130, 70, 128), 1)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_fwd_tma_cannot_address_goes_to_mma_sync(card, shape, offset,
+                                                       causal, masked):
+    """D % 8 != 0 (72-byte rows) or a q 2 bytes off alignment: TMA cannot
+    address it, ``flash_attention`` takes the mma.sync variant, and a
+    forced wgmma raises before any launch."""
+    q, k, v, mask = _fwd_inputs(card, shape, torch.bfloat16, masked, offset)
+    assert attn.flash_forward_variant(q, k, v) == "mma_sync"
+    o, lse = _k1(q, k, v, causal, mask, "mma_sync")
+    ro, rl = attn.flash_attention_reference(q, k, v, causal=causal,
+                                            kv_mask=mask, return_lse=True)
+    assert _close(o, ro, *TOL[torch.bfloat16])
+    assert _close(lse, rl, 1e-4, 1e-6)
+    total = attn.flash_attention.launches
+    with pytest.raises(ValueError, match="cannot take"):
+        attn._flash_forward(q, k, v, causal, mask, variant="wgmma")
+    assert attn.flash_attention.launches == total
+
+
+def test_k1_variant_launches_add_up_to_the_total(card):
+    q, k, v, _ = _fwd_inputs(card, (1, 2, 128, 128, 64), torch.bfloat16,
+                             False)
+    for variant in ("wgmma", "mma_sync"):
+        _k1(q, k, v, True, None, variant)
+    assert (sum(attn.flash_attention.variant_launches.values())
+            == attn.flash_attention.launches)
 
 
 def test_flash_fwd_rejects_non_contiguous(card):
