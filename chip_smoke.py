@@ -24,12 +24,17 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
 4. kernel phase, backward: runs K2 (``flash_bwd_dq.cu``) and K3
    (``flash_bwd_dkv.cu``) against their plain versions at the flagship
    train shape (8, 16, 2048, 2048, 128) and at ragged, cross causal,
-   ``kv_mask`` (one example fully padded), head_dim 80 and f32 shapes,
-   holds K1's wgmma variant against its plain version at the train shape
-   too, and times both kernels, their plain versions and, as the
-   yardstick, ``torch.autograd.grad`` of ``scaled_dot_product_attention``
-   (dq, dk and dv together, so its time covers K2 and K3 at once), and
-   K1's two bf16 variants in turns beside ``scaled_dot_product_attention``;
+   ``kv_mask`` (one example fully padded), head_dim 80 and f32 shapes:
+   every bf16 case on both bf16 variants, ``wgmma`` (which the backward
+   must pick there) and ``mma_sync`` (forced), f32 on ``f32``; checks
+   that two launches of the wgmma variants give bitwise-equal dq, dk and
+   dv at the train shape; holds K1's wgmma variant against its plain
+   version at the train shape too; and times K2's and K3's two bf16
+   variants in turns (mma.sync, wgmma, wgmma, mma.sync) as CUDA graphs,
+   their plain versions and, as the yardstick, ``torch.autograd.grad`` of
+   ``scaled_dot_product_attention`` (dq, dk and dv together, so its time
+   covers K2 and K3 at once), and K1's two bf16 variants in turns beside
+   ``scaled_dot_product_attention``;
 5. train phase: trains ``TorchTransformerLM`` at flagship width
    (d_model 2048, 16 heads of 128, 8 layers, seq_len 2048, vocab 32768,
    batch 8, ``remat`` "dots", initialised on the card from the ``seed``
@@ -37,7 +42,8 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    stream; checks that every logged loss is finite, that the second
    chunk's mean loss is below the first's, and the launches per step
    (K2 and K3 once per layer, K1 twice: the forward and its rerun under
-   "dots", every one on the wgmma variant); prints the step time, tokens
+   "dots", every launch of the three on its wgmma variant); prints the
+   step time, tokens
    per second, ``chip_util`` and
    peak memory; profiles one step; and holds one step's loss and
    gradients against the same step on ``flash_attention_plain``;
@@ -144,6 +150,14 @@ def ptxas_summary(log: str) -> str:
             out.append(f"{name}: {regs.group(1)} registers, {spill} spill "
                        f"bytes")
     return "; ".join(out)
+
+
+def build_warnings(log: str) -> list:
+    """The warning lines of an ``nvcc -Xptxas -v`` log, and the C75xx
+    lines (printed as info) with which ptxas says it serialised the
+    ``wgmma``s."""
+    return [line.strip() for line in log.splitlines()
+            if "arning" in line or "C75" in line]
 
 
 def time_ms(torch, fn, n: int) -> float:
@@ -344,6 +358,43 @@ def kernel_phase(torch, attn):
             "host_us": host["wgmma"], "mma_sync_host_us": host["mma_sync"]}
 
 
+# K2 and K3: the public wrapper (the variant the shape picks) and the
+# private one that forces a variant.
+BWD = {"K2": ("flash_attention_dq", "_flash_dq"),
+       "K3": ("flash_attention_dkv", "_flash_dkv")}
+
+
+def bwd(torch, attn, kernel, variant, args, causal, mask):
+    """K2 or K3 on ``variant``: through the public wrapper where the shape
+    picks that variant, forced otherwise; checks that the launch went to
+    it."""
+    public, forced = (getattr(attn, x) for x in BWD[kernel])
+    total, count = public.launches, public.variant_launches[variant]
+    if attn.flash_backward_variant(*args[:4]) == variant:
+        out = public(*args, causal=causal, kv_mask=mask)
+    else:
+        out = forced(*args, causal, mask, variant=variant)
+    torch.cuda.synchronize()
+    check(public.launches == total + 1
+          and public.variant_launches[variant] == count + 1,
+          f"{kernel} {variant} did not launch")
+    return out
+
+
+def bwd_variants(torch, attn, args, n: int):
+    """K2's and K3's two bf16 variants on ``args`` (causal), timed in
+    turns (mma.sync, wgmma, wgmma, mma.sync) as CUDA graphs; returns the
+    mean ms of each (kernel, variant)."""
+    fns = {(kern, x): (lambda f=getattr(attn, BWD[kern][1]), x=x:
+                       f(*args, True, None, variant=x))
+           for kern in BWD for x in ("wgmma", "mma_sync")}
+    runs = {key: [] for key in fns}
+    for x in ("mma_sync", "wgmma", "wgmma", "mma_sync"):
+        for kern in BWD:
+            runs[kern, x].append(graph_ms(torch, fns[kern, x], n))
+    return {key: sum(r) / len(r) for key, r in runs.items()}
+
+
 def backward_phase(torch, attn):
     """K2 and K3 against their plain versions; returns the numbers of
     both at the flagship train shape."""
@@ -376,28 +427,46 @@ def backward_phase(torch, attn):
         delta = (do.float() * o.float()).sum(-1)
         args = (q, k, v, do, lse, delta)
         kw = dict(causal=causal, kv_mask=mask)
-        dq = attn.flash_attention_dq(*args, **kw)
-        dk, dv = attn.flash_attention_dkv(*args, **kw)
-        torch.cuda.synchronize()
         rq = attn.flash_attention_dq_reference(*args, **kw)
         rk, rv = attn.flash_attention_dkv_reference(*args, **kw)
+        auto = "wgmma" if dt == bf16 else "f32"
+        check(attn.flash_backward_variant(q, k, v, do) == auto,
+              f"K2/K3 would take {attn.flash_backward_variant(q, k, v, do)} "
+              f"for {name}, not {auto}")
         a, rtol = TOL_GRAD[str(dt).split(".")[1]]
         errs = {}
-        for what, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
-            err = (got.float() - ref.float()).abs()
-            ok = bool((err <= a * ref.float().abs().max()
-                       + rtol * ref.float().abs()).all())
-            errs[what] = float(err.max())
-            check(bool(torch.isfinite(got.float()).all()),
-                  f"{what} non-finite ({name})")
-            check(ok, f"{'K2' if what == 'dq' else 'K3'} {what} disagrees "
-                  f"with its plain version ({name})")
-        print(f"kernel K2/K3 {name:15s} ({b},{h},{tq},{tkv},{d}) "
-              f"{str(dt)[6:]:8s} causal={causal!s:5s} "
-              f"mask={lengths is not None!s:5s} max|ddq|={errs['dq']:.3e} "
-              f"max|ddk|={errs['dk']:.3e} max|ddv|={errs['dv']:.3e} "
-              f"(max|dq|={rq.float().abs().max().item():.3e}) ok",
-              flush=True)
+        for variant in ((auto, "mma_sync") if dt == bf16 else (auto,)):
+            dq = bwd(torch, attn, "K2", variant, args, causal, mask)
+            dk, dv = bwd(torch, attn, "K3", variant, args, causal, mask)
+            errs[variant] = {}
+            for what, got, ref in (("dq", dq, rq), ("dk", dk, rk),
+                                   ("dv", dv, rv)):
+                err = (got.float() - ref.float()).abs()
+                ok = bool((err <= a * ref.float().abs().max()
+                           + rtol * ref.float().abs()).all())
+                errs[variant][what] = float(err.max())
+                check(bool(torch.isfinite(got.float()).all()),
+                      f"{variant} {what} non-finite ({name})")
+                check(ok, f"{'K2' if what == 'dq' else 'K3'} {variant} {what} "
+                      f"disagrees with its plain version ({name})")
+            e = errs[variant]
+            print(f"kernel K2/K3 {variant:8s} {name:15s} ({b},{h},{tq},{tkv},"
+                  f"{d}) {str(dt)[6:]:8s} causal={causal!s:5s} "
+                  f"mask={lengths is not None!s:5s} max|ddq|={e['dq']:.3e} "
+                  f"max|ddk|={e['dk']:.3e} max|ddv|={e['dv']:.3e} "
+                  f"(max|dq|={rq.float().abs().max().item():.3e}) ok",
+                  flush=True)
+            if name == "flagship train" and variant == "wgmma":
+                # Each block writes its rows once, without atomics: a
+                # second launch gives the same bits.
+                dq2 = bwd(torch, attn, "K2", variant, args, causal, mask)
+                dk2, dv2 = bwd(torch, attn, "K3", variant, args, causal, mask)
+                same = all(bool(torch.equal(x, y)) for x, y in
+                           ((dq, dq2), (dk, dk2), (dv, dv2)))
+                print(f"kernel K2/K3 wgmma flagship train: a second launch "
+                      f"gives bitwise-equal dq, dk, dv: {same}", flush=True)
+                check(same, "K2/K3 wgmma differ from run to run")
+                del dq2, dk2, dv2
         if name == "flagship train":
             # K1 at the shape every train step gives it, against the
             # plain o and lse computed above.
@@ -417,13 +486,11 @@ def backward_phase(torch, attn):
             k1_errs = (float(err_o.max()), float(err_l.max()))
             del ko, kl, err_o, err_l
             flagship = (args, errs)
+        del dq, dk, dv, rq, rk, rv
 
     (q, k, v, do, lse, delta), errs = flagship
     b, h, t, d = q.shape
-    ms_q = time_ms(torch, lambda: attn.flash_attention_dq(
-        q, k, v, do, lse, delta, causal=True), 20)
-    ms_kv = time_ms(torch, lambda: attn.flash_attention_dkv(
-        q, k, v, do, lse, delta, causal=True), 20)
+    ms = bwd_variants(torch, attn, (q, k, v, do, lse, delta), 20)
     plain_q = time_ms(torch, lambda: attn.flash_attention_dq_reference(
         q, k, v, do, lse, delta, causal=True), 3)
     plain_kv = time_ms(torch, lambda: attn.flash_attention_dkv_reference(
@@ -439,13 +506,21 @@ def backward_phase(torch, attn):
     b1_ms, _ = attention_bound(b, h, t, t, d, True, 2)
     pairs = causal_pairs(t, t, True)
     tf = lambda prods, ms: 2.0 * prods * b * h * pairs * d / (ms * 1e-3) / 1e12
-    print(f"kernel train shape ({b},{h},{t},{t},{d}) bf16 causal: "
-          f"K2 {ms_q:.4f} ms ({tf(3, ms_q):.1f} TFLOP/s, bound {b2_ms:.4f} "
-          f"ms, plain {plain_q:.4f} ms); K3 {ms_kv:.4f} ms "
-          f"({tf(4, ms_kv):.1f} TFLOP/s, bound {b3_ms:.4f} ms, plain "
-          f"{plain_kv:.4f} ms); K2 + K3 {ms_q + ms_kv:.4f} ms against "
-          f"autograd.grad of scaled_dot_product_attention (dq, dk, dv) "
-          f"{lib_ms:.4f} ms ({lib_ms / (ms_q + ms_kv):.2f}x); K1 wgmma "
+    pair = {x: ms["K2", x] + ms["K3", x] for x in ("wgmma", "mma_sync")}
+    print(f"kernel train shape ({b},{h},{t},{t},{d}) bf16 causal, CUDA-graph "
+          f"device time (in turns: mma.sync, wgmma, wgmma, mma.sync): "
+          f"K2 wgmma {ms['K2', 'wgmma']:.4f} ms "
+          f"({tf(3, ms['K2', 'wgmma']):.1f} TFLOP/s), mma.sync "
+          f"{ms['K2', 'mma_sync']:.4f} ms ({tf(3, ms['K2', 'mma_sync']):.1f} "
+          f"TFLOP/s), bound {b2_ms:.4f} ms, plain {plain_q:.4f} ms; "
+          f"K3 wgmma {ms['K3', 'wgmma']:.4f} ms "
+          f"({tf(4, ms['K3', 'wgmma']):.1f} TFLOP/s), mma.sync "
+          f"{ms['K3', 'mma_sync']:.4f} ms ({tf(4, ms['K3', 'mma_sync']):.1f} "
+          f"TFLOP/s), bound {b3_ms:.4f} ms, plain {plain_kv:.4f} ms; "
+          f"K2 + K3 wgmma {pair['wgmma']:.4f} ms, mma.sync "
+          f"{pair['mma_sync']:.4f} ms, against autograd.grad of "
+          f"scaled_dot_product_attention (dq, dk, dv) {lib_ms:.4f} ms "
+          f"(wgmma pair / library {pair['wgmma'] / lib_ms:.2f}x); K1 wgmma "
           f"{k1_ms['wgmma']:.4f} ms ({tf(2, k1_ms['wgmma']):.1f} TFLOP/s), "
           f"mma.sync {k1_ms['mma_sync']:.4f} ms "
           f"({tf(2, k1_ms['mma_sync']):.1f} TFLOP/s) (CUDA graphs, in "
@@ -455,6 +530,8 @@ def backward_phase(torch, attn):
           f"(989 TFLOP/s bf16, 3.35 TB/s)", flush=True)
     check(k1_ms["wgmma"] < k1_ms["mma_sync"],
           "K1's wgmma variant is not faster than mma.sync (train shape)")
+    check(pair["wgmma"] < pair["mma_sync"],
+          "K2 + K3 on wgmma are not faster than on mma.sync (train shape)")
     # The library call computes dq, dk and dv at once: its time covers
     # K2 and K3 together.
     both = ["flash_bwd_dq (K2)", "flash_bwd_dkv (K3)"]
@@ -462,28 +539,38 @@ def backward_phase(torch, attn):
                 "train_library_ms": lib_fwd_ms,
                 "train_mma_sync_ms": k1_ms["mma_sync"],
                 "train_max_abs_err": k1_errs[0]}
+    shared = {"library_ms": lib_ms, "library_covers": both,
+              "variant": "wgmma", "pair_ms": pair["wgmma"],
+              "pair_mma_sync_ms": pair["mma_sync"],
+              "pair_over_library": pair["wgmma"] / lib_ms}
     return (k1_train,
-            {"max_abs_err": errs["dq"], "ms": ms_q, "plain_ms": plain_q,
-             "bound_ms": b2_ms, "bound_by": b2_by, "library_ms": lib_ms,
-             "library_covers": both},
-            {"max_abs_err": max(errs["dk"], errs["dv"]), "ms": ms_kv,
-             "plain_ms": plain_kv, "bound_ms": b3_ms, "bound_by": b3_by,
-             "library_ms": lib_ms, "library_covers": both})
+            {"max_abs_err": errs["wgmma"]["dq"], "ms": ms["K2", "wgmma"],
+             "plain_ms": plain_q, "bound_ms": b2_ms, "bound_by": b2_by,
+             "mma_sync_ms": ms["K2", "mma_sync"],
+             "mma_sync_max_abs_err": errs["mma_sync"]["dq"], **shared},
+            {"max_abs_err": max(errs["wgmma"]["dk"], errs["wgmma"]["dv"]),
+             "ms": ms["K3", "wgmma"], "plain_ms": plain_kv,
+             "bound_ms": b3_ms, "bound_by": b3_by,
+             "mma_sync_ms": ms["K3", "mma_sync"],
+             "mma_sync_max_abs_err": max(errs["mma_sync"]["dk"],
+                                         errs["mma_sync"]["dv"]), **shared})
+
+
+KERNEL_FNS = ("flash_attention", "flash_attention_dq", "flash_attention_dkv")
 
 
 def launch_counts(attn):
-    """(K1, K2, K3, K1 on its wgmma variant)."""
-    return (attn.flash_attention.launches, attn.flash_attention_dq.launches,
-            attn.flash_attention_dkv.launches,
-            attn.flash_attention.variant_launches["wgmma"])
+    """(K1, K2, K3, then each of the three on its wgmma variant)."""
+    fns = [getattr(attn, x) for x in KERNEL_FNS]
+    return (tuple(f.launches for f in fns)
+            + tuple(f.variant_launches["wgmma"] for f in fns))
 
 
 def reset_launch_counts(attn):
-    attn.flash_attention.launches = 0
-    for variant in attn.flash_attention.variant_launches:
-        attn.flash_attention.variant_launches[variant] = 0
-    attn.flash_attention_dq.launches = 0
-    attn.flash_attention_dkv.launches = 0
+    for fn in (getattr(attn, x) for x in KERNEL_FNS):
+        fn.launches = 0
+        for variant in fn.variant_launches:
+            fn.variant_launches[variant] = 0
 
 
 def step_grads(model, win):
@@ -557,11 +644,12 @@ def train_phase(torch, np, attn, card):
     check(losses[1] < losses[0], f"the chunk loss did not fall: {losses}")
     per_step = [n / TRAIN_STEPS for n in launches]
     print(f"train: launches per step K1 {per_step[0]:g} (wgmma "
-          f"{per_step[3]:g}), K2 {per_step[1]:g}, K3 {per_step[2]:g} ({L} "
-          f"layers, remat {knobs['remat']!r})", flush=True)
-    check(per_step == [2 * L, L, L, 2 * L],
+          f"{per_step[3]:g}), K2 {per_step[1]:g} (wgmma {per_step[4]:g}), K3 "
+          f"{per_step[2]:g} (wgmma {per_step[5]:g}) ({L} layers, remat "
+          f"{knobs['remat']!r})", flush=True)
+    check(per_step == [2 * L, L, L, 2 * L, L, L],
           f"launches per step {per_step}: expected K1 {2 * L} (the forward "
-          f"and its rerun under 'dots'), all on wgmma, K2 {L}, K3 {L}")
+          f"and its rerun under 'dots'), K2 {L}, K3 {L}, all on wgmma")
     chunk_secs = records[1][0] - records[0][0]
     step_ms = chunk_secs / k_disp * 1e3
     util = records[1][1].get("chip_util")
@@ -586,7 +674,7 @@ def train_phase(torch, np, attn, card):
         loss.backward()
         opt.step()
 
-    profile(torch, one_step, f"one train step (batch {b} x {t})", card, 14)
+    profile(torch, one_step, f"one train step (batch {b} x {t})", card, 18)
     loss_k, grads_k = step_grads(model, win)
     model.attention = attn.flash_attention_plain
     loss_p, grads_p = step_grads(model, win)
@@ -809,8 +897,10 @@ def main() -> int:
         secs = _build.build_all()
         print(f"build: kernels built in {secs:.1f} s", flush=True)
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-            print(f"build: {name}.cu: {ptxas_summary(_build.build_log(name))}",
-                  flush=True)
+            log = _build.build_log(name)
+            print(f"build: {name}.cu: {ptxas_summary(log)}", flush=True)
+            for line in build_warnings(log):
+                print(f"build: {name}.cu: {line}", flush=True)
         k1 = kernel_phase(torch, attn)
         k1_train, k2, k3 = backward_phase(torch, attn)
         params, train_launches = train_phase(torch, np, attn, card)

@@ -37,10 +37,10 @@ _ENTRY = {
                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                   + [ctypes.c_void_p]),
     "flash_bwd_dq": ("flash_bwd_dq",
-                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                      + [ctypes.c_void_p]),
     "flash_bwd_dkv": ("flash_bwd_dkv",
-                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                       + [ctypes.c_void_p]),
 }
 

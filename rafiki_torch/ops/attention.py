@@ -10,9 +10,10 @@ reference does.
   of the Pallas ``_flash_kernel``; ``flash_forward_variant`` picks its
   variant by the shape) and the backward launches K2
   (``csrc/flash_bwd_dq.cu``, the port of ``_flash_dq_kernel``) and K3
-  (``csrc/flash_bwd_dkv.cu``, the port of ``_flash_dkv_kernel``); on CPU
-  tensors each runs its plain version. There is no fallback between the
-  two: a CUDA tensor either reaches the kernels or the call raises.
+  (``csrc/flash_bwd_dkv.cu``, the port of ``_flash_dkv_kernel``;
+  ``flash_backward_variant`` picks the variant of both); on CPU tensors
+  each runs its plain version. There is no fallback between the two: a
+  CUDA tensor either reaches the kernels or the call raises.
 - ``flash_attention_plain`` — the same function and gradient on the
   plain versions whatever the device, to hold the kernels' path against.
 - ``flash_attention_reference`` — the plain version of K1: online softmax
@@ -63,10 +64,10 @@ MAX_HEAD_DIM = 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# K1's variants (csrc/flash_fwd.cu), in the order of preference, with the
-# codes its C entry point takes: bf16 on `wgmma` fed by TMA, bf16 on
-# `mma.sync` for what TMA cannot address, f32 on FMA.
-K1_VARIANTS = ("wgmma", "mma_sync", "f32")
+# The variants of K1, K2 and K3 (csrc/flash_*.cu), in the order of
+# preference, with the codes their C entry points take: bf16 on `wgmma`
+# fed by TMA, bf16 on `mma.sync` for what TMA cannot address, f32 on FMA.
+VARIANTS = ("wgmma", "mma_sync", "f32")
 _VARIANT_CODES = {"f32": 0, "mma_sync": 1, "wgmma": 2}
 
 
@@ -286,10 +287,11 @@ def _on_card(q) -> None:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
-def _k1_takes(variant: str, q, k, v) -> bool:
-    """Whether K1's ``variant`` can take these inputs. TMA, which feeds
-    the wgmma variant, needs 16-byte row strides (D % 8 == 0 in bf16)
-    and 16-byte aligned bases; ``o`` comes from the allocator, aligned."""
+def _variant_takes(variant: str, q, *tensors) -> bool:
+    """Whether a kernel's ``variant`` can take q and the other inputs it
+    reads (k, v for K1; k, v, do for K2 and K3). TMA, which feeds the
+    wgmma variants, needs 16-byte row strides (D % 8 == 0 in bf16) and
+    16-byte aligned bases; the outputs come from the allocator, aligned."""
     if variant == "f32":
         return q.dtype == torch.float32
     if q.dtype != torch.bfloat16:
@@ -297,27 +299,46 @@ def _k1_takes(variant: str, q, k, v) -> bool:
     if variant == "mma_sync":
         return True
     return q.shape[-1] % 8 == 0 and all(t.data_ptr() % 16 == 0
-                                        for t in (q, k, v))
+                                        for t in (q, *tensors))
+
+
+def _pick(kernel: str, variant, q, *tensors) -> str:
+    """``variant`` if ``kernel`` can take the inputs on it (``ValueError``
+    if not), else the first of ``VARIANTS`` that can: the shape's own
+    choice. Head dims up to ``MAX_HEAD_DIM`` (checked by every entry
+    point) fit all three."""
+    if variant is None:
+        return next(x for x in VARIANTS if _variant_takes(x, q, *tensors))
+    if variant not in VARIANTS or not _variant_takes(variant, q, *tensors):
+        raise ValueError(f"{kernel} variant {variant!r} cannot take "
+                         f"{q.dtype} head_dim {q.shape[-1]} at these "
+                         "addresses")
+    return variant
 
 
 def flash_forward_variant(q, k, v) -> str:
-    """The variant of K1 that ``flash_attention`` takes for these inputs:
-    the first of ``K1_VARIANTS`` that can take them. Head dims up to
-    ``MAX_HEAD_DIM`` (checked by every entry point) fit all three."""
-    return next(x for x in K1_VARIANTS if _k1_takes(x, q, k, v))
+    """The variant of K1 that ``flash_attention`` takes for these inputs."""
+    return _pick("K1", None, q, k, v)
+
+
+def flash_backward_variant(q, k, v, do) -> str:
+    """The variant of K2 and K3 that ``flash_attention``'s backward takes
+    for these inputs: the same rule, over q, k, v and do."""
+    return _pick("K2/K3", None, q, k, v, do)
+
+
+def _count(fn, variant: str) -> None:
+    fn.launches += 1
+    fn.variant_launches[variant] += 1
 
 
 def _flash_forward(q, k, v, causal: bool, kv_mask, variant=None):
     """(o, lse): K1 on CUDA tensors, its plain version on CPU tensors.
 
-    ``variant`` forces one of ``K1_VARIANTS`` (for checks on the card);
-    one that cannot take the inputs raises ``ValueError``. By default
+    ``variant`` forces one of ``VARIANTS`` (for checks on the card); one
+    that cannot take the inputs raises ``ValueError``. By default
     ``flash_forward_variant`` picks it."""
-    if variant is None:
-        variant = flash_forward_variant(q, k, v)
-    elif variant not in K1_VARIANTS or not _k1_takes(variant, q, k, v):
-        raise ValueError(f"K1 variant {variant!r} cannot take {q.dtype} "
-                         f"head_dim {q.shape[-1]} at these addresses")
+    variant = _pick("K1", variant, q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          kv_mask=kv_mask, return_lse=True)
@@ -327,8 +348,7 @@ def _flash_forward(q, k, v, causal: bool, kv_mask, variant=None):
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", [("q", q), ("k", k), ("v", v)], _kv_bias(kv_mask),
             [o, lse], causal, (_VARIANT_CODES[variant],))
-    flash_attention.launches += 1
-    flash_attention.variant_launches[variant] += 1
+    _count(flash_attention, variant)
     return o, lse
 
 
@@ -341,14 +361,14 @@ def _check_backward(q, do, lse, delta) -> None:
             raise ValueError(f"{name} must be float32 (B, H, Tq)")
 
 
-def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool = False,
-                       kv_mask=None):
-    """``dq`` of flash attention from the forward's ``lse`` and
-    ``delta = rowsum(do ⊙ o)``: the Hopper kernel K2 on CUDA tensors
-    (``flash_attention_dq.launches`` counts its launches), its plain
-    version on CPU tensors."""
+def _flash_dq(q, k, v, do, lse, delta, causal: bool, kv_mask,
+              variant=None):
+    """``dq``: K2 on CUDA tensors, its plain version on CPU tensors.
+    ``variant`` forces one of ``VARIANTS``, as ``_flash_forward``'s does;
+    by default ``flash_backward_variant`` picks it."""
     _check(q, k, v, kv_mask)
     _check_backward(q, do, lse, delta)
+    variant = _pick("K2", variant, q, k, v, do)
     if q.device.type == "cpu":
         return flash_attention_dq_reference(q, k, v, do, lse, delta,
                                             causal=causal, kv_mask=kv_mask)
@@ -356,18 +376,18 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     dq = torch.empty_like(q)
     _launch("flash_bwd_dq", [("q", q), ("k", k), ("v", v), ("do", do),
                              ("lse", lse), ("delta", delta)],
-            _kv_bias(kv_mask), [dq], causal)
-    flash_attention_dq.launches += 1
+            _kv_bias(kv_mask), [dq], causal, (_VARIANT_CODES[variant],))
+    _count(flash_attention_dq, variant)
     return dq
 
 
-def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
-                        kv_mask=None):
-    """``(dk, dv)`` of flash attention: the Hopper kernel K3 on CUDA
-    tensors (``flash_attention_dkv.launches`` counts its launches), its
-    plain version on CPU tensors."""
+def _flash_dkv(q, k, v, do, lse, delta, causal: bool, kv_mask,
+               variant=None):
+    """``(dk, dv)``: K3 on CUDA tensors, its plain version on CPU
+    tensors; ``variant`` as for ``_flash_dq``."""
     _check(q, k, v, kv_mask)
     _check_backward(q, do, lse, delta)
+    variant = _pick("K3", variant, q, k, v, do)
     if q.device.type == "cpu":
         return flash_attention_dkv_reference(q, k, v, do, lse, delta,
                                              causal=causal, kv_mask=kv_mask)
@@ -375,9 +395,29 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd_dkv", [("q", q), ("k", k), ("v", v), ("do", do),
                               ("lse", lse), ("delta", delta)],
-            _kv_bias(kv_mask), [dk, dv], causal)
-    flash_attention_dkv.launches += 1
+            _kv_bias(kv_mask), [dk, dv], causal, (_VARIANT_CODES[variant],))
+    _count(flash_attention_dkv, variant)
     return dk, dv
+
+
+def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool = False,
+                       kv_mask=None):
+    """``dq`` of flash attention from the forward's ``lse`` and
+    ``delta = rowsum(do ⊙ o)``: the Hopper kernel K2 on CUDA tensors, on
+    the variant ``flash_backward_variant`` picks
+    (``flash_attention_dq.launches`` counts its launches, and by variant
+    ``flash_attention_dq.variant_launches``), its plain version on CPU
+    tensors."""
+    return _flash_dq(q, k, v, do, lse, delta, causal, kv_mask)
+
+
+def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
+                        kv_mask=None):
+    """``(dk, dv)`` of flash attention: the Hopper kernel K3 on CUDA
+    tensors, on the variant ``flash_backward_variant`` picks
+    (``flash_attention_dkv.launches`` and ``.variant_launches``), its
+    plain version on CPU tensors."""
+    return _flash_dkv(q, k, v, do, lse, delta, causal, kv_mask)
 
 
 class _Flash(torch.autograd.Function):
@@ -426,7 +466,8 @@ def flash_attention(q, k, v, *, causal: bool = False, kv_mask=None,
 
     CUDA tensors go to the Hopper kernels: K1 for the forward
     (``flash_attention.launches``, and by variant
-    ``flash_attention.variant_launches``), K2 and K3 for the backward; CPU
+    ``flash_attention.variant_launches``), K2 and K3 for the backward
+    (counted on ``flash_attention_dq`` and ``flash_attention_dkv``); CPU
     tensors go to their plain versions. Any other device, dtype or shape
     the kernels do not take raises.
     """
@@ -444,7 +485,6 @@ def flash_attention_plain(q, k, v, *, causal: bool = False, kv_mask=None,
     return (o, lse) if return_lse else o
 
 
-flash_attention.launches = 0
-flash_attention.variant_launches = dict.fromkeys(K1_VARIANTS, 0)
-flash_attention_dq.launches = 0
-flash_attention_dkv.launches = 0
+for _fn in (flash_attention, flash_attention_dq, flash_attention_dkv):
+    _fn.launches = 0
+    _fn.variant_launches = dict.fromkeys(VARIANTS, 0)

@@ -20,14 +20,33 @@
 // Layout: q, do and dq (B, H, Tq, D); k, v (B, H, Tkv, D), contiguous;
 // lse, delta (B, H, Tq) f32; bias (B, Tkv) f32 or null.
 //
-// Design. One thread block per (batch·head, tile of BQ = 64 query rows).
-// A loop inside the block walks the kv tiles of BKV = 64 keys up to the
-// causal diagonal (the tiles K1 visits), with the dq accumulator in f32
+// Design. One thread block per (batch·head, tile of query rows). A loop
+// inside the block walks the kv tiles of BKV = 64 keys up to the causal
+// diagonal (the tiles K1 visits), with the dq accumulator in f32
 // registers for the whole loop: the Hopper counterpart of the TPU's
 // sequential "arbitrary" grid axis with VMEM scratch. Each block writes
 // its own rows of dq once, with no atomics, so dq comes out the same from
-// run to run.
-//  - bf16: 4 warps of 16 query rows. The three products (q·kᵀ, do·vᵀ,
+// run to run. Three variants; the caller picks one by the shape
+// (`flash_backward_variant` in ops/attention.py) and passes it in:
+//  - bf16, wgmma (the main path; D % 8 == 0 and 16-byte aligned q, k, v,
+//    do, dq, as TMA needs): one block per 128 query rows, 384 threads in
+//    three warpgroups. A producer warp loads Q and dO once by TMA, then
+//    streams K and V tiles through a ring of STAGES buffers, each with a
+//    `full` and an `empty` mbarrier. Two consumer warpgroups own 64 rows
+//    each, with dq (64 x D f32) in registers, and walk only the tiles
+//    their own rows see: S = Q·Kᵀ and dP = dO·Vᵀ by `wgmma` m64n64k16
+//    from the swizzled tiles (both K-major), p by `ex2` with scale·log2 e
+//    and lse·log2 e folded in, and dQ += ds·K by `wgmma` with ds packed to
+//    bf16 in registers (the A operand) and the K tile read MN-major: one
+//    tile, two descriptors. A tile's p is taken while its dP runs, and its
+//    dQ runs on into the next tile's S and dP; the two groups' products
+//    and elementwise work interleave on their own. `setmaxnreg` moves
+//    registers from the producer (24) to the consumers (240). dq leaves through the group's own Q rows in shared
+//    memory and a TMA store, which clips at Tq and D. Blocks run in groups
+//    of batch·heads whose K and V fit in L2 together, q tiles further down
+//    the sequence (more kv tiles) first.
+//  - bf16, mma.sync (D % 8 != 0 or a misaligned base): 4 warps of 16
+//    query rows, BQ = 64 rows a block. The three products (q·kᵀ, do·vᵀ,
 //    ds·k) are `mma.sync` m16n8k16 with f32 accumulators. Q and dO stay
 //    in shared memory for the whole loop and feed `ldmatrix` A fragments;
 //    K and V tiles pass through padded shared memory in two stages, tile
@@ -36,16 +55,22 @@
 //    it never touches shared memory. Interior tiles skip the masking.
 //  - f32: plain FMA in f32, 8 warps of 8 rows, as K1's f32 path.
 //
+// The result does not depend on the tiling: every pair that is hidden,
+// out of range or padded is selected to zero and each p and ds element is
+// rounded on its own, so only the order of the f32 sums differs between
+// the variants.
+//
 // Bound. At the flagship train shape (8, 16, 2048, 2048, 128) causal the
 // three products over the unmasked pairs are 206.3 GFLOP against 0.34 GB
 // of inputs and output, about 610 FLOP a byte: above the H100's ridge
 // (~295), so the tensor cores bound it, at 0.2086 ms at 989 TFLOP/s.
-// This version uses mma.sync and cp.async; wgmma fed by TMA, with warp
-// specialisation, is the way to the bound.
 
 #include <math.h>
 
+#include <algorithm>
+
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
@@ -207,6 +232,223 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
 }
 
+// --------------------------------------------------------- bf16, wgmma
+
+constexpr int WG = 128;            // threads of a warpgroup
+constexpr int WG_BQ = 2 * BQ;      // query rows of a block: BQ per consumer
+constexpr int STAGES = 4;          // K and V tiles of BKV keys in flight
+constexpr int QBOX = WG_BQ * 128;  // bytes of a 128-row x 64-column bf16 box
+constexpr int KBOX = BKV * 128;    // bytes of a 64-row box
+constexpr int PRODUCER_REGS = 24;  // setmaxnreg: 128 x 24 + 256 x 240
+constexpr int CONSUMER_REGS = 240; //   registers fit the SM's 65,536
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory of the wgmma variant: the 1024-byte alignment slack, Q and
+// dO, STAGES x (K, V), then the mbarriers.
+constexpr int wgmma_smem(int DP) {
+  return 1024 + 2 * (DP / 64) * QBOX + STAGES * 2 * (DP / 64) * KBOX +
+         8 * (1 + 2 * STAGES);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(3 * WG, 1)
+    flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
+                              __grid_constant__ const CUtensorMap tm_k,
+                              __grid_constant__ const CUtensorMap tm_v,
+                              __grid_constant__ const CUtensorMap tm_do,
+                              __grid_constant__ const CUtensorMap tm_dq,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              const float* __restrict__ bias, int H, int Tq,
+                              int Tkv, int causal, float scale, int group) {
+  constexpr int NB = DP / 64;     // 64-column boxes of a tile row
+  constexpr int QT = NB * QBOX;   // bytes of the Q or dO tile
+  constexpr int KT = NB * KBOX;   // bytes of a K or V tile
+  constexpr int NO = DP / 2;      // dq accumulators a thread
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sq = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (sq - raw);
+  const uint32_t sdo = sq + QT;
+  const uint32_t ring = sdo + QT;  // stage s: K at ring + 2·s·KT, V after
+  // Barriers: Q and dO landed, then `full` and `empty` of each stage.
+  const uint32_t q_full = ring + STAGES * 2 * KT;
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * STAGES;
+
+  // q tiles further down the sequence, which have more causal kv tiles,
+  // start first.
+  const int nq = (Tq + WG_BQ - 1) / WG_BQ;
+  int bh, qt;
+  block_order(nq, group, bh, qt);
+  const int q0 = (nq - 1 - qt) * WG_BQ;
+  // The kv tiles each consumer group's rows see (K1's visiting rule).
+  const int n0 = kv_tiles(q0, Tq, Tkv, causal);
+  const int n1 = q0 + BQ < Tq ? kv_tiles(q0 + BQ, Tq, Tkv, causal) : 0;
+  const int n = max(n0, n1);  // tiles the producer loads
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);  // one arrival per consumer group
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG) {
+    // Producer warpgroup: one thread issues every load.
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0 && n > 0) {
+      tma_prefetch(&tm_k);
+      tma_prefetch(&tm_v);
+      mbar_expect_tx(q_full, 2 * QT);
+      for (int b = 0; b < NB; ++b) {
+        tma_load_3d(sq + b * QBOX, &tm_q, q_full, b * 64, q0, bh);
+        tma_load_3d(sdo + b * QBOX, &tm_do, q_full, b * 64, q0, bh);
+      }
+      for (int j = 0; j < n; ++j) {
+        const int s = j % STAGES;
+        const uint32_t sk = ring + 2 * s * KT;
+        if (j >= STAGES) mbar_wait(empty0 + 8 * s, (j / STAGES - 1) & 1);
+        mbar_expect_tx(full0 + 8 * s, 2 * KT);
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(sk + b * KBOX, &tm_k, full0 + 8 * s, b * 64, j * BKV,
+                      bh);
+          tma_load_3d(sk + KT + b * KBOX, &tm_v, full0 + 8 * s, b * 64,
+                      j * BKV, bh);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup w: query rows [r0, r0 + BQ), over its own tiles.
+    regs_inc<CONSUMER_REGS>();
+    const int w = __shfl_sync(0xffffffffu, threadIdx.x / WG, 0) - 1;
+    const int tw = threadIdx.x % WG;
+    const int warp = tw / 32, lane = tw % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + w * BQ;
+    const int nw = w == 0 ? n0 : n1;
+    const int rows[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+    const float* bb = bias ? bias + (size_t)(bh / H) * Tkv : nullptr;
+    const uint32_t sqw = sq + w * (QBOX / 2), sdow = sdo + w * (QBOX / 2);
+    const float sl2 = scale * LOG2E;
+    float lse_r[2], delta_r[2];  // lse times log2 e; 0 past Tq
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = rows[r] < Tq;
+      lse_r[r] = in ? lse[(size_t)bh * Tq + rows[r]] * LOG2E : 0.f;
+      delta_r[r] = in ? delta[(size_t)bh * Tq + rows[r]] : 0.f;
+    }
+
+    // Accumulator layout of wgmma m64nNk16, per warp: the m16n8 layout of
+    // mma.sync repeated over N. Element 4·i + e sits at row g + 8·(e / 2),
+    // column 8·i + 2·t + e % 2 of the warp's 16 rows.
+    float dq[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) dq[i] = 0.f;
+
+    // x = a·bᵀ over DP / 16 steps: a the group's 64 rows of Q or dO (boxes
+    // of 128 rows), b a K or V tile (boxes of 64 rows), both K-major.
+    auto issue_t = [&](float(&x)[32], uint32_t a, uint32_t b) {
+      wgmma_ss_init(x, wgmma_desc(a, 16, 1024), wgmma_desc(b, 16, 1024));
+#pragma unroll
+      for (int kk = 1; kk < DP / 16; ++kk)
+        wgmma_ss(x,
+                 wgmma_desc(a + (kk / 4) * QBOX + (kk % 4) * 32, 16, 1024),
+                 wgmma_desc(b + (kk / 4) * KBOX + (kk % 4) * 32, 16, 1024));
+    };
+    float sc[32], dp[32];
+    uint32_t a[4][4];
+    // S and dP of tile j, committed one after the other.
+    auto issue_sdp = [&](int j) {
+      const uint32_t sk = ring + 2 * (j % STAGES) * KT;
+      issue_t(sc, sqw, sk);
+      wgmma_commit();
+      issue_t(dp, sdow, sk + KT);
+      wgmma_commit();
+    };
+    // dQ += ds·K of tile j, K read MN-major.
+    auto issue_dq = [&](int j) {
+      const uint32_t sk = ring + 2 * (j % STAGES) * KT;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        wgmma_rs_tb(dq, a[c], wgmma_desc(sk + c * 16 * 128, KBOX, 1024));
+      wgmma_commit();
+    };
+    // With S of tile j landed and dP in flight: p = exp(s·scale − lse) on
+    // kept pairs, selected to 0 elsewhere (past Tkv, causally hidden or
+    // dropped by the bias), where exp(...) may be +inf; then, once dP has
+    // landed, ds = p ⊙ (dp − delta)·scale packed into the A fragments.
+    auto take_ds = [&](int j) {
+#pragma unroll
+      for (int k = 0; k < 32; ++k) reg_fence(sc[k]);
+      const int kv0 = j * BKV;
+      const bool masked = !interior(r0, kv0, Tq, Tkv, causal, bb);
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        const int r = (k >> 1) & 1;
+        float p = ex2(sc[k] * sl2 - lse_r[r]);
+        if (masked && !keep_pair(rows[r], kv0 + 8 * (k >> 2) + 2 * t + (k & 1),
+                                 Tq, Tkv, causal, bb))
+          p = 0.f;
+        sc[k] = p;
+      }
+      wgmma_wait<0>();  // dP has landed
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        reg_fence(dp[k]);
+        dp[k] = sc[k] * (dp[k] - delta_r[(k >> 1) & 1]) * scale;
+      }
+      pack_a(dp, a);  // ds in k's dtype
+    };
+    auto release = [&](int j) {
+      if (tw == 0) mbar_arrive(empty0 + 8 * (j % STAGES));
+    };
+
+    // One tile: S and dP go together; p is taken while dP runs, and
+    // dQ += ds·K runs on into the next tile's S and dP. ds is packed only
+    // once the product that last read its registers has landed (ptxas
+    // serialises the products otherwise).
+    if (nw > 0) mbar_wait(q_full, 0);
+    for (int j = 0; j < nw; ++j) {
+      mbar_wait(full0 + 8 * (j % STAGES), (j / STAGES) & 1);
+      wgmma_fence();
+      issue_sdp(j);
+      wgmma_wait<1>();  // dQ of the tile before and S have landed
+      if (j > 0) release(j - 1);
+      take_ds(j);
+      wgmma_fence();
+      issue_dq(j);
+    }
+    wgmma_wait<0>();
+    if (nw > 0) release(nw - 1);
+    // The tiles past this group's own: let each go once it landed.
+    for (int j = nw; j < n; ++j) {
+      mbar_wait(full0 + 8 * (j % STAGES), (j / STAGES) & 1);
+      release(j);
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) reg_fence(dq[i]);
+
+    // Epilogue: dq in bf16 through this group's Q rows (swizzled as TMA
+    // reads them) and a TMA store, which clips at Tq and D. A group that
+    // saw no key writes zeros.
+    if (r0 < Tq) {
+      if (n > 0) mbar_wait(q_full, 0);
+      named_sync(1 + w, WG);  // every warp of the group is done with Q
+      stage_rows(smem + w * (QBOX / 2), dq, QBOX, warp, g, t);
+      fence_async_shared();
+      named_sync(1 + w, WG);
+      if (tw == 0) {
+        for (int b = 0; b < NB; ++b)
+          tma_store_3d(&tm_dq, sqw + b * QBOX, b * 64, r0, bh);
+        tma_store_wait();
+      }
+    }
+  }
+}
+
 // ----------------------------------------------------------------- f32
 
 constexpr int SIMT_WARPS = 8;
@@ -336,6 +578,39 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 }
 
 template <int DP>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* delta, const float* bias, void* dq,
+                         int B, int H, int Tq, int Tkv, int D, int causal,
+                         float scale, cudaStream_t stream) {
+  if (D % 8 != 0 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(dout) || !aligned16(dq))
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (!tensor_map(&tq, q, B * H, Tq, D, WG_BQ) ||
+      !tensor_map(&tk, k, B * H, Tkv, D, BKV) ||
+      !tensor_map(&tv, v, B * H, Tkv, D, BKV) ||
+      !tensor_map(&tdo, dout, B * H, Tq, D, WG_BQ) ||
+      !tensor_map(&tdq, dq, B * H, Tq, D, BQ))
+    return cudaErrorInvalidValue;
+  constexpr int smem = wgmma_smem(DP);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long grid = (long long)B * H * ((Tq + WG_BQ - 1) / WG_BQ);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // Batch·heads whose K and V (4·Tkv·D bytes each) fill 16 MiB of the
+  // 50 MB L2 run as one group.
+  const long long group =
+      std::max(1LL, std::min((long long)B * H, (16LL << 20) / (4LL * Tkv * D)));
+  flash_bwd_dq_wgmma_kernel<DP><<<(unsigned)grid, 3 * WG, smem, stream>>>(
+      tq, tk, tv, tdo, tdq, lse, delta, bias, H, Tq, Tkv, causal, scale,
+      (int)group);
+  return cudaGetLastError();
+}
+
+template <int DP>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        const float* bias, void* dq, int B, int H, int Tq,
@@ -358,13 +633,15 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Plain C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// Returns the CUDA error of the launch (0 on success); launches on `stream`
-// and does not synchronise.
+// variant: 0 = f32 FMA, 1 = bf16 mma.sync, 2 = bf16 wgmma; it must suit
+// the dtype, and wgmma needs D % 8 == 0 and 16-byte aligned q, k, v, do,
+// dq. Returns the CUDA error of the launch (0 on success); launches on
+// `stream` and does not synchronise.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, const void* bias, void* dq,
                             int B, int H, int Tq, int Tkv, int D, int causal,
-                            int dtype, void* stream) {
+                            int dtype, int variant, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tkv < 1 || D < 1 || D > 128 ||
       (Tq + BQ - 1) / BQ > 65535 || (long long)B * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -374,14 +651,19 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   const float* b = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 1) {
+  if (variant == 2 && dtype == 1) {
+    if (D <= 64)
+      err = launch_wgmma<64>(q, k, v, dout, ls, dl, b, dq, B, H, Tq, Tkv, D, causal, scale, s);
+    else
+      err = launch_wgmma<128>(q, k, v, dout, ls, dl, b, dq, B, H, Tq, Tkv, D, causal, scale, s);
+  } else if (variant == 1 && dtype == 1) {
     if (D <= 32)
       err = launch_bf16<32>(q, k, v, dout, ls, dl, b, dq, B, H, Tq, Tkv, D, causal, scale, s);
     else if (D <= 64)
       err = launch_bf16<64>(q, k, v, dout, ls, dl, b, dq, B, H, Tq, Tkv, D, causal, scale, s);
     else
       err = launch_bf16<128>(q, k, v, dout, ls, dl, b, dq, B, H, Tq, Tkv, D, causal, scale, s);
-  } else if (dtype == 0) {
+  } else if (variant == 0 && dtype == 0) {
     if (D <= 32)
       err = launch_f32<32>(q, k, v, dout, ls, dl, b, dq, B, H, Tq, Tkv, D, causal, scale, s);
     else if (D <= 64)

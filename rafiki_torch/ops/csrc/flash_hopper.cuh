@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's flash-attention kernels:
 // `mbarrier`s, TMA loads and stores through tensor maps, `wgmma` with its
 // shared-memory matrix descriptors, `setmaxnreg` and named barriers. Each
-// wraps one PTX instruction; the kernels compose them.
+// wraps one PTX instruction; the kernels compose them. The host side
+// builds the tensor maps (`tensor_map`), inline, since each source builds
+// into a library of its own.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a box
 // of R rows x 64 bf16 columns is R lines of 128 bytes, and the 16-byte
@@ -12,7 +14,10 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace flash {
 
@@ -137,6 +142,57 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// ------------------------------------------------------ grid and tiles
+
+// Which (batch·head, tile) block `blockIdx.x` of a grid of batch·heads x
+// `tiles` takes. Blocks run in groups of `group` batch·heads, whose
+// streamed tensors fit in L2 together; inside a group, tile `idx` of every
+// batch·head runs before tile idx + 1.
+__device__ __forceinline__ void block_order(int tiles, int group, int& bh,
+                                            int& idx) {
+  const int bhs = gridDim.x / tiles;
+  const int grp = blockIdx.x / (group * tiles);
+  const int size = min(group, bhs - grp * group);
+  const int rem = blockIdx.x - grp * group * tiles;
+  bh = grp * group + rem % size;
+  idx = rem / size;
+}
+
+// A warpgroup's 64 x 2·NO f32 accumulator (the layout of `wgmma`
+// m64nNk16: element 4·i + e at row 16·warp + g + 8·(e / 2), column
+// 8·i + 2·t + e % 2) as bf16 into 64 rows of 128-byte swizzled boxes at
+// `dst`, `stride` bytes from one 64-column box to the next, as TMA reads
+// them for a store.
+template <int NO>
+__device__ __forceinline__ void stage_rows(unsigned char* dst,
+                                           const float (&acc)[NO], int stride,
+                                           int warp, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < NO / 4; ++i) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = warp * 16 + g + 8 * r;
+      *reinterpret_cast<uint32_t*>(dst + (i / 8) * stride + rr * 128 +
+                                   (((i % 8) ^ (rr & 7)) << 4) + 4 * t) =
+          pack_f32(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+    }
+  }
+}
+
+// The A fragments of a 64 x 64 product, k-step c = columns [16c, 16c + 16)
+// of a 64 x 64 f32 accumulator, packed to bf16: its n-tiles 2c and 2c + 1
+// are exactly the m16n8k16 A fragment of each warp's 16 rows.
+__device__ __forceinline__ void pack_a(const float (&x)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      a[c][e] = pack_f32(x[8 * c + 2 * e], x[8 * c + 2 * e + 1]);
+      reg_fence(a[c][e]);
+    }
+}
+
 // --------------------------------------------------------------- wgmma
 
 // Shared-memory matrix descriptor with the 128-byte swizzle. K-major
@@ -218,6 +274,41 @@ __device__ __forceinline__ void wgmma_ss_init(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(0));
 }
 
+// The same two for one m64n64k16 step.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_init(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
 // d += a·b for one m64nNk16 step, N = 128 or 64: a (the m16n8k16 A
 // fragment of each warp's 16 rows) from registers, b from shared memory
 // MN-major (the transpose flag).
@@ -263,6 +354,52 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------- host
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// point, so the library needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B·H, T, D) bf16 tensor as a 3-D tensor map of boxes of 64 columns x
+// `rows` rows, 128-byte swizzled; TMA zero-fills a box past T and past D.
+inline bool tensor_map(CUtensorMap* map, const void* base, int BH, int T,
+                       int D, int rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace flash

@@ -78,15 +78,15 @@ def test_every_variant_takes_its_own_choice():
                               (torch.float32, 20, (0, 0, 0))):
         q, k, v = _qkv(d, dtype, offsets)
         chosen = tattn.flash_forward_variant(q, k, v)
-        assert tattn._k1_takes(chosen, q, k, v)
+        assert tattn._variant_takes(chosen, q, k, v)
         # Earlier variants in the order of preference cannot take them.
-        for other in tattn.K1_VARIANTS[:tattn.K1_VARIANTS.index(chosen)]:
-            assert not tattn._k1_takes(other, q, k, v)
+        for other in tattn.VARIANTS[:tattn.VARIANTS.index(chosen)]:
+            assert not tattn._variant_takes(other, q, k, v)
 
 
 def test_variant_launch_counts_add_up_to_the_total():
     counts = tattn.flash_attention.variant_launches
-    assert set(counts) == set(tattn.K1_VARIANTS)
+    assert set(counts) == set(tattn.VARIANTS)
     assert sum(counts.values()) == tattn.flash_attention.launches
 
 

@@ -5,11 +5,12 @@ card and without JAX, run them without the JAX test configuration:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-K1 has three variants (``attention.K1_VARIANTS``); bf16 inputs run on
-both of theirs: ``wgmma``, which ``flash_attention`` picks for every bf16
-shape with D % 8 == 0 and aligned bases, and ``mma_sync``, forced here
-(``_flash_forward(..., variant=)``) and picked by ``flash_attention``
-for D % 8 != 0 or a misaligned base.
+K1, K2 and K3 have three variants each (``attention.VARIANTS``); bf16
+inputs run on both of theirs: ``wgmma``, which ``flash_attention`` picks
+for every bf16 shape with D % 8 == 0 and aligned bases, and ``mma_sync``,
+forced here (``_flash_forward``, ``_flash_dq``, ``_flash_dkv`` with
+``variant=``) and picked by ``flash_attention`` for D % 8 != 0 or a
+misaligned base.
 
 Tolerances as in ``chip_smoke.py``: |kernel - plain| <= atol + rtol·|plain|
 with bf16 (1e-3, 1.6e-2) (two bf16 ulps: the sums run in another order
@@ -165,31 +166,110 @@ BWD_SHAPES = [((1, 4, 256, 256, 128), None), ((2, 3, 1000, 1000, 128), None),
               ((2, 2, 65, 300, 128), [300, 0])]
 
 
-@pytest.mark.parametrize("shape,lengths", BWD_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_bwd_matches_plain(card, shape, lengths, dtype, causal):
-    q, k, v, do, mask = _inputs(card, shape, dtype, lengths)
+def _backward_args(q, k, v, do, causal, mask):
+    """(q, k, v, do, lse, delta) from the plain forward."""
     o, lse = attn.flash_attention_reference(q, k, v, causal=causal,
                                             kv_mask=mask, return_lse=True)
-    delta = (do.float() * o.float()).sum(-1)
-    dq_before = attn.flash_attention_dq.launches
-    dkv_before = attn.flash_attention_dkv.launches
-    dq = attn.flash_attention_dq(q, k, v, do, lse, delta, causal=causal,
-                                 kv_mask=mask)
-    dk, dv = attn.flash_attention_dkv(q, k, v, do, lse, delta, causal=causal,
-                                      kv_mask=mask)
+    return q, k, v, do, lse, (do.float() * o.float()).sum(-1)
+
+
+def _k2_k3(args, causal, mask, variant):
+    """K2 and K3 on ``variant``, through ``flash_attention_dq`` and
+    ``flash_attention_dkv`` where the shape picks that variant, forced
+    otherwise; checks that each launch went to it."""
+    fns = (attn.flash_attention_dq, attn.flash_attention_dkv)
+    totals = [fn.launches for fn in fns]
+    counts = [dict(fn.variant_launches) for fn in fns]
+    if attn.flash_backward_variant(*args[:4]) == variant:
+        dq = attn.flash_attention_dq(*args, causal=causal, kv_mask=mask)
+        dk, dv = attn.flash_attention_dkv(*args, causal=causal, kv_mask=mask)
+    else:
+        dq = attn._flash_dq(*args, causal, mask, variant=variant)
+        dk, dv = attn._flash_dkv(*args, causal, mask, variant=variant)
     torch.cuda.synchronize()
-    assert attn.flash_attention_dq.launches == dq_before + 1
-    assert attn.flash_attention_dkv.launches == dkv_before + 1
-    rq = attn.flash_attention_dq_reference(q, k, v, do, lse, delta,
-                                           causal=causal, kv_mask=mask)
-    rk, rv = attn.flash_attention_dkv_reference(q, k, v, do, lse, delta,
-                                                causal=causal, kv_mask=mask)
-    for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
-        assert got.dtype == dtype and got.shape == ref.shape
-        assert bool(torch.isfinite(got.float()).all())
-        assert _grad_close(got, ref, dtype)
+    for fn, total, count in zip(fns, totals, counts):
+        count[variant] += 1
+        assert fn.launches == total + 1
+        assert fn.variant_launches == count
+    return dq, dk, dv
+
+
+def _check_bwd(args, causal, mask, dtype, got):
+    rq = attn.flash_attention_dq_reference(*args, causal=causal, kv_mask=mask)
+    rk, rv = attn.flash_attention_dkv_reference(*args, causal=causal,
+                                                kv_mask=mask)
+    for g, ref in zip(got, (rq, rk, rv)):
+        assert g.dtype == dtype and g.shape == ref.shape
+        assert bool(torch.isfinite(g.float()).all())
+        assert _grad_close(g, ref, dtype)
+
+
+@pytest.mark.parametrize("shape,lengths", BWD_SHAPES)
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "wgmma"),
+                                           (torch.bfloat16, "mma_sync"),
+                                           (torch.float32, "f32")])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_matches_plain(card, shape, lengths, dtype, variant,
+                                 causal):
+    q, k, v, do, mask = _inputs(card, shape, dtype, lengths)
+    # Every bf16 shape here has D % 8 == 0 and aligned bases: wgmma.
+    auto = "wgmma" if dtype == torch.bfloat16 else "f32"
+    assert attn.flash_backward_variant(q, k, v, do) == auto
+    args = _backward_args(q, k, v, do, causal, mask)
+    _check_bwd(args, causal, mask, dtype, _k2_k3(args, causal, mask, variant))
+
+
+@pytest.mark.parametrize("shape,offset", [((2, 2, 90, 150, 36), 0),
+                                          ((1, 3, 130, 70, 128), 1)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_bwd_tma_cannot_address_goes_to_mma_sync(card, shape, offset,
+                                                       causal, masked):
+    """D % 8 != 0 (72-byte rows) or a do 2 bytes off alignment: TMA cannot
+    address it, the backward takes the mma.sync variants, and a forced
+    wgmma raises before any launch."""
+    b, tkv = shape[0], shape[3]
+    q, k, v, do, _ = _inputs(card, shape, torch.bfloat16)
+    if offset:
+        do = torch.cat([do.new_zeros(offset), do.flatten()])[offset:].view(
+            do.shape)
+    mask = None
+    if masked:
+        lengths = torch.tensor([tkv, tkv // 3][:b], device=card)
+        mask = torch.arange(tkv, device=card)[None, :] < lengths[:, None]
+    assert attn.flash_backward_variant(q, k, v, do) == "mma_sync"
+    args = _backward_args(q, k, v, do, causal, mask)
+    _check_bwd(args, causal, mask, torch.bfloat16,
+               _k2_k3(args, causal, mask, "mma_sync"))
+    totals = (attn.flash_attention_dq.launches,
+              attn.flash_attention_dkv.launches)
+    for fn in (attn._flash_dq, attn._flash_dkv):
+        with pytest.raises(ValueError, match="cannot take"):
+            fn(*args, causal, mask, variant="wgmma")
+    assert (attn.flash_attention_dq.launches,
+            attn.flash_attention_dkv.launches) == totals
+
+
+@pytest.mark.parametrize("shape,causal", [((2, 3, 1000, 1000, 128), True),
+                                          ((2, 2, 77, 200, 64), False)])
+def test_flash_bwd_wgmma_is_the_same_from_run_to_run(card, shape, causal):
+    """Each block writes its own rows of dq, dk and dv once, without
+    atomics: two launches give the same bits."""
+    q, k, v, do, _ = _inputs(card, shape, torch.bfloat16)
+    args = _backward_args(q, k, v, do, causal, None)
+    first = _k2_k3(args, causal, None, "wgmma")
+    second = _k2_k3(args, causal, None, "wgmma")
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_k2_k3_variant_launches_add_up_to_the_totals(card):
+    q, k, v, do, _ = _inputs(card, (1, 2, 128, 128, 64), torch.bfloat16)
+    args = _backward_args(q, k, v, do, True, None)
+    for variant in ("wgmma", "mma_sync"):
+        _k2_k3(args, True, None, variant)
+    for fn in (attn.flash_attention_dq, attn.flash_attention_dkv):
+        assert sum(fn.variant_launches.values()) == fn.launches
 
 
 def test_backward_reaches_q_k_v_through_k2_and_k3(card):
