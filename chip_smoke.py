@@ -55,7 +55,25 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    variant, and that K2 and K3 never ran, and holds the served scores
    against the same model with
    attention switched to the plain version;
-7. prints a ``{"kernels": [...]}`` line, in which ``library_covers``
+7. generate phase, on the trained parameters: builds the paged-KV
+   engine (``make_generator``, the decode step captured as a CUDA graph)
+   and checks (1) greedy decoding against the full forward (K1) over the
+   same prefix at every step, (2) one prefill per bucket from 32 to 4096
+   rows against the same prefill on the plain attention, its last
+   logits and every layer's K and V rows (and on K1 reading K/V one row
+   late, a planted fault the rows' limit must see), with
+   K1's launches (``n_layers`` a prefill, all wgmma; none for a prefix
+   hit or a decode step), K1's own output at each bucket's shape against
+   its plain version and K1's time there, (5) a sampled request
+   giving the same tokens alone and packed with seven others, and (6)
+   the decode step's time as a graph replay and eagerly beside its byte
+   bound, the graph's result bit for bit the eager step's, and a profile
+   of the step; then sends (3) a window of 64 ``POST /generate``
+   requests from 8 clients and (4) four requests to a small engine that
+   must preempt, checking every NDJSON stream, and prints tokens per
+   second, time to first token, inter-token latency, decode steps, live
+   lanes a step and prefills skipped;
+8. prints a ``{"kernels": [...]}`` line, in which ``library_covers``
    names the kernels whose work one library call does, and, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -112,6 +130,35 @@ TOL_SCORE = 2e-2
 # sent by this many client threads at once.
 WINDOW_REQUESTS = 384
 WINDOW_CLIENTS = 8
+# The generate phase's engine: 8 lanes of 144 page slots (2304 tokens:
+# seq_len plus the generation cap) take 1152 pages; a page holds 8
+# layers x 16 tokens x 2048 x 2 bytes x (K, V) = 1 MiB.
+GEN_ENGINE = {"page_size": 16, "n_pages": 1280, "decode_batch": 8,
+              "max_new_cap": 256, "prefix_cache_entries": 16}
+# The decode step's logits against the full forward over the same
+# prefix, atol and rtol: the reference's own decode tolerance
+# (tests/test_lm_generate.py). The greedy token may part from the full
+# forward's argmax only where the latter's top-2 gap is below twice the
+# atol.
+TOL_LOGITS = (0.08, 0.05)
+NEAR_TIE = 0.16
+# A prefill on K1 against the same prefill on the plain attention. Its
+# last logits, absolute: two bf16 ulps at the logits' magnitude (4 to 8
+# in the trained flagship); the unembedding rounds each logit to bf16, and
+# the attention outputs' ulp differences move a logit by one ulp (0.03125
+# at every bucket on the H100). The logits of the trained flagship hardly
+# depend on its attention: K1 reading K/V one row late moves them by that
+# same ulp. So every layer's K and V rows, which decoding reads, are held
+# too: max |diff| over the layer's max |x| within two bf16 ulps (2^-6).
+# On the H100 the kernels stay within one ulp (at most 7.7e-3) and the
+# planted late read moves the rows by 0.13 to 0.19; both are printed.
+TOL_PREFILL = 0.0625
+TOL_KV = 2 ** -6
+# One prompt for each prefill bucket (32 to 4096 rows).
+PREFILL_LENGTHS = (17, 33, 65, 129, 257, 513, 1025, 2100)
+# The window of streamed requests.
+GEN_REQUESTS = 64
+GEN_CLIENTS = 8
 
 
 class SmokeFailure(Exception):
@@ -710,9 +757,11 @@ def post(url, obj):
     return status, body, time.perf_counter() - t0
 
 
-def profile(torch, fn, what, card, top=10) -> None:
+def profile(torch, fn, what, card, top=10):
     """Where the time of one ``fn()`` goes on the card: device time by
-    kernel, and the device's busy share of the wall time."""
+    kernel, and the device's busy share of the wall time. Returns the
+    rows, (device us, count, kernel name), and the busy us; None when
+    the profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -739,13 +788,14 @@ def profile(torch, fn, what, card, top=10) -> None:
     if not busy:
         print("profile: the profiler recorded no device time: not measured",
               flush=True)
-        return
+        return None
     print(f"profile: {what}: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%) on {card}",
           flush=True)
     for us, n, key in sorted(rows, reverse=True)[:top]:
         print(f"profile: {100 * us / busy:5.1f}% {us / 1e3:8.3f} ms "
               f"x{n:<4d} {key[:90]}", flush=True)
+    return rows, busy
 
 
 def throughput_window(np, url, ids, seq_len, card, n_requests=WINDOW_REQUESTS,
@@ -874,6 +924,434 @@ def slice_phase(torch, np, attn, card, params):
     return launches[0]
 
 
+def stream_generate(url, body):
+    """One ``POST /generate``: (frames, send time, arrival time of each
+    NDJSON line), read line by line as the chunks arrive."""
+    req = urllib.request.Request(url + "/generate",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    frames, times = [], []
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        check(resp.status == 200, f"/generate answered {resp.status}")
+        check(resp.headers["Content-Type"] == "application/x-ndjson",
+              f"/generate content type {resp.headers['Content-Type']}")
+        for line in resp:
+            frames.append(json.loads(line))
+            times.append(time.perf_counter())
+    return frames, t0, times
+
+
+def check_stream(frames, max_new) -> int:
+    """Every frame numbered without gaps, only the last ``done``, which
+    says ``length`` with ``max_new`` tokens or ``eos``; returns the
+    number of tokens."""
+    check([f.get("seq") for f in frames] == list(range(len(frames))),
+          f"frames not numbered without gaps: {[f.get('seq') for f in frames]}")
+    check(all(not f["done"] for f in frames[:-1]) and frames[-1]["done"],
+          "a stream did not end with its one done frame")
+    last, n = frames[-1], sum(len(f["tok"]) for f in frames)
+    check(last["n_tokens"] == n, f"n_tokens {last['n_tokens']} != {n} sent")
+    check(last["finish"] == "eos" or (last["finish"] == "length"
+                                      and n == max_new),
+          f"stream finished {last['finish']!r} after {n} of {max_new} tokens")
+    return n
+
+
+def percentile(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p / 100 * len(xs)))]
+
+
+def decode_bound(s, B, T):
+    """The decode step's least time: it reads every bf16 weight once
+    (the projections and the tied embedding, which the unembedding
+    reads whole) and gathers the fixed ``T``-slot K and V of every lane
+    in every layer, whatever the lengths; its products are 2 FLOP per
+    weight per lane."""
+    n_w = 12 * s["layers"] * s["d"] ** 2 + s["v"] * s["d"]
+    nbytes = 2 * n_w + s["layers"] * 2 * B * T * s["d"] * 2
+    flops = 2.0 * n_w * B + s["layers"] * 4.0 * B * T * s["d"]
+    return bound(flops, nbytes, 2), n_w * 2, nbytes
+
+
+def engine_checks(torch, np, attn, card, model):
+    """Checks (1), (2), (5) and (6) of the generate phase on an engine
+    held directly: greedy parity with the full forward, K1 at every
+    prefill bucket, sampling alone and packed, the decode step's time.
+    Returns K1's numbers at the buckets."""
+    import torch.nn.functional as F
+
+    from rafiki_torch.models.lm_generate import PREFILL_BUCKETS
+
+    s = model._dims()
+    L, V = s["layers"], s["v"]
+    t0 = time.perf_counter()
+    eng = model.make_generator(**GEN_ENGINE)
+    torch.cuda.synchronize()
+    pool_gib = 2 * eng._k_pool.numel() * 2 / 2 ** 30
+    print(f"generate: engine {GEN_ENGINE}: {eng.pages_per_seq} page slots "
+          f"a lane ({eng.max_tokens} tokens), K and V pools {pool_gib:.3f} "
+          f"GiB, decode step captured as a CUDA graph, built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    check(eng._graph is not None, "the decode step was not captured")
+    rng = np.random.default_rng(SEED + 5)
+
+    # (1) Greedy parity with the full forward (K1) over the same prefix.
+    prompt = rng.integers(0, V, 300).tolist()
+    sid, tok = eng.admit(prompt, max_new=32, temperature=0.0)
+    toks, errs, gaps, ties, step_k1 = list(prompt), [], [], 0, 0
+    atol, rtol = TOL_LOGITS
+    while True:
+        ref = model._forward(torch.tensor([toks], device="cuda"))[0, -1]
+        ref = ref.cpu().numpy()
+        got = eng.last_logits[sid]
+        err = np.abs(got - ref)
+        errs.append(float(err.max()))
+        check(bool((err <= atol + rtol * np.abs(ref)).all()),
+              f"decode logits at position {len(toks)} disagree with the "
+              f"full forward: max |diff| {err.max():.4f}")
+        top2 = np.sort(ref)[-2:]
+        gaps.append(float(top2[1] - top2[0]))
+        if tok != int(np.argmax(ref)):
+            check(gaps[-1] < NEAR_TIE, f"greedy token {tok} at position "
+                  f"{len(toks)} is not the full forward's argmax "
+                  f"{int(np.argmax(ref))} (top-2 gap {gaps[-1]:.4f})")
+            ties += 1
+        toks.append(tok)
+        if sid not in eng._seqs:
+            break
+        k0 = attn.flash_attention.launches
+        (r,), evicted = eng.step()
+        step_k1 += attn.flash_attention.launches - k0
+        check(not evicted and r[0] == sid, "unexpected step result")
+        tok = r[1]
+    check(len(toks) == len(prompt) + 32, f"{len(toks) - len(prompt)} tokens")
+    check(step_k1 == 0, f"decode steps launched K1 {step_k1} times")
+    print(f"generate (1): greedy 300-id prompt, 32 tokens: decode logits vs "
+          f"the full forward (K1) over the same prefix at every step: max "
+          f"|diff| {max(errs):.4e} (tolerance atol {atol}, rtol {rtol}); "
+          f"greedy tokens equal to the full forward's argmax at "
+          f"{32 - ties} of 32 steps ({ties} near-ties, top-2 gap < "
+          f"{NEAR_TIE}, where they may part); smallest top-2 gap "
+          f"{min(gaps):.4f}; decode steps launched K1 0 times", flush=True)
+
+    # (2) K1 at every prefill bucket, against the plain attention.
+    def late_kv(q, k, v, **kw):
+        """K1 reading each key and value one row late: the planted fault
+        that shows what the logits' limit can see."""
+        k, v = (torch.cat([x[:, :, :1], x[:, :, :-1]], 2) for x in (k, v))
+        return attn.flash_attention(q, k, v, **kw)
+
+    def prefill_rows(ids, n, attention):
+        """A prefill of ``n`` ids on ``attention`` into pages of its own:
+        its last logits, and each layer's K and V rows, (2, L, n, d)
+        f32."""
+        ps = eng.page_size
+        pages = [eng.pool.alloc() for _ in range(-(-n // ps))]
+        rows = (torch.tensor(pages, device="cuda")[:, None] * ps
+                + torch.arange(ps, device="cuda")).reshape(-1)[:n]
+        pos = torch.zeros(ids.shape[1], dtype=torch.int64, device="cuda")
+        pos[:n] = rows
+        model.attention = attention
+        try:
+            logits = eng._run_prefill(ids, pos, n - 1).cpu().numpy()
+        finally:
+            model.attention = attn.flash_attention
+        kv = torch.stack([eng._k_pool[:, rows], eng._v_pool[:, rows]])
+        for p in pages:
+            eng.pool.free(p)
+        return logits, kv.float()
+
+    def kv_rel(kv, ref):
+        """The largest |kv - ref| of each K or V layer over that layer's
+        largest |ref|, the largest over layers."""
+        dims = (2, 3)
+        return float(((kv - ref).abs().amax(dims)
+                      / ref.abs().amax(dims)).max())
+
+    buckets = []
+    for n in PREFILL_LENGTHS:
+        bucket = next(b for b in PREFILL_BUCKETS if b >= n)
+        prompt = rng.integers(0, V, n).tolist()
+        c0 = launch_counts(attn)
+        sid, _ = eng.admit(prompt, max_new=1)
+        c1 = launch_counts(attn)
+        got = eng.last_logits[sid]
+        eng.finish(sid)
+        check(c1[0] - c0[0] == L and c1[3] - c0[3] == L
+              and c1[1:3] == c0[1:3],
+              f"a {n}-id prefill launched K1 {c1[0] - c0[0]} times "
+              f"({c1[3] - c0[3]} wgmma), not {L}, and K2/K3 "
+              f"{c1[1] - c0[1]}/{c1[2] - c0[2]} times, not 0")
+        ids = torch.zeros((1, bucket), dtype=torch.int64, device="cuda")
+        ids[0, :n] = torch.tensor(prompt, device="cuda")
+        _, kv = prefill_rows(ids, n, attn.flash_attention)
+        plain, kv_plain = prefill_rows(ids, n, attn.flash_attention_plain)
+        planted, kv_planted = prefill_rows(ids, n, late_kv)
+        err = np.abs(got - plain)
+        planted_err = float(np.abs(planted - plain).max())
+        kv_err, planted_kv_err = kv_rel(kv, kv_plain), kv_rel(kv_planted,
+                                                              kv_plain)
+        check(bool((err <= TOL_PREFILL).all()),
+              f"a {n}-id prefill's logits disagree with the plain "
+              f"attention: max |diff| {err.max():.4f}")
+        check(kv_err <= TOL_KV, f"a {n}-id prefill's K/V rows disagree "
+              f"with the plain attention's: {kv_err:.4e} of the layer's "
+              f"max |x|")
+        skipped = eng.prefill_skipped_total
+        c0 = launch_counts(attn)
+        sid, _ = eng.admit(prompt, max_new=1)
+        c1 = launch_counts(attn)
+        eng.finish(sid)
+        check(eng.prefill_skipped_total == skipped + 1 and c1 == c0,
+              f"a prefix hit ({n} ids) launched {c1[0] - c0[0]} K1")
+        gen = torch.Generator(device="cuda").manual_seed(bucket)
+        q, k, v = (torch.randn(1, s["h"], bucket, s["d"] // s["h"],
+                               device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+        check(attn.flash_forward_variant(q, k, v) == "wgmma",
+              f"K1 would not take wgmma at {bucket} rows")
+        ro, rl = attn.flash_attention_reference(q, k, v, causal=True,
+                                                return_lse=True)
+        c0 = launch_counts(attn)
+        o, lse = attn.flash_attention(q, k, v, causal=True, return_lse=True)
+        c1 = launch_counts(attn)
+        check(c1[0] - c0[0] == 1 and c1[3] - c0[3] == 1,
+              f"K1 did not launch on wgmma at {bucket} rows")
+        err_o = (o.float() - ro.float()).abs()
+        err_l = (lse - rl).abs()
+        a_o, r_o = TOL_O["bfloat16"]
+        check(bool((err_o <= a_o + r_o * ro.float().abs()).all())
+              and bool((err_l <= TOL_LSE[0] + TOL_LSE[1] * rl.abs()).all())
+              and bool(torch.isfinite(o.float()).all()),
+              f"K1 disagrees with its plain version at {bucket} rows: max "
+              f"|do| {err_o.max().item():.3e}, |dlse| "
+              f"{err_l.max().item():.3e}")
+        ms = graph_ms(torch, lambda: attn._flash_forward(q, k, v, True,
+                                                         None), 20)
+        plain_ms = time_ms(torch, lambda: attn.flash_attention_reference(
+            q, k, v, causal=True), 3)
+        lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 20)
+        b_ms, b_by = attention_bound(1, s["h"], bucket, bucket,
+                                     s["d"] // s["h"], True, 2)
+        buckets.append({"rows": bucket, "prompt": n, "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "max_abs_err": float(err_o.max()),
+                        "lse_max_abs_err": float(err_l.max()),
+                        "logits_max_abs_err": float(err.max()),
+                        "planted_logits_max_abs_err": planted_err,
+                        "kv_rel_err": kv_err,
+                        "planted_kv_rel_err": planted_kv_err})
+        print(f"generate (2): {n}-id prompt, bucket {bucket}: K1 launches "
+              f"{L}, all wgmma; last logits (max |logit| "
+              f"{np.abs(plain).max():.3f}) vs the plain attention max "
+              f"|diff| {err.max():.4e} (tolerance {TOL_PREFILL}); every "
+              f"layer's K and V rows vs the plain attention's: max |diff| "
+              f"over the layer's max |x| {kv_err:.4e} (tolerance {TOL_KV}); "
+              f"with K1 reading K/V one row late (a "
+              f"planted fault): logits {planted_err:.4e}, K/V rows "
+              f"{planted_kv_err:.4e}; a prefix hit launched none; K1 at "
+              f"(1,{s['h']},{bucket},{bucket},{s['d'] // s['h']}) causal "
+              f"on random q, k, v against its plain version: max|do| "
+              f"{err_o.max().item():.3e}, max|dlse| {err_l.max().item():.3e}"
+              f" (tolerance as the kernel phase's); "
+              f"{ms:.4f} ms (CUDA graph), plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}) on {card}", flush=True)
+        del q, k, v, o, lse, ro, rl
+
+    # (5) Sampling: the same (seed, prompt) alone and packed with seven
+    # other requests.
+    prompt = rng.integers(0, V, 200).tolist()
+    sid, tok = eng.admit(prompt, max_new=48, temperature=0.8, seed=1234)
+    alone = [tok]
+    while sid in eng._seqs:
+        alone += [t for q, t, _ in eng.step()[0] if q == sid]
+    others = [eng.admit(rng.integers(0, V, int(n)).tolist(), max_new=64,
+                        temperature=float(t), seed=int(n))[0]
+              for n, t in zip(rng.integers(50, 500, 7), [0.8, 0.0] * 4)]
+    sid, tok = eng.admit(prompt, max_new=48, temperature=0.8, seed=1234)
+    lane = eng._seqs[sid].lane
+    packed = [tok]
+    while sid in eng._seqs:
+        res, evicted = eng.step()
+        check(not evicted, "the sampling check was preempted")
+        packed += [t for q, t, _ in res if q == sid]
+    for o in others:
+        eng.finish(o)
+    print(f"generate (5): 200-id prompt, seed 1234, temperature 0.8, 48 "
+          f"tokens: alone (lane 0) and packed with 7 others (lane {lane}) "
+          f"identical: {packed == alone}", flush=True)
+    check(packed == alone, "sampled tokens differ alone and packed")
+
+    # (6) The decode step at 8 full lanes: graph replay, eager, bound.
+    B, T = eng.decode_batch, eng.max_tokens
+    for _ in range(B):
+        eng.admit(rng.integers(0, V, 2040).tolist(), max_new=256,
+                  temperature=0.8, seed=7)
+    check(eng.resident() == B, f"{eng.resident()} lanes resident")
+    eng._stage_inputs()
+    eager = eng._decode(*eng._decode_args())
+    graph = eng._run_decode()
+    torch.cuda.synchronize()
+    same = (bool(torch.equal(eager[0], graph[0]))
+            and bool(torch.equal(eager[1], graph[1])))
+    check(same, "the decode graph's tokens or logits differ from the "
+          "eager step's on the same inputs")
+    graph_step = time_ms(torch, eng._graph.replay, 50)
+    eager_step = time_ms(torch, lambda: eng._decode(*eng._decode_args()), 20)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        eng.step()
+    wall_step = (time.perf_counter() - t0) / 20 * 1e3
+    (b_ms, b_by), w_bytes, nbytes = decode_bound(s, B, T)
+    prof = profile(torch, lambda: eng._decode(*eng._decode_args()),
+                   f"one eager decode step at {B} full lanes", card, 12)
+    gather_share = eager_device = None
+    if prof is not None:
+        rows, busy = prof
+        eager_device = busy / 1e3
+        # The gather is PyTorch's gather kernel for rows, its index
+        # kernel for the head-major layout; index_copy_ writes the new rows.
+        gather_us = sum(us for us, _, key in rows if "gather" in key or (
+            "index" in key and "index_copy" not in key))
+        gather_share = gather_us / busy
+        print(f"generate (6): the K/V gather (PyTorch's gather and index "
+              f"kernels, not index_copy_) takes {100 * gather_share:.1f}% "
+              f"of the eager step's device time ({gather_us / 1e3:.3f} of "
+              f"{busy / 1e3:.3f} ms)", flush=True)
+    eager_dev = "not measured" if eager_device is None else \
+        f"{eager_device:.4f} ms"
+    print(f"generate (6): decode step at {B} full lanes ({T} K/V slots a "
+          f"lane): CUDA graph replay {graph_step:.4f} ms (device time, "
+          f"CUDA events); eager {eager_step:.4f} ms between CUDA events "
+          f"(host-bound: the card waits on the host's launches), of which "
+          f"the device is busy {eager_dev} (profiler); one step() on the "
+          f"host clock {wall_step:.4f} ms (staging, replay, tokens and "
+          f"logits back); bound {b_ms:.4f} ms ({b_by}: {w_bytes / 1e9:.3f} "
+          f"GB of bf16 weights + {(nbytes - w_bytes) / 1e9:.3f} GB of K/V "
+          f"gather at 3.35 TB/s); graph and eager steps equal bit for "
+          f"bit on the same inputs: {same} on {card}", flush=True)
+    eng.close()
+    check(eng.pool.used_pages == 0, "close() left pages allocated")
+    return {"buckets": buckets, "decode_graph_ms": graph_step,
+            "decode_eager_ms": eager_step,
+            "decode_eager_device_ms": eager_device,
+            "decode_step_wall_ms": wall_step,
+            "decode_bound_ms": b_ms, "decode_gather_share": gather_share}
+
+
+def generate_window(torch, np, attn, card, params, engine_cfg, bodies,
+                    what):
+    """``bodies`` as ``POST /generate`` requests from ``GEN_CLIENTS``
+    threads at once to a worker built with ``engine_cfg``; checks every
+    stream and K1's launches (``n_layers`` a prefill, all wgmma; K2 and
+    K3 none). Returns the scheduler's stats, the engine's evictions, the
+    K1 launches and the client-side numbers."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rafiki_torch.models import TorchTransformerLM
+    from rafiki_torch.predictor import PredictorService
+    from rafiki_torch.worker import InferenceWorker
+
+    L = FLAGSHIP["n_layers"]
+    worker = InferenceWorker(TorchTransformerLM, FLAGSHIP, params,
+                             device="cuda", generate=engine_cfg)
+    eng = worker.scheduler.engine
+    app = PredictorService([worker.start()], device="cuda").start()
+    try:
+        reset_launch_counts(attn)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(GEN_CLIENTS) as pool:
+            results = list(pool.map(
+                lambda b: stream_generate(app.url, b), bodies))
+        secs = time.perf_counter() - t0
+        launches = launch_counts(attn)
+        stats = worker.scheduler.stats()
+    finally:
+        app.stop()
+        worker.stop()
+    check(eng.pool.used_pages == 0, "stop() left pages allocated")
+    n_tok = sum(check_stream(fr, b["max_new"])
+                for (fr, _, _), b in zip(results, bodies))
+    check(stats["errors"] == 0, f"{stats['errors']} decode loop errors")
+    prefills = stats["prefills_run"]
+    check(launches[0] == L * prefills and launches[3] == launches[0],
+          f"K1 launched {launches[0]} times ({launches[3]} wgmma) for "
+          f"{prefills} prefills of {L} layers")
+    check(launches[1:3] == (0, 0), f"generation launched K2/K3 "
+          f"{launches[1:3]}")
+    ttft = [(ts[0] - t) * 1e3 for _, t, ts in results]
+    itl = [(b - a) * 1e3 for _, _, ts in results for a, b in zip(ts, ts[1:])]
+    step_tokens = stats["tokens"] - prefills - stats["prefills_cached"]
+    lanes = step_tokens / max(1, stats["decode_dispatches"])
+    print(f"generate {what}: {len(bodies)} POST /generate streams from "
+          f"{GEN_CLIENTS} clients, every stream complete with contiguous "
+          f"frames: {n_tok} tokens in {secs:.4f} s = {n_tok / secs:.1f} "
+          f"tokens/s; TTFT p50 {percentile(ttft, 50):.2f} ms, p99 "
+          f"{percentile(ttft, 99):.2f} ms; inter-token p50 "
+          f"{percentile(itl, 50):.2f} ms, p99 {percentile(itl, 99):.2f} ms "
+          f"(client side); {stats['decode_dispatches']} decode steps, "
+          f"{lanes:.3f} live lanes a step; prefills run {prefills}, "
+          f"skipped {stats['prefills_cached']}; preemptions "
+          f"{stats['preemptions']} (engine evictions "
+          f"{eng.evictions_total}); K1 launches {launches[0]} = {L} x "
+          f"{prefills}, all wgmma, K2 and K3 none on {card}", flush=True)
+    return {"stats": stats, "evictions": eng.evictions_total,
+            "k1_launches": launches[0], "tokens": n_tok, "secs": secs,
+            "tokens_per_s": n_tok / secs,
+            "ttft_ms": (percentile(ttft, 50), percentile(ttft, 99)),
+            "itl_ms": (percentile(itl, 50), percentile(itl, 99)),
+            "lanes": lanes}
+
+
+def generate_phase(torch, np, attn, card, params):
+    """Generative serving of the trained flagship: checks (1), (2), (5)
+    and (6) on an engine held directly, then (3) the window of streamed
+    requests and (4) preemption through ``POST /generate``. Returns K1's
+    launches on the generate path and the phase's numbers."""
+    from rafiki_torch.models import TorchTransformerLM
+
+    model = TorchTransformerLM(device="cuda",
+                               **TorchTransformerLM.validate_knobs(FLAGSHIP))
+    model.load_parameters(params)
+    out = engine_checks(torch, np, attn, card, model)
+    model.destroy()
+    torch.cuda.empty_cache()
+
+    # (3) The window: a quarter of the prompts are one shared 512-id
+    # prompt, the rest 16 to 2000 random ids; greedy and sampled.
+    V = FLAGSHIP["vocab_size"]
+    rng = np.random.default_rng(SEED + 6)
+    shared = rng.integers(0, V, 512).tolist()
+    bodies = [{"tokens": (shared if i % 4 == 0 else rng.integers(
+                   0, V, int(rng.integers(16, 2001))).tolist()),
+               "max_new": int(rng.integers(64, 257)),
+               "temperature": 0.8 if rng.random() < 0.5 else 0.0,
+               "seed": i}
+              for i in range(GEN_REQUESTS)]
+    window = generate_window(torch, np, attn, card, params, GEN_ENGINE,
+                             bodies, "(3)")
+    check(window["stats"]["prefills_cached"] >= 1,
+          "the shared prompt never hit the prefix cache")
+
+    # (4) Preemption: 4 lanes of 100-id prompts growing to 300 tokens
+    # need 76 pages; the pool has 39.
+    small = dict(GEN_ENGINE, decode_batch=4, n_pages=40,
+                 prefix_cache_entries=0)
+    bodies = [{"tokens": rng.integers(0, V, 100).tolist(), "max_new": 200,
+               "temperature": 0.0, "seed": i} for i in range(4)]
+    pre = generate_window(torch, np, attn, card, params, small, bodies,
+                          "(4) preemption, engine " + json.dumps(small))
+    check(pre["evictions"] >= 1 and pre["stats"]["preemptions"] >= 1,
+          "pool pressure never preempted a sequence")
+    out.update(window=window, preemption=pre)
+    return window["k1_launches"] + pre["k1_launches"], out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -905,6 +1383,7 @@ def main() -> int:
         k1_train, k2, k3 = backward_phase(torch, attn)
         params, train_launches = train_phase(torch, np, attn, card)
         serve_launches = slice_phase(torch, np, attn, card, params)
+        gen_launches, gen = generate_phase(torch, np, attn, card, params)
     except Exception:
         traceback.print_exc()
         return 1
@@ -912,7 +1391,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict(name="flash_fwd (K1)", route="cuda", source=src + "flash_fwd.cu",
              replaces="rafiki_tpu/ops/attention.py:162",
-             launches=train_launches[0] + serve_launches, **k1, **k1_train),
+             launches=train_launches[0] + serve_launches + gen_launches,
+             generate_launches=gen_launches,
+             generate_buckets=gen["buckets"], **k1, **k1_train),
         dict(name="flash_bwd_dq (K2)", route="cuda",
              source=src + "flash_bwd_dq.cu",
              replaces="rafiki_tpu/ops/attention.py:338",

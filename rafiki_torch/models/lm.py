@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -152,11 +152,17 @@ class TorchTransformerLM(BaseModel):
         unembedding are two casts, whose gradients sum in f32)."""
         return self._net.get_parameter(name).to(torch.bfloat16)
 
-    def _block(self, x, w: Weights, i: int, h_heads: int):
+    def _block(self, x, w: Weights, i: int, h_heads: int,
+               kv: Optional[List[Any]] = None):
+        """One transformer block. ``kv``, when given, receives this
+        layer's ``(k, v)`` rows, (B, T, d) bf16, before the heads split:
+        the generative prefill stores them in its page pool."""
         p = f"blocks.{i}."
         b, t, d = x.shape
         h = _layer_norm(x, self._net.blocks[i].ln1).to(torch.bfloat16)
         q, k, v = F.linear(h, w(p + "qkv.weight")).split(d, dim=-1)
+        if kv is not None:
+            kv.append((k, v))
 
         def heads(a):
             return a.reshape(b, t, h_heads, d // h_heads).transpose(
@@ -355,6 +361,19 @@ class TorchTransformerLM(BaseModel):
             tgt = torch.from_numpy(ids[1:, None]).to(self.device)
             out.append(float(lp[:n].gather(-1, tgt).mean()))
         return out
+
+    def make_generator(self, **cfg: Any):
+        """Token-level generation engine over this model's parameters:
+        paged KV cache, bucketed prefill on K1, one fixed-shape decode
+        step (a CUDA graph on the card), admission between steps. See
+        :mod:`rafiki_torch.models.lm_generate`; ``cfg`` passes through
+        to :class:`LMGenerator` (``page_size``, ``n_pages``,
+        ``decode_batch``, ``max_new_cap``, ``prefix_cache_entries``)."""
+        from .lm_generate import LMGenerator
+
+        if self._net is None:
+            raise RuntimeError("train() or load_parameters() first")
+        return LMGenerator(self, **cfg)
 
     def dump_parameters(self) -> Params:
         if self._net is None:

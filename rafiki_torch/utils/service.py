@@ -1,10 +1,12 @@
 """JSON-over-HTTP service plumbing on the stdlib ``http.server``.
 
 The port's copy of ``rafiki_tpu/utils/service.py`` reduced to what its
-one route needs: routes matched on exact ``(method, path)``, JSON bodies
-in and out, a cap on the body size, graceful start and stop.
+routes need: routes matched on exact ``(method, path)``, JSON bodies
+in and out, replies streamed with chunked transfer encoding, a cap on
+the body size, graceful start and stop.
 
-A handler is ``handler(body) -> (status, obj)``. It may raise
+A handler is ``handler(body) -> (status, obj)``; ``obj`` is sent as
+JSON, or streamed when it is a ``StreamResponse``. It may raise
 ``HttpError`` for a chosen status; a ``ValueError`` answers 400 and any
 other exception 500.
 """
@@ -27,6 +29,22 @@ class HttpError(Exception):
         super().__init__(message)
         self.status = status
         self.message = message
+
+
+class StreamResponse:
+    """A handler return value streamed as chunked transfer encoding.
+
+    ``chunks`` is a LAZY iterable of str/bytes fragments — the handler
+    returns at once and the fragments are produced while the response
+    is being written, which is what the generative token stream needs
+    (each token frame reaches the client as soon as the decode loop
+    emits it). A client that disconnects mid-stream ends the iteration;
+    the generator's ``finally`` runs either way.
+    """
+
+    def __init__(self, content_type: str, chunks):
+        self.content_type = content_type
+        self.chunks = chunks
 
 
 class JsonHttpServer:
@@ -78,12 +96,43 @@ class JsonHttpServer:
                 self._reply(status, obj)
 
             def _reply(self, status: int, obj: Any):
+                if isinstance(obj, StreamResponse):
+                    self._reply_stream(status, obj)
+                    return
                 data = json.dumps(obj).encode()
                 self.send_response(status)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(data)))
                 self.end_headers()
                 self.wfile.write(data)
+
+            def _reply_stream(self, status: int, obj: StreamResponse):
+                """One HTTP chunk per fragment, flushed at once. A
+                broken pipe (client gone) stops the iteration and closes
+                the connection; the source iterator is always closed, so
+                its ``finally`` blocks run."""
+                self.send_response(status)
+                self.send_header("Content-Type", obj.content_type)
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+                it = iter(obj.chunks)
+                try:
+                    for chunk in it:
+                        if isinstance(chunk, str):
+                            chunk = chunk.encode()
+                        if not chunk:
+                            continue
+                        self.wfile.write(b"%x\r\n" % len(chunk)
+                                         + chunk + b"\r\n")
+                        self.wfile.flush()
+                    self.wfile.write(b"0\r\n\r\n")
+                    self.wfile.flush()
+                except OSError:  # broken pipe, reset: the client left
+                    self.close_connection = True
+                finally:
+                    close = getattr(it, "close", None)
+                    if close is not None:
+                        close()
 
             def do_POST(self):
                 self._dispatch("POST")

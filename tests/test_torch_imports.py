@@ -41,7 +41,11 @@ def test_importing_the_port_loads_no_jax():
     for mod in ("rafiki_torch.models.lm", "rafiki_torch.ops.attention",
                 "rafiki_torch.model.optim", "rafiki_torch.model.logger",
                 "rafiki_torch.model.loop_ckpt", "rafiki_torch.observe",
-                "rafiki_torch.observe.profiling", "rafiki_torch.datasets.synth"):
+                "rafiki_torch.observe.profiling", "rafiki_torch.datasets.synth",
+                "rafiki_torch.models.lm_generate",
+                "rafiki_torch.worker.decode_scheduler",
+                "rafiki_torch.predictor.app", "rafiki_torch.cache",
+                "rafiki_torch.predictor.edge_cache"):
         assert mod in mods, mod
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"
