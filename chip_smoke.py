@@ -54,7 +54,10 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    launch count grew by ``n_layers`` per scored query, all on the wgmma
    variant, and that K2 and K3 never ran, and holds the served scores
    against the same model with
-   attention switched to the plain version;
+   attention switched to the plain version; then (fault F1) sends a
+   query with an id past the vocabulary, which must answer nan without
+   launching K1, after which the worker must score a known query exactly
+   as before and its model must still generate;
 7. generate phase, on the trained parameters: builds the paged-KV
    engine (``make_generator``, the decode step captured as a CUDA graph)
    and checks (1) greedy decoding against the full forward (K1) over the
@@ -73,7 +76,25 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    must preempt, checking every NDJSON stream, and prints tokens per
    second, time to first token, inter-token latency, decode steps, live
    lanes a step and prefills skipped;
-8. prints a ``{"kernels": [...]}`` line, in which ``library_covers``
+8. automl phase, Rafiki's own loop on ``TorchFeedForward``: writes the
+   synthetic image set at fashion-MNIST's split sizes and shape (60,000
+   train and 10,000 val images of 28×28×1, 10 classes), runs a
+   ``RandomAdvisor`` search of 4 trials through ``TrialRunner`` on the
+   card with a ``MetaStore`` and ``ParamStore`` under a temporary
+   directory, and prints each trial's knobs, steps, seconds, steps/s,
+   val accuracy and ``chip_util``, the search's wall time and trials per
+   hour, and the device's busy share over one trial (the search's trial
+   of the largest batch, run again under ``torch.profiler``); deploys
+   the 2 best trials from ``get_best_trials_of_train_job`` through
+   ``ParamStore.load`` into 2 ``InferenceWorker``s behind one
+   ``PredictorService``, sends 5 ``POST /predict`` requests and a window
+   of 256 single-image requests from 8 clients (queries/s, latency
+   p50/p90/p99); checks (a) every trial completed above an accuracy
+   floor, (b) each served prediction is the mean of the two workers'
+   own, (c) the card's probabilities match the CPU plain path's for the
+   same parameters, (d) a params file written on the card loads back
+   bit for bit, (e) K1, K2 and K3 did not launch in the phase;
+9. prints a ``{"kernels": [...]}`` line, in which ``library_covers``
    names the kernels whose work one library call does, and, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -159,6 +180,26 @@ PREFILL_LENGTHS = (17, 33, 65, 129, 257, 513, 1025, 2100)
 # The window of streamed requests.
 GEN_REQUESTS = 64
 GEN_CLIENTS = 8
+# The automl phase: fashion-MNIST's split sizes and image shape, on the
+# synthetic set (real fashion-MNIST is not in the repository).
+AUTOML_DATA = {"n_train": 60000, "n_val": 10000, "image_shape": (28, 28, 1),
+               "n_classes": 10, "name": "fashion_mnist"}
+AUTOML_TRIALS = 4
+AUTOML_DEPLOY = 2
+# Every trial's val accuracy must clear this (chance is 0.1): each of the
+# four trials read 1.0000 on the H100 in the first runs of this phase.
+AUTOML_MIN_ACC = 0.99
+# The card's probabilities against the CPU's for the same parameters:
+# both run flax's bf16 Dense (bf16 products of f32 sums, a bf16 bias),
+# summed in another order, so a logit may land one bf16 ulp away; one
+# ulp of a logit below 4 in magnitude (2^-6) moves a probability by at
+# most 0.25 * 2^-6 (tests/test_torch_feedforward.py).
+TOL_PROB = 3.9e-3
+# A served ensemble prediction against the mean of its workers' own
+# predictions: the same f32 values, averaged in f64 by the predictor.
+TOL_ENSEMBLE = 1e-6
+AUTOML_WINDOW = 256
+AUTOML_CLIENTS = 8
 
 
 class SmokeFailure(Exception):
@@ -543,6 +584,8 @@ def backward_phase(torch, attn):
     plain_kv = time_ms(torch, lambda: attn.flash_attention_dkv_reference(
         q, k, v, do, lse, delta, causal=True), 3)
     k1_ms, _ = k1_variants(torch, attn, q, k, v, 20)
+    plain_fwd = time_ms(torch, lambda: attn.flash_attention_reference(
+        q, k, v, causal=True), 3)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     lib_ms = time_ms(torch, lambda: torch.autograd.grad(
@@ -571,7 +614,8 @@ def backward_phase(torch, attn):
           f"{k1_ms['wgmma']:.4f} ms ({tf(2, k1_ms['wgmma']):.1f} TFLOP/s), "
           f"mma.sync {k1_ms['mma_sync']:.4f} ms "
           f"({tf(2, k1_ms['mma_sync']):.1f} TFLOP/s) (CUDA graphs, in "
-          f"turns), bound {b1_ms:.4f} ms, scaled_dot_product_attention "
+          f"turns), bound {b1_ms:.4f} ms, plain {plain_fwd:.4f} ms, "
+          f"scaled_dot_product_attention "
           f"{lib_fwd_ms:.4f} ms, wgmma max|do|={k1_errs[0]:.3e} "
           f"max|dlse|={k1_errs[1]:.3e} against its plain version, ok) "
           f"(989 TFLOP/s bf16, 3.35 TB/s)", flush=True)
@@ -583,7 +627,7 @@ def backward_phase(torch, attn):
     # K2 and K3 together.
     both = ["flash_bwd_dq (K2)", "flash_bwd_dkv (K3)"]
     k1_train = {"train_ms": k1_ms["wgmma"], "train_bound_ms": b1_ms,
-                "train_library_ms": lib_fwd_ms,
+                "train_plain_ms": plain_fwd, "train_library_ms": lib_fwd_ms,
                 "train_mma_sync_ms": k1_ms["mma_sync"],
                 "train_max_abs_err": k1_errs[0]}
     shared = {"library_ms": lib_ms, "library_covers": both,
@@ -881,6 +925,7 @@ def slice_phase(torch, np, attn, card, params):
         launches = launch_counts(attn)
         status, body, _ = post(app.url + "/predict", {})
         check(status == 400, "an empty body must get 400")
+        oov_checks(torch, np, attn, app.url, worker, served[0], v)
     finally:
         app.stop()
         worker.stop()
@@ -922,6 +967,49 @@ def slice_phase(torch, np, attn, card, params):
             f"one predict of a {len(query)}-id query", card)
     model.destroy()
     return launches[0]
+
+
+def oov_checks(torch, np, attn, url, worker, known, v):
+    """Fault F1 on the card: a query with an id past the vocabulary
+    answers nan and launches nothing; the worker then scores a known
+    query exactly as before, and its model still generates."""
+    query, score = known
+    k0 = attn.flash_attention.launches
+    status, body, _ = post(url + "/predict", {"query": [1, 2, 40000]})
+    torch.cuda.synchronize()
+    check(status == 200 and math.isnan(body["prediction"]),
+          f"an id past the vocabulary answered {status} {body}")
+    check(attn.flash_attention.launches == k0,
+          "a query scored nan launched K1")
+    status, body, _ = post(url + "/predict", {"query": query})
+    check(status == 200 and body["prediction"] == score,
+          f"after the out-of-vocabulary query a known query scored "
+          f"{body} instead of {score}")
+    model = worker.model
+    eng = model.make_generator(page_size=16, n_pages=160, decode_batch=1,
+                               max_new_cap=8, prefix_cache_entries=0)
+    try:
+        prompt = np.random.default_rng(SEED + 7).integers(0, v, 64).tolist()
+        ref = model._forward(torch.tensor([prompt], device="cuda"))[0, -1]
+        sid, tok = eng.admit(prompt, max_new=8, temperature=0.0)
+        first, toks = tok, [tok]
+        while sid in eng._seqs:
+            (r,), _ = eng.step()
+            toks.append(r[1])
+        torch.cuda.synchronize()
+    finally:
+        eng.close()
+    top2 = torch.topk(ref, 2).values
+    check(len(toks) == 8 and all(0 <= x < v for x in toks),
+          f"generation after the out-of-vocabulary query gave {toks}")
+    check(first == int(ref.argmax()) or
+          float(top2[0] - top2[1]) < NEAR_TIE,
+          "the first generated token is not the full forward's argmax")
+    print(f"slice: F1: POST /predict with id 40000 (V = {v}) answered nan "
+          f"with no K1 launch; the worker then scored a known query "
+          f"exactly as before ({score:.6f}) and its model generated 8 "
+          f"greedy tokens (the first the full forward's argmax)",
+          flush=True)
 
 
 def stream_generate(url, body):
@@ -1352,6 +1440,269 @@ def generate_phase(torch, np, attn, card, params):
     return window["k1_launches"] + pre["k1_launches"], out
 
 
+def device_busy(torch, fn):
+    """Run ``fn()`` under ``torch.profiler`` (device activity only) and
+    return (wall s, device busy s, {kernel name: device s}). Busy is the
+    union of the kernels' and copies' intervals on the card. Unlike
+    ``profile``, it runs ``fn`` once and reads the raw events: a trial
+    is thousands of steps, too many events for ``key_averages``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0:
+            continue
+        spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns() / 1e9
+    busy, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a >= end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return wall, busy / 1e9, by_name
+
+
+def automl_window(np, url, images, card):
+    """``AUTOML_WINDOW`` single-image requests from ``AUTOML_CLIENTS``
+    clients at once: queries per second and latency percentiles."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    queries = [(img.astype(np.float32) / 255.0).tolist() for img in images]
+
+    def one(q):
+        status, body, dt = post(url + "/predict", {"query": q})
+        check(status == 200, f"/predict answered {status}")
+        p = body["prediction"]
+        check(isinstance(p, list) and len(p) == AUTOML_DATA["n_classes"]
+              and abs(sum(p) - 1.0) < 1e-4, f"not a distribution: {p}")
+        return dt
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(AUTOML_CLIENTS) as pool:
+        lat = sorted(pool.map(one, queries))
+    secs = time.perf_counter() - t0
+    pct = {p: lat[min(len(lat) - 1, int(p / 100 * len(lat)))] * 1e3
+           for p in (50, 90, 99)}
+    print(f"automl: window of {len(queries)} single-image requests from "
+          f"{AUTOML_CLIENTS} clients to {AUTOML_DEPLOY} workers: "
+          f"{len(queries) / secs:.2f} queries/s; latency p50 {pct[50]:.2f} "
+          f"ms, p90 {pct[90]:.2f} ms, p99 {pct[99]:.2f} ms on {card}",
+          flush=True)
+    return {"qps": len(queries) / secs, "p50_ms": pct[50],
+            "p90_ms": pct[90], "p99_ms": pct[99]}
+
+
+def automl_phase(torch, np, attn, card):
+    """Rafiki's AutoML loop on TorchFeedForward: a random search of
+    ``AUTOML_TRIALS`` trials through ``TrialRunner`` on the card, with
+    the meta and param stores under a temporary directory, then the
+    ``AUTOML_DEPLOY`` best trials deployed as inference workers behind
+    one predictor. Checks (a) to (e) of the phase; returns its
+    numbers."""
+    import os
+    import tempfile
+
+    from rafiki_torch.advisor import RandomAdvisor
+    from rafiki_torch.constants import (BudgetOption, TaskType,
+                                        TrainJobStatus, TrialStatus)
+    from rafiki_torch.datasets import make_synthetic_image_dataset
+    from rafiki_torch.model.dataset import load_image_dataset
+    from rafiki_torch.models import TorchFeedForward
+    from rafiki_torch.predictor import PredictorService
+    from rafiki_torch.store import MetaStore, ParamStore
+    from rafiki_torch.worker import InferenceWorker, TrialRunner
+
+    t_phase = time.perf_counter()
+    reset_launch_counts(attn)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train, val = make_synthetic_image_dataset(tmp, seed=SEED,
+                                                  **AUTOML_DATA)
+        ds = load_image_dataset(train)
+        print(f"automl: synthetic {AUTOML_DATA['name']}-shaped set: "
+              f"{ds.size} train and {AUTOML_DATA['n_val']} val images of "
+              f"{ds.image_shape}, {ds.images.nbytes / 1e6:.1f} MB of uint8 "
+              f"train images to stage on the card; made in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        meta = MetaStore(os.path.join(tmp, "meta.db"))
+        params = ParamStore(os.path.join(tmp, "params"))
+        user = meta.create_user("smoke@example.com", "-", "MODEL_DEVELOPER")
+        model = meta.create_model(
+            user["id"], "ff", TaskType.IMAGE_CLASSIFICATION,
+            "rafiki_torch.models.feedforward:TorchFeedForward", {})
+        budget = {BudgetOption.MODEL_TRIAL_COUNT: AUTOML_TRIALS}
+        job = meta.create_train_job(user["id"], "smoke",
+                                    TaskType.IMAGE_CLASSIFICATION, budget,
+                                    train, val, TrainJobStatus.RUNNING)
+        sub = meta.create_sub_train_job(job["id"], model["id"], "RUNNING")
+        advisor = RandomAdvisor(TorchFeedForward.get_knob_config(),
+                                seed=SEED)
+        runner = TrialRunner(TorchFeedForward, advisor, train, val, meta,
+                             params, sub["id"], model_id=model["id"],
+                             budget=budget, device="cuda")
+        t0 = time.perf_counter()
+        rows = runner.run()
+        search_s = time.perf_counter() - t0
+
+        # (a) Every trial completed, well above chance.
+        check(len(rows) == AUTOML_TRIALS, f"{len(rows)} trials ran")
+        trials = []
+        for r in rows:
+            check(r["status"] == TrialStatus.COMPLETED,
+                  f"trial {r['no']} {r['status']}: {r.get('error')}")
+            logs = [x["record"] for x in meta.get_trial_logs(r["id"])]
+            epochs = [x["values"] for x in logs
+                      if x["type"] == "values" and "epoch" in x["values"]]
+            k = r["knobs"]
+            steps = len(epochs) * (ds.size // k["batch_size"])
+            secs = r["finished_at"] - r["started_at"]
+            last = epochs[-1]
+            trials.append({"no": r["no"], "knobs": k, "steps": steps,
+                           "seconds": secs,
+                           "steps_per_sec": last["steps_per_sec"],
+                           "val_acc": r["score"],
+                           "chip_util": last.get("chip_util"),
+                           "losses": [e["loss"] for e in epochs]})
+            print(f"automl: trial {r['no']}: knobs {json.dumps(k)}: "
+                  f"{steps} steps in {secs:.2f} s, "
+                  f"{last['steps_per_sec']:.1f} steps/s, epoch losses "
+                  f"{[round(e['loss'], 4) for e in epochs]}, val accuracy "
+                  f"{r['score']:.4f}, chip_util {last.get('chip_util')} "
+                  f"on {card}", flush=True)
+            check(r["score"] >= AUTOML_MIN_ACC,
+                  f"trial {r['no']} val accuracy {r['score']:.4f} is below "
+                  f"{AUTOML_MIN_ACC}")
+        print(f"automl: search of {AUTOML_TRIALS} trials "
+              f"(RandomAdvisor seed {SEED}, MODEL_TRIAL_COUNT "
+              f"{AUTOML_TRIALS}) in {search_s:.2f} s: "
+              f"{AUTOML_TRIALS * 3600 / search_s:.1f} trials/hour on "
+              f"{card}", flush=True)
+
+        # The device's busy share over one trial: the search's trial of
+        # the largest batch, trained and evaluated again under the
+        # profiler.
+        prof_knobs = max((t["knobs"] for t in trials),
+                         key=lambda k: k["batch_size"])
+
+        def one_trial():
+            m = TorchFeedForward(device="cuda", **prof_knobs)
+            m.train(train)
+            m.evaluate(val)
+            m.destroy()
+
+        wall, busy, by_name = device_busy(torch, one_trial)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"automl: profiled trial (knobs {json.dumps(prof_knobs)}): "
+              f"wall {wall:.3f} s, device busy {busy:.3f} s "
+              f"({100 * busy / wall:.1f}%) on {card}; top kernels "
+              + "; ".join(f"{n[:60]} {t * 1e3:.1f} ms" for n, t in top),
+              flush=True)
+
+        # Deploy the best trials.
+        best = meta.get_best_trials_of_train_job(job["id"],
+                                                 max_count=AUTOML_DEPLOY)
+        check(len(best) == AUTOML_DEPLOY, f"{len(best)} trials to deploy")
+        loaded = [params.load(t["params_id"]) for t in best]
+        workers = [InferenceWorker(TorchFeedForward, t["knobs"], p,
+                                   device="cuda").start()
+                   for t, p in zip(best, loaded)]
+        app = PredictorService(workers, device="cuda").start()
+        vds = load_image_dataset(val)
+        fixed = vds.images[:64]
+        try:
+            # (b) Five POST /predict checks: each served prediction is
+            # the mean of the two workers' own.
+            n_checked, worst = 0, 0.0
+            for i in range(5):
+                imgs = vds.images[8 * i:8 * i + 1 + i]
+                floats = (imgs.astype(np.float32) / 255.0).tolist()
+                body = ({"query": floats[0]} if i % 2 == 0
+                        else {"queries": floats})
+                status, resp, _ = post(app.url + "/predict", body)
+                check(status == 200, f"/predict answered {status}")
+                served = np.asarray([resp["prediction"]] if i % 2 == 0
+                                    else resp["predictions"])
+                qs = floats[:1] if i % 2 == 0 else floats
+                own = np.mean([w.predict(qs, timeout=60) for w in workers],
+                              axis=0)
+                err = float(np.abs(served - own).max())
+                worst = max(worst, err)
+                check(err <= TOL_ENSEMBLE, f"served prediction differs "
+                      f"from the workers' mean by {err:.3e}")
+                n_checked += len(qs)
+            print(f"automl: {AUTOML_DEPLOY} best trials (val accuracy "
+                  f"{[round(t['score'], 4) for t in best]}) deployed; 5 "
+                  f"POST /predict requests, {n_checked} queries: served = "
+                  f"mean of the workers' own predict, max |diff| "
+                  f"{worst:.3e} (tolerance {TOL_ENSEMBLE})", flush=True)
+            out["window"] = automl_window(
+                np, app.url, vds.images[:AUTOML_WINDOW], card)
+            profile(torch, lambda: workers[0].model.predict(list(fixed[:1])),
+                    "one worker's predict of one image", card, top=5)
+        finally:
+            app.stop()
+            for w in workers:
+                w.stop()
+
+        # (c) The card's probabilities against the CPU's, same params.
+        best_knobs = best[0]["knobs"]
+        on_card = TorchFeedForward(device="cuda", **best_knobs)
+        on_card.load_parameters(loaded[0])
+        on_cpu = TorchFeedForward(device="cpu", **best_knobs)
+        on_cpu.load_parameters(loaded[0])
+        diff = float(np.abs(on_card.predict_proba(fixed)
+                            - on_cpu.predict_proba(fixed)).max())
+        check(diff <= TOL_PROB, f"card vs CPU probabilities: {diff:.3e}")
+        print(f"automl: (c) best trial's probabilities for {len(fixed)} val "
+              f"images, card vs CPU plain path: max |diff| {diff:.3e} "
+              f"(tolerance {TOL_PROB})", flush=True)
+
+        # (d) A params file written on the card loads back bit-exactly.
+        dumped = on_card.dump_parameters()
+        pid = params.save(dumped, session_id="roundtrip")
+        back = params.load(pid)
+        check(set(back) == set(dumped) and all(
+            back[k].dtype == np.asarray(dumped[k]).dtype
+            and np.array_equal(back[k], dumped[k]) for k in dumped),
+            "a params file written on the card did not load back exactly")
+        again = TorchFeedForward(device="cuda", **best_knobs)
+        again.load_parameters(back)
+        check(np.array_equal(again.predict_proba(fixed),
+                             on_card.predict_proba(fixed)),
+              "reloaded params predict differently")
+        size = os.path.getsize(os.path.join(params.params_dir,
+                                            f"{pid}.safetensors"))
+        print(f"automl: (d) params file written on the card ({size} bytes, "
+              f"{len(dumped)} tensors) loaded back bit for bit", flush=True)
+        for m in (on_card, on_cpu, again):
+            m.destroy()
+        params.close()
+        meta.close()
+
+    # (e) The phase ran none of the attention kernels.
+    launches = launch_counts(attn)
+    check(launches[:3] == (0, 0, 0),
+          f"the automl phase launched K1/K2/K3 {launches[:3]}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"automl: (e) K1, K2 and K3 launched 0 times in the phase; phase "
+          f"took {phase_s:.1f} s", flush=True)
+    out.update(trials=trials, search_s=search_s,
+               trials_per_hour=AUTOML_TRIALS * 3600 / search_s,
+               busy_share=busy / wall, phase_s=phase_s)
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1384,6 +1735,7 @@ def main() -> int:
         params, train_launches = train_phase(torch, np, attn, card)
         serve_launches = slice_phase(torch, np, attn, card, params)
         gen_launches, gen = generate_phase(torch, np, attn, card, params)
+        automl_phase(torch, np, attn, card)
     except Exception:
         traceback.print_exc()
         return 1

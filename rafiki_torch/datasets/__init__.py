@@ -1,5 +1,8 @@
-"""Synthetic datasets of the port (no network: made from a seed)."""
+"""Datasets of the port (no network: made from a seed, or shipped
+inside scikit-learn)."""
 
-from .synth import make_synthetic_token_dataset
+from .real import prepare_sklearn_digits
+from .synth import make_synthetic_image_dataset, make_synthetic_token_dataset
 
-__all__ = ["make_synthetic_token_dataset"]
+__all__ = ["make_synthetic_image_dataset", "make_synthetic_token_dataset",
+           "prepare_sklearn_digits"]

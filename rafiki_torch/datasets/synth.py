@@ -1,8 +1,9 @@
-"""Synthetic learnable token streams for tests and the chip smoke run.
+"""Synthetic learnable datasets for tests and the chip smoke run.
 
-The port's copy of ``make_synthetic_token_dataset`` from
-``rafiki_tpu/datasets/synth.py``: the same seed gives the same stream in
-both packages.
+The port's copies of ``make_synthetic_image_dataset`` and
+``make_synthetic_token_dataset`` from ``rafiki_tpu/datasets/synth.py``:
+they draw from the same generators in the same order, so the same seed
+writes the same bytes in both packages.
 """
 
 from __future__ import annotations
@@ -12,7 +13,44 @@ from typing import Tuple
 
 import numpy as np
 
-from ..model.dataset import write_token_dataset
+from ..model.dataset import write_image_dataset_npz, write_token_dataset
+
+
+def make_synthetic_image_dataset(
+        out_dir: str,
+        n_train: int = 512,
+        n_val: int = 128,
+        image_shape: Tuple[int, int, int] = (28, 28, 1),
+        n_classes: int = 10,
+        noise: float = 0.25,
+        seed: int = 0,
+        name: str = "synth") -> Tuple[str, str]:
+    """Write train/val packed image datasets; returns their paths.
+
+    Each class has a random template; an image is its class's template
+    plus Gaussian noise, clipped to [0, 1] and stored as uint8. A working
+    classifier separates the classes; a broken one stays at chance.
+    """
+    rng = np.random.default_rng(seed)
+    templates = rng.uniform(0, 1, size=(n_classes, *image_shape))
+
+    def make(n, seed2):
+        r = np.random.default_rng(seed2)
+        labels = r.integers(0, n_classes, size=n)
+        imgs = templates[labels] + r.normal(0, noise, size=(n, *image_shape))
+        imgs = np.clip(imgs, 0, 1)
+        return (imgs * 255).astype(np.uint8), labels
+
+    os.makedirs(out_dir, exist_ok=True)
+    tr_imgs, tr_labels = make(n_train, seed + 1)
+    va_imgs, va_labels = make(n_val, seed + 2)
+    train_path = write_image_dataset_npz(
+        tr_imgs, tr_labels, os.path.join(out_dir, f"{name}_train.npz"),
+        n_classes)
+    val_path = write_image_dataset_npz(
+        va_imgs, va_labels, os.path.join(out_dir, f"{name}_val.npz"),
+        n_classes)
+    return train_path, val_path
 
 
 def make_synthetic_token_dataset(

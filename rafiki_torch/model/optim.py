@@ -1,17 +1,26 @@
-"""The optimizer of the port's train loops.
+"""The optimizers of the port's train loops.
 
-The reference trains with ``optax.adamw`` under
+The reference's language model trains with ``optax.adamw`` under
 ``optax.warmup_cosine_decay_schedule``. The port pairs
 ``torch.optim.AdamW`` at optax's defaults (``betas=(0.9, 0.999)``,
 ``eps=1e-8``, ``weight_decay=1e-4``; torch's own default decay is 0.01)
 with the same schedule, evaluated at the update count from 0 as optax
 evaluates it.
+
+The reference's image models (``JaxModel``) train with Adam under a
+cosine decay to ``alpha`` 0.01 over every step of the run, scaled by the
+trial's learning rate (``jax_model.py:373-381`` and ``:412-448``).
+``ScheduledOptimizer`` is their counterpart: optax's ``scale_by_adam``
+puts eps outside the square root, as ``torch.optim.Adam`` does, and
+``scale_by_schedule`` evaluates the schedule at the update count
+*before* its increment (0 on the first step), so the lr of update ``k``
+(from 0) is ``learning_rate * schedule(k)``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import torch
 
@@ -39,6 +48,104 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
         return peak_value * ((1 - alpha) * cosine + alpha)
 
     return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Schedule:
+    """``init_value`` times a cosine from 1 down to ``alpha`` over
+    ``decay_steps``, then ``alpha``, as optax defines it."""
+    if not decay_steps > 0:
+        raise ValueError("the cosine decay requires positive decay_steps, "
+                         f"got {decay_steps}")
+
+    def schedule(count: int) -> float:
+        c = min(count, decay_steps)
+        cosine = 0.5 * (1 + math.cos(math.pi * c / decay_steps))
+        return init_value * ((1 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+class ScheduledOptimizer:
+    """A torch optimizer whose lr is ``peak_lr * schedule(count)``,
+    set before each step from the number of steps taken so far.
+
+    On the card the optimizer holds its lr as a device tensor
+    (``fused`` and ``capturable``), so that a CUDA graph can capture
+    ``device_step``: it reads the lr from a device table of the schedule
+    at a device step counter. ``step`` writes the same f32 value into
+    that tensor from the host, so both give the same updates."""
+
+    def __init__(self, opt: torch.optim.Optimizer, peak_lr: float,
+                 schedule: Schedule, total_steps: int):
+        self.opt = opt
+        self.peak_lr = float(peak_lr)
+        self.schedule = schedule
+        self.total_steps = int(total_steps)
+        self.count = 0
+        lr = opt.param_groups[0]["lr"]
+        self._lr = lr if isinstance(lr, torch.Tensor) else None
+        self._table: Optional[torch.Tensor] = None
+        self._count: Optional[torch.Tensor] = None
+        if self._lr is not None:
+            # Made before any capture: a graph cannot copy from the host.
+            self._table = torch.tensor(
+                [self.peak_lr * schedule(k)
+                 for k in range(self.total_steps + 1)],
+                dtype=self._lr.dtype, device=self._lr.device)
+            self._count = torch.zeros((), dtype=torch.int64,
+                                      device=self._lr.device)
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        lr = self.peak_lr * self.schedule(self.count)
+        if self._lr is None:
+            for group in self.opt.param_groups:
+                group["lr"] = lr
+        else:
+            self._lr.fill_(lr)
+            self._count.add_(1)
+        self.opt.step()
+        self.count += 1
+
+    def device_step(self) -> None:
+        """``step`` with the count and the lr on the device, for capture
+        in a CUDA graph; it continues from the steps taken by ``step``.
+        The schedule is constant past ``total_steps``."""
+        if self._lr is None:
+            raise RuntimeError("the optimizer's lr is not a device tensor")
+        at = torch.clamp(self._count, max=self.total_steps).view(1)
+        self._lr.copy_(self._table.index_select(0, at).view(()))
+        self.opt.step()
+        self._count.add_(1)
+
+
+def scheduled_adam(params: Iterable[torch.nn.Parameter], peak_lr: float,
+                   total_steps: int, weight_decay: float = 0.0
+                   ) -> ScheduledOptimizer:
+    """Adam (AdamW when ``weight_decay`` > 0) at optax's defaults under
+    the cosine decay of ``JaxModel``'s optimizers: ``alpha`` 0.01 over
+    ``total_steps``. On the card the update runs as torch's fused
+    kernel, with the lr a device tensor that a CUDA graph can capture."""
+    params = list(params)
+    total_steps = max(1, total_steps)
+    kw = dict(betas=(0.9, 0.999), eps=1e-8)
+    device = params[0].device
+    if device.type == "cuda":
+        kw.update(fused=True, capturable=True)
+        lr = torch.tensor(float(peak_lr), dtype=torch.float32, device=device)
+    else:
+        lr = float(peak_lr)
+    if weight_decay > 0:
+        opt: torch.optim.Optimizer = torch.optim.AdamW(
+            params, lr=lr, weight_decay=weight_decay, **kw)
+    else:
+        opt = torch.optim.Adam(params, lr=lr, **kw)
+    return ScheduledOptimizer(
+        opt, peak_lr, cosine_decay_schedule(1.0, total_steps, alpha=0.01),
+        total_steps)
 
 
 def adamw(params: Iterable[torch.nn.Parameter], lr: float

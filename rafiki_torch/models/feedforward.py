@@ -1,0 +1,101 @@
+"""TorchFeedForward: the port of ``JaxFeedForward``.
+
+The counterpart of ``rafiki_tpu/models/feedforward.py:38-108``: the same
+knob config and the same masked supernet of ``MAX_LAYERS`` hidden layers
+of ``MAX_UNITS`` units. A width mask multiplies each ReLU output, so
+units beyond ``hidden_layer_units`` feed zeros forward; layer 0 always
+runs, and a deeper layer passes its input through where the count mask
+is 0. Eager PyTorch has no recompile for the masks to avoid, but they
+stay: the parameters keep the supernet's shapes, so the two packages'
+parameter files and warm starts interchange.
+
+Each ``Dense`` runs as flax's ``Dense(dtype=bfloat16)`` does: a bf16
+input, a bf16 cast of the f32 kernel, the product rounded to bf16, then
+the bf16 bias added in bf16; the logits leave in bf16 and are cast to
+f32 for the loss and the softmax. The parameters start from flax's
+default initialisers (a truncated-normal LeCun kernel, a zero bias),
+drawn from the ``seed`` knob with torch's generator.
+
+Not ported yet: ``quantized_apply`` (int8 serving) and
+``stack_signature`` (stacked ensembles).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..model import CategoricalKnob, FixedKnob, FloatKnob, IntegerKnob
+from ..model.torch_model import TorchModel
+
+MAX_LAYERS = 3
+MAX_UNITS = 128
+
+# flax's lecun_normal: variance 1/fan_in of a normal truncated at two
+# standard deviations, rescaled by the truncation's std (0.8796...).
+_TRUNC_STD = 0.87962566103423978
+
+
+def _dense(layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
+    """flax ``Dense(dtype=bfloat16)``: product and bias add in bf16."""
+    y = F.linear(h, layer.weight.to(torch.bfloat16))
+    return y + layer.bias.to(torch.bfloat16)
+
+
+class _FeedForward(nn.Module):
+    """The masked supernet. Layers are named as the flax module's
+    (``Dense_0`` … ``Dense_{MAX_LAYERS}``)."""
+
+    def __init__(self, in_features: int, n_classes: int, seed: int):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        widths = [in_features] + [MAX_UNITS] * MAX_LAYERS + [n_classes]
+        for i in range(MAX_LAYERS + 1):
+            layer = nn.Linear(widths[i], widths[i + 1])
+            std = math.sqrt(1.0 / widths[i]) / _TRUNC_STD
+            with torch.no_grad():
+                nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std,
+                                      b=2 * std, generator=gen)
+                layer.bias.zero_()
+            setattr(self, f"Dense_{i}", layer)
+
+    def forward(self, x: torch.Tensor, hidden_layer_count: torch.Tensor,
+                hidden_layer_units: torch.Tensor) -> torch.Tensor:
+        h = x.reshape(x.shape[0], -1).to(torch.bfloat16)
+        units = hidden_layer_units.to(torch.bfloat16)
+        for i in range(MAX_LAYERS):
+            y = torch.relu(_dense(getattr(self, f"Dense_{i}"), h)) * units
+            h = y if i == 0 else torch.where(hidden_layer_count[i] > 0, y, h)
+        return _dense(getattr(self, f"Dense_{MAX_LAYERS}"), h)
+
+
+class TorchFeedForward(TorchModel):
+
+    @staticmethod
+    def get_knob_config():
+        return {
+            "hidden_layer_count": IntegerKnob(1, MAX_LAYERS),
+            "hidden_layer_units": IntegerKnob(16, MAX_UNITS),
+            "learning_rate": FloatKnob(1e-4, 1e-2, is_exp=True),
+            "batch_size": CategoricalKnob([32, 64, 128]),
+            "max_epochs": FixedKnob(5),
+        }
+
+    def create_module(self, n_classes: int, image_shape: Sequence[int]):
+        return _FeedForward(int(np.prod(image_shape)), n_classes,
+                            seed=int(self.knobs.get("seed", 0)))
+
+    def extra_apply_inputs(self) -> Dict[str, np.ndarray]:
+        count = int(self.knobs.get("hidden_layer_count", MAX_LAYERS))
+        units = int(self.knobs.get("hidden_layer_units", MAX_UNITS))
+        return {
+            "hidden_layer_count":
+                (np.arange(MAX_LAYERS) < count).astype(np.float32),
+            "hidden_layer_units":
+                (np.arange(MAX_UNITS) < units).astype(np.float32),
+        }

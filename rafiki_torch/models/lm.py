@@ -342,23 +342,36 @@ class TorchTransformerLM(BaseModel):
     def predict(self, queries: List[Any]) -> List[Any]:
         """Scores token-id sequences: mean next-token log-probability
         per query. One padded forward per query, as the reference does;
-        a query with fewer than 2 ids scores 0.0."""
+        a query with fewer than 2 ids scores 0.0.
+
+        Ids are checked on the host before anything launches, and each
+        query gets the reference's answer: a negative id wraps once, as
+        numpy-style indexing does; an input id still outside ``[0, V)``
+        is clamped into it, as JAX's embedding gather clamps; a target
+        id still outside it scores ``nan``, as JAX's
+        ``take_along_axis`` fills, and such a query launches nothing."""
         if not queries:
             return []
-        t = self._dims()["t"]
+        s = self._dims()
+        t, v = s["t"], s["v"]
         out = []
         for q in queries:
-            ids = np.asarray(list(q), np.int64)[:t + 1]
+            ids = np.asarray(list(q), np.int32)[:t + 1].astype(np.int64)
             if ids.size < 2:
                 out.append(0.0)
                 continue
+            ids = np.where(ids < 0, ids + v, ids)
+            tgt = ids[1:]
+            if ((tgt < 0) | (tgt >= v)).any():
+                out.append(float("nan"))
+                continue
             pad = np.zeros((t + 1,), np.int64)
-            pad[:ids.size] = ids
+            pad[:ids.size] = np.clip(ids, 0, v - 1)
             logits = self._forward(
                 torch.from_numpy(pad[None, :-1]).to(self.device))[0]
             lp = torch.log_softmax(logits, -1)
             n = ids.size - 1
-            tgt = torch.from_numpy(ids[1:, None]).to(self.device)
+            tgt = torch.from_numpy(tgt[:, None]).to(self.device)
             out.append(float(lp[:n].gather(-1, tgt).mean()))
         return out
 

@@ -16,7 +16,10 @@ The counterparts of ``PredictorService._predict`` and ``_generate`` in
   ``{"done": true, "finish": "timeout"}`` line after the timeout.
 
 Every query goes to every worker; each query's per-worker predictions
-combine through ``ensemble_predictions``. A generate request goes to one
+combine through ``ensemble_predictions``, which skips a worker's error
+reply: the request answers 200 with the other workers' ensemble, or
+``null`` when every worker failed. A worker that does not answer within
+the timeout makes the request a 504. A generate request goes to one
 generating worker, round-robin. The reference's micro-batcher, edge
 cache, workload records and tenant attribution are not ported yet.
 """

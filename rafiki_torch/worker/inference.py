@@ -18,8 +18,15 @@ the reference logs a failed engine construction and serves on without
 generation, this worker raises: a worker asked to generate that cannot
 is a fault.
 
-The reference's bus, meta store, param store, stacking and pipelining
-are not ported yet.
+A ``predict`` that raises answers each of its queries with
+``{"error": "<Type>: <msg>"}``, as the reference's worker does, so one
+failing worker does not fail the request. The worker serves any
+``BaseModel`` of the port through ``model.predict``: the flagship LM's
+scores and ``TorchFeedForward``'s class probabilities alike, the latter
+built from ``(model_class, knobs, ParamStore.load(trial["params_id"]))``
+for each of a train job's best trials.
+
+The reference's bus, stacking and pipelining are not ported yet.
 """
 
 from __future__ import annotations
@@ -183,11 +190,13 @@ class InferenceWorker:
             queries = [q for qs, _ in batch for q in qs]
             try:
                 preds = self.model.predict(queries)
-            except Exception as e:  # reported to every caller
+            except Exception as e:
+                # One error reply per query, as the reference's worker
+                # answers (``rafiki_tpu/worker/inference.py:1097-1101``,
+                # :1145-1148): the predictor's ensemble skips it and
+                # answers with the other workers' predictions.
                 _log.exception("predict failed for %d queries", len(queries))
-                for _, fut in batch:
-                    fut.set_exception(e)
-                continue
+                preds = [{"error": f"{type(e).__name__}: {e}"}] * len(queries)
             i = 0
             for qs, fut in batch:
                 fut.set_result(preds[i:i + len(qs)])

@@ -101,3 +101,34 @@ def test_k1_at_the_edge_buckets_takes_wgmma(card, t):
     assert bool(((o.float() - ro.float()).abs()
                  <= 1e-3 + 1.6e-2 * ro.float().abs()).all())
     assert bool(((lse - rl).abs() <= 1e-4 + 1e-6 * rl.abs()).all())
+
+
+def test_out_of_vocabulary_query_leaves_the_worker_serving(card):
+    """F1 on the card: a scored query with an id past the vocabulary
+    answers nan without a launch, and the same worker then still scores
+    a query as before and still generates."""
+    from rafiki_torch.worker import InferenceWorker
+
+    gen = {"page_size": 16, "n_pages": 64, "decode_batch": 4,
+           "max_new_cap": 32, "prefix_cache_entries": 4}
+    worker = InferenceWorker(TorchTransformerLM, KNOBS, _params(),
+                             device=card, generate=gen).start()
+    try:
+        good = list(range(1, 40))
+        before = worker.predict([good], timeout=120)[0]
+        bad = worker.predict([[1, 2, 600], [600, 1, 2], [1, -513, 3]],
+                             timeout=120)
+        torch.cuda.synchronize()
+        assert np.isnan(bad[0]) and np.isnan(bad[2])
+        assert np.isfinite(bad[1])
+        assert worker.predict([good], timeout=120)[0] == before
+        qid = worker.generate(good, max_new=8)
+        frames = []
+        while not (frames and frames[-1].get("done")):
+            got = worker.frames.pop_token_frames(qid, timeout=60)
+            assert got, "no token frame within 60 s"
+            frames.extend(got)
+        assert frames[-1]["finish"] == "length"
+        assert sum(len(f["tok"]) for f in frames) == 8
+    finally:
+        worker.stop()

@@ -45,7 +45,14 @@ def test_importing_the_port_loads_no_jax():
                 "rafiki_torch.models.lm_generate",
                 "rafiki_torch.worker.decode_scheduler",
                 "rafiki_torch.predictor.app", "rafiki_torch.cache",
-                "rafiki_torch.predictor.edge_cache"):
+                "rafiki_torch.predictor.edge_cache",
+                "rafiki_torch.constants", "rafiki_torch.model.torch_model",
+                "rafiki_torch.model.dev", "rafiki_torch.models.feedforward",
+                "rafiki_torch.datasets.real", "rafiki_torch.advisor",
+                "rafiki_torch.advisor.random_advisor",
+                "rafiki_torch.store.meta", "rafiki_torch.store.params",
+                "rafiki_torch.store.tensorfile",
+                "rafiki_torch.worker.runner"):
         assert mod in mods, mod
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -57,6 +64,47 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# Packages this sandbox has and the card's machine does not.
+ABSENT_ON_THE_CARD = ("sklearn", "safetensors", "PIL")
+
+
+def test_the_port_imports_without_the_packages_the_card_lacks():
+    """Every port module imports with ``sklearn``, ``safetensors`` and
+    ``PIL`` blocked, as on the card's machine; no port module loads
+    them at import."""
+    mods = list(_port_modules())
+    code = (f"import importlib, importlib.abc, sys\n"
+            f"class Block(importlib.abc.MetaPathFinder):\n"
+            f"    def find_spec(self, name, path=None, target=None):\n"
+            f"        if name.split('.')[0] in {ABSENT_ON_THE_CARD!r}:\n"
+            f"            raise ImportError(f'{{name}} is blocked')\n"
+            f"        return None\n"
+            f"sys.meta_path.insert(0, Block())\n"
+            f"for m in {mods!r}:\n"
+            f"    importlib.import_module(m)\n"
+            f"loaded = sorted(m for m in sys.modules\n"
+            f"                if m.split('.')[0] in {ABSENT_ON_THE_CARD!r})\n"
+            f"print(loaded)\n"
+            f"sys.exit(1 if loaded else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_block_does_block():
+    """The finder of the test above refuses what it names."""
+    code = ("import importlib.abc, sys\n"
+            "class Block(importlib.abc.MetaPathFinder):\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] == 'safetensors':\n"
+            "            raise ImportError('blocked')\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "import safetensors\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "blocked" in out.stderr
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -91,7 +139,8 @@ KNOBS = {"d_model": 256, "n_layers": 2, "seq_len": 256, "batch_size": 4,
          "quick_train": False}
 
 
-@pytest.mark.parametrize("entry", ["device", "model", "worker", "app"])
+@pytest.mark.parametrize("entry", ["device", "model", "worker", "app",
+                                   "feedforward", "runner", "model_class"])
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_entry_points_raise_without_a_card(entry, device):
     if torch.cuda.is_available():
@@ -106,6 +155,20 @@ def test_entry_points_raise_without_a_card(entry, device):
             resolve_device(device)
         elif entry == "model":
             TorchTransformerLM(device=device, **KNOBS)
+        elif entry == "feedforward":
+            from rafiki_torch.models import TorchFeedForward
+            TorchFeedForward(device=device)
+        elif entry == "runner":
+            from rafiki_torch.models import TorchFeedForward
+            from rafiki_torch.store import MetaStore
+            from rafiki_torch.worker import TrialRunner
+            TrialRunner(TorchFeedForward, None, "t.npz", "v.npz",
+                        MetaStore(":memory:"), None, "sub", device=device)
+        elif entry == "model_class":
+            from rafiki_torch.model import test_model_class
+            from rafiki_torch.models import TorchFeedForward
+            test_model_class(TorchFeedForward, "IMAGE_CLASSIFICATION",
+                             "t.npz", "v.npz", device=device)
         elif entry == "worker":
             InferenceWorker(TorchTransformerLM, KNOBS, _tiny_params(),
                             device=device)

@@ -110,11 +110,14 @@ def test_worker_coalesces_concurrent_callers(served):
 
 
 def test_predict_errors_reach_the_caller():
+    """A failed ``predict`` reaches the caller as one error reply per
+    query, as the reference's worker answers, and the worker serves on."""
     worker = InferenceWorker(TorchTransformerLM, KNOBS, _params(),
                              device="cpu").start()
     try:
-        with pytest.raises(TypeError):
-            worker.predict([None], timeout=60)   # not a list of ids
+        reply = worker.predict([None, [1, 2]], timeout=60)  # None: no ids
+        assert len(reply) == 2 and reply[0] == reply[1]
+        assert reply[0]["error"].startswith("TypeError: ")
         assert worker.predict([[1, 2, 3]], timeout=60)[0] < 0
     finally:
         worker.stop()
