@@ -94,9 +94,32 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    own, (c) the card's probabilities match the CPU plain path's for the
    same parameters, (d) a params file written on the card loads back
    bit for bit, (e) K1, K2 and K3 did not launch in the phase;
-9. prints a ``{"kernels": [...]}`` line, in which ``library_covers``
-   names the kernels whose work one library call does, and, last, the
-   ``{"ok": true, "device": ...}`` line.
+9. platform phase, Rafiki's platform driven as a user drives it: a
+   ``LocalPlatform`` on its default device (CUDA) with the admin REST
+   service, and ``Client`` over HTTP. (a) The quickstart's flow on
+   ``TorchFeedForward`` on a freshly made copy of the automl phase's set:
+   a developer registers the model, a train job of 4 trials runs through
+   the advisor service and a train worker (its trials per hour printed
+   beside the automl phase's in-process figure, with each trial's
+   seconds), the 2 best trials deploy as one worker serving the bin of
+   both (one card), 5 checked requests each equal the float64 mean of
+   the two members' own ``predict`` within 1e-6, and a window of 256
+   single-image requests from 8 clients gives queries/s and latency
+   percentiles; (b) while (a)'s job serves, a second train job of 2
+   trials trains time-sliced on the same card, and every answer to a
+   fixed set of 16 images during and after it must equal the answer
+   before, bit for bit; (c) ``FlagshipLM``, a ``TorchTransformerLM``
+   subclass whose knob space pins the flagship width, uploaded as
+   ``model_source``, trains one ``LANGUAGE_MODELING`` trial on a
+   synthetic Markov stream (K1, K2 and K3), deploys, and answers 4 queries
+   of 2048 ids through ``POST /predict`` exactly as a directly built
+   ``TorchTransformerLM`` on the same params file does; K1, K2 and K3
+   must have launched, all on wgmma, and none in (a) and (b);
+10. prints a ``{"kernels": [...]}`` line, in which ``library_covers``
+   names the kernels whose work one library call does and
+   ``platform_launches`` the platform phase's launches (counted in
+   ``launches`` too), and, last, the ``{"ok": true, "device": ...}``
+   line.
 
 Any failed check exits non-zero without the last line.
 """
@@ -200,6 +223,35 @@ TOL_PROB = 3.9e-3
 TOL_ENSEMBLE = 1e-6
 AUTOML_WINDOW = 256
 AUTOML_CLIENTS = 8
+
+# The platform phase: the quickstart's flow through LocalPlatform and
+# the Client over HTTP, on the automl phase's set and trial count. The
+# two best trials serve as one worker with a two-trial bin (one card).
+PLATFORM_DEPLOY = 2
+PLATFORM_CHECKED = 5
+# (b): the second train job that trains, time-sliced on the same card,
+# while (a)'s inference job serves.
+SHARED_TRIALS = 2
+SHARED_PROBES = 16
+# (c): the flagship LM, uploaded as model_source: a subclass whose knob
+# space pins the flagship width (the base space would let the advisor
+# draw up to 20,000 steps).
+LM_SOURCE = """
+from rafiki_torch.model import FixedKnob
+from rafiki_torch.models.lm import TorchTransformerLM
+
+
+class FlagshipLM(TorchTransformerLM):
+    @staticmethod
+    def get_knob_config():
+        cfg = dict(TorchTransformerLM.get_knob_config())
+        cfg.update(d_model=FixedKnob(2048), n_layers=FixedKnob(8),
+                   seq_len=FixedKnob(2048), vocab_size=FixedKnob(32768),
+                   batch_size=FixedKnob(8), train_steps=FixedKnob(16),
+                   learning_rate=FixedKnob(3e-4))
+        return cfg
+"""
+LM_QUERIES = 4
 
 
 class SmokeFailure(Exception):
@@ -1703,6 +1755,266 @@ def automl_phase(torch, np, attn, card):
     return out
 
 
+def wait_train(client, job_id):
+    """Wait for a train job to end (polled at 0.1 s); its final row."""
+    return client.wait_until_train_job_done(job_id, timeout=900, poll=0.1)
+
+
+def platform_window(np, client, host, images, card):
+    """``AUTOML_WINDOW`` single-image ``Client.predict`` calls from
+    ``AUTOML_CLIENTS`` threads at once: queries per second and latency
+    percentiles."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(img):
+        t0 = time.perf_counter()
+        p = client.predict(host, query=img)["prediction"]
+        dt = time.perf_counter() - t0
+        check(len(p) == AUTOML_DATA["n_classes"]
+              and abs(sum(p) - 1.0) < 1e-4, f"not a distribution: {p}")
+        return dt
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(AUTOML_CLIENTS) as pool:
+        lat = sorted(pool.map(one, list(images)))
+    secs = time.perf_counter() - t0
+    pct = {q: lat[min(len(lat) - 1, int(q / 100 * len(lat)))] * 1e3
+           for q in (50, 90, 99)}
+    print(f"platform: (a) window of {len(lat)} single-image requests from "
+          f"{AUTOML_CLIENTS} clients through Client.predict to one worker "
+          f"serving a {PLATFORM_DEPLOY}-trial bin: {len(lat) / secs:.2f} "
+          f"queries/s; latency p50 {pct[50]:.2f} ms, p90 {pct[90]:.2f} ms, "
+          f"p99 {pct[99]:.2f} ms on {card}", flush=True)
+    return {"qps": len(lat) / secs, "p50_ms": pct[50], "p90_ms": pct[90],
+            "p99_ms": pct[99]}
+
+
+def platform_phase(torch, np, attn, card, automl):
+    """Rafiki's platform on the card, driven as a user drives it: a
+    ``LocalPlatform`` (its default device, CUDA) with the admin REST
+    service, and ``Client`` over HTTP. (a) the quickstart's flow on
+    TorchFeedForward: ``AUTOML_TRIALS`` trials proposed by the advisor
+    service, the 2 best deployed (one worker, a two-trial bin, on one
+    card), checked requests and a window; (b) a second train job
+    time-sliced on the card while (a)'s job serves, which must not move
+    (a)'s answers by a bit; (c) the flagship LM uploaded as
+    ``model_source``, one trial trained on K1, K2 and K3 and served on
+    K1. Returns the phase's numbers and (c)'s K1, K2 and K3 launches."""
+    import os
+    import tempfile
+
+    from rafiki_torch.client import Client
+    from rafiki_torch.constants import (BudgetOption, TaskType, TrialStatus,
+                                        UserType)
+    from rafiki_torch.datasets import (make_synthetic_image_dataset,
+                                       make_synthetic_token_dataset)
+    from rafiki_torch.model.dataset import load_image_dataset
+    from rafiki_torch.models import TorchFeedForward, TorchTransformerLM
+    from rafiki_torch.platform import LocalPlatform
+
+    t_phase = time.perf_counter()
+    reset_launch_counts(attn)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        train, val = make_synthetic_image_dataset(
+            os.path.join(tmp, "images"), seed=SEED, **AUTOML_DATA)
+        vds = load_image_dataset(val)
+        p = LocalPlatform(workdir=os.path.join(tmp, "platform"), http=True)
+        try:
+            check(p.allocator.n_chips == torch.cuda.device_count(),
+                  f"the allocator counts {p.allocator.n_chips} chips")
+            root = Client(admin_port=p.admin_port)
+            root.login("superadmin@rafiki", "rafiki")
+            root.create_user("dev@example.com", "pw",
+                             UserType.MODEL_DEVELOPER)
+            dev = Client(admin_port=p.admin_port)
+            dev.login("dev@example.com", "pw")
+            model = dev.create_model(
+                "ff", TaskType.IMAGE_CLASSIFICATION,
+                "rafiki_torch.models.feedforward:TorchFeedForward")
+
+            # (a) The search through the advisor and train services.
+            t0, wall0 = time.perf_counter(), time.time()
+            job = dev.create_train_job(
+                "smoke", TaskType.IMAGE_CLASSIFICATION, [model["id"]],
+                {BudgetOption.MODEL_TRIAL_COUNT: AUTOML_TRIALS}, train, val)
+            done = wait_train(dev, job["id"])
+            search_s = time.perf_counter() - t0
+            check(done["status"] == "STOPPED", f"train job {done['status']}")
+            trials = dev.get_trials_of_train_job(job["id"])
+            check(len(trials) == AUTOML_TRIALS and all(
+                t["status"] == TrialStatus.COMPLETED
+                and t["score"] >= AUTOML_MIN_ACC for t in trials),
+                f"trials: {[(t['status'], t['score']) for t in trials]}")
+            tph = AUTOML_TRIALS * 3600 / search_s
+            rows = sorted((p.meta.get_trial(t["id"]) for t in trials),
+                          key=lambda r: r["started_at"])
+            trial_s = [r["finished_at"] - r["started_at"] for r in rows]
+            print(f"platform: (a) train job of {AUTOML_TRIALS} trials "
+                  f"(advisor service, random, seed 0) through the admin "
+                  f"REST service: STOPPED in {search_s:.2f} s, "
+                  f"{tph:.1f} trials/hour, against "
+                  f"{automl['trials_per_hour']:.1f} in process (automl "
+                  f"phase; the platform's own cost: "
+                  f"{search_s - automl['search_s']:.2f} s); first trial "
+                  f"started {rows[0]['started_at'] - wall0:.2f} s after the "
+                  f"request, trials {[round(x, 2) for x in trial_s]} s, the "
+                  f"last ended {wall0 + search_s - rows[-1]['finished_at']:.2f}"
+                  f" s before STOPPED was read; knobs "
+                  f"{[r['knobs'] for r in rows]}; val accuracy "
+                  f"{[round(t['score'], 4) for t in trials]} on {card}",
+                  flush=True)
+
+            inf = dev.create_inference_job(job["id"],
+                                           max_models=PLATFORM_DEPLOY)
+            bins = [w["trial_id"] for w in
+                    p.meta.get_inference_job_workers(inf["id"])
+                    if w["trial_id"] != "__predictor__"]
+            check(len(bins) == 1 and sorted(bins[0].split(",")) ==
+                  sorted(inf["trial_ids"]),
+                  f"{PLATFORM_DEPLOY} trials on one card serve as bins "
+                  f"{bins}")
+            host = dev.get_inference_job(inf["id"])["predictor_host"]
+            members = []
+            for tid in inf["trial_ids"]:
+                row = p.meta.get_trial(tid)
+                m = TorchFeedForward(device="cuda", **row["knobs"])
+                m.load_parameters(p.params.load(row["params_id"]))
+                members.append(m)
+            worst, n_checked = 0.0, 0
+            for i in range(PLATFORM_CHECKED):
+                imgs = [vds.images[8 * i + j] for j in range(1 + i)]
+                if i % 2 == 0:
+                    served = [dev.predict(host, query=imgs[0])
+                              ["prediction"]]
+                    imgs = imgs[:1]
+                else:
+                    served = dev.predict(host, queries=imgs)["predictions"]
+                own = np.mean(np.asarray([m.predict(imgs) for m in members],
+                                         np.float64), axis=0)
+                err = float(np.abs(np.asarray(served) - own).max())
+                worst = max(worst, err)
+                check(err <= TOL_ENSEMBLE, f"served differs from the "
+                      f"members' mean by {err:.3e}")
+                n_checked += len(imgs)
+            print(f"platform: (a) inference job: 1 worker serving the bin "
+                  f"{bins[0][:8]}...,{bins[0].split(',')[1][:8]}... on one "
+                  f"card; {PLATFORM_CHECKED} requests, {n_checked} queries: "
+                  f"served = float64 mean of the members' own predict, max "
+                  f"|diff| {worst:.3e} (tolerance {TOL_ENSEMBLE})",
+                  flush=True)
+            out["window"] = platform_window(
+                np, dev, host, vds.images[:AUTOML_WINDOW], card)
+
+            # (b) A second train job, time-sliced on the same card while
+            # (a)'s job serves: (a)'s answers must not move by a bit.
+            probes = [vds.images[i] for i in range(SHARED_PROBES)]
+            before = dev.predict(host, queries=probes)["predictions"]
+            job2 = dev.create_train_job(
+                "smoke-shared", TaskType.IMAGE_CLASSIFICATION,
+                [model["id"]], {BudgetOption.MODEL_TRIAL_COUNT: SHARED_TRIALS},
+                train, val)
+            svcs2 = [s for s in dev.get_services()
+                     if s["service_type"] == "TRAIN"
+                     and s["status"] in ("DEPLOYING", "RUNNING")]
+            check(bool(svcs2) and all(s["chips"] == [0] for s in svcs2),
+                  f"second job's train services {svcs2}")
+            t0 = time.perf_counter()
+            n_during = 0
+            while dev.get_train_job(job2["id"])["status"] == "RUNNING":
+                now = dev.predict(host, queries=probes)["predictions"]
+                check(now == before, "an answer moved while the second "
+                      "job trained on the card")
+                n_during += 1
+            shared_s = time.perf_counter() - t0
+            done2 = dev.get_train_job(job2["id"])
+            trials2 = dev.get_trials_of_train_job(job2["id"])
+            check(done2["status"] == "STOPPED" and len(trials2) ==
+                  SHARED_TRIALS and all(t["status"] == TrialStatus.COMPLETED
+                                        for t in trials2),
+                  f"second job {done2['status']}: "
+                  f"{[t['status'] for t in trials2]}")
+            check(n_during > 0, "no request was served while the second "
+                  "job trained")
+            check(dev.predict(host, queries=probes)["predictions"] == before,
+                  "an answer moved after the second job trained")
+            print(f"platform: (b) second train job of {SHARED_TRIALS} "
+                  f"trials time-sliced on the serving card (chips "
+                  f"{svcs2[0]['chips']}): STOPPED in {shared_s:.2f} s, val "
+                  f"accuracy {[round(t['score'], 4) for t in trials2]}; "
+                  f"{n_during} requests of {SHARED_PROBES} images served "
+                  f"meanwhile, every answer bit for bit the one before on "
+                  f"{card}", flush=True)
+            dev.stop_inference_job(inf["id"])
+            for m in members:
+                m.destroy()
+            launches_ab = launch_counts(attn)
+            check(launches_ab[:3] == (0, 0, 0),
+                  f"(a) and (b) launched K1/K2/K3 {launches_ab[:3]}")
+
+            # (c) The flagship LM, uploaded as model_source.
+            tok_train, tok_val = make_synthetic_token_dataset(
+                os.path.join(tmp, "tokens"), n_train=1 << 20,
+                n_val=1 << 16, vocab_size=FLAGSHIP["vocab_size"], seed=SEED)
+            lm = dev.create_model("flagship-lm", TaskType.LANGUAGE_MODELING,
+                                  "FlagshipLM", model_source=LM_SOURCE)
+            t0 = time.perf_counter()
+            job3 = dev.create_train_job(
+                "smoke-lm", TaskType.LANGUAGE_MODELING, [lm["id"]],
+                {BudgetOption.MODEL_TRIAL_COUNT: 1}, tok_train, tok_val)
+            done3 = wait_train(dev, job3["id"])
+            lm_train_s = time.perf_counter() - t0
+            (trial,) = dev.get_trials_of_train_job(job3["id"])
+            check(done3["status"] == "STOPPED"
+                  and trial["status"] == TrialStatus.COMPLETED,
+                  f"LM job {done3['status']}, trial {trial['status']}")
+            k = trial["knobs"]
+            check((k["d_model"], k["n_layers"], k["seq_len"],
+                   k["vocab_size"], k["batch_size"], k["train_steps"]) ==
+                  (2048, 8, 2048, 32768, 8, TRAIN_STEPS),
+                  f"the LM trial's knobs {k}")
+            train_launches = launch_counts(attn)
+            inf3 = dev.create_inference_job(job3["id"], max_models=1)
+            host3 = dev.get_inference_job(inf3["id"])["predictor_host"]
+            rng = np.random.default_rng(SEED)
+            queries = [rng.integers(0, k["vocab_size"], k["seq_len"]).tolist()
+                       for _ in range(LM_QUERIES)]
+            t0 = time.perf_counter()
+            served = dev.predict(host3, queries=queries)["predictions"]
+            serve_s = time.perf_counter() - t0
+            launches = launch_counts(attn)
+            direct = TorchTransformerLM(device="cuda", **k)
+            direct.load_parameters(p.params.load(trial["params_id"]))
+            own = direct.predict(queries)
+            direct.destroy()
+            check(served == own and all(math.isfinite(x) for x in served),
+                  f"served LM scores {served} != direct predict {own}")
+            check(all(x > 0 for x in launches[:3]),
+                  f"(c) launched K1/K2/K3 {launches[:3]}")
+            check(launches[3:] == launches[:3],
+                  f"(c) off the wgmma variants: {launches}")
+            print(f"platform: (c) FlagshipLM uploaded as model_source "
+                  f"(d_model 2048, 8 layers, 16 heads of 128, seq_len 2048, "
+                  f"vocab 32768, batch 8, {TRAIN_STEPS} steps): train job "
+                  f"STOPPED in {lm_train_s:.2f} s (val token accuracy "
+                  f"{trial['score']:.4f}); {LM_QUERIES} queries of "
+                  f"{k['seq_len']} ids through POST /predict in "
+                  f"{serve_s * 1e3:.1f} ms, scores {[round(x, 4) for x in served]} "
+                  f"= a directly built TorchTransformerLM's predict on the "
+                  f"same params file, exactly; launches K1 {launches[0]} "
+                  f"(training {train_launches[0]}), K2 {launches[1]}, K3 "
+                  f"{launches[2]}, all wgmma, on {card}", flush=True)
+            dev.stop_inference_job(inf3["id"])
+        finally:
+            p.shutdown()
+    phase_s = time.perf_counter() - t_phase
+    print(f"platform: phase took {phase_s:.1f} s", flush=True)
+    out.update(search_s=search_s, trials_per_hour=tph, ensemble_err=worst,
+               shared_s=shared_s, n_during=n_during, lm_train_s=lm_train_s,
+               phase_s=phase_s)
+    return out, launches[:3]
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1735,7 +2047,8 @@ def main() -> int:
         params, train_launches = train_phase(torch, np, attn, card)
         serve_launches = slice_phase(torch, np, attn, card, params)
         gen_launches, gen = generate_phase(torch, np, attn, card, params)
-        automl_phase(torch, np, attn, card)
+        automl = automl_phase(torch, np, attn, card)
+        _, plat_launches = platform_phase(torch, np, attn, card, automl)
     except Exception:
         traceback.print_exc()
         return 1
@@ -1743,17 +2056,21 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict(name="flash_fwd (K1)", route="cuda", source=src + "flash_fwd.cu",
              replaces="rafiki_tpu/ops/attention.py:162",
-             launches=train_launches[0] + serve_launches + gen_launches,
+             launches=(train_launches[0] + serve_launches + gen_launches
+                       + plat_launches[0]),
              generate_launches=gen_launches,
+             platform_launches=plat_launches[0],
              generate_buckets=gen["buckets"], **k1, **k1_train),
         dict(name="flash_bwd_dq (K2)", route="cuda",
              source=src + "flash_bwd_dq.cu",
              replaces="rafiki_tpu/ops/attention.py:338",
-             launches=train_launches[1], **k2),
+             launches=train_launches[1] + plat_launches[1],
+             platform_launches=plat_launches[1], **k2),
         dict(name="flash_bwd_dkv (K3)", route="cuda",
              source=src + "flash_bwd_dkv.cu",
              replaces="rafiki_tpu/ops/attention.py:401",
-             launches=train_launches[2], **k3)]}), flush=True)
+             launches=train_launches[2] + plat_launches[2],
+             platform_launches=plat_launches[2], **k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

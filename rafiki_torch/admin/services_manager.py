@@ -1,0 +1,423 @@
+"""ServicesManager: how many services each job gets, and on which chips.
+
+The port's copy of ``rafiki_tpu/admin/services_manager.py``: the
+resource is the node's CUDA devices (``ChipAllocator``), each service's
+environment carries its chip group as ``EnvVars.CHIPS``, and its worker
+runs on that group's device.
+
+Budget keys (the reference's):
+
+- ``MODEL_TRIAL_COUNT``: trials per model (the advisor caps them);
+- ``CHIP_COUNT``: chips for a model's search. Workers =
+  ``ceil(CHIP_COUNT / CHIPS_PER_TRIAL)``; 0 -> one worker on one chip.
+  ``GPU_COUNT`` is its alias;
+- ``CHIPS_PER_TRIAL``: the chip-group size of one worker (default 1).
+
+Every service a job owns (train workers and the advisor, inference
+workers and the predictor) is recorded in the job's worker mapping, so
+stop and supervise walk one list. When chip groups are short, an
+inference job's trials are packed into bins, one worker a bin: on one
+card, two trials make one worker serving the bin ``"a,b"``. A job's
+first worker may share a chip already in use (the time-sliced tier,
+thread services only), so a full card still admits a second job.
+
+Services are stamped with the node that launched them, and this node
+supervises and stops only its own (and rows without a node). Not ported
+yet: other nodes' leases (the reference marks a foreign row ERRORED once
+its node's heartbeat is ``NODE_LEASE`` old), swap, drain, replicas, the
+autoscaler, the SLO engine, the scrape cache, the node registry, the
+scoped-checkpoint sweep, and the store and bus addresses in a service's
+environment, which the process manager will need.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+from typing import Any, Dict, List, Optional
+
+from ..cache import Cache
+from ..constants import (BudgetOption, EnvVars, InferenceJobStatus,
+                         ServiceStatus, ServiceType)
+from ..container.manager import ContainerManager
+from ..parallel.chips import ChipAllocator
+from ..store import MetaStore
+
+_log = logging.getLogger(__name__)
+
+CHIPS_PER_TRIAL = "CHIPS_PER_TRIAL"
+
+#: The trial id recorded for an inference job's predictor service row.
+PREDICTOR_TRIAL = "__predictor__"
+
+_ACTIVE = (ServiceStatus.STARTED, ServiceStatus.DEPLOYING,
+           ServiceStatus.RUNNING)
+
+
+def normalize_budget(budget: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    b = dict(budget or {})
+    if BudgetOption.GPU_COUNT in b and BudgetOption.CHIP_COUNT not in b:
+        b[BudgetOption.CHIP_COUNT] = b.pop(BudgetOption.GPU_COUNT)
+    b.pop(BudgetOption.GPU_COUNT, None)
+    return b
+
+
+class ServicesManager:
+    #: The reference's liveness lease, in seconds; the platform's
+    #: heartbeat refreshes it four times a lease.
+    NODE_LEASE = 120.0
+
+    def __init__(self, meta: MetaStore, container: ContainerManager,
+                 allocator: ChipAllocator, node_id: str):
+        self.meta = meta
+        self.container = container
+        self.allocator = allocator
+        self.node_id = node_id
+        # Dead inference workers whose respawn found no chips: their
+        # rows are ERRORED, out of the RUNNING scan, so each sweep
+        # retries them until a worker lands or the job stops.
+        self._pending_respawns: List[Dict[str, Any]] = []
+
+    # --- Launch plumbing ---
+
+    def _launch(self, service_type: str,
+                extra_env: Dict[str, str]) -> Dict[str, Any]:
+        svc = self.meta.create_service(service_type, ServiceStatus.DEPLOYING,
+                                       node_id=self.node_id)
+        env = self._base_env(svc["id"], service_type)
+        env.update(extra_env)
+        try:
+            container_id = self.container.create_service(svc["id"], env)
+        except Exception:
+            self.meta.update_service(svc["id"], status=ServiceStatus.ERRORED)
+            raise
+        self.meta.update_service(svc["id"], container_id=container_id)
+        return self.meta.get_service(svc["id"])
+
+    def _base_env(self, service_id: str, service_type: str,
+                  ) -> Dict[str, str]:
+        return {EnvVars.SERVICE_ID: service_id,
+                EnvVars.SERVICE_TYPE: service_type}
+
+    def _stop_service(self, service_id: str) -> None:
+        svc = self.meta.get_service(service_id)
+        if svc is None:
+            return
+        self.container.destroy_service(svc["container_id"] or service_id)
+        if svc["status"] in _ACTIVE:
+            self.meta.update_service(service_id, status=ServiceStatus.STOPPED)
+        self._release_chips_of(svc)
+
+    def _alloc_name(self, service_id: str) -> str:
+        return f"svc:{service_id}"
+
+    def _release_chips_of(self, svc: Dict[str, Any]) -> None:
+        self.allocator.release(self._alloc_name(svc["id"]))
+
+    def _sharing_ok(self) -> bool:
+        """Whether time-sliced chip co-ownership is allowed: only with
+        thread services. It is a liveness fallback for a job's FIRST
+        worker, never extra capacity."""
+        return self.container.supports_chip_sharing
+
+    def _launch_on_group(self, svc_row: Dict[str, Any], group,
+                         env: Dict[str, str]) -> Dict[str, Any]:
+        """Launch one service holding a chip group. On failure its chips
+        are released and its row marked ERRORED before re-raising."""
+        chips = list(group.indices)
+        env[EnvVars.CHIPS] = group.to_env()
+        try:
+            container_id = self.container.create_service(svc_row["id"], env)
+        except Exception:
+            self.allocator.release(self._alloc_name(svc_row["id"]))
+            self.meta.update_service(svc_row["id"],
+                                     status=ServiceStatus.ERRORED)
+            raise
+        self.meta.update_service(svc_row["id"], container_id=container_id,
+                                 chips=chips)
+        return self.meta.get_service(svc_row["id"])
+
+    # --- Train services ---
+
+    def create_train_services(self, train_job_id: str) -> List[Dict[str, Any]]:
+        job = self.meta.get_train_job(train_job_id)
+        budget = normalize_budget(job["budget"])
+        chips_per_trial = max(1, int(budget.get(CHIPS_PER_TRIAL, 1)))
+        chip_count = int(budget.get(BudgetOption.CHIP_COUNT, 0) or 0)
+        n_workers = max(1, math.ceil(chip_count / chips_per_trial))
+
+        services = []
+        for sub in self.meta.get_sub_train_jobs(train_job_id):
+            advisor_svc = self._launch(
+                ServiceType.ADVISOR, {EnvVars.SUB_TRAIN_JOB_ID: sub["id"]})
+            self.meta.add_train_job_worker(advisor_svc["id"], sub["id"])
+            services.append(advisor_svc)
+            launched = 0
+            for _ in range(n_workers):
+                # Only the first worker may share a chip: it keeps a new
+                # job live on a full card; more workers are capacity.
+                svc = self.add_train_worker(
+                    sub["id"], chips_per_trial,
+                    shared_ok=(launched == 0 and self._sharing_ok()))
+                if svc is None:
+                    _log.warning("chip allocation exhausted for %s after "
+                                 "%d workers", sub["id"], launched)
+                    break
+                services.append(svc)
+                launched += 1
+            if launched == 0:
+                self._stop_service(advisor_svc["id"])
+                raise RuntimeError(
+                    f"no chips available for train job {train_job_id}")
+        return services
+
+    def add_train_worker(self, sub_id: str, chips_per_trial: int = 1,
+                         shared_ok: bool = False,
+                         ) -> Optional[Dict[str, Any]]:
+        """Attach one train worker for ``sub_id`` on this node's chips;
+        None when they are exhausted (``shared_ok`` admits the
+        time-sliced tier)."""
+        svc_row = self.meta.create_service(ServiceType.TRAIN,
+                                           ServiceStatus.DEPLOYING,
+                                           node_id=self.node_id)
+        group = self.allocator.allocate(chips_per_trial,
+                                        name=self._alloc_name(svc_row["id"]),
+                                        shared_ok=shared_ok)
+        if group is None:
+            self.meta.update_service(svc_row["id"],
+                                     status=ServiceStatus.STOPPED)
+            return None
+        env = self._base_env(svc_row["id"], ServiceType.TRAIN)
+        env[EnvVars.SUB_TRAIN_JOB_ID] = sub_id
+        svc = self._launch_on_group(svc_row, group, env)
+        self.meta.add_train_job_worker(svc_row["id"], sub_id)
+        return svc
+
+    def stop_train_services(self, train_job_id: str) -> None:
+        for sub in self.meta.get_sub_train_jobs(train_job_id):
+            for w in self.meta.get_train_job_workers(sub["id"]):
+                self._stop_service(w["service_id"])
+
+    def is_local(self, svc: Dict[str, Any]) -> bool:
+        """Whether this node launched the service (a row without a node
+        is adopted)."""
+        return svc.get("node_id") in (None, self.node_id)
+
+    @staticmethod
+    def last_heartbeat(svc: Dict[str, Any]) -> float:
+        """A service's last liveness signal (its creation counts)."""
+        return svc.get("heartbeat_at") or svc.get("created_at") or 0.0
+
+    def heartbeat(self) -> None:
+        """Refresh this node's liveness lease."""
+        self.meta.touch_node_services(self.node_id)
+
+    def train_services_active(self, train_job_id: str) -> bool:
+        """True while any TRAIN worker this node launched for the job is
+        alive, by its container manager."""
+        for sub in self.meta.get_sub_train_jobs(train_job_id):
+            for w in self.meta.get_train_job_workers(sub["id"]):
+                svc = self.meta.get_service(w["service_id"])
+                if svc["service_type"] != ServiceType.TRAIN \
+                        or svc["status"] not in _ACTIVE \
+                        or not self.is_local(svc):
+                    continue
+                if self.container.service_alive(
+                        svc["container_id"] or svc["id"]):
+                    return True
+        return False
+
+    # --- Inference services ---
+
+    def create_inference_services(self, inference_job_id: str,
+                                  trial_ids: List[str],
+                                  chips_per_worker: int = 1,
+                                  ) -> List[Dict[str, Any]]:
+        """One worker a chip group, as many groups as fit up to one a
+        trial, the trials dealt round-robin into the groups' bins, then
+        the predictor. The first group may be time-sliced."""
+        grabbed: List[Dict[str, Any]] = []
+        for _ in trial_ids:
+            svc_row = self.meta.create_service(ServiceType.INFERENCE,
+                                               ServiceStatus.DEPLOYING,
+                                               node_id=self.node_id)
+            group = self.allocator.allocate(
+                chips_per_worker, name=self._alloc_name(svc_row["id"]),
+                shared_ok=(not grabbed and self._sharing_ok()))
+            if group is None:
+                self.meta.update_service(svc_row["id"],
+                                         status=ServiceStatus.STOPPED)
+                break
+            grabbed.append({"row": svc_row, "group": group})
+        if not grabbed:
+            raise RuntimeError(
+                f"no chips available for inference job {inference_job_id} "
+                f"(need {chips_per_worker}/worker; "
+                f"{self.allocator.free_chips} free)")
+        bins: List[List[str]] = [[] for _ in grabbed]
+        for i, tid in enumerate(trial_ids):
+            bins[i % len(grabbed)].append(tid)
+
+        services = []
+        for holder, bin_ids in zip(grabbed, bins):
+            svc_row = holder["row"]
+            try:
+                svc = self._launch_inference_worker(
+                    svc_row, holder["group"], inference_job_id,
+                    ",".join(bin_ids))
+            except Exception:
+                # Roll back the holders not yet launched and the workers
+                # already launched for this job.
+                launched_ids = {s["id"] for s in services}
+                for h in grabbed:
+                    hid = h["row"]["id"]
+                    if hid in launched_ids or hid == svc_row["id"]:
+                        continue
+                    self.allocator.release(self._alloc_name(hid))
+                    self.meta.update_service(hid,
+                                             status=ServiceStatus.STOPPED)
+                for launched in services:
+                    self._stop_service(launched["id"])
+                raise
+            services.append(svc)
+        predictor = self._launch(ServiceType.PREDICT,
+                                 {EnvVars.INFERENCE_JOB_ID: inference_job_id})
+        self.meta.add_inference_job_worker(predictor["id"], inference_job_id,
+                                           PREDICTOR_TRIAL)
+        services.append(predictor)
+        return services
+
+    def _launch_inference_worker(self, svc_row: Dict[str, Any], group,
+                                 inference_job_id: str, trial_id: str,
+                                 ) -> Dict[str, Any]:
+        env = self._base_env(svc_row["id"], ServiceType.INFERENCE)
+        env[EnvVars.INFERENCE_JOB_ID] = inference_job_id
+        env[EnvVars.TRIAL_ID] = trial_id
+        svc = self._launch_on_group(svc_row, group, env)
+        self.meta.add_inference_job_worker(svc_row["id"], inference_job_id,
+                                           trial_id)
+        return svc
+
+    def add_inference_worker(self, inference_job_id: str, trial_id: str,
+                             chips_per_worker: int = 1,
+                             ) -> Optional[Dict[str, Any]]:
+        """One more worker for an already-served trial bin on this node's
+        chips (what ``supervise`` respawns a dead worker with); None
+        when the chips are exhausted, even time-sliced."""
+        svc_row = self.meta.create_service(ServiceType.INFERENCE,
+                                           ServiceStatus.DEPLOYING,
+                                           node_id=self.node_id)
+        group = self.allocator.allocate(
+            chips_per_worker, name=self._alloc_name(svc_row["id"]),
+            shared_ok=self._sharing_ok())
+        if group is None:
+            self.meta.update_service(svc_row["id"],
+                                     status=ServiceStatus.STOPPED)
+            return None
+        return self._launch_inference_worker(svc_row, group,
+                                             inference_job_id, trial_id)
+
+    def stop_inference_services(self, inference_job_id: str) -> None:
+        for w in self.meta.get_inference_job_workers(inference_job_id):
+            self._stop_service(w["service_id"])
+
+    def stop_own_services(self) -> None:
+        """Stop every still-active service this node launched."""
+        for svc in self.meta.get_services():
+            if svc["status"] in _ACTIVE and self.is_local(svc):
+                self._stop_service(svc["id"])
+
+    # --- Supervision ---
+
+    def supervise(self) -> List[str]:
+        """One sweep over this node's RUNNING services: mark the dead
+        ones ERRORED, restart a dead train worker on a fresh chip group
+        and give a dead inference worker's bin a fresh worker while its
+        job is live. Returns the ids of the restarted services."""
+        restarted: List[str] = []
+        pending, self._pending_respawns = self._pending_respawns, []
+        try:
+            for svc in self.meta.get_services(status=ServiceStatus.RUNNING):
+                if not self.is_local(svc) or self.container.service_alive(
+                        svc["container_id"] or svc["id"]):
+                    continue
+                self.meta.update_service(svc["id"],
+                                         status=ServiceStatus.ERRORED)
+                self._release_chips_of(svc)
+                new_svc = None
+                if svc["service_type"] == ServiceType.TRAIN:
+                    new_svc = self._respawn_train_worker(svc)
+                elif svc["service_type"] == ServiceType.INFERENCE:
+                    try:
+                        new_svc = self._respawn_inference_worker(svc)
+                    except Exception:
+                        _log.exception("respawn of dead inference worker "
+                                       "%s failed; queued for retry",
+                                       svc["id"][:8])
+                        self._pending_respawns.append(svc)
+                self._note_restart(svc, new_svc, restarted)
+            while pending:
+                self._note_restart(
+                    pending[0],
+                    self._respawn_inference_worker(pending[0], reap=False),
+                    restarted)
+                pending.pop(0)
+        finally:
+            self._pending_respawns.extend(pending)
+        return restarted
+
+    @staticmethod
+    def _note_restart(svc: Dict[str, Any],
+                      new_svc: Optional[Dict[str, Any]],
+                      restarted: List[str]) -> None:
+        if new_svc is None:
+            return
+        restarted.append(new_svc["id"])
+        _log.warning("restarted dead %s worker %s as %s",
+                     svc["service_type"], svc["id"][:8], new_svc["id"][:8])
+
+    def _respawn_train_worker(self, svc: Dict[str, Any],
+                              ) -> Optional[Dict[str, Any]]:
+        row = self.meta.get_train_job_worker(svc["id"])
+        if row is None:
+            return None
+        # shared_ok as at admission: a worker admitted time-sliced could
+        # otherwise never restart on a still-full card.
+        return self.add_train_worker(
+            row["sub_train_job_id"],
+            chips_per_trial=len(svc.get("chips") or [1]),
+            shared_ok=self._sharing_ok())
+
+    def _respawn_inference_worker(self, svc: Dict[str, Any],
+                                  reap: bool = True,
+                                  ) -> Optional[Dict[str, Any]]:
+        """A fresh worker for a dead worker's bin, only while its job is
+        live. No chips -> queued on ``_pending_respawns``."""
+        row = self.meta.get_inference_job_worker(svc["id"])
+        if row is None:
+            return None
+        job_id, trial_id = row["inference_job_id"], row["trial_id"]
+        if reap:
+            # A dead worker never ran its unregister: reap its stale
+            # registration so the predictor stops sending it shards.
+            Cache(self.container.ctx.bus).unregister_worker(job_id,
+                                                            svc["id"])
+        job = self.meta.get_inference_job(job_id)
+        if job is None or job["status"] not in (
+                InferenceJobStatus.STARTED, InferenceJobStatus.RUNNING):
+            return None
+        n_chips = len(svc.get("chips") or [1])
+        # Probe capacity first: a failed add leaves an orphan STOPPED
+        # row, and this queue retries every sweep.
+        probe = f"respawn-probe:{svc['id']}"
+        group = self.allocator.allocate(n_chips, name=probe,
+                                        shared_ok=self._sharing_ok())
+        if group is None:
+            self._pending_respawns.append(svc)
+            return None
+        self.allocator.release(probe)
+        new_svc = self.add_inference_worker(job_id, trial_id,
+                                            chips_per_worker=n_chips)
+        if new_svc is None:
+            self._pending_respawns.append(svc)
+        return new_svc

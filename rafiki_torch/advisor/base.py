@@ -3,8 +3,8 @@
 The port's copy of ``Proposal`` and ``BaseAdvisor`` from
 ``rafiki_tpu/advisor/base.py`` (:24-137): the trial runner calls
 ``advisor.propose()`` before each trial and ``advisor.feedback(...)``
-after. The port has no bus yet, so the runner holds the advisor in
-process.
+after, in process or through ``advisor.worker.RemoteAdvisor`` over the
+bus.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
-"""Platform enums and constants of the AutoML loop.
+"""Platform enums and constants.
 
-The port's copy of ``BudgetOption``, ``DEFAULT_BUDGET``,
-``TrainJobStatus``, ``TrialStatus``, ``TaskType`` and ``ParamsType``
-from ``rafiki_tpu/constants.py``: the same strings, so rows written by
-either package's stores read the same.
+The port's copy of ``rafiki_tpu/constants.py``: the same strings, so
+rows written by either package's stores read the same. ``EnvVars``
+keeps the names the platform's thread services read; the reference's
+store and bus addresses (for its process services), ``LOG_DIR``,
+``METRICS_ADDR`` and ``NODE_ID`` wait for what reads them.
 """
 
 
@@ -54,3 +55,51 @@ class ParamsType:
     LOCAL_BEST = "LOCAL_BEST"
     GLOBAL_RECENT = "GLOBAL_RECENT"
     GLOBAL_BEST = "GLOBAL_BEST"
+
+
+class ServiceType:
+    TRAIN = "TRAIN"
+    INFERENCE = "INFERENCE"
+    PREDICT = "PREDICT"
+    ADVISOR = "ADVISOR"
+
+
+class UserType:
+    SUPERADMIN = "SUPERADMIN"
+    ADMIN = "ADMIN"
+    MODEL_DEVELOPER = "MODEL_DEVELOPER"
+    APP_DEVELOPER = "APP_DEVELOPER"
+
+
+class InferenceJobStatus:
+    STARTED = "STARTED"
+    RUNNING = "RUNNING"
+    STOPPED = "STOPPED"
+    ERRORED = "ERRORED"
+
+
+class ServiceStatus:
+    STARTED = "STARTED"
+    DEPLOYING = "DEPLOYING"
+    RUNNING = "RUNNING"
+    STOPPED = "STOPPED"
+    ERRORED = "ERRORED"
+
+
+class ModelAccessRight:
+    PUBLIC = "PUBLIC"
+    PRIVATE = "PRIVATE"
+
+
+class EnvVars:
+    """The environment a ``ServicesManager`` gives each service it
+    launches, which ``container.build_service`` reads. The names are the
+    reference's. ``CHIPS`` is the service's chip group: comma-separated
+    CUDA device indices (the counterpart of ``CUDA_VISIBLE_DEVICES``)."""
+
+    SERVICE_ID = "RAFIKI_TPU_SERVICE_ID"
+    SERVICE_TYPE = "RAFIKI_TPU_SERVICE_TYPE"
+    SUB_TRAIN_JOB_ID = "RAFIKI_TPU_SUB_TRAIN_JOB_ID"
+    INFERENCE_JOB_ID = "RAFIKI_TPU_INFERENCE_JOB_ID"
+    TRIAL_ID = "RAFIKI_TPU_TRIAL_ID"
+    CHIPS = "RAFIKI_TPU_CHIPS"

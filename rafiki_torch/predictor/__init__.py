@@ -1,6 +1,6 @@
 """Predictor of the port: the serving frontend over the workers."""
 
 from .app import PredictorService
-from .predictor import ensemble_predictions
+from .predictor import Predictor, ensemble_predictions
 
-__all__ = ["PredictorService", "ensemble_predictions"]
+__all__ = ["Predictor", "PredictorService", "ensemble_predictions"]

@@ -1,12 +1,12 @@
 """MetaStore: the AutoML loop's durable state on stdlib sqlite3.
 
-The port's copy of ``rafiki_tpu/store/meta.py``, reduced to what advise
-→ train → persist → deploy needs in one process: users, models, train
-jobs, sub-train jobs, trials, trial logs and
-``get_best_trials_of_train_job``. The schema of those tables and the row
-dicts are the reference's, so either package reads a database the other
-wrote. Inference jobs, services, datasets and the worker mappings wait
-for the platform slice.
+The port's copy of ``rafiki_tpu/store/meta.py``: users, models, train
+jobs, sub-train jobs, trials, trial logs, inference jobs, services and
+the job-to-service mappings the admin and its services manager read and
+write. The schema of those tables and the row dicts are the
+reference's, so either package reads a database the other wrote. The
+datasets table waits with the upload route, and the reference's warning
+about a database on a network filesystem with its node registry.
 """
 
 from __future__ import annotations
@@ -88,10 +88,44 @@ CREATE TABLE IF NOT EXISTS trial_logs (
     record TEXT NOT NULL
 );
 CREATE INDEX IF NOT EXISTS idx_trial_logs_trial ON trial_logs (trial_id);
+CREATE TABLE IF NOT EXISTS inference_jobs (
+    id TEXT PRIMARY KEY,
+    user_id TEXT NOT NULL,
+    train_job_id TEXT NOT NULL,
+    status TEXT NOT NULL,
+    predictor_host TEXT,
+    created_at REAL NOT NULL,
+    stopped_at REAL
+);
+CREATE TABLE IF NOT EXISTS services (
+    id TEXT PRIMARY KEY,
+    service_type TEXT NOT NULL,
+    status TEXT NOT NULL,
+    container_id TEXT,
+    chips TEXT,
+    host TEXT,
+    port INTEGER,
+    node_id TEXT,
+    heartbeat_at REAL,
+    created_at REAL NOT NULL,
+    stopped_at REAL
+);
+CREATE TABLE IF NOT EXISTS train_job_workers (
+    service_id TEXT PRIMARY KEY,
+    sub_train_job_id TEXT NOT NULL
+);
+CREATE TABLE IF NOT EXISTS inference_job_workers (
+    service_id TEXT PRIMARY KEY,
+    inference_job_id TEXT NOT NULL,
+    trial_id TEXT NOT NULL
+);
 """
 
-_JSON_COLS = {"budget", "knobs", "proposal", "knob_config",
+_JSON_COLS = {"budget", "knobs", "proposal", "knob_config", "chips",
               "dependencies", "record"}
+
+#: Service statuses that count as alive.
+_ACTIVE = ("STARTED", "DEPLOYING", "RUNNING")
 
 
 def _now() -> float:
@@ -178,8 +212,17 @@ class MetaStore:
             "id": _new_id(), "email": email, "password_hash": password_hash,
             "user_type": user_type, "banned_at": None, "created_at": _now()})
 
+    def get_user_by_email(self, email: str) -> Optional[Row]:
+        return self._one("SELECT * FROM users WHERE email = ?", (email,))
+
     def get_user(self, user_id: str) -> Optional[Row]:
         return self._one("SELECT * FROM users WHERE id = ?", (user_id,))
+
+    def get_users(self) -> List[Row]:
+        return self._select("SELECT * FROM users ORDER BY created_at")
+
+    def ban_user(self, user_id: str) -> None:
+        self._update("users", user_id, banned_at=_now())
 
     # --- Models ---
 
@@ -196,6 +239,22 @@ class MetaStore:
 
     def get_model(self, model_id: str) -> Optional[Row]:
         return self._one("SELECT * FROM models WHERE id = ?", (model_id,))
+
+    def get_model_by_name(self, user_id: str, name: str) -> Optional[Row]:
+        return self._one(
+            "SELECT * FROM models WHERE name = ? AND (user_id = ? "
+            "OR access_right = 'PUBLIC') ORDER BY user_id = ? DESC",
+            (name, user_id, user_id))
+
+    def get_models(self, user_id: Optional[str] = None,
+                   task: Optional[str] = None) -> List[Row]:
+        sql = ("SELECT * FROM models WHERE (user_id = ? "
+               "OR access_right = 'PUBLIC')")
+        args: list = [user_id]
+        if task is not None:
+            sql += " AND task = ?"
+            args.append(task)
+        return self._select(sql + " ORDER BY created_at", tuple(args))
 
     # --- Train jobs ---
 
@@ -217,6 +276,20 @@ class MetaStore:
         return self._one("SELECT * FROM train_jobs WHERE id = ?",
                          (train_job_id,))
 
+    def get_train_jobs(self, user_id: Optional[str] = None,
+                       status: Optional[str] = None) -> List[Row]:
+        sql, args = "SELECT * FROM train_jobs WHERE 1=1", []
+        if user_id is not None:
+            sql += " AND user_id = ?"
+            args.append(user_id)
+        if status is not None:
+            sql += " AND status = ?"
+            args.append(status)
+        return self._select(sql + " ORDER BY created_at", tuple(args))
+
+    def update_train_job(self, train_job_id: str, **fields: Any) -> None:
+        self._update("train_jobs", train_job_id, **fields)
+
     # --- Sub train jobs ---
 
     def create_sub_train_job(self, train_job_id: str, model_id: str,
@@ -230,6 +303,14 @@ class MetaStore:
     def get_sub_train_job(self, sub_id: str) -> Optional[Row]:
         return self._one("SELECT * FROM sub_train_jobs WHERE id = ?",
                          (sub_id,))
+
+    def get_sub_train_jobs(self, train_job_id: str) -> List[Row]:
+        return self._select(
+            "SELECT * FROM sub_train_jobs WHERE train_job_id = ? "
+            "ORDER BY created_at", (train_job_id,))
+
+    def update_sub_train_job(self, sub_id: str, **fields: Any) -> None:
+        self._update("sub_train_jobs", sub_id, **fields)
 
     # --- Trials ---
 
@@ -255,6 +336,16 @@ class MetaStore:
             sql += " AND status = ?"
             args.append(status)
         return self._select(sql + " ORDER BY no", tuple(args))
+
+    def get_trials_of_train_job(self, train_job_id: str,
+                                status: Optional[str] = None) -> List[Row]:
+        sql = ("SELECT t.* FROM trials t JOIN sub_train_jobs s "
+               "ON t.sub_train_job_id = s.id WHERE s.train_job_id = ?")
+        args: list = [train_job_id]
+        if status is not None:
+            sql += " AND t.status = ?"
+            args.append(status)
+        return self._select(sql + " ORDER BY t.no", tuple(args))
 
     def get_best_trials_of_train_job(self, train_job_id: str,
                                      max_count: int = 2) -> List[Row]:
@@ -292,3 +383,122 @@ class MetaStore:
         return self._select(
             "SELECT * FROM trial_logs WHERE trial_id = ? ORDER BY id",
             (trial_id,))
+
+    # --- Inference jobs ---
+
+    def create_inference_job(self, user_id: str, train_job_id: str,
+                             status: str) -> Row:
+        return self._insert("inference_jobs", {
+            "id": _new_id(), "user_id": user_id,
+            "train_job_id": train_job_id, "status": status,
+            "predictor_host": None, "created_at": _now(),
+            "stopped_at": None})
+
+    def get_inference_job(self, job_id: str) -> Optional[Row]:
+        return self._one("SELECT * FROM inference_jobs WHERE id = ?",
+                         (job_id,))
+
+    def get_inference_jobs(self, user_id: Optional[str] = None,
+                           status: Optional[str] = None) -> List[Row]:
+        sql, args = "SELECT * FROM inference_jobs WHERE 1=1", []
+        if user_id is not None:
+            sql += " AND user_id = ?"
+            args.append(user_id)
+        if status is not None:
+            sql += " AND status = ?"
+            args.append(status)
+        return self._select(sql + " ORDER BY created_at", tuple(args))
+
+    def update_inference_job(self, job_id: str, **fields: Any) -> None:
+        self._update("inference_jobs", job_id, **fields)
+
+    # --- Services and the job-to-service mappings ---
+
+    def create_service(self, service_type: str, status: str,
+                       container_id: Optional[str] = None,
+                       chips: Optional[List[int]] = None,
+                       host: Optional[str] = None,
+                       port: Optional[int] = None,
+                       node_id: Optional[str] = None) -> Row:
+        return self._insert("services", {
+            "id": _new_id(), "service_type": service_type, "status": status,
+            "container_id": container_id, "chips": chips, "host": host,
+            "port": port, "node_id": node_id, "heartbeat_at": _now(),
+            "created_at": _now(), "stopped_at": None})
+
+    def get_service(self, service_id: str) -> Optional[Row]:
+        return self._one("SELECT * FROM services WHERE id = ?",
+                         (service_id,))
+
+    def get_services(self, status: Optional[str] = None,
+                     node_id: Optional[str] = None) -> List[Row]:
+        """``node_id`` scopes to one node's services."""
+        clauses, args = [], []
+        if status is not None:
+            clauses.append("status = ?")
+            args.append(status)
+        if node_id is not None:
+            clauses.append("node_id = ?")
+            args.append(node_id)
+        where = (" WHERE " + " AND ".join(clauses)) if clauses else ""
+        return self._select(
+            f"SELECT * FROM services{where} ORDER BY created_at",
+            tuple(args))
+
+    def update_service(self, service_id: str, **fields: Any) -> None:
+        self._update("services", service_id, **fields)
+
+    def touch_node_services(self, node_id: str) -> None:
+        """Refresh the liveness lease (``heartbeat_at``) of a node's
+        active services."""
+        with self._lock:
+            self._conn.execute(
+                f"UPDATE services SET heartbeat_at = ? WHERE node_id = ? "
+                f"AND status IN ({', '.join('?' * len(_ACTIVE))})",
+                (_now(), node_id, *_ACTIVE))
+            self._conn.commit()
+
+    def add_train_job_worker(self, service_id: str,
+                             sub_train_job_id: str) -> None:
+        self._insert("train_job_workers", {
+            "service_id": service_id, "sub_train_job_id": sub_train_job_id})
+
+    def get_train_job_workers(self, sub_train_job_id: str) -> List[Row]:
+        return self._select(
+            "SELECT * FROM train_job_workers WHERE sub_train_job_id = ?",
+            (sub_train_job_id,))
+
+    def get_train_job_worker(self, service_id: str) -> Optional[Row]:
+        return self._one(
+            "SELECT * FROM train_job_workers WHERE service_id = ?",
+            (service_id,))
+
+    def add_inference_job_worker(self, service_id: str,
+                                 inference_job_id: str,
+                                 trial_id: str) -> None:
+        self._insert("inference_job_workers", {
+            "service_id": service_id, "inference_job_id": inference_job_id,
+            "trial_id": trial_id})
+
+    def get_inference_job_workers(self, inference_job_id: str) -> List[Row]:
+        return self._select(
+            "SELECT * FROM inference_job_workers WHERE inference_job_id = ?",
+            (inference_job_id,))
+
+    def get_inference_job_worker(self, service_id: str) -> Optional[Row]:
+        return self._one(
+            "SELECT * FROM inference_job_workers WHERE service_id = ?",
+            (service_id,))
+
+    def get_owned_service_ids(self, user_id: str) -> set:
+        """Every service id working for a job owned by ``user_id``."""
+        rows = self._select(
+            "SELECT w.service_id AS sid FROM train_job_workers w "
+            "JOIN sub_train_jobs s ON s.id = w.sub_train_job_id "
+            "JOIN train_jobs tj ON tj.id = s.train_job_id "
+            "WHERE tj.user_id = ? "
+            "UNION "
+            "SELECT w.service_id FROM inference_job_workers w "
+            "JOIN inference_jobs ij ON ij.id = w.inference_job_id "
+            "WHERE ij.user_id = ?", (user_id, user_id))
+        return {r["sid"] for r in rows}

@@ -1,34 +1,64 @@
 """JSON-over-HTTP service plumbing on the stdlib ``http.server``.
 
-The port's copy of ``rafiki_tpu/utils/service.py`` reduced to what its
-routes need: routes matched on exact ``(method, path)``, JSON bodies
-in and out, replies streamed with chunked transfer encoding, a cap on
-the body size, graceful start and stop.
+The port's copy of ``rafiki_tpu/utils/service.py`` without its metrics,
+trace and fault hooks: a route table whose paths may hold ``<param>``
+captures, GET, POST and DELETE, the query string, JSON bodies in and
+out, replies streamed with chunked transfer encoding, a cap on the body
+size, graceful start and stop. The admin REST service and the
+predictor are built on it.
 
-A handler is ``handler(body) -> (status, obj)``; ``obj`` is sent as
-JSON, or streamed when it is a ``StreamResponse``. It may raise
-``HttpError`` for a chosen status; a ``ValueError`` answers 400 and any
-other exception 500.
+A handler is ``handler(params, body, ctx) -> (status, obj)`` or
+``(status, obj, headers)``: ``params`` holds the path's captures,
+``body`` the parsed JSON body (None without one) and ``ctx`` the
+request's headers and query string (``RequestContext``). A handler
+that takes a single argument is given the body alone. ``obj`` is sent
+as JSON, or streamed when it is a ``StreamResponse``. A handler may
+raise ``HttpError`` for a chosen status; a ``PermissionError`` answers
+401, or the ``status`` it carries (403 for a caller who is not the
+owner); a ``ValueError`` answers 400 and any other exception 500.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import logging
+import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs, urlparse
 
 _log = logging.getLogger(__name__)
 
-Handler = Callable[[Optional[Dict[str, Any]]], Tuple[int, Any]]
+Handler = Callable[..., Tuple]
+
+
+class RequestContext:
+    def __init__(self, headers, query: Dict[str, List[str]]):
+        self.headers = headers
+        self.query = query
+
+    @property
+    def bearer_token(self) -> Optional[str]:
+        h = self.headers.get("Authorization", "")
+        if h.startswith("Bearer "):
+            return h[len("Bearer "):]
+        return None
+
+    def query_one(self, key: str, default: Optional[str] = None,
+                  ) -> Optional[str]:
+        vals = self.query.get(key)
+        return vals[0] if vals else default
 
 
 class HttpError(Exception):
-    def __init__(self, status: int, message: str):
+    def __init__(self, status: int, message: str,
+                 headers: Optional[Dict[str, str]] = None):
         super().__init__(message)
         self.status = status
         self.message = message
+        self.headers = headers
 
 
 class StreamResponse:
@@ -47,6 +77,27 @@ class StreamResponse:
         self.chunks = chunks
 
 
+def _compile(path: str) -> re.Pattern:
+    # "/train_jobs/<job_id>/stop" -> ^/train_jobs/(?P<job_id>[^/]+)/stop$
+    return re.compile("^" + re.sub(r"<(\w+)>", r"(?P<\1>[^/]+)", path)
+                      + "$")
+
+
+def _full_handler(handler: Handler) -> Handler:
+    """``handler`` as ``(params, body, ctx)``: one that takes a single
+    argument is given the body alone."""
+    try:
+        sig = inspect.signature(handler)
+    except (TypeError, ValueError):
+        return handler
+    positional = [p for p in sig.parameters.values()
+                  if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    if len(positional) == 1 and not any(
+            p.kind == p.VAR_POSITIONAL for p in sig.parameters.values()):
+        return lambda params, body, ctx: handler(body)
+    return handler
+
+
 class JsonHttpServer:
     """A route-table HTTP server. ``port=0`` picks a free port."""
 
@@ -55,8 +106,8 @@ class JsonHttpServer:
                  name: str = "http", max_body: int = 64 << 20):
         self.name = name
         self.max_body = max_body
-        self._routes = {(method.upper(), path): handler
-                        for method, path, handler in routes}
+        self._routes = [(method.upper(), _compile(path), _full_handler(h))
+                        for method, path, h in routes]
         outer = self
 
         class _Handler(BaseHTTPRequestHandler):
@@ -66,8 +117,11 @@ class JsonHttpServer:
                 _log.debug("%s " + fmt, name, *args)
 
             def _dispatch(self, method: str):
+                parsed = urlparse(self.path)
                 length = int(self.headers.get("Content-Length") or 0)
                 if length > outer.max_body:
+                    # The client is still sending: close rather than
+                    # reuse a connection with the unread body in it.
                     self.close_connection = True
                     self._reply(413, {"error": f"request body {length} "
                                       f"bytes exceeds {outer.max_body}"})
@@ -79,34 +133,53 @@ class JsonHttpServer:
                     except json.JSONDecodeError:
                         self._reply(400, {"error": "invalid JSON body"})
                         return
-                handler = outer._routes.get((method, self.path))
-                if handler is None:
-                    self._reply(404, {"error": f"no route {method} "
-                                               f"{self.path}"})
+                ctx = RequestContext(self.headers, parse_qs(parsed.query))
+                for m, pattern, handler in outer._routes:
+                    if m != method:
+                        continue
+                    match = pattern.match(parsed.path)
+                    if match is None:
+                        continue
+                    headers = None
+                    try:
+                        result = handler(match.groupdict(), body, ctx)
+                        if len(result) == 3:
+                            status, obj, headers = result
+                        else:
+                            status, obj = result
+                    except HttpError as e:
+                        status, obj = e.status, {"error": e.message}
+                        headers = e.headers
+                    except PermissionError as e:
+                        status = getattr(e, "status", 401)
+                        obj = {"error": str(e)}
+                    except ValueError as e:
+                        status, obj = 400, {"error": str(e)}
+                    except Exception as e:  # the server keeps serving
+                        _log.exception("%s %s failed", method, parsed.path)
+                        status, obj = 500, {
+                            "error": f"{type(e).__name__}: {e}"}
+                    self._reply(status, obj, headers)
                     return
-                try:
-                    status, obj = handler(body)
-                except HttpError as e:
-                    status, obj = e.status, {"error": e.message}
-                except ValueError as e:
-                    status, obj = 400, {"error": str(e)}
-                except Exception as e:  # the server keeps serving
-                    _log.exception("%s %s failed", method, self.path)
-                    status, obj = 500, {"error": f"{type(e).__name__}: {e}"}
-                self._reply(status, obj)
+                self._reply(404, {"error": f"no route {method} "
+                                           f"{parsed.path}"})
 
-            def _reply(self, status: int, obj: Any):
+            def _reply(self, status: int, obj: Any,
+                       headers: Optional[Dict[str, str]] = None):
                 if isinstance(obj, StreamResponse):
-                    self._reply_stream(status, obj)
+                    self._reply_stream(status, obj, headers)
                     return
                 data = json.dumps(obj).encode()
                 self.send_response(status)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(data)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, str(v))
                 self.end_headers()
                 self.wfile.write(data)
 
-            def _reply_stream(self, status: int, obj: StreamResponse):
+            def _reply_stream(self, status: int, obj: StreamResponse,
+                              headers: Optional[Dict[str, str]] = None):
                 """One HTTP chunk per fragment, flushed at once. A
                 broken pipe (client gone) stops the iteration and closes
                 the connection; the source iterator is always closed, so
@@ -114,6 +187,8 @@ class JsonHttpServer:
                 self.send_response(status)
                 self.send_header("Content-Type", obj.content_type)
                 self.send_header("Transfer-Encoding", "chunked")
+                for k, v in (headers or {}).items():
+                    self.send_header(k, str(v))
                 self.end_headers()
                 it = iter(obj.chunks)
                 try:
@@ -134,8 +209,14 @@ class JsonHttpServer:
                     if close is not None:
                         close()
 
+            def do_GET(self):
+                self._dispatch("GET")
+
             def do_POST(self):
                 self._dispatch("POST")
+
+            def do_DELETE(self):
+                self._dispatch("DELETE")
 
         self._server = ThreadingHTTPServer((host, port), _Handler)
         self._server.daemon_threads = True
@@ -148,6 +229,10 @@ class JsonHttpServer:
                                         daemon=True)
         self._thread.start()
         return self
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
 
     def stop(self) -> None:
         self._server.shutdown()

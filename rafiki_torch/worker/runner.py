@@ -17,9 +17,10 @@ labels, phase timings, dataset stage owners and checkpoints (scoped or
 crash-resume), the proposal metadata of the advisors not ported yet
 (``params_scope``, ``params_save_scope``, ``cold_start_knobs``,
 ``record_knobs``, ``train_kwargs``: warm starts here are scoped to the
-runner's ``worker_id``), the stop flag, and ``pipeline_persist`` (not
-ported yet): the persist tail runs inline, as the reference's does with
-the pipeline off.
+runner's ``worker_id``), and ``pipeline_persist`` (not ported yet): the
+persist tail runs inline, as the reference's does with the pipeline
+off. A ``stop_flag`` (a ``threading.Event``) ends the run before the
+next trial, as the reference's does.
 """
 
 from __future__ import annotations
@@ -69,7 +70,8 @@ class TrialRunner:
                  worker_id: str = "local",
                  budget: Optional[Dict[str, Any]] = None,
                  max_consecutive_errors: int = 3,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 stop_flag: Optional[Any] = None):
         self.device = resolve_device(device)
         self.model_class = model_class
         self.advisor = advisor
@@ -85,6 +87,7 @@ class TrialRunner:
         # never count as completed: without this breaker a model that
         # fails every time would loop forever.
         self.max_consecutive_errors = max_consecutive_errors
+        self.stop_flag = stop_flag
 
     # --- Loop ---
 
@@ -111,6 +114,8 @@ class TrialRunner:
         return done
 
     def _should_stop(self) -> bool:
+        if self.stop_flag is not None and self.stop_flag.is_set():
+            return True
         n_done = len(self.meta.get_trials(self.sub_train_job_id,
                                           status=TrialStatus.COMPLETED))
         return self.budget.exhausted(n_done)

@@ -52,7 +52,17 @@ def test_importing_the_port_loads_no_jax():
                 "rafiki_torch.advisor.random_advisor",
                 "rafiki_torch.store.meta", "rafiki_torch.store.params",
                 "rafiki_torch.store.tensorfile",
-                "rafiki_torch.worker.runner"):
+                "rafiki_torch.worker.runner", "rafiki_torch.bus",
+                "rafiki_torch.bus.base", "rafiki_torch.bus.memory",
+                "rafiki_torch.utils.auth", "rafiki_torch.utils.model_loader",
+                "rafiki_torch.parallel.chips", "rafiki_torch.advisor.worker",
+                "rafiki_torch.worker.train", "rafiki_torch.container",
+                "rafiki_torch.container.manager",
+                "rafiki_torch.container.services", "rafiki_torch.admin",
+                "rafiki_torch.admin.admin", "rafiki_torch.admin.app",
+                "rafiki_torch.admin.services_manager",
+                "rafiki_torch.client", "rafiki_torch.client.client",
+                "rafiki_torch.platform", "rafiki_torch.quickstart"):
         assert mod in mods, mod
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -86,6 +96,30 @@ def test_the_port_imports_without_the_packages_the_card_lacks():
             f"    importlib.import_module(m)\n"
             f"loaded = sorted(m for m in sys.modules\n"
             f"                if m.split('.')[0] in {ABSENT_ON_THE_CARD!r})\n"
+            f"print(loaded)\n"
+            f"sys.exit(1 if loaded else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_platform_imports_without_jax_the_reference_or_requests():
+    """The platform, the client and the quickstart import with ``jax``,
+    ``rafiki_tpu`` and ``requests`` blocked (the card's machine has no
+    ``requests``), and load none of them."""
+    blocked = ("jax", "jaxlib", "rafiki_tpu", "requests")
+    code = (f"import importlib, importlib.abc, sys\n"
+            f"class Block(importlib.abc.MetaPathFinder):\n"
+            f"    def find_spec(self, name, path=None, target=None):\n"
+            f"        if name.split('.')[0] in {blocked!r}:\n"
+            f"            raise ImportError(f'{{name}} is blocked')\n"
+            f"        return None\n"
+            f"sys.meta_path.insert(0, Block())\n"
+            f"for m in ('rafiki_torch.platform', 'rafiki_torch.client',\n"
+            f"          'rafiki_torch.quickstart'):\n"
+            f"    importlib.import_module(m)\n"
+            f"loaded = sorted(m for m in sys.modules\n"
+            f"                if m.split('.')[0] in {blocked!r})\n"
             f"print(loaded)\n"
             f"sys.exit(1 if loaded else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
@@ -140,7 +174,8 @@ KNOBS = {"d_model": 256, "n_layers": 2, "seq_len": 256, "batch_size": 4,
 
 
 @pytest.mark.parametrize("entry", ["device", "model", "worker", "app",
-                                   "feedforward", "runner", "model_class"])
+                                   "feedforward", "runner", "model_class",
+                                   "platform", "allocator", "bus_worker"])
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_entry_points_raise_without_a_card(entry, device):
     if torch.cuda.is_available():
@@ -172,10 +207,34 @@ def test_entry_points_raise_without_a_card(entry, device):
         elif entry == "worker":
             InferenceWorker(TorchTransformerLM, KNOBS, _tiny_params(),
                             device=device)
+        elif entry == "platform":
+            from rafiki_torch.platform import LocalPlatform
+            LocalPlatform(device=device)
+        elif entry == "allocator":
+            from rafiki_torch.parallel import ChipAllocator
+            ChipAllocator(device=device)
+        elif entry == "bus_worker":
+            from rafiki_torch.bus import MemoryBus
+            from rafiki_torch.worker.inference import BusInferenceWorker
+            BusInferenceWorker("s", "j", "t", None, None, MemoryBus(),
+                               device=device)
         else:
             worker = InferenceWorker(TorchTransformerLM, KNOBS,
                                      _tiny_params(), device="cpu")
             PredictorService([worker], device=device)
+
+
+def test_local_platform_without_a_device_raises_and_touches_nothing(
+        tmp_path):
+    """``LocalPlatform()`` means CUDA: without a card it raises before it
+    makes its workdir or takes its lock."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA device")
+    from rafiki_torch.platform import LocalPlatform
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LocalPlatform(workdir=str(tmp_path / "w"), http=True)
+    assert not (tmp_path / "w").exists()
 
 
 def test_cpu_is_used_only_when_asked():
