@@ -115,11 +115,29 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    of 2048 ids through ``POST /predict`` exactly as a directly built
    ``TorchTransformerLM`` on the same params file does; K1, K2 and K3
    must have launched, all on wgmma, and none in (a) and (b);
-10. prints a ``{"kernels": [...]}`` line, in which ``library_covers``
-   names the kernels whose work one library call does and
-   ``platform_launches`` the platform phase's launches (counted in
-   ``launches`` too), and, last, the ``{"ok": true, "device": ...}``
-   line.
+10. zoo phase, BASELINE configs 2 and 3 on the synthetic set at
+   CIFAR-10's split sizes and image shape (50,000 train and 10,000 val
+   images of 32×32×3, 10 classes): (a) ``TorchDenseNet`` at DenseNet-121's
+   full width trains one epoch (steps/s, images/s, ``chip_util``, peak
+   memory; the loss must fall and val accuracy clear 0.5), one captured
+   step is timed and profiled, a second pair of models of the same knobs
+   trains 10 steps captured and eagerly and must agree bit for bit, the
+   card's logits are held against the CPU's on the same parameters, and
+   the params file is read back by ``load_parameters``; (b) a search of
+   6 DenseNet-121 trials through ``make_advisor`` with no type, which
+   must pick ``BayesOptAdvisor`` (the 6th proposal from the fitted GP);
+   (c) an ENAS search at ``JaxEnas``'s sizes through ``make_advisor``,
+   which must pick ``EnasAdvisor``: 7 search trials on the masked
+   supernet, each after the first warm-starting every supernet tensor,
+   and a final trial retraining the best architecture from scratch on
+   the single path; (d) the 2 best ENAS trials behind one predictor
+   (served = the members' mean, a 256-request window); (e) K1, K2 and K3
+   not launched in the phase;
+11. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
+   ``library_covers`` names the kernels whose work one library call does
+   and ``platform_launches`` and ``zoo_launches`` the platform and zoo
+   phases' launches (counted in ``launches`` too), and, last, the
+   ``{"ok": true, "device": ...}`` line.
 
 Any failed check exits non-zero without the last line.
 """
@@ -252,6 +270,65 @@ class FlagshipLM(TorchTransformerLM):
         return cfg
 """
 LM_QUERIES = 4
+
+# The zoo phase: BASELINE configs 2 (DenseNet-121) and 3 (ENAS) on the
+# synthetic set at CIFAR-10's split sizes and image shape (real CIFAR-10
+# is not in the repository).
+ZOO_DATA = {"n_train": 50000, "n_val": 10000, "image_shape": (32, 32, 3),
+            "n_classes": 10, "name": "cifar10"}
+# (a) DenseNet-121 at full width (blocks 6/12/24/16, growth 32); one
+# epoch of 390 steps, cut from the knob space's 6 to 60 epochs.
+DENSENET_KNOBS = {"arch": "densenet_121", "growth_rate": 32,
+                  "batch_size": 128, "learning_rate": 0.1,
+                  "weight_decay": 1e-4, "max_epochs": 1,
+                  "early_stop_epochs": 5, "quick_train": False}
+# Images of the loss before and after the epoch (train mode, a copy).
+ZOO_LOSS_IMAGES = 512
+# The captured step against the eager step: a second model of the same
+# knobs on a set of 10 steps (3 eager and 7 replays against 10 eager).
+ZOO_GRAPH_SET = 1280
+# Val accuracy after the epoch must clear this (chance is 0.1).
+ZOO_MIN_ACC = 0.5
+ZOO_PROBES = 8
+# Card logits against CPU logits on the same parameters: both run bf16
+# convolutions with f32 sums in another order through 120 BatchNorms,
+# and the logits leave in bf16: one bf16 ulp of a logit below 32 (the
+# trained DenseNet-121's reach 26 on the synthetic set).
+TOL_ZOO_LOGITS = 0.125
+# (b) A Bayes search of DenseNet trials: the 6th proposal is the first
+# from the fitted GP (n_initial 5).
+BAYES_TRIALS = 6
+# (c) An ENAS search at JaxEnas's sizes: 7 search trials and 1 final
+# (final_train_frac 0.15), cut from what a user would run.
+ENAS_TRIALS = 8
+ZOO_DEPLOY = 2
+
+ZOO_DENSENET_SOURCE = """
+from rafiki_torch.model import FixedKnob
+from rafiki_torch.models import TorchDenseNet
+
+
+class ZooDenseNet(TorchDenseNet):
+    # arch pinned to DenseNet-121 and max_epochs to 1 (cut from 6-60).
+    @staticmethod
+    def get_knob_config():
+        cfg = dict(TorchDenseNet.get_knob_config())
+        cfg.update(arch=FixedKnob("densenet_121"), max_epochs=FixedKnob(1))
+        return cfg
+"""
+ZOO_ENAS_SOURCE = """
+from rafiki_torch.model import FixedKnob
+from rafiki_torch.models import TorchEnas
+
+
+class ZooEnas(TorchEnas):
+    # The final trial's max_epochs pinned to 1 (cut from 10).
+    @classmethod
+    def get_knob_config(cls):
+        cfg = super().get_knob_config()
+        cfg.update(max_epochs=FixedKnob(1))
+        return cfg
+"""
 
 
 class SmokeFailure(Exception):
@@ -1524,9 +1601,11 @@ def device_busy(torch, fn):
     return wall, busy / 1e9, by_name
 
 
-def automl_window(np, url, images, card):
+def automl_window(np, url, images, card, tag="automl:",
+                  deployed=AUTOML_DEPLOY):
     """``AUTOML_WINDOW`` single-image requests from ``AUTOML_CLIENTS``
-    clients at once: queries per second and latency percentiles."""
+    clients at once to ``deployed`` workers: queries per second and
+    latency percentiles, printed after ``tag``."""
     from concurrent.futures import ThreadPoolExecutor
 
     queries = [(img.astype(np.float32) / 255.0).tolist() for img in images]
@@ -1545,8 +1624,8 @@ def automl_window(np, url, images, card):
     secs = time.perf_counter() - t0
     pct = {p: lat[min(len(lat) - 1, int(p / 100 * len(lat)))] * 1e3
            for p in (50, 90, 99)}
-    print(f"automl: window of {len(queries)} single-image requests from "
-          f"{AUTOML_CLIENTS} clients to {AUTOML_DEPLOY} workers: "
+    print(f"{tag} window of {len(queries)} single-image requests from "
+          f"{AUTOML_CLIENTS} clients to {deployed} workers: "
           f"{len(queries) / secs:.2f} queries/s; latency p50 {pct[50]:.2f} "
           f"ms, p90 {pct[90]:.2f} ms, p99 {pct[99]:.2f} ms on {card}",
           flush=True)
@@ -1838,6 +1917,13 @@ def platform_phase(torch, np, attn, card, automl):
             job = dev.create_train_job(
                 "smoke", TaskType.IMAGE_CLASSIFICATION, [model["id"]],
                 {BudgetOption.MODEL_TRIAL_COUNT: AUTOML_TRIALS}, train, val)
+            # No advisor type: the advisor service picks as the
+            # reference's registry does (Bayes for this knob space; its
+            # first 5 proposals are the random advisor's draws).
+            (adv_svc,) = [s for s in dev.get_services()
+                          if s["service_type"] == "ADVISOR"
+                          and s["status"] in ("DEPLOYING", "RUNNING")]
+            adv_name = type(p.container.get(adv_svc["id"]).advisor).__name__
             done = wait_train(dev, job["id"])
             search_s = time.perf_counter() - t0
             check(done["status"] == "STOPPED", f"train job {done['status']}")
@@ -1851,7 +1937,7 @@ def platform_phase(torch, np, attn, card, automl):
                           key=lambda r: r["started_at"])
             trial_s = [r["finished_at"] - r["started_at"] for r in rows]
             print(f"platform: (a) train job of {AUTOML_TRIALS} trials "
-                  f"(advisor service, random, seed 0) through the admin "
+                  f"(advisor service, {adv_name}, seed 0) through the admin "
                   f"REST service: STOPPED in {search_s:.2f} s, "
                   f"{tph:.1f} trials/hour, against "
                   f"{automl['trials_per_hour']:.1f} in process (automl "
@@ -2015,6 +2101,423 @@ def platform_phase(torch, np, attn, card, automl):
     return out, launches[:3]
 
 
+def trial_warm_starts(meta, trial_id):
+    """The tensor counts of a trial's "warm-started N shared tensors"
+    log lines."""
+    out = []
+    for rec in meta.get_trial_logs(trial_id):
+        msg = str(rec["record"].get("values", {}).get("msg", ""))
+        if msg.startswith("warm-started"):
+            out.append(int(msg.split()[1]))
+    return out
+
+
+def epoch_values(meta, trial_id):
+    return [x["record"]["values"] for x in meta.get_trial_logs(trial_id)
+            if x["record"]["type"] == "values"
+            and "epoch" in x["record"]["values"]]
+
+
+def zoo_densenet(torch, np, card, train, val, tmp):
+    """(a) DenseNet-121 at full width trains one epoch on the card."""
+    import copy
+    import os
+
+    import torch.nn.functional as F
+
+    from rafiki_torch.datasets import make_synthetic_image_dataset
+    from rafiki_torch.model import torch_model
+    from rafiki_torch.model.dataset import load_image_dataset
+    from rafiki_torch.model.logger import logger
+    from rafiki_torch.models import TorchDenseNet
+    from rafiki_torch.store import ParamStore
+
+    ds = load_image_dataset(train)
+    vds = load_image_dataset(val)
+    first = torch.from_numpy(ds.images[:ZOO_LOSS_IMAGES]).to("cuda")
+    first_y = torch.from_numpy(ds.labels[:ZOO_LOSS_IMAGES]).to("cuda")
+
+    def train_mode_loss(m, net):
+        net = copy.deepcopy(net).train()
+        with torch.no_grad():
+            logits = m._logits(net, first.float() / 255.0).float()
+        return float(F.cross_entropy(logits, first_y))
+
+    m = TorchDenseNet(device="cuda", **DENSENET_KNOBS)
+    loss0 = train_mode_loss(m, m._new_net(ds.n_classes, ds.image_shape))
+    recs = []
+    prior = logger.current_sink()
+    logger.set_sink(recs.append)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        m.train(train)
+        torch.cuda.synchronize()
+    finally:
+        logger.set_sink(prior)
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    epochs = [r["values"] for r in recs
+              if r["type"] == "values" and "epoch" in r["values"]]
+    steps = ds.size // DENSENET_KNOBS["batch_size"]
+    check(len(epochs) == 1, f"{len(epochs)} epochs logged")
+    ep = epochs[0]
+    loss1 = train_mode_loss(m, m._net)
+    t0 = time.perf_counter()
+    acc = m.evaluate(val)
+    eval_s = time.perf_counter() - t0
+    macs = m._macs(m._net, ds.image_shape)
+    check(math.isfinite(ep["loss"]) and loss1 < loss0 and ep["loss"] < loss0,
+          f"the loss did not fall: {loss0:.4f} before, epoch mean "
+          f"{ep['loss']:.4f}, {loss1:.4f} after")
+    check(acc >= ZOO_MIN_ACC, f"DenseNet-121 val accuracy {acc:.4f}")
+    sps = ep["steps_per_sec"]
+    print(f"zoo: (a) DenseNet-121 (growth 32, blocks 6/12/24/16, CIFAR "
+          f"stem, {sum(p.numel() for p in m._net.parameters())} "
+          f"parameters), batch 128, lr 0.1, wd 1e-4: one epoch of {steps} "
+          f"steps in {train_s:.2f} s (capture included), {sps:.2f} steps/s "
+          f"over the epoch, {sps * 128:.1f} images/s, chip_util "
+          f"{ep.get('chip_util')} ({2 * macs / 1e9:.4f} GFLOP an image "
+          f"forward, {6 * 128 * macs / 1e12:.4f} TFLOP a step, over 989 "
+          f"TFLOP/s bf16), peak device memory {peak_gb:.2f} GB; loss on "
+          f"{ZOO_LOSS_IMAGES} train images {loss0:.4f} before, epoch mean "
+          f"{ep['loss']:.4f}, {loss1:.4f} after; val accuracy {acc:.4f} "
+          f"({vds.size} images in {eval_s:.2f} s) on {card}", flush=True)
+
+    # One captured step, profiled.
+    net = m._new_net(ds.n_classes, ds.image_shape)
+    opt = m.create_optimizer(list(net.parameters()), steps, 1)
+    data = torch.from_numpy(ds.images).to("cuda")
+    labels = torch.from_numpy(ds.labels).to("cuda")
+    runner = torch_model._TrainSteps(m, net, opt, data, labels, steps,
+                                     DENSENET_KNOBS["batch_size"])
+    runner.new_epoch(np.arange(steps * 128).reshape(steps, 128))
+    net.train()
+    for _ in range(torch_model.WARMUP_STEPS + 2):
+        runner.step()
+    check(runner.graph is not None, "the DenseNet step was not captured")
+    g0, g1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    g0.record()
+    for _ in range(20):
+        runner.step()
+    g1.record()
+    torch.cuda.synchronize()
+    step_ms = g0.elapsed_time(g1) / 20
+    prof = profile(torch, runner.step, "one captured DenseNet-121 train "
+                   "step (batch 128)", card, top=8)
+    runner.close()
+    del runner, data, labels, net, opt
+
+    # The captured step against the eager step, bit for bit, on a
+    # second pair of models of the same knobs.
+    small_tr, _ = make_synthetic_image_dataset(
+        os.path.join(tmp, "graph"), n_train=ZOO_GRAPH_SET, n_val=128,
+        seed=SEED + 1, **{k: v for k, v in ZOO_DATA.items()
+                          if k not in ("n_train", "n_val")})
+    runs = []
+    for warmup in (torch_model.WARMUP_STEPS, 10 ** 9):
+        saved = torch_model.WARMUP_STEPS
+        torch_model.WARMUP_STEPS = warmup
+        try:
+            twin = TorchDenseNet(device="cuda", **DENSENET_KNOBS)
+            twin.train(small_tr)
+        finally:
+            torch_model.WARMUP_STEPS = saved
+        runs.append(twin.dump_parameters())
+        twin.destroy()
+    a, b = runs
+    check(set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a),
+          "the captured DenseNet steps differ from the eager steps")
+    n_stats = sum(k.startswith("batch_stats/") for k in a)
+    print(f"zoo: (a) captured step: {step_ms:.3f} ms a replay (CUDA events, "
+          f"20 replays), {128 / step_ms * 1e3:.1f} images/s; "
+          f"{ZOO_GRAPH_SET // 128} steps ({torch_model.WARMUP_STEPS} eager, "
+          f"then replays) against {ZOO_GRAPH_SET // 128} eager steps on a "
+          f"second model: all {len(a)} tensors ({n_stats} BatchNorm "
+          f"statistics) bit for bit", flush=True)
+
+    # The card's logits against the CPU's on the same parameters, and the
+    # params file read back.
+    dumped = m.dump_parameters()
+    on_cpu = TorchDenseNet(device="cpu", **DENSENET_KNOBS)
+    on_cpu.load_parameters(dumped)
+    probes = vds.images[:ZOO_PROBES]
+    with torch.no_grad():
+        lc = m._logits(m._net, torch.from_numpy(probes).to("cuda").float()
+                       / 255.0).float().cpu().numpy()
+        lh = on_cpu._logits(on_cpu._net, torch.from_numpy(probes).float()
+                            / 255.0).float().numpy()
+    diff = float(np.abs(lc - lh).max())
+    check(diff <= TOL_ZOO_LOGITS, f"card vs CPU logits: {diff:.4e}")
+    store = ParamStore(os.path.join(tmp, "densenet_params"))
+    pid = store.save(dumped, session_id="zoo")
+    again = TorchDenseNet(device="cuda", **DENSENET_KNOBS)
+    again.load_parameters(store.load(pid))
+    same = np.array_equal(again.predict_proba(vds.images[:64]),
+                          m.predict_proba(vds.images[:64]))
+    check(same, "the reloaded DenseNet predicts differently")
+    print(f"zoo: (a) card vs CPU logits for {ZOO_PROBES} val images on the "
+          f"same parameters: max |diff| {diff:.4e} (max |logit| "
+          f"{float(np.abs(lh).max()):.3f}; tolerance {TOL_ZOO_LOGITS}); the "
+          f"params file ({len(dumped)} tensors) loaded by load_parameters "
+          f"predicts 64 val images bit for bit the same", flush=True)
+    for x in (m, on_cpu, again):
+        x.destroy()
+    store.close()
+    return {"train_s": train_s, "steps_per_sec": sps,
+            "images_per_sec": sps * 128, "chip_util": ep.get("chip_util"),
+            "peak_gb": peak_gb, "val_acc": acc, "step_ms": step_ms,
+            "busy_share": (prof[1] / 1e3 / step_ms) if prof else None,
+            "logit_diff": diff, "loss": [loss0, ep["loss"], loss1]}
+
+
+def zoo_search(meta, params, model, cls, train, val, n_trials, advisor,
+               name):
+    """Run one search through ``TrialRunner``; returns its rows in order
+    and the search's seconds."""
+    from rafiki_torch.constants import (BudgetOption, TaskType,
+                                        TrainJobStatus)
+    from rafiki_torch.worker import TrialRunner
+
+    budget = {BudgetOption.MODEL_TRIAL_COUNT: n_trials}
+    job = meta.create_train_job(model["user_id"], name,
+                                TaskType.IMAGE_CLASSIFICATION, budget,
+                                train, val, TrainJobStatus.RUNNING)
+    sub = meta.create_sub_train_job(job["id"], model["id"], "RUNNING")
+    runner = TrialRunner(cls, advisor, train, val, meta, params, sub["id"],
+                         model_id=model["id"], budget=budget, device="cuda")
+    t0 = time.perf_counter()
+    rows = runner.run()
+    return job, sorted(rows, key=lambda r: r["no"]), \
+        time.perf_counter() - t0
+
+
+def entropy(np, probs):
+    """Summed entropy (nats) of the controller's per-position choices."""
+    p = np.clip(probs, 1e-30, 1.0)
+    return float(-(probs * np.log(p)).sum())
+
+
+def zoo_phase(torch, np, attn, card):
+    """BASELINE configs 2 and 3 on the card: (a) DenseNet-121 trains one
+    epoch at full width; (b) a Bayes search of DenseNet-121 trials; (c)
+    an ENAS search at JaxEnas's sizes; (d) the 2 best ENAS trials behind
+    ``POST /predict``; (e) none of K1, K2 and K3 launched. Returns the
+    phase's numbers."""
+    import os
+    import tempfile
+
+    from rafiki_torch.advisor import (BayesOptAdvisor, EnasAdvisor,
+                                      make_advisor)
+    from rafiki_torch.constants import ParamsType, TaskType, TrialStatus
+    from rafiki_torch.datasets import make_synthetic_image_dataset
+    from rafiki_torch.model.dataset import load_image_dataset
+    from rafiki_torch.models import TorchDenseNet, TorchEnas
+    from rafiki_torch.predictor import PredictorService
+    from rafiki_torch.store import MetaStore, ParamStore
+    from rafiki_torch.utils.model_loader import load_model_class
+    from rafiki_torch.worker import InferenceWorker
+
+    t_phase = time.perf_counter()
+    reset_launch_counts(attn)
+    out = {}
+    check(load_model_class("rafiki_torch.models.densenet:TorchDenseNet")
+          is TorchDenseNet and load_model_class(
+              "rafiki_torch.models.enas:TorchEnas") is TorchEnas,
+          "the model loader does not resolve the zoo's classes")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train, val = make_synthetic_image_dataset(tmp, seed=SEED, **ZOO_DATA)
+        ds = load_image_dataset(train)
+        print(f"zoo: synthetic {ZOO_DATA['name']}-shaped set: {ds.size} "
+              f"train and {ZOO_DATA['n_val']} val images of "
+              f"{ds.image_shape}, {ds.n_classes} classes, "
+              f"{ds.images.nbytes / 1e6:.1f} MB of uint8 train images to "
+              f"stage on the card; made in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+
+        t0 = time.perf_counter()
+        out["densenet"] = zoo_densenet(torch, np, card, train, val, tmp)
+        out["densenet"]["check_s"] = time.perf_counter() - t0
+        print(f"zoo: (a) took {out['densenet']['check_s']:.1f} s", flush=True)
+
+        meta = MetaStore(os.path.join(tmp, "meta.db"))
+        params = ParamStore(os.path.join(tmp, "params"))
+        user = meta.create_user("zoo@example.com", "-", "MODEL_DEVELOPER")
+
+        # (b) A Bayes search of DenseNet-121 trials.
+        t0 = time.perf_counter()
+        dn_cls = load_model_class("ZooDenseNet", ZOO_DENSENET_SOURCE)
+        dn_model = meta.create_model(user["id"], "densenet",
+                                     TaskType.IMAGE_CLASSIFICATION,
+                                     "ZooDenseNet", {},
+                                     model_source=ZOO_DENSENET_SOURCE)
+        advisor = make_advisor(dn_cls.get_knob_config(), seed=SEED,
+                               total_trials=BAYES_TRIALS, device="cuda")
+        check(isinstance(advisor, BayesOptAdvisor),
+              f"make_advisor chose {type(advisor).__name__} for DenseNet")
+        _, rows, search_s = zoo_search(meta, params, dn_model, dn_cls,
+                                       train, val, BAYES_TRIALS, advisor,
+                                       "zoo-bayes")
+        check(len(rows) == BAYES_TRIALS and all(
+            r["status"] == TrialStatus.COMPLETED for r in rows),
+            f"Bayes trials: {[(r['status'], r.get('error')) for r in rows]}")
+        check(len(advisor._y) == BAYES_TRIALS, "the advisor heard "
+              f"{len(advisor._y)} scores")
+        for r in rows:
+            ep = epoch_values(meta, r["id"])
+            secs = r["finished_at"] - r["started_at"]
+            origin = ("random draw" if r["no"] <= advisor.n_initial
+                      else "fitted GP")
+            print(f"zoo: (b) trial {r['no']} ({origin}): "
+                  f"knobs {json.dumps(r['knobs'])}: {secs:.2f} s, "
+                  f"{ep[-1]['steps_per_sec']:.2f} steps/s, chip_util "
+                  f"{ep[-1].get('chip_util')}, epoch loss "
+                  f"{ep[-1]['loss']:.4f}, val accuracy {r['score']:.4f}",
+                  flush=True)
+        check(max(r["score"] for r in rows) >= ZOO_MIN_ACC,
+              f"no Bayes trial reached {ZOO_MIN_ACC}")
+        print(f"zoo: (b) Bayes search (make_advisor chose "
+              f"{type(advisor).__name__}, seed {SEED}, n_initial "
+              f"{advisor.n_initial}) of {BAYES_TRIALS} DenseNet-121 trials "
+              f"(arch and max_epochs 1 pinned) in {search_s:.2f} s: "
+              f"{BAYES_TRIALS * 3600 / search_s:.1f} trials/hour on {card}; "
+              f"check took {time.perf_counter() - t0:.1f} s", flush=True)
+        out["bayes"] = {"search_s": search_s,
+                        "trials_per_hour": BAYES_TRIALS * 3600 / search_s,
+                        "scores": [r["score"] for r in rows]}
+
+        # (c) An ENAS search at JaxEnas's sizes.
+        t0 = time.perf_counter()
+        en_cls = load_model_class("ZooEnas", ZOO_ENAS_SOURCE)
+        en_model = meta.create_model(user["id"], "enas",
+                                     TaskType.IMAGE_CLASSIFICATION,
+                                     "ZooEnas", {},
+                                     model_source=ZOO_ENAS_SOURCE)
+        advisor = make_advisor(en_cls.get_knob_config(), seed=SEED,
+                               total_trials=ENAS_TRIALS, device="cuda")
+        check(isinstance(advisor, EnasAdvisor),
+              f"make_advisor chose {type(advisor).__name__} for ENAS")
+        h0 = entropy(np, advisor.arch_probs())
+        job, rows, search_s = zoo_search(meta, params, en_model, en_cls,
+                                         train, val, ENAS_TRIALS, advisor,
+                                         "zoo-enas")
+        h1 = entropy(np, advisor.arch_probs())
+        check(len(rows) == ENAS_TRIALS and all(
+            r["status"] == TrialStatus.COMPLETED for r in rows),
+            f"ENAS trials: {[(r['status'], r.get('error')) for r in rows]}")
+        search = [r for r in rows if r["knobs"]["share_params"]]
+        final = [r for r in rows if not r["knobs"]["share_params"]]
+        check(len(search) == ENAS_TRIALS - 1 and len(final) == 1
+              and final[0]["no"] == ENAS_TRIALS,
+              f"phases: {[r['knobs']['share_params'] for r in rows]}")
+        n_super = len(params.load(search[0]["params_id"])) - 2
+        n_single = len(params.load(final[0]["params_id"])) - 2
+        for r in rows:
+            warm = trial_warm_starts(meta, r["id"])
+            phase = "search" if r["knobs"]["share_params"] else "final"
+            secs = r["finished_at"] - r["started_at"]
+            ep = epoch_values(meta, r["id"])
+            net = ("supernet 3 cells of 16" if phase == "search"
+                   else "single path 6 cells of 32")
+            print(f"zoo: (c) trial {r['no']} ({phase}, {net}): "
+                  f"arch {r['knobs']['arch']}, warm-started "
+                  f"{warm[0] if warm else 0} tensors, {secs:.2f} s, "
+                  f"{ep[-1]['steps_per_sec']:.2f} steps/s, val accuracy "
+                  f"{r['score']:.4f}", flush=True)
+            if phase == "search" and r["no"] > 1:
+                check(warm == [n_super], f"search trial {r['no']} "
+                      f"warm-started {warm} of {n_super} tensors")
+            if phase == "final":
+                check(warm == [], f"the final trial warm-started {warm}")
+        best = max(search, key=lambda r: r["score"])
+        check(final[0]["knobs"]["arch"] == best["knobs"]["arch"],
+              "the final trial did not retrain the best search arch")
+        check(max(r["score"] for r in rows) > 1.5 / ZOO_DATA["n_classes"],
+              "every ENAS trial at chance")
+        print(f"zoo: (c) ENAS search (make_advisor chose "
+              f"{type(advisor).__name__}, seed {SEED}, {ENAS_TRIALS} trials: "
+              f"{len(search)} search on the masked supernet with "
+              f"{ParamsType.GLOBAL_RECENT} warm starts of all {n_super} "
+              f"tensors, 1 final retraining trial {best['no']}'s arch from "
+              f"scratch on the single path, {n_single} tensors) in "
+              f"{search_s:.2f} s: {ENAS_TRIALS * 3600 / search_s:.1f} "
+              f"trials/hour; controller entropy {h0:.4f} nats before, "
+              f"{h1:.4f} after; check took {time.perf_counter() - t0:.1f} s "
+              f"on {card}", flush=True)
+        out["enas"] = {"search_s": search_s,
+                       "trials_per_hour": ENAS_TRIALS * 3600 / search_s,
+                       "entropy": [h0, h1],
+                       "scores": [r["score"] for r in rows]}
+
+        # (d) The 2 best ENAS trials behind POST /predict.
+        t0 = time.perf_counter()
+        top = meta.get_best_trials_of_train_job(job["id"],
+                                                max_count=ZOO_DEPLOY)
+        check(len(top) == ZOO_DEPLOY, f"{len(top)} ENAS trials to deploy")
+        workers = [InferenceWorker(en_cls, t["knobs"],
+                                   params.load(t["params_id"]),
+                                   device="cuda").start() for t in top]
+        app = PredictorService(workers, device="cuda").start()
+        vds = load_image_dataset(val)
+        try:
+            worst, n_checked = 0.0, 0
+            for i in range(5):
+                imgs = vds.images[8 * i:8 * i + 1 + i]
+                floats = (imgs.astype(np.float32) / 255.0).tolist()
+                body = ({"query": floats[0]} if i % 2 == 0
+                        else {"queries": floats})
+                status, resp, _ = post(app.url + "/predict", body)
+                check(status == 200, f"/predict answered {status}")
+                served = np.asarray([resp["prediction"]] if i % 2 == 0
+                                    else resp["predictions"])
+                qs = floats[:1] if i % 2 == 0 else floats
+                own = np.mean(np.asarray(
+                    [w.predict(qs, timeout=60) for w in workers],
+                    np.float64), axis=0)
+                err = float(np.abs(served - own).max())
+                worst = max(worst, err)
+                check(err <= TOL_ENSEMBLE, f"served differs from the "
+                      f"members' mean by {err:.3e}")
+                n_checked += len(qs)
+            print(f"zoo: (d) the {ZOO_DEPLOY} best ENAS trials "
+                  f"({[t['no'] for t in top]}, val accuracy "
+                  f"{[round(t['score'], 4) for t in top]}) deployed; 5 POST "
+                  f"/predict requests, {n_checked} queries: served = float64 "
+                  f"mean of the members' own predict, max |diff| "
+                  f"{worst:.3e} (tolerance {TOL_ENSEMBLE})", flush=True)
+            out["window"] = automl_window(np, app.url,
+                                          vds.images[:AUTOML_WINDOW], card,
+                                          tag="zoo: (d)", deployed=ZOO_DEPLOY)
+        finally:
+            app.stop()
+            for w in workers:
+                w.stop()
+        print(f"zoo: (d) took {time.perf_counter() - t0:.1f} s", flush=True)
+        params.close()
+        meta.close()
+
+    # (e) The phase ran none of the attention kernels.
+    launches = launch_counts(attn)
+    check(launches[:3] == (0, 0, 0),
+          f"the zoo phase launched K1/K2/K3 {launches[:3]}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"zoo: (e) K1, K2 and K3 launched 0 times in the phase; phase "
+          f"took {phase_s:.1f} s", flush=True)
+    out.update(launches=launches[:3], phase_s=phase_s)
+    return out
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, printing the phase's own seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phases: {name} took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2042,13 +2545,18 @@ def main() -> int:
             print(f"build: {name}.cu: {ptxas_summary(log)}", flush=True)
             for line in build_warnings(log):
                 print(f"build: {name}.cu: {line}", flush=True)
-        k1 = kernel_phase(torch, attn)
-        k1_train, k2, k3 = backward_phase(torch, attn)
-        params, train_launches = train_phase(torch, np, attn, card)
-        serve_launches = slice_phase(torch, np, attn, card, params)
-        gen_launches, gen = generate_phase(torch, np, attn, card, params)
-        automl = automl_phase(torch, np, attn, card)
-        _, plat_launches = platform_phase(torch, np, attn, card, automl)
+        k1 = timed("kernel", kernel_phase, torch, attn)
+        k1_train, k2, k3 = timed("backward", backward_phase, torch, attn)
+        params, train_launches = timed("train", train_phase, torch, np,
+                                       attn, card)
+        serve_launches = timed("serve", slice_phase, torch, np, attn, card,
+                               params)
+        gen_launches, gen = timed("generate", generate_phase, torch, np,
+                                  attn, card, params)
+        automl = timed("automl", automl_phase, torch, np, attn, card)
+        _, plat_launches = timed("platform", platform_phase, torch, np,
+                                 attn, card, automl)
+        zoo = timed("zoo", zoo_phase, torch, np, attn, card)
     except Exception:
         traceback.print_exc()
         return 1
@@ -2060,17 +2568,20 @@ def main() -> int:
                        + plat_launches[0]),
              generate_launches=gen_launches,
              platform_launches=plat_launches[0],
+             zoo_launches=zoo["launches"][0],
              generate_buckets=gen["buckets"], **k1, **k1_train),
         dict(name="flash_bwd_dq (K2)", route="cuda",
              source=src + "flash_bwd_dq.cu",
              replaces="rafiki_tpu/ops/attention.py:338",
              launches=train_launches[1] + plat_launches[1],
-             platform_launches=plat_launches[1], **k2),
+             platform_launches=plat_launches[1],
+             zoo_launches=zoo["launches"][1], **k2),
         dict(name="flash_bwd_dkv (K3)", route="cuda",
              source=src + "flash_bwd_dkv.cu",
              replaces="rafiki_tpu/ops/attention.py:401",
              launches=train_launches[2] + plat_launches[2],
-             platform_launches=plat_launches[2], **k3)]}), flush=True)
+             platform_launches=plat_launches[2],
+             zoo_launches=zoo["launches"][2], **k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

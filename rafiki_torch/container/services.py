@@ -64,7 +64,8 @@ def build_service(env: Dict[str, str], ctx: SystemContext) -> Any:
 
 def _build_advisor_service(sub_id: str, ctx: SystemContext) -> Any:
     """The ``AdvisorWorker`` of one sub-train-job: its model's knob
-    space, its advisor type and its trial budget."""
+    space, its advisor type and its trial budget; an ENAS controller
+    runs on the context's device type."""
     from ..advisor import make_advisor
     from ..advisor.worker import AdvisorWorker
     from ..utils.model_loader import load_model_class
@@ -76,5 +77,6 @@ def _build_advisor_service(sub_id: str, ctx: SystemContext) -> Any:
                                    model_row.get("model_source"))
     advisor = make_advisor(
         model_class.get_knob_config(), advisor_type=sub.get("advisor_type"),
-        total_trials=job["budget"].get(BudgetOption.MODEL_TRIAL_COUNT))
+        total_trials=job["budget"].get(BudgetOption.MODEL_TRIAL_COUNT),
+        device=ctx.device_type)
     return AdvisorWorker(advisor, ctx.bus, sub_id)

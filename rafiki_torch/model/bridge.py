@@ -1,11 +1,32 @@
 """Parameter layout bridges between the two packages.
 
 Flat flax names (``dense_from_jax`` / ``dense_to_jax``): a reference
-``JaxModel.dump_parameters()`` names each leaf by its flax path,
-``params/Dense_0/kernel``. A flax ``Dense`` kernel is ``(in, out)``; the
-port's ``nn.Linear`` of the same path (``Dense_0``) holds it as
-``weight`` ``(out, in)``, and ``…/bias`` maps to ``bias`` as it is. The
-round trip is exact. Convolution kernels (HWIO) wait for the CNN slice.
+``JaxModel.dump_parameters()`` names each leaf by its flax path under
+its collection, ``params/Dense_0/kernel`` or
+``batch_stats/_DenseLayer_0/BatchNorm_0/mean``. The port's modules are
+named as the flax modules, so the path maps to a ``state_dict`` key
+with ``.`` for ``/``, and the leaf maps by its kind:
+
+- a ``Dense`` kernel ``(in, out)`` is an ``nn.Linear`` ``weight``
+  ``(out, in)``;
+- a ``Conv`` kernel, HWIO ``(kh, kw, in / groups, out)``, is a
+  ``weight`` OIHW ``(out, in / groups, kh, kw)``; a depthwise kernel
+  ``(k, k, 1, C)`` (``feature_group_count=C``) becomes ``(C, 1, k, k)``
+  for ``groups=C`` by the same transpose;
+- a norm's ``scale`` is its ``weight``, and ``bias`` stays ``bias``;
+- ``batch_stats``' ``mean`` and ``var`` are the buffers
+  ``running_mean`` and ``running_var``.
+
+The ENAS controller (``controller_from_jax`` / ``controller_to_jax``):
+flax's ``LSTMCell`` keeps eight gate ``Dense`` layers, the input ones
+(``ii``, ``if``, ``ig``, ``io``) without a bias and the hidden ones
+(``hi``, ``hf``, ``hg``, ``ho``) with one; ``nn.LSTMCell`` stacks them
+in the same (i, f, g, o) order as ``weight_ih`` and ``weight_hh``, with
+the hidden biases as ``bias_hh`` and ``bias_ih`` zero. ``Embed_0``'s
+``embedding`` is ``nn.Embedding``'s ``weight`` as it is; the heads are
+``Dense`` layers.
+
+Every round trip is exact: transposes and copies of float32 arrays.
 
 The language model (``lm_from_jax`` / ``lm_to_jax``): the reference ``JaxTransformerLM.dump_parameters()`` gives a flat dict:
 ``embed`` (V, d), ``lnf`` (d,), and layer-stacked ``layers/qkv``
@@ -32,22 +53,36 @@ LINEARS = ("qkv", "proj", "w1", "w2")
 NORMS = ("ln1", "ln2")
 
 
+#: OIHW <-> HWIO.
+_TO_OIHW = (3, 2, 0, 1)
+_TO_HWIO = (2, 3, 1, 0)
+_STATS = {"mean": "running_mean", "var": "running_var"}
+_STATS_BACK = {v: k for k, v in _STATS.items()}
+
+
 def dense_from_jax(params: Params) -> Dict[str, torch.Tensor]:
-    """Reference flat ``params/...`` dict -> the port's ``state_dict``
-    (CPU, float32). ``_meta/...`` entries are skipped."""
+    """Reference flat ``params/...`` and ``batch_stats/...`` dict -> the
+    port's ``state_dict`` (CPU, float32). ``_meta/...`` entries are
+    skipped."""
     state: Dict[str, torch.Tensor] = {}
     for key, value in params.items():
         if key.startswith("_meta/"):
             continue
         coll, *path, leaf = key.split("/")
         a = np.asarray(value, dtype=np.float32)
-        if coll != "params" or not path:
-            raise ValueError(f"no port layout for parameter {key!r}")
-        if leaf == "kernel" and a.ndim == 2:
-            name, a = "weight", a.T
-        elif leaf == "bias" and a.ndim == 1:
-            name = "bias"
-        else:
+        name = None
+        if not path:
+            pass
+        elif coll == "params":
+            if leaf == "kernel" and a.ndim == 2:
+                name, a = "weight", a.T
+            elif leaf == "kernel" and a.ndim == 4:
+                name, a = "weight", a.transpose(_TO_OIHW)
+            elif leaf in ("bias", "scale") and a.ndim == 1:
+                name = "bias" if leaf == "bias" else "weight"
+        elif coll == "batch_stats" and leaf in _STATS and a.ndim == 1:
+            name = _STATS[leaf]
+        if name is None:
             raise ValueError(f"no port layout for parameter {key!r} of "
                              f"shape {a.shape}")
         state[".".join(path + [name])] = torch.from_numpy(
@@ -62,14 +97,71 @@ def dense_to_jax(state: Dict[str, torch.Tensor]) -> Params:
     for key, t in state.items():
         *path, name = key.split(".")
         a = t.detach().to("cpu", torch.float32).numpy()
+        coll, leaf = "params", None
         if name == "weight" and a.ndim == 2:
             leaf, a = "kernel", a.T
-        elif name == "bias" and a.ndim == 1:
-            leaf = "bias"
-        else:
+        elif name == "weight" and a.ndim == 4:
+            leaf, a = "kernel", a.transpose(_TO_HWIO)
+        elif name in ("weight", "bias") and a.ndim == 1:
+            leaf = "scale" if name == "weight" else "bias"
+        elif name in _STATS_BACK and a.ndim == 1:
+            coll, leaf = "batch_stats", _STATS_BACK[name]
+        if leaf is None:
             raise ValueError(f"no reference layout for {key!r} of shape "
                              f"{a.shape}")
-        out["/".join(["params", *path, leaf])] = np.array(a, copy=True)
+        out["/".join([coll, *path, leaf])] = np.array(a, copy=True)
+    return out
+
+
+_LSTM = "params/LSTMCell_0/"
+_EMBED = "params/Embed_0/embedding"
+
+
+def controller_from_jax(params: Params) -> Dict[str, torch.Tensor]:
+    """The reference ENAS controller's flat ``params/...`` dict -> the
+    port's controller ``state_dict`` (CPU, float32)."""
+
+    def a(k: str) -> np.ndarray:
+        return np.asarray(params[_LSTM + k], np.float32)
+
+    def t(x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.array(x, np.float32, copy=True))
+
+    rest = {k: v for k, v in params.items()
+            if not k.startswith(_LSTM) and k != _EMBED}
+    state = dense_from_jax(rest)
+    bias_hh = np.concatenate([a(f"h{g}/bias") for g in "ifgo"])
+    state.update({
+        "LSTMCell_0.weight_ih": t(np.concatenate(
+            [a(f"i{g}/kernel").T for g in "ifgo"])),
+        "LSTMCell_0.weight_hh": t(np.concatenate(
+            [a(f"h{g}/kernel").T for g in "ifgo"])),
+        "LSTMCell_0.bias_ih": t(np.zeros_like(bias_hh)),
+        "LSTMCell_0.bias_hh": t(bias_hh),
+        "Embed_0.weight": t(params[_EMBED]),
+    })
+    return state
+
+
+def controller_to_jax(state: Dict[str, torch.Tensor]) -> Params:
+    """The port's controller ``state_dict`` -> the reference's flat
+    ``params/...`` dict (host numpy, float32). ``bias_ih`` must be
+    zero: the reference has no input-gate bias."""
+
+    def a(k: str) -> np.ndarray:
+        return state[k].detach().to("cpu", torch.float32).numpy()
+
+    if np.any(a("LSTMCell_0.bias_ih")):
+        raise ValueError("the controller's bias_ih is not zero")
+    out = dense_to_jax({k: v for k, v in state.items()
+                        if not k.startswith(("LSTMCell_0.", "Embed_0."))})
+    for prefix, mat in (("i", a("LSTMCell_0.weight_ih")),
+                        ("h", a("LSTMCell_0.weight_hh"))):
+        for g, block in zip("ifgo", np.split(mat, 4)):
+            out[f"{_LSTM}{prefix}{g}/kernel"] = np.array(block.T, copy=True)
+    for g, b in zip("ifgo", np.split(a("LSTMCell_0.bias_hh"), 4)):
+        out[f"{_LSTM}h{g}/bias"] = np.array(b, copy=True)
+    out[_EMBED] = np.array(a("Embed_0.weight"), copy=True)
     return out
 
 

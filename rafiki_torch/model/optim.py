@@ -15,6 +15,16 @@ puts eps outside the square root, as ``torch.optim.Adam`` does, and
 ``scale_by_schedule`` evaluates the schedule at the update count
 *before* its increment (0 on the first step), so the lr of update ``k``
 (from 0) is ``learning_rate * schedule(k)``.
+
+The conv zoo trains with SGD under Nesterov momentum: DenseNet with
+``traced_hyperparam_optimizer(opt="sgdm", warmup=True,
+weight_decay=True)`` (``jax_model.py:412-448``), ENAS's child models
+with ``add_decayed_weights(1e-4)`` and ``optax.sgd(momentum=0.9,
+nesterov=True)`` under a cosine decay (``models/enas.py:254-264``).
+optax's ``trace`` keeps ``t = g + 0.9·t`` and its Nesterov update is
+``g + 0.9·t``, both on the decayed but unscaled gradient, and the
+schedule multiplies after: ``NesterovSGD`` is that update, written out
+(``scheduled_sgd`` puts it under a schedule).
 """
 
 from __future__ import annotations
@@ -146,6 +156,57 @@ def scheduled_adam(params: Iterable[torch.nn.Parameter], peak_lr: float,
     return ScheduledOptimizer(
         opt, peak_lr, cosine_decay_schedule(1.0, total_steps, alpha=0.01),
         total_steps)
+
+
+class NesterovSGD(torch.optim.Optimizer):
+    """optax's ``chain(add_decayed_weights(wd), trace(momentum,
+    nesterov=True), <schedule>, scale(-1))``: ``g = grad + wd·p``,
+    ``t = g + momentum·t`` (``t`` starts at zero), ``p -= lr·(g +
+    momentum·t)``. ``lr`` may be a device tensor, which a CUDA graph
+    reads at each replay. A parameter without a gradient steps as if
+    its gradient were zero, as every leaf of an optax tree does."""
+
+    def __init__(self, params, lr, momentum: float = 0.9,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None) -> None:
+        for group in self.param_groups:
+            ps = group["params"]
+            gs = [p.grad if p.grad is not None else torch.zeros_like(p)
+                  for p in ps]
+            if group["weight_decay"]:
+                gs = torch._foreach_add(gs, ps,
+                                        alpha=group["weight_decay"])
+            bufs = []
+            for p in ps:
+                st = self.state[p]
+                if "trace" not in st:
+                    st["trace"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                bufs.append(st["trace"])
+            torch._foreach_mul_(bufs, group["momentum"])
+            torch._foreach_add_(bufs, gs)
+            upd = torch._foreach_add(gs, bufs, alpha=group["momentum"])
+            torch._foreach_mul_(upd, group["lr"])
+            torch._foreach_sub_(ps, upd)
+
+
+def scheduled_sgd(params: Iterable[torch.nn.Parameter], peak_lr: float,
+                  schedule: Schedule, total_steps: int,
+                  weight_decay: float = 0.0) -> ScheduledOptimizer:
+    """``NesterovSGD`` (momentum 0.9) with lr ``peak_lr *
+    schedule(count)``; on the card the lr is a device tensor, so that
+    the step can be captured."""
+    params = list(params)
+    device = params[0].device
+    lr = (torch.tensor(float(peak_lr), dtype=torch.float32, device=device)
+          if device.type == "cuda" else float(peak_lr))
+    return ScheduledOptimizer(
+        NesterovSGD(params, lr, momentum=0.9, weight_decay=weight_decay),
+        peak_lr, schedule, max(1, total_steps))
 
 
 def adamw(params: Iterable[torch.nn.Parameter], lr: float

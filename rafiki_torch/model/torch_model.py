@@ -14,11 +14,17 @@ trains, evaluates, serves and (de)serialises it as the reference does:
   accuracy stay on the device and are read back once per chunk of up to
   128 steps; one ``logger.log`` record per epoch carries ``epoch``,
   ``loss``, ``train_acc``, ``steps_per_sec`` and, on the card,
-  ``chip_util`` (analytic FLOPs of the module's dense layers over the
-  H100's bf16 peak). On one card there is no data-parallel rounding of
-  the batch: it is only capped at the dataset's size. On the card the
-  step is captured once as a CUDA graph and replayed (``_TrainSteps``),
-  the counterpart of the reference's many steps per compiled dispatch.
+  ``chip_util`` (analytic FLOPs of the module's convolutions and dense
+  layers over the H100's bf16 peak). ``augment_in_graph(x, step)``
+  augments each normalised batch on the device (identity by default;
+  the conv zoo's ``pad_crop_flip``, ref :231-257). The module runs in
+  train mode, so a BatchNorm's running statistics update in place, in
+  the captured graph too; ``evaluate`` and ``predict`` run it in eval
+  mode, on the running statistics (ref :518-581). On one card there is
+  no data-parallel rounding of the batch: it is only capped at the
+  dataset's size. On the card the step is captured once as a CUDA graph
+  and replayed (``_TrainSteps``), the counterpart of the reference's
+  many steps per compiled dispatch.
 - ``evaluate`` (ref :890-991): argmax accuracy over the staged set in
   batches of up to 1024.
 - ``predict`` / ``predict_submit`` / ``predict_proba`` (ref :994-1070):
@@ -28,13 +34,15 @@ trains, evaluates, serves and (de)serialises it as the reference does:
   output is an f32 softmax; queries go in chunks of
   ``max_predict_batch``.
 - ``dump_parameters`` / ``load_parameters`` (ref :1363-1390) use the
-  reference's flat flax names (``params/Dense_0/kernel`` …) and shapes
-  plus ``_meta/n_classes`` and ``_meta/image_shape``, as host numpy, so
-  the two packages' parameter files interchange.
+  reference's flat flax names (``params/Dense_0/kernel``,
+  ``batch_stats/.../mean`` …) and shapes plus ``_meta/n_classes`` and
+  ``_meta/image_shape``, as host numpy, so the two packages' parameter
+  files interchange (``bridge.dense_from_jax``).
 
 Not ported yet: checkpoint resume (``checkpoint_dir`` raises), serving
 quantisation, stacked ensembles, bucketed and staged predict, the
-compiled-step cache and multi-chip meshes.
+compiled-step cache, the host and device dataset caches and multi-chip
+meshes.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from torch import nn
 
 from ..observe import H100_PEAK_BF16_FLOPS, MfuMeter
 from ..torchenv import DeviceLike, resolve_device
+from ..utils.hashing import M32, mix32
 from .base import BaseModel, Params
 from .bridge import dense_from_jax, dense_to_jax
 from .dataset import load_image_dataset
@@ -62,6 +71,57 @@ CHUNK_STEPS = 128
 EVAL_BATCH = 1024
 #: Eager train steps on the card before the step is captured.
 WARMUP_STEPS = 3
+
+
+def _reflect(p: torch.Tensor, n: int) -> torch.Tensor:
+    """Index into a length-``n`` axis of a coordinate ``p`` of its
+    reflect padding (numpy's ``mode="reflect"``: the edge is not
+    repeated), for ``-n < p < 2n - 1``."""
+    p = p.abs()
+    return torch.where(p >= n, 2 * (n - 1) - p, p)
+
+
+def crop_flip(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+              flip: torch.Tensor, pad: int = 4) -> torch.Tensor:
+    """(B, H, W, C) images -> each reflect-padded by ``pad``, cropped
+    back to H × W at offset (``ys``, ``xs``) of the padded image, and
+    flipped horizontally where ``flip``: what ``pad_crop_flip_graph``
+    (ref :231-257) computes from its draws, as one gather."""
+    b, h, w, _ = x.shape
+    i = torch.arange(h, device=x.device)
+    j = torch.arange(w, device=x.device)
+    rows = _reflect(ys[:, None] + i - pad, h)
+    jj = torch.where(flip[:, None], w - 1 - j, j)
+    cols = _reflect(xs[:, None] + jj - pad, w)
+    bi = torch.arange(b, device=x.device)
+    return x[bi[:, None, None], rows[:, :, None], cols[:, None, :]]
+
+
+def crop_flip_draw(seed: int, step: torch.Tensor, b: int, pad: int = 4):
+    """Row offsets, column offsets (each in [0, 2·pad]) and flips (p =
+    0.5) of the ``b`` rows of train step ``step`` (a device int64
+    scalar): a hash of (``seed``, ``step``, row), so no generator state
+    is read, a captured step draws anew at every replay, and eager
+    steps and replays draw the same. The draws are not ``jax.random``'s."""
+    rows = torch.arange(b, device=step.device)
+    h = mix32(mix32(torch.full_like(step, seed & M32)) ^ (step & M32))
+    h = mix32(h ^ rows)
+    span = 2 * pad + 1
+    return (mix32(h ^ 1) % span, mix32(h ^ 2) % span,
+            (mix32(h ^ 3) & 1).bool())
+
+
+def pad_crop_flip(x: torch.Tensor, seed: int, step: torch.Tensor,
+                  pad: int = 4, min_size: int = 16) -> torch.Tensor:
+    """The CIFAR recipe on the device: reflect-pad ``pad``, a random
+    crop back to H × W and a horizontal flip with p = 0.5, drawn by
+    ``crop_flip_draw``. Images smaller than ``min_size`` pass through,
+    as in the reference."""
+    b, h, w, _ = x.shape
+    if min(h, w) < min_size:
+        return x
+    ys, xs, flip = crop_flip_draw(seed, step, b, pad)
+    return crop_flip(x, ys, xs, flip, pad)
 
 
 class _TrainSteps:
@@ -91,6 +151,7 @@ class _TrainSteps:
         self.order = torch.zeros((steps_per_epoch, batch_size),
                                  dtype=torch.int64, device=dev)
         self.row = torch.zeros((), dtype=torch.int64, device=dev)
+        self.step_no = torch.zeros((), dtype=torch.int64, device=dev)
         self.sums = torch.zeros(2, dtype=torch.float32, device=dev)
         self.on_card = dev.type == "cuda"
         self.side = torch.cuda.Stream(dev) if self.on_card else None
@@ -103,7 +164,8 @@ class _TrainSteps:
 
     def _forward_backward(self) -> None:
         sel = self.order.index_select(0, self.row.view(1)).view(-1)
-        x = self.data[sel].float() / 255.0
+        x = self.model.augment_in_graph(self.data[sel].float() / 255.0,
+                                        self.step_no)
         y = self.labels[sel]
         logits = self.model._logits(self.net, x).float()
         loss = F.cross_entropy(logits, y)
@@ -111,6 +173,7 @@ class _TrainSteps:
         acc = (logits.detach().argmax(-1) == y).float().mean()
         self.sums.add_(torch.stack([loss.detach(), acc]))
         self.row.add_(1)
+        self.step_no.add_(1)
 
     def _eager(self) -> None:
         self.opt.zero_grad()
@@ -192,6 +255,13 @@ class TorchModel(BaseModel):
         (the knob masks of a supernet)."""
         return {}
 
+    def augment_in_graph(self, x: torch.Tensor,
+                         step: torch.Tensor) -> torch.Tensor:
+        """Augments a normalised (B, H, W, C) train batch on the device;
+        ``step`` is the device step counter (from 0 over the run).
+        Identity by default."""
+        return x
+
     # --- Plumbing ---
 
     def _extra_dev(self) -> Dict[str, torch.Tensor]:
@@ -214,12 +284,31 @@ class TorchModel(BaseModel):
         """Normalised float32 images -> the module's logits."""
         return net(x, **self._extra_dev())
 
-    @staticmethod
-    def _dense_flops(net: nn.Module) -> int:
+    def _macs(self, net: nn.Module, image_shape) -> int:
         """Multiply-adds of one example through the module's dense
-        layers."""
-        return sum(m.in_features * m.out_features for m in net.modules()
-                   if isinstance(m, nn.Linear))
+        layers and every convolution its forward runs (each module with
+        a ``macs(out)`` method, counted by a forward hook on one zero
+        image in eval mode). A masked supernet computes every branch,
+        so every branch counts."""
+        total = [sum(m.in_features * m.out_features
+                     for m in net.modules() if isinstance(m, nn.Linear))]
+
+        def hook(mod, _inp, out):
+            total[0] += mod.macs(out)
+
+        handles = [m.register_forward_hook(hook) for m in net.modules()
+                   if hasattr(m, "macs")]
+        was_training = net.training
+        try:
+            net.eval()
+            with torch.no_grad():
+                self._logits(net, torch.zeros((1, *image_shape),
+                                              device=self.device))
+        finally:
+            net.train(was_training)
+            for h in handles:
+                h.remove()
+        return total[0]
 
     # --- BaseModel: train ---
 
@@ -251,8 +340,9 @@ class TorchModel(BaseModel):
                             torch.from_numpy(ds.labels).to(self.device),
                             steps_per_epoch, batch_size)
         on_card = self.device.type == "cuda"
-        meter = MfuMeter(6 * batch_size * self._dense_flops(net),
-                         H100_PEAK_BF16_FLOPS if on_card else None)
+        meter = MfuMeter(
+            6 * batch_size * self._macs(net, ds.image_shape) if on_card
+            else 0, H100_PEAK_BF16_FLOPS if on_card else None)
         logger.define_plot("Training", ["loss", "train_acc", "chip_util"],
                            x_axis="epoch")
         early_stop = int(self.knobs.get("early_stop_epochs", 0))

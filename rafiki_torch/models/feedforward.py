@@ -22,29 +22,18 @@ Not ported yet: ``quantized_apply`` (int8 serving) and
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..model import CategoricalKnob, FixedKnob, FloatKnob, IntegerKnob
 from ..model.torch_model import TorchModel
+from .layers import dense, make_dense
 
 MAX_LAYERS = 3
 MAX_UNITS = 128
-
-# flax's lecun_normal: variance 1/fan_in of a normal truncated at two
-# standard deviations, rescaled by the truncation's std (0.8796...).
-_TRUNC_STD = 0.87962566103423978
-
-
-def _dense(layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
-    """flax ``Dense(dtype=bfloat16)``: product and bias add in bf16."""
-    y = F.linear(h, layer.weight.to(torch.bfloat16))
-    return y + layer.bias.to(torch.bfloat16)
 
 
 class _FeedForward(nn.Module):
@@ -56,22 +45,17 @@ class _FeedForward(nn.Module):
         gen = torch.Generator().manual_seed(seed)
         widths = [in_features] + [MAX_UNITS] * MAX_LAYERS + [n_classes]
         for i in range(MAX_LAYERS + 1):
-            layer = nn.Linear(widths[i], widths[i + 1])
-            std = math.sqrt(1.0 / widths[i]) / _TRUNC_STD
-            with torch.no_grad():
-                nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std,
-                                      b=2 * std, generator=gen)
-                layer.bias.zero_()
-            setattr(self, f"Dense_{i}", layer)
+            setattr(self, f"Dense_{i}",
+                    make_dense(widths[i], widths[i + 1], gen))
 
     def forward(self, x: torch.Tensor, hidden_layer_count: torch.Tensor,
                 hidden_layer_units: torch.Tensor) -> torch.Tensor:
         h = x.reshape(x.shape[0], -1).to(torch.bfloat16)
         units = hidden_layer_units.to(torch.bfloat16)
         for i in range(MAX_LAYERS):
-            y = torch.relu(_dense(getattr(self, f"Dense_{i}"), h)) * units
+            y = torch.relu(dense(getattr(self, f"Dense_{i}"), h)) * units
             h = y if i == 0 else torch.where(hidden_layer_count[i] > 0, y, h)
-        return _dense(getattr(self, f"Dense_{MAX_LAYERS}"), h)
+        return dense(getattr(self, f"Dense_{MAX_LAYERS}"), h)
 
 
 class TorchFeedForward(TorchModel):

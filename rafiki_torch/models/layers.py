@@ -1,0 +1,157 @@
+"""Layers of the conv zoo, computed as flax computes them.
+
+PyTorch's modules differ from flax's in defaults that a parity test at
+small sizes shows poorly, so the zoo builds on these instead:
+
+- ``BatchNorm``: flax's ``BatchNorm(momentum=0.9, dtype=float32)``.
+  Statistics in f32 over N, H and W; the running update
+  ``ra = 0.9·ra + 0.1·batch`` with the *biased* batch variance; eps
+  1e-5; an f32 output. ``torch.nn.BatchNorm2d`` updates its running
+  variance with the unbiased one, and its ``momentum`` is the other way
+  round: the layer calls the library's kernel with momentum 1 into
+  scratch buffers and makes flax's update from them.
+- ``GroupNorm``: flax's ``GroupNorm(dtype=float32)``, eps **1e-6**
+  (torch's default is 1e-5), statistics in f32 and an f32 output; the
+  caller casts it back to bf16 as the reference does.
+- ``Conv``: flax's ``Conv(dtype=bfloat16, use_bias=False)``, a bf16
+  cast of the f32 kernel and a bf16 product. The kernel is held as
+  torch's ``(out, in / groups, kh, kw)``; the bridge maps flax's HWIO.
+  ``padding`` is symmetric: the 3×3 convolutions ask for 1 explicitly,
+  and flax's ``SAME`` is ``k // 2`` for the stride-1 odd kernels here
+  and 0 for every 1×1 kernel at any stride.
+- ``avg_pool3``/``max_pool3``: flax's 3×3 stride-1 ``SAME`` pools; the
+  average counts the zero padding (``count_include_pad``) and the max
+  pads with −inf, as flax's do.
+- ``dense``: flax's ``Dense(dtype=bfloat16)``, which rounds the product
+  to bf16 before it adds the bf16 bias.
+
+``COMPUTE`` is flax's ``dtype`` of these layers, bf16; ``cast`` casts
+an activation to it. Modules take and give NCHW tensors. Parameters
+start from flax's initialisers (a truncated LeCun-normal kernel; norm scale 1, bias 0),
+drawn from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+#: flax's lecun_normal: a normal of variance 1/fan_in truncated at two
+#: standard deviations, rescaled by the truncation's std (0.8796...).
+TRUNC_STD = 0.87962566103423978
+BN_MOMENTUM = 0.9
+BN_EPS = 1e-5
+GN_EPS = 1e-6
+#: The dtype of the convolutions, the dense products and the
+#: activations between them (flax's ``dtype``); a test may set float32
+#: to hold a train step against a float32 reference module.
+COMPUTE = torch.bfloat16
+
+
+def cast(x: torch.Tensor) -> torch.Tensor:
+    return x.to(COMPUTE)
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  gen: torch.Generator) -> None:
+    std = math.sqrt(1.0 / fan_in) / TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                              generator=gen)
+
+
+def dense(layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
+    """flax ``Dense(dtype=bfloat16)``: product and bias add in bf16."""
+    y = F.linear(cast(h), cast(layer.weight))
+    return y + cast(layer.bias)
+
+
+def make_dense(in_features: int, out_features: int,
+               gen: torch.Generator) -> nn.Linear:
+    layer = nn.Linear(in_features, out_features)
+    lecun_normal_(layer.weight, in_features, gen)
+    with torch.no_grad():
+        layer.bias.zero_()
+    return layer
+
+
+class Conv(nn.Module):
+    """flax ``Conv(dtype=bfloat16, use_bias=False)`` on NCHW input."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int,
+                 gen: torch.Generator, stride: int = 1, padding: int = 0,
+                 groups: int = 1):
+        super().__init__()
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.weight = nn.Parameter(
+            torch.empty(out_ch, in_ch // groups, kernel, kernel))
+        lecun_normal_(self.weight, in_ch // groups * kernel * kernel, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(cast(x), cast(self.weight), None, self.stride,
+                        self.padding, 1, self.groups)
+
+    def macs(self, out: torch.Tensor) -> int:
+        """Multiply-adds of one example whose output is ``out``."""
+        o, i, kh, kw = self.weight.shape
+        return int(out.shape[-2] * out.shape[-1] * o * i * kh * kw)
+
+
+class BatchNorm(nn.Module):
+    """flax ``BatchNorm(momentum=0.9, dtype=float32)`` over NCHW."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if not self.training:
+            return F.batch_norm(xf, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, BN_EPS)
+        # The library's train-mode kernel normalises with the batch's
+        # biased variance, as flax does. With momentum 1 it leaves the
+        # batch mean and the *unbiased* variance in the scratch buffers;
+        # the running update is flax's, on the biased variance.
+        n = xf.numel() // xf.shape[1]
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(xf, mean, var, self.weight, self.bias, True, 1.0,
+                         BN_EPS)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(
+                mean * (1 - BN_MOMENTUM))
+            self.running_var.mul_(BN_MOMENTUM).add_(
+                var * ((1 - BN_MOMENTUM) * (n - 1) / n))
+        return y
+
+
+class GroupNorm(nn.Module):
+    """flax ``GroupNorm(dtype=float32)`` (eps 1e-6) over NCHW."""
+
+    def __init__(self, groups: int, channels: int):
+        super().__init__()
+        self.groups = groups
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.groups, self.weight, self.bias,
+                            GN_EPS)
+
+
+def avg_pool3(x: torch.Tensor) -> torch.Tensor:
+    """flax ``avg_pool(x, (3, 3), strides=(1, 1), padding="SAME")``."""
+    return F.avg_pool2d(x, 3, 1, 1, count_include_pad=True)
+
+
+def max_pool3(x: torch.Tensor) -> torch.Tensor:
+    """flax ``max_pool(x, (3, 3), strides=(1, 1), padding="SAME")``."""
+    return F.max_pool2d(x, 3, 1, 1)
+

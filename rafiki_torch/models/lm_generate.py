@@ -48,6 +48,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import NEG_INF
 from ..predictor.edge_cache import query_key
+from ..utils.hashing import M32 as _M32, mix32 as _mix32
 from .lm import _layer_norm
 from .transformer import _sinusoidal
 
@@ -55,7 +56,6 @@ from .transformer import _sinusoidal
 #: the ladder is geometric.
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 
-_M32 = 0xFFFFFFFF
 
 
 class PoolExhausted(RuntimeError):
@@ -145,14 +145,6 @@ def prefix_digest(tokens) -> str:
     """Content address of a token prefix: the edge cache's digest
     family applied to the token ids themselves."""
     return query_key(list(int(t) for t in tokens))
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A bijective 32-bit integer hash of int64 values in [0, 2^32);
-    the multiplier keeps every product below 2^63."""
-    x = ((x ^ (x >> 16)) * 0x45D9F3B) & _M32
-    x = ((x ^ (x >> 16)) * 0x45D9F3B) & _M32
-    return x ^ (x >> 16)
 
 
 def gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor,

@@ -62,7 +62,11 @@ def test_importing_the_port_loads_no_jax():
                 "rafiki_torch.admin.admin", "rafiki_torch.admin.app",
                 "rafiki_torch.admin.services_manager",
                 "rafiki_torch.client", "rafiki_torch.client.client",
-                "rafiki_torch.platform", "rafiki_torch.quickstart"):
+                "rafiki_torch.platform", "rafiki_torch.quickstart",
+                "rafiki_torch.models.layers", "rafiki_torch.models.densenet",
+                "rafiki_torch.models.enas", "rafiki_torch.advisor.bayes",
+                "rafiki_torch.advisor.enas", "rafiki_torch.advisor.registry",
+                "rafiki_torch.utils.hashing"):
         assert mod in mods, mod
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -175,7 +179,8 @@ KNOBS = {"d_model": 256, "n_layers": 2, "seq_len": 256, "batch_size": 4,
 
 @pytest.mark.parametrize("entry", ["device", "model", "worker", "app",
                                    "feedforward", "runner", "model_class",
-                                   "platform", "allocator", "bus_worker"])
+                                   "platform", "allocator", "bus_worker",
+                                   "densenet", "enas", "enas_advisor"])
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_entry_points_raise_without_a_card(entry, device):
     if torch.cuda.is_available():
@@ -193,6 +198,14 @@ def test_entry_points_raise_without_a_card(entry, device):
         elif entry == "feedforward":
             from rafiki_torch.models import TorchFeedForward
             TorchFeedForward(device=device)
+        elif entry in ("densenet", "enas"):
+            from rafiki_torch.models import TorchDenseNet, TorchEnas
+            (TorchDenseNet if entry == "densenet" else TorchEnas)(
+                device=device)
+        elif entry == "enas_advisor":
+            from rafiki_torch.advisor import make_advisor
+            from rafiki_torch.models import TorchEnas
+            make_advisor(TorchEnas.get_knob_config(), device=device)
         elif entry == "runner":
             from rafiki_torch.models import TorchFeedForward
             from rafiki_torch.store import MetaStore
