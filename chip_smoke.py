@@ -102,8 +102,10 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    the advisor service and a train worker (its trials per hour printed
    beside the automl phase's in-process figure, with each trial's
    seconds), the 2 best trials deploy as one worker serving the bin of
-   both (one card), 5 checked requests each equal the float64 mean of
-   the two members' own ``predict`` within 1e-6, and a window of 256
+   both (one card), stacked (its registration says ``stacked``; every
+   burst one dispatch), 5 checked requests each equal the float64 mean
+   of the two members' stacked rows within 1e-6 (each member's stacked
+   rows its own ``predict`` within 3.9e-3), and a window of 256
    single-image requests from 8 clients gives queries/s and latency
    percentiles; (b) while (a)'s job serves, a second train job of 2
    trials trains time-sliced on the same card, and every answer to a
@@ -133,11 +135,29 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    the single path; (d) the 2 best ENAS trials behind one predictor
    (served = the members' mean, a 256-request window); (e) K1, K2 and K3
    not launched in the phase;
-11. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
+11. ensemble phase, BASELINE config 4 as the reference serves a bin:
+   (a) 4 DenseNet-121 members (the zoo phase's trained one and three
+   from seeds) in one bin behind ``BusInferenceWorker``, the predictor
+   and ``Client``: a window of 512 single-image requests from 8 clients
+   with ``RAFIKI_TPU_SERVING_STACKED`` on (every burst one stacked
+   dispatch; a fallback burst fails the phase) and one with it off (4
+   dispatches a burst), served = the members' stacked float64 mean
+   within 1e-6, each member's rows stacked against its own, and one
+   burst's device time at buckets 1, 32 and 512 (one stacked replay,
+   four per-member replays, the eager per-member forward), profiled at
+   512; (c) ``replace_member(2, ...)``: members 0, 1 and 3 bit for bit,
+   member 2 the incoming model's rows, no recapture; (b) int8: the
+   automl phase's FeedForward trials stacked under
+   ``RAFIKI_TPU_SERVING_QUANT=int8`` (``int8_mm`` equal to the int32
+   product at every bucket, |Δp| and val accuracy against f32) and
+   DenseNet-121 on the generic fallback (argmax agreement and accuracy
+   against f32 on 1,024 val images, peak memory); (d) no K1-K3 launch;
+12. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
    ``library_covers`` names the kernels whose work one library call does
-   and ``platform_launches`` and ``zoo_launches`` the platform and zoo
-   phases' launches (counted in ``launches`` too), and, last, the
-   ``{"ok": true, "device": ...}`` line.
+   and ``platform_launches``, ``zoo_launches`` and ``ensemble_launches``
+   the platform, zoo and ensemble phases' launches (counted in
+   ``launches`` too), and, last, the ``{"ok": true, "device": ...}``
+   line.
 
 Any failed check exits non-zero without the last line.
 """
@@ -303,6 +323,35 @@ BAYES_TRIALS = 6
 ENAS_TRIALS = 8
 ZOO_DEPLOY = 2
 
+# The ensemble phase: BASELINE config 4 (ensemble serving of top-k
+# trained models) as the reference serves a bin: M DenseNet-121 members
+# (full width; the zoo phase's trained one and three from seeds) packed
+# on one card, through BusInferenceWorker, the predictor and the Client.
+ENSEMBLE_MEMBERS = 4
+# The bin's trials serve, they do not train: max_epochs takes the knob
+# space's least value (the zoo's trained member took one epoch). A bin
+# of an uploaded model_source does not stack, in the reference as here:
+# each member's load runs the source anew, so the members' classes
+# differ.
+ENSEMBLE_KNOBS = dict(DENSENET_KNOBS, max_epochs=6)
+ENSEMBLE_WINDOW = 512
+ENSEMBLE_BUCKETS = (1, 32, 512)
+ENSEMBLE_VAL = 1024
+# Stacked rows against a member's own (per-member) rows on the card. A
+# vmapped product is another cuBLAS or cuDNN call than the member's own
+# (a batched matmul, a grouped convolution), which may sum the same bf16
+# products in another order, so a logit may land on a neighbouring bf16
+# value. FeedForward: one ulp of a logit below 4 (as TOL_PROB).
+# DenseNet-121: its 120 bf16 convolutions each round again, and the
+# zoo phase holds its logits card against CPU to one ulp of a logit
+# below 32 (TOL_ZOO_LOGITS, 0.125), which moves a probability by at most
+# 0.5 * 0.125.
+TOL_STACKED_FF = TOL_PROB
+TOL_STACKED_DENSENET = 0.0625
+# int8 serving against f32: val accuracy may move by at most the
+# reference's accuracy-delta gate (bench.py --quant-tol, 0.02).
+TOL_INT8_ACC = 0.02
+
 ZOO_DENSENET_SOURCE = """
 from rafiki_torch.model import FixedKnob
 from rafiki_torch.models import TorchDenseNet
@@ -395,12 +444,16 @@ def time_ms(torch, fn, n: int) -> float:
 def graph_ms(torch, fn, n: int) -> float:
     """Mean device time of ``fn`` over ``n`` runs captured in one CUDA
     graph: the host's cost of a launch (tens of microseconds through the
-    Python wrapper, near K1's own time at the serve shape) stays out."""
+    Python wrapper, near K1's own time at the serve shape) stays out.
+    Captured as the port captures (``graph_capture``: one capture at a
+    time in the process, the garbage collector off meanwhile)."""
+    from rafiki_torch.torchenv import graph_capture
+
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with graph_capture(graph):
         for _ in range(n):
             fn()
     graph.replay()
@@ -1740,6 +1793,13 @@ def automl_phase(torch, np, attn, card):
               + "; ".join(f"{n[:60]} {t * 1e3:.1f} ms" for n, t in top),
               flush=True)
 
+        # The trained trials and the val set stay for the ensemble
+        # phase's int8 check.
+        vds = load_image_dataset(val)
+        out["ff_trials"] = [(r["knobs"], params.load(r["params_id"]))
+                            for r in rows]
+        out["ff_val"] = (vds.images, vds.labels)
+
         # Deploy the best trials.
         best = meta.get_best_trials_of_train_job(job["id"],
                                                  max_count=AUTOML_DEPLOY)
@@ -1749,7 +1809,6 @@ def automl_phase(torch, np, attn, card):
                                    device="cuda").start()
                    for t, p in zip(best, loaded)]
         app = PredictorService(workers, device="cuda").start()
-        vds = load_image_dataset(val)
         fixed = vds.images[:64]
         try:
             # (b) Five POST /predict checks: each served prediction is
@@ -1839,10 +1898,11 @@ def wait_train(client, job_id):
     return client.wait_until_train_job_done(job_id, timeout=900, poll=0.1)
 
 
-def platform_window(np, client, host, images, card):
-    """``AUTOML_WINDOW`` single-image ``Client.predict`` calls from
-    ``AUTOML_CLIENTS`` threads at once: queries per second and latency
-    percentiles."""
+def platform_window(np, client, host, images, card, tag="platform: (a)",
+                    what=f"one worker serving a {PLATFORM_DEPLOY}-trial bin"):
+    """One single-image ``Client.predict`` call an image from
+    ``AUTOML_CLIENTS`` threads at once: queries per second, latency
+    percentiles and the answers, in the images' order."""
     from concurrent.futures import ThreadPoolExecutor
 
     def one(img):
@@ -1851,21 +1911,23 @@ def platform_window(np, client, host, images, card):
         dt = time.perf_counter() - t0
         check(len(p) == AUTOML_DATA["n_classes"]
               and abs(sum(p) - 1.0) < 1e-4, f"not a distribution: {p}")
-        return dt
+        return dt, p
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(AUTOML_CLIENTS) as pool:
-        lat = sorted(pool.map(one, list(images)))
+        answers = list(pool.map(one, list(images)))
     secs = time.perf_counter() - t0
+    lat = sorted(dt for dt, _ in answers)
     pct = {q: lat[min(len(lat) - 1, int(q / 100 * len(lat)))] * 1e3
            for q in (50, 90, 99)}
-    print(f"platform: (a) window of {len(lat)} single-image requests from "
-          f"{AUTOML_CLIENTS} clients through Client.predict to one worker "
-          f"serving a {PLATFORM_DEPLOY}-trial bin: {len(lat) / secs:.2f} "
-          f"queries/s; latency p50 {pct[50]:.2f} ms, p90 {pct[90]:.2f} ms, "
-          f"p99 {pct[99]:.2f} ms on {card}", flush=True)
+    print(f"{tag} window of {len(lat)} single-image requests from "
+          f"{AUTOML_CLIENTS} clients through Client.predict to {what}: "
+          f"{len(lat) / secs:.2f} queries/s; latency p50 {pct[50]:.2f} ms, "
+          f"p90 {pct[90]:.2f} ms, p99 {pct[99]:.2f} ms on {card}",
+          flush=True)
     return {"qps": len(lat) / secs, "p50_ms": pct[50], "p90_ms": pct[90],
-            "p99_ms": pct[99]}
+            "p99_ms": pct[99],
+            "answers": np.asarray([p for _, p in answers], np.float64)}
 
 
 def platform_phase(torch, np, attn, card, automl):
@@ -1882,12 +1944,14 @@ def platform_phase(torch, np, attn, card, automl):
     import os
     import tempfile
 
+    from rafiki_torch.cache import Cache
     from rafiki_torch.client import Client
     from rafiki_torch.constants import (BudgetOption, TaskType, TrialStatus,
                                         UserType)
     from rafiki_torch.datasets import (make_synthetic_image_dataset,
                                        make_synthetic_token_dataset)
     from rafiki_torch.model.dataset import load_image_dataset
+    from rafiki_torch.model.torch_model import stack_members
     from rafiki_torch.models import TorchFeedForward, TorchTransformerLM
     from rafiki_torch.platform import LocalPlatform
 
@@ -1961,13 +2025,29 @@ def platform_phase(torch, np, attn, card, automl):
                   f"{PLATFORM_DEPLOY} trials on one card serve as bins "
                   f"{bins}")
             host = dev.get_inference_job(inf["id"])["predictor_host"]
+            (wid,) = [w["service_id"] for w in
+                      p.meta.get_inference_job_workers(inf["id"])
+                      if w["trial_id"] != "__predictor__"]
+            cache, deadline = Cache(p.bus), time.monotonic() + 300
+            while wid not in cache.running_worker_info(inf["id"]):
+                check(time.monotonic() < deadline,
+                      "the bin's worker did not register")
+                time.sleep(0.05)
+            info = cache.running_worker_info(inf["id"])[wid]
+            ens = p.container.get(wid).model
+            check(info.get("stacked") is True and ens.stacked is not None,
+                  f"the 2-trial bin did not stack: registration {info}")
             members = []
-            for tid in inf["trial_ids"]:
+            for tid in bins[0].split(","):
                 row = p.meta.get_trial(tid)
                 m = TorchFeedForward(device="cuda", **row["knobs"])
                 m.load_parameters(p.params.load(row["params_id"]))
                 members.append(m)
-            worst, n_checked = 0.0, 0
+            # The bin serves its members' stacked rows: the served answer
+            # is their float64 mean; each member's stacked rows are its
+            # own predict within TOL_STACKED_FF.
+            group = stack_members(members)
+            worst, worst_own, n_checked = 0.0, 0.0, 0
             for i in range(PLATFORM_CHECKED):
                 imgs = [vds.images[8 * i + j] for j in range(1 + i)]
                 if i % 2 == 0:
@@ -1976,21 +2056,37 @@ def platform_phase(torch, np, attn, card, automl):
                     imgs = imgs[:1]
                 else:
                     served = dev.predict(host, queries=imgs)["predictions"]
-                own = np.mean(np.asarray([m.predict(imgs) for m in members],
-                                         np.float64), axis=0)
-                err = float(np.abs(np.asarray(served) - own).max())
+                rows = stacked_rows(np, group, np.stack(imgs))
+                err = float(np.abs(np.asarray(served)
+                                   - rows.astype(np.float64).mean(0)).max())
+                own = np.asarray([m.predict(imgs) for m in members])
                 worst = max(worst, err)
+                worst_own = max(worst_own, float(np.abs(rows - own).max()))
                 check(err <= TOL_ENSEMBLE, f"served differs from the "
-                      f"members' mean by {err:.3e}")
+                      f"members' stacked mean by {err:.3e}")
                 n_checked += len(imgs)
+            check(worst_own <= TOL_STACKED_FF, f"stacked rows differ from "
+                  f"the members' own predict by {worst_own:.3e}")
+            bursts = sum(ens.bursts.values())
             print(f"platform: (a) inference job: 1 worker serving the bin "
                   f"{bins[0][:8]}...,{bins[0].split(',')[1][:8]}... on one "
-                  f"card; {PLATFORM_CHECKED} requests, {n_checked} queries: "
-                  f"served = float64 mean of the members' own predict, max "
-                  f"|diff| {worst:.3e} (tolerance {TOL_ENSEMBLE})",
-                  flush=True)
+                  f"card, registered stacked={info['stacked']}, "
+                  f"staging={info.get('staging')}; {PLATFORM_CHECKED} "
+                  f"requests, {n_checked} queries: served = float64 mean of "
+                  f"the members' stacked rows, max |diff| {worst:.3e} "
+                  f"(tolerance {TOL_ENSEMBLE}); stacked rows against each "
+                  f"member's own predict, max |diff| {worst_own:.3e} "
+                  f"(tolerance {TOL_STACKED_FF}); {bursts} bursts, "
+                  f"{sum(ens.dispatches.values()) / max(1, bursts):.2f} "
+                  f"dispatches a burst, modes {ens.bursts}", flush=True)
+            check(ens.bursts["fallback"] == ens.bursts["members"] == 0,
+                  f"bursts off the stacked path: {ens.bursts}")
             out["window"] = platform_window(
                 np, dev, host, vds.images[:AUTOML_WINDOW], card)
+            n_st = ens.bursts["stacked"]
+            print(f"platform: (a) the window: {n_st} stacked bursts so far, "
+                  f"{ens.dispatches['stacked'] / max(1, n_st):.2f} "
+                  f"dispatches a burst", flush=True)
 
             # (b) A second train job, time-sliced on the same card while
             # (a)'s job serves: (a)'s answers must not move by a bit.
@@ -2032,6 +2128,7 @@ def platform_phase(torch, np, attn, card, automl):
                   f"meanwhile, every answer bit for bit the one before on "
                   f"{card}", flush=True)
             dev.stop_inference_job(inf["id"])
+            group.destroy()
             for m in members:
                 m.destroy()
             launches_ab = launch_counts(attn)
@@ -2269,7 +2366,8 @@ def zoo_densenet(torch, np, card, train, val, tmp):
             "images_per_sec": sps * 128, "chip_util": ep.get("chip_util"),
             "peak_gb": peak_gb, "val_acc": acc, "step_ms": step_ms,
             "busy_share": (prof[1] / 1e3 / step_ms) if prof else None,
-            "logit_diff": diff, "loss": [loss0, ep["loss"], loss1]}
+            "logit_diff": diff, "loss": [loss0, ep["loss"], loss1],
+            "params": dumped}
 
 
 def zoo_search(meta, params, model, cls, train, val, n_trials, advisor,
@@ -2453,6 +2551,8 @@ def zoo_phase(torch, np, attn, card):
 
         # (d) The 2 best ENAS trials behind POST /predict.
         t0 = time.perf_counter()
+        vds = load_image_dataset(val)
+        out["val"] = (vds.images[:ENSEMBLE_VAL], vds.labels[:ENSEMBLE_VAL])
         top = meta.get_best_trials_of_train_job(job["id"],
                                                 max_count=ZOO_DEPLOY)
         check(len(top) == ZOO_DEPLOY, f"{len(top)} ENAS trials to deploy")
@@ -2460,7 +2560,6 @@ def zoo_phase(torch, np, attn, card):
                                    params.load(t["params_id"]),
                                    device="cuda").start() for t in top]
         app = PredictorService(workers, device="cuda").start()
-        vds = load_image_dataset(val)
         try:
             worst, n_checked = 0.0, 0
             for i in range(5):
@@ -2505,6 +2604,461 @@ def zoo_phase(torch, np, attn, card):
     phase_s = time.perf_counter() - t_phase
     print(f"zoo: (e) K1, K2 and K3 launched 0 times in the phase; phase "
           f"took {phase_s:.1f} s", flush=True)
+    out.update(launches=launches[:3], phase_s=phase_s)
+    return out
+
+
+def stacked_rows(np, group, imgs):
+    """A stacked group's ``(M, n, n_classes)`` rows for the ``n`` images
+    ``imgs``: one staged dispatch at their bucket."""
+    n = imgs.shape[0]
+    buf = np.zeros((group.predict_bucket(n, imgs.dtype), *imgs.shape[1:]),
+                   imgs.dtype)
+    buf[:n] = imgs
+    dev, _ = group.staged_submit(buf, n)
+    return dev[:, :n].cpu().numpy()
+
+
+def member_rows(np, model, imgs):
+    """One member's own ``(n, n_classes)`` rows at the same bucket."""
+    n = imgs.shape[0]
+    buf = np.zeros((model.predict_bucket(n, imgs.dtype),
+                    *imgs.shape[1:]), imgs.dtype)
+    buf[:n] = imgs
+    dev, _ = model._dispatch_bucket(buf, n)
+    return dev[:n].cpu().numpy()
+
+
+def in_bursts(np, fn, imgs, size):
+    """``fn`` over ``imgs`` in bursts of ``size``, joined on the rows."""
+    return np.concatenate([fn(imgs[s:s + size])
+                           for s in range(0, imgs.shape[0], size)], axis=-2)
+
+
+def seeded_densenet(np, seed):
+    """A DenseNet-121 parameter file from ``seed`` (random weights)."""
+    from rafiki_torch.model.bridge import dense_to_jax
+    from rafiki_torch.models import TorchDenseNet
+
+    net = TorchDenseNet(device="cpu", seed=seed,
+                        **DENSENET_KNOBS).create_module(
+                            ZOO_DATA["n_classes"], ZOO_DATA["image_shape"])
+    p = dense_to_jax(net.state_dict())
+    p["_meta/n_classes"] = np.asarray(ZOO_DATA["n_classes"])
+    p["_meta/image_shape"] = np.asarray(ZOO_DATA["image_shape"])
+    return p
+
+
+class EnsembleDeploy:
+    """Bins of trials in a meta and param store under ``tmp``, each
+    served by a ``BusInferenceWorker`` on the card over one
+    ``MemoryBus``, behind its own ``PredictorService``."""
+
+    def __init__(self, tmp):
+        import os
+
+        from rafiki_torch.bus import MemoryBus
+        from rafiki_torch.store import MetaStore, ParamStore
+
+        self.meta = MetaStore(os.path.join(tmp, "meta.db"))
+        self.params = ParamStore(os.path.join(tmp, "params"))
+        self.bus = MemoryBus()
+        self.user = self.meta.create_user("ens@example.com", "-",
+                                          "MODEL_DEVELOPER")
+        self.running = []
+
+    def bin(self, model_class, trials):
+        """Trials ``[(knobs, params)]`` of one model -> the bin's id."""
+        model = self.meta.create_model(self.user["id"], model_class,
+                                       "IMAGE_CLASSIFICATION", model_class,
+                                       {})
+        self.job = self.meta.create_train_job(
+            self.user["id"], model_class, "IMAGE_CLASSIFICATION", {}, "-",
+            "-", "STOPPED")
+        sub = self.meta.create_sub_train_job(self.job["id"], model["id"],
+                                             "STOPPED")
+        ids = []
+        for i, (knobs, p) in enumerate(trials):
+            t = self.meta.create_trial(sub["id"], model["id"], i + 1,
+                                       "RUNNING", knobs=knobs)
+            self.meta.mark_trial_completed(
+                t["id"], 0.5, self.params.save(p, session_id="ens"))
+            ids.append(t["id"])
+        return ",".join(ids)
+
+    def serve(self, trial_ids, env):
+        """A worker for the bin, built under the serving variables
+        ``env``, and its predictor: ``(worker, host, registration)``."""
+        import os
+
+        from rafiki_torch.cache import Cache
+        from rafiki_torch.predictor import PredictorService
+        from rafiki_torch.worker.inference import BusInferenceWorker
+
+        inf = self.meta.create_inference_job(self.user["id"],
+                                             self.job["id"], "RUNNING")
+        svc = self.meta.create_service("INFERENCE", "DEPLOYING")
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            worker = BusInferenceWorker(svc["id"], inf["id"], trial_ids,
+                                        self.meta, self.params, self.bus,
+                                        device="cuda")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        worker.start()
+        psvc = self.meta.create_service("PREDICT", "DEPLOYING")
+        app = PredictorService.for_job(psvc["id"], inf["id"], self.meta,
+                                       self.bus).start()
+        self.running.append((worker, app))
+        cache = Cache(self.bus)
+        deadline = time.monotonic() + 300
+        while svc["id"] not in cache.running_workers(inf["id"]):
+            check(worker.running and time.monotonic() < deadline,
+                  f"the worker of {trial_ids[:17]}... did not register")
+            time.sleep(0.05)
+        return (worker, f"{app.host}:{app.port}",
+                cache.running_worker_info(inf["id"])[svc["id"]])
+
+    def close(self):
+        for worker, app in self.running:
+            app.stop()
+            worker.stop(join_timeout=60)
+            check(not worker.running, "a worker did not stop")
+        self.params.close()
+        self.meta.close()
+
+
+def reset_counts(ens):
+    for counts in (ens.bursts, ens.dispatches):
+        for mode in counts:
+            counts[mode] = 0
+
+
+def ensemble_phase(torch, np, attn, card, automl, zoo):
+    """BASELINE config 4 as the reference serves a bin. (a) 4
+    DenseNet-121 members in one bin through BusInferenceWorker, the
+    predictor and the Client: a window with stacking on and one with it
+    off, each member's rows both ways, one burst's device time; (b) int8
+    serving: the automl phase's FeedForward trials stacked under
+    ``RAFIKI_TPU_SERVING_QUANT=int8`` (``int8_mm`` exact at every
+    bucket, |Δp| and val accuracy against f32), and DenseNet-121 on the
+    generic fallback (argmax agreement and val accuracy against f32, peak
+    memory); (c) a restack of member 2, read by the captured graphs with
+    no recapture; (d) none of K1, K2 and K3 launched. Returns the phase's
+    numbers and K1-K3 launches."""
+    import tempfile
+
+    from rafiki_torch.client import Client
+    from rafiki_torch.model.torch_model import (int8_mm, normalised,
+                                               probabilities, stack_members)
+    from rafiki_torch.models import TorchDenseNet, TorchFeedForward
+    from rafiki_torch.observe import wire
+
+    t_phase = time.perf_counter()
+    reset_launch_counts(attn)
+    out = {}
+    imgs, labels = zoo["val"]
+    # Member 0 is the zoo phase's trained DenseNet-121; 1-3 from seeds.
+    dn_params = [zoo["densenet"]["params"]] + [
+        seeded_densenet(np, s) for s in range(1, ENSEMBLE_MEMBERS)]
+    client = Client()
+    with tempfile.TemporaryDirectory() as tmp:
+        dep = EnsembleDeploy(tmp)
+        try:
+            dn_bin = dep.bin("rafiki_torch.models.densenet:TorchDenseNet",
+                             [(ENSEMBLE_KNOBS, p) for p in dn_params])
+            # (a) The bin with stacking on, then off.
+            wins, ens_of, hosts = {}, {}, {}
+            for mode, env in (("stacked", {}), ("members", {
+                    wire.STACKED_ENV: "off"})):
+                t0 = time.perf_counter()
+                worker, host, info = dep.serve(dn_bin, env)
+                ens = worker.model
+                ens_of[mode], hosts[mode] = ens, host
+                check(info["stacked"] is (mode == "stacked"),
+                      f"registration {info}")
+                load_s = time.perf_counter() - t0
+                # The buckets a window of single images reaches, built
+                # before it (warmup built bucket 1).
+                for b in (2, 4, 8):
+                    ens.predict_staged_submit(
+                        np.zeros((b, *imgs.shape[1:]), np.uint8), b)()
+                check(ens.bursts[mode] == 3 and ens.dispatches[mode] == 3 * (
+                    1 if mode == "stacked" else ENSEMBLE_MEMBERS),
+                      f"the bursts that built buckets 2, 4 and 8 ran as "
+                      f"{ens.bursts}, dispatches {ens.dispatches}")
+                reset_counts(ens)
+                if mode == "stacked":
+                    worst = 0.0
+                    for n in (1, 5):
+                        served = client.predict(host, queries=list(imgs[:n]))[
+                            "predictions"]
+                        rows = stacked_rows(np, ens.stacked, imgs[:n])
+                        worst = max(worst, float(np.abs(
+                            np.asarray(served)
+                            - rows.astype(np.float64).mean(0)).max()))
+                    check(worst <= TOL_ENSEMBLE, f"served differs from the "
+                          f"members' stacked mean by {worst:.3e}")
+                    out["served_err"] = worst
+                    reset_counts(ens)
+                win = platform_window(
+                    np, client, host, imgs[:ENSEMBLE_WINDOW], card,
+                    tag=f"ensemble: (a) {mode}:",
+                    what=f"one worker serving a {ENSEMBLE_MEMBERS}-member "
+                         f"DenseNet-121 bin ({mode})")
+                bursts = sum(ens.bursts.values())
+                per_burst = sum(ens.dispatches.values()) / max(1, bursts)
+                check(ens.bursts[mode] == bursts > 0,
+                      f"{mode} window ran bursts as {ens.bursts}")
+                check(per_burst == (1 if mode == "stacked"
+                                    else ENSEMBLE_MEMBERS),
+                      f"{per_burst} dispatches a burst ({mode})")
+                print(f"ensemble: (a) {mode}: registered stacked="
+                      f"{info['stacked']}, staging={info['staging']}, "
+                      f"loaded and warmed in {load_s:.2f} s; the window ran "
+                      f"{bursts} bursts ({ENSEMBLE_WINDOW / bursts:.2f} "
+                      f"queries a burst), {per_burst:.2f} dispatches a "
+                      f"burst, modes {ens.bursts}", flush=True)
+                wins[mode] = win
+                if mode == "stacked":
+                    print(f"ensemble: (a) 2 checked requests (1 and 5 "
+                          f"images): served = float64 mean of the members' "
+                          f"stacked rows, max |diff| {worst:.3e} "
+                          f"(tolerance {TOL_ENSEMBLE})", flush=True)
+            st, per = ens_of["stacked"].stacked, ens_of["members"].models
+            # Each member's rows, stacked and on its own, over the
+            # window's images in bursts of 8.
+            window = imgs[:ENSEMBLE_WINDOW]
+            rows_st = in_bursts(np, lambda x: stacked_rows(np, st, x),
+                                window, 8)
+            rows_pm = np.stack([in_bursts(
+                np, lambda x, m=m: member_rows(np, m, x), window, 8)
+                for m in per])
+            dp = np.abs(rows_st - rows_pm).max(axis=(1, 2))
+            served_dp = float(np.abs(wins["stacked"]["answers"]
+                                     - wins["members"]["answers"]).max())
+            same_top = float((rows_st.argmax(-1)
+                              == rows_pm.argmax(-1)).mean())
+            check(float(dp.max()) <= TOL_STACKED_DENSENET,
+                  f"stacked rows differ from per-member by {dp}")
+            print(f"ensemble: (a) each member's max |dp| stacked against "
+                  f"its own rows over the window's {ENSEMBLE_WINDOW} images "
+                  f"in bursts of 8: {[float(x) for x in dp]} (tolerance "
+                  f"{TOL_STACKED_DENSENET}); the two windows' served "
+                  f"answers: max |diff| {served_dp:.3e}; argmax agreement "
+                  f"{same_top:.4f}", flush=True)
+            # One burst's device time (CUDA events) at each bucket: one
+            # stacked replay, the 4 members' replays, and the eager
+            # per-member forward the port ran before stacking.
+            times = {}
+            for b in ENSEMBLE_BUCKETS:
+                x = imgs[:b]
+                stacked_rows(np, st, x)
+                for m in per:
+                    member_rows(np, m, x)
+                runner = st._runners.runners[(b, True, None)]
+                runners = [m._runners.runners[(b, True, None)] for m in per]
+                xd = torch.from_numpy(x).to("cuda")
+
+                def eager():
+                    with torch.no_grad():
+                        for m in per:
+                            probabilities(m._logits(m._net,
+                                                    normalised(xd, True)))
+
+                fns = {"stacked": runner.graph.replay,
+                       "members": lambda: [r.graph.replay()
+                                           for r in runners],
+                       "eager": eager}
+                runs = {k: [] for k in fns}
+                n = 20 if b < 512 else 5
+                for k in ("stacked", "members", "eager", "eager", "members",
+                          "stacked"):
+                    runs[k].append(time_ms(torch, fns[k], n))
+                times[b] = {k: sum(v) / len(v) for k, v in runs.items()}
+                print(f"ensemble: (a) one burst at bucket {b}: one stacked "
+                      f"replay {times[b]['stacked']:.3f} ms, "
+                      f"{ENSEMBLE_MEMBERS} per-member replays "
+                      f"{times[b]['members']:.3f} ms, eager per-member "
+                      f"{times[b]['eager']:.3f} ms (CUDA events, {n} bursts "
+                      f"each, in turns) on {card}", flush=True)
+                if b == ENSEMBLE_BUCKETS[-1]:
+                    for k in ("stacked", "members"):
+                        profile(torch, fns[k], f"one {k} burst at bucket "
+                                f"{b}", card, top=6)
+
+            # (c) Restack member 2 in place.
+            t0 = time.perf_counter()
+            incoming = TorchDenseNet(device="cuda", **ENSEMBLE_KNOBS)
+            incoming.load_parameters(seeded_densenet(np, ENSEMBLE_MEMBERS))
+            x = imgs[:17]
+            before = stacked_rows(np, st, x)
+            captures = st.captures
+            ens_of["stacked"].replace_member(2, incoming)
+            after = stacked_rows(np, st, x)
+            keep = [i for i in range(ENSEMBLE_MEMBERS) if i != 2]
+            own = member_rows(np, incoming, x)
+            new_dp = float(np.abs(after[2] - own).max())
+            fresh = stack_members(list(ens_of["stacked"].models))
+            same_fresh = np.array_equal(stacked_rows(np, fresh, x), after)
+            fresh.destroy()
+            check(st.captures == captures, f"the restack recaptured: "
+                  f"{captures} -> {st.captures} graphs")
+            check(np.array_equal(after[keep], before[keep]),
+                  "the restack moved another member's rows")
+            check(not np.array_equal(after[2], before[2])
+                  and new_dp <= TOL_STACKED_DENSENET,
+                  f"member 2 after the restack: |dp| {new_dp:.3e} from the "
+                  f"incoming model's own rows")
+            check(same_fresh, "the restacked group differs from a group "
+                  "stacked afresh on the same members")
+            served = client.predict(hosts["stacked"],
+                                    queries=list(x))["predictions"]
+            err = float(np.abs(np.asarray(served)
+                               - after.astype(np.float64).mean(0)).max())
+            check(err <= TOL_ENSEMBLE, f"served after the restack: {err:.3e}")
+            print(f"ensemble: (c) replace_member(2, a DenseNet-121 from seed "
+                  f"{ENSEMBLE_MEMBERS}) in {time.perf_counter() - t0:.2f} s: "
+                  f"{st.captures} graphs before and after (no recapture); "
+                  f"members 0, 1 and 3 bit for bit; member 2 against the "
+                  f"incoming model's own rows max |dp| {new_dp:.3e} "
+                  f"(tolerance {TOL_STACKED_DENSENET}); the group equals one "
+                  f"stacked afresh bit for bit; a request of 17 images "
+                  f"served = their stacked mean, max |diff| {err:.3e}",
+                  flush=True)
+            out.update(windows={k: {q: v for q, v in w.items()
+                                    if q != "answers"}
+                                for k, w in wins.items()},
+                       member_dp=[float(v) for v in dp], times=times)
+
+            # (b) int8: DenseNet-121 on the generic fallback.
+            t0 = time.perf_counter()
+            val = {}
+            for quant in (None, "int8"):
+                ms = []
+                for p in dn_params:
+                    m = TorchDenseNet(device="cuda", **ENSEMBLE_KNOBS)
+                    m.load_parameters(p)
+                    m.enable_serving_quant(quant)
+                    ms.append(m)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                g = stack_members(ms)
+                rows = in_bursts(np, lambda x: stacked_rows(np, g, x), imgs,
+                                 512)
+                torch.cuda.synchronize()
+                tensors = (g._vars.values() if quant is None else
+                           [t for d in g._vars.values() for t in d.values()])
+                val[quant] = {
+                    "rows": rows,
+                    "peak_gb": (torch.cuda.max_memory_allocated() - base)
+                    / 1e9,
+                    "weights_mb": sum(t.numel() * t.element_size()
+                                      for t in tensors) / 1e6,
+                    "report": ms[0].quant_report()}
+                g.destroy()
+                for m in ms:
+                    m.destroy()
+                torch.cuda.empty_cache()
+            r32, r8 = val[None]["rows"], val["int8"]["rows"]
+            agree = (r32.argmax(-1) == r8.argmax(-1)).mean(axis=1)
+            acc32 = (r32.argmax(-1) == labels).mean(axis=1)
+            acc8 = (r8.argmax(-1) == labels).mean(axis=1)
+            rep = val["int8"]["report"]
+            check(abs(acc8[0] - acc32[0]) <= TOL_INT8_ACC,
+                  f"int8 DenseNet-121 val accuracy {acc8[0]:.4f} against "
+                  f"{acc32[0]:.4f} in f32")
+            print(f"ensemble: (b) DenseNet-121 int8 on the generic fallback "
+                  f"({rep['n_int8']} int8 kernels, {rep['n_f32']} f32 "
+                  f"leaves), {ENSEMBLE_MEMBERS} members stacked over "
+                  f"{imgs.shape[0]} val images in bursts of 512: argmax "
+                  f"agreement with f32 {[float(a) for a in agree]}; val "
+                  f"accuracy of the trained member {acc8[0]:.4f} against "
+                  f"{acc32[0]:.4f} in f32 (tolerance {TOL_INT8_ACC}); max "
+                  f"|dp| {float(np.abs(r8 - r32).max()):.4f}; stacked "
+                  f"weights {val[None]['weights_mb']:.1f} MB f32, "
+                  f"{val['int8']['weights_mb']:.1f} MB int8; peak device "
+                  f"memory over the pass (graphs captured in it) "
+                  f"{val[None]['peak_gb']:.3f} GB f32, "
+                  f"{val['int8']['peak_gb']:.3f} GB int8 above the "
+                  f"{base / 1e9:.3f} GB already held; took "
+                  f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+
+            # (b) int8: the automl phase's FeedForward trials, stacked.
+            t0 = time.perf_counter()
+            ff_bin = dep.bin("rafiki_torch.models.feedforward:"
+                             "TorchFeedForward", automl["ff_trials"])
+            worker, host, info = dep.serve(ff_bin, {wire.QUANT_ENV: "int8"})
+            check(info["quant"] == "int8" and info["stacked"] is True,
+                  f"the int8 FeedForward bin registered {info}")
+            g8 = worker.model.stacked
+            g = torch.Generator().manual_seed(SEED)
+            n_mm = 0
+            for b in (2 ** i for i in range(10)):
+                for k, wq in sorted(g8._vars["q"].items()):
+                    xq = torch.randint(-127, 128, (b, wq.shape[1]),
+                                       dtype=torch.int8, generator=g)
+                    got = int8_mm(xq.to("cuda"), wq[0]).cpu()
+                    check(torch.equal(got.long(), xq.long()
+                                      @ wq[0].cpu().long()),
+                          f"int8_mm at bucket {b}, {k}, differs from the "
+                          f"int32 product")
+                    n_mm += 1
+            ff_imgs, ff_labels = automl["ff_val"]
+            r8 = in_bursts(np, lambda x: stacked_rows(np, g8, x), ff_imgs,
+                           512)
+            ms = []
+            for knobs, p in automl["ff_trials"]:
+                m = TorchFeedForward(device="cuda", **knobs)
+                m.load_parameters(p)
+                ms.append(m)
+            g32 = stack_members(ms)
+            r32 = in_bursts(np, lambda x: stacked_rows(np, g32, x), ff_imgs,
+                            512)
+            g32.destroy()
+            acc32 = (r32.argmax(-1) == ff_labels).mean(axis=1)
+            acc8 = (r8.argmax(-1) == ff_labels).mean(axis=1)
+            ens32 = float((r32.mean(0).argmax(-1) == ff_labels).mean())
+            ens8 = float((r8.mean(0).argmax(-1) == ff_labels).mean())
+            served = client.predict(host, queries=list(ff_imgs[:3]))[
+                "predictions"]
+            err = float(np.abs(np.asarray(served) - stacked_rows(
+                np, g8, ff_imgs[:3]).astype(np.float64).mean(0)).max())
+            check(err <= TOL_ENSEMBLE, f"served int8: {err:.3e}")
+            check(float(np.abs(acc8 - acc32).max()) <= TOL_INT8_ACC
+                  and abs(ens8 - ens32) <= TOL_INT8_ACC,
+                  f"int8 val accuracy {acc8} against {acc32}")
+            print(f"ensemble: (b) FeedForward int8: the automl phase's "
+                  f"{len(ms)} trials in one bin, registered quant="
+                  f"{info['quant']}, stacked={info['stacked']}; int8_mm "
+                  f"equal to the int32 product at every bucket 1-512 and "
+                  f"layer ({n_mm} products); over {ff_imgs.shape[0]} val "
+                  f"images max |dp| against f32 "
+                  f"{float(np.abs(r8 - r32).max()):.4e}, val accuracy "
+                  f"{[round(float(a), 4) for a in acc8]} against "
+                  f"{[round(float(a), 4) for a in acc32]} in f32, the "
+                  f"ensemble's {ens8:.4f} against {ens32:.4f} (tolerance "
+                  f"{TOL_INT8_ACC}); a request served = the stacked mean, "
+                  f"max |diff| {err:.3e}; took {time.perf_counter() - t0:.1f}"
+                  f" s on {card}", flush=True)
+            for m in ms:
+                m.destroy()
+        finally:
+            dep.close()
+
+    # (d) The phase ran none of the attention kernels.
+    launches = launch_counts(attn)
+    check(launches[:3] == (0, 0, 0),
+          f"the ensemble phase launched K1/K2/K3 {launches[:3]}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"ensemble: (d) K1, K2 and K3 launched 0 times in the phase; "
+          f"phase took {phase_s:.1f} s", flush=True)
     out.update(launches=launches[:3], phase_s=phase_s)
     return out
 
@@ -2557,6 +3111,8 @@ def main() -> int:
         _, plat_launches = timed("platform", platform_phase, torch, np,
                                  attn, card, automl)
         zoo = timed("zoo", zoo_phase, torch, np, attn, card)
+        ens = timed("ensemble", ensemble_phase, torch, np, attn, card,
+                    automl, zoo)
     except Exception:
         traceback.print_exc()
         return 1
@@ -2569,19 +3125,22 @@ def main() -> int:
              generate_launches=gen_launches,
              platform_launches=plat_launches[0],
              zoo_launches=zoo["launches"][0],
+             ensemble_launches=ens["launches"][0],
              generate_buckets=gen["buckets"], **k1, **k1_train),
         dict(name="flash_bwd_dq (K2)", route="cuda",
              source=src + "flash_bwd_dq.cu",
              replaces="rafiki_tpu/ops/attention.py:338",
              launches=train_launches[1] + plat_launches[1],
              platform_launches=plat_launches[1],
-             zoo_launches=zoo["launches"][1], **k2),
+             zoo_launches=zoo["launches"][1],
+             ensemble_launches=ens["launches"][1], **k2),
         dict(name="flash_bwd_dkv (K3)", route="cuda",
              source=src + "flash_bwd_dkv.cu",
              replaces="rafiki_tpu/ops/attention.py:401",
              launches=train_launches[2] + plat_launches[2],
              platform_launches=plat_launches[2],
-             zoo_launches=zoo["launches"][2], **k3)]}), flush=True)
+             zoo_launches=zoo["launches"][2],
+             ensemble_launches=ens["launches"][2], **k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

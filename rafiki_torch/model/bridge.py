@@ -42,7 +42,7 @@ of float32 arrays only).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +60,48 @@ _STATS = {"mean": "running_mean", "var": "running_var"}
 _STATS_BACK = {v: k for k, v in _STATS.items()}
 
 
+def torch_name(key: str, ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
+    """A reference flat name of a leaf of ``ndim`` dims -> its
+    ``state_dict`` key and the permutation from flax's layout to the
+    port's (None: the same layout)."""
+    coll, *path, leaf = key.split("/")
+    name, perm = None, None
+    if not path:
+        pass
+    elif coll == "params":
+        if leaf == "kernel" and ndim == 2:
+            name, perm = "weight", (1, 0)
+        elif leaf == "kernel" and ndim == 4:
+            name, perm = "weight", _TO_OIHW
+        elif leaf in ("bias", "scale") and ndim == 1:
+            name = "bias" if leaf == "bias" else "weight"
+    elif coll == "batch_stats" and leaf in _STATS and ndim == 1:
+        name = _STATS[leaf]
+    if name is None:
+        raise ValueError(f"no port layout for parameter {key!r} of "
+                         f"{ndim} dims")
+    return ".".join(path + [name]), perm
+
+
+def jax_name(key: str, ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
+    """A ``state_dict`` key of a tensor of ``ndim`` dims -> its reference
+    flat name and the permutation from the port's layout to flax's
+    (None: the same layout)."""
+    *path, name = key.split(".")
+    coll, leaf, perm = "params", None, None
+    if name == "weight" and ndim == 2:
+        leaf, perm = "kernel", (1, 0)
+    elif name == "weight" and ndim == 4:
+        leaf, perm = "kernel", _TO_HWIO
+    elif name in ("weight", "bias") and ndim == 1:
+        leaf = "scale" if name == "weight" else "bias"
+    elif name in _STATS_BACK and ndim == 1:
+        coll, leaf = "batch_stats", _STATS_BACK[name]
+    if leaf is None:
+        raise ValueError(f"no reference layout for {key!r} of {ndim} dims")
+    return "/".join([coll, *path, leaf]), perm
+
+
 def dense_from_jax(params: Params) -> Dict[str, torch.Tensor]:
     """Reference flat ``params/...`` and ``batch_stats/...`` dict -> the
     port's ``state_dict`` (CPU, float32). ``_meta/...`` entries are
@@ -68,25 +110,11 @@ def dense_from_jax(params: Params) -> Dict[str, torch.Tensor]:
     for key, value in params.items():
         if key.startswith("_meta/"):
             continue
-        coll, *path, leaf = key.split("/")
         a = np.asarray(value, dtype=np.float32)
-        name = None
-        if not path:
-            pass
-        elif coll == "params":
-            if leaf == "kernel" and a.ndim == 2:
-                name, a = "weight", a.T
-            elif leaf == "kernel" and a.ndim == 4:
-                name, a = "weight", a.transpose(_TO_OIHW)
-            elif leaf in ("bias", "scale") and a.ndim == 1:
-                name = "bias" if leaf == "bias" else "weight"
-        elif coll == "batch_stats" and leaf in _STATS and a.ndim == 1:
-            name = _STATS[leaf]
-        if name is None:
-            raise ValueError(f"no port layout for parameter {key!r} of "
-                             f"shape {a.shape}")
-        state[".".join(path + [name])] = torch.from_numpy(
-            np.array(a, copy=True))
+        name, perm = torch_name(key, a.ndim)
+        if perm is not None:
+            a = a.transpose(perm)
+        state[name] = torch.from_numpy(np.array(a, copy=True))
     return state
 
 
@@ -95,22 +123,24 @@ def dense_to_jax(state: Dict[str, torch.Tensor]) -> Params:
     float32)."""
     out: Params = {}
     for key, t in state.items():
-        *path, name = key.split(".")
         a = t.detach().to("cpu", torch.float32).numpy()
-        coll, leaf = "params", None
-        if name == "weight" and a.ndim == 2:
-            leaf, a = "kernel", a.T
-        elif name == "weight" and a.ndim == 4:
-            leaf, a = "kernel", a.transpose(_TO_HWIO)
-        elif name in ("weight", "bias") and a.ndim == 1:
-            leaf = "scale" if name == "weight" else "bias"
-        elif name in _STATS_BACK and a.ndim == 1:
-            coll, leaf = "batch_stats", _STATS_BACK[name]
-        if leaf is None:
-            raise ValueError(f"no reference layout for {key!r} of shape "
-                             f"{a.shape}")
-        out["/".join([coll, *path, leaf])] = np.array(a, copy=True)
+        name, perm = jax_name(key, a.ndim)
+        if perm is not None:
+            a = a.transpose(perm)
+        out[name] = np.array(a, copy=True)
     return out
+
+
+def dense_from_jax_tensors(flat: Dict[str, torch.Tensor]
+                           ) -> Dict[str, torch.Tensor]:
+    """``dense_from_jax`` on tensors where they lie, with no copy but
+    the permutations' views: what a serving graph builds its module's
+    state from (int8 weights dequantised in the graph, flax layout)."""
+    state = {}
+    for key, t in flat.items():
+        name, perm = torch_name(key, t.dim())
+        state[name] = t.permute(perm) if perm is not None else t
+    return state
 
 
 _LSTM = "params/LSTMCell_0/"

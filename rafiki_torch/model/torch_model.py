@@ -32,34 +32,44 @@ trains, evaluates, serves and (de)serialises it as the reference does:
   ``ValueError``; all-uint8 batches go to the device as uint8 and are
   normalised there, float queries are taken as already normalised; the
   output is an f32 softmax; queries go in chunks of
-  ``max_predict_batch``.
-- ``dump_parameters`` / ``load_parameters`` (ref :1363-1390) use the
-  reference's flat flax names (``params/Dense_0/kernel``,
-  ``batch_stats/.../mean`` …) and shapes plus ``_meta/n_classes`` and
-  ``_meta/image_shape``, as host numpy, so the two packages' parameter
-  files interchange (``bridge.dense_from_jax``).
-
-Not ported yet: checkpoint resume (``checkpoint_dir`` raises), serving
-quantisation, stacked ensembles, bucketed and staged predict, the
-compiled-step cache, the host and device dataset caches and multi-chip
-meshes.
+  ``max_predict_batch``, each zero-padded to its bucket.
+- Bucketed and staged predict (ref :1070-1220): ``predict_bucket(n,
+  dtype)`` is the power of two at or above ``n`` (one card has no
+  data-parallel axis to align to), and ``predict_staged_submit(buf, n)``
+  serves a burst from a caller's staging buffer whose leading dim is
+  exactly that bucket. Each ``(bucket, is_u8, quant)`` has its runner
+  (``_dispatch_bucket``): on the card a CUDA graph on a static input,
+  every runner of a model in one memory pool, a replay bit for bit the
+  eager forward; on the CPU the same forward, eagerly.
+- Serving quantisation (ref :1222-1326): ``enable_serving_quant("int8")``
+  makes every floating 2-D and 4-D ``kernel`` of the reference's flat
+  layout int8 with per-output-channel scales, byte for byte the
+  reference's. A model's ``quantized_apply`` may serve from them with
+  ``dynamic_int8_matmul``; the default (None) dequantises them in the
+  graph and runs the module unchanged.
+- Stacked ensembles (ref :1328-1745): ``stack_signature`` and
+  ``module_config`` say which members may stack; ``stack_members`` and
+  ``StackedMembers`` live in ``stacked.py`` and are re-exported here.
 """
 
 from __future__ import annotations
 
+import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from ..observe import H100_PEAK_BF16_FLOPS, MfuMeter
-from ..torchenv import DeviceLike, resolve_device
+from ..torchenv import (DeviceLike, graph_capture, resolve_device,
+                        side_stream)
 from ..utils.hashing import M32, mix32
 from .base import BaseModel, Params
-from .bridge import dense_from_jax, dense_to_jax
+from .bridge import dense_from_jax, dense_from_jax_tensors, dense_to_jax
 from .dataset import load_image_dataset
 from .logger import logger
 from .loop_ckpt import epoch_rng
@@ -154,7 +164,6 @@ class _TrainSteps:
         self.step_no = torch.zeros((), dtype=torch.int64, device=dev)
         self.sums = torch.zeros(2, dtype=torch.float32, device=dev)
         self.on_card = dev.type == "cuda"
-        self.side = torch.cuda.Stream(dev) if self.on_card else None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.n_eager = 0
 
@@ -187,21 +196,15 @@ class _TrainSteps:
         elif not self.on_card:
             self._eager()
         elif self.n_eager < WARMUP_STEPS:
-            main = torch.cuda.current_stream()
-            self.side.wait_stream(main)
-            with torch.cuda.stream(self.side):
+            with side_stream(self.model.device):
                 self._eager()
-            main.wait_stream(self.side)
         else:
             # Gradients set to None before the capture: the captured
             # backward allocates them in the graph's pool and every
             # replay overwrites them.
             self.opt.zero_grad()
             self.graph = torch.cuda.CUDAGraph()
-            # thread_local: other threads of the process (an inference
-            # worker) may keep using the card during the capture.
-            with torch.cuda.graph(self.graph,
-                                  capture_error_mode="thread_local"):
+            with graph_capture(self.graph):
                 self._forward_backward()
                 self.opt.device_step()
             self.graph.replay()
@@ -217,6 +220,249 @@ class _TrainSteps:
         self.graph = None
 
 
+# --- Serving: int8 products, quantisation and predict runners ---------
+
+_INT8_MM: Optional[Any] = None
+
+
+def _ceil(v: int, to: int) -> int:
+    return -(-v // to) * to
+
+
+def _int8_mm_impl(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    m, k = x.shape
+    n = w.shape[1]
+    if x.device.type != "cuda":
+        return torch._int_mm(x, w)
+    mp, kp, n_p = _ceil(m, 32), _ceil(k, 16), _ceil(n, 16)
+    if (mp, kp) != (m, k):
+        x = F.pad(x, (0, kp - k, 0, mp - m))
+    if (kp, n_p) != (k, n):
+        w = F.pad(w, (0, n_p - n, 0, kp - k))
+    out = torch._int_mm(x.contiguous(), w.contiguous())
+    return out if (mp, n_p) == (m, n) else out[:m, :n].contiguous()
+
+
+def int8_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``(m, k)`` int8 × ``(k, n)`` int8 -> ``(m, n)`` int32, exactly:
+    ``torch._int_mm`` (cuBLASLt's int8 product on the card, which the
+    reference's ``lax.dot_general`` with an int32 accumulator is).
+
+    ``_int_mm`` refuses m ≤ 16 and a k or n that is not a multiple of 8,
+    and on the H100 cuBLASLt refused more: k = 104 at any m, and 17 rows
+    at k = 112 and n = 32; the served shapes have such (bucket 1, a head
+    of 10 classes). So on the card the rows are zero-padded to a
+    multiple of 32, and k and the columns to multiples of 16, and the
+    result is sliced back: zero rows and columns add nothing to the
+    products that are kept. The CPU's ``_int_mm`` takes any shape.
+
+    A custom op, so that ``torch.func.vmap`` over stacked members can
+    take it: its batching rule runs one product a member."""
+    global _INT8_MM
+    if _INT8_MM is None:
+        op = torch.library.custom_op("rafiki_torch::int8_mm",
+                                     mutates_args=())(_int8_mm_impl)
+
+        @op.register_fake
+        def _(x, w):
+            return x.new_empty((x.shape[0], w.shape[1]), dtype=torch.int32)
+
+        def batched(info, in_dims, x, w):
+            xd, wd = in_dims
+            xs = x.movedim(xd, 0) if xd is not None else None
+            ws = w.movedim(wd, 0) if wd is not None else None
+            return torch.stack([
+                op(x if xs is None else xs[i], w if ws is None else ws[i])
+                for i in range(info.batch_size)]), 0
+
+        op.register_vmap(batched)
+        _INT8_MM = op
+    return _INT8_MM(x, w)
+
+
+def dynamic_int8_matmul(x: torch.Tensor, wq: torch.Tensor,
+                        scale: torch.Tensor) -> torch.Tensor:
+    """The reference's ``dynamic_int8_matmul`` (``jax_model.py:260-276``):
+    each row of ``x`` quantised by its own scale ``max|x| / 127``
+    (clamped to 1e-8; ``round`` is half to even, as ``jnp.round``), an
+    int8 × int8 product into int32 (``int8_mm``), rescaled to f32 once
+    by the row's scale and the per-output-channel ``scale`` of the
+    ``(in, out)`` int8 kernel ``wq``."""
+    s_x = x.abs().amax(dim=-1, keepdim=True) / 127.0
+    s_x = torch.clamp_min(s_x, 1e-8)
+    xq = torch.clamp(torch.round(x / s_x), -127, 127).to(torch.int8)
+    acc = int8_mm(xq, wq)
+    return acc.to(torch.float32) * s_x * scale[None, :]
+
+
+def quantize_flat(flat: Dict[str, np.ndarray]):
+    """``(qvars, scales, fvars, layers)`` of a flat reference-layout
+    dict, as the reference's ``_quant_host_arrays`` computes them: each
+    floating ``…kernel`` of 2 or 4 dims becomes int8 with the symmetric
+    per-output-channel scale ``max|W[..., j]| / 127`` over every other
+    axis (1 where that is 0); every other leaf stays f32."""
+    qvars: Dict[str, np.ndarray] = {}
+    scales: Dict[str, np.ndarray] = {}
+    fvars: Dict[str, np.ndarray] = {}
+    layers: Dict[str, str] = {}
+    for k, v in flat.items():
+        arr = np.asarray(v)
+        if k.endswith("kernel") and arr.ndim in (2, 4) and \
+                np.issubdtype(arr.dtype, np.floating):
+            w = arr.astype(np.float32)
+            s = np.max(np.abs(w), axis=tuple(range(w.ndim - 1))) / 127.0
+            s = np.where(s <= 0, 1.0, s).astype(np.float32)
+            qvars[k] = np.clip(np.round(w / s), -127, 127).astype(np.int8)
+            scales[k] = s
+            layers[k] = "int8"
+        else:
+            fvars[k] = arr
+            layers[k] = "f32"
+    return qvars, scales, fvars, layers
+
+
+def dequantized_state(qvars: Dict[str, torch.Tensor],
+                      scales: Dict[str, torch.Tensor],
+                      fvars: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+    """The generic int8 fallback's module state (ref :1170-1195): each
+    int8 kernel times its scales in f32, in the graph, and the f32
+    leaves as they are, mapped to the port's layout."""
+    flat = dict(fvars)
+    for k, wq in qvars.items():
+        flat[k] = wq.to(torch.float32) * scales[k]
+    return dense_from_jax_tensors(flat)
+
+
+class PredictRunner:
+    """One predict runner: ``fn`` on inputs of one shape and dtype.
+
+    On the CPU a call runs ``fn`` eagerly. On the card the runner is
+    built by one eager run of ``fn`` on a side stream (the libraries make
+    their workspaces there) and a capture of ``fn`` as a CUDA graph on a
+    static input, in the memory pool ``pool`` that its owner shares
+    among all its runners; a call copies its input into the static input
+    (``non_blocking``: a pinned staging buffer is read in the stream's
+    order) and replays. A call returns a clone of the static output, so
+    a later replay never overwrites a result not yet read."""
+
+    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor],
+                 shape, dtype: torch.dtype, device: torch.device,
+                 pool: Any = None):
+        self.fn = fn
+        self.device = device
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        if device.type != "cuda":
+            return
+        self.static_in = torch.zeros(tuple(shape), dtype=dtype,
+                                     device=device)
+        with side_stream(device), torch.no_grad():
+            fn(self.static_in)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), graph_capture(self.graph, pool):
+            self.static_out = fn(self.static_in)
+
+    @torch.no_grad()
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.graph is None:
+            return self.fn(x.to(self.device))
+        self.static_in.copy_(x, non_blocking=True)
+        self.graph.replay()
+        return self.static_out.clone()
+
+
+class PredictRunners:
+    """The predict runners of one model or stacked group, keyed
+    ``(bucket, is_u8, quant)`` and built on first use; on the card all
+    of them capture into one memory pool, so the rungs of the ladder
+    and the dtypes do not each hold their own activations. A capture
+    that fails leaves its pool marked as recording, where every later
+    capture would raise: the next runner takes a fresh pool. ``captures``
+    counts the CUDA graphs captured."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.runners: Dict[Any, PredictRunner] = {}
+        self.captures = 0
+        self._pool: Any = None
+        self._lock = threading.Lock()
+
+    def run(self, key: Any, x: torch.Tensor,
+            make_fn: Callable[[], Callable[[torch.Tensor], torch.Tensor]]
+            ) -> torch.Tensor:
+        with self._lock:
+            runner = self.runners.get(key)
+            if runner is None:
+                if self.device.type == "cuda" and self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                try:
+                    runner = PredictRunner(make_fn(), x.shape, x.dtype,
+                                           self.device, self._pool)
+                except Exception:
+                    self._pool = None
+                    raise
+                self.captures += runner.graph is not None
+                self.runners[key] = runner
+            return runner(x)
+
+    def clear(self) -> None:
+        self.runners.clear()
+
+
+def staged_chunk(buf: np.ndarray, n: int, shape,
+                 bucket: Optional[int]) -> np.ndarray:
+    """A staging buffer checked as ``predict_staged_submit`` takes it:
+    rows of ``shape`` (a flat row of the same size is viewed so) and a
+    leading dim of exactly ``bucket``; else ``ValueError``."""
+    shape = tuple(shape)
+    if buf.shape[1:] != shape:
+        if int(np.prod(buf.shape[1:])) != int(np.prod(shape)):
+            raise ValueError(f"staged rows {buf.shape[1:]} != {shape}")
+        buf = buf.reshape((buf.shape[0], *shape))
+    if bucket is None or buf.shape[0] != bucket:
+        raise ValueError(f"staging buffer leading dim {buf.shape[0]} != "
+                         f"bucket {bucket} for n={n}")
+    return buf
+
+
+def padded_to_bucket(chunk: np.ndarray) -> np.ndarray:
+    """``chunk`` with zero rows up to its bucket."""
+    n = chunk.shape[0]
+    bucket = predict_bucket_of(n)
+    if n == bucket:
+        return chunk
+    return np.concatenate([chunk, np.zeros((bucket - n, *chunk.shape[1:]),
+                                           chunk.dtype)])
+
+
+def predict_bucket_of(n: int) -> int:
+    """The smallest power of two at or above ``n``: the predict bucket,
+    ``mesh.shape["dp"]``-aligned in the reference, where one card has a
+    dp of 1."""
+    bucket = 1
+    while bucket < n:
+        bucket *= 2
+    return bucket
+
+
+def host_input(chunk: np.ndarray) -> Tuple[torch.Tensor, bool]:
+    """A bucket's host rows as a tensor (no copy where they are already
+    contiguous uint8 or float32) and whether they are uint8."""
+    if chunk.dtype != np.uint8 and chunk.dtype != np.float32:
+        chunk = chunk.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(chunk)), \
+        chunk.dtype == np.uint8
+
+
+def probabilities(logits: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(logits.to(torch.float32), dim=-1)
+
+
+def normalised(x: torch.Tensor, is_u8: bool) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    return xf / 255.0 if is_u8 else xf
+
+
 class TorchModel(BaseModel):
     """Base for module-backed image classifiers. Subclasses implement
     ``create_module(n_classes, image_shape)`` and may override
@@ -230,6 +476,11 @@ class TorchModel(BaseModel):
         self._net: Optional[nn.Module] = None
         self._meta: Dict[str, Any] = {}
         self._extra: Optional[Dict[str, torch.Tensor]] = None
+        self._runners = PredictRunners(self.device)
+        self._quant_mode: Optional[str] = None
+        self._quant_host = None
+        self._quant_dev = None
+        self._quant_layers: Optional[Dict[str, str]] = None
 
     # --- Subclass API ---
 
@@ -394,6 +645,7 @@ class TorchModel(BaseModel):
         steps.close()
         net.eval()
         self._net = net
+        self._invalidate_compiled()
 
     def _merge_shared(self, net: nn.Module, shared_params: Params) -> None:
         """Warm start: overlay the shared parameters whose flat name and
@@ -435,30 +687,103 @@ class TorchModel(BaseModel):
         if not queries:
             return lambda: []
         imgs = self._stack_queries(queries)
-        outs = [self._predict_chunk(imgs[s:s + self.max_predict_batch])
-                for s in range(0, imgs.shape[0], self.max_predict_batch)]
+        handles = [self._predict_bucket_submit(
+            imgs[s:s + self.max_predict_batch])
+            for s in range(0, imgs.shape[0], self.max_predict_batch)]
 
         def finish() -> List[Any]:
-            return [p.tolist() for p in torch.cat(outs).cpu().numpy()]
+            probs = torch.cat([dev[:count] for dev, count in handles])
+            return [p.tolist() for p in probs.cpu().numpy()]
 
         return finish
 
     def predict_proba(self, images: np.ndarray) -> np.ndarray:
         """(N, H, W, C) uint8 or normalised float32 images -> (N,
-        n_classes) float32 probabilities."""
+        n_classes) float32 probabilities, bucket by bucket."""
         self._require_net()
         if images.shape[0] == 0:
             return np.zeros((0, self._meta["n_classes"]), np.float32)
-        return torch.cat([
-            self._predict_chunk(images[s:s + self.max_predict_batch])
-            for s in range(0, images.shape[0], self.max_predict_batch)
-        ]).cpu().numpy()
+        handles = [self._predict_bucket_submit(
+            images[s:s + self.max_predict_batch])
+            for s in range(0, images.shape[0], self.max_predict_batch)]
+        return torch.cat([dev[:count] for dev, count in handles]
+                         ).cpu().numpy()
 
-    @torch.no_grad()
-    def _predict_chunk(self, chunk: np.ndarray) -> torch.Tensor:
-        x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
-        x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
-        return torch.softmax(self._logits(self._net, x).float(), dim=-1)
+    #: Staging-buffer dtypes ``predict_staged_submit`` takes.
+    predict_staged_dtypes = (np.uint8, np.float32)
+
+    def predict_bucket(self, n: int,
+                       dtype: Any = np.float32) -> Optional[int]:
+        """The leading dim a staging buffer must have for an ``n``-query
+        staged burst (the power of two at or above ``n``), or None when
+        the staged path cannot take it: ``n`` past ``max_predict_batch``,
+        an unsupported dtype, or no loaded model."""
+        if self._net is None or not self._meta.get("n_classes"):
+            return None
+        if n < 1 or n > self.max_predict_batch:
+            return None
+        if np.dtype(dtype) not in [np.dtype(d)
+                                   for d in self.predict_staged_dtypes]:
+            return None
+        return predict_bucket_of(n)
+
+    def predict_staged_submit(self, buf: np.ndarray,
+                              n: int) -> Callable[[], List[Any]]:
+        """Launch one burst straight from a staging buffer: ``buf``'s
+        leading dim is exactly ``predict_bucket(n, buf.dtype)`` and rows
+        ``[n:]`` are padding (stale rows are fine: their outputs are
+        sliced away). Returns a finisher as ``predict_submit`` does."""
+        self._require_net()
+        buf = staged_chunk(buf, n, self._meta["image_shape"],
+                           self.predict_bucket(n, buf.dtype))
+        dev, count = self._dispatch_bucket(buf, n)
+
+        def finish() -> List[Any]:
+            return [p.tolist() for p in dev[:count].cpu().numpy()]
+
+        return finish
+
+    def _predict_bucket_submit(self, chunk: np.ndarray):
+        """``chunk`` zero-padded to its bucket and dispatched: ``(device
+        probabilities of the bucket, n)``."""
+        return self._dispatch_bucket(padded_to_bucket(chunk), chunk.shape[0])
+
+    def _dispatch_bucket(self, chunk: np.ndarray, n: int):
+        """``chunk``'s leading dim is exactly a bucket: run it on the
+        runner of ``(bucket, is_u8, quant)``, built on first use.
+        Returns ``(device probabilities, n)``."""
+        x, is_u8 = host_input(chunk)
+        return self._runners.run((chunk.shape[0], is_u8, self._quant_mode),
+                                 x, lambda: self._predict_fn(is_u8)), n
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs this model captured for its predict runners."""
+        return self._runners.captures
+
+    def _predict_fn(self, is_u8: bool) -> Callable[[torch.Tensor],
+                                                   torch.Tensor]:
+        """The forward of one runner: input rows -> f32 probabilities;
+        under serving quantisation, from the int8 weights (the model's
+        ``quantized_apply``, or the generic fallback: the weights
+        dequantised in the graph, the module unchanged)."""
+        net = self._require_net()
+        extra = self._extra_dev()
+        if self._quant_mode is None:
+            return lambda x: probabilities(
+                self._logits(net, normalised(x, is_u8)))
+        qvars, scales, fvars, _ = self._quant_device_arrays()
+
+        def fn(x: torch.Tensor) -> torch.Tensor:
+            xf = normalised(x, is_u8)
+            logits = self.quantized_apply(qvars, scales, fvars, xf, extra)
+            if logits is None:
+                logits = functional_call(
+                    net, dequantized_state(qvars, scales, fvars), (xf,),
+                    extra)
+            return probabilities(logits)
+
+        return fn
 
     def _stack_queries(self, queries: List[Any]) -> np.ndarray:
         """Stack queries for the device, keeping all-uint8 batches uint8
@@ -484,6 +809,123 @@ class TorchModel(BaseModel):
             return arr
         return arr.astype(np.float32)
 
+    # --- Serving quantisation (int8) ---
+
+    def enable_serving_quant(self, mode: Optional[str] = "int8"
+                             ) -> Dict[str, Any]:
+        """Serve from int8 weights (ref :1222-1255): per-channel
+        symmetric scales over every 2-D and 4-D ``kernel`` of the loaded
+        parameters, computed once; predict runners are built anew for
+        ``(bucket, dtype, "int8")``; training and evaluation are
+        untouched. ``None`` or ``""`` turns it off; another mode than
+        ``"int8"`` raises ``ValueError``. Returns ``quant_report()``."""
+        if not mode:
+            if self._quant_mode is not None:
+                self._quant_mode = None
+                self._drop_quant()
+            return {"mode": None, "layers": {}}
+        if mode != "int8":
+            raise ValueError(f"unsupported serving quant mode {mode!r}")
+        self._require_net()
+        if self._quant_mode != mode:
+            self._quant_mode = mode
+            self._drop_quant()
+        return self.quant_report()
+
+    def _drop_quant(self) -> None:
+        self._quant_dev = None
+        self._quant_host = None
+        self._quant_layers = None
+        self._runners.clear()
+
+    def quant_report(self) -> Dict[str, Any]:
+        """``{"mode", "layers": {path: "int8" | "f32"}, "n_int8",
+        "n_f32"}``, or mode None when serving is not quantised."""
+        if self._quant_mode is None or self._net is None:
+            return {"mode": None, "layers": {}}
+        layers = self._quant_layers
+        if layers is None:
+            _, _, _, layers = self._quant_host_arrays()
+        n_int8 = sum(1 for v in layers.values() if v == "int8")
+        return {"mode": self._quant_mode, "layers": dict(layers),
+                "n_int8": n_int8, "n_f32": len(layers) - n_int8}
+
+    def _quant_host_arrays(self):
+        """``(qvars, scales, fvars, layers)``: flat host dicts in the
+        reference's layout (``quantize_flat`` of ``dense_to_jax`` of the
+        module's state), computed once per loaded parameters."""
+        if self._quant_host is None:
+            self._quant_host = quantize_flat(
+                dense_to_jax(self._require_net().state_dict()))
+            self._quant_layers = self._quant_host[3]
+        return self._quant_host
+
+    def _quant_device_arrays(self):
+        """The same on the model's device; the host copy is then
+        dropped, as the reference's is."""
+        if self._quant_dev is None:
+            qvars, scales, fvars, layers = self._quant_host_arrays()
+
+            def put(d):
+                return {k: torch.from_numpy(np.ascontiguousarray(v))
+                        .to(self.device) for k, v in d.items()}
+
+            self._quant_dev = (put(qvars), put(scales), put(fvars), layers)
+            self._quant_host = None
+        return self._quant_dev
+
+    def quantized_apply(self, qvars: Dict[str, torch.Tensor],
+                        scales: Dict[str, torch.Tensor],
+                        fvars: Dict[str, torch.Tensor], x: torch.Tensor,
+                        extra: Dict[str, torch.Tensor]
+                        ) -> Optional[torch.Tensor]:
+        """A model's own int8 forward: logits from the int8 kernels
+        (``dynamic_int8_matmul``), or None (the default) for the generic
+        fallback. The dicts are flat, in the reference's layout; under
+        a stacked group the call runs inside ``torch.func.vmap``."""
+        return None
+
+    # --- Stacked-ensemble congruence ---
+
+    #: Whether members of this class may stack (``stack_members``).
+    stack_compatible: bool = True
+
+    def module_config(self) -> Any:
+        """The module's static configuration: what flax's dataclass
+        equality of the module compares in the reference (widths,
+        depths, dtype). PyTorch modules do not compare so, so a model
+        that declares none never stacks: the default is this instance's
+        own."""
+        return ("instance", id(self))
+
+    def stack_signature(self) -> Any:
+        """Two members stack only if their signatures are equal: the
+        class, ``module_config()`` and the served output contract (ref
+        :1328-1340)."""
+        return (type(self).__name__, self.module_config(),
+                int(self._meta.get("n_classes", 0)),
+                tuple(self._meta.get("image_shape", ())))
+
+    def warmup(self) -> None:
+        """Build the smallest bucket's float32 and uint8 runners (and so
+        capture their graphs) before serving traffic."""
+        shape = self._meta.get("image_shape")
+        if self._net is None or not shape:
+            return
+        self.predict_proba(np.zeros((1, *shape), np.float32))
+        dev, _ = self._predict_bucket_submit(np.zeros((1, *shape),
+                                                      np.uint8))
+        dev.cpu()
+
+    def _invalidate_compiled(self) -> None:
+        """Runners and quantised weights follow the parameters; the
+        asked-for quant mode stays."""
+        self._runners.clear()
+        self._extra = None
+        self._quant_dev = None
+        self._quant_host = None
+        self._quant_layers = None
+
     # --- BaseModel: parameters ---
 
     def dump_parameters(self) -> Params:
@@ -502,7 +944,18 @@ class TorchModel(BaseModel):
                             [int(x) for x in np.asarray(meta_shape)])
         net.load_state_dict(dense_from_jax(params))
         self._net = net.eval()
+        self._invalidate_compiled()
 
     def destroy(self) -> None:
+        self._invalidate_compiled()
         self._net = None
-        self._extra = None
+
+
+def __getattr__(name: str) -> Any:
+    # Stacked ensembles live in ``stacked.py`` (which imports this
+    # module) and are re-exported here, as the reference keeps them in
+    # ``jax_model.py``.
+    if name in ("StackedMembers", "stack_congruence", "stack_members"):
+        from . import stacked
+        return getattr(stacked, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

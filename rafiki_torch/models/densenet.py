@@ -20,7 +20,7 @@ NCHW shapes over a channels-last view of the NHWC images.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Any, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +30,7 @@ from ..model import (CategoricalKnob, FixedKnob, FloatKnob, IntegerKnob,
                      PolicyKnob)
 from ..model.optim import scheduled_sgd, warmup_cosine_decay_schedule
 from ..model.torch_model import TorchModel, pad_crop_flip
+from . import layers
 from .layers import BatchNorm, Conv, cast, dense, make_dense
 
 #: Named depth presets (ref :94): DenseNet-121 is the reference's
@@ -143,3 +144,12 @@ class TorchDenseNet(TorchModel):
 
     def augment_in_graph(self, x, step):
         return pad_crop_flip(x, int(self.knobs.get("seed", 0)) + 1, step)
+
+    def module_config(self) -> Any:
+        """What the reference's ``_DenseNet`` compares: blocks, growth,
+        classes, compression, the CIFAR stem and the compute dtype."""
+        return ("_DenseNet",
+                BLOCK_CONFIGS[str(self.knobs.get("arch", "densenet_121"))],
+                int(self.knobs.get("growth_rate", 32)),
+                int(self._meta.get("n_classes", 0)), 0.5, "cifar",
+                str(layers.COMPUTE))

@@ -35,7 +35,7 @@ channels-last view of the NHWC images.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,17 +44,21 @@ from torch import nn
 from ..model import ArchKnob, FixedKnob, PolicyKnob
 from ..model.optim import cosine_decay_schedule, scheduled_sgd
 from ..model.torch_model import TorchModel, pad_crop_flip
+from . import layers
 from .layers import (Conv, GroupNorm, avg_pool3, cast, dense, make_dense,
-                     max_pool3)
+                     max_pool3, stacked)
 
 N_OPS = 5  # identity, sep-conv 3x3, sep-conv 5x5, avg-pool 3x3, max-pool 3x3
 
 
 def _pick(xs, i: torch.Tensor) -> torch.Tensor:
     """``xs[i]`` for a device index ``i``: a copy of the chosen tensor,
-    kept channels-last as the tensors it comes from."""
-    return torch.stack(xs).index_select(0, i.view(1))[0].contiguous(
-        memory_format=torch.channels_last)
+    kept channels-last as the tensors it comes from (contiguous under
+    the members' ``vmap``, which knows no other layout)."""
+    x = torch.stack(xs).index_select(0, i.view(1))[0]
+    if stacked(x):
+        return x.contiguous()
+    return x.contiguous(memory_format=torch.channels_last)
 
 
 def _gn_groups(c: int) -> int:
@@ -257,3 +261,18 @@ class TorchEnas(TorchModel):
 
     def augment_in_graph(self, x, step):
         return pad_crop_flip(x, int(self.knobs.get("seed", 0)) + 1, step)
+
+    def module_config(self) -> Any:
+        """What the reference's ``_EnasNet`` compares: blocks, cells,
+        channels, classes, the single path's architecture (None for the
+        supernet, whose architecture is an input) and the compute
+        dtype."""
+        cls = type(self)
+        down = bool(self.knobs.get("downscale", False))
+        return ("_EnasNet", cls.n_blocks,
+                cls.search_cells if down else cls.full_cells,
+                cls.search_channels if down else cls.full_channels,
+                int(self._meta.get("n_classes", 0)),
+                None if self._searching()
+                else tuple(int(v) for v in self.knobs["arch"]),
+                str(layers.COMPUTE))

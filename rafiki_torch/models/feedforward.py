@@ -16,20 +16,22 @@ f32 for the loss and the softmax. The parameters start from flax's
 default initialisers (a truncated-normal LeCun kernel, a zero bias),
 drawn from the ``seed`` knob with torch's generator.
 
-Not ported yet: ``quantized_apply`` (int8 serving) and
-``stack_signature`` (stacked ensembles).
+Serving (ref :103-136): every trial shares the one supernet, so
+members of any knobs stack (``stack_signature``), their masks stacked
+with them; ``quantized_apply`` is the masked forward in f32 on
+``dynamic_int8_matmul``, line for line the reference's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..model import CategoricalKnob, FixedKnob, FloatKnob, IntegerKnob
-from ..model.torch_model import TorchModel
+from ..model.torch_model import TorchModel, dynamic_int8_matmul
 from .layers import dense, make_dense
 
 MAX_LAYERS = 3
@@ -83,3 +85,38 @@ class TorchFeedForward(TorchModel):
             "hidden_layer_units":
                 (np.arange(MAX_UNITS) < units).astype(np.float32),
         }
+
+    def module_config(self) -> Any:
+        return ("_FeedForward", MAX_LAYERS, MAX_UNITS,
+                int(self._meta.get("n_classes", 0)), "bfloat16")
+
+    def stack_signature(self) -> Any:
+        # Every trial shares the fixed supernet, so members stack
+        # whatever width and depth masks their knobs give.
+        return (*super().stack_signature(), MAX_LAYERS, MAX_UNITS)
+
+    def quantized_apply(self, qvars: Dict[str, torch.Tensor],
+                        scales: Dict[str, torch.Tensor],
+                        fvars: Dict[str, torch.Tensor], x: torch.Tensor,
+                        extra: Dict[str, torch.Tensor]
+                        ) -> Optional[torch.Tensor]:
+        """int8 serving: every dense product int8 × int8 -> int32
+        (``dynamic_int8_matmul``), the masked supernet's forward in f32;
+        a kernel left in f32 runs a plain f32 product."""
+
+        def dense_q(h, i):
+            k = f"params/Dense_{i}/kernel"
+            b = fvars[f"params/Dense_{i}/bias"].to(torch.float32)
+            if k in qvars:
+                return dynamic_int8_matmul(h, qvars[k], scales[k]) + b
+            return h @ fvars[k].to(torch.float32) + b
+
+        count_mask = extra["hidden_layer_count"]
+        units_mask = extra["hidden_layer_units"]
+        h = x.reshape(x.shape[0], -1)
+        for i in range(MAX_LAYERS):
+            y = torch.clamp_min(dense_q(h, i), 0.0)
+            y = y * units_mask.to(y.dtype)
+            h = y if i == 0 else torch.where(
+                count_mask[i].to(y.dtype) > 0, y, h)
+        return dense_q(h, MAX_LAYERS)

@@ -6,7 +6,10 @@ small sizes shows poorly, so the zoo builds on these instead:
 - ``BatchNorm``: flax's ``BatchNorm(momentum=0.9, dtype=float32)``.
   Statistics in f32 over N, H and W; the running update
   ``ra = 0.9·ra + 0.1·batch`` with the *biased* batch variance; eps
-  1e-5; an f32 output. ``torch.nn.BatchNorm2d`` updates its running
+  1e-5; an f32 output. In eval mode over stacked members (``stacked``)
+  it is flax's formula ``(x − mean) · m + bias``, ``m = rsqrt(var +
+  eps) · scale``, folded into one multiply-add a channel: ``x · m +
+  (bias − mean · m)``. ``torch.nn.BatchNorm2d`` updates its running
   variance with the unbiased one, and its ``momentum`` is the other way
   round: the layer calls the library's kernel with momentum 1 into
   scratch buffers and makes flax's update from them.
@@ -53,6 +56,13 @@ COMPUTE = torch.bfloat16
 
 def cast(x: torch.Tensor) -> torch.Tensor:
     return x.to(COMPUTE)
+
+
+def stacked(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a tensor of a ``torch.func.vmap`` over stacked
+    members (``model.stacked``), where only the default memory format
+    may be asked for."""
+    return torch._C._functorch.is_batchedtensor(x)
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -112,6 +122,14 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
+        if not self.training and stacked(xf):
+            # The library's kernel asks for the input's layout, which a
+            # vmap over members cannot answer: flax's eval formula,
+            # folded into one multiply-add a channel (one pass over x).
+            view = (1, -1, 1, 1)
+            mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+            shift = self.bias - self.running_mean * mul
+            return torch.addcmul(shift.view(view), xf, mul.view(view))
         if not self.training:
             return F.batch_norm(xf, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, BN_EPS)
@@ -142,8 +160,10 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.groups, self.weight, self.bias,
-                            GN_EPS)
+        x = x.float()
+        if stacked(x):
+            x = x.contiguous()
+        return F.group_norm(x, self.groups, self.weight, self.bias, GN_EPS)
 
 
 def avg_pool3(x: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import NEG_INF
 from ..predictor.edge_cache import query_key
+from ..torchenv import graph_capture, side_stream
 from ..utils.hashing import M32 as _M32, mix32 as _mix32
 from .lm import _layer_norm
 from .transformer import _sinusoidal
@@ -319,15 +320,11 @@ class LMGenerator:
         they write the scratch page only). The graph allocates from its
         own memory pool."""
         args = self._decode_args()
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
+        with side_stream(self.device):
             for _ in range(2):
                 self._decode(*args)
-        cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with graph_capture(graph):
             out = self._decode(*args)
         self._graph, self._out = graph, out
 

@@ -23,7 +23,12 @@ Two workers share this module:
   predicts, replies with ``send_prediction_batch`` and honours the
   drain marker. A bin of several trials (``"a,b"``, packed onto one
   chip group when groups are short) is served as the reference's
-  ``_PackedEnsemble`` does, member by member. With
+  ``_PackedEnsemble`` does: congruent members stacked, one dispatch a
+  burst (``RAFIKI_TPU_SERVING_STACKED``, on by default), others member
+  by member; with ``RAFIKI_TPU_SERVING_QUANT=int8`` every member serves
+  from int8 weights. An all-packed burst of one shape and dtype is
+  copied into a pinned staging buffer of its bucket (``_HostStager``)
+  and served from there. With
   ``RAFIKI_TPU_SERVING_GENERATE`` on, a worker whose model can generate
   also serves token generation from the bus, its engine sized by the
   reference's ``RAFIKI_TPU_GENERATE_*`` variables.
@@ -32,10 +37,10 @@ A ``predict`` that raises answers each of its queries with
 ``{"error": "<Type>: <msg>"}``, as the reference's worker does, so one
 failing worker does not fail the request.
 
-Not ported yet: stacked members (``stack_members``, ROADMAP item 4),
-the staged and pipelined burst paths, int8 serving, promotion restacks,
-profiling markers, the bus reconnect loop and the metrics and trace
-hooks.
+Not ported yet: the pipelined burst path, the promote route
+(``/promote``, ``send_restack``: ``_PackedEnsemble.replace_member`` is
+ported, the route waits for the admin's), profiling markers, the bus
+reconnect loop and the metrics and trace hooks.
 """
 
 from __future__ import annotations
@@ -50,11 +55,13 @@ from concurrent.futures import Future
 from typing import Any, Dict, List, Optional, Tuple, Type
 
 import numpy as np
+import torch
 
 from ..bus import BaseBus
 from ..cache import DRAIN_KEY, WIRE_NDBATCH, Cache, TokenFrames
 from ..constants import ServiceStatus
 from ..model.base import BaseModel, Params
+from ..observe.wire import quant_mode, stacked_mode
 from ..parallel.chips import ChipGroup
 from ..store import MetaStore, ParamStore
 from ..torchenv import DeviceLike, resolve_device
@@ -222,22 +229,58 @@ class InferenceWorker:
 
 class _PackedEnsemble:
     """Several trial models sharing one chip group, served as one unit
-    (the reference's ``_PackedEnsemble``, per member: stacking waits
-    for ROADMAP item 4).
+    (the reference's ``_PackedEnsemble``, ``inference.py:111-289``).
 
-    ``predict`` launches every member's work (``predict_submit`` where
-    the model has one) before reading any back, so the members overlap
-    on the card. Numeric predictions are pre-averaged in float64 and
-    ``last_weight`` counts the members that answered, so the predictor's
-    weighted mean across workers stays the unweighted mean over trials;
-    other predictions go out un-combined in a ``__members__`` envelope,
-    one vote a trial. A failing member drops only its own vote."""
+    With a stacked group (``stacked``, ``model.stacked.stack_members``)
+    a burst is one dispatch that gives every member's probabilities;
+    otherwise ``predict_submit`` launches every member's work before it
+    reads any back, so the members overlap on the card. Both give
+    per-member finishers to ``_finish_members``: numeric predictions are
+    pre-averaged in float64 and ``last_weight`` counts the members that
+    answered, so the predictor's weighted mean across workers stays the
+    unweighted mean over trials; other predictions go out un-combined in
+    a ``__members__`` envelope, one vote a trial. A failing member drops
+    only its own vote (under stacking, by the validity mask), and a
+    stacked dispatch that raises serves its burst member by member,
+    logged.
 
-    def __init__(self, models: List[Any]):
+    ``last_mode`` is how the last burst ran: ``"stacked"``,
+    ``"fallback"`` (member by member on a worker that has a stacked
+    group) or ``"members"`` (no stacked group). ``dispatches`` and
+    ``bursts`` count device dispatches and bursts by mode."""
+
+    MODES = ("stacked", "fallback", "members")
+
+    def __init__(self, models: List[Any], stacked: Optional[Any] = None):
         self.models = models
+        self.stacked = stacked
         self.last_weight = len(models)
+        self.last_mode = "members"
+        self.dispatches = {m: 0 for m in self.MODES}
+        self.bursts = {m: 0 for m in self.MODES}
 
-    def predict(self, queries: List[Any]) -> List[Any]:
+    def _count(self, mode: str, n_dispatches: int) -> None:
+        self.last_mode = mode
+        self.dispatches[mode] += n_dispatches
+        self.bursts[mode] += 1
+
+    def _stacked_usable(self) -> bool:
+        return self.stacked is not None and self.stacked.n_valid > 0
+
+    def _per_member_mode(self) -> str:
+        return "fallback" if self.stacked is not None else "members"
+
+    def predict_submit(self, queries: List[Any]):
+        if self._stacked_usable():
+            try:
+                handles = self.stacked.submit(queries)
+            except Exception:
+                _log.exception("stacked dispatch failed; serving this "
+                               "burst per-member")
+            else:
+                self._count("stacked", len(handles))
+                return self._finish_members(
+                    self.stacked.member_finishers(handles), len(queries))
         finishers = []
         for m in self.models:
             submit = getattr(m, "predict_submit", None)
@@ -247,32 +290,145 @@ class _PackedEnsemble:
             except Exception:
                 _log.exception("packed member dispatch failed; dropping "
                                "its vote")
-        member_preds = []
-        for f in finishers:
+        self._count(self._per_member_mode(), len(finishers))
+        return self._finish_members(finishers, len(queries))
+
+    def predict_bucket(self, n: int, dtype: Any = None) -> Optional[int]:
+        """The staged path's bucket for the whole pack: the stacked
+        group's, or the members' when they all take the burst at one
+        bucket; None sends the burst down the per-query path."""
+        if self._stacked_usable():
+            return self.stacked.predict_bucket(n, dtype)
+        buckets = set()
+        for m in self.models:
+            fn = getattr(m, "predict_bucket", None)
+            b = fn(n, dtype) if fn is not None else None
+            if b is None:
+                return None
+            buckets.add(b)
+        return buckets.pop() if len(buckets) == 1 else None
+
+    def predict_staged_submit(self, buf: np.ndarray, n: int):
+        """A staged burst: one dispatch of the stacked group, or every
+        member's from the same staging buffer."""
+        if self._stacked_usable():
             try:
-                member_preds.append(f())
+                handle = self.stacked.staged_submit(buf, n)
             except Exception:
-                _log.exception("packed member predict failed; dropping "
-                               "its vote")
-        if not member_preds:
-            raise RuntimeError("every packed ensemble member failed")
-        self.last_weight = len(member_preds)
-        out = []
-        for i in range(len(queries)):
-            votes = [p[i] for p in member_preds]
+                _log.exception("stacked staged dispatch failed; serving "
+                               "this burst per-member")
+            else:
+                self._count("stacked", 1)
+                return self._finish_members(
+                    self.stacked.member_finishers([handle]), n)
+        finishers = []
+        for m in self.models:
             try:
-                arr = np.asarray(votes, dtype=np.float64)
-                if not np.isnan(arr).any():
-                    out.append(np.mean(arr, axis=0).tolist())
-                    continue
-            except (ValueError, TypeError):
-                pass
-            out.append({"__members__": votes})
-        return out
+                finishers.append(m.predict_staged_submit(buf, n))
+            except Exception:
+                _log.exception("packed member staged dispatch failed; "
+                               "dropping its vote")
+        self._count(self._per_member_mode(), len(finishers))
+        return self._finish_members(finishers, n)
+
+    def replace_member(self, index: int, model: Any) -> None:
+        """The promote path's restack: swap one member while the others
+        stay on the device. A stacked group copies the member's tensors
+        into its slice in place (``StackedMembers.update_member``; an
+        incongruent model raises before any state changes)."""
+        old = self.models[index]
+        if self.stacked is not None:
+            self.stacked.update_member(index, model)
+        self.models[index] = model
+        try:
+            old.destroy()
+        except Exception:
+            _log.exception("replaced member destroy failed")
+
+    def _finish_members(self, finishers: List[Any], n: int):
+        """The gather half of every dispatch path: per-member fault
+        isolation, float64 pre-averaging, ``__members__`` envelopes."""
+
+        def finish() -> List[Any]:
+            member_preds = []
+            for f in finishers:
+                try:
+                    member_preds.append(f())
+                except Exception:
+                    _log.exception("packed member predict failed; "
+                                   "dropping its vote")
+            if not member_preds:
+                raise RuntimeError("every packed ensemble member failed")
+            self.last_weight = len(member_preds)
+            out = []
+            for i in range(n):
+                votes = [p[i] for p in member_preds]
+                try:
+                    arr = np.asarray(votes, dtype=np.float64)
+                    if not np.isnan(arr).any():
+                        out.append(np.mean(arr, axis=0).tolist())
+                        continue
+                except (ValueError, TypeError):
+                    pass
+                out.append({"__members__": votes})
+            return out
+
+        return finish
+
+    def predict(self, queries: List[Any]) -> List[Any]:
+        return self.predict_submit(queries)()
+
+    def warmup(self) -> None:
+        """Build the runners that will serve: the stacked group's, or
+        each member's."""
+        if self.stacked is not None:
+            self.stacked.warmup()
+            return
+        for m in self.models:
+            warm = getattr(m, "warmup", None)
+            if warm is not None:
+                warm()
 
     def destroy(self) -> None:
+        if self.stacked is not None:
+            self.stacked.destroy()
         for m in self.models:
             m.destroy()
+
+
+class _HostStager:
+    """Reusable host staging buffers, two a ``(bucket, shape, dtype)``,
+    made on first use and kept (the buckets are a power-of-two ladder).
+    On the card they are pinned (``torch.empty(..., pin_memory=True)``
+    viewed as numpy), so the copy to a runner's static input is
+    asynchronous; rows past a burst's count keep stale bytes, whose
+    outputs are sliced away. Two are enough: a burst's finisher reads
+    its results back, which orders the copy out of its buffer before
+    the burst after next refills it."""
+
+    def __init__(self, device):
+        self.pinned = torch.device(device).type == "cuda"
+        #: The registration's ``staging``: ``pinned`` or ``pageable``.
+        self.mode = "pinned" if self.pinned else "pageable"
+        self._bufs: Dict[Any, list] = {}
+
+    def _new(self, bucket: int, shape: tuple, dtype) -> np.ndarray:
+        if not self.pinned:
+            return np.empty((bucket, *shape), dtype)
+        t = torch.empty((bucket, *shape),
+                        dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                        pin_memory=True)
+        return t.numpy()
+
+    def buffer(self, bucket: int, shape: tuple, dtype) -> np.ndarray:
+        key = (bucket, tuple(shape), np.dtype(dtype).str)
+        entry = self._bufs.get(key)
+        if entry is None:
+            entry = [self._new(bucket, shape, dtype),
+                     self._new(bucket, shape, dtype), 0]
+            self._bufs[key] = entry
+        entry[2] ^= 1
+        return entry[entry[2]]
 
 
 def _generate_config() -> Optional[Dict[str, int]]:
@@ -319,6 +475,11 @@ class BusInferenceWorker:
         self.device = chips.device if chips is not None \
             else resolve_device(device)
         self._gen_cfg = _generate_config()
+        self._quant_req = quant_mode()
+        self._quant_active = False
+        self._stacked_req = stacked_mode()
+        self._stacked_active = False
+        self._stager = _HostStager(self.device)
         self._gen_sched: Optional[DecodeScheduler] = None
         self._gen_thread: Optional[threading.Thread] = None
         self.stop_flag = threading.Event()
@@ -346,7 +507,9 @@ class BusInferenceWorker:
     # --- Setup ---
 
     def _load_member(self, tid: str) -> Tuple[Any, Optional[float]]:
-        """One trial's model on this worker's device, and its score."""
+        """One trial's model on this worker's device (quantised for
+        serving when ``RAFIKI_TPU_SERVING_QUANT`` asks), and its
+        score."""
         trial = self.meta.get_trial(tid)
         if trial is None:
             raise ValueError(f"unknown trial {tid}")
@@ -358,11 +521,23 @@ class BusInferenceWorker:
         model = model_class(device=self.device,
                             **model_class.validate_knobs(trial["knobs"]))
         model.load_parameters(self.params.load(trial["params_id"]))
+        if self._quant_req:
+            enable = getattr(model, "enable_serving_quant", None)
+            if enable is None:
+                _log.warning("trial %s: %s has no serving quantization; "
+                             "serving f32", tid, type(model).__name__)
+            else:
+                report = enable(self._quant_req)
+                self._quant_active = True
+                _log.info("trial %s quantized for serving: mode=%s int8=%d "
+                          "f32-fallback=%d", tid, report["mode"],
+                          report.get("n_int8", 0), report.get("n_f32", 0))
         return model, score
 
     def _load_model(self) -> Tuple[Any, Optional[float]]:
-        """The bin's model (a ``_PackedEnsemble`` for several trials)
-        and its score, the best of its members'."""
+        """The bin's model (a ``_PackedEnsemble`` for several trials,
+        stacked when ``RAFIKI_TPU_SERVING_STACKED`` is on and the members
+        are congruent) and its score, the best of its members'."""
         models, scores = [], []
         for tid in str(self.trial_id).split(","):
             model, score = self._load_member(tid)
@@ -372,23 +547,43 @@ class BusInferenceWorker:
         score = max(scores) if scores else None
         if len(models) == 1:
             return models[0], score
-        return _PackedEnsemble(models), score
+        stacked = None
+        if self._stacked_req:
+            from ..model.stacked import stack_members
+
+            stacked = stack_members(models)
+            if stacked is not None:
+                _log.info("inference worker %s: %d same-family members "
+                          "stacked, one dispatch a burst", self.service_id,
+                          stacked.n_members)
+        self._stacked_active = stacked is not None
+        return _PackedEnsemble(models, stacked=stacked), score
 
     # --- The loop ---
 
     def run(self) -> None:
         try:
             self.model, score = self._load_model()
+            # The runners (CUDA graphs on the card) are built before the
+            # worker takes traffic.
+            warm = getattr(self.model, "warmup", None)
+            if warm is not None:
+                warm()
             gen_info = self._start_generate()
             self.meta.update_service(self.service_id,
                                      status=ServiceStatus.RUNNING)
             # The bin rides the registration, so the predictor treats
             # same-bin workers as replicas; "wire" offers the packed
-            # format; "gen" the engine geometry /generate picks by.
+            # format; "gen" the engine geometry /generate picks by;
+            # "quant", "stacked" and "staging" say how the bin serves.
             self.cache.register_worker(
                 self.inference_job_id, self.service_id,
                 info={"trial_id": self.trial_id, "score": score,
-                      "wire": [WIRE_NDBATCH], "gen": gen_info})
+                      "wire": [WIRE_NDBATCH], "gen": gen_info,
+                      "quant": (self._quant_req if self._quant_active
+                                else None),
+                      "stacked": self._stacked_active,
+                      "staging": self._stager.mode})
         except Exception:
             _log.exception("inference worker %s failed to start",
                            self.service_id)
@@ -428,10 +623,13 @@ class BusInferenceWorker:
 
     def _serve(self, items: List[Dict[str, Any]]) -> None:
         """One burst: every query of the popped shards through ONE
-        ``predict``, each shard answered with its slice. A corrupt
-        packed shard is answered with per-query errors at once."""
-        flat: List[Any] = []
-        spans = []  # (item, start, count)
+        predict, each shard answered with its slice. A corrupt packed
+        shard is answered with per-query errors at once. An all-packed
+        burst of one shape and dtype is copied, a frame at a time, into
+        the staging buffer of its bucket and served from there
+        (``predict_staged_submit``); any other burst goes through
+        ``predict`` query by query."""
+        good = []
         for it in items:
             if "batch" in it and it["batch"] is None:
                 err = {"error": "ValueError: " + it.get(
@@ -440,17 +638,23 @@ class BusInferenceWorker:
                     it["batch_id"], self.service_id,
                     [err] * max(1, int(it.get("n", 1) or 1)),
                     shard=it.get("shard"))
-                continue
-            rows = it["batch"] if "batch" in it else it["queries"]
-            spans.append((it, len(flat), len(rows)))
-            flat.extend(rows[i] for i in range(len(rows)))
-        if not spans:
+            else:
+                good.append(it)
+        if not good:
             return
-        try:
-            preds = self.model.predict(flat) if flat else []
-        except Exception as e:
-            _log.exception("predict failed for %d queries", len(flat))
-            preds = [{"error": f"{type(e).__name__}: {e}"}] * len(flat)
+        spans, preds = self._staged(good)
+        if spans is None:
+            flat: List[Any] = []
+            spans = []  # (item, start, count)
+            for it in good:
+                rows = it["batch"] if "batch" in it else it["queries"]
+                spans.append((it, len(flat), len(rows)))
+                flat.extend(rows[i] for i in range(len(rows)))
+            try:
+                preds = self.model.predict(flat) if flat else []
+            except Exception as e:
+                _log.exception("predict failed for %d queries", len(flat))
+                preds = [{"error": f"{type(e).__name__}: {e}"}] * len(flat)
         weight = int(getattr(self.model, "last_weight", 1))
         for it, start, count in spans:
             self.cache.send_prediction_batch(
@@ -458,6 +662,34 @@ class BusInferenceWorker:
                 preds[start:start + count], weight=weight,
                 shard=it.get("shard"),
                 packed_ok=WIRE_NDBATCH in (it.get("rw") or ()))
+
+    def _staged(self, items: List[Dict[str, Any]]):
+        """``(spans, predictions)`` of the staged path, or ``(None,
+        None)`` when the burst cannot take it."""
+        arrays = [it.get("batch") for it in items]
+        if not all(isinstance(a, np.ndarray) for a in arrays):
+            return None, None
+        first = arrays[0]
+        if any(a.shape[1:] != first.shape[1:] or a.dtype != first.dtype
+               for a in arrays[1:]):
+            return None, None
+        bucket_fn = getattr(self.model, "predict_bucket", None)
+        total = sum(a.shape[0] for a in arrays)
+        bucket = bucket_fn(total, first.dtype) if bucket_fn else None
+        if bucket is None:
+            return None, None
+        buf = self._stager.buffer(bucket, first.shape[1:], first.dtype)
+        spans, start = [], 0
+        for it, a in zip(items, arrays):
+            spans.append((it, start, a.shape[0]))
+            buf[start:start + a.shape[0]] = a
+            start += a.shape[0]
+        try:
+            preds = self.model.predict_staged_submit(buf, total)()
+        except Exception as e:
+            _log.exception("staged predict failed for %d queries", total)
+            preds = [{"error": f"{type(e).__name__}: {e}"}] * total
+        return spans, preds
 
     # --- Generative serving ---
 

@@ -66,7 +66,8 @@ def test_importing_the_port_loads_no_jax():
                 "rafiki_torch.models.layers", "rafiki_torch.models.densenet",
                 "rafiki_torch.models.enas", "rafiki_torch.advisor.bayes",
                 "rafiki_torch.advisor.enas", "rafiki_torch.advisor.registry",
-                "rafiki_torch.utils.hashing"):
+                "rafiki_torch.utils.hashing", "rafiki_torch.model.stacked",
+                "rafiki_torch.observe.wire"):
         assert mod in mods, mod
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"
