@@ -152,18 +152,56 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    product at every bucket, |Δp| and val accuracy against f32) and
    DenseNet-121 on the generic fallback (argmax agreement and accuracy
    against f32 on 1,024 val images, peak memory); (d) no K1-K3 launch;
-12. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
-   ``library_covers`` names the kernels whose work one library call does
-   and ``platform_launches``, ``zoo_launches`` and ``ensemble_launches``
-   the platform, zoo and ensemble phases' launches (counted in
-   ``launches`` too), and, last, the ``{"ok": true, "device": ...}``
-   line.
+12. zoo2 phase, the rest of the zoo on the zoo phase's synthetic set
+   (made anew) and on sets at the Penn Treebank WSJ POS split's and UCI
+   Adult's sizes: (a) ``TorchViT`` at the reference's widths (d_model
+   128, 4 heads of 32, patch 4: 65 tokens, all 6 blocks, batch 256) one
+   epoch with its step captured as a CUDA graph (steps/s, images/s,
+   ``chip_util``, peak memory, a profiled captured step; the loss must
+   fall; 6 K1, 6 K2 and 6 K3 a step, all wgmma, counted at the eager
+   steps and the capture), one step's loss and gradients against the
+   same step on ``flash_attention_plain``, and K1, K2 and K3 on the
+   model's own q, k, v against their plain versions, timed as CUDA
+   graphs beside ``scaled_dot_product_attention`` and its
+   ``autograd.grad`` with their bounds (these comparison launches are
+   left out of the phase's counts); (b) a search of 4 one-epoch ViT
+   trials through ``make_advisor`` with no type (it must pick
+   ``BayesOptAdvisor``), the 2 best stacked in one bin behind
+   ``BusInferenceWorker``, the predictor and ``Client``: a stacked
+   runner's build launches K1 once a block for both members, served =
+   the members' float64 mean within 1e-6, a 256-request window, every
+   burst stacked, the stacked rows each member's own within one bf16 ulp
+   of a probability; (c) int8: the ViT bin under
+   ``RAFIKI_TPU_SERVING_QUANT=int8`` (K1 on its f32 variant, each
+   block's launch of one stacked forward of 512 images held against
+   ``flash_attention_reference``) and the trained CNN, val accuracy
+   within 0.02 of f32, max |Δp|, ``int8_conv`` equal to the exact
+   convolution at buckets 1-512 for every convolution served; (d)
+   ``TorchCnn`` at 16/16 one epoch at lr 1e-3 (steps/s, ``chip_util``,
+   val accuracy at least 0.95, card vs CPU logits, no K1-K3); (e) the
+   transformer tagger at full width (d_model 256, 4 heads of 64, 6
+   layers, max_len 128, dropout 0.1, batch 64) one epoch (tokens/s, peak
+   memory, val token accuracy, 6 of each kernel a step with
+   ``kv_mask``), K1-K3 on its own q, k, v with a fully padded row
+   against their plain versions, block 0's output and the logits against
+   the plain attention, served through ``POST /predict``; (f)
+   ``TorchTabMlpClf``, ``TorchTabMlpReg`` and ``TorchPosTagger`` one
+   trial each through ``test_model_class`` on the card, served through
+   ``POST /predict``, no K1-K3 launch;
+13. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
+   ``library_covers`` names the kernels whose work one library call does,
+   ``platform_launches``, ``zoo_launches``, ``ensemble_launches`` and
+   ``zoo2_launches`` the platform, zoo, ensemble and zoo2 phases'
+   launches (the platform's and zoo2's counted in ``launches`` too) and
+   ``zoo2_shapes`` each kernel's numbers at the ViT and tagger shapes,
+   and, last, the ``{"ok": true, "device": ...}`` line.
 
 Any failed check exits non-zero without the last line.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import re
@@ -341,7 +379,8 @@ ENSEMBLE_VAL = 1024
 # vmapped product is another cuBLAS or cuDNN call than the member's own
 # (a batched matmul, a grouped convolution), which may sum the same bf16
 # products in another order, so a logit may land on a neighbouring bf16
-# value. FeedForward: one ulp of a logit below 4 (as TOL_PROB).
+# value. FeedForward and ViT: one ulp of a logit below 4 (as TOL_PROB;
+# ViT's six blocks measured 4.53e-5 on the H100).
 # DenseNet-121: its 120 bf16 convolutions each round again, and the
 # zoo phase holds its logits card against CPU to one ulp of a logit
 # below 32 (TOL_ZOO_LOGITS, 0.125), which moves a probability by at most
@@ -378,6 +417,74 @@ class ZooEnas(TorchEnas):
         cfg.update(max_epochs=FixedKnob(1))
         return cfg
 """
+
+# The zoo2 phase: the rest of the zoo. ViT and the VGG-style CNN on the
+# zoo phase's synthetic CIFAR-10-shaped set (made anew: 50,000 + 10,000
+# images of 32×32×3); the transformer tagger on a synthetic corpus at the
+# Penn Treebank WSJ POS split's size; the tabular MLPs at UCI Adult's.
+# (a) ViT at the reference's widths (d_model 128, 4 heads of 32, patch 4:
+# 65 tokens), all 6 blocks, batch 256, one epoch (cut from 3-40).
+ZOO2_VIT = {"d_model": 128, "n_heads": 4, "patch": 4, "depth": 6,
+            "batch_size": 256, "learning_rate": 1e-3, "weight_decay": 1e-4,
+            "max_epochs": 1, "early_stop_epochs": 0}
+ZOO2_VIT_MIN_ACC = 0.5
+# (b) A search of 4 one-epoch ViT trials (cut from what a user runs);
+# the 2 best serve stacked in one bin.
+ZOO2_VIT_TRIALS = 4
+ZOO2_DEPLOY = 2
+ZOO2_VAL = 1024
+ZOO2_VIT_SOURCE = """
+from rafiki_torch.model import FixedKnob
+from rafiki_torch.models import TorchViT
+
+
+class ZooViT(TorchViT):
+    # max_epochs pinned to 1 (cut from 3-40).
+    @staticmethod
+    def get_knob_config():
+        cfg = dict(TorchViT.get_knob_config())
+        cfg.update(max_epochs=FixedKnob(1))
+        return cfg
+"""
+# (d) The CNN at full width (16/16), batch 256, one epoch, at lr 1e-3
+# in place of the reference's default 3e-3: at 3e-3 the reference's
+# JaxCnn and TorchCnn, from the same weights on this set, both blow up in
+# the first steps and stall at chance with the same losses
+# (tests/cnn_lr_witness.py). The set's classes are templates under noise
+# (a working classifier reads them all), so val accuracy must reach
+# ZOO2_CNN_MIN_ACC.
+ZOO2_CNN = {"width_16ths": 16, "batch_size": 256, "learning_rate": 1e-3,
+            "weight_decay": 1e-4, "max_epochs": 1, "early_stop_epochs": 0}
+ZOO2_CNN_MIN_ACC = 0.95
+# (e) The tagger at the knob space's largest widths: d_model 256, 4 heads
+# of 64, 6 layers, max_len 128, dropout 0.1, batch 64, one epoch (cut
+# from 3-30). The corpus: 38,219 train and 5,527 val sentences (the WSJ
+# POS split's sizes) of 3-128 tokens over 20,000 words and 45 tags.
+ZOO2_TAGGER = {"d_model": 256, "n_heads": 4, "n_layers": 6, "max_len": 128,
+               "vocab_size": 16384, "batch_size": 64, "dropout": 0.1,
+               "learning_rate": 1e-3, "max_epochs": 1}
+ZOO2_CORPUS = {"n_train": 38219, "n_val": 5527, "vocab": 20000,
+               "n_tags": 45, "max_len": 128}
+# Val token accuracy after the epoch must clear ten times chance (1/45):
+# 20,000 words hashed into 16,383 rows leave about 70% of the words
+# sharing a row with another, which caps what any tagger reads.
+ZOO2_TAGGER_MIN_ACC = 0.25
+# (f) UCI Adult's sizes: 32,561 train and 16,281 val rows of 14 features.
+ZOO2_TABLE = {"n_train": 32561, "n_val": 16281, "n_features": 14}
+ZOO2_TAB_KNOBS = {"hidden": 128, "depth": 2, "learning_rate": 1e-3,
+                  "batch_size": 128, "max_epochs": 5, "seed": 0}
+ZOO2_POS_KNOBS = {"embed_dim": 64, "hidden": 64, "learning_rate": 1e-2,
+                  "batch_size": 64, "max_epochs": 3, "max_len": 64,
+                  "vocab_size": 16384, "seed": 0}
+# K1's o at the zoo's shapes against its plain version, bf16: each p is
+# rounded to bf16 before p·v, and where the kernel's exp and the plain
+# version's round one p to neighbouring bf16 values the row moves by up
+# to 2^-8·|v| (the flagship shapes' TOL_O leaves no room for that when a
+# short row's o cancels to near zero); o is rounded once more (TOL_O).
+TOL_O_ROW = 2 ** -8
+# A block's output on the kernels against the plain attention, bf16: two
+# bf16 ulps at the block's largest value.
+TOL_BLOCK = 2 ** -6
 
 
 class SmokeFailure(Exception):
@@ -441,19 +548,22 @@ def time_ms(torch, fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def graph_ms(torch, fn, n: int) -> float:
+def graph_ms(torch, fn, n: int, stream=None) -> float:
     """Mean device time of ``fn`` over ``n`` runs captured in one CUDA
     graph: the host's cost of a launch (tens of microseconds through the
     Python wrapper, near K1's own time at the serve shape) stays out.
     Captured as the port captures (``graph_capture``: one capture at a
-    time in the process, the garbage collector off meanwhile)."""
+    time in the process, the garbage collector off meanwhile), on
+    ``stream`` if given (an autograd backward runs on its forward's
+    stream, so a backward is captured on the stream its forward ran
+    on)."""
     from rafiki_torch.torchenv import graph_capture
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with graph_capture(graph):
+    with graph_capture(graph, stream=stream):
         for _ in range(n):
             fn()
     graph.replay()
@@ -844,6 +954,23 @@ def reset_launch_counts(attn):
         fn.launches = 0
         for variant in fn.variant_launches:
             fn.variant_launches[variant] = 0
+
+
+class uncounted:
+    """A block whose K1-K3 launches are a check's, not the main path's:
+    every count is put back on the way out."""
+
+    def __init__(self, attn):
+        self.fns = [getattr(attn, x) for x in KERNEL_FNS]
+
+    def __enter__(self):
+        self.saved = [(f.launches, dict(f.variant_launches))
+                      for f in self.fns]
+
+    def __exit__(self, *exc):
+        for f, (n, by) in zip(self.fns, self.saved):
+            f.launches = n
+            f.variant_launches.update(by)
 
 
 def step_grads(model, win):
@@ -3063,6 +3190,851 @@ def ensemble_phase(torch, np, attn, card, automl, zoo):
     return out
 
 
+def recording(fn, calls):
+    """``fn`` that also keeps each call's arguments in ``calls``."""
+    def attend(q, k, v, kv_mask=None):
+        calls.append((q, k, v, kv_mask))
+        return fn(q, k, v, kv_mask)
+    return attend
+
+
+def plain_attention(attn):
+    """The zoo's attention on the plain versions of K1, K2 and K3."""
+    return lambda q, k, v, m=None: attn.flash_attention_plain(
+        q.contiguous(), k.contiguous(), v.contiguous(), kv_mask=m)
+
+
+def zoo2_kernels(torch, attn, card, what, q, k, v, mask):
+    """K1, K2 and K3 on one of the zoo's real attention inputs (bf16,
+    non-causal) against their plain versions, then timed beside
+    ``scaled_dot_product_attention`` and its ``autograd.grad``; returns
+    the kernel table's numbers for the shape."""
+    import torch.nn.functional as F
+
+    q, k, v = (x.detach().contiguous() for x in (q, k, v))
+    b, h, t, d = q.shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    ro, rl = attn.flash_attention_reference(q, k, v, kv_mask=mask,
+                                            return_lse=True)
+    n1 = attn.flash_attention.variant_launches["wgmma"]
+    o, lse = attn.flash_attention(q, k, v, kv_mask=mask, return_lse=True)
+    check(attn.flash_attention.variant_launches["wgmma"] == n1 + 1,
+          f"K1 did not launch on wgmma at the {what} shape")
+    atol = TOL_O_ROW * float(v.float().abs().max()) + TOL_O["bfloat16"][0]
+    err_o = (o.float() - ro.float()).abs()
+    err_l = (lse - rl).abs()
+    check(bool((err_o <= atol + TOL_O["bfloat16"][1]
+                * ro.float().abs()).all()), f"K1 o at the {what} shape: "
+          f"max |diff| {float(err_o.max()):.3e}")
+    check(bool((err_l <= TOL_LSE[0] + TOL_LSE[1] * rl.abs()).all()),
+          f"K1 lse at the {what} shape: max |diff| {float(err_l.max()):.3e}")
+    delta = (do.float() * ro.float()).sum(-1)
+    args = (q, k, v, do, rl, delta)
+    dq = attn.flash_attention_dq(*args, kv_mask=mask)
+    dk, dv = attn.flash_attention_dkv(*args, kv_mask=mask)
+    rq = attn.flash_attention_dq_reference(*args, kv_mask=mask)
+    rk, rv = attn.flash_attention_dkv_reference(*args, kv_mask=mask)
+    a, r = TOL_GRAD["bfloat16"]
+    errs = {}
+    for name, got, want in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        e = (got.float() - want.float()).abs()
+        errs[name] = float(e.max())
+        check(bool((e <= a * want.float().abs().max()
+                    + r * want.float().abs()).all()),
+              f"{name} at the {what} shape: max |diff| {errs[name]:.3e}")
+    bias = None if mask is None else mask[:, None, None, :]
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    # The library's forward on a side stream, so that its backward (on
+    # the forward's stream) can be captured there and timed as the
+    # kernels are.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias)
+    torch.cuda.current_stream().wait_stream(side)
+    fns = {"K1": (graph_ms, lambda: attn.flash_attention(
+               q, k, v, kv_mask=mask)),
+           "K2": (graph_ms, lambda: attn.flash_attention_dq(
+               *args, kv_mask=mask)),
+           "K3": (graph_ms, lambda: attn.flash_attention_dkv(
+               *args, kv_mask=mask)),
+           "lib1": (graph_ms, lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=bias)),
+           "lib23": (functools.partial(graph_ms, stream=side),
+                     lambda: torch.autograd.grad(
+                         out, (qg, kg, vg), do, retain_graph=True))}
+    runs = {key: [] for key in fns}
+    # In turns: the kernels, the library, the library, the kernels.
+    for group in (("K1", "K2", "K3"), ("lib1", "lib23"),
+                  ("lib1", "lib23"), ("K1", "K2", "K3")):
+        for key in group:
+            timer, fn = fns[key]
+            runs[key].append(timer(torch, fn, 20))
+    ms1, ms2, ms3, lib1, lib23 = (sum(runs[key]) / 2 for key in
+                                  ("K1", "K2", "K3", "lib1", "lib23"))
+    p1 = time_ms(torch, lambda: attn.flash_attention_reference(
+        q, k, v, kv_mask=mask), 3)
+    p2 = time_ms(torch, lambda: attn.flash_attention_dq_reference(
+        *args, kv_mask=mask), 3)
+    p3 = time_ms(torch, lambda: attn.flash_attention_dkv_reference(
+        *args, kv_mask=mask), 3)
+    b1, by1 = attention_bound(b, h, t, t, d, False, 2)
+    (b2, by2), (b3, by3) = backward_bounds(b, h, t, t, d, False, 2)
+    print(f"zoo2: kernels at the {what} shape ({b},{h},{t},{t},{d}) bf16 "
+          f"non-causal, mask={mask is not None} (the model's own q, k, v): "
+          f"K1 max|do| {float(err_o.max()):.3e} (tolerance "
+          f"{TOL_O_ROW}*max|v| + TOL_O), max|dlse| {float(err_l.max()):.3e}; "
+          f"K2 max|ddq| {errs['dq']:.3e}, K3 max|ddk| {errs['dk']:.3e} "
+          f"max|ddv| {errs['dv']:.3e}; CUDA-graph device time K1 "
+          f"{ms1:.4f} ms (in turns with the library; plain {p1:.4f}, "
+          f"scaled_dot_product_attention "
+          f"{lib1:.4f}, bound {b1:.4f} {by1}), K2 {ms2:.4f} ms (plain "
+          f"{p2:.4f}, bound {b2:.4f} {by2}), K3 {ms3:.4f} ms (plain "
+          f"{p3:.4f}, bound {b3:.4f} {by3}), autograd.grad of "
+          f"scaled_dot_product_attention (dq, dk, dv) {lib23:.4f} ms "
+          f"(CUDA-graph device time) on {card}", flush=True)
+    return {"shape": [b, h, t, t, d], "mask": mask is not None,
+            "K1": {"ms": ms1, "plain_ms": p1, "bound_ms": b1,
+                   "bound_by": by1, "library_ms": lib1,
+                   "max_abs_err": float(err_o.max())},
+            "K2": {"ms": ms2, "plain_ms": p2, "bound_ms": b2,
+                   "bound_by": by2, "library_ms": lib23,
+                   "max_abs_err": errs["dq"]},
+            "K3": {"ms": ms3, "plain_ms": p3, "bound_ms": b3,
+                   "bound_by": by3, "library_ms": lib23,
+                   "max_abs_err": max(errs["dk"], errs["dv"])}}
+
+
+def zoo2_f32_k1(torch, attn, group, imgs):
+    """(c) K1's f32 variant on the int8 ViT path's own q, k and v: one
+    eager stacked forward of ``imgs`` (a bucket) with K1's launcher
+    keeping each launch's folded inputs and outputs; every block's
+    ``o`` and ``lse`` held against ``flash_attention_reference``.
+    Returns (shape, max |do|, max |dlse|)."""
+    from rafiki_torch.models.vit import MAX_DEPTH
+
+    calls = []
+    launch = attn._flash_forward
+
+    def kept(q, k, v, causal, kv_mask, variant=None):
+        o, lse = launch(q, k, v, causal, kv_mask, variant)
+        calls.append((q, k, v, kv_mask, o, lse))
+        return o, lse
+
+    n0 = attn.flash_attention.variant_launches["f32"]
+    attn._flash_forward = kept
+    try:
+        with torch.no_grad():
+            group._forward(True)(torch.from_numpy(imgs).to("cuda"))
+        torch.cuda.synchronize()
+    finally:
+        attn._flash_forward = launch
+    n_f32 = attn.flash_attention.variant_launches["f32"] - n0
+    check(len(calls) == MAX_DEPTH and n_f32 == MAX_DEPTH,
+          f"the int8 ViT forward made {len(calls)} K1 launches, {n_f32} "
+          f"on f32, not one a block on f32")
+    atol, rtol = TOL_O["float32"]
+    err_o = err_l = 0.0
+    for i, (q, k, v, mask, o, lse) in enumerate(calls):
+        check(q.dtype == torch.float32
+              and attn.flash_forward_variant(q, k, v) == "f32",
+              f"block {i}'s K1 inputs are {q.dtype}, not K1's f32 variant")
+        ro, rl = attn.flash_attention_reference(q, k, v, kv_mask=mask,
+                                                return_lse=True)
+        eo, el = (o - ro).abs(), (lse - rl).abs()
+        check(bool((eo <= atol + rtol * ro.abs()).all()),
+              f"f32 K1 o at block {i}: max |diff| {float(eo.max()):.3e}")
+        check(bool((el <= TOL_LSE[0] + TOL_LSE[1] * rl.abs()).all()),
+              f"f32 K1 lse at block {i}: max |diff| {float(el.max()):.3e}")
+        err_o, err_l = max(err_o, float(eo.max())), max(err_l,
+                                                        float(el.max()))
+    return list(calls[0][0].shape), err_o, err_l
+
+
+def logged(fn, *args, **kw):
+    """``fn(*args, **kw)`` with the model logger's records kept; returns
+    (result, the epoch records' values)."""
+    from rafiki_torch.model.logger import logger
+
+    recs = []
+    prior = logger.current_sink()
+    logger.set_sink(recs.append)
+    try:
+        out = fn(*args, **kw)
+    finally:
+        logger.set_sink(prior)
+    return out, [r["values"] for r in recs
+                 if r["type"] == "values" and "epoch" in r["values"]]
+
+
+def zoo2_vit(torch, np, attn, card, train, val):
+    """(a) ViT at full width trains one epoch; its step on the kernels
+    against the plain attention; K1-K3 at its shape."""
+    import torch.nn.functional as F
+
+    from rafiki_torch.model import torch_model
+    from rafiki_torch.model.dataset import load_image_dataset
+    from rafiki_torch.models import TorchViT
+    from rafiki_torch.models.vit import MAX_DEPTH
+
+    ds = load_image_dataset(train)
+    vds = load_image_dataset(val)
+    b = ZOO2_VIT["batch_size"]
+    x0 = torch.from_numpy(ds.images[:b]).to("cuda").float() / 255.0
+    y0 = torch.from_numpy(ds.labels[:b]).to("cuda")
+
+    def batch_loss(m, net):
+        with torch.no_grad():
+            return float(F.cross_entropy(m._logits(net, x0).float(), y0))
+
+    m = TorchViT(device="cuda", **ZOO2_VIT)
+    loss0 = batch_loss(m, m._new_net(ds.n_classes, ds.image_shape))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts(attn)
+    t0 = time.perf_counter()
+    _, epochs = logged(m.train, train)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got = [a - c for a, c in zip(launch_counts(attn), before)]
+    steps = ds.size // b
+    check(len(epochs) == 1 and math.isfinite(epochs[0]["loss"]),
+          f"ViT epochs logged: {epochs}")
+    ep = epochs[0]
+    loss1 = batch_loss(m, m._net)
+    acc = m.evaluate(val)
+    check(loss1 < loss0 and ep["loss"] < loss0, f"the ViT loss did not "
+          f"fall: {loss0:.4f} before, epoch mean {ep['loss']:.4f}, "
+          f"{loss1:.4f} after")
+    check(acc >= ZOO2_VIT_MIN_ACC, f"ViT val accuracy {acc:.4f}")
+    # Counted on the host: the eager warm-up steps and the capture, once
+    # each; the replays run the captured launches without the wrapper.
+    # The chip_util count (``_macs``) runs one forward of one image.
+    runs = torch_model.WARMUP_STEPS + 1
+    L = MAX_DEPTH
+    per_step = ((got[0] - L) / runs, got[1] / runs, got[2] / runs)
+    check(per_step == (L, L, L) and got[3:] == got[:3],
+          f"ViT launches {got}: per step {per_step}, not {L} each on wgmma")
+    sps = ep["steps_per_sec"]
+    n_params = sum(p.numel() for p in m._net.parameters())
+    macs = m._macs(m._net, ds.image_shape)
+    print(f"zoo2: (a) ViT (d_model 128, 4 heads of 32, patch 4, 65 tokens, "
+          f"6 blocks, {n_params} parameters), batch {b}, lr 1e-3, wd 1e-4 "
+          f"coupled: one epoch of {steps} steps in {train_s:.2f} s (capture "
+          f"included), {sps:.2f} steps/s over the epoch, {sps * b:.1f} "
+          f"images/s, chip_util {ep.get('chip_util')} ({2 * macs / 1e9:.4f} "
+          f"GFLOP an image forward, attention included), peak device memory "
+          f"{peak_gb:.2f} GB; loss on {b} train images {loss0:.4f} before, "
+          f"epoch mean {ep['loss']:.4f}, {loss1:.4f} after; val accuracy "
+          f"{acc:.4f} ({vds.size} images) on {card}", flush=True)
+    print(f"zoo2: (a) launches counted by the wrappers over the train: K1 "
+          f"{got[0]}, K2 {got[1]}, K3 {got[2]}, all wgmma: {L} K1 (one a "
+          f"block), {L} K2 and {L} K3 a step, counted at the "
+          f"{torch_model.WARMUP_STEPS} eager steps and the capture (the "
+          f"{steps - runs} replays run them uncounted: {L * steps} launches "
+          f"of each on the card), plus {L} K1 of the one-image chip_util "
+          f"count", flush=True)
+
+    # One captured step, timed and profiled.
+    net = m._new_net(ds.n_classes, ds.image_shape)
+    opt = m.create_optimizer(list(net.parameters()), steps, 1)
+    data = torch.from_numpy(ds.images).to("cuda")
+    labels = torch.from_numpy(ds.labels).to("cuda")
+    runner = torch_model._TrainSteps(m, net, opt, data, labels, steps, b)
+    runner.new_epoch(np.arange(steps * b).reshape(steps, b))
+    net.train()
+    for _ in range(torch_model.WARMUP_STEPS + 2):
+        runner.step()
+    check(runner.graph is not None, "the ViT step was not captured")
+    step_ms = time_ms(torch, runner.step, 20)
+    prof = profile(torch, runner.step, f"one captured ViT train step "
+                   f"(batch {b})", card, top=10)
+    runner.close()
+    del runner, data, labels, opt
+
+    # One step on the kernels against the same step on the plain
+    # versions, and K1-K3 at the ViT shape on the model's own q, k, v.
+    calls = []
+    net.attention = recording(net.attention, calls)
+    grads = {}
+    for name in ("kernels", "plain"):
+        net.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(m._logits(net, x0).float(), y0)
+        loss.backward()
+        grads[name] = (float(loss.detach()), {n: p.grad.detach().clone()
+                                     for n, p in net.named_parameters()})
+        net.attention = plain_attention(attn)
+    (lk, gk), (lp, gp) = grads["kernels"], grads["plain"]
+    errs = {n: float((gk[n] - gp[n]).norm() / gp[n].norm()) for n in gp
+            if float(gp[n].norm()) > 0}
+    worst = max(errs, key=errs.get)
+    print(f"zoo2: (a) one step on the kernels vs flash_attention_plain, same "
+          f"weights and batch: loss {lk:.6f} vs {lp:.6f} (|diff| "
+          f"{abs(lk - lp):.3e}, tolerance {TOL_STEP_LOSS}); gradient "
+          f"relative error max {errs[worst]:.3e} ({worst}), median "
+          f"{sorted(errs.values())[len(errs) // 2]:.3e} over {len(errs)} "
+          f"parameters (tolerance {TOL_STEP_GRAD})", flush=True)
+    check(abs(lk - lp) <= TOL_STEP_LOSS and errs[worst] <= TOL_STEP_GRAD,
+          "the ViT step on the kernels disagrees with the plain step")
+    q, k, v, mask = calls[0]
+    with uncounted(attn):
+        kern = zoo2_kernels(torch, attn, card, "ViT", q, k, v, mask)
+    del net, grads, gk, gp, calls
+    torch.cuda.empty_cache()
+    return m, {"train_s": train_s, "steps_per_sec": sps,
+               "images_per_sec": sps * b, "chip_util": ep.get("chip_util"),
+               "peak_gb": peak_gb, "val_acc": acc, "step_ms": step_ms,
+               "busy_share": (prof[1] / 1e3 / step_ms) if prof else None,
+               "loss": [loss0, ep["loss"], loss1], "launches": got[:3],
+               "kernels": kern}
+
+
+def int8_conv_exact(torch, wq, in_hw, strides, padding, buckets, what):
+    """``int8_conv`` on the card against the exact convolution (float64,
+    exact for these sums) of random int8 inputs, at each bucket."""
+    from rafiki_torch.model.torch_model import conv_padding, int8_conv
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    kh, kw, cin, _ = wq.shape
+    (pt, pb), (pl, pr) = conv_padding(padding, in_hw, (kh, kw), strides)
+    for b in buckets:
+        xq = torch.randint(-127, 128, (b, *in_hw, cin), dtype=torch.int8,
+                           device="cuda", generator=g)
+        got = int8_conv(xq, wq, strides, padding)
+        want = conv64(torch, xq, wq, strides, (pt, pb, pl, pr))
+        check(torch.equal(got.long(), want),
+              f"int8_conv {what} at bucket {b} differs from the exact "
+              "convolution")
+    return len(buckets)
+
+
+def conv64(torch, xq, wq, strides, pads):
+    """The exact int32 result of an int8 NHWC × HWIO convolution, from a
+    float64 convolution (sums below 2^53) on the card."""
+    import torch.nn.functional as F
+
+    pt, pb, pl, pr = pads
+    x = F.pad(xq.double().permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    y = F.conv2d(x, wq.double().permute(3, 2, 0, 1), stride=strides)
+    return y.permute(0, 2, 3, 1).round().long()
+
+
+def zoo2_phase(torch, np, attn, card):
+    """The rest of the zoo on the card: (a) ViT at full width, (b) a
+    Bayes search of ViT trials and the 2 best stacked behind the
+    predictor, (c) int8 serving of ViT and the CNN, (d) the CNN at full
+    width, (e) the transformer tagger at full width, (f) the tabular
+    MLPs and the BiLSTM through ``test_model_class``. Returns the phase's
+    numbers and K1-K3 launches."""
+    import os
+    import tempfile
+
+    from rafiki_torch.advisor import BayesOptAdvisor, make_advisor
+    from rafiki_torch.client import Client
+    from rafiki_torch.constants import TaskType, TrialStatus
+    from rafiki_torch.datasets import (make_synthetic_image_dataset,
+                                       make_synthetic_tabular_dataset)
+    from rafiki_torch.model import test_model_class
+    from rafiki_torch.model.dataset import (load_corpus_dataset,
+                                            load_image_dataset)
+    from rafiki_torch.models import (TorchCnn, TorchPosTagger,
+                                     TorchTabMlpClf, TorchTabMlpReg)
+    from rafiki_torch.models.vit import MAX_DEPTH
+    from rafiki_torch.observe import wire
+    from rafiki_torch.predictor import PredictorService
+    from rafiki_torch.store import MetaStore, ParamStore
+    from rafiki_torch.utils.model_loader import load_model_class
+    from rafiki_torch.worker import InferenceWorker
+
+    t_phase = time.perf_counter()
+    reset_launch_counts(attn)
+    out = {}
+    client = Client()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train, val = make_synthetic_image_dataset(tmp, seed=SEED, **ZOO_DATA)
+        vds = load_image_dataset(val)
+        imgs, labels = vds.images[:ZOO2_VAL], vds.labels[:ZOO2_VAL]
+        print(f"zoo2: the zoo phase's synthetic {ZOO_DATA['name']}-shaped "
+              f"set made anew in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+
+        # (a) ViT at full width.
+        t0 = time.perf_counter()
+        vit, out["vit"] = zoo2_vit(torch, np, attn, card, train, val)
+        print(f"zoo2: (a) took {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # (b) A Bayes search of ViT trials; the 2 best stacked.
+        t0 = time.perf_counter()
+        meta = MetaStore(os.path.join(tmp, "meta.db"))
+        params = ParamStore(os.path.join(tmp, "params"))
+        user = meta.create_user("zoo2@example.com", "-", "MODEL_DEVELOPER")
+        vit_cls = load_model_class("ZooViT", ZOO2_VIT_SOURCE)
+        row = meta.create_model(user["id"], "vit",
+                                TaskType.IMAGE_CLASSIFICATION, "ZooViT", {},
+                                model_source=ZOO2_VIT_SOURCE)
+        advisor = make_advisor(vit_cls.get_knob_config(), seed=SEED,
+                               total_trials=ZOO2_VIT_TRIALS, device="cuda")
+        check(isinstance(advisor, BayesOptAdvisor),
+              f"make_advisor chose {type(advisor).__name__} for ViT")
+        job, rows, search_s = zoo_search(meta, params, row, vit_cls, train,
+                                         val, ZOO2_VIT_TRIALS, advisor,
+                                         "zoo2-vit")
+        check(len(rows) == ZOO2_VIT_TRIALS and all(
+            r["status"] == TrialStatus.COMPLETED for r in rows),
+            f"ViT trials: {[(r['status'], r.get('error')) for r in rows]}")
+        for r in rows:
+            ep = epoch_values(meta, r["id"])
+            print(f"zoo2: (b) trial {r['no']}: knobs "
+                  f"{json.dumps(r['knobs'])}: "
+                  f"{r['finished_at'] - r['started_at']:.2f} s, "
+                  f"{ep[-1]['steps_per_sec']:.2f} steps/s, chip_util "
+                  f"{ep[-1].get('chip_util')}, epoch loss "
+                  f"{ep[-1]['loss']:.4f}, val accuracy {r['score']:.4f}",
+                  flush=True)
+        print(f"zoo2: (b) Bayes search (make_advisor chose "
+              f"{type(advisor).__name__}) of {ZOO2_VIT_TRIALS} one-epoch ViT "
+              f"trials in {search_s:.2f} s: "
+              f"{ZOO2_VIT_TRIALS * 3600 / search_s:.1f} trials/hour on "
+              f"{card}", flush=True)
+        top = meta.get_best_trials_of_train_job(job["id"],
+                                                max_count=ZOO2_DEPLOY)
+        # Served, not trained: max_epochs takes the knob space's least.
+        members = [(dict(t["knobs"], max_epochs=3), params.load(
+            t["params_id"])) for t in top]
+        params.close()
+        meta.close()
+        dep = EnsembleDeploy(os.path.join(tmp, "deploy"))
+        try:
+            vit_bin = dep.bin("rafiki_torch.models.vit:TorchViT", members)
+            worker, host, info = dep.serve(vit_bin, {})
+            ens = worker.model
+            check(info["stacked"] is True, f"the ViT bin registered {info}")
+            st = ens.stacked
+            # Each bucket a window of single images reaches, built now:
+            # the wrappers count K1 at the eager run and at the capture.
+            n0 = attn.flash_attention.launches
+            for bk in (2, 4, 8):
+                ens.predict_staged_submit(
+                    np.zeros((bk, *imgs.shape[1:]), np.uint8), bk)()
+            per_build = (attn.flash_attention.launches - n0) / 3
+            check(per_build == 2 * MAX_DEPTH,
+                  f"a stacked ViT runner's build launched K1 {per_build} "
+                  f"times, not once a block at its run and its capture")
+            reset_counts(ens)
+            worst = 0.0
+            for i, n in enumerate((1, 2, 3, 5, 8)):
+                x = imgs[8 * i:8 * i + n]
+                served = client.predict(host, queries=list(x))[
+                    "predictions"]
+                rows_ = stacked_rows(np, st, x)
+                worst = max(worst, float(np.abs(
+                    np.asarray(served) - rows_.astype(np.float64).mean(0))
+                    .max()))
+            check(worst <= TOL_ENSEMBLE, f"served ViT answers differ from "
+                  f"the members' mean by {worst:.3e}")
+            win = platform_window(np, client, host, imgs[:AUTOML_WINDOW],
+                                  card, tag="zoo2: (b)",
+                                  what=f"one worker serving a {ZOO2_DEPLOY}"
+                                  f"-member ViT bin (stacked)")
+            bursts = sum(ens.bursts.values())
+            check(ens.bursts["stacked"] == bursts > 0 and
+                  ens.dispatches["stacked"] == bursts,
+                  f"ViT window bursts {ens.bursts}, dispatches "
+                  f"{ens.dispatches}")
+            models = ens.models
+            rows_st = in_bursts(np, lambda x: stacked_rows(np, st, x),
+                                imgs[:64], 8)
+            rows_pm = np.stack([in_bursts(
+                np, lambda x, m=m: member_rows(np, m, x), imgs[:64], 8)
+                for m in models])
+            dp = float(np.abs(rows_st - rows_pm).max())
+            check(dp <= TOL_STACKED_FF, f"stacked ViT rows differ from "
+                  f"each member's own by {dp:.3e}")
+            print(f"zoo2: (b) the {ZOO2_DEPLOY} best trials "
+                  f"({[t['no'] for t in top]}) stacked in one bin "
+                  f"(registered stacked={info['stacked']}): a stacked "
+                  f"runner's build launched K1 {per_build:.0f} times "
+                  f"({MAX_DEPTH} at its run, {MAX_DEPTH} at its "
+                  f"capture: once a block for both members, folded into "
+                  f"the batch); 5 requests served = float64 mean of the "
+                  f"members' stacked rows, max |diff| {worst:.3e} "
+                  f"(tolerance {TOL_ENSEMBLE}); the window ran {bursts} "
+                  f"bursts, all stacked, one dispatch each; stacked rows "
+                  f"against each member's own over 64 images max |dp| "
+                  f"{dp:.3e} (tolerance {TOL_STACKED_FF})", flush=True)
+            out["vit_serve"] = dict({q: w for q, w in win.items()
+                                     if q != "answers"}, served_err=worst,
+                                    member_dp=dp, search_s=search_s)
+            print(f"zoo2: (b) took {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+
+            # (d) The CNN at full width.
+            t0 = time.perf_counter()
+            ds = load_image_dataset(train)
+            cnn = TorchCnn(device="cuda", **ZOO2_CNN)
+            before = launch_counts(attn)
+            t1 = time.perf_counter()
+            _, epochs = logged(cnn.train, train)
+            torch.cuda.synchronize()
+            cnn_s = time.perf_counter() - t1
+            cnn_acc = cnn.evaluate(val)
+            check(launch_counts(attn)[:3] == before[:3],
+                  "the CNN launched K1/K2/K3")
+            ep = epochs[0]
+            dumped = cnn.dump_parameters()
+            on_cpu = TorchCnn(device="cpu", **ZOO2_CNN)
+            on_cpu.load_parameters(dumped)
+            probes = imgs[:ZOO_PROBES]
+            with torch.no_grad():
+                lc = cnn._logits(cnn._net, torch.from_numpy(probes).to(
+                    "cuda").float() / 255.0).float().cpu().numpy()
+                lh = on_cpu._logits(on_cpu._net, torch.from_numpy(
+                    probes).float() / 255.0).float().numpy()
+            diff = float(np.abs(lc - lh).max())
+            check(diff <= TOL_ZOO_LOGITS, f"CNN card vs CPU logits {diff}")
+            check(math.isfinite(ep["loss"]) and cnn_acc >= ZOO2_CNN_MIN_ACC,
+                  f"CNN epoch {ep}, val accuracy {cnn_acc}")
+            sps = ep["steps_per_sec"]
+            print(f"zoo2: (d) CNN (64/128/256 channels at 16/16, "
+                  f"{sum(p.numel() for p in cnn._net.parameters())} "
+                  f"parameters), batch 256: one epoch of "
+                  f"{ds.size // 256} steps in {cnn_s:.2f} s (capture "
+                  f"included), {sps:.2f} steps/s, {sps * 256:.1f} images/s, "
+                  f"chip_util {ep.get('chip_util')}, epoch loss "
+                  f"{ep['loss']:.4f}, val accuracy {cnn_acc:.4f} (floor "
+                  f"{ZOO2_CNN_MIN_ACC}); card vs "
+                  f"CPU logits on the same parameters max |diff| "
+                  f"{diff:.4e} (tolerance {TOL_ZOO_LOGITS}); no K1-K3 "
+                  f"launch; took {time.perf_counter() - t0:.1f} s on {card}",
+                  flush=True)
+            out["cnn"] = {"train_s": cnn_s, "steps_per_sec": sps,
+                          "images_per_sec": sps * 256,
+                          "chip_util": ep.get("chip_util"),
+                          "val_acc": cnn_acc, "logit_diff": diff}
+            on_cpu.destroy()
+
+            # (c) int8: the 2 ViT members stacked, and the CNN.
+            t0 = time.perf_counter()
+            worker8, host8, info8 = dep.serve(vit_bin,
+                                              {wire.QUANT_ENV: "int8"})
+            check(info8["quant"] == "int8" and info8["stacked"] is True,
+                  f"the int8 ViT bin registered {info8}")
+            g8 = worker8.model.stacked
+            f32_0 = attn.flash_attention.variant_launches["f32"]
+            r8 = in_bursts(np, lambda x: stacked_rows(np, g8, x), imgs, 512)
+            f32_k1 = attn.flash_attention.variant_launches["f32"] - f32_0
+            check(f32_k1 > 0, "the int8 ViT path launched no f32 K1")
+            with uncounted(attn):
+                f32_shape, f32_do, f32_dlse = zoo2_f32_k1(
+                    torch, attn, g8, imgs[:512])
+            r32 = in_bursts(np, lambda x: stacked_rows(np, st, x), imgs, 512)
+            acc32 = (r32.argmax(-1) == labels).mean(axis=1)
+            acc8 = (r8.argmax(-1) == labels).mean(axis=1)
+            served = client.predict(host8, queries=list(imgs[:3]))[
+                "predictions"]
+            err8 = float(np.abs(np.asarray(served) - stacked_rows(
+                np, g8, imgs[:3]).astype(np.float64).mean(0)).max())
+            check(err8 <= TOL_ENSEMBLE, f"served int8 ViT: {err8:.3e}")
+            check(float(np.abs(acc8 - acc32).max()) <= TOL_INT8_ACC,
+                  f"int8 ViT val accuracy {acc8} against {acc32}")
+            buckets = [2 ** i for i in range(10)]
+            n_conv = int8_conv_exact(
+                torch, g8._vars["q"]["params/Conv_0/kernel"][0], (32, 32),
+                (4, 4), "VALID", buckets, "ViT patches")
+            cnn.enable_serving_quant("int8")
+            q8 = cnn._quant_device_arrays()[0]
+            hw = 32
+            for i in range(6):
+                n_conv += int8_conv_exact(
+                    torch, q8[f"params/Conv_{i}/kernel"], (hw, hw), (1, 1),
+                    ((1, 1), (1, 1)), buckets, f"CNN Conv_{i}")
+                if i % 2 == 1:
+                    hw //= 2
+            c8 = cnn.predict_proba(vds.images)
+            cnn.enable_serving_quant(None)
+            c32 = cnn.predict_proba(vds.images)
+            cacc8 = float((c8.argmax(-1) == vds.labels).mean())
+            cacc32 = float((c32.argmax(-1) == vds.labels).mean())
+            check(abs(cacc8 - cacc32) <= TOL_INT8_ACC,
+                  f"int8 CNN val accuracy {cacc8} against {cacc32}")
+            print(f"zoo2: (c) int8: the ViT bin under "
+                  f"RAFIKI_TPU_SERVING_QUANT=int8 (registered quant="
+                  f"{info8['quant']}, stacked={info8['stacked']}) over "
+                  f"{imgs.shape[0]} val images: max |dp| against f32 "
+                  f"{float(np.abs(r8 - r32).max()):.4e}, val accuracy "
+                  f"{[round(float(a), 4) for a in acc8]} against "
+                  f"{[round(float(a), 4) for a in acc32]} in f32 (tolerance "
+                  f"{TOL_INT8_ACC}); K1 launched {f32_k1} times on its f32 "
+                  f"variant; its f32 launches of one eager stacked forward "
+                  f"({f32_shape[0]},{f32_shape[1]},{f32_shape[2]},"
+                  f"{f32_shape[2]},{f32_shape[3]}) against "
+                  f"flash_attention_reference, all {MAX_DEPTH} blocks: max "
+                  f"|do| {f32_do:.3e} (tolerance {TOL_O['float32']}), max "
+                  f"|dlse| {f32_dlse:.3e} (tolerance {TOL_LSE}); a request "
+                  f"served = the stacked mean, max "
+                  f"|diff| {err8:.3e}. The CNN int8 over {vds.size} val "
+                  f"images: max |dp| {float(np.abs(c8 - c32).max()):.4e}, "
+                  f"val accuracy {cacc8:.4f} against {cacc32:.4f}. "
+                  f"int8_conv equal to the exact convolution at buckets "
+                  f"1-512 for the ViT patches and the CNN's 6 convolutions "
+                  f"({n_conv} convolutions); took "
+                  f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+            out["int8"] = {"vit_acc": [float(a) for a in acc8],
+                           "vit_acc_f32": [float(a) for a in acc32],
+                           "vit_dp": float(np.abs(r8 - r32).max()),
+                           "cnn_acc": cacc8, "cnn_acc_f32": cacc32,
+                           "cnn_dp": float(np.abs(c8 - c32).max()),
+                           "k1_f32_launches": f32_k1,
+                           "k1_f32_shape": f32_shape, "k1_f32_do": f32_do,
+                           "k1_f32_dlse": f32_dlse}
+            cnn.destroy()
+        finally:
+            dep.close()
+        vit.destroy()
+
+        # (e) The transformer tagger at full width.
+        t0 = time.perf_counter()
+        out["tagger"], corpus = zoo2_tagger(torch, np, attn, card, tmp)
+        print(f"zoo2: (e) took {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # (f) The tabular MLPs and the BiLSTM through test_model_class.
+        t0 = time.perf_counter()
+        before = launch_counts(attn)
+        tab_cls, tab_reg = (make_synthetic_tabular_dataset(
+            os.path.join(tmp, name), n_classes=n, seed=SEED, name=name,
+            **ZOO2_TABLE) for name, n in (("adult", 2), ("adult_reg", 0)))
+        rng = np.random.default_rng(SEED)
+        rows_q = rng.standard_normal((5, ZOO2_TABLE["n_features"])).tolist()
+        sents = load_corpus_dataset(corpus[1]).sentences[:5]
+        out["tab_pos"] = {}
+        for cls, task, data, knobs, queries in (
+                (TorchTabMlpClf, TaskType.TABULAR_CLASSIFICATION, tab_cls,
+                 ZOO2_TAB_KNOBS, rows_q),
+                (TorchTabMlpReg, TaskType.TABULAR_REGRESSION, tab_reg,
+                 ZOO2_TAB_KNOBS, rows_q),
+                (TorchPosTagger, TaskType.POS_TAGGING, corpus,
+                 ZOO2_POS_KNOBS, sents)):
+            out["tab_pos"][cls.__name__] = zoo2_model_class(
+                np, card, cls, task, data, knobs, queries, test_model_class,
+                InferenceWorker, PredictorService)
+        check(launch_counts(attn)[:3] == before[:3],
+              "the tabular MLPs or the BiLSTM launched K1/K2/K3")
+        print(f"zoo2: (f) took {time.perf_counter() - t0:.1f} s; no K1-K3 "
+              f"launch", flush=True)
+
+    launches = launch_counts(attn)
+    phase_s = time.perf_counter() - t_phase
+    check(all(n > 0 for n in launches[:3]),
+          f"the zoo2 phase launched K1/K2/K3 {launches[:3]}")
+    print(f"zoo2: K1, K2 and K3 launched {launches[:3]} times in the phase "
+          f"(counted by the wrappers; captured steps count once); phase "
+          f"took {phase_s:.1f} s", flush=True)
+    out.update(launches=launches[:3], phase_s=phase_s)
+    return out
+
+
+def zoo2_model_class(np, card, cls, task, data, knobs, queries,
+                     test_model_class, InferenceWorker, PredictorService):
+    """One trial of ``cls`` through ``test_model_class`` on the card, its
+    parameters served by an ``InferenceWorker`` behind ``POST
+    /predict``: the served answers must be the worker's own."""
+
+    class Keep(cls):
+        dumped = None
+
+        def dump_parameters(self):
+            out = super().dump_parameters()
+            type(self).dumped = out
+            return out
+
+    t0 = time.perf_counter()
+    res = test_model_class(Keep, task, data[0], data[1],
+                           test_queries=queries, knobs=knobs, device="cuda")
+    secs = time.perf_counter() - t0
+    worker = InferenceWorker(cls, knobs, Keep.dumped, device="cuda").start()
+    app = PredictorService([worker], device="cuda").start()
+    try:
+        status, resp, _ = post(app.url + "/predict", {"queries": queries})
+        check(status == 200, f"/predict answered {status}")
+        own = worker.predict(queries, timeout=60)
+    finally:
+        app.stop()
+        worker.stop()
+    err = max(float(np.abs(np.asarray(s, np.float64)
+                           - np.asarray(o, np.float64)).max())
+              for s, o in zip(resp["predictions"], own))
+    check(err <= TOL_ENSEMBLE, f"{cls.__name__} served {err:.3e} off")
+    eps = [r["values"] for r in res.log_records
+           if r["type"] == "values" and "epoch" in r["values"]]
+    print(f"zoo2: (f) {cls.__name__} ({task}) through test_model_class on "
+          f"the card: knobs {json.dumps(res.knobs)}, {len(eps)} epochs, last "
+          f"epoch loss {eps[-1]['loss']:.4f}, score {res.score:.4f}, "
+          f"{secs:.2f} s (train, evaluate, the parameter round trip, "
+          f"predict); {len(queries)} queries served through POST /predict "
+          f"= the worker's own predict, max |diff| {err:.3e} on {card}",
+          flush=True)
+    return {"score": res.score, "seconds": secs, "served_err": err}
+
+
+def zoo2_tagger(torch, np, attn, card, tmp):
+    """(e) The transformer tagger at full width on a corpus at the WSJ POS
+    split's size: one epoch, the kernels at its shape on its own q, k, v
+    with ``kv_mask``, one block's output and the logits on the kernels
+    against the plain attention, served through ``POST /predict``."""
+    import os
+
+    import torch.nn.functional as F
+
+    from rafiki_torch.datasets import make_synthetic_corpus_dataset
+    from rafiki_torch.model.dataset import load_corpus_dataset
+    from rafiki_torch.models import TorchTransformerTagger
+    from rafiki_torch.predictor import PredictorService
+    from rafiki_torch.worker import InferenceWorker
+
+    t0 = time.perf_counter()
+    corpus = make_synthetic_corpus_dataset(os.path.join(tmp, "wsj"),
+                                           seed=SEED, name="wsj",
+                                           **ZOO2_CORPUS)
+    ds = load_corpus_dataset(corpus[0])
+    n_tok = sum(len(s) for s in ds.sentences)
+    print(f"zoo2: (e) synthetic corpus: {ds.size} train sentences "
+          f"({n_tok} tokens, lengths 3-{ZOO2_CORPUS['max_len']}), "
+          f"{ZOO2_CORPUS['n_val']} val, {ZOO2_CORPUS['vocab']} words, "
+          f"{len(ds.tag_names)} tags; made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    m = TorchTransformerTagger(device="cuda", **ZOO2_TAGGER)
+    b, t = ZOO2_TAGGER["batch_size"], ZOO2_TAGGER["max_len"]
+    steps = ds.size // b
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts(attn)
+    t0 = time.perf_counter()
+    _, epochs = logged(m.train, corpus[0])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got = [a - c for a, c in zip(launch_counts(attn), before)]
+    L = ZOO2_TAGGER["n_layers"]
+    check(got[:3] == [L * steps] * 3 and got[3:] == got[:3],
+          f"tagger launches {got}, not {L * steps} each on wgmma")
+    ep = epochs[0]
+    acc = m.evaluate(corpus[1])
+    check(math.isfinite(ep["loss"]) and acc >= ZOO2_TAGGER_MIN_ACC,
+          f"tagger epoch {ep}, val token accuracy {acc:.4f}")
+    real = n_tok / ds.size * b  # mean real tokens a batch
+    print(f"zoo2: (e) tagger (d_model 256, 4 heads of 64, 6 layers, max_len "
+          f"128, vocab 16384, dropout 0.1, "
+          f"{sum(p.numel() for p in m._net.parameters())} parameters), "
+          f"batch 64: one epoch of {steps} eager steps in {train_s:.2f} s, "
+          f"{steps / train_s:.2f} steps/s, {steps * b * t / train_s:.1f} "
+          f"tokens/s padded ({steps * real / train_s:.1f} real), peak "
+          f"device memory {peak_gb:.2f} GB; epoch loss {ep['loss']:.4f}, "
+          f"train token accuracy {ep['token_acc']:.4f}, val token accuracy "
+          f"{acc:.4f} (chance {1 / len(ds.tag_names):.4f}); K1, K2 and K3 "
+          f"launched {got[:3]} times ({L} each a step, all wgmma, with "
+          f"kv_mask) on {card}", flush=True)
+
+    # One eager step, profiled.
+    net = m._net.train()
+    ids, _ = m._encode(ds.sentences[:b])
+    ids = torch.from_numpy(ids).to("cuda")
+    tags = torch.zeros((b, t), dtype=torch.int64, device="cuda")
+    step_t = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def one_step():
+        net.zero_grad(set_to_none=True)
+        out = m.logits(net, ids, None, step_t)
+        F.cross_entropy(out.transpose(1, 2), tags).backward()
+
+    step_ms = time_ms(torch, one_step, 5)
+    prof = profile(torch, one_step, f"one eager tagger forward and backward "
+                   f"(batch {b} x {t})", card, top=10)
+    net.zero_grad(set_to_none=True)
+    net.eval()
+    del tags
+
+    # The kernels at the predict shape on the model's own q, k, v: 63
+    # val sentences and one all-PAD row, as predict pads a bucket.
+    vds = load_corpus_dataset(corpus[1])
+    pids, _ = m._encode(vds.sentences[:b - 1])
+    pids = torch.from_numpy(np.concatenate(
+        [pids, np.zeros((1, t), pids.dtype)])).to("cuda")
+    real_rows = slice(0, b - 1)
+    calls = []
+    with torch.no_grad():
+        lk = m.logits(net, pids, None).float()
+        x_in = net.Embed_0(pids) + net.pe[None, :t].to(torch.bfloat16)
+        blk = net._EncoderBlock_0
+        attend = recording(m.attention, calls)
+        yk = blk(x_in, attend, pids != 0)
+        yp = blk(x_in, plain_attention(attn), pids != 0)
+        saved = m.attention
+        m.attention = plain_attention(attn)
+        lp = m.logits(net, pids, None).float()
+        m.attention = saved
+    q, k, v, mask = calls[0]
+    with uncounted(attn):
+        kern = zoo2_kernels(torch, attn, card, "tagger", q, k, v, mask)
+    keep = (pids != 0)[real_rows]
+    block_err = float((yk - yp).float().abs()[real_rows].max())
+    block_tol = TOL_BLOCK * float(yp.float().abs()[real_rows].max())
+    logit_err = float((lk - lp).abs()[real_rows][keep].max())
+    check(block_err <= block_tol, f"the tagger's block 0 on the kernels: "
+          f"{block_err:.3e} from the plain attention")
+    check(logit_err <= TOL_ZOO_LOGITS, f"the tagger's logits on the "
+          f"kernels: {logit_err:.3e} from the plain attention")
+    print(f"zoo2: (e) block 0's output on the kernels against the plain "
+          f"attention over the 63 real rows: max |diff| {block_err:.3e} "
+          f"(tolerance {block_tol:.3e}: {TOL_BLOCK} of its largest value); "
+          f"the logits at real tokens max |diff| {logit_err:.3e} "
+          f"(tolerance {TOL_ZOO_LOGITS})", flush=True)
+
+    # Served through POST /predict.
+    knobs = dict(ZOO2_TAGGER, max_epochs=3)
+    worker = InferenceWorker(TorchTransformerTagger, knobs,
+                             m.dump_parameters(), device="cuda").start()
+    app = PredictorService([worker], device="cuda").start()
+    try:
+        queries = vds.sentences[:5] + [vds.sentences[5] * 3]
+        status, resp, _ = post(app.url + "/predict", {"queries": queries})
+        check(status == 200, f"/predict answered {status}")
+        own = m.predict(queries)
+    finally:
+        app.stop()
+        worker.stop()
+    lens = [len(p) for p in resp["predictions"]]
+    check(lens == [min(len(s), t) for s in queries],
+          f"served lengths {lens}")
+    err = max(float(np.abs(np.asarray(s, np.float64)
+                           - np.asarray(o, np.float64)).max())
+              for s, o in zip(resp["predictions"], own))
+    check(err <= TOL_ENSEMBLE, f"served tagger distributions {err:.3e} off")
+    print(f"zoo2: (e) 6 sentences served through POST /predict (lengths "
+          f"{lens}): the model's own predict, max |diff| {err:.3e}; one "
+          f"eager forward and backward {step_ms:.2f} ms (CUDA events) on "
+          f"{card}", flush=True)
+    m.destroy()
+    torch.cuda.empty_cache()
+    return ({"train_s": train_s, "steps_per_sec": steps / train_s,
+             "tokens_per_sec": steps * b * t / train_s, "peak_gb": peak_gb,
+             "val_acc": acc, "step_ms": step_ms,
+             "busy_share": (prof[1] / 1e3 / step_ms) if prof else None,
+             "block_err": block_err, "logit_err": logit_err,
+             "served_err": err, "launches": got[:3], "kernels": kern},
+            corpus)
+
+
+def zoo2_rows(zoo2, kernel):
+    """One kernel's numbers at the zoo2 phase's ViT and tagger shapes."""
+    return {what: dict(zoo2[part]["kernels"][kernel],
+                       shape=zoo2[part]["kernels"]["shape"],
+                       mask=zoo2[part]["kernels"]["mask"])
+            for what, part in (("vit", "vit"), ("tagger", "tagger"))}
+
+
 def timed(name, fn, *args):
     """``fn(*args)``, printing the phase's own seconds."""
     t0 = time.perf_counter()
@@ -3113,6 +4085,7 @@ def main() -> int:
         zoo = timed("zoo", zoo_phase, torch, np, attn, card)
         ens = timed("ensemble", ensemble_phase, torch, np, attn, card,
                     automl, zoo)
+        zoo2 = timed("zoo2", zoo2_phase, torch, np, attn, card)
     except Exception:
         traceback.print_exc()
         return 1
@@ -3121,26 +4094,34 @@ def main() -> int:
         dict(name="flash_fwd (K1)", route="cuda", source=src + "flash_fwd.cu",
              replaces="rafiki_tpu/ops/attention.py:162",
              launches=(train_launches[0] + serve_launches + gen_launches
-                       + plat_launches[0]),
+                       + plat_launches[0] + zoo2["launches"][0]),
              generate_launches=gen_launches,
              platform_launches=plat_launches[0],
              zoo_launches=zoo["launches"][0],
              ensemble_launches=ens["launches"][0],
+             zoo2_launches=zoo2["launches"][0],
+             zoo2_shapes=zoo2_rows(zoo2, "K1"),
              generate_buckets=gen["buckets"], **k1, **k1_train),
         dict(name="flash_bwd_dq (K2)", route="cuda",
              source=src + "flash_bwd_dq.cu",
              replaces="rafiki_tpu/ops/attention.py:338",
-             launches=train_launches[1] + plat_launches[1],
+             launches=(train_launches[1] + plat_launches[1]
+                       + zoo2["launches"][1]),
              platform_launches=plat_launches[1],
              zoo_launches=zoo["launches"][1],
-             ensemble_launches=ens["launches"][1], **k2),
+             ensemble_launches=ens["launches"][1],
+             zoo2_launches=zoo2["launches"][1],
+             zoo2_shapes=zoo2_rows(zoo2, "K2"), **k2),
         dict(name="flash_bwd_dkv (K3)", route="cuda",
              source=src + "flash_bwd_dkv.cu",
              replaces="rafiki_tpu/ops/attention.py:401",
-             launches=train_launches[2] + plat_launches[2],
+             launches=(train_launches[2] + plat_launches[2]
+                       + zoo2["launches"][2]),
              platform_launches=plat_launches[2],
              zoo_launches=zoo["launches"][2],
-             ensemble_launches=ens["launches"][2], **k3)]}), flush=True)
+             ensemble_launches=ens["launches"][2],
+             zoo2_launches=zoo2["launches"][2],
+             zoo2_shapes=zoo2_rows(zoo2, "K3"), **k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

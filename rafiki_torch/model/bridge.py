@@ -14,18 +14,21 @@ with ``.`` for ``/``, and the leaf maps by its kind:
   ``(k, k, 1, C)`` (``feature_group_count=C``) becomes ``(C, 1, k, k)``
   for ``groups=C`` by the same transpose;
 - a norm's ``scale`` is its ``weight``, and ``bias`` stays ``bias``;
+- an ``Embed``'s ``embedding`` is ``nn.Embedding``'s ``weight`` as it
+  is;
+- a module's own parameter (ViT's ``params/cls`` and
+  ``params/pos_embed``) keeps its name and layout;
 - ``batch_stats``' ``mean`` and ``var`` are the buffers
-  ``running_mean`` and ``running_var``.
+  ``running_mean`` and ``running_var``;
+- an LSTM cell (``OptimizedLSTMCell_0``, the ENAS controller's
+  ``LSTMCell_0``): flax keeps eight gate ``Dense`` layers, the input
+  ones (``ii``, ``if``, ``ig``, ``io``) without a bias and the hidden
+  ones (``hi``, ``hf``, ``hg``, ``ho``) with one; ``nn.LSTMCell``
+  stacks them in the same (i, f, g, o) order as ``weight_ih`` and
+  ``weight_hh``, with the hidden biases as ``bias_hh`` and ``bias_ih``
+  zero.
 
-The ENAS controller (``controller_from_jax`` / ``controller_to_jax``):
-flax's ``LSTMCell`` keeps eight gate ``Dense`` layers, the input ones
-(``ii``, ``if``, ``ig``, ``io``) without a bias and the hidden ones
-(``hi``, ``hf``, ``hg``, ``ho``) with one; ``nn.LSTMCell`` stacks them
-in the same (i, f, g, o) order as ``weight_ih`` and ``weight_hh``, with
-the hidden biases as ``bias_hh`` and ``bias_ih`` zero. ``Embed_0``'s
-``embedding`` is ``nn.Embedding``'s ``weight`` as it is; the heads are
-``Dense`` layers.
-
+A ``_meta/...`` entry is the model's own and does not cross.
 Every round trip is exact: transposes and copies of float32 arrays.
 
 The language model (``lm_from_jax`` / ``lm_to_jax``): the reference ``JaxTransformerLM.dump_parameters()`` gives a flat dict:
@@ -58,6 +61,12 @@ _TO_OIHW = (3, 2, 0, 1)
 _TO_HWIO = (2, 3, 1, 0)
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _STATS_BACK = {v: k for k, v in _STATS.items()}
+#: flax's LSTM gate layers (``OptimizedLSTMCell``, ``LSTMCell``), in
+#: torch's (i, f, g, o) order of ``weight_ih``/``weight_hh`` rows.
+_GATES = "ifgo"
+_GATE_LAYERS = frozenset([f"i{g}" for g in _GATES]
+                         + [f"h{g}" for g in _GATES])
+_LSTM_NAMES = ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
 
 
 def torch_name(key: str, ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
@@ -66,13 +75,17 @@ def torch_name(key: str, ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
     port's (None: the same layout)."""
     coll, *path, leaf = key.split("/")
     name, perm = None, None
-    if not path:
+    if coll == "params" and not path:
+        name = leaf  # a module's own parameter (ViT's cls, pos_embed)
+    elif not path:
         pass
     elif coll == "params":
         if leaf == "kernel" and ndim == 2:
             name, perm = "weight", (1, 0)
         elif leaf == "kernel" and ndim == 4:
             name, perm = "weight", _TO_OIHW
+        elif leaf == "embedding" and ndim == 2:
+            name = "weight"
         elif leaf in ("bias", "scale") and ndim == 1:
             name = "bias" if leaf == "bias" else "weight"
     elif coll == "batch_stats" and leaf in _STATS and ndim == 1:
@@ -89,7 +102,11 @@ def jax_name(key: str, ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
     (None: the same layout)."""
     *path, name = key.split(".")
     coll, leaf, perm = "params", None, None
-    if name == "weight" and ndim == 2:
+    if not path:
+        leaf = name
+    elif name == "weight" and ndim == 2 and path[-1].startswith("Embed"):
+        leaf = "embedding"
+    elif name == "weight" and ndim == 2:
         leaf, perm = "kernel", (1, 0)
     elif name == "weight" and ndim == 4:
         leaf, perm = "kernel", _TO_HWIO
@@ -102,13 +119,62 @@ def jax_name(key: str, ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
     return "/".join([coll, *path, leaf]), perm
 
 
+def _is_gate(key: str) -> bool:
+    parts = key.split("/")
+    return len(parts) >= 4 and parts[-2] in _GATE_LAYERS
+
+
+def _lstm_from_jax(params: Params) -> Dict[str, torch.Tensor]:
+    """Each flax LSTM cell's eight gate ``Dense`` layers -> an
+    ``nn.LSTMCell``'s tensors: the input kernels (``ii`` … ``io``, no
+    bias) stacked as ``weight_ih``, the hidden ones (``hi`` … ``ho``)
+    as ``weight_hh``, their biases as ``bias_hh``, ``bias_ih`` zero."""
+    cells = sorted({k.rsplit("/", 2)[0] for k in params if _is_gate(k)})
+    state = {}
+    for cell in cells:
+        def a(k: str) -> np.ndarray:
+            return np.asarray(params[f"{cell}/{k}"], np.float32)
+
+        name = ".".join(cell.split("/")[1:])
+        bias_hh = np.concatenate([a(f"h{g}/bias") for g in _GATES])
+        for part, mat in (
+                ("weight_ih", [a(f"i{g}/kernel").T for g in _GATES]),
+                ("weight_hh", [a(f"h{g}/kernel").T for g in _GATES])):
+            state[f"{name}.{part}"] = np.concatenate(mat)
+        state[f"{name}.bias_ih"] = np.zeros_like(bias_hh)
+        state[f"{name}.bias_hh"] = bias_hh
+    return {k: torch.from_numpy(np.array(v, np.float32, copy=True))
+            for k, v in state.items()}
+
+
+def _lstm_to_jax(state: Dict[str, np.ndarray]) -> Params:
+    """The inverse of ``_lstm_from_jax``; ``bias_ih`` must be zero (the
+    reference has no input-gate bias)."""
+    out: Params = {}
+    for key in state:
+        if not key.endswith(".weight_ih"):
+            continue
+        name = key[:-len(".weight_ih")]
+        cell = "params/" + name.replace(".", "/")
+        if np.any(state[f"{name}.bias_ih"]):
+            raise ValueError(f"{name}'s bias_ih is not zero")
+        for prefix in ("i", "h"):
+            mat = state[f"{name}.weight_{prefix}h"]
+            for g, block in zip(_GATES, np.split(mat, 4)):
+                out[f"{cell}/{prefix}{g}/kernel"] = np.array(block.T,
+                                                             copy=True)
+        for g, b in zip(_GATES, np.split(state[f"{name}.bias_hh"], 4)):
+            out[f"{cell}/h{g}/bias"] = np.array(b, copy=True)
+    return out
+
+
 def dense_from_jax(params: Params) -> Dict[str, torch.Tensor]:
     """Reference flat ``params/...`` and ``batch_stats/...`` dict -> the
     port's ``state_dict`` (CPU, float32). ``_meta/...`` entries are
-    skipped."""
-    state: Dict[str, torch.Tensor] = {}
+    skipped; LSTM cells map as ``_lstm_from_jax`` says."""
+    state = _lstm_from_jax(params)
     for key, value in params.items():
-        if key.startswith("_meta/"):
+        if key.startswith("_meta/") or _is_gate(key):
             continue
         a = np.asarray(value, dtype=np.float32)
         name, perm = torch_name(key, a.ndim)
@@ -121,9 +187,12 @@ def dense_from_jax(params: Params) -> Dict[str, torch.Tensor]:
 def dense_to_jax(state: Dict[str, torch.Tensor]) -> Params:
     """The port's ``state_dict`` -> the reference flat dict (host numpy,
     float32)."""
-    out: Params = {}
-    for key, t in state.items():
-        a = t.detach().to("cpu", torch.float32).numpy()
+    host = {k: t.detach().to("cpu", torch.float32).numpy()
+            for k, t in state.items()}
+    out = _lstm_to_jax(host)
+    for key, a in host.items():
+        if key.rsplit(".", 1)[-1] in _LSTM_NAMES:
+            continue
         name, perm = jax_name(key, a.ndim)
         if perm is not None:
             a = a.transpose(perm)
@@ -143,56 +212,17 @@ def dense_from_jax_tensors(flat: Dict[str, torch.Tensor]
     return state
 
 
-_LSTM = "params/LSTMCell_0/"
-_EMBED = "params/Embed_0/embedding"
-
-
-def controller_from_jax(params: Params) -> Dict[str, torch.Tensor]:
-    """The reference ENAS controller's flat ``params/...`` dict -> the
-    port's controller ``state_dict`` (CPU, float32)."""
-
-    def a(k: str) -> np.ndarray:
-        return np.asarray(params[_LSTM + k], np.float32)
-
-    def t(x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.array(x, np.float32, copy=True))
-
-    rest = {k: v for k, v in params.items()
-            if not k.startswith(_LSTM) and k != _EMBED}
-    state = dense_from_jax(rest)
-    bias_hh = np.concatenate([a(f"h{g}/bias") for g in "ifgo"])
-    state.update({
-        "LSTMCell_0.weight_ih": t(np.concatenate(
-            [a(f"i{g}/kernel").T for g in "ifgo"])),
-        "LSTMCell_0.weight_hh": t(np.concatenate(
-            [a(f"h{g}/kernel").T for g in "ifgo"])),
-        "LSTMCell_0.bias_ih": t(np.zeros_like(bias_hh)),
-        "LSTMCell_0.bias_hh": t(bias_hh),
-        "Embed_0.weight": t(params[_EMBED]),
-    })
-    return state
-
-
-def controller_to_jax(state: Dict[str, torch.Tensor]) -> Params:
-    """The port's controller ``state_dict`` -> the reference's flat
-    ``params/...`` dict (host numpy, float32). ``bias_ih`` must be
-    zero: the reference has no input-gate bias."""
-
-    def a(k: str) -> np.ndarray:
-        return state[k].detach().to("cpu", torch.float32).numpy()
-
-    if np.any(a("LSTMCell_0.bias_ih")):
-        raise ValueError("the controller's bias_ih is not zero")
-    out = dense_to_jax({k: v for k, v in state.items()
-                        if not k.startswith(("LSTMCell_0.", "Embed_0."))})
-    for prefix, mat in (("i", a("LSTMCell_0.weight_ih")),
-                        ("h", a("LSTMCell_0.weight_hh"))):
-        for g, block in zip("ifgo", np.split(mat, 4)):
-            out[f"{_LSTM}{prefix}{g}/kernel"] = np.array(block.T, copy=True)
-    for g, b in zip("ifgo", np.split(a("LSTMCell_0.bias_hh"), 4)):
-        out[f"{_LSTM}h{g}/bias"] = np.array(b, copy=True)
-    out[_EMBED] = np.array(a("Embed_0.weight"), copy=True)
-    return out
+def overlay_params(module: torch.nn.Module, params: Params) -> int:
+    """Warm start (the reference's ``_merge_shared``): load into
+    ``module`` the leaves of the flat ``params`` whose names and shapes
+    match its own; returns how many it took."""
+    own = dense_to_jax(module.state_dict())
+    take = {k: v for k, v in params.items()
+            if not k.startswith("_") and k in own
+            and tuple(own[k].shape) == tuple(np.shape(v))}
+    if take:
+        module.load_state_dict(dense_from_jax(take), strict=False)
+    return len(take)
 
 
 def n_layers_of(params: Params) -> int:

@@ -14,7 +14,12 @@ trial's learning rate (``jax_model.py:373-381`` and ``:412-448``).
 puts eps outside the square root, as ``torch.optim.Adam`` does, and
 ``scale_by_schedule`` evaluates the schedule at the update count
 *before* its increment (0 on the first step), so the lr of update ``k``
-(from 0) is ``learning_rate * schedule(k)``.
+(from 0) is ``learning_rate * schedule(k)``. Their weight decay (ViT's,
+the CNN's) is ``add_decayed_weights`` chained before ``scale_by_adam``:
+L2 decay coupled into Adam's moments, ``torch.optim.Adam``'s
+``weight_decay`` (``scheduled_adam``). The transformer tagger trains
+with ``optax.adamw``, decoupled decay under the warm-up cosine:
+``torch.optim.AdamW`` (``scheduled_adamw``).
 
 The conv zoo trains with SGD under Nesterov momentum: DenseNet with
 ``traced_hyperparam_optimizer(opt="sgdm", warmup=True,
@@ -132,30 +137,51 @@ class ScheduledOptimizer:
         self._count.add_(1)
 
 
-def scheduled_adam(params: Iterable[torch.nn.Parameter], peak_lr: float,
-                   total_steps: int, weight_decay: float = 0.0
-                   ) -> ScheduledOptimizer:
-    """Adam (AdamW when ``weight_decay`` > 0) at optax's defaults under
-    the cosine decay of ``JaxModel``'s optimizers: ``alpha`` 0.01 over
-    ``total_steps``. On the card the update runs as torch's fused
-    kernel, with the lr a device tensor that a CUDA graph can capture."""
-    params = list(params)
-    total_steps = max(1, total_steps)
+def _adam_kwargs(params, peak_lr: float):
+    """Adam's settings at optax's defaults and its lr: on the card a
+    device tensor of a fused, capturable optimizer, else a value."""
     kw = dict(betas=(0.9, 0.999), eps=1e-8)
     device = params[0].device
     if device.type == "cuda":
         kw.update(fused=True, capturable=True)
-        lr = torch.tensor(float(peak_lr), dtype=torch.float32, device=device)
-    else:
-        lr = float(peak_lr)
-    if weight_decay > 0:
-        opt: torch.optim.Optimizer = torch.optim.AdamW(
-            params, lr=lr, weight_decay=weight_decay, **kw)
-    else:
-        opt = torch.optim.Adam(params, lr=lr, **kw)
+        return torch.tensor(float(peak_lr), dtype=torch.float32,
+                            device=device), kw
+    return float(peak_lr), kw
+
+
+def scheduled_adam(params: Iterable[torch.nn.Parameter], peak_lr: float,
+                   total_steps: int, weight_decay: float = 0.0
+                   ) -> ScheduledOptimizer:
+    """``traced_hyperparam_optimizer(opt="adam")`` (``jax_model.py:
+    412-448``): Adam at optax's defaults under the cosine decay to
+    ``alpha`` 0.01 over ``total_steps``. With ``weight_decay`` it is the
+    reference's ``weight_decay=True`` chain, ``add_decayed_weights(wd)``
+    *before* ``scale_by_adam``: L2 decay added to the gradient, so it
+    passes through Adam's moments. That is ``torch.optim.Adam``'s
+    ``weight_decay``, not AdamW's decoupled decay (``scheduled_adamw``).
+    On the card the update runs as torch's fused kernel, with the lr a
+    device tensor that a CUDA graph can capture."""
+    params = list(params)
+    total_steps = max(1, total_steps)
+    lr, kw = _adam_kwargs(params, peak_lr)
+    opt = torch.optim.Adam(params, lr=lr, weight_decay=weight_decay, **kw)
     return ScheduledOptimizer(
         opt, peak_lr, cosine_decay_schedule(1.0, total_steps, alpha=0.01),
         total_steps)
+
+
+def scheduled_adamw(params: Iterable[torch.nn.Parameter], peak_lr: float,
+                    schedule: Schedule, total_steps: int,
+                    weight_decay: float) -> ScheduledOptimizer:
+    """``optax.adamw(peak_lr · schedule, weight_decay=wd)``: decoupled
+    decay, ``p -= lr_k · (adam(g) + wd · p)``, which is
+    ``torch.optim.AdamW``'s update (``p · (1 − lr_k · wd)`` then the Adam
+    step) with lr ``peak_lr * schedule(k)``; fused and capturable on the
+    card, as ``scheduled_adam``."""
+    params = list(params)
+    lr, kw = _adam_kwargs(params, peak_lr)
+    opt = torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay, **kw)
+    return ScheduledOptimizer(opt, peak_lr, schedule, max(1, total_steps))
 
 
 class NesterovSGD(torch.optim.Optimizer):

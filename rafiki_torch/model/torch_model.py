@@ -69,7 +69,8 @@ from ..torchenv import (DeviceLike, graph_capture, resolve_device,
                         side_stream)
 from ..utils.hashing import M32, mix32
 from .base import BaseModel, Params
-from .bridge import dense_from_jax, dense_from_jax_tensors, dense_to_jax
+from .bridge import (dense_from_jax, dense_from_jax_tensors, dense_to_jax,
+                     overlay_params)
 from .dataset import load_image_dataset
 from .logger import logger
 from .loop_ckpt import epoch_rng
@@ -295,6 +296,60 @@ def dynamic_int8_matmul(x: torch.Tensor, wq: torch.Tensor,
     return acc.to(torch.float32) * s_x * scale[None, :]
 
 
+def conv_padding(padding, size: Tuple[int, int], kernel: Tuple[int, int],
+                 strides: Tuple[int, int]) -> Tuple[Tuple[int, int], ...]:
+    """lax's ``padding`` of a 2-D convolution as ((top, bottom), (left,
+    right)): ``"VALID"``, ``"SAME"`` (the total ``max((⌈n/s⌉ − 1)·s + k
+    − n, 0)``, the smaller half first) or explicit pairs."""
+    if padding == "VALID":
+        return ((0, 0), (0, 0))
+    if padding == "SAME":
+        out = []
+        for n, k, st in zip(size, kernel, strides):
+            total = max((-(-n // st) - 1) * st + k - n, 0)
+            out.append((total // 2, total - total // 2))
+        return tuple(out)
+    return tuple((int(lo), int(hi)) for lo, hi in padding)
+
+
+def int8_conv(xq: torch.Tensor, wq: torch.Tensor, strides=(1, 1),
+              padding="SAME") -> torch.Tensor:
+    """The exact int32 NHWC convolution of int8 ``xq`` (B, H, W, cin) by
+    the int8 HWIO kernel ``wq`` (kh, kw, cin, cout): an int8 im2col
+    (zero padding, then strided views of the padded input, each patch
+    laid out (kh, kw, cin) as the kernel's rows) and one ``int8_mm``.
+    PyTorch has no int8 convolution on the card, and the product is
+    exact: each output sums at most kh·kw·cin products of |·| ≤ 127²
+    in int32, as the reference's ``preferred_element_type=int32``."""
+    kh, kw, cin, cout = wq.shape
+    b, h, w, _ = xq.shape
+    (pt, pb), (pl, pr) = conv_padding(padding, (h, w), (kh, kw), strides)
+    xp = F.pad(xq, (0, 0, pl, pr, pt, pb))
+    # (B, Ho, Wo, cin, kh, kw) -> rows of (kh, kw, cin).
+    patches = xp.unfold(1, kh, strides[0]).unfold(2, kw, strides[1])
+    ho, wo = patches.shape[1], patches.shape[2]
+    rows = patches.permute(0, 1, 2, 4, 5, 3).reshape(b * ho * wo,
+                                                     kh * kw * cin)
+    acc = int8_mm(rows, wq.reshape(kh * kw * cin, cout))
+    return acc.reshape(b, ho, wo, cout)
+
+
+def dynamic_int8_conv(x: torch.Tensor, wq: torch.Tensor,
+                      scale: torch.Tensor, strides=(1, 1),
+                      padding="SAME") -> torch.Tensor:
+    """The reference's ``dynamic_int8_conv`` (``jax_model.py:279-300``):
+    each sample of the NHWC ``x`` quantised by one scale, ``max|x|``
+    over h, w and c over 127 (clamped to 1e-8; ``round`` half to even),
+    the int8 × int8 -> int32 convolution (``int8_conv``), rescaled to
+    f32 once by the sample's scale and the per-``cout`` ``scale`` of the
+    HWIO int8 kernel ``wq``."""
+    s_x = x.abs().amax(dim=(1, 2, 3), keepdim=True) / 127.0
+    s_x = torch.clamp_min(s_x, 1e-8)
+    xq = torch.clamp(torch.round(x / s_x), -127, 127).to(torch.int8)
+    acc = int8_conv(xq, wq, strides, padding)
+    return acc.to(torch.float32) * s_x * scale
+
+
 def quantize_flat(flat: Dict[str, np.ndarray]):
     """``(qvars, scales, fvars, layers)`` of a flat reference-layout
     dict, as the reference's ``_quant_host_arrays`` computes them: each
@@ -489,17 +544,28 @@ class TorchModel(BaseModel):
         float32 parameters named as the reference's flax paths."""
         raise NotImplementedError
 
+    #: The values of ``learning_rate`` and ``weight_decay`` when the
+    #: knobs lack them: the reference's ``traced_knob_defaults``.
+    traced_knob_defaults: Dict[str, float] = {}
+
+    def traced_knob(self, name: str, default: float = 0.0) -> float:
+        """Knob ``name``, else ``traced_knob_defaults[name]``, else
+        ``default``: how the reference fills its traced hyperparameters
+        (``jax_model.py:621-625``)."""
+        return float(self.knobs.get(
+            name, self.traced_knob_defaults.get(name, default)))
+
     def create_optimizer(self, params, steps_per_epoch: int,
                          max_epochs: int) -> ScheduledOptimizer:
-        """Adam under a cosine decay to 0.01 over the run, times the
-        ``learning_rate`` knob (AdamW when ``weight_decay`` > 0): the
-        counterpart of ``JaxModel.create_optimizer`` and of
-        ``traced_hyperparam_optimizer``, which compute the same update;
-        in PyTorch the per-trial learning rate is simply a value."""
+        """``traced_hyperparam_optimizer(opt="adam", weight_decay=True)``
+        (ref :412-448): Adam under a cosine decay to 0.01 over the run,
+        times the ``learning_rate`` knob, with the ``weight_decay``
+        knob's L2 decay coupled into Adam's moments (none when it is 0);
+        in PyTorch the per-trial values are simply values."""
         return scheduled_adam(
-            params, float(self.knobs.get("learning_rate", 1e-3)),
+            params, self.traced_knob("learning_rate", 1e-3),
             steps_per_epoch * max_epochs,
-            weight_decay=float(self.knobs.get("weight_decay", 0.0)))
+            weight_decay=self.traced_knob("weight_decay"))
 
     def extra_apply_inputs(self) -> Dict[str, np.ndarray]:
         """Extra inputs handed to every forward as keyword arguments
@@ -650,13 +716,8 @@ class TorchModel(BaseModel):
     def _merge_shared(self, net: nn.Module, shared_params: Params) -> None:
         """Warm start: overlay the shared parameters whose flat name and
         shape match (ref ``_merge_shared``, :875-887)."""
-        own = dense_to_jax(net.state_dict())
-        take = {k: v for k, v in shared_params.items()
-                if not k.startswith("_") and k in own
-                and tuple(own[k].shape) == tuple(np.shape(v))}
-        if take:
-            net.load_state_dict(dense_from_jax(take), strict=False)
-        logger.log(msg=f"warm-started {len(take)} shared tensors")
+        n = overlay_params(net, shared_params)
+        logger.log(msg=f"warm-started {n} shared tensors")
 
     # --- BaseModel: evaluate ---
 

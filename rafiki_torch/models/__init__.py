@@ -1,10 +1,17 @@
-"""Model zoo of the port: the flagship language model, the
-feed-forward image classifier, DenseNet and the ENAS cell network."""
+"""Model zoo of the port: the flagship language model, the image
+classifiers (feed-forward, DenseNet, ENAS, the VGG-style CNN, ViT), the
+corpus taggers (BiLSTM, transformer) and the tabular MLPs."""
 
+from .cnn import TorchCnn
 from .densenet import TorchDenseNet
 from .enas import TorchEnas
 from .feedforward import TorchFeedForward
 from .lm import TorchTransformerLM
+from .pos_tagger import TorchPosTagger
+from .tabular import TorchTabMlpClf, TorchTabMlpReg
+from .transformer import TorchTransformerTagger
+from .vit import TorchViT
 
-__all__ = ["TorchDenseNet", "TorchEnas", "TorchFeedForward",
-           "TorchTransformerLM"]
+__all__ = ["TorchCnn", "TorchDenseNet", "TorchEnas", "TorchFeedForward",
+           "TorchPosTagger", "TorchTabMlpClf", "TorchTabMlpReg",
+           "TorchTransformerLM", "TorchTransformerTagger", "TorchViT"]

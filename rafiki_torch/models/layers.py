@@ -17,7 +17,9 @@ small sizes shows poorly, so the zoo builds on these instead:
   (torch's default is 1e-5), statistics in f32 and an f32 output; the
   caller casts it back to bf16 as the reference does.
 - ``Conv``: flax's ``Conv(dtype=bfloat16, use_bias=False)``, a bf16
-  cast of the f32 kernel and a bf16 product. The kernel is held as
+  cast of the f32 kernel and a bf16 product; ``use_bias=True`` adds the
+  bf16 cast of the bias to the bf16 product, as flax's default
+  ``Conv`` does (ViT's patches, the VGG-style CNN). The kernel is held as
   torch's ``(out, in / groups, kh, kw)``; the bridge maps flax's HWIO.
   ``padding`` is symmetric: the 3×3 convolutions ask for 1 explicitly,
   and flax's ``SAME`` is ``k // 2`` for the stride-1 odd kernels here
@@ -26,7 +28,14 @@ small sizes shows poorly, so the zoo builds on these instead:
   average counts the zero padding (``count_include_pad``) and the max
   pads with −inf, as flax's do.
 - ``dense``: flax's ``Dense(dtype=bfloat16)``, which rounds the product
-  to bf16 before it adds the bf16 bias.
+  to bf16 before it adds the bf16 bias; ``Dense`` is the same as a
+  module of its own, over any number of leading axes, with or without a
+  bias and in f32 where flax's ``dtype`` is float32 (the transformer
+  zoo's projections and heads).
+- ``LayerNorm``: flax's ``LayerNorm(dtype=float32)``, eps **1e-6**,
+  statistics and output in f32.
+- ``Embed``: flax's ``Embed``; the rows of its table in ``dtype``
+  (bf16 for the transformer tagger, f32 for the BiLSTM).
 
 ``COMPUTE`` is flax's ``dtype`` of these layers, bf16; ``cast`` casts
 an activation to it. Modules take and give NCHW tensors. Parameters
@@ -48,6 +57,7 @@ TRUNC_STD = 0.87962566103423978
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
 GN_EPS = 1e-6
+LN_EPS = 1e-6
 #: The dtype of the convolutions, the dense products and the
 #: activations between them (flax's ``dtype``); a test may set float32
 #: to hold a train step against a float32 reference module.
@@ -93,16 +103,20 @@ class Conv(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int,
                  gen: torch.Generator, stride: int = 1, padding: int = 0,
-                 groups: int = 1):
+                 groups: int = 1, use_bias: bool = False):
         super().__init__()
         self.stride, self.padding, self.groups = stride, padding, groups
         self.weight = nn.Parameter(
             torch.empty(out_ch, in_ch // groups, kernel, kernel))
         lecun_normal_(self.weight, in_ch // groups * kernel * kernel, gen)
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(cast(x), cast(self.weight), None, self.stride,
-                        self.padding, 1, self.groups)
+        y = F.conv2d(cast(x), cast(self.weight), None, self.stride,
+                     self.padding, 1, self.groups)
+        if self.bias is not None:
+            y = y + cast(self.bias).view(-1, 1, 1)
+        return y
 
     def macs(self, out: torch.Tensor) -> int:
         """Multiply-adds of one example whose output is ``out``."""
@@ -175,3 +189,60 @@ def max_pool3(x: torch.Tensor) -> torch.Tensor:
     """flax ``max_pool(x, (3, 3), strides=(1, 1), padding="SAME")``."""
     return F.max_pool2d(x, 3, 1, 1)
 
+
+
+class Dense(nn.Module):
+    """flax ``Dense`` over the last axis: the kernel held as ``weight``
+    ``(out, in)``, an optional ``bias``; ``f32`` computes in float32
+    (flax's ``dtype=float32``), else in ``COMPUTE`` with the product
+    rounded before the bias is added."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 gen: torch.Generator, use_bias: bool = True,
+                 f32: bool = False):
+        super().__init__()
+        self.f32 = f32
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        lecun_normal_(self.weight, in_features, gen)
+        self.bias = (nn.Parameter(torch.zeros(out_features)) if use_bias
+                     else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        to = (lambda t: t.float()) if self.f32 else cast
+        y = F.linear(to(x), to(self.weight))
+        return y if self.bias is None else y + to(self.bias)
+
+    def macs(self, out: torch.Tensor) -> int:
+        """Multiply-adds of one example whose output is ``out``."""
+        return int(out.numel() * self.weight.shape[1])
+
+
+class LayerNorm(nn.Module):
+    """flax ``LayerNorm(dtype=float32)`` (eps 1e-6) over the last axis."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.weight.shape, self.weight,
+                            self.bias, LN_EPS)
+
+
+class Embed(nn.Module):
+    """flax ``Embed``: rows of the table (``weight``, the bridge's
+    ``embedding``) in ``dtype``. flax's initialiser is a normal of
+    variance 1/features."""
+
+    def __init__(self, num: int, features: int, gen: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(num, features))
+        with torch.no_grad():
+            self.weight.normal_(0.0, 1.0 / math.sqrt(features),
+                                generator=gen)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight).to(self.dtype)

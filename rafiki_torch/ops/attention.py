@@ -4,6 +4,10 @@ All functions take ``(batch, heads, seq, head_dim)`` tensors, as the
 reference does.
 
 - ``naive_attention`` — the O(T²) numerical ground truth.
+- ``blockwise_attention`` — the reference's online softmax over K/V
+  blocks in plain torch, what ``default_attention`` runs on the CPU.
+- ``default_attention`` — the zoo's dispatch: ``flash_attention`` on
+  CUDA tensors, ``blockwise_attention`` on CPU tensors.
 - ``flash_attention`` — flash attention with its gradient, the
   counterpart of the reference's ``_flash`` and its ``custom_vjp``. On
   CUDA tensors the forward launches K1 (``csrc/flash_fwd.cu``, the port
@@ -424,20 +428,28 @@ class _Flash(torch.autograd.Function):
     """Flash attention with its gradient, the counterpart of the
     reference's ``_flash`` and its ``custom_vjp``: the forward saves
     ``o`` and ``lse``, the backward regenerates the softmax from them.
-    ``plain`` runs the plain versions whatever the device."""
+    ``plain`` runs the plain versions whatever the device.
+
+    Under ``torch.func.vmap`` (a stacked ensemble's forward) the batching
+    rule ``vmap`` folds the vmapped axis into the batch: (M, B, H, T, D)
+    is one launch on (M·B, H, T, D), ``kv_mask`` folded alike, as the
+    reference's ``jax.vmap`` over ``pallas_call`` batches it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, causal, plain):
+    def forward(q, k, v, kv_mask, causal, plain):
         if plain:
-            o, lse = flash_attention_reference(q, k, v, causal=causal,
-                                               kv_mask=kv_mask,
-                                               return_lse=True)
-        else:
-            o, lse = _flash_forward(q, k, v, causal, kv_mask)
+            return flash_attention_reference(q, k, v, causal=causal,
+                                             kv_mask=kv_mask,
+                                             return_lse=True)
+        return _flash_forward(q, k, v, causal, kv_mask)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, kv_mask, causal, plain = inputs
+        o, lse = output
         ctx.save_for_backward(q, k, v, o, lse, kv_mask)
         ctx.causal, ctx.plain = causal, plain
         ctx.mark_non_differentiable(lse)
-        return o, lse
 
     @staticmethod
     def backward(ctx, do, _):
@@ -457,6 +469,23 @@ class _Flash(torch.autograd.Function):
                         kv_mask=kv_mask)
         # No gradient for the mask, as the reference gives none.
         return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, kv_mask, causal, plain):
+        m = info.batch_size
+
+        def fold(t, dim):
+            if t is None:
+                return None
+            t = (t.movedim(dim, 0) if dim is not None
+                 else t.expand(m, *t.shape))
+            return t.reshape(m * t.shape[1], *t.shape[2:]).contiguous()
+
+        q, k, v, kv_mask = (fold(t, d) for t, d in
+                            zip((q, k, v, kv_mask), in_dims[:4]))
+        o, lse = _Flash.apply(q, k, v, kv_mask, causal, plain)
+        return ((o.reshape(m, -1, *o.shape[1:]),
+                 lse.reshape(m, -1, *lse.shape[1:])), (0, 0))
 
 
 def flash_attention(q, k, v, *, causal: bool = False, kv_mask=None,
@@ -483,6 +512,84 @@ def flash_attention_plain(q, k, v, *, causal: bool = False, kv_mask=None,
     _check(q, k, v, kv_mask)
     o, lse = _Flash.apply(q, k, v, kv_mask, causal, True)
     return (o, lse) if return_lse else o
+
+
+def _attend_chunk(q, k, v, m, l, o, *, scale, q_ids, kv_ids, causal,
+                  kv_mask=None):
+    """Absorb one K/V chunk into the online-softmax state (ref :72-101):
+    ``q_ids`` and ``kv_ids`` are global positions, a kv id of -1 marks
+    block padding, ``kv_mask`` (B, C) per-example padding; scores, ``p``
+    and the state in f32."""
+    s = torch.einsum("bhqd,bhcd->bhqc", q.float(), k.float()) * scale
+    valid = (kv_ids >= 0)[None, :]
+    if causal:
+        valid = valid & (q_ids[:, None] >= kv_ids[None, :])
+    valid = valid[None, None]
+    if kv_mask is not None:
+        valid = valid & kv_mask[:, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * alpha + p.sum(dim=-1)
+    o_new = o * alpha[..., None] + torch.einsum("bhqc,bhcd->bhqd", p,
+                                                v.float())
+    return m_new, l_new, o_new
+
+
+def blockwise_attention(q, k, v, *, causal: bool = False,
+                        block_kv: int = 256, kv_mask=None):
+    """The reference's ``blockwise_attention`` (ref :105-159) in plain
+    torch with the same arithmetic: an online softmax over K/V blocks of
+    ``block_kv`` keys (the last one padded, its keys id -1), running max
+    from ``NEG_INF``, ``o / max(l, 1e-30)`` in q's dtype. A row whose
+    every key is masked comes out as the mean of ``v`` over its blocks'
+    keys, the padding's zeros counted, as in the reference; K1 gives the
+    mean over the real keys there."""
+    b, h, tq, d = q.shape
+    tkv = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    block_kv = min(block_kv, tkv)
+    n_blocks = -(-tkv // block_kv)
+    pad = n_blocks * block_kv - tkv
+    dev = q.device
+    kv_ids = torch.arange(tkv, device=dev)
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        kv_ids = torch.cat([kv_ids, torch.full((pad,), -1, device=dev,
+                                               dtype=kv_ids.dtype)])
+        if kv_mask is not None:
+            kv_mask = torch.nn.functional.pad(kv_mask, (0, pad))
+    q_ids = torch.arange(tq, device=dev) + (tkv - tq)
+    m = torch.full((b, h, tq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, tq), dtype=torch.float32, device=dev)
+    o = torch.zeros((b, h, tq, d), dtype=torch.float32, device=dev)
+    for j in range(n_blocks):
+        sl = slice(j * block_kv, (j + 1) * block_kv)
+        m, l, o = _attend_chunk(
+            q, k[:, :, sl], v[:, :, sl], m, l, o, scale=scale, q_ids=q_ids,
+            kv_ids=kv_ids[sl], causal=causal,
+            kv_mask=None if kv_mask is None else kv_mask[:, sl])
+    return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def default_attention(*, causal: bool = False):
+    """The attention every zoo model runs (ref :731-741): ``(q, k, v,
+    kv_mask) -> o``. CUDA tensors go to ``flash_attention`` (K1, with K2
+    and K3 for the gradient), CPU tensors to ``blockwise_attention``, as
+    the reference takes the blockwise formulation off the TPU. There is
+    no fallback between the two: a CUDA tensor K1 cannot take raises."""
+
+    def attend(q, k, v, kv_mask=None):
+        if q.device.type == "cpu":
+            return blockwise_attention(q, k, v, causal=causal,
+                                       kv_mask=kv_mask)
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal,
+                               kv_mask=kv_mask)
+
+    return attend
 
 
 for _fn in (flash_attention, flash_attention_dq, flash_attention_dkv):

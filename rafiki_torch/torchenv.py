@@ -68,9 +68,10 @@ def side_stream(device: torch.device) -> Iterator[None]:
 
 
 @contextlib.contextmanager
-def graph_capture(graph: "torch.cuda.CUDAGraph",
-                  pool: Any = None) -> Iterator[None]:
-    """``torch.cuda.graph(graph, pool=pool)`` while no other thread of
+def graph_capture(graph: "torch.cuda.CUDAGraph", pool: Any = None,
+                  stream: Any = None) -> Iterator[None]:
+    """``torch.cuda.graph(graph, pool=pool, stream=stream)`` (``stream``
+    None: torch's own capture stream) while no other thread of
     the process uses a side stream or captures. ``thread_local``: other
     threads may keep launching work on their current streams meanwhile
     (an inference worker beside a train step's capture).
@@ -83,7 +84,7 @@ def graph_capture(graph: "torch.cuda.CUDAGraph",
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=pool,
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
                                   capture_error_mode="thread_local"):
                 yield
         finally:

@@ -2,7 +2,7 @@
 ``make_advisor``) against the JAX package's on the CPU.
 
 The ENAS controller's weights are carried from the reference's flax
-controller by the bridge (``controller_from_jax``), never drawn twice:
+controller by the bridge (``dense_from_jax``), never drawn twice:
 its logits for given actions agree within 1e-5 (f32 LSTM products summed
 in two orders) and one to three REINFORCE updates under Adam within
 1e-5 of each parameter's scale. The samplers draw from different
@@ -45,7 +45,7 @@ from rafiki_torch.advisor.enas import _Controller
 from rafiki_torch.constants import ParamsType
 from rafiki_torch.model import (ArchKnob, CategoricalKnob, FixedKnob,
                                 FloatKnob, IntegerKnob, PolicyKnob)
-from rafiki_torch.model.bridge import controller_from_jax, controller_to_jax
+from rafiki_torch.model.bridge import dense_from_jax, dense_to_jax
 from rafiki_torch.models import TorchDenseNet, TorchEnas, TorchFeedForward
 
 
@@ -85,7 +85,7 @@ def _jax_controller(seed=3):
 
 def _port_advisor(flat, **kw):
     adv = EnasAdvisor(ENAS, seed=0, device="cpu", **kw)
-    adv.model.load_state_dict(controller_from_jax(flat))
+    adv.model.load_state_dict(dense_from_jax(flat))
     return adv
 
 
@@ -100,13 +100,13 @@ def _logits(adv, actions):
 
 def test_controller_bridge_round_trip_is_exact():
     _, flat = _jax_controller()
-    state = controller_from_jax(flat)
+    state = dense_from_jax(flat)
     own = _Controller(N_CHOICES).state_dict()
     assert set(state) == set(own)
     for k in own:
         assert tuple(state[k].shape) == tuple(own[k].shape), k
     assert not state["LSTMCell_0.bias_ih"].any()
-    back = controller_to_jax(state)
+    back = dense_to_jax(state)
     assert set(back) == set(flat)
     for k in flat:
         np.testing.assert_array_equal(back[k], flat[k], err_msg=k)
@@ -144,7 +144,7 @@ def test_reinforce_updates_match_jax():
             jnp.float32(advantage))
         adv._update(np.asarray(actions), advantage)
     ref = _flat(params)
-    out = controller_to_jax(adv.model.state_dict())
+    out = dense_to_jax(adv.model.state_dict())
     for k in ref:
         scale = max(np.abs(flat[k]).max(), 1e-3)
         np.testing.assert_allclose(out[k], ref[k], atol=1e-5 * scale,

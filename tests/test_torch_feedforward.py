@@ -240,8 +240,10 @@ def test_scheduled_adam_matches_optax(weight_decay):
     """The port's optimizer against the reference's on the same
     gradients: optax's Adam (eps outside the square root), the cosine
     schedule to alpha 0.01 read at the count before its increment, and
-    -learning_rate; with weight decay, ``optax.adamw``. f32 throughout:
-    agreement to f32 rounding."""
+    -learning_rate; with weight decay, ``traced_hyperparam_optimizer``'s
+    chain, ``add_decayed_weights`` before ``scale_by_adam`` (L2 decay
+    coupled into the moments). f32 throughout: agreement to f32
+    rounding."""
     import jax.numpy as jnp
     import optax
     import torch
@@ -253,13 +255,10 @@ def test_scheduled_adam_matches_optax(weight_decay):
     ours_sched = cosine_decay_schedule(1.0, total, alpha=0.01)
     for c in range(total + 3):
         assert abs(ours_sched(c) - float(sched(c))) <= 1e-7
-    if weight_decay:
-        tx = optax.adamw(optax.cosine_decay_schedule(lr, total, alpha=0.01),
-                         weight_decay=weight_decay)
-    else:
-        tx = optax.chain(optax.scale_by_adam(),
-                         optax.scale_by_schedule(sched),
-                         optax.scale(-1.0 * lr))
+    tx = optax.chain(optax.add_decayed_weights(weight_decay),
+                     optax.scale_by_adam(),
+                     optax.scale_by_schedule(sched),
+                     optax.scale(-1.0 * lr))
     rng = np.random.default_rng(0)
     w0 = rng.standard_normal(50).astype(np.float32)
     grads = [rng.standard_normal(50).astype(np.float32) * 10 ** -k

@@ -67,7 +67,11 @@ def test_importing_the_port_loads_no_jax():
                 "rafiki_torch.models.enas", "rafiki_torch.advisor.bayes",
                 "rafiki_torch.advisor.enas", "rafiki_torch.advisor.registry",
                 "rafiki_torch.utils.hashing", "rafiki_torch.model.stacked",
-                "rafiki_torch.observe.wire"):
+                "rafiki_torch.observe.wire", "rafiki_torch.models.vit",
+                "rafiki_torch.models.cnn", "rafiki_torch.models.transformer",
+                "rafiki_torch.models.pos_tagger",
+                "rafiki_torch.models.tabular", "rafiki_torch.model.dataset",
+                "rafiki_torch.model.bridge"):
         assert mod in mods, mod
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -181,7 +185,9 @@ KNOBS = {"d_model": 256, "n_layers": 2, "seq_len": 256, "batch_size": 4,
 @pytest.mark.parametrize("entry", ["device", "model", "worker", "app",
                                    "feedforward", "runner", "model_class",
                                    "platform", "allocator", "bus_worker",
-                                   "densenet", "enas", "enas_advisor"])
+                                   "densenet", "enas", "enas_advisor",
+                                   "vit", "cnn", "tagger", "pos_tagger",
+                                   "tabular"])
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_entry_points_raise_without_a_card(entry, device):
     if torch.cuda.is_available():
@@ -203,6 +209,12 @@ def test_entry_points_raise_without_a_card(entry, device):
             from rafiki_torch.models import TorchDenseNet, TorchEnas
             (TorchDenseNet if entry == "densenet" else TorchEnas)(
                 device=device)
+        elif entry in ("vit", "cnn", "tagger", "pos_tagger", "tabular"):
+            from rafiki_torch import models
+            {"vit": models.TorchViT, "cnn": models.TorchCnn,
+             "tagger": models.TorchTransformerTagger,
+             "pos_tagger": models.TorchPosTagger,
+             "tabular": models.TorchTabMlpClf}[entry](device=device)
         elif entry == "enas_advisor":
             from rafiki_torch.advisor import make_advisor
             from rafiki_torch.models import TorchEnas

@@ -440,7 +440,8 @@ def test_the_collector_is_off_for_a_capture(monkeypatch, fails):
     seen = []
 
     class FakeGraph:
-        def __init__(self, graph, pool=None, capture_error_mode=None):
+        def __init__(self, graph, pool=None, stream=None,
+                     capture_error_mode=None):
             assert capture_error_mode == "thread_local"
 
         def __enter__(self):
