@@ -116,7 +116,13 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    synthetic Markov stream (K1, K2 and K3), deploys, and answers 4 queries
    of 2048 ids through ``POST /predict`` exactly as a directly built
    ``TorchTransformerLM`` on the same params file does; K1, K2 and K3
-   must have launched, all on wgmma, and none in (a) and (b);
+   must have launched, all on wgmma, and none in (a) and (b). The
+   front's `front:` lines: (d) the LM's request went through the
+   micro-batcher (``GET /inference_jobs/<id>/stats``); (e) a request
+   sent with ``X-Trace-Id`` shows its edge, batcher and worker spans in
+   the admin's ``GET /trace/<id>``, the admin's and the predictor's
+   ``GET /metrics`` parse with the serving families, and the admin's
+   stats route is the predictor's ``/stats``;
 10. zoo phase, BASELINE configs 2 and 3 on the synthetic set at
    CIFAR-10's split sizes and image shape (50,000 train and 10,000 val
    images of 32×32×3, 10 classes): (a) ``TorchDenseNet`` at DenseNet-121's
@@ -151,7 +157,18 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    ``RAFIKI_TPU_SERVING_QUANT=int8`` (``int8_mm`` equal to the int32
    product at every bucket, |Δp| and val accuracy against f32) and
    DenseNet-121 on the generic fallback (argmax agreement and accuracy
-   against f32 on 1,024 val images, peak memory); (d) no K1-K3 launch;
+   against f32 on 1,024 val images, peak memory); (d) no K1-K3 launch.
+   Between (a) and its member rows, the serving front's ``front:``
+   lines on the stacked bin's worker: (a) the 512-request window with
+   micro-batching on and off (queries/s, p50/p99, batches and queries a
+   batch from ``/stats``, the worker's bursts, answers against the
+   worker's own rows); (b) a second replica: both take shards, the rows
+   they answer sum to one a query, then one replica hung mid-window
+   (registered, serving nothing): every request answered, shard
+   resubmits and quarantines counted; (c) a front with ``queue_cap`` 64
+   and bursts of 64 raw clients of 16 images: 429s with
+   ``Retry-After``, no 5xx, ``/stats`` ``rejected`` equal to the
+   clients' 429s, and a ``Client.predict`` answered after its retry;
 12. zoo2 phase, the rest of the zoo on the zoo phase's synthetic set
    (made anew) and on sets at the Penn Treebank WSJ POS split's and UCI
    Adult's sizes: (a) ``TorchViT`` at the reference's widths (d_model
@@ -375,6 +392,12 @@ ENSEMBLE_KNOBS = dict(DENSENET_KNOBS, max_epochs=6)
 ENSEMBLE_WINDOW = 512
 ENSEMBLE_BUCKETS = (1, 32, 512)
 ENSEMBLE_VAL = 1024
+# The serving front's backpressure check: a front with this admission
+# bound and super-batch, and bursts of this many raw clients, each
+# posting FRONT_BATCH images.
+FRONT_CAP = 64
+FRONT_BATCH = 16
+FRONT_BURST = 64
 # Stacked rows against a member's own (per-member) rows on the card. A
 # vmapped product is another cuBLAS or cuDNN call than the member's own
 # (a batched matmul, a grouped convolution), which may sum the same bf16
@@ -2057,6 +2080,77 @@ def platform_window(np, client, host, images, card, tag="platform: (a)",
             "answers": np.asarray([p for _, p in answers], np.float64)}
 
 
+def admin_get(port, path, token=None):
+    """The text of one admin ``GET``, with the bearer token if given."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        headers={"Authorization": f"Bearer {token}"} if token else {})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.read().decode()
+
+
+SERVING_FAMILIES = ("rafiki_tpu_serving_requests_total",
+                    "rafiki_tpu_serving_batches_total",
+                    "rafiki_tpu_serving_batched_queries_total",
+                    "rafiki_tpu_serving_stage_seconds_bucket",
+                    "rafiki_tpu_serving_shards_total",
+                    "rafiki_tpu_serving_replica_gather_seconds_bucket",
+                    "rafiki_tpu_http_request_seconds_bucket")
+TRACE_SPANS = ("http POST /predict", "predictor.scatter", "predictor.gather",
+               "worker.predict")
+
+
+def front_routes(np, admin_port, token, host, inf_id, image, card):
+    """(e) The serving front's routes on the platform: a request sent
+    with ``X-Trace-Id`` shows its edge, batcher and worker spans in the
+    admin's ``GET /trace/<id>``; the admin's and the predictor's ``GET
+    /metrics`` parse and hold the serving families; ``GET
+    /inference_jobs/<id>/stats`` is the predictor's snapshot."""
+    import uuid
+
+    from rafiki_torch.cache import encode_payload
+    from rafiki_torch.observe.metrics import parse_exposition
+
+    tid = uuid.uuid4().hex
+    req = urllib.request.Request(
+        f"http://{host}/predict",
+        data=json.dumps({"query": encode_payload(image)}).encode(),
+        headers={"Content-Type": "application/json", "X-Trace-Id": tid})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        echoed = r.headers.get("X-Trace-Id", "")
+        r.read()
+    trace = json.loads(admin_get(admin_port, f"/trace/{tid}", token))
+    names = [sp["name"] for sp in trace["spans"]]
+    check(echoed.startswith(tid) and all(n in names for n in TRACE_SPANS),
+          f"trace {tid}: spans {names}, echoed {echoed!r}")
+    fams = {}
+    for what, text in (("admin", admin_get(admin_port, "/metrics")),
+                       ("predictor", urllib.request.urlopen(
+                           f"http://{host}/metrics", timeout=60).read()
+                        .decode())):
+        fams[what] = parse_exposition(text)
+        missing = [f for f in SERVING_FAMILIES if f not in fams[what]]
+        check(not missing, f"the {what}'s /metrics lacks {missing}")
+    stats = json.loads(admin_get(admin_port, f"/inference_jobs/{inf_id}/stats",
+                                 token))
+    direct = stats_of(host)
+    check(stats["inference_job_id"] == inf_id
+          and stats["service"] == direct["service"]
+          and set(direct) <= set(stats) and stats["requests"] >= 1,
+          f"/inference_jobs/<id>/stats {sorted(stats)} against the "
+          f"predictor's {sorted(direct)}")
+    spans = {sp["name"]: sp["dur_ms"] for sp in trace["spans"]}
+    print(f"front: (e) GET /trace/<id> of a traced /predict: "
+          f"{trace['n_spans']} spans {names} (ms: "
+          f"{[spans[n] for n in TRACE_SPANS]}); GET /metrics of the admin "
+          f"({len(fams['admin'])} families) and the predictor "
+          f"({len(fams['predictor'])}) parse with the serving families; GET "
+          f"/inference_jobs/<id>/stats = the predictor's /stats "
+          f"(service {stats['service']}, {stats['requests']} requests, "
+          f"{stats['batches']} batches) on {card}", flush=True)
+    return {"spans": names, "n_families": len(fams["admin"])}
+
+
 def platform_phase(torch, np, attn, card, automl):
     """Rafiki's platform on the card, driven as a user drives it: a
     ``LocalPlatform`` (its default device, CUDA) with the admin REST
@@ -2098,7 +2192,7 @@ def platform_phase(torch, np, attn, card, automl):
             root.create_user("dev@example.com", "pw",
                              UserType.MODEL_DEVELOPER)
             dev = Client(admin_port=p.admin_port)
-            dev.login("dev@example.com", "pw")
+            token = dev.login("dev@example.com", "pw")["token"]
             model = dev.create_model(
                 "ff", TaskType.IMAGE_CLASSIFICATION,
                 "rafiki_torch.models.feedforward:TorchFeedForward")
@@ -2208,12 +2302,29 @@ def platform_phase(torch, np, attn, card, automl):
                   f"dispatches a burst, modes {ens.bursts}", flush=True)
             check(ens.bursts["fallback"] == ens.bursts["members"] == 0,
                   f"bursts off the stacked path: {ens.bursts}")
+            # The buckets a coalesced window of single images reaches,
+            # built before it (warmup built bucket 1).
+            for b in (2, 4, 8):
+                ens.predict_staged_submit(np.zeros(
+                    (b, *vds.images.shape[1:]), np.uint8), b)()
             out["window"] = platform_window(
                 np, dev, host, vds.images[:AUTOML_WINDOW], card)
             n_st = ens.bursts["stacked"]
+            snap = stats_of(host)
             print(f"platform: (a) the window: {n_st} stacked bursts so far, "
                   f"{ens.dispatches['stacked'] / max(1, n_st):.2f} "
-                  f"dispatches a burst", flush=True)
+                  f"dispatches a burst; the front micro-batched it into "
+                  f"{snap['batches']} batches so far "
+                  f"({snap['batched_queries'] / max(1, snap['batches']):.2f} "
+                  f"queries a batch), stage p50/p95/max ms: fill "
+                  f"{[snap['fill'][k] for k in ('p50_ms', 'p95_ms', 'max_ms')]}"
+                  f", scatter "
+                  f"{[snap['scatter'][k] for k in ('p50_ms', 'p95_ms', 'max_ms')]}"
+                  f", gather "
+                  f"{[snap['gather'][k] for k in ('p50_ms', 'p95_ms', 'max_ms')]}",
+                  flush=True)
+            out["routes"] = front_routes(np, p.admin_port, token, host,
+                                         inf["id"], vds.images[0], card)
 
             # (b) A second train job, time-sliced on the same card while
             # (a)'s job serves: (a)'s answers must not move by a bit.
@@ -2292,6 +2403,13 @@ def platform_phase(torch, np, attn, card, automl):
             t0 = time.perf_counter()
             served = dev.predict(host3, queries=queries)["predictions"]
             serve_s = time.perf_counter() - t0
+            lm_stats = json.loads(admin_get(
+                p.admin_port, f"/inference_jobs/{inf3['id']}/stats", token))
+            check(lm_stats["microbatch"] is True
+                  and lm_stats["batches"] >= 1
+                  and lm_stats["batched_queries"] == LM_QUERIES,
+                  f"the LM's /predict did not go through the batcher: "
+                  f"{lm_stats}")
             launches = launch_counts(attn)
             direct = TorchTransformerLM(device="cuda", **k)
             direct.load_parameters(p.params.load(trial["params_id"]))
@@ -2314,6 +2432,16 @@ def platform_phase(torch, np, attn, card, automl):
                   f"same params file, exactly; launches K1 {launches[0]} "
                   f"(training {train_launches[0]}), K2 {launches[1]}, K3 "
                   f"{launches[2]}, all wgmma, on {card}", flush=True)
+            print(f"front: (d) the LM's {LM_QUERIES} queries through the "
+                  f"micro-batcher (GET /inference_jobs/<id>/stats): "
+                  f"{lm_stats['batches']} batch(es), "
+                  f"{lm_stats['batched_queries']} queries, coalescing factor "
+                  f"{lm_stats['coalescing_factor']}, gather p50 "
+                  f"{lm_stats['gather']['p50_ms']} ms; served == direct "
+                  f"exactly, K1 {launches[0]} launches, all wgmma, on {card}",
+                  flush=True)
+            out["lm_front"] = {k: lm_stats[k] for k in (
+                "batches", "batched_queries", "coalescing_factor")}
             dev.stop_inference_job(inf3["id"])
         finally:
             p.shutdown()
@@ -2792,7 +2920,7 @@ class EnsembleDeploy:
         self.bus = MemoryBus()
         self.user = self.meta.create_user("ens@example.com", "-",
                                           "MODEL_DEVELOPER")
-        self.running = []
+        self.workers, self.fronts = [], []
 
     def bin(self, model_class, trials):
         """Trials ``[(knobs, params)]`` of one model -> the bin's id."""
@@ -2816,19 +2944,27 @@ class EnsembleDeploy:
     def serve(self, trial_ids, env):
         """A worker for the bin, built under the serving variables
         ``env``, and its predictor: ``(worker, host, registration)``."""
+        inf = self.meta.create_inference_job(self.user["id"],
+                                             self.job["id"], "RUNNING")
+        worker, info = self.replica(trial_ids, inf["id"], env)
+        app = self.front(inf["id"])
+        return worker, f"{app.host}:{app.port}", info
+
+    def replica(self, trial_ids, inf_id, env=None):
+        """One more worker for the bin in the inference job ``inf_id``,
+        built under the serving variables ``env``, once registered:
+        ``(worker, registration)``."""
         import os
 
         from rafiki_torch.cache import Cache
-        from rafiki_torch.predictor import PredictorService
         from rafiki_torch.worker.inference import BusInferenceWorker
 
-        inf = self.meta.create_inference_job(self.user["id"],
-                                             self.job["id"], "RUNNING")
+        env = env or {}
         svc = self.meta.create_service("INFERENCE", "DEPLOYING")
         saved = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
         try:
-            worker = BusInferenceWorker(svc["id"], inf["id"], trial_ids,
+            worker = BusInferenceWorker(svc["id"], inf_id, trial_ids,
                                         self.meta, self.params, self.bus,
                                         device="cuda")
         finally:
@@ -2838,26 +2974,313 @@ class EnsembleDeploy:
                 else:
                     os.environ[k] = v
         worker.start()
-        psvc = self.meta.create_service("PREDICT", "DEPLOYING")
-        app = PredictorService.for_job(psvc["id"], inf["id"], self.meta,
-                                       self.bus).start()
-        self.running.append((worker, app))
+        self.workers.append(worker)
         cache = Cache(self.bus)
         deadline = time.monotonic() + 300
-        while svc["id"] not in cache.running_workers(inf["id"]):
+        while svc["id"] not in cache.running_workers(inf_id):
             check(worker.running and time.monotonic() < deadline,
                   f"the worker of {trial_ids[:17]}... did not register")
             time.sleep(0.05)
-        return (worker, f"{app.host}:{app.port}",
-                cache.running_worker_info(inf["id"])[svc["id"]])
+        return worker, cache.running_worker_info(inf_id)[svc["id"]]
+
+    def front(self, inf_id, **knobs):
+        """A started ``PredictorService`` of the job ``inf_id`` with the
+        serving keywords ``knobs``."""
+        from rafiki_torch.predictor import PredictorService
+
+        psvc = self.meta.create_service("PREDICT", "DEPLOYING")
+        app = PredictorService.for_job(psvc["id"], inf_id, self.meta,
+                                       self.bus, **knobs).start()
+        self.fronts.append(app)
+        return app
 
     def close(self):
-        for worker, app in self.running:
+        # The fronts first: they fail any request still waiting.
+        for app in self.fronts:
             app.stop()
+        for worker in self.workers:
             worker.stop(join_timeout=60)
             check(not worker.running, "a worker did not stop")
         self.params.close()
         self.meta.close()
+
+
+def served_rows(worker):
+    """Count the rows ``worker`` answers, by wrapping its reply call:
+    ``{"rows": n, "replies": n}``."""
+    counts = {"rows": 0, "replies": 0}
+    send = worker.cache.send_prediction_batch
+
+    def counted(batch_id, worker_id, predictions, **kw):
+        counts["rows"] += len(predictions)
+        counts["replies"] += 1
+        return send(batch_id, worker_id, predictions, **kw)
+
+    worker.cache.send_prediction_batch = counted
+    return counts
+
+
+def stats_of(host):
+    """A predictor's ``GET /stats``."""
+    with urllib.request.urlopen(f"http://{host}/stats", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def post_raw(url, body):
+    """One raw ``POST``: ``(status, Retry-After, payload)``."""
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.headers.get("Retry-After"), json.loads(
+                r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Retry-After"), json.loads(e.read())
+
+
+def front_phase(torch, np, card, dep, worker, trial_ids, imgs):
+    """The serving front (``PredictorService.for_job``'s defaults) in
+    front of the stacked DenseNet-121 bin's worker: (a) the window with
+    micro-batching on and off; (b) a second replica of the bin, both
+    taking shards, each query answered by one of them, then one replica
+    hung mid-window (registered, not serving): every request answered,
+    its shards resubmitted and it quarantined; (c) backpressure: a
+    front with ``queue_cap`` 64 and bursts of raw clients, 429 with
+    ``Retry-After``, no 5xx, ``/stats`` ``rejected`` = the 429s the
+    clients counted, and a ``Client.predict`` answered after its
+    retry. Returns the numbers."""
+    import threading
+
+    from rafiki_torch.cache import encode_payload
+    from rafiki_torch.client import Client
+
+    t_phase = time.perf_counter()
+    out = {}
+    client = Client()
+    ens, inf_id = worker.model, worker.inference_job_id
+    window = imgs[:ENSEMBLE_WINDOW]
+    # The worker's own rows, each image alone (bucket 1), as served: the
+    # members' float64 mean.
+    own = in_bursts(np, lambda x: stacked_rows(np, ens.stacked, x), window,
+                    1).astype(np.float64).mean(0)
+
+    # (a) Micro-batching on, then off, on the same worker.
+    wins = {}
+    for on in (True, False):
+        app = dep.front(inf_id, microbatch=on)
+        host = f"{app.host}:{app.port}"
+        mode = "on" if on else "off"
+        reset_counts(ens)
+        win = platform_window(
+            np, client, host, window, card, tag=f"front: (a) microbatch "
+            f"{mode}:", what=f"one worker serving the {ENSEMBLE_MEMBERS}-"
+            f"member DenseNet-121 bin, stacked")
+        snap = stats_of(host)
+        bursts = sum(ens.bursts.values())
+        err = float(np.abs(win["answers"] - own).max())
+        check(snap["microbatch"] is on
+              and snap["requests"] == ENSEMBLE_WINDOW
+              and snap["rejected"] == 0
+              and (snap["batches"] > 0) is on, f"front /stats {snap}")
+        check(ens.bursts["stacked"] == bursts > 0,
+              f"window ran bursts as {ens.bursts}")
+        check(err <= TOL_STACKED_DENSENET, f"microbatch {mode}: served "
+              f"differs from the worker's own rows by {err:.3e}")
+        batches = snap["batches"]
+        print(f"front: (a) microbatch {mode}: /stats batches {batches}, "
+              f"{snap['batched_queries'] / max(1, batches):.2f} queries a "
+              f"batch (coalescing factor {snap['coalescing_factor']}), "
+              f"fill p50 {snap['fill']['p50_ms']} ms, gather p50 "
+              f"{snap['gather']['p50_ms']} ms; the worker ran {bursts} "
+              f"bursts, {ENSEMBLE_WINDOW / bursts:.2f} queries a burst; "
+              f"served against the worker's own rows (each image at bucket "
+              f"1): max |diff| {err:.3e} (tolerance {TOL_STACKED_DENSENET}) "
+              f"on {card}", flush=True)
+        wins[mode] = dict({k: v for k, v in win.items() if k != "answers"},
+                          batches=batches, bursts=bursts,
+                          queries_a_batch=snap["batched_queries"]
+                          / max(1, batches),
+                          queries_a_burst=ENSEMBLE_WINDOW / bursts,
+                          answers=win["answers"], err=err)
+    on_off = float(np.abs(wins["on"]["answers"]
+                          - wins["off"]["answers"]).max())
+    print(f"front: (a) the two windows' answers: max |diff| {on_off:.3e}; "
+          f"queries/s on/off {wins['on']['qps'] / wins['off']['qps']:.3f}",
+          flush=True)
+
+    # (b) A second replica of the bin: the front shards each batch over
+    # both.
+    t0 = time.perf_counter()
+    rep, info = dep.replica(trial_ids, inf_id)
+    check(info["stacked"] is True, f"the replica registered {info}")
+    for b in (2, 4, 8):
+        rep.model.predict_staged_submit(
+            np.zeros((b, *imgs.shape[1:]), np.uint8), b)()
+    rep_s = time.perf_counter() - t0
+    rows = {"worker": served_rows(worker), "replica": served_rows(rep)}
+    app = dep.front(inf_id)
+    host, pred = f"{app.host}:{app.port}", app.predictor
+    check(app.batcher is not None and pred.shard_replicas,
+          "the default front does not micro-batch and shard")
+    win = platform_window(np, client, host, window, card,
+                          tag="front: (b) two replicas:",
+                          what="two workers of the stacked DenseNet-121 bin")
+    snap = stats_of(host)
+    replies = {k: dict(v) for k, v in rows.items()}
+    check(all(v["rows"] > 0 for v in replies.values())
+          and sum(v["rows"] for v in replies.values()) == ENSEMBLE_WINDOW,
+          f"rows answered by each replica {replies}")
+    check(all(pred._m_replica.count(service=pred.service,
+                                    worker=w.service_id[:8]) > 0
+              for w in (worker, rep)), "a replica took no shard")
+    shards = pred._m_shards.value(service=pred.service)
+    err_one = float(np.abs(win["answers"] - wins["on"]["answers"]).max())
+    err_own = float(np.abs(win["answers"] - own).max())
+    check(err_own <= TOL_STACKED_DENSENET,
+          f"two replicas: served differs from the worker's own rows by "
+          f"{err_own:.3e}")
+    print(f"front: (b) replica loaded and warmed in {rep_s:.2f} s; "
+          f"{shards:.0f} shards over {snap['batches']} batches; rows "
+          f"answered: worker {replies['worker']['rows']} in "
+          f"{replies['worker']['replies']} replies, replica "
+          f"{replies['replica']['rows']} in {replies['replica']['replies']}"
+          f" (sum {ENSEMBLE_WINDOW}: one vote a query); against the one-"
+          f"replica window max |diff| {err_one:.3e}, against the worker's "
+          f"own rows {err_own:.3e} (tolerance {TOL_STACKED_DENSENET}) on "
+          f"{card}", flush=True)
+    out["sharded"] = dict({k: v for k, v in win.items() if k != "answers"},
+                          shards=shards, rows=replies, err=err_own)
+
+    # (b) The replica's serving loop stops mid-window; it stays
+    # registered.
+    hung = threading.Event()
+    pop = rep.cache.pop_queries
+
+    def stalled(worker_id, max_items=0, timeout=1.0):
+        if hung.is_set():
+            time.sleep(timeout)
+            return []
+        return pop(worker_id, max_items=max_items, timeout=timeout)
+
+    class Hanging(Client):
+        n = 0
+
+        def predict(self, *a, **kw):
+            Hanging.n += 1
+            if Hanging.n == ENSEMBLE_WINDOW // 4:
+                hung.set()
+            return super().predict(*a, **kw)
+
+    rep.cache.pop_queries = stalled
+    win = platform_window(np, Hanging(), host, window, card,
+                          tag="front: (b) one replica hung mid-window:",
+                          what="two workers, one stopping at request "
+                               f"{ENSEMBLE_WINDOW // 4}")
+    resubmits = pred._m_resubmits.value(service=pred.service)
+    quarantines = pred._m_quarantines.value(service=pred.service)
+    err = float(np.abs(win["answers"] - own).max())
+    check(hung.is_set() and resubmits > 0 and quarantines > 0,
+          f"resubmits {resubmits}, quarantines {quarantines}")
+    check(err <= TOL_STACKED_DENSENET, f"hung replica: served differs "
+          f"from the worker's own rows by {err:.3e}")
+    check(rep.service_id in pred.workers(), "the hung replica unregistered")
+    print(f"front: (b) every one of {ENSEMBLE_WINDOW} requests answered; "
+          f"shard resubmits {resubmits:.0f}, quarantines {quarantines:.0f} "
+          f"(rafiki_tpu_serving_shard_resubmits_total, "
+          f"_replica_quarantines_total); served against the worker's own "
+          f"rows max |diff| {err:.3e} on {card}", flush=True)
+    out["hung"] = dict({k: v for k, v in win.items() if k != "answers"},
+                       resubmits=resubmits, quarantines=quarantines)
+    rep.cache.pop_queries = pop
+    rep.stop(join_timeout=60)
+    check(not rep.running and rep.service_id not in pred.workers(),
+          "the replica did not stop")
+
+    # (c) Backpressure: queue_cap 64, one batch of 16 in flight, bursts
+    # of raw clients posting 16 images each.
+    ens.predict_staged_submit(np.zeros((FRONT_BATCH, *imgs.shape[1:]),
+                                       np.uint8), FRONT_BATCH)()
+    app = dep.front(inf_id, queue_cap=FRONT_CAP, max_batch=FRONT_BATCH,
+                    max_inflight=1)
+    host = f"{app.host}:{app.port}"
+    batch = list(imgs[:FRONT_BATCH])
+    body = json.dumps({"queries": [encode_payload(x)
+                                   for x in batch]}).encode()
+    want = stacked_rows(np, ens.stacked, imgs[:FRONT_BATCH]).astype(
+        np.float64).mean(0)
+
+    class Counting(Client):
+        statuses = []
+
+        def _send(self, *a, **kw):
+            status, payload, hdrs = super()._send(*a, **kw)
+            Counting.statuses.append(status)
+            return status, payload, hdrs
+
+    codes, answers, worst = [], [], 0.0
+    for attempt in range(3):
+        barrier = threading.Barrier(FRONT_BURST + 1)
+        got = []
+
+        def raw():
+            barrier.wait()
+            got.append(post_raw(f"http://{host}/predict", body))
+
+        def counted():
+            barrier.wait()
+            answers.append(Counting(retries=3).predict(
+                host, queries=batch)["predictions"])
+
+        threads = [threading.Thread(target=raw) for _ in range(FRONT_BURST)]
+        threads.append(threading.Thread(target=counted))
+        t0 = time.perf_counter()
+        [t.start() for t in threads]
+        [t.join(timeout=300) for t in threads]
+        burst_s = time.perf_counter() - t0
+        codes.extend(got)
+        check(len(got) == FRONT_BURST and answers,
+              "a burst's client did not return")
+        for status, _, payload in got:
+            if status == 200:
+                worst = max(worst, float(np.abs(np.asarray(
+                    payload["predictions"]) - want).max()))
+        if 429 in Counting.statuses:
+            break
+    statuses = [c for c, _, _ in codes]
+    n429 = statuses.count(429) + Counting.statuses.count(429)
+    snap = stats_of(host)
+    client_err = float(np.abs(np.asarray(answers[-1]) - want).max())
+    check(set(statuses) <= {200, 429} and statuses.count(429) > 0,
+          f"burst statuses {sorted(set(statuses))}")
+    check(all(ra is not None and int(ra) >= 1
+              for c, ra, _ in codes if c == 429), "a 429 without Retry-After")
+    check(snap["rejected"] == n429, f"/stats rejected {snap['rejected']} "
+          f"against {n429} 429s counted by the clients")
+    check(429 in Counting.statuses and Counting.statuses[-1] == 200,
+          f"the Client's statuses {Counting.statuses}")
+    check(worst <= TOL_ENSEMBLE and client_err <= TOL_ENSEMBLE,
+          f"answers of the burst differ from the stacked rows by "
+          f"{max(worst, client_err):.3e}")
+    print(f"front: (c) queue_cap {FRONT_CAP}, max_batch {FRONT_BATCH}, one "
+          f"batch in flight: {attempt + 1} burst(s) of {FRONT_BURST} raw "
+          f"clients and one Client, {FRONT_BATCH} images a request (the last"
+          f" {burst_s:.2f} s): {statuses.count(200)} answered, "
+          f"{statuses.count(429)} 429 with Retry-After "
+          f"{sorted({ra for c, ra, _ in codes if c == 429})}, no 5xx; /stats "
+          f"rejected {snap['rejected']} = the clients' 429s {n429} "
+          f"(queue depth peak {snap['queue_depth_peak']}); the Client's "
+          f"statuses {Counting.statuses}, answered after its Retry-After; "
+          f"answers against the stacked rows at bucket {FRONT_BATCH}: max "
+          f"|diff| {max(worst, client_err):.3e} (tolerance {TOL_ENSEMBLE}) "
+          f"on {card}", flush=True)
+    out.update(windows={k: {q: v for q, v in w.items() if q != "answers"}
+                        for k, w in wins.items()},
+               on_off_diff=on_off,
+               backpressure={"answered": statuses.count(200),
+                             "rejected": n429, "bursts": attempt + 1},
+               phase_s=time.perf_counter() - t_phase)
+    print(f"front: (a)-(c) took {out['phase_s']:.1f} s", flush=True)
+    return out
 
 
 def reset_counts(ens):
@@ -2900,13 +3323,14 @@ def ensemble_phase(torch, np, attn, card, automl, zoo):
             dn_bin = dep.bin("rafiki_torch.models.densenet:TorchDenseNet",
                              [(ENSEMBLE_KNOBS, p) for p in dn_params])
             # (a) The bin with stacking on, then off.
-            wins, ens_of, hosts = {}, {}, {}
+            wins, ens_of, hosts, workers_of = {}, {}, {}, {}
             for mode, env in (("stacked", {}), ("members", {
                     wire.STACKED_ENV: "off"})):
                 t0 = time.perf_counter()
                 worker, host, info = dep.serve(dn_bin, env)
                 ens = worker.model
                 ens_of[mode], hosts[mode] = ens, host
+                workers_of[mode] = worker
                 check(info["stacked"] is (mode == "stacked"),
                       f"registration {info}")
                 load_s = time.perf_counter() - t0
@@ -2957,6 +3381,8 @@ def ensemble_phase(torch, np, attn, card, automl, zoo):
                           f"images): served = float64 mean of the members' "
                           f"stacked rows, max |diff| {worst:.3e} "
                           f"(tolerance {TOL_ENSEMBLE})", flush=True)
+            out["front"] = front_phase(torch, np, card, dep,
+                                       workers_of["stacked"], dn_bin, imgs)
             st, per = ens_of["stacked"].stacked, ens_of["members"].models
             # Each member's rows, stacked and on its own, over the
             # window's images in bursts of 8.

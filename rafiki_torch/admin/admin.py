@@ -9,15 +9,20 @@ Access: ``claims`` are a bearer token's claims; ``None`` means a trusted
 in-process caller. A resource is its owner's, or any admin's
 (``check_access``).
 
-Not ported yet (ROADMAP, queue 1): promotion, on-demand profiling,
-serving stats, traces, the autoscaler, nodes, SLOs and alerts,
-capacity, trial phases, dataset uploads, service logs, attaching
-workers from another node, and the train-MFU gauge that ``get_status``
-reads (its ``mfu`` is empty).
+Serving reads: ``get_inference_job_stats`` (the job's predictor
+``/stats``), ``get_trace`` (one trace stitched from the span log under
+``services.log_dir``) and ``attach_inference_workers`` (one more
+replica for every served bin).
+
+Not ported yet (ROADMAP, queue 1): promotion, on-demand profiling, the
+autoscaler, nodes, SLOs and alerts, capacity, trial phases, dataset
+uploads, service logs, attaching train workers, and the train-MFU gauge
+that ``get_status`` reads (its ``mfu`` is empty).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import time
 from typing import Any, Dict, List, Optional
@@ -25,6 +30,8 @@ from typing import Any, Dict, List, Optional
 from ..constants import (BudgetOption, InferenceJobStatus, ModelAccessRight,
                          TrainJobStatus, TrialStatus, UserType)
 from ..model.knobs import knob_config_to_json
+from ..observe import metrics as obs_metrics
+from ..observe import trace as obs_trace
 from ..store import MetaStore, ParamStore
 from ..utils import auth
 from ..utils.model_loader import load_model_class
@@ -287,6 +294,32 @@ class Admin:
             time.sleep(poll)
         return False
 
+    def attach_inference_workers(self, inference_job_id: str,
+                                 chips_per_worker: int = 1,
+                                 ) -> List[Dict[str, Any]]:
+        """Serving scale-out: one more replica worker for every served
+        trial bin of a RUNNING inference job, on this node's chips. The
+        predictor shards each bin's slice over its replicas."""
+        from .services_manager import PREDICTOR_TRIAL
+
+        job = self.meta.get_inference_job(inference_job_id)
+        if job is None:
+            raise ValueError(f"unknown inference job {inference_job_id}")
+        if job["status"] != InferenceJobStatus.RUNNING:
+            raise ValueError(
+                f"inference job {inference_job_id} is not RUNNING")
+        bins = {w["trial_id"]
+                for w in self.meta.get_inference_job_workers(
+                    inference_job_id)
+                if w["trial_id"] != PREDICTOR_TRIAL}
+        attached = []
+        for trial_id in sorted(bins):
+            svc = self.services.add_inference_worker(
+                inference_job_id, trial_id, chips_per_worker)
+            if svc is not None:
+                attached.append(svc)
+        return attached
+
     # --- Inference jobs ---
 
     def create_inference_job(self, user_id: str, train_job_id: str,
@@ -330,6 +363,45 @@ class Admin:
         self.meta.update_inference_job(inference_job_id,
                                        status=InferenceJobStatus.STOPPED,
                                        stopped_at=time.time())
+
+    def get_inference_job_stats(self, inference_job_id: str,
+                                claims: Optional[Dict[str, Any]] = None,
+                                ) -> Dict[str, Any]:
+        """The job's predictor ``/stats`` snapshot, read server-side
+        with the ownership check every job read gets, and the
+        ``/predict`` latency buckets' exemplars (with
+        ``RAFIKI_TPU_METRICS_EXEMPLARS`` on)."""
+        from urllib.request import urlopen
+
+        job = self._owned_inference_job(inference_job_id, claims)
+        host = job.get("predictor_host")
+        if not host:
+            raise ValueError(
+                f"inference job {inference_job_id} has no predictor yet")
+        try:
+            with urlopen(f"http://{host}/stats", timeout=5) as resp:
+                stats = json.loads(resp.read())
+        except OSError as e:
+            raise ValueError(
+                f"predictor at {host} unreachable: {e}") from None
+        stats["inference_job_id"] = inference_job_id
+        hist = obs_metrics.registry().find(
+            "rafiki_tpu_http_request_seconds")
+        if hist is not None and stats.get("http_service"):
+            stats["exemplars"] = hist.exemplars(
+                service=stats["http_service"], route="/predict")
+        return stats
+
+    def get_trace(self, trace_id: str,
+                  claims: Optional[Dict[str, Any]] = None,
+                  ) -> Dict[str, Any]:
+        """One trace's spans from the services' span log, as an ordered
+        timeline. Any authenticated user may read it: a trace id is an
+        unguessable handle given to the caller who sent the request."""
+        log_dir = self.services.log_dir
+        if not log_dir:
+            return {"trace_id": trace_id, "n_spans": 0, "spans": []}
+        return obs_trace.collect_trace(log_dir, trace_id)
 
     # --- Node status ---
 

@@ -15,15 +15,19 @@ The port's copy of the routes of ``rafiki_tpu/admin/app.py`` that
 - ``GET  /trials/<trial_id>/logs``
 - ``POST /inference_jobs``, ``GET /inference_jobs``
 - ``GET  /inference_jobs/<job_id>``    with ``predictor_host``
+- ``GET  /inference_jobs/<job_id>/stats`` the predictor's ``/stats``
 - ``POST /inference_jobs/<job_id>/stop``
+- ``GET  /trace/<trace_id>``           one trace's spans, in order
 - ``GET  /services``                   service rows
 - ``GET  /status``                     chips and running services
+- ``GET  /metrics``                    the process registry
+                                       (``JsonHttpServer``)
 
 Auth: ``Authorization: Bearer <jwt>`` on everything but ``POST
-/tokens``. Every other route of the reference answers 404 until it is
-ported (ROADMAP, queue 1): the dashboard, promote, profile, stats,
-trace, autoscale, nodes, SLO, alerts, capacity, trial phases, datasets,
-service logs and metrics.
+/tokens`` and ``GET /metrics``. Every other route of the reference
+answers 404 until it is ported (ROADMAP, queue 1): the dashboard,
+promote, profile, autoscale, nodes, SLO, alerts, capacity, trial
+phases, datasets and service logs.
 """
 
 from __future__ import annotations
@@ -54,8 +58,11 @@ class AdminApp:
             ("POST", "/inference_jobs", self._create_inference_job),
             ("GET", "/inference_jobs", self._list_inference_jobs),
             ("GET", "/inference_jobs/<job_id>", self._get_inference_job),
+            ("GET", "/inference_jobs/<job_id>/stats",
+             self._inference_job_stats),
             ("POST", "/inference_jobs/<job_id>/stop",
              self._stop_inference_job),
+            ("GET", "/trace/<trace_id>", self._get_trace),
             ("GET", "/services", self._list_services),
             ("GET", "/status", self._status),
         ], host=host, port=port, name="admin")
@@ -175,6 +182,15 @@ class AdminApp:
         claims = self._auth(ctx)
         return 200, self.admin.get_inference_job(params["job_id"],
                                                  claims=claims)
+
+    def _inference_job_stats(self, params, body, ctx):
+        claims = self._auth(ctx)
+        return 200, self.admin.get_inference_job_stats(params["job_id"],
+                                                       claims=claims)
+
+    def _get_trace(self, params, body, ctx):
+        self._auth(ctx)
+        return 200, self.admin.get_trace(params["trace_id"])
 
     def _stop_inference_job(self, params, body, ctx):
         claims = self._auth(ctx)

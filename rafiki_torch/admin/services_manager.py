@@ -68,11 +68,14 @@ class ServicesManager:
     NODE_LEASE = 120.0
 
     def __init__(self, meta: MetaStore, container: ContainerManager,
-                 allocator: ChipAllocator, node_id: str):
+                 allocator: ChipAllocator, node_id: str,
+                 log_dir: str = ""):
         self.meta = meta
         self.container = container
         self.allocator = allocator
         self.node_id = node_id
+        # The services' shared log directory (the span log); "" = none.
+        self.log_dir = log_dir
         # Dead inference workers whose respawn found no chips: their
         # rows are ERRORED, out of the RUNNING scan, so each sweep
         # retries them until a worker lands or the job stops.

@@ -9,7 +9,7 @@ one search among a job's train workers over the bus.
 
 ``make_advisor`` picks the strategy from the knob config as the
 reference's registry does. The reference's ASHA, PBT and prefetching
-advisors are not ported yet (ROADMAP.md, queue 1 item 3).
+advisors are not ported yet (ROADMAP.md, queue 1 item 5).
 """
 
 from .base import BaseAdvisor, Proposal

@@ -35,7 +35,7 @@ def make_advisor(knob_config: KnobConfig, seed: int = 0,
     if advisor_type in NOT_PORTED:
         raise NotImplementedError(
             f"advisor {advisor_type!r} is not ported yet (ROADMAP.md, "
-            "queue 1 item 3)")
+            "queue 1 item 5)")
     if advisor_type is None:
         if any(isinstance(k, ArchKnob) for k in knob_config.values()):
             advisor_type = "enas"

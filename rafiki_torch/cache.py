@@ -17,12 +17,19 @@ offsets header (``PackedBatch``). A query frame carrying
 byte, the packed wire always on (the reference's default), so the two
 packages decode each other's frames.
 
+A query frame carries the ``"_trace"`` envelope (``observe.trace``)
+of the requests it serves: the contexts the caller passes, else the
+calling thread's, else none. A sharded gather pops one reply at a time
+(``n_workers=1``), keeps the reply queue alive between rounds
+(``reap=False``, closed by ``reap_reply_queue``) and stamps each reply
+with its arrival time (``timestamps=True``).
+
 ``TokenFrames`` is a ``Cache`` over a bus of its own: the reply queues
 of an in-process worker's generate requests.
 
-The reference's trace and tenant envelopes, wire-byte counters,
-frontend registry, cross-node relay, restack and profile markers, and
-single-query frames are not ported.
+The reference's tenant envelope, wire-byte counters, frontend registry,
+cross-node relay, restack and profile markers, and single-query frames
+are not ported.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from typing import Any, Collection, Dict, List, Optional
 import numpy as np
 
 from .bus import BaseBus, MemoryBus
+from .observe import trace as _trace
 
 _log = logging.getLogger(__name__)
 
@@ -67,6 +75,16 @@ def encode_payload(value: Any) -> Any:
     if isinstance(value, (np.integer, np.floating)):
         return value.item()
     return value
+
+
+def _trace_envelope(trace_ctxs: Optional[List] = None) -> Optional[Dict]:
+    """The ``_trace`` field of an outgoing query frame: the contexts
+    given (the micro-batcher's scatter), else the calling thread's (the
+    direct path), else None (no envelope)."""
+    if trace_ctxs is None:
+        cur = _trace.current()
+        trace_ctxs = [cur] if cur is not None else []
+    return _trace.inject(trace_ctxs)
 
 
 def decode_payload(value: Any) -> Any:
@@ -259,6 +277,40 @@ class Cache:
         for key in due:
             self.bus.delete_queue(key)
 
+    def _gather(self, queue_key: str, n_workers: int, timeout: float,
+                decode: Any, reap: bool = True,
+                timestamps: bool = False) -> List[Dict[str, Any]]:
+        """Pop up to ``n_workers`` replies off a one-shot reply queue,
+        then drop it; a straggler's reply is swept later. ``reap=False``
+        keeps the queue (the sharded gather pops again after a
+        resubmit, and a delete between rounds could lose a reply in
+        flight); ``timestamps=True`` stamps each reply's monotonic
+        arrival as ``"_recv_mono"``."""
+        now = time.monotonic()
+        self._reap_stale(now)
+        out: List[Dict[str, Any]] = []
+        deadline = now + timeout
+        while len(out) < n_workers:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            item = self.bus.pop(queue_key, timeout=remaining)
+            if item is None:
+                break
+            item = decode(item)
+            if item is None:
+                continue  # a corrupt packed reply, dropped
+            if timestamps:
+                item["_recv_mono"] = time.monotonic()
+            out.append(item)
+        if not reap:
+            return out
+        self.bus.delete_queue(queue_key)
+        if len(out) < n_workers:
+            with self._reap_lock:
+                self._reap_later.append((time.monotonic(), queue_key))
+        return out
+
     # --- Worker registry ---
 
     def register_worker(self, inference_job_id: str, worker_id: str,
@@ -286,6 +338,7 @@ class Cache:
     def send_query_shards(self, shards: List[tuple],
                           encoded_queries: Optional[List[Any]],
                           batch_id: Optional[str] = None,
+                          trace_ctxs: Optional[List] = None,
                           packed: Optional[PackedBatch] = None,
                           packed_ok: Collection[str] = ()) -> str:
         """Scatter slices of one batch in one ``push_many``. ``shards``
@@ -294,8 +347,10 @@ class Cache:
         A shard bound for a worker in ``packed_ok`` carries its slice as
         one packed ``batch`` frame; the others the per-query list
         (``encoded_queries``, which may be None only when every worker
-        is in ``packed_ok``)."""
+        is in ``packed_ok``). ``trace_ctxs`` are the coalesced
+        requests' trace contexts (the envelope)."""
         batch_id = batch_id or uuid.uuid4().hex
+        env = _trace_envelope(trace_ctxs)
         n = packed.n if packed is not None else len(encoded_queries)
         frames = []
         for worker_id, start, count, shard_id in shards:
@@ -308,47 +363,46 @@ class Cache:
                 frame["queries"] = (
                     encoded_queries if start == 0 and count == n
                     else encoded_queries[start:start + count])
+            if env is not None:
+                frame[_trace.ENVELOPE_KEY] = env
             frames.append((f"q:{worker_id}", frame))
         self.bus.push_many(frames)
         return batch_id
 
     def gather_prediction_batches(self, batch_id: str, n_workers: int,
-                                  timeout: float = 5.0,
+                                  timeout: float = 5.0, reap: bool = True,
+                                  timestamps: bool = False,
                                   ) -> List[Dict[str, Any]]:
-        """Collect up to ``n_workers`` batch replies within ``timeout``,
-        then drop the reply queue. A packed reply decodes into per-row
-        vectors; a corrupt one is dropped, so its shard reads as
-        unanswered."""
-        now = time.monotonic()
-        self._reap_stale(now)
-        queue = f"r:{batch_id}"
-        out: List[Dict[str, Any]] = []
-        deadline = now + timeout
-        while len(out) < n_workers:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                break
-            item = self.bus.pop(queue, timeout=remaining)
-            if item is None:
-                break
+        """Collect up to ``n_workers`` batch replies within ``timeout``
+        (``reap`` and ``timestamps`` as ``_gather``). A packed reply
+        decodes into per-row vectors; a corrupt one is dropped, so its
+        shard reads as unanswered and may still be resubmitted."""
+        def decode(item):
             if "batch" in item:
                 try:
                     arr = decode_batch(item.pop("batch"))
                 except ValueError:
                     _log.warning("corrupt packed reply for batch %s "
                                  "dropped", batch_id, exc_info=True)
-                    continue
+                    return None
                 item["predictions"] = [arr[i] for i in range(arr.shape[0])]
             else:
                 item["predictions"] = [decode_payload(p)
                                        for p in item["predictions"]]
-            out.append(item)
-        self.bus.delete_queue(queue)
-        if len(out) < n_workers:
-            # A straggler may still reply and recreate the queue.
+            return item
+
+        return self._gather(f"r:{batch_id}", n_workers, timeout, decode,
+                            reap=reap, timestamps=timestamps)
+
+    def reap_reply_queue(self, batch_id: str, defer: bool = True) -> None:
+        """Finish a ``reap=False`` gather: drop the reply queue, and with
+        ``defer`` sweep it again later, for a gather that ended with
+        stragglers or resubmitted shards still able to reply."""
+        self.bus.delete_queue(f"r:{batch_id}")
+        if defer:
             with self._reap_lock:
-                self._reap_later.append((time.monotonic(), queue))
-        return out
+                self._reap_later.append((time.monotonic(),
+                                         f"r:{batch_id}"))
 
     # --- Graceful drain ---
 

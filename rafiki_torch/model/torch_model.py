@@ -634,7 +634,7 @@ class TorchModel(BaseModel):
         if kwargs.get("checkpoint_dir"):
             raise NotImplementedError(
                 "checkpoint resume of TorchModel.train is not ported yet "
-                "(ROADMAP queue 1 item 6)")
+                "(ROADMAP queue 1 item 5)")
         ds = load_image_dataset(dataset_path)
         net = self._new_net(ds.n_classes, ds.image_shape)
         if shared_params is not None:

@@ -112,7 +112,7 @@ class _CorpusTagger(BaseModel):
         if kwargs.get("checkpoint_dir"):
             raise NotImplementedError(
                 f"checkpoint resume of {type(self).__name__}.train is not "
-                "ported yet (ROADMAP queue 1 item 6)")
+                "ported yet (ROADMAP queue 1 item 5)")
         ds = load_corpus_dataset(dataset_path)
         net = self._new_net(ds.tag_names)
         if shared_params is not None:

@@ -96,7 +96,7 @@ class _TabBase(BaseModel):
         if kwargs.get("checkpoint_dir"):
             raise NotImplementedError(
                 f"checkpoint resume of {type(self).__name__}.train is not "
-                "ported yet (ROADMAP queue 1 item 6)")
+                "ported yet (ROADMAP queue 1 item 5)")
         ds = load_tabular_dataset(dataset_path)
         if self.regression:
             out_dim = 1

@@ -25,7 +25,7 @@ The counterpart of the reference's ``models/transformer.py``:
 Only the single-device path is ported: ``sequence_parallel``,
 ``expert_parallel`` and ``pipeline_parallel`` above 1 and
 ``moe_experts`` above 0 raise ``NotImplementedError`` (ROADMAP queue 1
-item 6); the reference's knob space pins them to 1 and 0.
+item 8); the reference's knob space pins them to 1 and 0.
 """
 
 from __future__ import annotations
@@ -235,7 +235,7 @@ class TorchTransformerTagger(_CorpusTagger):
                 raise NotImplementedError(
                     f"{name}={self.knobs[name]}: the tagger's "
                     "sequence-, expert- and pipeline-parallel paths and its "
-                    "MoE blocks are not ported yet (ROADMAP queue 1 item 6)")
+                    "MoE blocks are not ported yet (ROADMAP queue 1 item 8)")
         self.attention = default_attention(causal=False)
 
     def create_module(self, n_tags: int) -> nn.Module:

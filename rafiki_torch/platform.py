@@ -7,7 +7,9 @@ meta and safetensors params under the workdir, a ``ChipAllocator`` over
 the node's CUDA devices, the ``ServicesManager`` and the ``Admin``, and
 the admin REST service when ``http=True``. A supervisor thread sweeps
 for dead services every ``supervise_interval`` seconds (0 turns it off)
-and a heartbeat thread keeps this node's lease fresh.
+and a heartbeat thread keeps this node's lease fresh. The process's
+span sink is ``<workdir>/logs/spans.jsonl`` (``observe.trace``), which
+the admin's ``GET /trace/<id>`` reads.
 
 ``device=None`` means CUDA: on a box without a card construction
 raises, before it touches the workdir, and never carries on on the CPU.
@@ -36,6 +38,7 @@ from .admin import Admin, ServicesManager
 from .admin.app import AdminApp
 from .bus import MemoryBus, connect
 from .container import SystemContext, ThreadContainerManager
+from .observe import trace as observe_trace
 from .parallel.chips import ChipAllocator
 from .store import MetaStore, ParamStore
 from .torchenv import DeviceLike, resolve_device
@@ -91,8 +94,12 @@ class LocalPlatform:
                                  bus=self.bus, device_type=self.device.type)
         self.container = ThreadContainerManager(self.ctx)
         self.allocator = ChipAllocator(n_chips, device=self.device)
-        self.services = ServicesManager(self.meta, self.container,
-                                        self.allocator, node_id)
+        self.services = ServicesManager(
+            self.meta, self.container, self.allocator, node_id,
+            log_dir=os.path.join(workdir, "logs"))
+        # Every service thread of this process (HTTP edges, batcher,
+        # workers) appends its spans here.
+        observe_trace.configure(self.services.log_dir)
         self.admin = Admin(self.meta, self.params, self.services)
         self.app: Optional[AdminApp] = None
         if http:
@@ -145,6 +152,7 @@ class LocalPlatform:
         self.services.stop_own_services()
         self.meta.close()
         self.params.close()
+        observe_trace.release(self.services.log_dir)
         MemoryBus.reset_shared()
         if self._lock_fd is not None:  # releases the flock too
             os.close(self._lock_fd)

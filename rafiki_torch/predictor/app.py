@@ -1,7 +1,7 @@
-"""Predictor HTTP frontend of the port: ``POST /predict`` and
-``POST /generate``.
+"""Predictor HTTP frontend of the port: ``POST /predict``, ``POST
+/generate``, ``GET /``, ``GET /stats`` and ``GET /metrics``.
 
-The counterparts of ``PredictorService._predict`` and ``_generate`` in
+The counterpart of ``PredictorService`` in
 ``rafiki_tpu/predictor/app.py``, with the same wire:
 
 - ``{"query": q}`` -> ``{"prediction": p}``;
@@ -14,7 +14,13 @@ The counterparts of ``PredictorService._predict`` and ``_generate`` in
   ``finish`` and ``n_tokens``), streamed while later tokens are still
   decoding; 400 for a body without a non-empty ``tokens`` list or with
   malformed parameters, 503 when no worker generates, and a final
-  ``{"done": true, "finish": "timeout"}`` line after the timeout.
+  ``{"done": true, "finish": "timeout"}`` line after the timeout;
+- a request past the admission bound answers 429 with ``Retry-After``
+  and ``{"error", "queue_depth", "queue_cap", "reason",
+  "retry_after"}``;
+- ``GET /`` is health (workers, micro-batching, queue depth); ``GET
+  /stats`` the ``ServingStats`` snapshot with the knobs; ``GET
+  /metrics`` the process registry (``JsonHttpServer``).
 
 A service is built one of two ways:
 
@@ -22,41 +28,64 @@ A service is built one of two ways:
   ``InferenceWorker`` objects: every query goes to every worker, and a
   worker that does not answer within the timeout makes the request a
   504;
-- ``PredictorService.for_job(service_id, inference_job_id, meta, bus)``
-  is the platform's predictor service, the reference's constructor: its
-  queries and generate requests ride the bus to the job's registered
-  workers (``Predictor``), and on ``start`` it marks its service row
-  RUNNING and records its address as the inference job's
-  ``predictor_host``. A bin that does not answer within the gather
+- ``PredictorService.for_job(service_id, inference_job_id, meta, bus,
+  ...)`` is the platform's predictor service, the reference's
+  constructor with its serving keywords: its queries and generate
+  requests ride the bus to the job's registered workers
+  (``Predictor``), and on ``start`` it marks its service row RUNNING
+  and records its address as the inference job's ``predictor_host``.
+  Concurrent requests coalesce in a ``MicroBatcher`` unless
+  micro-batching is off; each bin's slice is sharded over its replicas
+  unless sharding is off. A bin that does not answer within the gather
   timeout loses its vote; a query no bin answered comes back null.
+
+Each knob resolves as the reference's: an explicit argument, then its
+``RAFIKI_TPU_SERVING_*`` variable (``NodeConfig.apply_env`` exports
+them), then the default: ``microbatch`` (on), ``fill_window`` (0.005 s),
+``fill_window_min`` (0), ``fill_window_max`` (the fill window),
+``max_batch`` (1024), ``max_inflight`` (2), ``queue_cap`` (4096),
+``shard_replicas`` (on), ``client_header`` ("" = fairness off) and
+``client_share`` (0.25). With micro-batching off, the client share caps
+one client's queries in flight instead.
 
 Either way each query's per-worker (per-bin) predictions combine
 through ``ensemble_predictions``, which skips a worker's error reply,
 and a generate request goes to one generating worker, round-robin. The
-reference's micro-batcher, tiering, edge cache, workload records and
-tenant attribution are not ported yet.
+reference's edge cache, tiering, workload records and tenant
+attribution are not ported yet.
 """
 
 from __future__ import annotations
 
 import itertools
 import json
+import os
+import threading
 import time
+import uuid
 from concurrent.futures import TimeoutError as FutureTimeout
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..bus import BaseBus
 from ..cache import decode_payload
+from ..config import NodeConfig, _parse_bool
 from ..constants import ServiceStatus
+from ..observe import ServingStats
+from ..observe import metrics as obs_metrics
 from ..store import MetaStore
 from ..torchenv import DeviceLike, resolve_device
 from ..utils.service import HttpError, JsonHttpServer, StreamResponse
 from ..worker.inference import InferenceWorker
+from .batcher import Backpressure, MicroBatcher
 from .predictor import Predictor, ensemble_predictions
 
 #: A started generate request: its query id and the function that pops
 #: its frames, ``pop(query_id, timeout=...)``.
 Started = Tuple[str, Callable[..., List[Any]]]
+
+
+def _env_knob(field: str, default: str) -> str:
+    return os.environ.get(NodeConfig.env_name(field), default)
 
 
 class _LocalWorkers:
@@ -66,6 +95,9 @@ class _LocalWorkers:
         self.workers = list(workers)
         self.timeout = timeout
         self._gen_rr = itertools.count()
+
+    def n_workers(self) -> int:
+        return len(self.workers)
 
     def predict(self, encoded: List[Any]) -> List[Any]:
         queries = [decode_payload(q) for q in encoded]
@@ -93,6 +125,9 @@ class _BusWorkers:
         self.predictor = predictor
         self._gen_rr = itertools.count()
 
+    def n_workers(self) -> int:
+        return len(self.predictor.workers())
+
     def predict(self, encoded: List[Any]) -> List[Any]:
         return self.predictor.predict(encoded, pre_encoded=True)
 
@@ -116,7 +151,7 @@ class PredictorService:
     def __init__(self, workers: Sequence[InferenceWorker] = (), *,
                  device: DeviceLike = None, host: str = "127.0.0.1",
                  port: int = 0, timeout: float = 300.0,
-                 _backend: Any = None):
+                 _backend: Any = None, _label: Optional[str] = None):
         self.device: Optional[Any] = None
         if _backend is None:
             self.device = resolve_device(device)
@@ -133,32 +168,96 @@ class PredictorService:
         self.service_id: Optional[str] = None
         self.inference_job_id: Optional[str] = None
         self.meta: Optional[MetaStore] = None
+        self.predictor: Optional[Predictor] = None
+        self.batcher: Optional[MicroBatcher] = None
+        self.microbatch = False
+        self.client_header = ""
+        self._direct_cap = 0
+        self._direct_pending: Dict[str, int] = {}
+        self._direct_lock = threading.Lock()
+        self.stats = ServingStats(
+            service=_label or f"local-{uuid.uuid4().hex[:4]}")
         self._http = JsonHttpServer([
+            ("GET", "/", self._health),
+            ("GET", "/stats", self._stats),
             ("POST", "/predict", self._predict),
             ("POST", "/generate", self._generate),
-        ], host=host, port=port, name="predictor")
+        ], host=host, port=port, name=f"predictor-{self.stats.service}")
         self.host, self.port = self._http.host, self._http.port
 
     @classmethod
     def for_job(cls, service_id: str, inference_job_id: str,
                 meta: MetaStore, bus: BaseBus, *, host: str = "127.0.0.1",
-                port: int = 0) -> "PredictorService":
+                port: int = 0, microbatch: Optional[bool] = None,
+                fill_window: Optional[float] = None,
+                fill_window_min: Optional[float] = None,
+                fill_window_max: Optional[float] = None,
+                max_batch: Optional[int] = None,
+                max_inflight: Optional[int] = None,
+                queue_cap: Optional[int] = None,
+                shard_replicas: Optional[bool] = None,
+                client_header: Optional[str] = None,
+                client_share: Optional[float] = None,
+                ) -> "PredictorService":
         """The predictor service of one inference job, over the bus. A
-        generate stream ends with a timeout line after the longest
-        honest wait: the workers' warm-up, the gather timeout and a
-        minute."""
-        predictor = Predictor(inference_job_id, bus)
+        request waits at most the workers' warm-up, the gather timeout
+        and a minute; a generate stream then ends with a timeout
+        line."""
+        if shard_replicas is None:
+            shard_replicas = _parse_bool(
+                _env_knob("serving_shard_replicas", "1"))
+        # The metrics label is unique to this instance (service ids are
+        # reused within a process) and leads with the service id; the
+        # predictor's series share it, so /metrics joins the serving
+        # and shard families.
+        label = f"{service_id[:12]}-{uuid.uuid4().hex[:4]}"
+        predictor = Predictor(inference_job_id, bus,
+                              shard_replicas=shard_replicas, service=label)
         svc = cls(host=host, port=port,
                   timeout=(predictor.worker_wait_timeout
                            + predictor.gather_timeout + 60.0),
-                  _backend=_BusWorkers(predictor))
+                  _backend=_BusWorkers(predictor), _label=label)
         svc.predictor = predictor
         svc.service_id = service_id
         svc.inference_job_id = inference_job_id
         svc.meta = meta
+        if microbatch is None:
+            microbatch = _parse_bool(_env_knob("serving_microbatch", "1"))
+        svc.microbatch = microbatch
+        svc.client_header = (client_header if client_header is not None
+                             else _env_knob("serving_client_header", ""))
+        # One share for both paths: the batcher caps a client's queued
+        # queries, the direct path its queries in flight.
+        share = (float(client_share if client_share is not None else
+                       _env_knob("serving_client_share", "0.25"))
+                 if svc.client_header else 0.0)
+        qcap = int(queue_cap if queue_cap is not None else
+                   _env_knob("serving_queue_cap", "4096"))
+        svc._direct_cap = max(1, int(qcap * share)) if share > 0 else 0
+        if microbatch:
+            fw_max_env = _env_knob("serving_fill_window_max", "")
+            svc.batcher = MicroBatcher(
+                predictor,
+                fill_window=float(
+                    fill_window if fill_window is not None else
+                    _env_knob("serving_fill_window", "0.005")),
+                fill_window_min=float(
+                    fill_window_min if fill_window_min is not None else
+                    _env_knob("serving_fill_window_min", "0.0")),
+                fill_window_max=(
+                    fill_window_max if fill_window_max is not None else
+                    float(fw_max_env) if fw_max_env else None),
+                max_batch=int(max_batch if max_batch is not None else
+                              _env_knob("serving_max_batch", "1024")),
+                max_inflight=int(max_inflight
+                                 if max_inflight is not None else
+                                 _env_knob("serving_max_inflight", "2")),
+                queue_cap=qcap, client_share=share, stats=svc.stats)
         return svc
 
     def start(self) -> "PredictorService":
+        if self.batcher is not None:
+            self.batcher.start()
         self._http.start()
         if self.meta is not None:
             self.meta.update_service(self.service_id,
@@ -170,7 +269,21 @@ class PredictorService:
         return self
 
     def stop(self) -> None:
+        # The batcher first: it fails every waiting request at once, so
+        # no handler holds the HTTP server's shutdown.
+        if self.batcher is not None:
+            self.batcher.stop()
         self._http.stop()
+        # This frontend's series go with it (their labels are per
+        # instance).
+        self.stats.close()
+        if self.predictor is not None:
+            self.predictor.close()
+        for name in ("rafiki_tpu_http_request_seconds",
+                     "rafiki_tpu_http_requests_total"):
+            m = obs_metrics.registry().find(name)
+            if m is not None:
+                m.remove(service=self._http.name)
         if self.meta is not None:
             self.meta.update_service(self.service_id,
                                      status=ServiceStatus.STOPPED)
@@ -183,7 +296,70 @@ class PredictorService:
     def url(self) -> str:
         return f"http://{self.host}:{self.port}"
 
-    def _predict(self, body):
+    # --- Routes ---
+
+    def _health(self, params, body, ctx):
+        return 200, {"status": "ok",
+                     "inference_job_id": self.inference_job_id,
+                     "n_workers": self._backend.n_workers(),
+                     "microbatch": self.microbatch,
+                     "queue_depth": self.stats.queue_depth}
+
+    def _stats(self, params, body, ctx):
+        snap = self.stats.snapshot()
+        snap["microbatch"] = self.microbatch
+        # The HTTP layer's series label by the server's name.
+        snap["http_service"] = self._http.name
+        snap["shard_replicas"] = (self.predictor.shard_replicas
+                                  if self.predictor is not None else None)
+        if self.batcher is not None:
+            snap["knobs"] = {
+                "fill_window": self.batcher.fill_window,
+                "fill_window_min": self.batcher.fill_window_min,
+                "fill_window_max": self.batcher.fill_window_max,
+                "max_batch": self.batcher.max_batch,
+                "max_inflight": self.batcher.max_inflight,
+                "queue_cap": self.batcher.queue_cap,
+                "client_share": self.batcher.client_share,
+                "client_header": self.client_header,
+            }
+        return 200, snap
+
+    def _dispatch_queries(self, encoded: List[Any],
+                          client: Optional[str] = None) -> List[Any]:
+        """One request's queries -> their predictions: through the
+        micro-batcher when it is on (the frames stay encoded all the way
+        to the bus), else straight to the workers, with the client's
+        queries in flight capped."""
+        if not encoded:
+            return []
+        if self.batcher is not None:
+            return self.batcher.submit(encoded, timeout=self.timeout,
+                                       client=client)
+        n = len(encoded)
+        if client is not None and self._direct_cap:
+            with self._direct_lock:
+                held = self._direct_pending.get(client, 0)
+                # As the batcher: a lone over-cap request is admitted
+                # when the client holds nothing.
+                if held > 0 and held + n > self._direct_cap:
+                    self.stats.backpressured(reason="client_share")
+                    raise Backpressure(1.0, held, self._direct_cap,
+                                       reason="client_share")
+                self._direct_pending[client] = held + n
+        try:
+            self.stats.admitted(n)
+            return self._backend.predict(encoded)
+        finally:
+            if client is not None and self._direct_cap:
+                with self._direct_lock:
+                    left = self._direct_pending.get(client, 0) - n
+                    if left > 0:
+                        self._direct_pending[client] = left
+                    else:
+                        self._direct_pending.pop(client, None)
+
+    def _predict(self, params, body, ctx):
         if not body:
             return 400, {"error": "missing JSON body"}
         single = "queries" not in body
@@ -192,7 +368,16 @@ class PredictorService:
         queries = [body["query"]] if single else body["queries"]
         if not isinstance(queries, list):
             return 400, {"error": "'queries' must be a list"}
-        preds = self._backend.predict(queries)
+        client = (ctx.headers.get(self.client_header)
+                  if self.client_header else None)
+        try:
+            preds = self._dispatch_queries(queries, client=client)
+        except Backpressure as e:
+            return (429,
+                    {"error": str(e), "queue_depth": e.depth,
+                     "queue_cap": e.cap, "reason": e.reason,
+                     "retry_after": e.retry_after},
+                    {"Retry-After": str(int(e.retry_after))})
         if single:
             return 200, {"prediction": preds[0]}
         return 200, {"predictions": preds}

@@ -2,29 +2,95 @@
 workers over the bus, gather their replies, ensemble.
 
 The port's copy of ``ensemble_predictions`` and of the reference's
-``Predictor`` (``rafiki_tpu/predictor/predictor.py:221``) without
-replica sharding, resubmits, quarantine and confidence tiering: the
-predictor finds the job's workers in the bus registry, groups them by
-the trial bin each serves (same-bin workers are replicas, one picked a
-request, rotating), sends one shard per bin with the whole batch, and
-gathers the replies within ``gather_timeout``. Each query's answer is
-the weighted ``ensemble_predictions`` over the bins that replied; a
-query no bin answered comes back None. Shards bound for a worker that
-advertises the packed wire ride one ``__ndbatch__`` frame.
+``Predictor`` (``rafiki_tpu/predictor/predictor.py:62-1121``) without
+confidence tiering. The predictor finds the job's workers in the bus
+registry and groups them by the trial bin each serves: same-bin workers
+are replicas. With replica sharding on (``shard_replicas``, the
+default) each bin's slice of a batch is split over all its live
+replicas, sized inversely to each one's latency EWMA; off, the whole
+batch goes to one replica a bin, rotating. A shard still missing at the
+straggler deadline (``_partial_wait``) is resubmitted once to a sibling
+and its replica quarantined, for one gather timeout doubling with each
+consecutive strike: it takes no shard meanwhile while its bin has
+another replica (where the reference still sends it single-query
+batches). A bin with no sibling loses its vote instead of stalling the
+batch. Each query's answer is the weighted
+``ensemble_predictions`` over the bins that replied; a query no bin
+answered comes back None. Shards bound for a worker that advertises the
+packed wire ride one ``__ndbatch__`` frame.
+
+``predict_submit`` scatters now and returns the finisher that gathers,
+which the micro-batcher's gather thread calls while its batcher thread
+scatters the next batch.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import threading
 import time
 import uuid
 from collections import Counter
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..bus import BaseBus
 from ..cache import WIRE_NDBATCH, Cache, PackedBatch, encode_payload
+from ..observe import metrics as _metrics
+
+_log = logging.getLogger(__name__)
+
+#: EWMA smoothing of a replica's gather latency: ~5 replies dominate.
+_LAT_ALPHA = 0.3
+
+#: The fraction of the gather timeout spent waiting for primary shards
+#: before a missing one is resubmitted to a sibling: the fallback, and
+#: the ceiling, of the straggler deadline. When every planned replica
+#: has a latency EWMA the deadline is ``_STRAGGLER_K`` times the
+#: slowest one instead, so a fast fleet resubmits in milliseconds.
+_RESUBMIT_AT = 0.5
+
+#: A healthy reply lands within ~1x its replica's EWMA; 4x is a
+#: straggler with room for jitter.
+_STRAGGLER_K = 4.0
+
+#: Floor of the latency-relative deadline (seconds): sub-millisecond
+#: EWMAs would otherwise resubmit on scheduler noise.
+_STRAGGLER_MIN = 0.025
+
+#: Ceiling of the quarantine multiplier: a replica that missed N
+#: consecutive probes sits out ``gather_timeout * min(2**(N-1), 16)``.
+_QUARANTINE_MAX_MULT = 16
+
+#: A query position whose bin shard never replied.
+_HOLE = object()
+
+
+class _Shard:
+    """One slice of a batch bound for one replica."""
+
+    __slots__ = ("worker", "bin", "start", "count", "shard_id",
+                 "reply", "resubmitted", "t_sent", "pair", "superseded")
+
+    def __init__(self, worker: str, bin_id: str, start: int, count: int):
+        self.worker = worker
+        self.bin = bin_id
+        self.start = start
+        self.count = count
+        self.shard_id = uuid.uuid4().hex[:12]
+        self.reply: Optional[Dict[str, Any]] = None
+        self.resubmitted = False
+        self.t_sent = 0.0  # monotonic scatter time (latency EWMA)
+        # A resubmitted shard and its original cover the same slice;
+        # the first to reply supersedes the other, so the gather stops
+        # waiting once the slice is covered.
+        self.pair: Optional["_Shard"] = None
+        self.superseded = False
+
+    def wire(self) -> Tuple[str, int, int, str]:
+        return (self.worker, self.start, self.count, self.shard_id)
 
 
 def ensemble_predictions(worker_predictions: List[Any],
@@ -62,19 +128,121 @@ def ensemble_predictions(worker_predictions: List[Any],
     return next(p for p, _ in pairs if repr(p) == winner)
 
 
+class _WirePayload:
+    """One batch's outbound wire forms, each made on first demand: the
+    packed buffer only when a plan targets a packed-capable worker, the
+    per-query frames only for the other shards. The same payload
+    follows the batch through its resubmits."""
+
+    __slots__ = ("capable", "_queries", "_pre_encoded", "_encoded",
+                 "_packed", "_packed_done")
+
+    def __init__(self, queries: List[Any], pre_encoded: bool,
+                 capable: frozenset):
+        self.capable = capable
+        self._queries = queries
+        self._pre_encoded = pre_encoded
+        self._encoded: Optional[List[Any]] = None
+        self._packed: Optional[PackedBatch] = None
+        self._packed_done = False
+
+    @property
+    def packed(self) -> Optional[PackedBatch]:
+        """The contiguous batch buffer, or None when the queries do not
+        pack (mixed shapes, non-arrays) or no worker takes it."""
+        if not self._packed_done:
+            self._packed_done = True
+            if self.capable:
+                self._packed = (
+                    PackedBatch.from_encoded(self._queries)
+                    if self._pre_encoded
+                    else PackedBatch.from_arrays(self._queries))
+        return self._packed
+
+    @property
+    def encoded(self) -> List[Any]:
+        """Per-query wire frames, made once."""
+        if self._encoded is None:
+            self._encoded = (self._queries if self._pre_encoded
+                             else [encode_payload(q)
+                                   for q in self._queries])
+        return self._encoded
+
+    def for_plan(self, plan: List[_Shard],
+                 ) -> Tuple[Optional[List[Any]], Optional[PackedBatch]]:
+        """``(encoded_queries, packed)`` for one plan, making only the
+        forms its shards need."""
+        any_packed = any(s.worker in self.capable for s in plan)
+        packed = self.packed if any_packed else None
+        enc = (self.encoded if packed is None or
+               any(s.worker not in self.capable for s in plan)
+               else None)
+        return enc, packed
+
+
 class Predictor:
     def __init__(self, inference_job_id: str, bus: BaseBus,
                  gather_timeout: float = 30.0,
-                 worker_wait_timeout: float = 120.0):
+                 worker_wait_timeout: float = 120.0,
+                 shard_replicas: Optional[bool] = None,
+                 service: Optional[str] = None):
         self.inference_job_id = inference_job_id
         self.cache = Cache(bus)
         self.gather_timeout = gather_timeout
         self.worker_wait_timeout = worker_wait_timeout
+        # An explicit argument, else RAFIKI_TPU_SERVING_SHARD_REPLICAS,
+        # else on.
+        if shard_replicas is None:
+            from ..config import _parse_bool
+
+            shard_replicas = _parse_bool(os.environ.get(
+                "RAFIKI_TPU_SERVING_SHARD_REPLICAS", "1"))
+        self.shard_replicas = shard_replicas
         self._rr = 0  # replica rotation
-        # worker_id -> (trial bin, takes the packed wire): registration
-        # info is fixed per worker id, so it is read once.
-        self._info: Dict[str, Tuple[str, bool]] = {}
-        self._lock = threading.Lock()
+        # worker_id -> trial bin and -> takes the packed wire: fixed per
+        # worker id, so read from the registry once.
+        self._bins: Dict[str, str] = {}
+        self._wire_ok: Dict[str, bool] = {}
+        # worker_id -> EWMA of scatter -> reply seconds (the split).
+        self._lat: Dict[str, float] = {}
+        # worker_id -> monotonic time of its last penalty, and its
+        # consecutive missed deadlines (reset only by a real reply).
+        self._penalized: Dict[str, float] = {}
+        self._strikes: Dict[str, int] = {}
+        # Handler threads (batcher off) and the batcher's scatter
+        # thread all plan through here.
+        self._state_lock = threading.Lock()
+        # The per-instance metrics label; a ServingStats owner passes
+        # its own, so /metrics joins the serving and shard series.
+        self.service = service or f"pred-{uuid.uuid4().hex[:8]}"
+        self._m_shards = self._m_resubmits = None
+        self._m_replica = self._m_quarantines = None
+        if _metrics.metrics_enabled():
+            reg = _metrics.registry()
+            self._m_shards = reg.counter(
+                "rafiki_tpu_serving_shards_total",
+                "Shards scattered to replica workers")
+            self._m_resubmits = reg.counter(
+                "rafiki_tpu_serving_shard_resubmits_total",
+                "Shards resubmitted to a sibling replica after their "
+                "primary replica missed the partial-gather deadline")
+            self._m_replica = reg.histogram(
+                "rafiki_tpu_serving_replica_gather_seconds",
+                "Per-replica scatter->reply latency (worker= short "
+                "replica id)")
+            self._m_quarantines = reg.counter(
+                "rafiki_tpu_serving_replica_quarantines_total",
+                "Replicas penalized out of the shard plan after a "
+                "missed deadline (quarantine backs off exponentially "
+                "per consecutive strike)")
+
+    def close(self) -> None:
+        """Drop this predictor's series from the registry (the label is
+        per instance)."""
+        for m in (self._m_shards, self._m_resubmits, self._m_replica,
+                  self._m_quarantines):
+            if m is not None:
+                m.remove(service=self.service)
 
     def workers(self) -> List[str]:
         return self.cache.running_workers(self.inference_job_id)
@@ -89,69 +257,336 @@ class Predictor:
                 return workers
             time.sleep(0.2)
 
-    def _choose_workers(self) -> List[Tuple[str, str, bool]]:
-        """``(worker, bin, packed_ok)``, one worker per trial bin:
-        same-bin workers are replicas, and asking all of them would
-        weigh their trials twice, so each request picks one, rotating."""
+    def _bin_of(self, worker_id: str) -> str:
+        """Caller holds ``_state_lock``."""
+        bin_id = self._bins.get(worker_id)
+        if bin_id is None:
+            info = self.cache.bus.get(
+                f"w:{self.inference_job_id}:{worker_id}") or {}
+            bin_id = str(info.get("trial_id") or worker_id)
+            self._bins[worker_id] = bin_id
+            self._wire_ok[worker_id] = WIRE_NDBATCH in (
+                info.get("wire") or ())
+        return bin_id
+
+    def _group_replicas(self) -> Tuple[Dict[str, List[str]], int,
+                                       Dict[str, float]]:
+        """The front half of every plan: wait for workers, drop the rows
+        of departed ones (restarts churn ids), expire lapsed penalties,
+        group live workers by bin and advance the rotation. Returns
+        ``(groups, rr, latency snapshot)``."""
         workers = sorted(self._wait_workers())
-        groups: Dict[str, List[str]] = {}
-        with self._lock:
-            if len(self._info) > 2 * len(workers) + 8:
-                # Drop departed workers' rows (restarts churn ids).
+        if not workers:
+            return {}, 0, {}
+        with self._state_lock:
+            if len(self._bins) > 2 * len(workers) + 8:
                 live = set(workers)
-                self._info = {w: v for w, v in self._info.items()
-                              if w in live}
+                for table in ("_bins", "_wire_ok", "_lat", "_penalized",
+                              "_strikes"):
+                    setattr(self, table,
+                            {w: v for w, v in getattr(self, table).items()
+                             if w in live})
+            # A penalty past its quarantine is dropped with its EWMA: the
+            # replica rejoins the plan on this probe; a still-dead one
+            # strikes again and its next quarantine doubles.
+            now = time.monotonic()
+            for w in [w for w, t in self._penalized.items()
+                      if now - t >= self._quarantine_s(w)]:
+                del self._penalized[w]
+                self._lat.pop(w, None)
+            groups: Dict[str, List[str]] = {}
             for w in workers:
-                if w not in self._info:
-                    info = self.cache.bus.get(
-                        f"w:{self.inference_job_id}:{w}") or {}
-                    self._info[w] = (str(info.get("trial_id") or w),
-                                     WIRE_NDBATCH in (info.get("wire")
-                                                      or ()))
-                groups.setdefault(self._info[w][0], []).append(w)
+                groups.setdefault(self._bin_of(w), []).append(w)
             self._rr += 1
-            picks = [members[self._rr % len(members)]
-                     for _, members in sorted(groups.items())]
-            return [(w, self._info[w][0], self._info[w][1]) for w in picks]
+            return groups, self._rr, dict(self._lat)
+
+    @staticmethod
+    def _rotate_pick(members: List[str], rr: int) -> str:
+        return members[rr % len(members)]
+
+    def _choose_workers(self) -> List[str]:
+        """One worker a trial bin, rotating: asking every replica would
+        weigh its trials twice."""
+        groups, rr, _ = self._group_replicas()
+        return [self._rotate_pick(members, rr)
+                for _, members in sorted(groups.items())]
+
+    def _quarantine_s(self, worker_id: str) -> float:
+        """Caller holds ``_state_lock``. Seconds a penalized replica sits
+        out before its next probe: one gather timeout at the first
+        strike, doubling with each consecutive one, capped."""
+        strikes = self._strikes.get(worker_id, 1)
+        return self.gather_timeout * float(
+            min(1 << max(0, strikes - 1), _QUARANTINE_MAX_MULT))
+
+    def _note_latency(self, worker_id: str, seconds: float) -> None:
+        if seconds < 0:
+            return
+        with self._state_lock:
+            prev = self._lat.get(worker_id)
+            self._lat[worker_id] = (seconds if prev is None else
+                                    _LAT_ALPHA * seconds +
+                                    (1.0 - _LAT_ALPHA) * prev)
+            # A real reply proves the replica alive: its strikes reset.
+            # Its penalty stays until the probe expiry, which drops the
+            # poisoned EWMA with it.
+            self._strikes.pop(worker_id, None)
+        if self._m_replica is not None:
+            self._m_replica.observe(seconds, service=self.service,
+                                    worker=worker_id[:8])
+
+    def _penalize(self, worker_id: str) -> None:
+        """A shard timed out on this replica: inflate its EWMA so the
+        next plans lean on its siblings, and strike it."""
+        with self._state_lock:
+            prev = self._lat.get(worker_id, self.gather_timeout)
+            self._lat[worker_id] = max(prev * 2.0, self.gather_timeout)
+            self._penalized[worker_id] = time.monotonic()
+            self._strikes[worker_id] = \
+                self._strikes.get(worker_id, 0) + 1
+        if self._m_quarantines is not None:
+            self._m_quarantines.inc(service=self.service)
+
+    def _plan_for(self, n: int, groups: Dict[str, List[str]], rr: int,
+                  lat: Dict[str, float]) -> List[_Shard]:
+        """The shard plan. Sharding off, a bin of one replica, or one
+        query: the bin's whole batch to one rotating pick. Otherwise the
+        bin's batch is sliced over all its replicas, sized inversely to
+        their latency EWMAs (even until measured); a replica whose
+        slice rounds to zero is skipped.
+
+        A quarantined replica sits out while its bin has another: the
+        reference leaves it in the rotating pick and in the split, so a
+        single-query batch (or a large one's small slice) still lands
+        on it and waits out the fixed straggler deadline."""
+        with self._state_lock:
+            out = set(self._penalized)
+        plan: List[_Shard] = []
+        for bin_id, members in sorted(groups.items()):
+            members = [w for w in members if w not in out] or members
+            if not self.shard_replicas or len(members) == 1 or n == 1:
+                plan.append(_Shard(self._rotate_pick(members, rr),
+                                   bin_id, 0, n))
+                continue
+            # Rotate, so equal weights spread the larger remainders
+            # over the replicas across batches.
+            k = rr % len(members)
+            order = members[k:] + members[:k]
+            known = [v for w in order
+                     if (v := lat.get(w)) is not None and v > 0]
+            default = sum(known) / len(known) if known else 1.0
+            weights = [1.0 / max(lat.get(w, default), 1e-6) for w in order]
+            total_w = sum(weights)
+            raw = [n * w / total_w for w in weights]
+            sizes = [int(r) for r in raw]
+            for i in sorted(range(len(order)),
+                            key=lambda i: raw[i] - sizes[i],
+                            reverse=True)[:n - sum(sizes)]:
+                sizes[i] += 1
+            start = 0
+            for w, size in zip(order, sizes):
+                if size > 0:
+                    plan.append(_Shard(w, bin_id, start, size))
+                    start += size
+        return plan
+
+    def _partial_wait(self, plan: List[_Shard]) -> float:
+        """Seconds to wait for primary shards before resubmitting the
+        missing ones: ``min(_RESUBMIT_AT x gather_timeout, _STRAGGLER_K
+        x the slowest planned EWMA)`` when every planned replica has
+        one, else the fixed fraction."""
+        fixed = self.gather_timeout * _RESUBMIT_AT
+        with self._state_lock:
+            ewmas = [self._lat.get(s.worker) for s in plan]
+        if any(v is None or v <= 0 for v in ewmas):
+            return fixed
+        return min(fixed, max(_STRAGGLER_K * max(ewmas), _STRAGGLER_MIN))
+
+    def _match_reply(self, reply: Dict[str, Any],
+                     plan: List[_Shard]) -> None:
+        """Attach one gathered reply to its shard: by the echoed shard
+        id, else (a worker that does not echo it) the first unanswered
+        shard sent to that worker."""
+        sid = reply.get("shard")
+        shard = None
+        if sid is not None:
+            shard = next((s for s in plan if s.shard_id == sid), None)
+        if shard is None and sid is None:
+            wid = reply.get("worker_id")
+            shard = next((s for s in plan
+                          if s.worker == wid and s.reply is None), None)
+        recv = reply.pop("_recv_mono", None)
+        if recv is not None and shard is not None:
+            self._note_latency(shard.worker, recv - shard.t_sent)
+        if shard is not None and shard.reply is None:
+            shard.reply = reply
+            if shard.pair is not None:
+                shard.pair.superseded = True
+
+    def predict_submit(self, queries: List[Any], *,
+                       pre_encoded: bool = False,
+                       trace_ctxs: Optional[List[Any]] = None,
+                       ) -> Callable[[], List[Optional[Any]]]:
+        """Scatter a batch now, one bus frame a shard in one
+        ``push_many``; returns the finisher that gathers and ensembles.
+        ``pre_encoded`` says the queries are already bus frames (a
+        request's body). ``trace_ctxs`` are the coalesced requests'
+        trace contexts (the batcher's thread has none of its own)."""
+        n = len(queries)
+        if not n:
+            return lambda: []
+        groups, rr, lat = self._group_replicas()
+        if not groups:
+            raise RuntimeError(f"no running inference workers for job "
+                               f"{self.inference_job_id}")
+        wire = self._build_wire(queries, pre_encoded, groups)
+        plan = self._plan_for(n, groups, rr, lat)
+        batch_id = self._scatter(plan, wire, trace_ctxs)
+
+        def finish() -> List[Optional[Any]]:
+            self._gather_shards(batch_id, plan, groups, wire, trace_ctxs)
+            return self._reassemble(n, plan)
+
+        return finish
+
+    def _build_wire(self, queries: List[Any], pre_encoded: bool,
+                    groups: Dict[str, List[str]]) -> _WirePayload:
+        with self._state_lock:
+            capable = frozenset(w for members in groups.values()
+                                for w in members if self._wire_ok.get(w))
+        return _WirePayload(queries, pre_encoded, capable)
+
+    def _scatter(self, plan: List[_Shard], wire: _WirePayload,
+                 trace_ctxs: Optional[List[Any]]) -> str:
+        now = time.monotonic()
+        for s in plan:
+            s.t_sent = now
+        enc, packed = wire.for_plan(plan)
+        batch_id = self.cache.send_query_shards(
+            [s.wire() for s in plan], enc, trace_ctxs=trace_ctxs,
+            packed=packed, packed_ok=wire.capable)
+        if self._m_shards is not None:
+            self._m_shards.inc(len(plan), service=self.service)
+        return batch_id
+
+    def _gather_shards(self, batch_id: str, plan: List[_Shard],
+                       groups: Dict[str, List[str]], wire: _WirePayload,
+                       trace_ctxs: Optional[List[Any]]) -> None:
+        """Collect replies until every shard is matched or the gather
+        timeout lapses. Shards still missing at the partial deadline
+        that have a live sibling are resubmitted to it once."""
+        t0 = time.monotonic()
+        deadline = t0 + self.gather_timeout
+        can_resubmit = any(len(groups.get(s.bin, ())) > 1 for s in plan)
+        partial = (t0 + self._partial_wait(plan)
+                   if can_resubmit else deadline)
+        resubmitted = False
+
+        def drain(until: float) -> None:
+            # One reply a pop: a bulk pop would wait out the timeout for
+            # a superseded shard's reply that never comes.
+            while True:
+                pending = sum(1 for s in plan
+                              if s.reply is None and not s.superseded)
+                remaining = until - time.monotonic()
+                if not pending or remaining <= 0:
+                    return
+                replies = self.cache.gather_prediction_batches(
+                    batch_id, n_workers=1, timeout=remaining,
+                    reap=False, timestamps=True)
+                if not replies:
+                    return
+                for r in replies:
+                    self._match_reply(r, plan)
+
+        drain(partial)
+        missing = [s for s in plan if s.reply is None]
+        if missing and can_resubmit:
+            retries: List[_Shard] = []
+            now = time.monotonic()
+            for s in missing:
+                self._penalize(s.worker)
+            # The latency snapshot after the penalties; a sibling that
+            # missed the same deadline is never a rescue.
+            with self._state_lock:
+                lat = dict(self._lat)
+            missing_workers = {s.worker for s in missing}
+            for s in missing:
+                siblings = [w for w in groups.get(s.bin, ())
+                            if w != s.worker and w not in missing_workers]
+                if not siblings:
+                    continue
+                pick = min(siblings, key=lambda w: lat.get(w, 1.0))
+                retry = _Shard(pick, s.bin, s.start, s.count)
+                retry.resubmitted = True
+                retry.t_sent = now
+                retry.pair = s
+                s.pair = retry
+                retries.append(retry)
+            if retries:
+                resubmitted = True
+                enc, packed = wire.for_plan(retries)
+                self.cache.send_query_shards(
+                    [s.wire() for s in retries], enc, batch_id=batch_id,
+                    trace_ctxs=trace_ctxs, packed=packed,
+                    packed_ok=wire.capable)
+                plan.extend(retries)
+                if self._m_resubmits is not None:
+                    self._m_resubmits.inc(len(retries),
+                                          service=self.service)
+                _log.warning(
+                    "batch %s: %d shard(s) missing at partial deadline;"
+                    " resubmitted to sibling replicas", batch_id,
+                    len(retries))
+        drain(deadline)
+        unmatched = [s for s in plan
+                     if s.reply is None and not s.superseded]
+        if unmatched:
+            for s in unmatched:
+                if not s.resubmitted:
+                    self._penalize(s.worker)
+            _log.warning("batch %s: %d/%d shards replied", batch_id,
+                         len(plan) - len(unmatched), len(plan))
+        # A straggler, or the slower of a resubmitted pair, may still
+        # reply: the deferred sweep reaps the queue it recreates.
+        self.cache.reap_reply_queue(
+            batch_id, defer=bool(unmatched or resubmitted))
+
+    def _collect_rows(self, n: int, plan: List[_Shard],
+                      ) -> Tuple[Dict[str, List[Any]], Dict[str, int]]:
+        """Matched replies as per-bin rows in request order (``_HOLE``
+        where a shard never replied), and each bin's weight."""
+        rows: Dict[str, List[Any]] = {}
+        bin_weight: Dict[str, int] = {}
+        for s in plan:
+            if s.reply is None:
+                continue
+            row = rows.get(s.bin)
+            if row is None:
+                row = rows[s.bin] = [_HOLE] * n
+            preds = s.reply.get("predictions") or []
+            for j in range(min(s.count, len(preds))):
+                if row[s.start + j] is _HOLE:
+                    row[s.start + j] = preds[j]
+            bin_weight[s.bin] = max(bin_weight.get(s.bin, 1),
+                                    int(s.reply.get("weight", 1)))
+        return rows, bin_weight
+
+    def _reassemble(self, n: int, plan: List[_Shard],
+                    ) -> List[Optional[Any]]:
+        """Ensemble across bins, query by query. A query whose bin shard
+        never replied loses that bin's vote; one with no vote is None."""
+        rows, bin_weight = self._collect_rows(n, plan)
+        results: List[Optional[Any]] = []
+        ordered = sorted(rows.items())
+        for i in range(n):
+            votes = [(row[i], bin_weight[b]) for b, row in ordered
+                     if row[i] is not _HOLE]
+            results.append(ensemble_predictions(
+                [v for v, _ in votes], weights=[w for _, w in votes]))
+        return results
 
     def predict(self, queries: List[Any], *,
                 pre_encoded: bool = False) -> List[Optional[Any]]:
-        """Scatter, gather and ensemble a batch of queries.
-        ``pre_encoded`` says the queries are already bus frames (a
-        request's body), so nothing is decoded and encoded again."""
-        n = len(queries)
-        if not n:
-            return []
-        plan = self._choose_workers()
-        if not plan:
-            raise RuntimeError(f"no running inference workers for job "
-                               f"{self.inference_job_id}")
-        packed_ok = {w for w, _, ok in plan if ok}
-        packed = None
-        if packed_ok:
-            packed = (PackedBatch.from_encoded(queries) if pre_encoded
-                      else PackedBatch.from_arrays(queries))
-        encoded = None
-        if packed is None or len(packed_ok) < len(plan):
-            encoded = (queries if pre_encoded
-                       else [encode_payload(q) for q in queries])
-        shards = {uuid.uuid4().hex[:12]: (w, b) for w, b, _ in plan}
-        batch_id = self.cache.send_query_shards(
-            [(w, 0, n, sid) for sid, (w, _) in shards.items()], encoded,
-            packed=packed, packed_ok=packed_ok)
-        replies = self.cache.gather_prediction_batches(
-            batch_id, n_workers=len(plan), timeout=self.gather_timeout)
-        rows: Dict[str, Tuple[List[Any], int]] = {}
-        for r in replies:
-            match = shards.get(r.get("shard"))
-            if match is not None and match[1] not in rows:
-                rows[match[1]] = (r.get("predictions") or [],
-                                  int(r.get("weight", 1)))
-        ordered = sorted(rows.items())
-        out = []
-        for i in range(n):
-            votes = [(preds[i], w) for _, (preds, w) in ordered
-                     if i < len(preds)]
-            out.append(ensemble_predictions([v for v, _ in votes],
-                                            weights=[w for _, w in votes]))
-        return out
+        """Scatter, gather and ensemble a batch (blocking)."""
+        return self.predict_submit(queries, pre_encoded=pre_encoded)()

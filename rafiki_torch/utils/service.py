@@ -1,11 +1,23 @@
 """JSON-over-HTTP service plumbing on the stdlib ``http.server``.
 
-The port's copy of ``rafiki_tpu/utils/service.py`` without its metrics,
-trace and fault hooks: a route table whose paths may hold ``<param>``
-captures, GET, POST and DELETE, the query string, JSON bodies in and
-out, replies streamed with chunked transfer encoding, a cap on the body
-size, graceful start and stop. The admin REST service and the
-predictor are built on it.
+The port's copy of ``rafiki_tpu/utils/service.py`` without its fault
+hook: a route table whose paths may hold ``<param>`` captures, GET, POST
+and DELETE, the query string, JSON bodies in and out, replies streamed
+with chunked transfer encoding, a cap on the body size, graceful start
+and stop. The admin REST service and the predictor are built on it.
+
+Every server observes itself, as the reference's does:
+
+- ``GET /metrics`` (``metrics_route``: Prometheus text of the process
+  registry) joins the route table unless the service has its own or
+  ``RAFIKI_TPU_METRICS=0``;
+- each request is timed into ``rafiki_tpu_http_request_seconds`` and
+  counted in ``rafiki_tpu_http_requests_total``, labelled by the
+  server's name and the route's pattern (and the status);
+- the trace edge: an ``X-Trace-Id`` header is honoured (else a sampled
+  trace is minted), bound to the handler's thread
+  (``observe.trace.current()``), recorded as the ``http <METHOD>
+  <route>`` span and echoed in the reply's ``X-Trace-Id`` header.
 
 A handler is ``handler(params, body, ctx) -> (status, obj)`` or
 ``(status, obj, headers)``: ``params`` holds the path's captures,
@@ -25,9 +37,12 @@ import json
 import logging
 import re
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
+
+from ..observe import metrics, trace
 
 _log = logging.getLogger(__name__)
 
@@ -61,6 +76,15 @@ class HttpError(Exception):
         self.headers = headers
 
 
+class RawResponse:
+    """A handler return value sent as it is (Prometheus text), not as
+    JSON."""
+
+    def __init__(self, content_type: str, data):
+        self.content_type = content_type
+        self.data = data.encode() if isinstance(data, str) else data
+
+
 class StreamResponse:
     """A handler return value streamed as chunked transfer encoding.
 
@@ -81,6 +105,27 @@ def _compile(path: str) -> re.Pattern:
     # "/train_jobs/<job_id>/stop" -> ^/train_jobs/(?P<job_id>[^/]+)/stop$
     return re.compile("^" + re.sub(r"<(\w+)>", r"(?P<\1>[^/]+)", path)
                       + "$")
+
+
+class _Server(ThreadingHTTPServer):
+    # The listen backlog: the standard library's 5 resets the
+    # connections of a burst of clients before the front can answer
+    # them, 429 included.
+    request_queue_size = 128
+
+
+def metrics_route(params, body, ctx):
+    """The shared ``GET /metrics`` handler: the process registry in
+    Prometheus text format 0.0.4. Exemplars are added only on an
+    explicit ``?exemplars=1`` (and with ``RAFIKI_TPU_METRICS_EXEMPLARS``
+    on), never on a default scrape."""
+    if metrics.exemplars_enabled() and \
+            ctx.query_one("exemplars") in ("1", "true"):
+        return 200, RawResponse(
+            "text/plain; version=0.0.4; charset=utf-8",
+            metrics.registry().expose(exemplars=True))
+    return 200, RawResponse("text/plain; version=0.0.4; charset=utf-8",
+                            metrics.registry().expose())
 
 
 def _full_handler(handler: Handler) -> Handler:
@@ -104,10 +149,24 @@ class JsonHttpServer:
     def __init__(self, routes: List[Tuple[str, str, Handler]],
                  host: str = "127.0.0.1", port: int = 0,
                  name: str = "http", max_body: int = 64 << 20):
+        routes = list(routes)
         self.name = name
         self.max_body = max_body
-        self._routes = [(method.upper(), _compile(path), _full_handler(h))
-                        for method, path, h in routes]
+        self._observe = metrics.metrics_enabled()
+        if self._observe and not any(p == "/metrics" for _, p, _ in routes):
+            routes.append(("GET", "/metrics", metrics_route))
+        # The route's pattern, not the path, labels the series: a path
+        # carries ids.
+        self._routes = [(method.upper(), path, _compile(path),
+                         _full_handler(h)) for method, path, h in routes]
+        if self._observe:
+            reg = metrics.registry()
+            self._http_hist = reg.histogram(
+                "rafiki_tpu_http_request_seconds",
+                "Request handling latency per service + route pattern")
+            self._http_count = reg.counter(
+                "rafiki_tpu_http_requests_total",
+                "Requests served per service + route pattern + status")
         outer = self
 
         class _Handler(BaseHTTPRequestHandler):
@@ -134,15 +193,23 @@ class JsonHttpServer:
                         self._reply(400, {"error": "invalid JSON body"})
                         return
                 ctx = RequestContext(self.headers, parse_qs(parsed.query))
-                for m, pattern, handler in outer._routes:
+                for m, route, pattern, handler in outer._routes:
                     if m != method:
                         continue
                     match = pattern.match(parsed.path)
                     if match is None:
                         continue
+                    # The trace edge: honour an incoming X-Trace-Id or
+                    # mint a sampled trace, bound for the handler so
+                    # the batcher and the scatter carry it on.
+                    tctx = trace.start_trace(
+                        self.headers.get(trace.TRACE_HEADER))
+                    wall = time.time()
+                    t0 = time.monotonic()
                     headers = None
                     try:
-                        result = handler(match.groupdict(), body, ctx)
+                        with trace.use(tctx):
+                            result = handler(match.groupdict(), body, ctx)
                         if len(result) == 3:
                             status, obj, headers = result
                         else:
@@ -159,8 +226,27 @@ class JsonHttpServer:
                         _log.exception("%s %s failed", method, parsed.path)
                         status, obj = 500, {
                             "error": f"{type(e).__name__}: {e}"}
+                    dur = time.monotonic() - t0
+                    if tctx is not None:
+                        trace.record_event(
+                            f"http {method} {route}", name, [tctx], wall,
+                            dur, attrs={"status": status}, child=False)
+                        headers = dict(headers or {})
+                        headers.setdefault(trace.TRACE_HEADER,
+                                           tctx.header_value())
+                    if outer._observe:
+                        # Observed inside the request's context, so a
+                        # bucket's exemplar names its trace.
+                        with trace.use(tctx):
+                            outer._http_hist.observe(dur, service=name,
+                                                     route=route)
+                        outer._http_count.inc(service=name, route=route,
+                                              code=str(status))
                     self._reply(status, obj, headers)
                     return
+                if outer._observe:
+                    outer._http_count.inc(service=name, route="(none)",
+                                          code="404")
                 self._reply(404, {"error": f"no route {method} "
                                            f"{parsed.path}"})
 
@@ -169,9 +255,12 @@ class JsonHttpServer:
                 if isinstance(obj, StreamResponse):
                     self._reply_stream(status, obj, headers)
                     return
-                data = json.dumps(obj).encode()
+                if isinstance(obj, RawResponse):
+                    data, ctype = obj.data, obj.content_type
+                else:
+                    data, ctype = json.dumps(obj).encode(), "application/json"
                 self.send_response(status)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(data)))
                 for k, v in (headers or {}).items():
                     self.send_header(k, str(v))
@@ -218,7 +307,7 @@ class JsonHttpServer:
             def do_DELETE(self):
                 self._dispatch("DELETE")
 
-        self._server = ThreadingHTTPServer((host, port), _Handler)
+        self._server = _Server((host, port), _Handler)
         self._server.daemon_threads = True
         self.host, self.port = self._server.server_address[:2]
         self._thread: Optional[threading.Thread] = None
@@ -235,7 +324,10 @@ class JsonHttpServer:
         return self._thread is not None and self._thread.is_alive()
 
     def stop(self) -> None:
-        self._server.shutdown()
+        # shutdown() waits for serve_forever, so only a started server
+        # may be asked; either way the socket closes.
+        if self._thread is not None:
+            self._server.shutdown()
         self._server.server_close()
         if self._thread is not None:
             self._thread.join(timeout=10.0)

@@ -35,12 +35,14 @@ Two workers share this module:
 
 A ``predict`` that raises answers each of its queries with
 ``{"error": "<Type>: <msg>"}``, as the reference's worker does, so one
-failing worker does not fail the request.
+failing worker does not fail the request. A burst whose frames carry
+trace envelopes records one ``worker.predict`` span under each trace
+(``observe.trace``), before its replies go out.
 
 Not ported yet: the pipelined burst path, the promote route
 (``/promote``, ``send_restack``: ``_PackedEnsemble.replace_member`` is
 ported, the route waits for the admin's), profiling markers, the bus
-reconnect loop and the metrics and trace hooks.
+reconnect loop and the worker's metrics series.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ import logging
 import os
 import queue
 import threading
+import time
 import uuid
 from concurrent.futures import Future
 from typing import Any, Dict, List, Optional, Tuple, Type
@@ -61,6 +64,7 @@ from ..bus import BaseBus
 from ..cache import DRAIN_KEY, WIRE_NDBATCH, Cache, TokenFrames
 from ..constants import ServiceStatus
 from ..model.base import BaseModel, Params
+from ..observe import trace
 from ..observe.wire import quant_mode, stacked_mode
 from ..parallel.chips import ChipGroup
 from ..store import MetaStore, ParamStore
@@ -629,6 +633,8 @@ class BusInferenceWorker:
         the staging buffer of its bucket and served from there
         (``predict_staged_submit``); any other burst goes through
         ``predict`` query by query."""
+        trace_ctxs = trace.extract_frames(items)
+        wall, t0 = time.time(), time.monotonic()
         good = []
         for it in items:
             if "batch" in it and it["batch"] is None:
@@ -655,6 +661,12 @@ class BusInferenceWorker:
             except Exception as e:
                 _log.exception("predict failed for %d queries", len(flat))
                 preds = [{"error": f"{type(e).__name__}: {e}"}] * len(flat)
+        if trace_ctxs:
+            trace.record_event(
+                "worker.predict", self.service_id, trace_ctxs, wall,
+                time.monotonic() - t0,
+                attrs={"n_queries": len(preds),
+                       "trial_id": str(self.trial_id)})
         weight = int(getattr(self.model, "last_weight", 1))
         for it, start, count in spans:
             self.cache.send_prediction_batch(

@@ -71,7 +71,11 @@ def test_importing_the_port_loads_no_jax():
                 "rafiki_torch.models.cnn", "rafiki_torch.models.transformer",
                 "rafiki_torch.models.pos_tagger",
                 "rafiki_torch.models.tabular", "rafiki_torch.model.dataset",
-                "rafiki_torch.model.bridge"):
+                "rafiki_torch.model.bridge", "rafiki_torch.config",
+                "rafiki_torch.observe.metrics", "rafiki_torch.observe.serving",
+                "rafiki_torch.observe.trace", "rafiki_torch.predictor.batcher",
+                "rafiki_torch.predictor.predictor",
+                "rafiki_torch.utils.service"):
         assert mod in mods, mod
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"

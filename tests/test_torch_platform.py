@@ -229,12 +229,10 @@ def test_unported_routes_answer_404(both):
                          ("GET", "/nodes"), ("GET", "/slo"),
                          ("GET", "/alerts"), ("GET", "/capacity"),
                          ("GET", "/trial_phases"), ("GET", "/datasets"),
-                         ("POST", "/datasets"), ("GET", "/trace/abc"),
+                         ("POST", "/datasets"),
                          ("GET", "/services/abc/logs"),
-                         ("GET", "/inference_jobs/abc/stats"),
                          ("POST", "/inference_jobs/abc/promote"),
-                         ("POST", "/inference_jobs/abc/profile"),
-                         ("GET", "/metrics")):
+                         ("POST", "/inference_jobs/abc/profile")):
         req = urllib.request.Request(
             f"http://127.0.0.1:{port.admin_port}{path}", method=method,
             headers={"Authorization": f"Bearer {root._token}"})

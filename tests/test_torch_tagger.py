@@ -202,7 +202,7 @@ def test_parameter_files_interchange():
                                         ("pipeline_parallel", 2),
                                         ("moe_experts", 4)])
 def test_the_parallel_knobs_raise(knob, value):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         TorchTransformerTagger(device="cpu", **{knob: value})
 
 
