@@ -193,7 +193,9 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    block's launch of one stacked forward of 512 images held against
    ``flash_attention_reference``) and the trained CNN, val accuracy
    within 0.02 of f32, max |Δp|, ``int8_conv`` equal to the exact
-   convolution at buckets 1-512 for every convolution served; (d)
+   convolution at buckets 1-512 for every convolution served, and K1's
+   f32 variant at that shape timed as a CUDA graph beside
+   ``scaled_dot_product_attention`` in f32 and its f32 bound; (d)
    ``TorchCnn`` at 16/16 one epoch at lr 1e-3 (steps/s, ``chip_util``,
    val accuracy at least 0.95, card vs CPU logits, no K1-K3); (e) the
    transformer tagger at full width (d_model 256, 4 heads of 64, 6
@@ -205,13 +207,41 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    ``TorchTabMlpClf``, ``TorchTabMlpReg`` and ``TorchPosTagger`` one
    trial each through ``test_model_class`` on the card, served through
    ``POST /predict``, no K1-K3 launch;
-13. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
+13. lifecycle phase, the serving lifecycle on zoo2 (b)'s 4 ViT trials
+   (nothing retrained): written as COMPLETED trials into a
+   ``LocalPlatform``'s stores (CUDA, admin REST service), with the edge
+   cache, confidence tiering (threshold: the median softmax margin of
+   the best trial's own rows averaged with those of the trial that
+   shares its bin in (d)), attribution, workload records and a
+   client header on, the 2 best deployed through the admin service as
+   one worker serving a stacked 2-member bin; (a) 64 distinct images
+   three times each: the third round from the cache (``/stats`` hits),
+   byte for byte the second's, no burst; 16 concurrent copies of one new
+   image in one burst (the leader held in the worker until they wait);
+   (b) ``POST /inference_jobs/<id>/promote`` replacing the bin's weaker
+   member with the third trial while 8 clients send: all 200, no new
+   service, no K1 launch or capture during the restack, a repeat misses,
+   answers the restacked rows' mean within 1e-6, the new member's rows
+   its own ``TorchViT``'s within 3.9e-3; (c) the fourth trial promoted
+   additively under ``RAFIKI_TPU_SERVING_PIPELINE=1``: a second worker,
+   time-sliced on the card, pipelined, its runner builds on wgmma, its
+   answers its trial's own rows bit for bit, beside the first worker's
+   auto decision and measured sync round trip; (d) 256 single images
+   from 8 clients over the two bins: each answer the best bin's vote or
+   both bins' weighted mean within 1e-6, both tier outcomes and saved
+   chip-seconds; (e) one workload record a request, the tenants'
+   admitted requests and device seconds; (f) the pipelined worker
+   drained under load: every request answered, the worker STOPPED. The
+   phase must take at most 90 s;
+14. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
    ``library_covers`` names the kernels whose work one library call does,
-   ``platform_launches``, ``zoo_launches``, ``ensemble_launches`` and
-   ``zoo2_launches`` the platform, zoo, ensemble and zoo2 phases'
-   launches (the platform's and zoo2's counted in ``launches`` too) and
-   ``zoo2_shapes`` each kernel's numbers at the ViT and tagger shapes,
-   and, last, the ``{"ok": true, "device": ...}`` line.
+   ``platform_launches``, ``zoo_launches``, ``ensemble_launches``,
+   ``zoo2_launches`` and ``lifecycle_launches`` the platform, zoo,
+   ensemble, zoo2 and lifecycle phases' launches (the platform's, zoo2's
+   and lifecycle's counted in ``launches`` too), ``zoo2_shapes`` each
+   kernel's numbers at the ViT and tagger shapes and ``zoo2_f32`` K1's
+   f32 variant at the int8 ViT shape, and, last, the ``{"ok": true,
+   "device": ...}`` line.
 
 Any failed check exits non-zero without the last line.
 """
@@ -224,6 +254,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import urllib.error
@@ -499,6 +530,25 @@ ZOO2_TAB_KNOBS = {"hidden": 128, "depth": 2, "learning_rate": 1e-3,
 ZOO2_POS_KNOBS = {"embed_dim": 64, "hidden": 64, "learning_rate": 1e-2,
                   "batch_size": 64, "max_epochs": 3, "max_len": 64,
                   "vocab_size": 16384, "seed": 0}
+# The lifecycle phase: zoo2 (b)'s 4 one-epoch ViT trials (d_model 128, 4
+# heads of 32, patch 4, 65 tokens, 6 blocks) behind a LocalPlatform on
+# the card, with the edge cache, confidence tiering, attribution and
+# workload records on. (a) 64 distinct images three times each and 16
+# concurrent copies of one new image; (b) the surgical promote under 8
+# clients; (d) 256 single images from 8 clients. The tier threshold is
+# the median softmax margin of the best trial's own rows over 256 val
+# images (averaged with the trial that shares its bin in (d)), so both
+# tier outcomes occur. A shard a drain strands costs one
+# gather timeout, cut to 5 s for the phase.
+LIFE_CACHE_BYTES = 64 << 20
+LIFE_IMAGES = 64
+LIFE_COALESCE = 16
+LIFE_CLIENTS = 8
+LIFE_TIER = 256
+LIFE_HEADER = "X-Client"
+LIFE_BUCKETS = (1, 2, 4, 8)
+LIFE_GATHER_TIMEOUT = 5.0
+LIFE_MAX_S = 90.0
 # K1's o at the zoo's shapes against its plain version, bf16: each p is
 # rounded to bf16 before p·v, and where the kernel's exp and the plain
 # version's round one p to neighbouring bf16 values the row moves by up
@@ -3209,43 +3259,70 @@ def front_phase(torch, np, card, dep, worker, trial_ids, imgs):
     want = stacked_rows(np, ens.stacked, imgs[:FRONT_BATCH]).astype(
         np.float64).mean(0)
 
+    # The worker holds its queue while a burst fills the front, and the
+    # Client posts once a raw client has met a 429: its first request
+    # meets a full queue whatever the host's timing, and its 429
+    # releases the worker before its retry.
+    held = threading.Event()
+    pop = worker.cache.pop_queries
+
+    def holding(worker_id, max_items=0, timeout=1.0):
+        if held.is_set():
+            time.sleep(0.01)
+            return []
+        return pop(worker_id, max_items=max_items, timeout=timeout)
+
     class Counting(Client):
         statuses = []
 
         def _send(self, *a, **kw):
             status, payload, hdrs = super()._send(*a, **kw)
             Counting.statuses.append(status)
+            if status == 429:
+                held.clear()
             return status, payload, hdrs
 
     codes, answers, worst = [], [], 0.0
-    for attempt in range(3):
-        barrier = threading.Barrier(FRONT_BURST + 1)
-        got = []
+    worker.cache.pop_queries = holding
+    try:
+        for attempt in range(3):
+            barrier = threading.Barrier(FRONT_BURST + 1)
+            got = []
+            held.set()
 
-        def raw():
-            barrier.wait()
-            got.append(post_raw(f"http://{host}/predict", body))
+            def raw():
+                barrier.wait()
+                got.append(post_raw(f"http://{host}/predict", body))
 
-        def counted():
-            barrier.wait()
-            answers.append(Counting(retries=3).predict(
-                host, queries=batch)["predictions"])
+            def counted():
+                barrier.wait()
+                t_wait = time.monotonic() + 60
+                while (held.is_set() and time.monotonic() < t_wait
+                       and not any(c == 429 for c, _, _ in list(got))):
+                    time.sleep(0.005)
+                answers.append(Counting(retries=3).predict(
+                    host, queries=batch)["predictions"])
 
-        threads = [threading.Thread(target=raw) for _ in range(FRONT_BURST)]
-        threads.append(threading.Thread(target=counted))
-        t0 = time.perf_counter()
-        [t.start() for t in threads]
-        [t.join(timeout=300) for t in threads]
-        burst_s = time.perf_counter() - t0
-        codes.extend(got)
-        check(len(got) == FRONT_BURST and answers,
-              "a burst's client did not return")
-        for status, _, payload in got:
-            if status == 200:
-                worst = max(worst, float(np.abs(np.asarray(
-                    payload["predictions"]) - want).max()))
-        if 429 in Counting.statuses:
-            break
+            threads = [threading.Thread(target=raw)
+                       for _ in range(FRONT_BURST)]
+            threads.append(threading.Thread(target=counted))
+            t0 = time.perf_counter()
+            [t.start() for t in threads]
+            [t.join(timeout=300) for t in threads]
+            burst_s = time.perf_counter() - t0
+            held.clear()
+            codes.extend(got)
+            check(len(got) == FRONT_BURST and answers,
+                  "a burst's client did not return")
+            for status, _, payload in got:
+                if status == 200:
+                    worst = max(worst, float(np.abs(np.asarray(
+                        payload["predictions"]) - want).max()))
+            if 429 in Counting.statuses:
+                break
+    finally:
+        held.clear()
+        worker.cache.pop_queries = pop
     statuses = [c for c, _, _ in codes]
     n429 = statuses.count(429) + Counting.statuses.count(429)
     snap = stats_of(host)
@@ -3775,7 +3852,31 @@ def zoo2_f32_k1(torch, attn, group, imgs):
               f"f32 K1 lse at block {i}: max |diff| {float(el.max()):.3e}")
         err_o, err_l = max(err_o, float(eo.max())), max(err_l,
                                                         float(el.max()))
-    return list(calls[0][0].shape), err_o, err_l
+    return list(calls[0][0].shape), err_o, err_l, zoo2_f32_times(
+        torch, attn, *calls[0][:4])
+
+
+def zoo2_f32_times(torch, attn, q, k, v, mask):
+    """K1's f32 variant on one block's q, k, v as a CUDA graph, in turns
+    with ``scaled_dot_product_attention`` in f32 (kernel, library,
+    library, kernel), beside its plain version and its bound at 4 bytes
+    an element and the f32 peak."""
+    import torch.nn.functional as F
+
+    b, h, t, d = q.shape
+    bias = None if mask is None else mask[:, None, None, :]
+    fns = {"K1": lambda: attn.flash_attention(q, k, v, kv_mask=mask),
+           "lib": lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=bias)}
+    runs = {key: [] for key in fns}
+    for key in ("K1", "lib", "lib", "K1"):
+        runs[key].append(graph_ms(torch, fns[key], 20))
+    plain = time_ms(torch, lambda: attn.flash_attention_reference(
+        q, k, v, kv_mask=mask), 3)
+    bound_ms, bound_by = attention_bound(b, h, t, t, d, False, 4)
+    return {"ms": sum(runs["K1"]) / 2, "library_ms": sum(runs["lib"]) / 2,
+            "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": [b, h, t, t, d]}
 
 
 def logged(fn, *args, **kw):
@@ -4030,6 +4131,14 @@ def zoo2_phase(torch, np, attn, card):
         # Served, not trained: max_epochs takes the knob space's least.
         members = [(dict(t["knobs"], max_epochs=3), params.load(
             t["params_id"])) for t in top]
+        # The lifecycle phase serves all of the search's trials, best
+        # first, on the same val images.
+        out["lifecycle"] = {
+            "trials": [(dict(t["knobs"], max_epochs=3),
+                        params.load(t["params_id"]), float(t["score"]))
+                       for t in meta.get_best_trials_of_train_job(
+                           job["id"], max_count=ZOO2_VIT_TRIALS)],
+            "val": (imgs, labels)}
         params.close()
         meta.close()
         dep = EnsembleDeploy(os.path.join(tmp, "deploy"))
@@ -4154,7 +4263,7 @@ def zoo2_phase(torch, np, attn, card):
             f32_k1 = attn.flash_attention.variant_launches["f32"] - f32_0
             check(f32_k1 > 0, "the int8 ViT path launched no f32 K1")
             with uncounted(attn):
-                f32_shape, f32_do, f32_dlse = zoo2_f32_k1(
+                f32_shape, f32_do, f32_dlse, f32_t = zoo2_f32_k1(
                     torch, attn, g8, imgs[:512])
             r32 = in_bursts(np, lambda x: stacked_rows(np, st, x), imgs, 512)
             acc32 = (r32.argmax(-1) == labels).mean(axis=1)
@@ -4199,7 +4308,14 @@ def zoo2_phase(torch, np, attn, card):
                   f"{f32_shape[2]},{f32_shape[3]}) against "
                   f"flash_attention_reference, all {MAX_DEPTH} blocks: max "
                   f"|do| {f32_do:.3e} (tolerance {TOL_O['float32']}), max "
-                  f"|dlse| {f32_dlse:.3e} (tolerance {TOL_LSE}); a request "
+                  f"|dlse| {f32_dlse:.3e} (tolerance {TOL_LSE}); as a CUDA "
+                  f"graph {f32_t['ms']:.4f} ms (in turns with "
+                  f"scaled_dot_product_attention in f32 "
+                  f"{f32_t['library_ms']:.4f} ms; plain "
+                  f"{f32_t['plain_ms']:.4f} ms; bound "
+                  f"{f32_t['bound_ms']:.4f} ms {f32_t['bound_by']} at 4 "
+                  f"bytes an element and {PEAK_F32_FLOPS:.3g} FLOP/s); a "
+                  f"request "
                   f"served = the stacked mean, max "
                   f"|diff| {err8:.3e}. The CNN int8 over {vds.size} val "
                   f"images: max |dp| {float(np.abs(c8 - c32).max()):.4e}, "
@@ -4215,7 +4331,7 @@ def zoo2_phase(torch, np, attn, card):
                            "cnn_dp": float(np.abs(c8 - c32).max()),
                            "k1_f32_launches": f32_k1,
                            "k1_f32_shape": f32_shape, "k1_f32_do": f32_do,
-                           "k1_f32_dlse": f32_dlse}
+                           "k1_f32_dlse": f32_dlse, "k1_f32": f32_t}
             cnn.destroy()
         finally:
             dep.close()
@@ -4453,6 +4569,557 @@ def zoo2_tagger(torch, np, attn, card, tmp):
             corpus)
 
 
+class LifeFront:
+    """Single-query ``POST /predict`` calls to one predictor, with or
+    without the client header, each noted (status, with a header or
+    not) for the workload and tenant checks."""
+
+    def __init__(self, host):
+        self.host = host
+        self.lock = threading.Lock()
+        self.statuses = []
+        self.with_header = 0
+
+    def ask(self, queries, tenant=None, single=True):
+        """``(status, raw body, predictions, seconds)``."""
+        from rafiki_torch.cache import encode_payload
+
+        body = ({"query": encode_payload(queries)} if single else
+                {"queries": [encode_payload(q) for q in queries]})
+        headers = {"Content-Type": "application/json"}
+        if tenant:
+            headers[LIFE_HEADER] = tenant
+        req = urllib.request.Request(f"http://{self.host}/predict",
+                                     data=json.dumps(body).encode(),
+                                     headers=headers, method="POST")
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                status, raw = r.status, r.read()
+        except urllib.error.HTTPError as e:
+            status, raw = e.code, e.read()
+        dt = time.perf_counter() - t0
+        with self.lock:
+            self.statuses.append(status)
+            self.with_header += bool(tenant)
+        out = json.loads(raw) if status == 200 else {}
+        return status, raw, out.get("prediction", out.get("predictions")), dt
+
+
+def life_load(np, front, imgs, tenants, stop):
+    """``len(tenants)`` clients sending single images from ``imgs`` until
+    ``stop`` is set; returns the executor and its futures (statuses)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def loop(i):
+        rng = np.random.default_rng(SEED + i)
+        got = []
+        while not stop.is_set():
+            got.append(front.ask(imgs[int(rng.integers(len(imgs)))],
+                                 tenants[i])[0])
+        return got
+
+    pool = ThreadPoolExecutor(len(tenants))
+    return pool, [pool.submit(loop, i) for i in range(len(tenants))]
+
+
+def wait_for(cond, secs, msg):
+    deadline = time.monotonic() + secs
+    while not cond():
+        check(time.monotonic() < deadline, msg)
+        time.sleep(0.02)
+
+
+def series(metrics, name, key, **match):
+    """``{label value: sample}`` of one family, filtered by labels."""
+    fam = metrics.registry().find(name)
+    out = {}
+    for labels, v in (fam.samples() if fam is not None else ()):
+        if all(labels.get(k) == w for k, w in match.items()):
+            out[labels[key]] = out.get(labels[key], 0.0) + v
+    return out
+
+
+def lifecycle_phase(torch, np, attn, card, zoo2):
+    """The serving lifecycle on the card, driven through the admin REST
+    service and the predictor: zoo2 (b)'s 4 ViT trials written into a
+    ``LocalPlatform``'s stores, the 2 best deployed (one worker, a
+    stacked 2-member bin), then (a) the edge cache, (b) a surgical
+    promote under load, (c) an additive promote with a pipelined
+    worker, (d) tiering over the two bins, (e) the workload records and
+    tenant series, (f) a drain under load. Returns the phase's numbers
+    and K1-K3 launches."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rafiki_torch.cache import Cache, PackedBatch
+    from rafiki_torch.client import Client
+    from rafiki_torch.constants import ServiceStatus, ServiceType, TaskType
+    from rafiki_torch.models import TorchViT
+    from rafiki_torch.observe import attribution, metrics, workload
+    from rafiki_torch.platform import LocalPlatform
+    from rafiki_torch.worker.inference import prediction_confidence
+
+    t_phase = time.perf_counter()
+    reset_launch_counts(attn)
+    trials = zoo2["lifecycle"]["trials"]
+    imgs = zoo2["lifecycle"]["val"][0]
+    check(len(trials) == ZOO2_VIT_TRIALS, f"{len(trials)} ViT trials")
+    out = {}
+
+    def own(knobs, p):
+        m = TorchViT(device="cuda", **TorchViT.validate_knobs(knobs))
+        m.load_parameters(p)
+        return m
+
+    env = {"RAFIKI_TPU_SERVING_CACHE_BYTES": str(LIFE_CACHE_BYTES),
+           "RAFIKI_TPU_SERVING_ATTRIBUTION": "1",
+           "RAFIKI_TPU_WORKLOAD_RECORD": "1",
+           "RAFIKI_TPU_SERVING_CLIENT_HEADER": LIFE_HEADER}
+    saved = {k: os.environ.get(k)
+             for k in list(env) + ["RAFIKI_TPU_SERVING_PIPELINE",
+                                   "RAFIKI_TPU_SERVING_TIER_THRESHOLD"]}
+    os.environ.update(env)
+    os.environ.pop("RAFIKI_TPU_SERVING_PIPELINE", None)
+    # The ledger and the recorder read their switches once a process.
+    attribution.reset_for_tests()
+    workload.reset_for_tests()
+    plat = LocalPlatform(http=True, supervise_interval=0)
+    tenants = [f"client-{i}" for i in range(LIFE_CLIENTS)]
+    try:
+        root = plat.meta.get_user_by_email("superadmin@rafiki")
+        model = plat.admin.create_model(root["id"], "vit-life",
+                                        TaskType.IMAGE_CLASSIFICATION,
+                                        "rafiki_torch.models.vit:TorchViT")
+        job = plat.meta.create_train_job(root["id"], "vit-life",
+                                         TaskType.IMAGE_CLASSIFICATION, {},
+                                         "-", "-", "STOPPED")
+        sub = plat.meta.create_sub_train_job(job["id"], model["id"],
+                                             "STOPPED")
+        tids = []
+        for i, (knobs, p, score) in enumerate(trials):
+            t = plat.meta.create_trial(sub["id"], model["id"], i + 1,
+                                       "RUNNING", knobs=knobs)
+            plat.meta.mark_trial_completed(
+                t["id"], score, plat.params.save(p, session_id="life"))
+            tids.append(t["id"])
+        order = [t["id"] for t in plat.meta.get_best_trials_of_train_job(
+            job["id"], max_count=len(tids))]
+        # The tier threshold, before the deploy reads it: the median
+        # softmax margin of the best trial's rows over (d)'s images,
+        # averaged with the trial that will share its bin then (the
+        # third best, after the surgical promote), since the best bin
+        # answers with their mean.
+        d_imgs = imgs[256:256 + LIFE_TIER]
+        with uncounted(attn):
+            pair = [own(*trials[tids.index(t)][:2])
+                    for t in (order[0], order[2])]
+            rows0 = np.mean([in_bursts(np, lambda x, m=m: member_rows(
+                np, m, x), d_imgs, 64).astype(np.float64)
+                for m in pair], axis=0)
+            for m in pair:
+                m.destroy()
+        threshold = float(np.median([prediction_confidence(r)
+                                     for r in rows0]))
+        os.environ["RAFIKI_TPU_SERVING_TIER_THRESHOLD"] = repr(threshold)
+        client = Client(admin_port=plat.admin_port)
+        client.login("superadmin@rafiki", "rafiki")
+        t0 = time.perf_counter()
+        inf = client.create_inference_job(job["id"], max_models=2)
+        cache = Cache(plat.bus)
+        wait_for(lambda: len(cache.running_workers(inf["id"])) == 1, 300,
+                 "the stacked ViT worker did not register")
+        deploy_s = time.perf_counter() - t0
+        (sid1, reg1), = cache.running_worker_info(inf["id"]).items()
+        members = reg1["trial_id"].split(",")
+        check(reg1["stacked"] is True and sorted(members) ==
+              sorted(order[:2]), f"the deploy registered {reg1}")
+        weaker = max(members, key=order.index)
+        incoming, additive = [t for t in order if t not in members]
+        check(incoming == order[2], "the bin is not the 2 best trials")
+        worker1 = plat.container.get(sid1)
+        ens, st = worker1.model, worker1.model.stacked
+        pred_row = next(s for s in plat.meta.get_services()
+                        if s["service_type"] == ServiceType.PREDICT)
+        psvc = plat.container.get(pred_row["id"])
+        psvc.predictor.gather_timeout = LIFE_GATHER_TIMEOUT
+        host = client.get_inference_job(inf["id"])["predictor_host"]
+        front = LifeFront(host)
+
+        def events():
+            return dict(psvc.edge_cache.info().get("events", {}))
+
+        def bursts():
+            return sum(ens.bursts.values())
+
+        def rnd(xs):
+            with ThreadPoolExecutor(LIFE_CLIENTS) as pool:
+                return list(pool.map(
+                    lambda ix: front.ask(ix[1], tenants[ix[0] % len(
+                        tenants)]), enumerate(xs)))
+
+        # (a) The edge cache.
+        t0 = time.perf_counter()
+        a_imgs = imgs[:LIFE_IMAGES]
+        r1, r2 = rnd(a_imgs), rnd(a_imgs)
+        ev2, b2 = events(), bursts()
+        hits0 = stats_of(host)["cache"]["events"].get("hit", 0)
+        r3 = rnd(a_imgs)
+        ev3, b3 = events(), bursts()
+        hits = stats_of(host)["cache"]["events"].get("hit", 0) - hits0
+        check(all(r[0] == 200 for r in r1 + r2 + r3),
+              "an (a) request failed")
+        check([r[1] for r in r3] == [r[1] for r in r2],
+              "the third round's answers are not the second's bytes")
+        check(hits == LIFE_IMAGES and b3 == b2,
+              f"(a) third round: {hits} hits in /stats, bursts {b2} -> {b3}")
+        x_new = imgs[LIFE_IMAGES]
+        gate = threading.Event()
+        submit = ens.predict_staged_submit
+
+        def held(buf, n):
+            # The leader is held in the worker until its copies wait on
+            # it: a slow model, made on purpose.
+            gate.wait(30)
+            return submit(buf, n)
+
+        c0, b0 = events().get("coalesce", 0), bursts()
+        ens.predict_staged_submit = held
+        try:
+            with ThreadPoolExecutor(LIFE_COALESCE) as pool:
+                futs = [pool.submit(front.ask, x_new,
+                                    tenants[i % len(tenants)])
+                        for i in range(LIFE_COALESCE)]
+                wait_for(lambda: events().get("coalesce", 0) - c0
+                         >= LIFE_COALESCE - 1, 30,
+                         "the copies did not coalesce")
+                gate.set()
+                co = [f.result() for f in futs]
+        finally:
+            gate.set()
+            del ens.predict_staged_submit
+        coalesced = events().get("coalesce", 0) - c0
+        check(all(r[0] == 200 for r in co) and len({r[1] for r in co}) == 1
+              and bursts() - b0 == 1, f"(a) {LIFE_COALESCE} copies: "
+              f"{bursts() - b0} bursts, {coalesced} coalesced")
+        a_s = time.perf_counter() - t0
+        print(f"lifecycle: (a) {LIFE_IMAGES} distinct images three times "
+              f"from {LIFE_CLIENTS} clients: round 3 answered {hits} from "
+              f"the cache (/stats), byte for byte round 2's answers, the "
+              f"worker's bursts {b2} -> {b3} across it; events after round "
+              f"3 {ev3}; {LIFE_COALESCE} concurrent copies of one new "
+              f"image cost {bursts() - b0} burst, {coalesced} coalesced; "
+              f"took {a_s:.1f} s on {card}", flush=True)
+        out["cache"] = {"hits": hits, "coalesced": coalesced,
+                        "events": ev3}
+
+        # (b) The surgical promote, under load.
+        t0 = time.perf_counter()
+        stop = threading.Event()
+        pool, futs = life_load(np, front, imgs[128:256], tenants, stop)
+        time.sleep(1.0)
+        restack = {}
+        apply_restack = worker1._restack_member
+
+        def traced(req):
+            n0, c0_ = attn.flash_attention.launches, st.captures
+            apply_restack(req)
+            restack.update(k1=attn.flash_attention.launches - n0,
+                           captures=st.captures - c0_)
+
+        worker1._restack_member = traced
+        n_services = len(plat.meta.get_services())
+        epoch0 = psvc.edge_cache.info()["epoch"]
+        tp = time.perf_counter()
+        status, res = life_promote(plat.admin_port, client._token,
+                                   inf["id"], incoming, weaker)
+        promote_s = time.perf_counter() - tp
+        time.sleep(0.5)
+        stop.set()
+        load = [s_ for f in futs for s_ in f.result()]
+        pool.shutdown()
+        del worker1._restack_member
+        check(status == 200 and res.get("restacked_service_ids") == [sid1]
+              and res.get("new_service_id") is None,
+              f"the surgical promote answered {status} {res}")
+        check(len(load) > 0 and all(s_ == 200 for s_ in load),
+              f"(b) load: {len(load)} requests, statuses "
+              f"{sorted(set(load))}")
+        check(len(plat.meta.get_services()) == n_services,
+              "the surgical promote started a service")
+        check(restack == {"k1": 0, "captures": 0},
+              f"the restack launched K1 or captured: {restack}")
+        reg1b = cache.running_worker_info(inf["id"])[sid1]
+        check(sorted(reg1b["trial_id"].split(",")) ==
+              sorted([m for m in members if m != weaker] + [incoming]),
+              f"the registration after the restack: {reg1b}")
+        e0 = events()
+        status, _, _, _ = front.ask(a_imgs[0], tenants[0])
+        e1 = events()
+        epoch1 = psvc.edge_cache.info()["epoch"]
+        check(status == 200 and e1.get("miss", 0) - e0.get("miss", 0) == 1
+              and e1.get("hit", 0) == e0.get("hit", 0)
+              and epoch1 > epoch0 and e1.get("invalidate", 0) >= 1,
+              f"a repeat after the promote: events {e0} -> {e1}, epoch "
+              f"{epoch0} -> {epoch1}")
+        worst = 0.0
+        for i, n in enumerate((1, 2, 3, 5, 8)):
+            x = imgs[600 + 8 * i:600 + 8 * i + n]
+            status, _, served, _ = front.ask(list(x), single=False)
+            check(status == 200, f"a request of {n} answered {status}")
+            rows_ = stacked_rows(np, st, x).astype(np.float64).mean(0)
+            worst = max(worst, float(np.abs(np.asarray(served)
+                                            - rows_).max()))
+        check(worst <= TOL_ENSEMBLE, f"served answers after the restack "
+              f"differ from the restacked rows' mean by {worst:.3e}")
+        j = reg1b["trial_id"].split(",").index(incoming)
+        with uncounted(attn):
+            m3 = own(*trials[tids.index(incoming)][:2])
+            rows_st = in_bursts(np, lambda x: stacked_rows(np, st, x),
+                                imgs[:64], 8)
+            rows_own = in_bursts(np, lambda x: member_rows(np, m3, x),
+                                 imgs[:64], 8)
+            m3.destroy()
+        dp = float(np.abs(rows_st[j] - rows_own).max())
+        check(dp <= TOL_STACKED_FF, f"the restacked member's rows differ "
+              f"from its own TorchViT's by {dp:.3e}")
+        b_s = time.perf_counter() - t0
+        print(f"lifecycle: (b) surgical promote (trial "
+              f"{tids.index(incoming) + 1} in place of trial "
+              f"{tids.index(weaker) + 1}) through POST "
+              f"/inference_jobs/<id>/promote in {promote_s * 1e3:.1f} ms "
+              f"while {LIFE_CLIENTS} clients sent {len(load)} requests, "
+              f"all 200; no new service; K1 launches and captures during "
+              f"the restack {restack}; the repeat of an (a) image missed "
+              f"(epoch {epoch0} -> {epoch1}, invalidate "
+              f"{e1.get('invalidate')}); served = mean of the restacked "
+              f"rows, max |diff| {worst:.3e} (tolerance {TOL_ENSEMBLE}); "
+              f"the new member's stacked rows against its own TorchViT "
+              f"over 64 images max |dp| {dp:.3e} (tolerance "
+              f"{TOL_STACKED_FF}); took {b_s:.1f} s on {card}", flush=True)
+        out["surgical"] = {"promote_ms": promote_s * 1e3, "load": len(load),
+                           "restack": restack, "served_err": worst,
+                           "member_dp": dp}
+
+        # (c) The additive promote; the incoming worker pipelined.
+        t0 = time.perf_counter()
+        n1 = launch_counts(attn)
+        os.environ["RAFIKI_TPU_SERVING_PIPELINE"] = "1"
+        try:
+            status, res = life_promote(plat.admin_port, client._token,
+                                       inf["id"], additive)
+        finally:
+            os.environ.pop("RAFIKI_TPU_SERVING_PIPELINE", None)
+        n2 = launch_counts(attn)
+        check(status == 200 and res.get("new_service_id"),
+              f"the additive promote answered {status} {res}")
+        sid2 = res["new_service_id"]
+        info = cache.running_worker_info(inf["id"])
+        reg2 = info.get(sid2) or {}
+        check(len(info) == 2 and reg2.get("pipeline") is True
+              and reg2.get("trial_id") == additive,
+              f"the second worker registered {reg2}")
+        chips1 = plat.meta.get_service(sid1)["chips"]
+        chips2 = plat.meta.get_service(sid2)["chips"]
+        check(chips1 == chips2, f"the second worker is on chips {chips2}, "
+              f"the first on {chips1}")
+        k1_build, k1_wgmma = n2[0] - n1[0], n2[3] - n1[3]
+        check(k1_build > 0 and k1_wgmma == k1_build,
+              f"the second worker's runner builds launched K1 {k1_build} "
+              f"times, {k1_wgmma} on wgmma")
+        worker2 = plat.container.get(sid2)
+        with uncounted(attn):
+            m4 = own(*trials[tids.index(additive)][:2])
+            for n in (1, 3, 8):
+                x = imgs[700:700 + n]
+                bid = cache.send_query_shards(
+                    [(sid2, 0, n, "life")], None,
+                    packed=PackedBatch.from_arrays(list(x)),
+                    packed_ok={sid2})
+                rep = cache.gather_prediction_batches(bid, 1, timeout=60)
+                check(len(rep) == 1, f"the second worker did not answer "
+                      f"{n} queries")
+                got = np.asarray(rep[0]["predictions"], np.float64)
+                want = member_rows(np, m4, x).astype(np.float64)
+                check(np.array_equal(got, want), f"the pipelined worker's "
+                      f"answers to {n} queries are not its trial's own "
+                      f"rows: max |diff| {float(np.abs(got - want).max())}")
+            m4.destroy()
+        c_s = time.perf_counter() - t0
+        print(f"lifecycle: (c) additive promote (trial "
+              f"{tids.index(additive) + 1}) with "
+              f"RAFIKI_TPU_SERVING_PIPELINE=1 for the incoming worker: a "
+              f"second worker registered (pipeline={reg2['pipeline']}), "
+              f"time-sliced on chips {chips2} with the first; its runner "
+              f"builds launched K1 {k1_build} times, {k1_wgmma} on wgmma; "
+              f"its answers to 1, 3 and 8 queries equal its trial's own "
+              f"rows at the same bucket bit for bit. The first worker, "
+              f"built without the variable: auto decision "
+              f"pipeline={reg1['pipeline']} from a measured sync round "
+              f"trip of {reg1['sync_latency_ms']} ms (threshold "
+              f"{worker1.pipeline_sync_min * 1e3:.0f} ms); took "
+              f"{c_s:.1f} s on {card}", flush=True)
+        out["additive"] = {"k1_build": k1_build, "pipeline": True,
+                           "auto_pipeline": reg1["pipeline"],
+                           "sync_ms": reg1["sync_latency_ms"]}
+
+        # (d) Tiering over the two bins.
+        t0 = time.perf_counter()
+        pred = psvc.predictor
+
+        def tier_counts():
+            return (series(metrics, "rafiki_tpu_serving_tier_total",
+                           "outcome", service=pred.service),
+                    series(metrics,
+                           "rafiki_tpu_serving_chip_seconds_avoided_total",
+                           "source", service=pred.service))
+
+        (tier0, av0), e0 = tier_counts(), events()
+        tw = time.perf_counter()
+        d = rnd(d_imgs)
+        secs = time.perf_counter() - tw
+        (tier1, av1), e1 = tier_counts(), events()
+        check(all(r[0] == 200 for r in d), "a (d) request failed")
+        short = tier1.get("short_circuit", 0) - tier0.get("short_circuit", 0)
+        esc = tier1.get("escalate", 0) - tier0.get("escalate", 0)
+        avoided = av1.get("tier", 0.0) - av0.get("tier", 0.0)
+        check(short + esc == LIFE_TIER and short > 0 and esc > 0
+              and avoided > 0, f"(d) tier outcomes: {short} short circuits, "
+              f"{esc} escalations, {avoided} chip-seconds avoided")
+        weight = int(ens.last_weight)
+        with uncounted(attn):
+            best_rows = {b: in_bursts(np, lambda x: stacked_rows(
+                np, st, x).astype(np.float64).mean(0), d_imgs, b)
+                for b in LIFE_BUCKETS}
+            other_rows = {b: in_bursts(np, lambda x: member_rows(
+                np, worker2.model, x).astype(np.float64), d_imgs, b)
+                for b in LIFE_BUCKETS}
+        worst, matched = 0.0, {"short_circuit": 0, "escalate": 0}
+        for i, r in enumerate(d):
+            got = np.asarray(r[2], np.float64)
+            errs = {("short_circuit", b): float(np.abs(
+                got - best_rows[b][i]).max()) for b in LIFE_BUCKETS}
+            errs.update({("escalate", b1, b2): float(np.abs(
+                got - np.average([best_rows[b1][i], other_rows[b2][i]],
+                                 axis=0, weights=[weight, 1])).max())
+                for b1 in LIFE_BUCKETS for b2 in LIFE_BUCKETS})
+            kind = min(errs, key=errs.get)
+            worst = max(worst, errs[kind])
+            matched[kind[0]] += 1
+        check(worst <= TOL_ENSEMBLE, f"(d) answers differ from the bins' "
+              f"rows by {worst:.3e}")
+        lat = sorted(r[3] for r in d)
+        d_s = time.perf_counter() - t0
+        print(f"lifecycle: (d) tiering (threshold {threshold:.4f}, the "
+              f"median softmax margin of the best trial's rows averaged "
+              f"with its bin partner's) over the 2 bins: {LIFE_TIER} "
+              f"single images from {LIFE_CLIENTS} "
+              f"clients, {LIFE_TIER / secs:.2f} queries/s, latency p50 "
+              f"{percentile(lat, 50) * 1e3:.2f} ms, p99 "
+              f"{percentile(lat, 99) * 1e3:.2f} ms; cache hits "
+              f"{e1.get('hit', 0) - e0.get('hit', 0)}; {short} short "
+              f"circuits and {esc} escalations (matched {matched}), "
+              f"{avoided:.6f} chip-seconds avoided (tier); every answer "
+              f"within {worst:.3e} of the best bin's vote alone or of the "
+              f"weighted mean of both bins' rows taken directly "
+              f"(tolerance {TOL_ENSEMBLE}); took {d_s:.1f} s on {card}",
+              flush=True)
+        out["tier"] = {"threshold": threshold, "qps": LIFE_TIER / secs,
+                       "p50_ms": percentile(lat, 50) * 1e3,
+                       "p99_ms": percentile(lat, 99) * 1e3,
+                       "short_circuit": short, "escalate": esc,
+                       "avoided_s": avoided, "err": worst}
+
+        # (e) The workload records and the tenant series.
+        recs = workload.load(plat.services.log_dir)
+        with front.lock:
+            sent, with_header = list(front.statuses), front.with_header
+        by_status = sorted(r["status"] for r in recs)
+        check(len(recs) == len(sent) and by_status == sorted(sent),
+              f"{len(recs)} workload records for {len(sent)} requests")
+        admitted = series(metrics, "rafiki_tpu_serving_tenant_requests_total",
+                          "tenant")
+        device = series(metrics,
+                        "rafiki_tpu_serving_tenant_device_seconds_total",
+                        "tenant")
+        check(sum(admitted.values()) == with_header
+              and len(admitted) == len(tenants)
+              and set(device) == set(admitted)
+              and min(device.values()) > 0,
+              f"tenants: {admitted} requests, {device} device seconds, "
+              f"{with_header} requests sent with the header")
+        print(f"lifecycle: (e) {len(recs)} workload records for the "
+              f"{len(sent)} requests the phase sent through the front "
+              f"(statuses {sorted(set(by_status))}); {len(admitted)} "
+              f"tenants, admitted requests summing to {with_header} (the "
+              f"requests sent with {LIFE_HEADER}), device seconds each "
+              f"{min(device.values()):.6f} to {max(device.values()):.6f}",
+              flush=True)
+        out["records"] = {"n": len(recs), "tenants": len(admitted)}
+
+        # (f) Drain the additive worker under load.
+        t0 = time.perf_counter()
+        stop = threading.Event()
+        pool, futs = life_load(np, front, imgs[512:640], tenants, stop)
+        time.sleep(0.5)
+        drain = plat.services.drain_inference_worker(sid2)
+        time.sleep(0.5)
+        stop.set()
+        load = [s_ for f in futs for s_ in f.result()]
+        pool.shutdown()
+        row2 = plat.meta.get_service(sid2)
+        check(drain["drained"] and row2["status"] == ServiceStatus.STOPPED
+              and all(s_ == 200 for s_ in load) and len(load) > 0,
+              f"(f) drain {drain}, the worker {row2['status']}, load "
+              f"statuses {sorted(set(load))} of {len(load)}")
+        check(sid2 not in cache.running_workers(inf["id"]),
+              "the drained worker is still registered")
+        f_s = time.perf_counter() - t0
+        print(f"lifecycle: (f) drained the additive worker while "
+              f"{LIFE_CLIENTS} clients sent {len(load)} requests, all 200; "
+              f"it exited {row2['status']} (drained={drain['drained']}); "
+              f"took {f_s:.1f} s on {card}", flush=True)
+        client.stop_inference_job(inf["id"])
+    finally:
+        plat.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        attribution.reset_for_tests()
+        workload.reset_for_tests()
+    launches = launch_counts(attn)
+    phase_s = time.perf_counter() - t_phase
+    check(launches[0] > 0 and launches[3] == launches[0],
+          f"the lifecycle phase launched K1 {launches[0]} times, "
+          f"{launches[3]} on wgmma")
+    check(phase_s <= LIFE_MAX_S, f"the lifecycle phase took {phase_s:.1f} s")
+    print(f"lifecycle: K1, K2 and K3 launched {launches[:3]} times in the "
+          f"phase (counted by the wrappers: runner builds; replays run "
+          f"uncounted), all K1 on wgmma; deploy to registration "
+          f"{deploy_s:.1f} s; phase took {phase_s:.1f} s", flush=True)
+    out.update(launches=launches[:3], phase_s=phase_s)
+    return out
+
+
+def life_promote(port, token, job_id, trial_id, replace=None):
+    """``POST /inference_jobs/<job_id>/promote``: ``(status, body)``."""
+    body = {"trial_id": trial_id}
+    if replace is not None:
+        body["replace_trial_id"] = replace
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/inference_jobs/{job_id}/promote",
+        data=json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/json",
+                 "Authorization": f"Bearer {token}"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
 def zoo2_rows(zoo2, kernel):
     """One kernel's numbers at the zoo2 phase's ViT and tagger shapes."""
     return {what: dict(zoo2[part]["kernels"][kernel],
@@ -4512,6 +5179,8 @@ def main() -> int:
         ens = timed("ensemble", ensemble_phase, torch, np, attn, card,
                     automl, zoo)
         zoo2 = timed("zoo2", zoo2_phase, torch, np, attn, card)
+        life = timed("lifecycle", lifecycle_phase, torch, np, attn, card,
+                     zoo2)
     except Exception:
         traceback.print_exc()
         return 1
@@ -4520,33 +5189,38 @@ def main() -> int:
         dict(name="flash_fwd (K1)", route="cuda", source=src + "flash_fwd.cu",
              replaces="rafiki_tpu/ops/attention.py:162",
              launches=(train_launches[0] + serve_launches + gen_launches
-                       + plat_launches[0] + zoo2["launches"][0]),
+                       + plat_launches[0] + zoo2["launches"][0]
+                       + life["launches"][0]),
              generate_launches=gen_launches,
              platform_launches=plat_launches[0],
              zoo_launches=zoo["launches"][0],
              ensemble_launches=ens["launches"][0],
              zoo2_launches=zoo2["launches"][0],
+             lifecycle_launches=life["launches"][0],
              zoo2_shapes=zoo2_rows(zoo2, "K1"),
+             zoo2_f32=zoo2["int8"]["k1_f32"],
              generate_buckets=gen["buckets"], **k1, **k1_train),
         dict(name="flash_bwd_dq (K2)", route="cuda",
              source=src + "flash_bwd_dq.cu",
              replaces="rafiki_tpu/ops/attention.py:338",
              launches=(train_launches[1] + plat_launches[1]
-                       + zoo2["launches"][1]),
+                       + zoo2["launches"][1] + life["launches"][1]),
              platform_launches=plat_launches[1],
              zoo_launches=zoo["launches"][1],
              ensemble_launches=ens["launches"][1],
              zoo2_launches=zoo2["launches"][1],
+             lifecycle_launches=life["launches"][1],
              zoo2_shapes=zoo2_rows(zoo2, "K2"), **k2),
         dict(name="flash_bwd_dkv (K3)", route="cuda",
              source=src + "flash_bwd_dkv.cu",
              replaces="rafiki_tpu/ops/attention.py:401",
              launches=(train_launches[2] + plat_launches[2]
-                       + zoo2["launches"][2]),
+                       + zoo2["launches"][2] + life["launches"][2]),
              platform_launches=plat_launches[2],
              zoo_launches=zoo["launches"][2],
              ensemble_launches=ens["launches"][2],
              zoo2_launches=zoo2["launches"][2],
+             lifecycle_launches=life["launches"][2],
              zoo2_shapes=zoo2_rows(zoo2, "K3"), **k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

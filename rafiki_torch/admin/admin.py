@@ -14,19 +14,35 @@ Serving reads: ``get_inference_job_stats`` (the job's predictor
 ``services.log_dir``) and ``attach_inference_workers`` (one more
 replica for every served bin).
 
-Not ported yet (ROADMAP, queue 1): promotion, on-demand profiling, the
-autoscaler, nodes, SLOs and alerts, capacity, trial phases, dataset
-uploads, service logs, attaching train workers, and the train-MFU gauge
-that ``get_status`` reads (its ``mfu`` is empty).
+Promotion (``promote_trial``) puts a COMPLETED trial of the job's train
+job into a RUNNING inference job without a restart. When the trial to
+replace is a member of a stacked bin, every worker serving that bin
+restacks the member in place (``Cache.send_restack``) and the promote
+waits for each one's registration to show the new bin; a worker that
+does not confirm in time makes the promote raise, after the workers
+that did confirm are restacked back. Otherwise a worker for the trial
+is launched and waited for before the replaced workers stop
+(``ServicesManager.swap_inference_worker``); without
+``replace_trial_id`` the ensemble grows by one bin. Either way the
+predictor's edge cache is invalidated before the promote returns, so no
+later request is answered from a pre-promotion entry. Promotes are
+serialised by one lock.
+
+Not ported yet (ROADMAP, queue 1): on-demand profiling, the autoscaler,
+nodes, SLOs and alerts, capacity, trial phases, dataset uploads,
+service logs, attaching train workers, and the train-MFU gauge that
+``get_status`` reads (its ``mfu`` is empty).
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
+from ..cache import Cache
 from ..constants import (BudgetOption, InferenceJobStatus, ModelAccessRight,
                          TrainJobStatus, TrialStatus, UserType)
 from ..model.knobs import knob_config_to_json
@@ -49,6 +65,9 @@ class Admin:
         self.params = params
         self.services = services
         self.jwt_secret = jwt_secret
+        # A promote spans a registration wait; two at once could both
+        # pass the "already served" check.
+        self._promote_lock = threading.Lock()
         if self.meta.get_user_by_email(superadmin_email) is None:
             self.meta.create_user(
                 superadmin_email, auth.hash_password(superadmin_password),
@@ -352,6 +371,180 @@ class Admin:
                           claims: Optional[Dict[str, Any]] = None,
                           ) -> Dict[str, Any]:
         return dict(self._owned_inference_job(inference_job_id, claims))
+
+    def promote_trial(self, inference_job_id: str, trial_id: str,
+                      replace_trial_id: Optional[str] = None,
+                      register_timeout: float = 180.0,
+                      claims: Optional[Dict[str, Any]] = None,
+                      ) -> Dict[str, Any]:
+        """Promote a trained trial into a RUNNING inference job's
+        ensemble (see the module docstring), replacing
+        ``replace_trial_id`` or, without it, adding a bin."""
+        with self._promote_lock:
+            return self._promote_trial_locked(
+                inference_job_id, trial_id, replace_trial_id,
+                register_timeout, claims)
+
+    def _promote_trial_locked(self, inference_job_id: str, trial_id: str,
+                              replace_trial_id: Optional[str],
+                              register_timeout: float,
+                              claims: Optional[Dict[str, Any]],
+                              ) -> Dict[str, Any]:
+        job = self._owned_inference_job(inference_job_id, claims)
+        if job["status"] != InferenceJobStatus.RUNNING:
+            raise ValueError(
+                f"inference job {inference_job_id} is not RUNNING")
+        trial = self.meta.get_trial(trial_id)
+        if trial is None:
+            raise ValueError(f"unknown trial {trial_id}")
+        if trial["status"] != TrialStatus.COMPLETED or \
+                not trial.get("params_id"):
+            raise ValueError(
+                f"trial {trial_id} is not COMPLETED with saved params")
+        sub = self.meta.get_sub_train_job(trial["sub_train_job_id"])
+        if sub is None or sub["train_job_id"] != job["train_job_id"]:
+            raise ValueError(
+                f"trial {trial_id} does not belong to train job "
+                f"{job['train_job_id']}")
+        rows = self.services.active_inference_workers(inference_job_id)
+        if any(trial_id in str(w["trial_id"]).split(",") for w in rows):
+            raise ValueError(
+                f"trial {trial_id} is already served by this job")
+        old_rows: List[Dict[str, Any]] = []
+        multi_rows: List[Dict[str, Any]] = []
+        if replace_trial_id is not None:
+            for w in rows:
+                members = str(w["trial_id"]).split(",")
+                if replace_trial_id not in members:
+                    continue
+                (multi_rows if len(members) > 1 else old_rows).append(w)
+            if not old_rows and not multi_rows:
+                raise ValueError(
+                    f"trial {replace_trial_id} is not a served bin of "
+                    f"this job")
+            if multi_rows and old_rows:
+                raise ValueError(
+                    f"trial {replace_trial_id} is served both alone "
+                    f"and inside a packed bin; promotion cannot "
+                    f"target that mix")
+        if multi_rows:
+            result = self._restack_packed_bins(
+                job, trial_id, replace_trial_id, multi_rows,
+                register_timeout)
+            self._invalidate_predictor_cache(job)
+            return result
+        swap = self.services.swap_inference_worker(
+            inference_job_id, trial_id,
+            replace_service_ids=[w["service_id"] for w in old_rows],
+            register_timeout=register_timeout)
+        self._invalidate_predictor_cache(job)
+        _log.info("promoted trial %s into inference job %s (replaced %s; "
+                  "stopped %d worker(s))", trial_id, inference_job_id,
+                  replace_trial_id, len(swap["stopped_service_ids"]))
+        return {"inference_job_id": inference_job_id,
+                "promoted_trial_id": trial_id,
+                "replaced_trial_id": replace_trial_id,
+                "new_service_id": swap["new_service"]["id"],
+                "stopped_service_ids": swap["stopped_service_ids"]}
+
+    def _restack_packed_bins(self, job: Dict[str, Any], trial_id: str,
+                             replace_trial_id: str,
+                             multi_rows: List[Dict[str, Any]],
+                             register_timeout: float) -> Dict[str, Any]:
+        """Send a restack marker to every worker of the packed bin and
+        wait until each one's registration shows the new member (a
+        worker re-registers once the member is in its stacked storage).
+        Only stacked workers can restack. On a timeout the workers that
+        confirmed are restacked back and the promote raises."""
+        inference_job_id = job["id"]
+        cache = Cache(self.services.serving_bus())
+        info = cache.running_worker_info(inference_job_id)
+        not_stacked = [w["service_id"] for w in multi_rows
+                       if not (info.get(w["service_id"]) or {})
+                       .get("stacked")]
+        if not_stacked:
+            raise ValueError(
+                f"bin {multi_rows[0]['trial_id']!r} packs several "
+                f"trials and worker(s) "
+                f"{[s[:8] for s in not_stacked]} serve it per-member; "
+                f"promotion cannot surgically replace one member — "
+                f"replace the whole bin (stacked workers restack in "
+                f"place)")
+        for w in multi_rows:
+            cache.send_restack(w["service_id"], replace_trial_id, trial_id)
+        deadline = time.monotonic() + register_timeout
+        pending = {w["service_id"] for w in multi_rows}
+        confirmed: List[str] = []
+        while pending:
+            if time.monotonic() >= deadline:
+                self._rollback_restacks(cache, confirmed, trial_id,
+                                        replace_trial_id, job)
+                raise RuntimeError(
+                    f"worker(s) {[s[:8] for s in sorted(pending)]} did "
+                    f"not confirm the restack within "
+                    f"{register_timeout}s; confirmed replica(s) "
+                    f"{[s[:8] for s in confirmed]} were rolled back "
+                    f"(reverse restack) so the old member set keeps "
+                    f"serving")
+            info = cache.running_worker_info(inference_job_id)
+            for sid in list(pending):
+                members = str((info.get(sid) or {})
+                              .get("trial_id", "")).split(",")
+                if trial_id in members and replace_trial_id not in members:
+                    pending.discard(sid)
+                    confirmed.append(sid)
+            if pending:
+                time.sleep(0.1)
+        _log.info("promoted trial %s into inference job %s by restacking "
+                  "%d packed worker(s) (replaced %s in place)", trial_id,
+                  inference_job_id, len(multi_rows), replace_trial_id)
+        return {"inference_job_id": inference_job_id,
+                "promoted_trial_id": trial_id,
+                "replaced_trial_id": replace_trial_id,
+                "new_service_id": None,
+                "restacked_service_ids": [w["service_id"]
+                                          for w in multi_rows],
+                "stopped_service_ids": []}
+
+    def _rollback_restacks(self, cache: Cache, confirmed: List[str],
+                           trial_id: str, replace_trial_id: str,
+                           job: Dict[str, Any]) -> None:
+        """A failed restack's undo: restack every worker that already
+        swapped back to the old member, and invalidate the edge cache
+        (answers of the partial window must not outlive it). Both are
+        best effort: the promote raises anyway."""
+        for sid in confirmed:
+            try:
+                cache.send_restack(sid, trial_id, replace_trial_id)
+            except (ConnectionError, OSError, RuntimeError):
+                _log.exception("reverse restack to %s failed; the replica "
+                               "keeps the promoted member", sid[:8])
+        if confirmed:
+            try:
+                self._invalidate_predictor_cache(job)
+            except RuntimeError:
+                _log.exception("edge-cache invalidation after a partial "
+                               "restack failed")
+
+    def _invalidate_predictor_cache(self, job: Dict[str, Any]) -> None:
+        """``POST /cache/invalidate`` on the job's predictor, which must
+        answer: raises when it does not, since cached pre-promotion
+        answers could otherwise outlive the swap."""
+        from urllib.request import Request, urlopen
+
+        host = job.get("predictor_host")
+        if not host:
+            return  # no frontend yet: nothing is cached
+        try:
+            req = Request(f"http://{host}/cache/invalidate", data=b"{}",
+                          headers={"Content-Type": "application/json"},
+                          method="POST")
+            with urlopen(req, timeout=10) as resp:
+                json.loads(resp.read())
+        except OSError as e:
+            raise RuntimeError(
+                f"promotion applied but the predictor at {host} did not "
+                f"acknowledge cache invalidation: {e}") from None
 
     def get_inference_jobs(self, user_id: str) -> List[Dict[str, Any]]:
         return [dict(j) for j in self.meta.get_inference_jobs(user_id)]

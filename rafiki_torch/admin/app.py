@@ -17,6 +17,10 @@ The port's copy of the routes of ``rafiki_tpu/admin/app.py`` that
 - ``GET  /inference_jobs/<job_id>``    with ``predictor_host``
 - ``GET  /inference_jobs/<job_id>/stats`` the predictor's ``/stats``
 - ``POST /inference_jobs/<job_id>/stop``
+- ``POST /inference_jobs/<job_id>/promote`` ``{"trial_id", optional
+                                       "replace_trial_id"}``: a trained
+                                       trial into the running job
+                                       (``Admin.promote_trial``)
 - ``GET  /trace/<trace_id>``           one trace's spans, in order
 - ``GET  /services``                   service rows
 - ``GET  /status``                     chips and running services
@@ -26,8 +30,8 @@ The port's copy of the routes of ``rafiki_tpu/admin/app.py`` that
 Auth: ``Authorization: Bearer <jwt>`` on everything but ``POST
 /tokens`` and ``GET /metrics``. Every other route of the reference
 answers 404 until it is ported (ROADMAP, queue 1): the dashboard,
-promote, profile, autoscale, nodes, SLO, alerts, capacity, trial
-phases, datasets and service logs.
+profile, autoscale, nodes, SLO, alerts, capacity, trial phases,
+datasets and service logs.
 """
 
 from __future__ import annotations
@@ -62,6 +66,8 @@ class AdminApp:
              self._inference_job_stats),
             ("POST", "/inference_jobs/<job_id>/stop",
              self._stop_inference_job),
+            ("POST", "/inference_jobs/<job_id>/promote",
+             self._promote_trial),
             ("GET", "/trace/<trace_id>", self._get_trace),
             ("GET", "/services", self._list_services),
             ("GET", "/status", self._status),
@@ -196,6 +202,13 @@ class AdminApp:
         claims = self._auth(ctx)
         self.admin.stop_inference_job(params["job_id"], claims=claims)
         return 200, {"stopped": params["job_id"]}
+
+    def _promote_trial(self, params, body, ctx):
+        claims = self._auth(ctx)
+        body = self._need(body, "trial_id")
+        return 200, self.admin.promote_trial(
+            params["job_id"], body["trial_id"],
+            replace_trial_id=body.get("replace_trial_id"), claims=claims)
 
     def _list_services(self, params, body, ctx):
         claims = self._auth(ctx)

@@ -22,9 +22,16 @@ first worker may share a chip already in use (the time-sliced tier,
 thread services only), so a full card still admits a second job.
 
 Services are stamped with the node that launched them, and this node
-supervises and stops only its own (and rows without a node). Not ported
-yet: other nodes' leases (the reference marks a foreign row ERRORED once
-its node's heartbeat is ``NODE_LEASE`` old), swap, drain, replicas, the
+supervises and stops only its own (and rows without a node).
+
+Promotion's two primitives: ``swap_inference_worker`` launches a worker
+for a trial and waits for its bus registration before it stops the
+workers it replaces, so a bin never loses its vote; and
+``drain_inference_worker`` retires one worker gracefully (unregistered,
+then a ``__drain__`` marker: it answers what was queued and exits).
+
+Not ported yet: other nodes' leases (the reference marks a foreign row
+ERRORED once its node's heartbeat is ``NODE_LEASE`` old), the
 autoscaler, the SLO engine, the scrape cache, the node registry, the
 scoped-checkpoint sweep, and the store and bus addresses in a service's
 environment, which the process manager will need.
@@ -34,6 +41,7 @@ from __future__ import annotations
 
 import logging
 import math
+import time
 from typing import Any, Dict, List, Optional
 
 from ..cache import Cache
@@ -320,6 +328,86 @@ class ServicesManager:
         return self._launch_inference_worker(svc_row, group,
                                              inference_job_id, trial_id)
 
+    def serving_bus(self):
+        """The bus the serving plane rides (the thread services')."""
+        return self.container.ctx.bus
+
+    def active_inference_workers(self, inference_job_id: str,
+                                 ) -> List[Dict[str, Any]]:
+        """The job's worker mapping rows (the predictor's left out) whose
+        services are active: what is served now. A replaced worker's row
+        stays for history, so liveness is its service's status."""
+        rows = []
+        for w in self.meta.get_inference_job_workers(inference_job_id):
+            if w["trial_id"] == PREDICTOR_TRIAL:
+                continue
+            svc = self.meta.get_service(w["service_id"])
+            if svc is not None and svc["status"] in _ACTIVE:
+                rows.append(w)
+        return rows
+
+    def swap_inference_worker(self, inference_job_id: str, trial_id: str,
+                              replace_service_ids: List[str] = (),
+                              register_timeout: float = 180.0,
+                              ) -> Dict[str, Any]:
+        """Launch a worker for ``trial_id``, wait for its bus registration
+        (a worker registers once its model is loaded and warm), and only
+        then stop the ``replace_service_ids`` workers. A timeout or a
+        worker that errors at start stops the new one and raises; the
+        replaced workers are untouched. Callers serialise swaps (the
+        admin's promote lock)."""
+        new_svc = self.add_inference_worker(inference_job_id, trial_id)
+        if new_svc is None:
+            raise RuntimeError(
+                "no chips available for the incoming trial's worker")
+        cache = Cache(self.serving_bus())
+        deadline = time.monotonic() + register_timeout
+        while new_svc["id"] not in cache.running_workers(inference_job_id):
+            if time.monotonic() >= deadline:
+                self._stop_service(new_svc["id"])
+                raise RuntimeError(
+                    f"incoming worker {new_svc['id'][:8]} did not "
+                    f"register within {register_timeout}s; swap rolled "
+                    f"back")
+            row = self.meta.get_service(new_svc["id"])
+            if row and row["status"] == ServiceStatus.ERRORED:
+                self._stop_service(new_svc["id"])
+                raise RuntimeError(
+                    f"incoming worker {new_svc['id'][:8]} errored "
+                    f"during startup")
+            time.sleep(0.2)
+        stopped = []
+        for sid in replace_service_ids:
+            self._stop_service(sid)
+            stopped.append(sid)
+        return {"new_service": new_svc, "stopped_service_ids": stopped}
+
+    def drain_inference_worker(self, service_id: str,
+                               drain_timeout: float = 15.0,
+                               ) -> Dict[str, Any]:
+        """Retire one inference worker gracefully: unregister it, so the
+        predictor's next plan leaves it out, and queue a drain marker,
+        so it answers everything queued before and exits; then stop the
+        service and release its chips. A shard sent after the marker
+        goes unanswered and is resubmitted to a sibling. A worker still
+        running after ``drain_timeout`` is stopped hard; either way the
+        row ends STOPPED. Returns ``{"service_id", "drained"}``."""
+        row = self.meta.get_inference_job_worker(service_id)
+        drained = False
+        if row is not None:
+            cache = Cache(self.serving_bus())
+            cache.unregister_worker(row["inference_job_id"], service_id)
+            cache.send_drain(service_id)
+            deadline = time.monotonic() + drain_timeout
+            while time.monotonic() < deadline:
+                svc = self.meta.get_service(service_id)
+                if svc is None or svc["status"] not in _ACTIVE:
+                    drained = True
+                    break
+                time.sleep(0.05)
+        self._stop_service(service_id)
+        return {"service_id": service_id, "drained": drained}
+
     def stop_inference_services(self, inference_job_id: str) -> None:
         for w in self.meta.get_inference_job_workers(inference_job_id):
             self._stop_service(w["service_id"])
@@ -403,8 +491,7 @@ class ServicesManager:
         if reap:
             # A dead worker never ran its unregister: reap its stale
             # registration so the predictor stops sending it shards.
-            Cache(self.container.ctx.bus).unregister_worker(job_id,
-                                                            svc["id"])
+            Cache(self.serving_bus()).unregister_worker(job_id, svc["id"])
         job = self.meta.get_inference_job(job_id)
         if job is None or job["status"] not in (
                 InferenceJobStatus.STARTED, InferenceJobStatus.RUNNING):

@@ -24,12 +24,24 @@ calling thread's, else none. A sharded gather pops one reply at a time
 (``reap=False``, closed by ``reap_reply_queue``) and stamps each reply
 with its arrival time (``timestamps=True``).
 
+A query frame also carries the ``"_tenant"`` envelope
+(``observe.attribution``) of the tenants whose queries it holds, scaled
+to each shard's slice, when the attribution ledger is on. A reply frame
+carries each query's ``confidence`` (a worker serving a tiering
+predictor sends it) and ``compute_s``, the worker's device seconds for
+its slice. Every send counts its estimated bytes, and every decode its
+host copy, in the serving wire series (``observe.wire``).
+
+Two control markers ride a worker's query queue, so they apply in queue
+order: ``__drain__`` (serve what came before, then exit) and
+``__restack__`` (swap one member of a stacked bin in place, after
+serving what came before, ``send_restack``).
+
 ``TokenFrames`` is a ``Cache`` over a bus of its own: the reply queues
 of an in-process worker's generate requests.
 
-The reference's tenant envelope, wire-byte counters, frontend registry,
-cross-node relay, restack and profile markers, and single-query frames
-are not ported.
+The reference's frontend registry, cross-node relay, profile marker and
+single-query frames are not ported.
 """
 
 from __future__ import annotations
@@ -46,7 +58,9 @@ from typing import Any, Collection, Dict, List, Optional
 import numpy as np
 
 from .bus import BaseBus, MemoryBus
+from .observe import attribution as _attr
 from .observe import trace as _trace
+from .observe import wire as _wire
 
 _log = logging.getLogger(__name__)
 
@@ -60,6 +74,10 @@ _CORRUPT_REPLY_CAP = 4096
 #: Drain marker frame key: a worker popping a frame with this key
 #: serves the burst in hand and exits its serve loop cleanly.
 DRAIN_KEY = "__drain__"
+
+#: Restack marker frame key: a worker popping a frame with this key
+#: swaps one member of its stacked bin after serving the burst in hand.
+RESTACK_KEY = "__restack__"
 
 
 def encode_payload(value: Any) -> Any:
@@ -75,6 +93,26 @@ def encode_payload(value: Any) -> Any:
     if isinstance(value, (np.integer, np.floating)):
         return value.item()
     return value
+
+
+def _payload_nbytes(value: Any) -> int:
+    """An estimate of a wire payload's serialized bytes (base64 lengths
+    plus a nominal framing overhead), made without serializing it."""
+    if isinstance(value, dict):
+        s = value.get("__nd__")
+        if isinstance(s, str):
+            return len(s) + 48
+        s = value.get("__ndbatch__")
+        if isinstance(s, str):
+            return len(s) + 64 + 12 * int(value.get("n", 0) or 0)
+        return 32 + sum(_payload_nbytes(v) for v in value.values())
+    if isinstance(value, (list, tuple)):
+        return 2 + sum(_payload_nbytes(v) for v in value)
+    if isinstance(value, str):
+        return len(value) + 2
+    if isinstance(value, float):
+        return 18
+    return 8
 
 
 def _trace_envelope(trace_ctxs: Optional[List] = None) -> Optional[Dict]:
@@ -130,6 +168,7 @@ class PackedBatch:
         buf = np.empty((len(arrays), *shape), dtype)
         for i, a in enumerate(arrays):
             buf[i] = a
+        _wire.count_copies("assemble", len(arrays))
         return cls(buf)
 
     @classmethod
@@ -169,12 +208,14 @@ class PackedBatch:
             if buf is None:
                 buf = np.empty((len(encoded), *shape), dtype)
             buf[i] = np.frombuffer(raw, dtype=dtype).reshape(shape)
+        _wire.count_copies("decode", len(encoded))
         return cls(buf)
 
     def slice(self, start: int, count: int) -> Dict[str, Any]:
         """One shard's wire frame: the header and one base64 encode of
-        the contiguous row range."""
+        the contiguous row range (one ``encode`` copy)."""
         rows = self.data[start:start + count]
+        _wire.count_copies("encode", 1)
         per = int(self.data.dtype.itemsize
                   * math.prod(self.data.shape[1:]))
         return {"__ndbatch__": base64.b64encode(rows.tobytes()).decode(),
@@ -183,6 +224,11 @@ class PackedBatch:
                 "shape": list(self.data.shape[1:]),
                 "n": count,
                 "offsets": [i * per for i in range(count)]}
+
+    def take(self, indices: List[int]) -> "PackedBatch":
+        """The rows ``indices`` as a packed batch of their own (the
+        tiered path's escalation subset)."""
+        return PackedBatch(np.ascontiguousarray(self.data[indices]))
 
 
 def pack_prediction_rows(predictions: List[Any],
@@ -340,7 +386,8 @@ class Cache:
                           batch_id: Optional[str] = None,
                           trace_ctxs: Optional[List] = None,
                           packed: Optional[PackedBatch] = None,
-                          packed_ok: Collection[str] = ()) -> str:
+                          packed_ok: Collection[str] = (),
+                          tenants: Optional[List] = None) -> str:
         """Scatter slices of one batch in one ``push_many``. ``shards``
         is ``[(worker_id, start, count, shard_id), ...]``; each frame
         carries its slice and the ``shard`` id its worker echoes back.
@@ -348,21 +395,36 @@ class Cache:
         one packed ``batch`` frame; the others the per-query list
         (``encoded_queries``, which may be None only when every worker
         is in ``packed_ok``). ``trace_ctxs`` are the coalesced
-        requests' trace contexts (the envelope)."""
+        requests' trace contexts (the envelope). ``tenants``, the batch's
+        ``[(tenant, n_queries), ...]``, rides each frame scaled down to
+        its slice (rounded down: a share that rounds to nothing goes
+        unattributed rather than overcounted)."""
         batch_id = batch_id or uuid.uuid4().hex
         env = _trace_envelope(trace_ctxs)
         n = packed.n if packed is not None else len(encoded_queries)
+        counting = _wire.counting()
         frames = []
         for worker_id, start, count, shard_id in shards:
             frame: Dict[str, Any] = {"batch_id": batch_id,
                                      "shard": shard_id,
                                      "rw": [WIRE_NDBATCH]}
+            if tenants:
+                tenant_env = _attr.inject_tenants(
+                    [(t, int(c * count / max(n, 1))) for t, c in tenants])
+                if tenant_env is not None:
+                    frame[_attr.ENVELOPE_KEY] = tenant_env
             if packed is not None and worker_id in packed_ok:
                 frame["batch"] = packed.slice(start, count)
+                if counting:
+                    _wire.count_bytes("packed", "scatter",
+                                      _payload_nbytes(frame["batch"]))
             else:
                 frame["queries"] = (
                     encoded_queries if start == 0 and count == n
                     else encoded_queries[start:start + count])
+                if counting:
+                    _wire.count_bytes("perquery", "scatter",
+                                      _payload_nbytes(frame["queries"]))
             if env is not None:
                 frame[_trace.ENVELOPE_KEY] = env
             frames.append((f"q:{worker_id}", frame))
@@ -386,6 +448,7 @@ class Cache:
                                  "dropped", batch_id, exc_info=True)
                     return None
                 item["predictions"] = [arr[i] for i in range(arr.shape[0])]
+                _wire.count_copies("decode", 1)
             else:
                 item["predictions"] = [decode_payload(p)
                                        for p in item["predictions"]]
@@ -411,6 +474,15 @@ class Cache:
         BEFORE it, then exits its serve loop cleanly."""
         self.bus.push(f"q:{worker_id}", {DRAIN_KEY: 1})
 
+    def send_restack(self, worker_id: str, old_trial_id: str,
+                     new_trial_id: str) -> None:
+        """Queue a member swap for a stacked bin: the worker replaces
+        ``old_trial_id``'s member with ``new_trial_id``'s in place and
+        re-registers with the new bin. Every shard queued before the
+        marker is answered by the old member set."""
+        self.bus.push(f"q:{worker_id}", {RESTACK_KEY: {
+            "old": str(old_trial_id), "new": str(new_trial_id)}})
+
     # --- Queries (inference worker side) ---
 
     def pop_queries(self, worker_id: str, max_items: int = 0,
@@ -422,13 +494,16 @@ class Cache:
         per-query errors instead of failing."""
         items = self.bus.pop_all(f"q:{worker_id}", max_items=max_items,
                                  timeout=timeout)
+        counting = _wire.counting()
         for it in items:
-            if DRAIN_KEY in it or it.get("op") == "generate":
+            if DRAIN_KEY in it or RESTACK_KEY in it \
+                    or it.get("op") == "generate":
                 continue  # a marker, or a token request routed whole
             if "batch" in it:
                 raw = it["batch"]
                 try:
                     it["batch"] = decode_batch(raw)
+                    _wire.count_copies("decode", 1)
                 except ValueError as e:
                     it["batch"] = None
                     it["batch_error"] = str(e)
@@ -439,28 +514,48 @@ class Cache:
                         it["n"] = 0
             else:
                 it["queries"] = [decode_payload(q) for q in it["queries"]]
+                if counting:
+                    _wire.count_copies("decode", sum(
+                        1 for q in it["queries"]
+                        if isinstance(q, np.ndarray)))
         return items
 
     def send_prediction_batch(self, batch_id: str, worker_id: str,
                               predictions: List[Any], weight: int = 1,
                               shard: Optional[Any] = None,
+                              confidence: Optional[List] = None,
+                              compute_s: Optional[float] = None,
                               packed_ok: bool = False) -> None:
         """``weight`` is how many ensemble members this reply already
         averages (a worker serving a bin of several trials reports more
         than 1, so the predictor's mean stays unweighted over trials).
-        ``shard`` echoes the query frame's shard id. ``packed_ok`` (the
-        query frame advertised ``rw``) lets dense float rows ride one
-        packed frame."""
+        ``shard`` echoes the query frame's shard id. ``confidence`` (a
+        softmax margin a query, None where there is none) and
+        ``compute_s`` (the slice's device seconds) feed the predictor's
+        tiering and its chip-seconds-avoided estimate. ``packed_ok``
+        (the query frame advertised ``rw``) lets dense float rows ride
+        one packed frame."""
         frame: Dict[str, Any] = {"worker_id": worker_id,
                                  "weight": int(weight)}
         packed_frame = (pack_prediction_rows(predictions)
                         if packed_ok else None)
         if packed_frame is not None:
             frame["batch"] = packed_frame
+            if _wire.counting():
+                _wire.count_bytes("packed", "reply",
+                                  _payload_nbytes(packed_frame))
         else:
             frame["predictions"] = [encode_payload(p) for p in predictions]
+            if _wire.counting():
+                _wire.count_bytes("perquery", "reply",
+                                  _payload_nbytes(frame["predictions"]))
         if shard is not None:
             frame["shard"] = shard
+        if confidence is not None and any(c is not None
+                                          for c in confidence):
+            frame["confidence"] = confidence
+        if compute_s is not None:
+            frame["compute_s"] = compute_s
         self.bus.push(f"r:{batch_id}", frame)
 
     # --- Generative serving (token streaming) ---

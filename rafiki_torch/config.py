@@ -12,10 +12,16 @@ Fields: the micro-batcher's (``serving_microbatch``, the fill window
 and its bounds, ``serving_max_batch``, ``serving_max_inflight``,
 ``serving_queue_cap``), replica sharding (``serving_shard_replicas``),
 per-client fairness (``serving_client_header``,
-``serving_client_share``), and the three serving switches the port's
+``serving_client_share``), the three serving switches the port's
 workers read (``serving_quant``, ``serving_stacked``,
-``serving_generate``). The reference's cluster, autoscale, node lease,
-edge-cache, tiering and trace fields are not here yet.
+``serving_generate``), the edge cache (``serving_cache_bytes``,
+``serving_cache_ttl_s``, ``serving_cache_admit_after``), confidence
+tiering (``serving_tier_threshold``), the pipelined worker's auto
+threshold (``pipeline_sync_min``), the attribution ledger
+(``serving_attribution``) and the workload recorder
+(``workload_record``, ``workload_max_mb``,
+``workload_retain_segments``). The reference's cluster, autoscale,
+node lease, SLO and trace fields are not here yet.
 """
 
 from __future__ import annotations
@@ -34,6 +40,15 @@ _PREFIX = "RAFIKI_TPU_"
 
 def _parse_bool(raw: str) -> bool:
     return raw.strip().lower() not in ("0", "false", "no", "off", "")
+
+
+def parse_tristate_bool(raw: str) -> Optional[bool]:
+    """The tri-state spelling ("auto" -> None, a falsy spelling ->
+    False, anything else -> True) that the inference worker reads
+    ``RAFIKI_TPU_SERVING_PIPELINE`` with."""
+    if raw.strip().lower() == "auto":
+        return None
+    return _parse_bool(raw)
 
 
 @dataclass(frozen=True)
@@ -64,6 +79,28 @@ class NodeConfig:
     serving_quant: str = ""
     serving_stacked: str = "on"
     serving_generate: bool = False
+    # The predictor's edge cache: a byte budget (0 = off, no cache
+    # series), the age of an answer, and the miss that admits a key
+    # (2 = second touch).
+    serving_cache_bytes: int = 0
+    serving_cache_ttl_s: float = 60.0
+    serving_cache_admit_after: int = 2
+    # Confidence tiering: queries whose best-bin softmax margin clears
+    # this are answered by the best bin alone (0 = off, no tier series).
+    serving_tier_threshold: float = 0.0
+    # With RAFIKI_TPU_SERVING_PIPELINE=auto an inference worker keeps
+    # one burst in flight when its measured sync round trip (seconds)
+    # is at least this.
+    pipeline_sync_min: float = 0.02
+    # Per-bin and per-tenant request and device-time accounting (off =
+    # zero serving_bin_* / serving_tenant_* series).
+    serving_attribution: bool = False
+    # One JSONL arrival record a request at the predictor edge, in
+    # segments of workload_max_mb, keeping workload_retain_segments
+    # rolled ones.
+    workload_record: bool = False
+    workload_max_mb: float = 64.0
+    workload_retain_segments: int = 4
 
     _types_cache = None  # deliberately un-annotated: not a field
 
@@ -139,6 +176,25 @@ class NodeConfig:
         if not (0.0 <= self.serving_client_share <= 1.0):
             raise ValueError("serving_client_share must be within "
                              "[0, 1]")
+        if self.serving_cache_bytes < 0:
+            raise ValueError("serving_cache_bytes must be >= 0 "
+                             "(0 disables the edge cache)")
+        if self.serving_cache_ttl_s <= 0:
+            raise ValueError("serving_cache_ttl_s must be positive")
+        if self.serving_cache_admit_after < 1:
+            raise ValueError("serving_cache_admit_after must be >= 1 "
+                             "(1 = admit on first touch)")
+        if self.serving_tier_threshold < 0:
+            raise ValueError("serving_tier_threshold must be >= 0 "
+                             "(0 disables tiered serving)")
+        if self.pipeline_sync_min < 0:
+            raise ValueError("pipeline_sync_min must be >= 0 (0 = "
+                             "auto-pipeline whenever any sync latency "
+                             "is measured)")
+        if self.workload_max_mb <= 0:
+            raise ValueError("workload_max_mb must be positive")
+        if self.workload_retain_segments < 1:
+            raise ValueError("workload_retain_segments must be >= 1")
         if self.serving_quant.strip().lower() not in \
                 QUANT_OFF_SPELLINGS + QUANT_MODES:
             raise ValueError(
@@ -159,8 +215,17 @@ class NodeConfig:
             "1" if self.serving_shard_replicas else "0"
         for f in ("serving_fill_window", "serving_fill_window_min",
                   "serving_max_batch", "serving_max_inflight",
-                  "serving_queue_cap", "serving_client_share"):
+                  "serving_queue_cap", "serving_client_share",
+                  "serving_cache_bytes", "serving_cache_ttl_s",
+                  "serving_cache_admit_after", "serving_tier_threshold",
+                  "pipeline_sync_min", "workload_max_mb",
+                  "workload_retain_segments"):
             os.environ[self.env_name(f)] = str(getattr(self, f))
+        for f in ("serving_attribution", "workload_record"):
+            if getattr(self, f):
+                os.environ[self.env_name(f)] = "1"
+            else:
+                os.environ.pop(self.env_name(f), None)
         if self.serving_generate:
             os.environ[self.env_name("serving_generate")] = "1"
         else:

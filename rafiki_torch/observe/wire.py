@@ -1,7 +1,6 @@
-"""The serving variables the port's inference workers read: the port's
-own copy of the two parsers of ``rafiki_tpu/observe/wire.py`` (:50-60,
-:107-145) that ensemble serving needs. The reference's wire metrics
-series wait for the port of ``observe/metrics``.
+"""The serving variables the port's inference workers read, and the
+serving wire series: the port's copy of ``rafiki_tpu/observe/wire.py``
+without the packed-wire switch (the port's packed wire is always on).
 
 - ``RAFIKI_TPU_SERVING_QUANT``: ``""`` (or an off spelling) serves the
   trained dtype, ``"int8"`` serves int8 weights. An unknown spelling
@@ -12,13 +11,33 @@ series wait for the port of ``observe/metrics``.
 
 Both fail safe rather than raise: a worker's environment is set by
 hand, and a typo must degrade to the plain path, not stop every worker.
+
+The series, each registered on first use and only while metrics are on
+(a process that never serves a kind registers none of its series):
+
+- ``rafiki_tpu_serving_wire_bytes_total{format=packed|perquery,
+  direction=scatter|reply}``: estimated payload bytes at every send;
+- ``rafiki_tpu_serving_host_copies_total{site=encode|decode|assemble}``:
+  host copies of query tensors on the serving path;
+- ``rafiki_tpu_serving_quant_total{mode}``: queries a quantised model
+  served;
+- ``rafiki_tpu_serving_stacked_dispatch_total{mode=stacked|fallback}``
+  and ``rafiki_tpu_serving_dispatches_per_query_ratio``: the device
+  dispatches of a stacked-capable worker's bursts (registered only with
+  ``RAFIKI_TPU_SERVING_STACKED`` on).
+
+Their labels are fixed vocabularies, so the series live as long as the
+process.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Optional
+import threading
+from typing import Optional, Tuple
+
+from . import metrics as _metrics
 
 _log = logging.getLogger(__name__)
 
@@ -59,3 +78,132 @@ def stacked_mode(raw: Optional[str] = None) -> bool:
     _log.warning("%s=%r is not one of on/off; failing safe to per-member "
                  "serving", STACKED_ENV, raw)
     return False
+
+
+#: (wire bytes counter, host copies counter), or (None, None) with
+#: metrics off; resolved on first use.
+_state: Optional[Tuple] = None
+_quant_counter = None
+#: (dispatch counter, dispatches-per-query gauge), or (None, None).
+_stacked_state: Optional[Tuple] = None
+_lock = threading.Lock()
+
+
+def _counters() -> Tuple:
+    global _state
+    s = _state
+    if s is None:
+        with _lock:
+            s = _state
+            if s is None:
+                if _metrics.metrics_enabled():
+                    reg = _metrics.registry()
+                    s = (
+                        reg.counter(
+                            "rafiki_tpu_serving_wire_bytes_total",
+                            "Estimated serialized serving payload "
+                            "bytes (format=packed|perquery, "
+                            "direction=scatter|reply)"),
+                        reg.counter(
+                            "rafiki_tpu_serving_host_copies_total",
+                            "Per-tensor host copies on the serving "
+                            "path (site=encode|decode|stack|pad|"
+                            "assemble)"),
+                    )
+                else:
+                    s = (None, None)
+                _state = s
+    return s
+
+
+def counting() -> bool:
+    """Whether the wire series are live: a caller that must compute a
+    byte estimate asks first."""
+    return _counters()[0] is not None
+
+
+def count_bytes(fmt: str, direction: str, nbytes: int) -> None:
+    c = _counters()[0]
+    if c is not None and nbytes > 0:
+        c.inc(nbytes, format=fmt, direction=direction)
+
+
+def count_copies(site: str, n: int = 1) -> None:
+    c = _counters()[1]
+    if c is not None and n > 0:
+        c.inc(n, site=site)
+
+
+def count_quant(n: int, mode: str) -> None:
+    """Queries served by a quantised model."""
+    global _quant_counter
+    if n <= 0 or not mode:
+        return
+    c = _quant_counter
+    if c is None:
+        with _lock:
+            c = _quant_counter
+            if c is None:
+                if not _metrics.metrics_enabled():
+                    return
+                c = _metrics.registry().counter(
+                    "rafiki_tpu_serving_quant_total",
+                    "Queries served by a quantized ensemble model "
+                    "(mode=int8)")
+                _quant_counter = c
+    c.inc(n, mode=mode)
+
+
+def _stacked_counters() -> Tuple:
+    global _stacked_state
+    s = _stacked_state
+    if s is None:
+        with _lock:
+            s = _stacked_state
+            if s is None:
+                if stacked_mode() and _metrics.metrics_enabled():
+                    reg = _metrics.registry()
+                    s = (
+                        reg.counter(
+                            "rafiki_tpu_serving_stacked_dispatch_total",
+                            "Ensemble-burst device dispatches on a "
+                            "stacked-capable worker (mode=stacked: one "
+                            "vmapped program served the whole member "
+                            "group; mode=fallback: per-member "
+                            "dispatches of a burst that could not ride "
+                            "the stacked program)"),
+                        reg.gauge(
+                            "rafiki_tpu_serving_dispatches_per_query_ratio",
+                            "Device dispatches per served query of the "
+                            "last ensemble burst (stacked mode: "
+                            "1/queries; per-member fallback: "
+                            "members/queries)"),
+                    )
+                else:
+                    s = (None, None)
+                _stacked_state = s
+    return s
+
+
+def count_stacked_dispatch(mode: str, n: int = 1) -> None:
+    """``stacked``: one dispatch served the member group; ``fallback``:
+    the member-by-member dispatches of a stacked-capable worker."""
+    c = _stacked_counters()[0]
+    if c is not None and n > 0:
+        c.inc(n, mode=mode)
+
+
+def observe_dispatches_per_query(dispatches: int, queries: int) -> None:
+    g = _stacked_counters()[1]
+    if g is not None and queries > 0:
+        g.set(dispatches / queries)
+
+
+def reset_for_tests() -> None:
+    """Forget the resolved series, so a test that flips
+    ``RAFIKI_TPU_METRICS`` or ``RAFIKI_TPU_SERVING_STACKED`` sees it."""
+    global _state, _quant_counter, _stacked_state
+    with _lock:
+        _state = None
+        _quant_counter = None
+        _stacked_state = None

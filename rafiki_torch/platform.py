@@ -39,6 +39,7 @@ from .admin.app import AdminApp
 from .bus import MemoryBus, connect
 from .container import SystemContext, ThreadContainerManager
 from .observe import trace as observe_trace
+from .observe import workload as observe_workload
 from .parallel.chips import ChipAllocator
 from .store import MetaStore, ParamStore
 from .torchenv import DeviceLike, resolve_device
@@ -100,6 +101,9 @@ class LocalPlatform:
         # Every service thread of this process (HTTP edges, batcher,
         # workers) appends its spans here.
         observe_trace.configure(self.services.log_dir)
+        # The workload records (on with RAFIKI_TPU_WORKLOAD_RECORD) go
+        # next to it, in <workdir>/logs/workload.jsonl.
+        observe_workload.configure(self.services.log_dir)
         self.admin = Admin(self.meta, self.params, self.services)
         self.app: Optional[AdminApp] = None
         if http:
@@ -153,6 +157,7 @@ class LocalPlatform:
         self.meta.close()
         self.params.close()
         observe_trace.release(self.services.log_dir)
+        observe_workload.configure(None)
         MemoryBus.reset_shared()
         if self._lock_fd is not None:  # releases the flock too
             os.close(self._lock_fd)

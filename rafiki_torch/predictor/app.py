@@ -1,5 +1,6 @@
 """Predictor HTTP frontend of the port: ``POST /predict``, ``POST
-/generate``, ``GET /``, ``GET /stats`` and ``GET /metrics``.
+/generate``, ``GET /``, ``GET /stats``, ``GET /metrics``, ``POST
+/cache/invalidate`` and ``GET /cache/peek``.
 
 The counterpart of ``PredictorService`` in
 ``rafiki_tpu/predictor/app.py``, with the same wire:
@@ -19,8 +20,13 @@ The counterpart of ``PredictorService`` in
   and ``{"error", "queue_depth", "queue_cap", "reason",
   "retry_after"}``;
 - ``GET /`` is health (workers, micro-batching, queue depth); ``GET
-  /stats`` the ``ServingStats`` snapshot with the knobs; ``GET
-  /metrics`` the process registry (``JsonHttpServer``).
+  /stats`` the ``ServingStats`` snapshot with the knobs, the tier
+  threshold and the edge cache's ``info()``; ``GET /metrics`` the
+  process registry (``JsonHttpServer``);
+- ``POST /cache/invalidate`` empties the edge cache and bumps its epoch
+  (``{"enabled": true, "epoch": e}``, or ``{"enabled": false}`` without
+  a cache); the admin's promote calls it before it answers. ``GET
+  /cache/peek?key=k`` reads one entry without touching it.
 
 A service is built one of two ways:
 
@@ -44,15 +50,31 @@ Each knob resolves as the reference's: an explicit argument, then its
 them), then the default: ``microbatch`` (on), ``fill_window`` (0.005 s),
 ``fill_window_min`` (0), ``fill_window_max`` (the fill window),
 ``max_batch`` (1024), ``max_inflight`` (2), ``queue_cap`` (4096),
-``shard_replicas`` (on), ``client_header`` ("" = fairness off) and
-``client_share`` (0.25). With micro-batching off, the client share caps
-one client's queries in flight instead.
+``shard_replicas`` (on), ``client_header`` ("" = fairness off),
+``client_share`` (0.25), ``cache_bytes`` (0 = no edge cache),
+``cache_ttl_s`` (60), ``cache_admit_after`` (2) and ``tier_threshold``
+(0 = no tiering). With micro-batching off, the client share caps one
+client's queries in flight instead.
+
+With a cache budget, ``for_job`` puts an ``EdgeCache`` in front of the
+batcher: each query of a request is a hit, a wait on an identical query
+in flight, or a miss this request leads; only the misses are
+dispatched, and a request mixing them is answered in its own order.
+Each miss checks the predictor's serving-bin vector, so a promotion
+seen in the registry empties the cache even without the admin's
+``POST``. Hits and waits credit the device seconds a miss would have
+cost (``estimate_hit_cost``).
+
+With ``RAFIKI_TPU_SERVING_ATTRIBUTION`` on, the client header's value,
+hashed (``attribution.tenant_key``), is the request's tenant: it rides
+to the workers, and a served request counts under it. With
+``RAFIKI_TPU_WORKLOAD_RECORD`` on, every ``/predict`` and ``/generate``
+request leaves one workload record (``observe.workload``), 429s
+included.
 
 Either way each query's per-worker (per-bin) predictions combine
 through ``ensemble_predictions``, which skips a worker's error reply,
-and a generate request goes to one generating worker, round-robin. The
-reference's edge cache, tiering, workload records and tenant
-attribution are not ported yet.
+and a generate request goes to one generating worker, round-robin.
 """
 
 from __future__ import annotations
@@ -70,13 +92,16 @@ from ..bus import BaseBus
 from ..cache import decode_payload
 from ..config import NodeConfig, _parse_bool
 from ..constants import ServiceStatus
-from ..observe import ServingStats
+from ..observe import ServingStats, trace
+from ..observe import attribution as _attr
 from ..observe import metrics as obs_metrics
+from ..observe import workload as _workload
 from ..store import MetaStore
 from ..torchenv import DeviceLike, resolve_device
 from ..utils.service import HttpError, JsonHttpServer, StreamResponse
 from ..worker.inference import InferenceWorker
 from .batcher import Backpressure, MicroBatcher
+from .edge_cache import EdgeCache, query_key
 from .predictor import Predictor, ensemble_predictions
 
 #: A started generate request: its query id and the function that pops
@@ -99,7 +124,8 @@ class _LocalWorkers:
     def n_workers(self) -> int:
         return len(self.workers)
 
-    def predict(self, encoded: List[Any]) -> List[Any]:
+    def predict(self, encoded: List[Any],
+                tenant: Optional[str] = None) -> List[Any]:
         queries = [decode_payload(q) for q in encoded]
         futures = [w.submit(queries) for w in self.workers]
         try:
@@ -128,8 +154,13 @@ class _BusWorkers:
     def n_workers(self) -> int:
         return len(self.predictor.workers())
 
-    def predict(self, encoded: List[Any]) -> List[Any]:
-        return self.predictor.predict(encoded, pre_encoded=True)
+    def predict(self, encoded: List[Any],
+                tenant: Optional[str] = None) -> List[Any]:
+        n = len(encoded)
+        return self.predictor.predict(
+            encoded, pre_encoded=True,
+            tenants=[(tenant, n)] if tenant else None,
+            tenant_rows=[tenant] * n if tenant else None)
 
     def start_generate(self, tokens, **gen) -> Optional[Started]:
         cache = self.predictor.cache
@@ -172,6 +203,11 @@ class PredictorService:
         self.batcher: Optional[MicroBatcher] = None
         self.microbatch = False
         self.client_header = ""
+        self.edge_cache: Optional[EdgeCache] = None
+        # Snapshots of the ledger's and the recorder's switches: off,
+        # a request pays one bool check for each.
+        self._attribution = _attr.enabled()
+        self._workload = _workload.active()
         self._direct_cap = 0
         self._direct_pending: Dict[str, int] = {}
         self._direct_lock = threading.Lock()
@@ -182,6 +218,8 @@ class PredictorService:
             ("GET", "/stats", self._stats),
             ("POST", "/predict", self._predict),
             ("POST", "/generate", self._generate),
+            ("POST", "/cache/invalidate", self._cache_invalidate),
+            ("GET", "/cache/peek", self._cache_peek),
         ], host=host, port=port, name=f"predictor-{self.stats.service}")
         self.host, self.port = self._http.host, self._http.port
 
@@ -198,6 +236,10 @@ class PredictorService:
                 shard_replicas: Optional[bool] = None,
                 client_header: Optional[str] = None,
                 client_share: Optional[float] = None,
+                cache_bytes: Optional[int] = None,
+                cache_ttl_s: Optional[float] = None,
+                cache_admit_after: Optional[int] = None,
+                tier_threshold: Optional[float] = None,
                 ) -> "PredictorService":
         """The predictor service of one inference job, over the bus. A
         request waits at most the workers' warm-up, the gather timeout
@@ -211,8 +253,12 @@ class PredictorService:
         # predictor's series share it, so /metrics joins the serving
         # and shard families.
         label = f"{service_id[:12]}-{uuid.uuid4().hex[:4]}"
-        predictor = Predictor(inference_job_id, bus,
-                              shard_replicas=shard_replicas, service=label)
+        predictor = Predictor(
+            inference_job_id, bus, shard_replicas=shard_replicas,
+            service=label,
+            tier_threshold=(
+                tier_threshold if tier_threshold is not None else
+                float(_env_knob("serving_tier_threshold", "0") or 0)))
         svc = cls(host=host, port=port,
                   timeout=(predictor.worker_wait_timeout
                            + predictor.gather_timeout + 60.0),
@@ -221,6 +267,19 @@ class PredictorService:
         svc.service_id = service_id
         svc.inference_job_id = inference_job_id
         svc.meta = meta
+        # The edge cache, or None: then a request pays one attribute
+        # check and no cache series exists.
+        nbytes = int(cache_bytes if cache_bytes is not None else
+                     _env_knob("serving_cache_bytes", "0") or 0)
+        if nbytes > 0:
+            svc.edge_cache = EdgeCache(
+                nbytes,
+                ttl_s=float(cache_ttl_s if cache_ttl_s is not None else
+                            _env_knob("serving_cache_ttl_s", "60")),
+                admit_after=int(
+                    cache_admit_after if cache_admit_after is not None
+                    else _env_knob("serving_cache_admit_after", "2")),
+                service=label)
         if microbatch is None:
             microbatch = _parse_bool(_env_knob("serving_microbatch", "1"))
         svc.microbatch = microbatch
@@ -279,6 +338,8 @@ class PredictorService:
         self.stats.close()
         if self.predictor is not None:
             self.predictor.close()
+        if self.edge_cache is not None:
+            self.edge_cache.close()
         for name in ("rafiki_tpu_http_request_seconds",
                      "rafiki_tpu_http_requests_total"):
             m = obs_metrics.registry().find(name)
@@ -312,6 +373,10 @@ class PredictorService:
         snap["http_service"] = self._http.name
         snap["shard_replicas"] = (self.predictor.shard_replicas
                                   if self.predictor is not None else None)
+        snap["tier_threshold"] = (self.predictor.tier_threshold
+                                  if self.predictor is not None else None)
+        snap["cache"] = (self.edge_cache.info()
+                         if self.edge_cache is not None else None)
         if self.batcher is not None:
             snap["knobs"] = {
                 "fill_window": self.batcher.fill_window,
@@ -325,17 +390,115 @@ class PredictorService:
             }
         return 200, snap
 
+    def _cache_invalidate(self, params, body, ctx):
+        """Empty the edge cache and bump its epoch: after this answers,
+        no request is served an answer computed before it."""
+        if self.edge_cache is None:
+            return 200, {"enabled": False}
+        return 200, {"enabled": True, "epoch": self.edge_cache.invalidate()}
+
+    def _cache_peek(self, params, body, ctx):
+        """Whether the cache holds ``key``, without touching it."""
+        if self.edge_cache is None:
+            return 200, {"enabled": False, "found": False}
+        found, value = self.edge_cache.peek(ctx.query_one("key") or "")
+        return 200, {"enabled": True, "found": found,
+                     "value": value if found else None}
+
+    def _run_queries(self, encoded: List[Any],
+                     client: Optional[str] = None,
+                     tenant: Optional[str] = None,
+                     record: Optional[Dict[str, Any]] = None) -> List[Any]:
+        """One request's queries -> their answers, through the edge cache
+        when there is one."""
+        if self.edge_cache is None:
+            return self._dispatch_queries(encoded, client, tenant=tenant,
+                                          record=record)
+        return self._run_cached(encoded, client, tenant=tenant,
+                                record=record)
+
+    def _run_cached(self, encoded: List[Any], client: Optional[str] = None,
+                    tenant: Optional[str] = None,
+                    record: Optional[Dict[str, Any]] = None) -> List[Any]:
+        cache = self.edge_cache
+        n = len(encoded)
+        results: List[Any] = [None] * n
+        misses: List[Tuple[int, str, Any]] = []  # (position, key, flight)
+        lead_pos: Dict[str, int] = {}  # key -> its first position here
+        dups: List[Tuple[int, int]] = []  # (position, leading position)
+        waits: List[Tuple[int, Any]] = []  # (position, leader's flight)
+        wall, t0 = time.time(), time.monotonic()
+        n_hits = 0
+        for i, q in enumerate(encoded):
+            key = query_key(q)
+            if key in lead_pos:
+                dups.append((i, lead_pos[key]))
+                continue
+            kind, payload = cache.begin(key)
+            if kind == "hit":
+                results[i] = payload
+                n_hits += 1
+            elif kind == "wait":
+                waits.append((i, payload))
+            else:
+                lead_pos[key] = i
+                misses.append((i, key, payload))
+        # Read before the dispatch: a promotion landing meanwhile bumps
+        # it, and resolve() then drops the stale insert.
+        epoch = cache.epoch
+        if misses:
+            try:
+                sub = self._dispatch_queries(
+                    [encoded[i] for i, _, _ in misses], client,
+                    tenant=tenant, record=record)
+            except BaseException as e:
+                for _, key, flight in misses:
+                    cache.fail(key, e, flight=flight)
+                raise
+            vector = self.predictor.serving_vector()
+            if vector is not None:
+                cache.note_vector(vector)
+            for (i, key, flight), value in zip(misses, sub):
+                results[i] = value
+                cache.resolve(key, value, epoch, flight=flight)
+        # A hit or a wait skipped the scatter; a wait is credited only
+        # once its leader answered.
+        est = (self.predictor.estimate_hit_cost()
+               if (n_hits or waits) else 0.0)
+        if n_hits:
+            cache.note_avoided(n_hits * est)
+        if waits:
+            for i, flight in waits:
+                results[i] = flight.wait(self.timeout)
+            cache.note_avoided(est * sum(
+                1 for i, _ in waits if results[i] is not None))
+        for i, lead in dups:
+            results[i] = results[lead]
+        if n_hits or waits or dups:
+            ctx = trace.current()
+            if ctx is not None:
+                trace.record_event(
+                    "predictor.cache", self.stats.service, [ctx], wall,
+                    time.monotonic() - t0,
+                    attrs={"hits": n_hits, "coalesced": len(waits),
+                           "misses": len(misses)})
+        return results
+
     def _dispatch_queries(self, encoded: List[Any],
-                          client: Optional[str] = None) -> List[Any]:
-        """One request's queries -> their predictions: through the
-        micro-batcher when it is on (the frames stay encoded all the way
-        to the bus), else straight to the workers, with the client's
+                          client: Optional[str] = None,
+                          tenant: Optional[str] = None,
+                          record: Optional[Dict[str, Any]] = None,
+                          ) -> List[Any]:
+        """One request's (missed) queries -> their predictions: through
+        the micro-batcher when it is on (the frames stay encoded all the
+        way to the bus), else straight to the workers, with the client's
         queries in flight capped."""
         if not encoded:
             return []
         if self.batcher is not None:
             return self.batcher.submit(encoded, timeout=self.timeout,
-                                       client=client)
+                                       client=client, tenant=tenant,
+                                       record=record)
         n = len(encoded)
         if client is not None and self._direct_cap:
             with self._direct_lock:
@@ -349,7 +512,7 @@ class PredictorService:
                 self._direct_pending[client] = held + n
         try:
             self.stats.admitted(n)
-            return self._backend.predict(encoded)
+            return self._backend.predict(encoded, tenant=tenant)
         finally:
             if client is not None and self._direct_cap:
                 with self._direct_lock:
@@ -370,24 +533,47 @@ class PredictorService:
             return 400, {"error": "'queries' must be a list"}
         client = (ctx.headers.get(self.client_header)
                   if self.client_header else None)
+        # The hashed tenant key, never the raw header; the rollup counts
+        # a request once it is served.
+        tenant = _attr.tenant_key(client) if self._attribution else None
+        # One arrival record a request, 429s included.
+        record = (_workload.open_request(self.inference_job_id or "",
+                                         tenant, len(queries))
+                  if self._workload else None)
+        t0 = time.monotonic()
         try:
-            preds = self._dispatch_queries(queries, client=client)
+            preds = self._run_queries(queries, client=client,
+                                      tenant=tenant, record=record)
         except Backpressure as e:
+            if self._attribution:
+                _attr.account_rejected(self.stats.service, e.reason)
+            _workload.commit(record, 429, time.monotonic() - t0,
+                             reason=e.reason)
             return (429,
                     {"error": str(e), "queue_depth": e.depth,
                      "queue_cap": e.cap, "reason": e.reason,
                      "retry_after": e.retry_after},
                     {"Retry-After": str(int(e.retry_after))})
+        dur_s = time.monotonic() - t0
+        if tenant:
+            _attr.account_admitted(tenant)
+            _attr.account_tenant_latency(tenant, dur_s,
+                                         service=self.stats.service)
+        _workload.commit(record, 200, dur_s,
+                         bins=(self.predictor.serving_vector()
+                               if self.predictor is not None else None))
         if single:
             return 200, {"prediction": preds[0]}
         return 200, {"predictions": preds}
 
-    def _generate(self, body):
+    def _generate(self, params, body, ctx):
         """Token generation, streamed as NDJSON: the request goes to one
         generating worker, whose decode loop admits it between steps;
         its frames come back through the worker's reply queue and out
         of this handler as HTTP chunks. Prefix reuse happens in the
-        worker's engine."""
+        worker's engine. The stream's end (or the client leaving)
+        commits its workload record: 200, 502 after an error frame, 504
+        after the timeout."""
         if not body or not isinstance(body.get("tokens"), list) \
                 or not body["tokens"]:
             return 400, {"error":
@@ -406,17 +592,35 @@ class PredictorService:
             return 503, {"error": "no generate-capable worker"}
         qid, pop = started
         timeout = self.timeout
+        client = (ctx.headers.get(self.client_header)
+                  if self.client_header else None)
+        tenant = _attr.tenant_key(client) if self._attribution else None
+        record = (_workload.open_request(self.inference_job_id or "",
+                                         tenant, 1)
+                  if self._workload else None)
 
         def frames():
-            deadline = time.monotonic() + timeout
-            done = False
-            while not done and time.monotonic() < deadline:
-                for fr in pop(qid, timeout=0.25):
-                    yield json.dumps(fr) + "\n"
-                    if fr.get("done"):
-                        done = True
-            if not done:
-                yield json.dumps({"done": True,
-                                  "finish": "timeout"}) + "\n"
+            t0 = time.monotonic()
+            deadline = t0 + timeout
+            status, done = 200, False
+            try:
+                while not done and time.monotonic() < deadline:
+                    for fr in pop(qid, timeout=0.25):
+                        if fr.get("finish") == "error":
+                            status = 502
+                        yield json.dumps(fr) + "\n"
+                        if fr.get("done"):
+                            done = True
+                if not done:
+                    status = 504
+                    yield json.dumps({"done": True,
+                                      "finish": "timeout"}) + "\n"
+            finally:
+                dur = time.monotonic() - t0
+                _workload.commit(record, status, dur)
+                if tenant and status == 200:
+                    _attr.account_admitted(tenant)
+                    _attr.account_tenant_latency(
+                        tenant, dur, service=self.stats.service)
 
         return 200, StreamResponse("application/x-ndjson", frames())

@@ -22,8 +22,11 @@ queue between the HTTP handlers and the ``Predictor``.
   the caller, one client holds at most that share of the queue.
 
 Counters ride ``observe.ServingStats``; the ``predictor.scatter`` and
-``predictor.gather`` spans ride ``observe.trace``. The reference's
-workload records and tenant attribution are not ported.
+``predictor.gather`` spans ride ``observe.trace``. A request's hashed
+tenant and its admission time go with it: at dispatch its wait is
+written into its workload record (``observe.workload``), and the
+batch's summed wait, tenant mix and per-query tenant column go to the
+predictor for the attribution ledger.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
-from ..observe import ServingStats, trace
+from ..observe import ServingStats, trace, workload
 
 _log = logging.getLogger(__name__)
 
@@ -61,9 +64,12 @@ class Backpressure(RuntimeError):
 class _Request:
     """One caller's slice of a super-batch."""
 
-    __slots__ = ("queries", "event", "result", "error", "trace", "client")
+    __slots__ = ("queries", "event", "result", "error", "trace",
+                 "client", "tenant", "t_admit", "record")
 
-    def __init__(self, queries: List[Any], client: Optional[str] = None):
+    def __init__(self, queries: List[Any], client: Optional[str] = None,
+                 tenant: Optional[str] = None,
+                 record: Optional[Dict[str, Any]] = None):
         self.queries = queries
         self.event = threading.Event()
         self.result: Optional[List[Any]] = None
@@ -72,6 +78,12 @@ class _Request:
         # the batcher's threads and into the bus envelope.
         self.trace = trace.current()
         self.client = client
+        # The hashed tenant key (None = unattributed), the admission
+        # time (dispatch minus it is the queue wait) and the open
+        # workload record (None = the recorder is off).
+        self.tenant = tenant
+        self.t_admit = time.monotonic()
+        self.record = record
 
     def resolve(self, result: List[Any]) -> None:
         self.result = result
@@ -193,10 +205,14 @@ class MicroBatcher:
     # --- Caller side ---
 
     def submit(self, queries: List[Any], timeout: Optional[float] = None,
-               client: Optional[str] = None) -> List[Any]:
+               client: Optional[str] = None,
+               tenant: Optional[str] = None,
+               record: Optional[Dict[str, Any]] = None) -> List[Any]:
         """Queue one request's queries and wait for its slice of the
         results. Raises ``Backpressure`` when the queue is full, or,
-        with fairness on, when ``client``'s share of it is."""
+        with fairness on, when ``client``'s share of it is. ``tenant``
+        is the hashed attribution key, ``record`` the request's open
+        workload record."""
         if not self._started:
             self.start()
         n = len(queries)
@@ -204,7 +220,8 @@ class MicroBatcher:
             return []
         if self._client_cap == 0:
             client = None
-        req = _Request(queries, client=client)
+        req = _Request(queries, client=client, tenant=tenant,
+                       record=record)
         with self._cond:
             # Under the lock: a request admitted after stop()'s drain
             # would sit in a queue no thread reads.
@@ -330,18 +347,37 @@ class MicroBatcher:
                         req.fail(RuntimeError("micro-batcher stopped"))
                     return
             self._top_up(batch)
-            fill_s = time.monotonic() - t0
+            now = time.monotonic()
+            fill_s = now - t0
             flat: List[Any] = []
             ctxs: List[Any] = []
+            tenants: Dict[str, int] = {}
+            queue_wait_s = 0.0
             for req in batch:
                 flat.extend(req.queries)
                 if req.trace is not None:
                     ctxs.append(req.trace)
+                wait = max(0.0, now - req.t_admit)
+                queue_wait_s += wait
+                workload.note_queue_wait(req.record, wait)
+                if req.tenant:
+                    tenants[req.tenant] = (tenants.get(req.tenant, 0)
+                                           + len(req.queries))
+            # The per-query tenant column, only when someone in the
+            # batch is attributed: a tiered escalation takes its
+            # subset's mix from it.
+            tenant_rows = None
+            if tenants:
+                tenant_rows = []
+                for req in batch:
+                    tenant_rows.extend([req.tenant] * len(req.queries))
             t1 = time.monotonic()
             wall = time.time()
             try:
                 finisher = self.predictor.predict_submit(
-                    flat, pre_encoded=self.pre_encoded, trace_ctxs=ctxs)
+                    flat, pre_encoded=self.pre_encoded, trace_ctxs=ctxs,
+                    tenants=sorted(tenants.items()) or None,
+                    tenant_rows=tenant_rows, queue_wait_s=queue_wait_s)
             except BaseException as e:  # noqa: BLE001 - to the callers
                 self._inflight_sem.release()
                 for req in batch:

@@ -2,22 +2,38 @@
 workers over the bus, gather their replies, ensemble.
 
 The port's copy of ``ensemble_predictions`` and of the reference's
-``Predictor`` (``rafiki_tpu/predictor/predictor.py:62-1121``) without
-confidence tiering. The predictor finds the job's workers in the bus
-registry and groups them by the trial bin each serves: same-bin workers
-are replicas. With replica sharding on (``shard_replicas``, the
-default) each bin's slice of a batch is split over all its live
-replicas, sized inversely to each one's latency EWMA; off, the whole
-batch goes to one replica a bin, rotating. A shard still missing at the
-straggler deadline (``_partial_wait``) is resubmitted once to a sibling
-and its replica quarantined, for one gather timeout doubling with each
-consecutive strike: it takes no shard meanwhile while its bin has
-another replica (where the reference still sends it single-query
-batches). A bin with no sibling loses its vote instead of stalling the
-batch. Each query's answer is the weighted
-``ensemble_predictions`` over the bins that replied; a query no bin
-answered comes back None. Shards bound for a worker that advertises the
-packed wire ride one ``__ndbatch__`` frame.
+``Predictor`` (``rafiki_tpu/predictor/predictor.py:62-1121``). The
+predictor finds the job's workers in the bus registry and groups them
+by the trial bin each serves: same-bin workers are replicas. With
+replica sharding on (``shard_replicas``, the default) each bin's slice
+of a batch is split over all its live replicas, sized inversely to each
+one's latency EWMA; off, the whole batch goes to one replica a bin,
+rotating. A shard still missing at the straggler deadline
+(``_partial_wait``) is resubmitted once to a sibling and its replica
+quarantined, for one gather timeout doubling with each consecutive
+strike: it takes no shard meanwhile while its bin has another replica
+(where the reference still sends it single-query batches). A bin with
+no sibling loses its vote instead of stalling the batch. Each query's
+answer is the weighted ``ensemble_predictions`` over the bins that
+replied; a query no bin answered comes back None. Shards bound for a
+worker that advertises the packed wire ride one ``__ndbatch__`` frame.
+
+Confidence tiering (``tier_threshold``, else
+``RAFIKI_TPU_SERVING_TIER_THRESHOLD``; 0 = off): with several bins
+serving and every bin's eval score known, a batch goes to the best bin
+first; a query whose softmax margin there clears the threshold is
+answered by that bin's vote alone (``short_circuit``), the others are
+sent on to the remaining bins and answered by every bin's vote
+(``escalate``). A bin without a score sends the whole batch to every
+bin (``full``). Workers report each slice's device seconds; their
+per-bin, per-query EWMA prices what a short circuit or a cache hit
+saved (``estimate_query_cost``, ``estimate_hit_cost``). The tier and
+avoided-seconds series exist only with tiering on.
+
+With the attribution ledger on, each plan's per-bin query counts and
+the batch's admission wait are accounted, and the batch's tenant mix
+rides the shard frames (an escalation carries its own subset's mix,
+from the per-query ``tenant_rows``).
 
 ``predict_submit`` scatters now and returns the finisher that gathers,
 which the micro-batcher's gather thread calls while its batcher thread
@@ -38,7 +54,10 @@ import numpy as np
 
 from ..bus import BaseBus
 from ..cache import WIRE_NDBATCH, Cache, PackedBatch, encode_payload
+from ..observe import attribution as _attr
 from ..observe import metrics as _metrics
+from ..observe import trace as _trace
+from ..observe import wire as _wire
 
 _log = logging.getLogger(__name__)
 
@@ -63,6 +82,10 @@ _STRAGGLER_MIN = 0.025
 #: Ceiling of the quarantine multiplier: a replica that missed N
 #: consecutive probes sits out ``gather_timeout * min(2**(N-1), 16)``.
 _QUARANTINE_MAX_MULT = 16
+
+#: EWMA smoothing of a bin's device seconds a query, from the workers'
+#: ``compute_s``.
+_COST_ALPHA = 0.3
 
 #: A query position whose bin shard never replied.
 _HOLE = object()
@@ -163,9 +186,12 @@ class _WirePayload:
     def encoded(self) -> List[Any]:
         """Per-query wire frames, made once."""
         if self._encoded is None:
-            self._encoded = (self._queries if self._pre_encoded
-                             else [encode_payload(q)
-                                   for q in self._queries])
+            if self._pre_encoded:
+                self._encoded = self._queries
+            else:
+                _wire.count_copies("encode", sum(
+                    1 for q in self._queries if isinstance(q, np.ndarray)))
+                self._encoded = [encode_payload(q) for q in self._queries]
         return self._encoded
 
     def for_plan(self, plan: List[_Shard],
@@ -179,17 +205,37 @@ class _WirePayload:
                else None)
         return enc, packed
 
+    def take(self, indices: List[int]) -> "_WirePayload":
+        """The rows ``indices`` (the tiered escalation), keeping the
+        forms already made."""
+        sub = _WirePayload([self._queries[i] for i in indices],
+                           self._pre_encoded, self.capable)
+        if self._packed_done and self._packed is not None:
+            sub._packed = self._packed.take(indices)
+            sub._packed_done = True
+        if self._encoded is not None:
+            sub._encoded = [self._encoded[i] for i in indices]
+        return sub
+
 
 class Predictor:
     def __init__(self, inference_job_id: str, bus: BaseBus,
                  gather_timeout: float = 30.0,
                  worker_wait_timeout: float = 120.0,
                  shard_replicas: Optional[bool] = None,
-                 service: Optional[str] = None):
+                 service: Optional[str] = None,
+                 tier_threshold: Optional[float] = None):
         self.inference_job_id = inference_job_id
         self.cache = Cache(bus)
         self.gather_timeout = gather_timeout
         self.worker_wait_timeout = worker_wait_timeout
+        # An explicit argument, else RAFIKI_TPU_SERVING_TIER_THRESHOLD;
+        # 0 turns tiering off (None).
+        if tier_threshold is None:
+            tier_threshold = float(os.environ.get(
+                "RAFIKI_TPU_SERVING_TIER_THRESHOLD", "0") or 0)
+        self.tier_threshold = tier_threshold if tier_threshold > 0 \
+            else None
         # An explicit argument, else RAFIKI_TPU_SERVING_SHARD_REPLICAS,
         # else on.
         if shard_replicas is None:
@@ -203,6 +249,13 @@ class Predictor:
         # worker id, so read from the registry once.
         self._bins: Dict[str, str] = {}
         self._wire_ok: Dict[str, bool] = {}
+        # bin -> eval score from its registration (the best bin), and
+        # bin -> EWMA of its device seconds a query (the savings).
+        self._bin_score: Dict[str, float] = {}
+        self._bin_cost: Dict[str, float] = {}
+        # The bins of the last plan: the serving-bin vector the edge
+        # cache checks.
+        self._last_bins: Optional[tuple] = None
         # worker_id -> EWMA of scatter -> reply seconds (the split).
         self._lat: Dict[str, float] = {}
         # worker_id -> monotonic time of its last penalty, and its
@@ -217,6 +270,18 @@ class Predictor:
         self.service = service or f"pred-{uuid.uuid4().hex[:8]}"
         self._m_shards = self._m_resubmits = None
         self._m_replica = self._m_quarantines = None
+        self._m_tier = self._m_avoided = None
+        if self.tier_threshold is not None and _metrics.metrics_enabled():
+            reg = _metrics.registry()
+            self._m_tier = reg.counter(
+                "rafiki_tpu_serving_tier_total",
+                "Per-query tiered-serving outcomes (outcome="
+                "short_circuit|escalate|full)")
+            self._m_avoided = reg.counter(
+                "rafiki_tpu_serving_chip_seconds_avoided_total",
+                "Estimated chip-seconds NOT spent thanks to a serving "
+                "cut-through (source=cache|tier), from the per-bin "
+                "compute-cost EWMA")
         if _metrics.metrics_enabled():
             reg = _metrics.registry()
             self._m_shards = reg.counter(
@@ -235,14 +300,21 @@ class Predictor:
                 "Replicas penalized out of the shard plan after a "
                 "missed deadline (quarantine backs off exponentially "
                 "per consecutive strike)")
+        # The attribution ledger's per-bin frontend series live as long
+        # as this predictor; close() drops them once.
+        self._attr_closed = False
+        _attr.open_owner()
 
     def close(self) -> None:
         """Drop this predictor's series from the registry (the label is
-        per instance)."""
+        per instance), the ledger's per-bin frontend series included."""
         for m in (self._m_shards, self._m_resubmits, self._m_replica,
-                  self._m_quarantines):
+                  self._m_quarantines, self._m_tier, self._m_avoided):
             if m is not None:
                 m.remove(service=self.service)
+        if not self._attr_closed:
+            self._attr_closed = True
+            _attr.close_service(self.service)
 
     def workers(self) -> List[str]:
         return self.cache.running_workers(self.inference_job_id)
@@ -267,6 +339,9 @@ class Predictor:
             self._bins[worker_id] = bin_id
             self._wire_ok[worker_id] = WIRE_NDBATCH in (
                 info.get("wire") or ())
+            score = info.get("score")
+            if isinstance(score, (int, float)):
+                self._bin_score[bin_id] = float(score)
         return bin_id
 
     def _group_replicas(self) -> Tuple[Dict[str, List[str]], int,
@@ -297,7 +372,16 @@ class Predictor:
             groups: Dict[str, List[str]] = {}
             for w in workers:
                 groups.setdefault(self._bin_of(w), []).append(w)
+            # Promotions retire bins: their score and cost rows go once
+            # they clearly outnumber the live ones.
+            if len(self._bin_score) + len(self._bin_cost) > \
+                    4 * len(groups) + 16:
+                self._bin_score = {b: v for b, v in self._bin_score.items()
+                                   if b in groups}
+                self._bin_cost = {b: v for b, v in self._bin_cost.items()
+                                  if b in groups}
             self._rr += 1
+            self._last_bins = tuple(sorted(groups))
             return groups, self._rr, dict(self._lat)
 
     @staticmethod
@@ -310,6 +394,38 @@ class Predictor:
         groups, rr, _ = self._group_replicas()
         return [self._rotate_pick(members, rr)
                 for _, members in sorted(groups.items())]
+
+    def serving_vector(self) -> Optional[tuple]:
+        """The bins of the last plan (sorted): a change means a
+        promotion swapped a served bin, and cached answers are stale."""
+        with self._state_lock:
+            return self._last_bins
+
+    def estimate_query_cost(self,
+                            exclude_bin: Optional[str] = None) -> float:
+        """Device seconds one full-ensemble query costs over the live
+        bins (a bin not yet measured counts 0, a retired one never);
+        ``exclude_bin`` leaves one out, which prices a short circuit."""
+        with self._state_lock:
+            live = self._last_bins
+            return sum(v for b, v in self._bin_cost.items()
+                       if b != exclude_bin
+                       and (live is None or b in live))
+
+    def estimate_hit_cost(self) -> float:
+        """Device seconds one cache hit saved: the full ensemble's cost,
+        or with tiering on the best bin's alone (the miss would most
+        likely have short-circuited), unless a bin has no score."""
+        with self._state_lock:
+            live = self._last_bins
+            costs = {b: v for b, v in self._bin_cost.items()
+                     if live is None or b in live}
+            if self.tier_threshold is not None and live and len(live) > 1:
+                scores = {b: self._bin_score.get(b) for b in live}
+                if all(v is not None for v in scores.values()):
+                    best = max(sorted(scores), key=lambda b: scores[b])
+                    return costs.get(best, 0.0)
+            return sum(costs.values())
 
     def _quarantine_s(self, worker_id: str) -> float:
         """Caller holds ``_state_lock``. Seconds a penalized replica sits
@@ -422,16 +538,36 @@ class Predictor:
             shard.reply = reply
             if shard.pair is not None:
                 shard.pair.superseded = True
+            # The worker's device seconds for the slice feed its bin's
+            # per-query cost EWMA.
+            compute_s = reply.get("compute_s")
+            n_preds = len(reply.get("predictions") or ())
+            if isinstance(compute_s, (int, float)) and compute_s >= 0 \
+                    and n_preds:
+                per_q = float(compute_s) / n_preds
+                with self._state_lock:
+                    prev = self._bin_cost.get(shard.bin)
+                    self._bin_cost[shard.bin] = (
+                        per_q if prev is None else
+                        _COST_ALPHA * per_q + (1.0 - _COST_ALPHA) * prev)
 
     def predict_submit(self, queries: List[Any], *,
                        pre_encoded: bool = False,
                        trace_ctxs: Optional[List[Any]] = None,
+                       tenants: Optional[List[Any]] = None,
+                       tenant_rows: Optional[List[Optional[str]]] = None,
+                       queue_wait_s: float = 0.0,
                        ) -> Callable[[], List[Optional[Any]]]:
         """Scatter a batch now, one bus frame a shard in one
         ``push_many``; returns the finisher that gathers and ensembles.
         ``pre_encoded`` says the queries are already bus frames (a
         request's body). ``trace_ctxs`` are the coalesced requests'
-        trace contexts (the batcher's thread has none of its own)."""
+        trace contexts (the batcher's thread has none of its own).
+        ``tenants`` (``[(tenant, n_queries), ...]``), ``tenant_rows``
+        (a query's tenant, None where unattributed) and
+        ``queue_wait_s`` (the batch's admission wait) feed the
+        attribution ledger. With tiering on and several bins serving,
+        the batch takes the tiered path (see the module docstring)."""
         n = len(queries)
         if not n:
             return lambda: []
@@ -440,8 +576,18 @@ class Predictor:
             raise RuntimeError(f"no running inference workers for job "
                                f"{self.inference_job_id}")
         wire = self._build_wire(queries, pre_encoded, groups)
+        if self.tier_threshold is not None and len(groups) > 1:
+            best = self._best_bin(groups)
+            if best is not None:
+                return self._submit_tiered(
+                    n, wire, groups, rr, lat, best, trace_ctxs,
+                    tenants=tenants, tenant_rows=tenant_rows,
+                    queue_wait_s=queue_wait_s)
+            # A bin without a score: no basis for a best bin.
+            self._count_tier("full", n)
         plan = self._plan_for(n, groups, rr, lat)
-        batch_id = self._scatter(plan, wire, trace_ctxs)
+        batch_id = self._scatter(plan, wire, trace_ctxs, tenants=tenants,
+                                 queue_wait_s=queue_wait_s)
 
         def finish() -> List[Optional[Any]]:
             self._gather_shards(batch_id, plan, groups, wire, trace_ctxs)
@@ -457,17 +603,129 @@ class Predictor:
         return _WirePayload(queries, pre_encoded, capable)
 
     def _scatter(self, plan: List[_Shard], wire: _WirePayload,
-                 trace_ctxs: Optional[List[Any]]) -> str:
+                 trace_ctxs: Optional[List[Any]],
+                 tenants: Optional[List[Any]] = None,
+                 queue_wait_s: float = 0.0) -> str:
+        """Stamp and send one plan; every scatter (full, tiered, an
+        escalation) accounts its per-bin query counts here."""
         now = time.monotonic()
         for s in plan:
             s.t_sent = now
         enc, packed = wire.for_plan(plan)
         batch_id = self.cache.send_query_shards(
             [s.wire() for s in plan], enc, trace_ctxs=trace_ctxs,
-            packed=packed, packed_ok=wire.capable)
+            packed=packed, packed_ok=wire.capable, tenants=tenants)
         if self._m_shards is not None:
             self._m_shards.inc(len(plan), service=self.service)
+        bin_queries: Dict[str, int] = {}
+        for s in plan:
+            bin_queries[s.bin] = bin_queries.get(s.bin, 0) + s.count
+        _attr.account_scatter(self.service, bin_queries,
+                              queue_wait_s=queue_wait_s)
         return batch_id
+
+    # --- Confidence tiering ---
+
+    def _best_bin(self, groups: Dict[str, List[str]]) -> Optional[str]:
+        """The bin with the highest eval score, or None unless every bin
+        has one (a bin without a score might be the best)."""
+        with self._state_lock:
+            scores = {b: self._bin_score.get(b) for b in groups}
+        if not scores or any(v is None for v in scores.values()):
+            return None
+        return max(sorted(scores), key=lambda b: scores[b])
+
+    def _count_tier(self, outcome: str, n: int) -> None:
+        if self._m_tier is not None and n:
+            self._m_tier.inc(n, service=self.service, outcome=outcome)
+
+    def _submit_tiered(self, n: int, wire: _WirePayload,
+                       groups: Dict[str, List[str]], rr: int,
+                       lat: Dict[str, float], best: str,
+                       trace_ctxs: Optional[List[Any]],
+                       tenants: Optional[List[Any]] = None,
+                       tenant_rows: Optional[List[Optional[str]]] = None,
+                       queue_wait_s: float = 0.0,
+                       ) -> Callable[[], List[Optional[Any]]]:
+        """The best bin first; the finisher sends the doubtful queries
+        (no vote, no confidence, or a margin under the threshold) to the
+        other bins as a second plan and merges their votes with the
+        best bin's, so an escalated query has one vote a bin."""
+        best_groups = {best: groups[best]}
+        plan1 = self._plan_for(n, best_groups, rr, lat)
+        batch1 = self._scatter(plan1, wire, trace_ctxs, tenants=tenants,
+                               queue_wait_s=queue_wait_s)
+        threshold = self.tier_threshold
+
+        def finish() -> List[Optional[Any]]:
+            wall, t0 = time.time(), time.monotonic()
+            self._gather_shards(batch1, plan1, best_groups, wire,
+                                trace_ctxs)
+            rows1, weights1, confs1 = self._collect_rows(n, plan1)
+            best_row = rows1.get(best)
+            best_conf = confs1.get(best)
+            best_w = weights1.get(best, 1)
+            results: List[Optional[Any]] = [None] * n
+            esc: List[int] = []
+            for i in range(n):
+                v = best_row[i] if best_row is not None else _HOLE
+                c = best_conf[i] if best_conf is not None else None
+                if v is _HOLE or c is None or c < threshold:
+                    esc.append(i)
+                else:
+                    results[i] = ensemble_predictions([v],
+                                                      weights=[best_w])
+            short = n - len(esc)
+            self._count_tier("short_circuit", short)
+            self._count_tier("escalate", len(esc))
+            if short and self._m_avoided is not None:
+                avoided = short * self.estimate_query_cost(
+                    exclude_bin=best)
+                if avoided > 0:
+                    self._m_avoided.inc(avoided, service=self.service,
+                                        source="tier")
+            if esc:
+                other = {b: ms for b, ms in groups.items() if b != best}
+                esc_wire = wire.take(esc)
+                plan2 = self._plan_for(len(esc), other, rr, lat)
+                # The escalation's own tenant mix, from the per-query
+                # column.
+                esc_tenants = None
+                if tenant_rows:
+                    merged: Dict[str, int] = {}
+                    for i in esc:
+                        t = tenant_rows[i] if i < len(tenant_rows) else None
+                        if t:
+                            merged[t] = merged.get(t, 0) + 1
+                    if merged:
+                        esc_tenants = sorted(
+                            merged.items(), key=lambda kv: (-kv[1], kv[0]))
+                batch2 = self._scatter(plan2, esc_wire, trace_ctxs,
+                                       tenants=esc_tenants)
+                self._gather_shards(batch2, plan2, other, esc_wire,
+                                    trace_ctxs)
+                rows2, weights2, _ = self._collect_rows(len(esc), plan2)
+                ordered2 = sorted(rows2.items())
+                for j, i in enumerate(esc):
+                    votes: List[Any] = []
+                    wts: List[int] = []
+                    if best_row is not None and best_row[i] is not _HOLE:
+                        votes.append(best_row[i])
+                        wts.append(best_w)
+                    for b, row in ordered2:
+                        if row[j] is not _HOLE:
+                            votes.append(row[j])
+                            wts.append(weights2.get(b, 1))
+                    results[i] = ensemble_predictions(votes, weights=wts)
+            if trace_ctxs:
+                _trace.record_event(
+                    "predictor.tier", self.service, trace_ctxs, wall,
+                    time.monotonic() - t0,
+                    attrs={"short_circuit": short, "escalated": len(esc),
+                           "best_bin": str(best)[:12]})
+            return results
+
+        return finish
 
     def _gather_shards(self, batch_id: str, plan: List[_Shard],
                        groups: Dict[str, List[str]], wire: _WirePayload,
@@ -553,10 +811,13 @@ class Predictor:
             batch_id, defer=bool(unmatched or resubmitted))
 
     def _collect_rows(self, n: int, plan: List[_Shard],
-                      ) -> Tuple[Dict[str, List[Any]], Dict[str, int]]:
+                      ) -> Tuple[Dict[str, List[Any]], Dict[str, int],
+                                 Dict[str, List[Optional[float]]]]:
         """Matched replies as per-bin rows in request order (``_HOLE``
-        where a shard never replied), and each bin's weight."""
+        where a shard never replied), each bin's weight, and each
+        position's confidence (None where the reply carried none)."""
         rows: Dict[str, List[Any]] = {}
+        confs: Dict[str, List[Optional[float]]] = {}
         bin_weight: Dict[str, int] = {}
         for s in plan:
             if s.reply is None:
@@ -564,19 +825,25 @@ class Predictor:
             row = rows.get(s.bin)
             if row is None:
                 row = rows[s.bin] = [_HOLE] * n
+                confs[s.bin] = [None] * n
+            crow = confs[s.bin]
             preds = s.reply.get("predictions") or []
+            rconf = s.reply.get("confidence") or []
             for j in range(min(s.count, len(preds))):
                 if row[s.start + j] is _HOLE:
                     row[s.start + j] = preds[j]
+                    if j < len(rconf) and \
+                            isinstance(rconf[j], (int, float)):
+                        crow[s.start + j] = float(rconf[j])
             bin_weight[s.bin] = max(bin_weight.get(s.bin, 1),
                                     int(s.reply.get("weight", 1)))
-        return rows, bin_weight
+        return rows, bin_weight, confs
 
     def _reassemble(self, n: int, plan: List[_Shard],
                     ) -> List[Optional[Any]]:
         """Ensemble across bins, query by query. A query whose bin shard
         never replied loses that bin's vote; one with no vote is None."""
-        rows, bin_weight = self._collect_rows(n, plan)
+        rows, bin_weight, _ = self._collect_rows(n, plan)
         results: List[Optional[Any]] = []
         ordered = sorted(rows.items())
         for i in range(n):
@@ -587,6 +854,11 @@ class Predictor:
         return results
 
     def predict(self, queries: List[Any], *,
-                pre_encoded: bool = False) -> List[Optional[Any]]:
+                pre_encoded: bool = False,
+                tenants: Optional[List[Any]] = None,
+                tenant_rows: Optional[List[Optional[str]]] = None,
+                ) -> List[Optional[Any]]:
         """Scatter, gather and ensemble a batch (blocking)."""
-        return self.predict_submit(queries, pre_encoded=pre_encoded)()
+        return self.predict_submit(queries, pre_encoded=pre_encoded,
+                                   tenants=tenants,
+                                   tenant_rows=tenant_rows)()

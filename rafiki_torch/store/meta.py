@@ -480,6 +480,17 @@ class MetaStore:
             "service_id": service_id, "inference_job_id": inference_job_id,
             "trial_id": trial_id})
 
+    def update_inference_job_worker(self, service_id: str,
+                                    trial_id: str) -> None:
+        """Point one worker's mapping row at a new trial bin: a restack
+        swaps a stacked worker's member in place, and the promote
+        checks read the served bins from these rows."""
+        with self._lock:
+            self._conn.execute(
+                "UPDATE inference_job_workers SET trial_id = ? "
+                "WHERE service_id = ?", (trial_id, service_id))
+            self._conn.commit()
+
     def get_inference_job_workers(self, inference_job_id: str) -> List[Row]:
         return self._select(
             "SELECT * FROM inference_job_workers WHERE inference_job_id = ?",

@@ -33,16 +33,41 @@ Two workers share this module:
   also serves token generation from the bus, its engine sized by the
   reference's ``RAFIKI_TPU_GENERATE_*`` variables.
 
+The bus worker's lifecycle, as the reference's:
+
+- **Pipelining.** A burst is dispatched (``_dispatch_batch``) and later
+  completed (``_complete_batch``: read back, reply). With pipelining on,
+  burst N+1 is dispatched before burst N completes, so N's readback
+  hides behind N+1's device work. ``RAFIKI_TPU_SERVING_PIPELINE`` is
+  ``1``, ``0`` or ``auto`` (the default): auto measures the device's
+  sync round trip at start-up and pipelines when it is at least
+  ``RAFIKI_TPU_PIPELINE_SYNC_MIN`` seconds. The registration carries
+  ``pipeline`` and the measured ``sync_latency_ms``.
+- **Restacks.** A ``__restack__`` marker (``Cache.send_restack``, from
+  the admin's promote) swaps one member of a stacked bin in place after
+  the burst it arrived with: the incoming trial's model is loaded and
+  copied into the stacked group's storage (``replace_member``), so no
+  runner is rebuilt; the meta mapping row follows the new bin and the
+  registration is re-asserted with it. A restack that fails leaves the
+  old member set serving and the old registration standing, which the
+  admin reads as the failure. ``__drain__`` serves what came before it
+  and exits.
+- **Confidence.** With ``RAFIKI_TPU_SERVING_TIER_THRESHOLD`` above 0,
+  each reply carries each query's softmax margin
+  (``prediction_confidence``) and the slice's device seconds, for a
+  tiering predictor.
+- **Attribution.** With the ledger on, each burst's device seconds go
+  to the worker's ``(job, bin)`` with the dispatch mode, and are
+  prorated over the tenants its frames carried.
+
 A ``predict`` that raises answers each of its queries with
 ``{"error": "<Type>: <msg>"}``, as the reference's worker does, so one
 failing worker does not fail the request. A burst whose frames carry
 trace envelopes records one ``worker.predict`` span under each trace
 (``observe.trace``), before its replies go out.
 
-Not ported yet: the pipelined burst path, the promote route
-(``/promote``, ``send_restack``: ``_PackedEnsemble.replace_member`` is
-ported, the route waits for the admin's), profiling markers, the bus
-reconnect loop and the worker's metrics series.
+Not ported yet: profiling markers, the bus reconnect loop and the
+periodic re-registration.
 """
 
 from __future__ import annotations
@@ -61,11 +86,13 @@ import numpy as np
 import torch
 
 from ..bus import BaseBus
-from ..cache import DRAIN_KEY, WIRE_NDBATCH, Cache, TokenFrames
+from ..cache import DRAIN_KEY, RESTACK_KEY, WIRE_NDBATCH, Cache, TokenFrames
+from ..config import parse_tristate_bool
 from ..constants import ServiceStatus
 from ..model.base import BaseModel, Params
+from ..observe import attribution as _attr
 from ..observe import trace
-from ..observe.wire import quant_mode, stacked_mode
+from ..observe import wire as _wire
 from ..parallel.chips import ChipGroup
 from ..store import MetaStore, ParamStore
 from ..torchenv import DeviceLike, resolve_device
@@ -73,6 +100,43 @@ from ..utils.model_loader import load_model_class
 from .decode_scheduler import DecodeScheduler
 
 _log = logging.getLogger(__name__)
+
+
+def prediction_confidence(pred: Any) -> Optional[float]:
+    """A query's confidence for tiered serving: the softmax margin (top-1
+    minus top-2 probability) of a flat numeric vector, else None (labels,
+    ``__members__`` envelopes and error replies escalate)."""
+    try:
+        if isinstance(pred, np.ndarray):
+            arr = pred
+        elif isinstance(pred, (list, tuple)) and len(pred) >= 2 and \
+                not isinstance(pred[0], (list, tuple, dict, str)):
+            arr = np.asarray(pred)
+        else:
+            return None
+        if arr.ndim != 1 or arr.size < 2 or \
+                not np.issubdtype(arr.dtype, np.number):
+            return None
+        arr = arr.astype(np.float64, copy=False)
+        if not np.isfinite(arr).all():
+            return None
+        top2 = np.partition(arr, arr.size - 2)[-2:]
+        return float(top2[1] - top2[0])
+    except (TypeError, ValueError):
+        return None
+
+
+def sync_latency(device: torch.device, n: int = 3) -> float:
+    """Best of ``n`` round trips of a tiny dispatch on ``device`` read
+    back to the host: the latency a pipelined worker hides."""
+    x = torch.zeros((8, 8), dtype=torch.float32, device=device)
+    float((x + 1.0).sum())  # the first launch outside the timing
+    best = float("inf")
+    for _ in range(n):
+        t0 = time.perf_counter()
+        float((x + 1.0).sum())
+        best = min(best, time.perf_counter() - t0)
+    return best
 
 
 class InferenceWorker:
@@ -263,10 +327,15 @@ class _PackedEnsemble:
         self.dispatches = {m: 0 for m in self.MODES}
         self.bursts = {m: 0 for m in self.MODES}
 
-    def _count(self, mode: str, n_dispatches: int) -> None:
+    def _count(self, mode: str, n_dispatches: int, n_queries: int) -> None:
+        """One burst's mode, counted here and, for a worker that has a
+        stacked group, in the serving dispatch series."""
         self.last_mode = mode
         self.dispatches[mode] += n_dispatches
         self.bursts[mode] += 1
+        if mode != "members":
+            _wire.count_stacked_dispatch(mode, n_dispatches)
+            _wire.observe_dispatches_per_query(n_dispatches, n_queries)
 
     def _stacked_usable(self) -> bool:
         return self.stacked is not None and self.stacked.n_valid > 0
@@ -282,7 +351,7 @@ class _PackedEnsemble:
                 _log.exception("stacked dispatch failed; serving this "
                                "burst per-member")
             else:
-                self._count("stacked", len(handles))
+                self._count("stacked", len(handles), len(queries))
                 return self._finish_members(
                     self.stacked.member_finishers(handles), len(queries))
         finishers = []
@@ -294,7 +363,7 @@ class _PackedEnsemble:
             except Exception:
                 _log.exception("packed member dispatch failed; dropping "
                                "its vote")
-        self._count(self._per_member_mode(), len(finishers))
+        self._count(self._per_member_mode(), len(finishers), len(queries))
         return self._finish_members(finishers, len(queries))
 
     def predict_bucket(self, n: int, dtype: Any = None) -> Optional[int]:
@@ -322,7 +391,7 @@ class _PackedEnsemble:
                 _log.exception("stacked staged dispatch failed; serving "
                                "this burst per-member")
             else:
-                self._count("stacked", 1)
+                self._count("stacked", 1, n)
                 return self._finish_members(
                     self.stacked.member_finishers([handle]), n)
         finishers = []
@@ -332,7 +401,7 @@ class _PackedEnsemble:
             except Exception:
                 _log.exception("packed member staged dispatch failed; "
                                "dropping its vote")
-        self._count(self._per_member_mode(), len(finishers))
+        self._count(self._per_member_mode(), len(finishers), n)
         return self._finish_members(finishers, n)
 
     def replace_member(self, index: int, model: Any) -> None:
@@ -453,14 +522,16 @@ def _generate_config() -> Optional[Dict[str, int]]:
 class BusInferenceWorker:
     """The platform's inference service: serves one trial bin from the
     bus on its chip group's device. Each pop waits up to
-    ``BATCH_TIMEOUT`` seconds for a first frame and takes up to
-    ``MAX_BATCH`` frames.
+    ``BATCH_TIMEOUT`` seconds for a first frame (none while a burst is
+    in flight) and takes up to ``MAX_BATCH`` frames.
 
     ``trial_id`` is one trial id, or several joined by commas when the
-    services manager packed them onto one chip group. ``start()`` runs
-    ``run()`` on a thread: load the bin, mark the service RUNNING,
-    register, serve until ``stop()`` or a drain marker, then mark it
-    STOPPED and unregister (ERRORED when it crashes)."""
+    services manager packed them onto one chip group. ``pipeline`` is
+    True, False or None (auto); None reads
+    ``RAFIKI_TPU_SERVING_PIPELINE``. ``start()`` runs ``run()`` on a
+    thread: load the bin, mark the service RUNNING, register, serve
+    until ``stop()`` or a drain marker, then mark it STOPPED and
+    unregister (ERRORED when it crashes)."""
 
     BATCH_TIMEOUT = 0.5
     MAX_BATCH = 512
@@ -468,7 +539,8 @@ class BusInferenceWorker:
     def __init__(self, service_id: str, inference_job_id: str,
                  trial_id: str, meta: MetaStore, params: ParamStore,
                  bus: BaseBus, chips: Optional[ChipGroup] = None, *,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 pipeline: Optional[bool] = None):
         self.service_id = service_id
         self.inference_job_id = inference_job_id
         self.trial_id = trial_id
@@ -478,14 +550,27 @@ class BusInferenceWorker:
         self.chips = chips
         self.device = chips.device if chips is not None \
             else resolve_device(device)
+        if pipeline is None:
+            pipeline = parse_tristate_bool(os.environ.get(
+                "RAFIKI_TPU_SERVING_PIPELINE", "auto"))
+        self.pipeline = pipeline
+        self.pipeline_sync_min = float(os.environ.get(
+            "RAFIKI_TPU_PIPELINE_SYNC_MIN", "0.02"))
+        #: The measured sync round trip (ms) of an auto decision.
+        self.sync_ms: Optional[float] = None
+        # Confidence rides the replies only for a tiering predictor.
+        self.send_confidence = float(os.environ.get(
+            "RAFIKI_TPU_SERVING_TIER_THRESHOLD", "0") or 0) > 0
         self._gen_cfg = _generate_config()
-        self._quant_req = quant_mode()
+        self._quant_req = _wire.quant_mode()
         self._quant_active = False
-        self._stacked_req = stacked_mode()
+        self._stacked_req = _wire.stacked_mode()
         self._stacked_active = False
         self._stager = _HostStager(self.device)
         self._gen_sched: Optional[DecodeScheduler] = None
         self._gen_thread: Optional[threading.Thread] = None
+        self._reg_info: Dict[str, Any] = {}
+        self._attr_closed = False
         self.stop_flag = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.model: Optional[Any] = None
@@ -512,8 +597,9 @@ class BusInferenceWorker:
 
     def _load_member(self, tid: str) -> Tuple[Any, Optional[float]]:
         """One trial's model on this worker's device (quantised for
-        serving when ``RAFIKI_TPU_SERVING_QUANT`` asks), and its
-        score."""
+        serving when ``RAFIKI_TPU_SERVING_QUANT`` asks), and its score.
+        The first load and a restack share it, so a restacked member
+        is quantised as a fresh worker's would be."""
         trial = self.meta.get_trial(tid)
         if trial is None:
             raise ValueError(f"unknown trial {tid}")
@@ -573,21 +659,34 @@ class BusInferenceWorker:
             warm = getattr(self.model, "warmup", None)
             if warm is not None:
                 warm()
+            if self.pipeline is None:
+                latency = sync_latency(self.device)
+                self.sync_ms = round(latency * 1e3, 3)
+                self.pipeline = latency >= self.pipeline_sync_min
+                _log.info("inference worker %s: sync latency %.3f ms -> "
+                          "pipelining %s", self.service_id, latency * 1e3,
+                          "on" if self.pipeline else "off")
             gen_info = self._start_generate()
             self.meta.update_service(self.service_id,
                                      status=ServiceStatus.RUNNING)
             # The bin rides the registration, so the predictor treats
-            # same-bin workers as replicas; "wire" offers the packed
-            # format; "gen" the engine geometry /generate picks by;
-            # "quant", "stacked" and "staging" say how the bin serves.
-            self.cache.register_worker(
-                self.inference_job_id, self.service_id,
-                info={"trial_id": self.trial_id, "score": score,
-                      "wire": [WIRE_NDBATCH], "gen": gen_info,
-                      "quant": (self._quant_req if self._quant_active
-                                else None),
-                      "stacked": self._stacked_active,
-                      "staging": self._stager.mode})
+            # same-bin workers as replicas and ranks bins by "score";
+            # "wire" offers the packed format; "gen" the engine geometry
+            # /generate picks by; "pipeline", "quant", "stacked" and
+            # "staging" say how the bin serves (the admin restacks only
+            # a stacked bin).
+            self._reg_info = {
+                "trial_id": self.trial_id, "score": score,
+                "pipeline": bool(self.pipeline),
+                "sync_latency_ms": self.sync_ms,
+                "wire": [WIRE_NDBATCH], "gen": gen_info,
+                "quant": (self._quant_req if self._quant_active
+                          else None),
+                "stacked": self._stacked_active,
+                "staging": self._stager.mode}
+            self.cache.register_worker(self.inference_job_id,
+                                       self.service_id, info=self._reg_info)
+            _attr.open_owner()
         except Exception:
             _log.exception("inference worker %s failed to start",
                            self.service_id)
@@ -596,26 +695,15 @@ class BusInferenceWorker:
                                      status=ServiceStatus.ERRORED)
             raise
         try:
-            while not self.stop_flag.is_set():
-                items = self.cache.pop_queries(
-                    self.service_id, max_items=self.MAX_BATCH,
-                    timeout=self.BATCH_TIMEOUT)
-                draining = any(DRAIN_KEY in it for it in items)
-                for it in items:
-                    if it.get("op") == "generate":
-                        self._route_generate(it)
-                self._serve([it for it in items if DRAIN_KEY not in it
-                             and it.get("op") != "generate"])
-                if draining:
-                    _log.info("inference worker %s drained",
-                              self.service_id)
-                    break
+            self._serve_loop()
             self._stop_generate()
+            self._close_attr_owner()
             self.meta.update_service(self.service_id,
                                      status=ServiceStatus.STOPPED)
         except Exception:
             _log.exception("inference worker %s crashed", self.service_id)
             self._stop_generate()
+            self._close_attr_owner()
             self.meta.update_service(self.service_id,
                                      status=ServiceStatus.ERRORED)
             raise
@@ -625,16 +713,52 @@ class BusInferenceWorker:
             if self.model is not None:
                 self.model.destroy()
 
-    def _serve(self, items: List[Dict[str, Any]]) -> None:
-        """One burst: every query of the popped shards through ONE
-        predict, each shard answered with its slice. A corrupt packed
-        shard is answered with per-query errors at once. An all-packed
-        burst of one shape and dtype is copied, a frame at a time, into
-        the staging buffer of its bucket and served from there
-        (``predict_staged_submit``); any other burst goes through
-        ``predict`` query by query."""
+    def _serve_loop(self) -> None:
+        """Pop, dispatch, complete. With pipelining on, the burst just
+        dispatched stays pending while the next pop (which does not
+        wait) and dispatch run; markers apply after the burst they came
+        with, in queue order."""
+        pending = None
+        while not self.stop_flag.is_set():
+            items = self.cache.pop_queries(
+                self.service_id, max_items=self.MAX_BATCH,
+                timeout=0.0 if pending is not None else self.BATCH_TIMEOUT)
+            draining = any(DRAIN_KEY in it for it in items)
+            restacks = [it[RESTACK_KEY] for it in items if RESTACK_KEY in it]
+            for it in items:
+                if it.get("op") == "generate":
+                    self._route_generate(it)
+            items = [it for it in items if DRAIN_KEY not in it
+                     and RESTACK_KEY not in it and it.get("op") != "generate"]
+            handle = self._dispatch_batch(items) if items else None
+            # Everything queued before a restack marker, this burst
+            # included, was dispatched to the old member set.
+            for req in restacks:
+                self._restack_member(req)
+            if not self.pipeline and handle is not None:
+                self._complete_batch(*handle)
+                handle = None
+            if pending is not None:
+                self._complete_batch(*pending)
+            pending = handle
+            if draining:
+                _log.info("inference worker %s drained", self.service_id)
+                break
+        if pending is not None:
+            self._complete_batch(*pending)
+
+    def _dispatch_batch(self, items: List[Dict[str, Any]]):
+        """Launch one burst: every query of the popped shards through one
+        dispatch. A corrupt packed shard is answered with per-query
+        errors at once. An all-packed burst of one shape and dtype is
+        copied, a frame at a time, into the staging buffer of its
+        bucket (``predict_staged_submit``); any other goes through
+        ``predict_submit`` query by query. Returns the arguments of
+        ``_complete_batch``; the mode and the bin are taken now, since a
+        later dispatch or a restack changes them before completion."""
         trace_ctxs = trace.extract_frames(items)
-        wall, t0 = time.time(), time.monotonic()
+        tenants = _attr.extract_frames_tenants(items)
+        t0 = (time.time(), time.monotonic())
         good = []
         for it in items:
             if "batch" in it and it["batch"] is None:
@@ -646,62 +770,162 @@ class BusInferenceWorker:
                     shard=it.get("shard"))
             else:
                 good.append(it)
-        if not good:
-            return
-        spans, preds = self._staged(good)
-        if spans is None:
+        attr = {"tenants": tenants, "bucket": None, "dtype": None,
+                "bin": self.trial_id}
+        finisher, spans, n = self._staged(good, attr)
+        if finisher is None:
             flat: List[Any] = []
             spans = []  # (item, start, count)
             for it in good:
                 rows = it["batch"] if "batch" in it else it["queries"]
                 spans.append((it, len(flat), len(rows)))
                 flat.extend(rows[i] for i in range(len(rows)))
-            try:
-                preds = self.model.predict(flat) if flat else []
-            except Exception as e:
-                _log.exception("predict failed for %d queries", len(flat))
-                preds = [{"error": f"{type(e).__name__}: {e}"}] * len(flat)
-        if trace_ctxs:
-            trace.record_event(
-                "worker.predict", self.service_id, trace_ctxs, wall,
-                time.monotonic() - t0,
-                attrs={"n_queries": len(preds),
-                       "trial_id": str(self.trial_id)})
-        weight = int(getattr(self.model, "last_weight", 1))
-        for it, start, count in spans:
-            self.cache.send_prediction_batch(
-                it["batch_id"], self.service_id,
-                preds[start:start + count], weight=weight,
-                shard=it.get("shard"),
-                packed_ok=WIRE_NDBATCH in (it.get("rw") or ()))
+            n = len(flat)
+            submit = getattr(self.model, "predict_submit", None)
+            if not flat:
+                finisher = lambda: []  # noqa: E731 - an all-corrupt burst
+            elif submit is None:
+                finisher = lambda: self.model.predict(flat)  # noqa: E731
+            else:
+                finisher = self._submit(lambda: submit(flat), n)
+        attr["mode"] = getattr(self.model, "last_mode", "single")
+        return finisher, spans, n, trace_ctxs, t0, attr
 
-    def _staged(self, items: List[Dict[str, Any]]):
-        """``(spans, predictions)`` of the staged path, or ``(None,
-        None)`` when the burst cannot take it."""
+    def _submit(self, launch, n: int):
+        """``launch()``'s finisher, or one that answers ``n`` errors
+        when the launch raised."""
+        try:
+            return launch()
+        except Exception as e:
+            _log.exception("predict dispatch failed for %d queries", n)
+            err = {"error": f"{type(e).__name__}: {e}"}
+            return lambda: [err] * n
+
+    def _staged(self, items: List[Dict[str, Any]], attr: Dict[str, Any]):
+        """``(finisher, spans, n)`` of the staged path, or ``(None,
+        None, 0)`` when the burst cannot take it."""
         arrays = [it.get("batch") for it in items]
-        if not all(isinstance(a, np.ndarray) for a in arrays):
-            return None, None
+        if not arrays or not all(isinstance(a, np.ndarray)
+                                 for a in arrays):
+            return None, None, 0
         first = arrays[0]
         if any(a.shape[1:] != first.shape[1:] or a.dtype != first.dtype
                for a in arrays[1:]):
-            return None, None
+            return None, None, 0
         bucket_fn = getattr(self.model, "predict_bucket", None)
         total = sum(a.shape[0] for a in arrays)
         bucket = bucket_fn(total, first.dtype) if bucket_fn else None
         if bucket is None:
-            return None, None
+            return None, None, 0
+        attr.update(bucket=bucket, dtype=str(first.dtype))
         buf = self._stager.buffer(bucket, first.shape[1:], first.dtype)
         spans, start = [], 0
         for it, a in zip(items, arrays):
             spans.append((it, start, a.shape[0]))
             buf[start:start + a.shape[0]] = a
             start += a.shape[0]
+        _wire.count_copies("assemble", total)
+        return self._submit(
+            lambda: self.model.predict_staged_submit(buf, total),
+            total), spans, total
+
+    def _complete_batch(self, finisher, spans, n: int, trace_ctxs,
+                        t0, attr: Dict[str, Any]) -> None:
+        """Read one dispatched burst back and answer its shards: its
+        span, its attribution, and each shard's slice with its
+        confidences and device seconds."""
         try:
-            preds = self.model.predict_staged_submit(buf, total)()
+            preds = finisher()
         except Exception as e:
-            _log.exception("staged predict failed for %d queries", total)
-            preds = [{"error": f"{type(e).__name__}: {e}"}] * total
-        return spans, preds
+            _log.exception("predict failed for %d queries", n)
+            preds = [{"error": f"{type(e).__name__}: {e}"}] * n
+        wall, mono = t0
+        burst_s = time.monotonic() - mono
+        if trace_ctxs:
+            trace.record_event(
+                "worker.predict", self.service_id, trace_ctxs, wall,
+                burst_s, attrs={"n_queries": n,
+                                "trial_id": str(attr["bin"])})
+        weight = int(getattr(self.model, "last_weight", 1))
+        if self._quant_active:
+            _wire.count_quant(n, self._quant_req)
+        if n:
+            _attr.account_burst(
+                self.inference_job_id, attr["bin"], n, burst_s,
+                bucket=attr["bucket"], dtype=attr["dtype"],
+                quant=self._quant_req if self._quant_active else "",
+                mode=attr["mode"])
+            if attr["tenants"]:
+                _attr.account_tenant_device(attr["tenants"], burst_s, n)
+        confidence = ([prediction_confidence(p) for p in preds]
+                      if self.send_confidence else None)
+        for it, start, count in spans:
+            self.cache.send_prediction_batch(
+                it["batch_id"], self.service_id,
+                preds[start:start + count], weight=weight,
+                shard=it.get("shard"),
+                confidence=(confidence[start:start + count]
+                            if confidence is not None else None),
+                compute_s=round(burst_s * count / max(n, 1), 6),
+                packed_ok=WIRE_NDBATCH in (it.get("rw") or ()))
+
+    # --- Promotion ---
+
+    def _restack_member(self, req: Any) -> None:
+        """Apply one restack (``{"old": tid, "new": tid}``): load the
+        incoming trial's model and copy it into the served ensemble in
+        place, then point the meta row and the registration at the new
+        bin. On any failure the old member set keeps serving and the
+        old registration stands, which the admin's wait reads as the
+        failure (and rolls back)."""
+        old_tid = (req or {}).get("old")
+        new_tid = (req or {}).get("new")
+        tids = str(self.trial_id).split(",")
+        if not new_tid or old_tid not in tids:
+            _log.warning("inference worker %s: stale restack request %r "
+                         "(serving %s); ignoring", self.service_id, req,
+                         self.trial_id)
+            return
+        if not isinstance(self.model, _PackedEnsemble):
+            _log.warning("inference worker %s: restack requested but the "
+                         "bin is not a packed ensemble; ignoring",
+                         self.service_id)
+            return
+        try:
+            model, _ = self._load_member(new_tid)
+            self.model.replace_member(tids.index(old_tid), model)
+        except Exception:
+            _log.exception("inference worker %s: restack %s -> %s failed; "
+                           "the old member set keeps serving",
+                           self.service_id, old_tid, new_tid)
+            return
+        old_bin = self.trial_id
+        tids[tids.index(old_tid)] = new_tid
+        self.trial_id = ",".join(tids)
+        _attr.drop_worker_bin(self.inference_job_id, old_bin)
+        scores = [s for s in (self._trial_score(t) for t in tids)
+                  if s is not None]
+        self._reg_info["trial_id"] = self.trial_id
+        self._reg_info["score"] = max(scores) if scores else None
+        try:
+            self.meta.update_inference_job_worker(self.service_id,
+                                                  self.trial_id)
+        except Exception:
+            _log.exception("restack meta update failed; the registration "
+                           "still shows the swap")
+        self.cache.register_worker(self.inference_job_id, self.service_id,
+                                   info=self._reg_info)
+        _log.info("inference worker %s restacked %s -> %s (bin now %s)",
+                  self.service_id, old_tid, new_tid, self.trial_id)
+
+    def _trial_score(self, tid: str) -> Optional[float]:
+        score = (self.meta.get_trial(tid) or {}).get("score")
+        return float(score) if isinstance(score, (int, float)) else None
+
+    def _close_attr_owner(self) -> None:
+        if not self._attr_closed:
+            self._attr_closed = True
+            _attr.close_worker(self.inference_job_id, self.trial_id)
 
     # --- Generative serving ---
 

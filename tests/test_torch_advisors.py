@@ -18,6 +18,7 @@ posterior mean and standard deviation within 1e-6 (measured at most
 6.3e-11). A seeded 12-trial search proposes the reference's knobs.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import warnings
 
 import jax

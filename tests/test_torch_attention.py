@@ -12,6 +12,7 @@ differ by up to two bf16 ulps (atol 1e-2, rtol 1.6e-2); lse is f32 in
 both, 1e-5.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -18,6 +18,7 @@ softmax normalises by a sum where flash subtracts ``lse``, so the two
 differ by a few f32 ulps of each of the ~T terms.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

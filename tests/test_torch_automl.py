@@ -10,6 +10,7 @@ policies pick the same saves. Probabilities across packages agree within
 ``PROB_ATOL`` of ``tests/test_torch_feedforward.py`` (bf16 logits).
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 import os
 import urllib.request

@@ -15,6 +15,7 @@ about as many steps (epoch loss within 5e-3, each parameter's update
 within 10% of its size).
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import numpy as np
 import pytest
 import torch

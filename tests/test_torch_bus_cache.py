@@ -9,6 +9,7 @@ gives exactly the reference's answer (no tolerance: the same float64
 arithmetic).
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 
 import numpy as np

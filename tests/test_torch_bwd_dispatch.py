@@ -13,6 +13,7 @@ same numpy inputs: bf16 gradients within two bf16 ulps (atol 1e-2, rtol
 1.6e-2), as in ``tests/test_torch_attention_grad.py``.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import math
 
 import jax.numpy as jnp

@@ -12,6 +12,7 @@ int32 accumulators are equal exactly; its rescaled f32 output within
 1e-6 relative. int8 serving: the reference's 2e-2 on probabilities.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import functools
 
 import jax

@@ -13,6 +13,7 @@ vmap rule folds the members into the batch: on the CPU's plain path a
 member's rows are bit for bit a loop's.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ reply, and ``POST /predict`` answers 200 with the other workers'
 ensemble, or ``null`` when every worker failed.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 import math
 import urllib.request

@@ -22,6 +22,7 @@ size (relative Frobenius norm); the measured worst cases are 2.2e-3 and
 5.2%, at lr 1e-2.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import numpy as np
 import pytest
 

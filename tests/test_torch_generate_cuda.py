@@ -12,6 +12,7 @@ Tolerances: K1 against its plain version as in
 same inputs, so its tokens and logits must be the same bits.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,7 @@ top-2 gap is below 0.16 (past a near-tie the two may pick different
 tokens).
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 import threading
 import time

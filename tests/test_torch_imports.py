@@ -5,6 +5,7 @@ package; every entry point defaults to CUDA and raises, rather than
 carrying on on the CPU, when there is no card.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import ast
 import os
 import shutil
@@ -75,7 +76,9 @@ def test_importing_the_port_loads_no_jax():
                 "rafiki_torch.observe.metrics", "rafiki_torch.observe.serving",
                 "rafiki_torch.observe.trace", "rafiki_torch.predictor.batcher",
                 "rafiki_torch.predictor.predictor",
-                "rafiki_torch.utils.service"):
+                "rafiki_torch.utils.service",
+                "rafiki_torch.observe.attribution",
+                "rafiki_torch.observe.workload"):
         assert mod in mods, mod
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -11,6 +11,7 @@ interpret mode on the same numpy inputs (bf16 outputs within two bf16
 ulps, atol 1e-2 and rtol 1.6e-2; lse, f32 in both, within 1e-5).
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import math
 
 import jax.numpy as jnp

@@ -22,6 +22,7 @@ So bf16 gradients are held to |err| <= 1e-2·max|plain| + 1.6e-2·|plain|,
 f32 gradients to 1e-5·max|plain| + 1e-4·|plain| (summation order only).
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import pytest
 import torch
 

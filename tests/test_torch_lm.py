@@ -11,6 +11,7 @@ by 1e-2. Accuracy may flip on argmax near-ties: at most 4 of the 4096
 scored positions.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import numpy as np
 import pytest
 import torch

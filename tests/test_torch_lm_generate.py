@@ -15,6 +15,7 @@ logit tolerance: past a near-tie the two may pick different tokens and
 then decode different sequences.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import numpy as np
 import pytest
 import torch

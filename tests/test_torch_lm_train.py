@@ -22,6 +22,7 @@ Tolerances, and why:
 - The schedule: 1e-9 (optax computes it in f32).
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import math
 
 import jax

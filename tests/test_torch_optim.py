@@ -9,6 +9,7 @@ transformer tagger's warm-up cosine. Same gradients, f32 throughout:
 agreement to f32 rounding, atol 2e-7 and rtol 1e-6.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import optax

@@ -16,6 +16,7 @@ reference's ``ParamStore``) within 3.9e-3, one bf16 ulp of a logit
 below 4 (``tests/test_torch_feedforward.py``).
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import re
 import time
 from urllib.parse import urlparse
@@ -231,7 +232,6 @@ def test_unported_routes_answer_404(both):
                          ("GET", "/trial_phases"), ("GET", "/datasets"),
                          ("POST", "/datasets"),
                          ("GET", "/services/abc/logs"),
-                         ("POST", "/inference_jobs/abc/promote"),
                          ("POST", "/inference_jobs/abc/profile")):
         req = urllib.request.Request(
             f"http://127.0.0.1:{port.admin_port}{path}", method=method,

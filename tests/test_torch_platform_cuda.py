@@ -8,6 +8,7 @@ card and without JAX, run them without the JAX test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_platform_cuda.py
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import os
 import subprocess
 import sys

@@ -2,6 +2,7 @@
 predictor's ``POST /predict`` answer with exactly ``model.predict``'s
 values, on the reference's wire."""
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 import threading
 import urllib.error

@@ -4,6 +4,7 @@ share, over the port's ``MemoryBus`` with echo workers that speak the
 cache protocol, behind the port's ``PredictorService``. The scenarios
 are those of the reference's ``tests/test_predictor_batcher.py``."""
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 import threading
 import time

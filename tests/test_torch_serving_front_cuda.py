@@ -9,6 +9,7 @@ card and without JAX, run them without the JAX test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_serving_front_cuda.py
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import threading
 
 import numpy as np

@@ -5,6 +5,7 @@ metrics exposition, ``ServingStats``' snapshot, ``NodeConfig``'s serving
 fields, the trace envelope and ``collect_trace``. Every comparison is
 exact."""
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 import os
 import types
@@ -259,7 +260,7 @@ SERVING_FIELDS = [f.name for f in
 
 def test_nodeconfig_serving_defaults_equal_the_reference():
     port, ref = pconfig.NodeConfig(), rconfig.NodeConfig()
-    assert len(SERVING_FIELDS) == 13
+    assert len(SERVING_FIELDS) == 22
     for f in SERVING_FIELDS:
         assert getattr(port, f) == getattr(ref, f), f
         assert pconfig.NodeConfig.env_name(f) == \
@@ -277,7 +278,13 @@ def test_nodeconfig_serving_defaults_equal_the_reference():
     {"serving_client_share": 1.5}, {"serving_client_share": -0.1},
     {"serving_quant": "int4"}, {"serving_stacked": "maybe"},
     {"serving_quant": "INT8", "serving_stacked": "Off"},
-    {"serving_fill_window": 0.0, "serving_fill_window_min": 0.0}])
+    {"serving_fill_window": 0.0, "serving_fill_window_min": 0.0},
+    {"serving_cache_bytes": -1}, {"serving_cache_ttl_s": 0.0},
+    {"serving_cache_admit_after": 0}, {"serving_tier_threshold": -0.1},
+    {"pipeline_sync_min": -1.0}, {"workload_max_mb": 0.0},
+    {"workload_retain_segments": 0},
+    {"serving_cache_bytes": 1 << 20, "serving_tier_threshold": 0.2,
+     "serving_attribution": True, "workload_record": True}])
 def test_nodeconfig_validation_equals_the_reference(kw):
     outcomes = []
     for m in BOTH:
@@ -301,7 +308,18 @@ def test_nodeconfig_validation_equals_the_reference(kw):
     {"RAFIKI_TPU_SERVING_QUEUE_CAP": "0"},
     {"RAFIKI_TPU_SERVING_SHARD_REPLICAS": "off",
      "RAFIKI_TPU_SERVING_STACKED": "off",
-     "RAFIKI_TPU_SERVING_CLIENT_SHARE": "0.5"}])
+     "RAFIKI_TPU_SERVING_CLIENT_SHARE": "0.5"},
+    {"RAFIKI_TPU_SERVING_CACHE_BYTES": "4096",
+     "RAFIKI_TPU_SERVING_CACHE_TTL_S": "5",
+     "RAFIKI_TPU_SERVING_CACHE_ADMIT_AFTER": "1",
+     "RAFIKI_TPU_SERVING_TIER_THRESHOLD": "0.25",
+     "RAFIKI_TPU_PIPELINE_SYNC_MIN": "0.5",
+     "RAFIKI_TPU_SERVING_ATTRIBUTION": "1",
+     "RAFIKI_TPU_WORKLOAD_RECORD": "yes",
+     "RAFIKI_TPU_WORKLOAD_MAX_MB": "2",
+     "RAFIKI_TPU_WORKLOAD_RETAIN_SEGMENTS": "3"},
+    {"RAFIKI_TPU_SERVING_CACHE_BYTES": "lots"},
+    {"RAFIKI_TPU_SERVING_ATTRIBUTION": "auto"}])
 def test_nodeconfig_from_env_and_apply_env_equal_the_reference(env):
     names = [pconfig.NodeConfig.env_name(f) for f in SERVING_FIELDS]
     outcomes = []

@@ -5,6 +5,7 @@ does within 1e-6; a replica attached to every bin
 ``GET /metrics``, ``GET /inference_jobs/<id>/stats`` and ``GET
 /trace/<id>`` read the serving front."""
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 import threading
 import urllib.request

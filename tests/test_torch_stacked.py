@@ -25,6 +25,7 @@ f32 (bf16 products in another order), 2e-2 under int8.
 the f32 rescale within 1e-6 relative.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import contextlib
 import functools
 import gc

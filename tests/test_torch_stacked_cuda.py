@@ -19,6 +19,7 @@ product is exact (int32 sums of int8 products, far from overflow), so it
 must equal the int64 product on the CPU.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import gc
 import threading
 

@@ -15,6 +15,7 @@ probabilities within 1e-5. The BiLSTM's backward direction reverses each row wit
 the reference.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import functools
 import json
 

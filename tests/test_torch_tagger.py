@@ -16,6 +16,7 @@ warm-up cosine, the losses within 1e-5 and each tensor's update within
 1e-3 of its size.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import functools
 import json
 

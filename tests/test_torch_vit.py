@@ -19,6 +19,7 @@ reference's envelope, 2e-2 on probabilities. Stacked members against
 their own predict: 1e-5 (f32 sums in another order under vmap).
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import functools
 
 import jax

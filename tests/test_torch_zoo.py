@@ -23,6 +23,7 @@ one's running statistics stay within 1e-5, the deepest within
 ``tests/test_torch_zoo_train.py``.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import functools
 
 import jax

@@ -16,6 +16,7 @@ row moves by up to 2^-8·|v|; ``o`` is rounded once more. So atol is
 largest plain gradient plus 1.6e-2 relative. In f32: 1e-5.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,7 @@ within 3.9e-3 (one bf16 ulp of a logit below 4, as
 one epoch's loss within 2e-2.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import numpy as np
 import pytest
 import torch

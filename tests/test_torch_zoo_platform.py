@@ -11,6 +11,7 @@ supernet tensor; the final trial retrains the best search trial's
 architecture from scratch on the single-path network.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 from rafiki_torch.client import Client
 from rafiki_torch.constants import (BudgetOption, ServiceType, TaskType,
                                     TrialStatus, UserType)

@@ -7,6 +7,7 @@ CPU mesh of ``tests/conftest.py`` (batch 16). Sizes and helpers are
 ``tests/test_torch_zoo.py``'s; the tolerances are stated in the test.
 """
 
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 import numpy as np
 import pytest
 import torch
