@@ -14,7 +14,8 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
 3. kernel phase, forward: runs K1 (``flash_fwd.cu``) against its plain
    PyTorch version ``flash_attention_reference`` on the card at the
    flagship shape and at ragged, cross, ``kv_mask``, f32 and small-head
-   shapes, comparing ``o`` and ``lse`` with the tolerances stated below:
+   shapes (f32 also at the int8 ViT shape, at Tq > Tkv causal and at
+   D = 30), comparing ``o`` and ``lse`` with the tolerances stated below:
    every bf16 case on both bf16 variants, ``wgmma`` (which
    ``flash_attention`` must pick there) and ``mma_sync`` (forced), f32 on
    ``f32``. It times the two bf16 variants in turns (mma.sync, wgmma,
@@ -195,7 +196,9 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    within 0.02 of f32, max |Δp|, ``int8_conv`` equal to the exact
    convolution at buckets 1-512 for every convolution served, and K1's
    f32 variant at that shape timed as a CUDA graph beside
-   ``scaled_dot_product_attention`` in f32 and its f32 bound; (d)
+   ``scaled_dot_product_attention`` in f32 and its f32 bound, and one
+   replay of the int8 stacked runner at bucket 512 beside the share of
+   it that its f32 K1 launches take (printed, not checked); (d)
    ``TorchCnn`` at 16/16 one epoch at lr 1e-3 (steps/s, ``chip_util``,
    val accuracy at least 0.95, card vs CPU logits, no K1-K3); (e) the
    transformer tagger at full width (d_model 256, 4 heads of 64, 6
@@ -240,7 +243,8 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    ensemble, zoo2 and lifecycle phases' launches (the platform's, zoo2's
    and lifecycle's counted in ``launches`` too), ``zoo2_shapes`` each
    kernel's numbers at the ViT and tagger shapes and ``zoo2_f32`` K1's
-   f32 variant at the int8 ViT shape, and, last, the ``{"ok": true,
+   f32 variant at the int8 ViT shape with its registers and spills, and,
+   last, the ``{"ok": true,
    "device": ...}`` line.
 
 Any failed check exits non-zero without the last line.
@@ -577,10 +581,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_summary(log: str) -> str:
-    """Registers and spills of each kernel in an ``nvcc -Xptxas -v``
-    log, as ``kernel<head dim>: N registers, S spill bytes``."""
-    out, name, spill = [], "?", 0
+def ptxas_kernels(log: str) -> dict:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas
+    -v`` log: ``{"kernel<head dim>": {"registers": N, "spill_bytes":
+    S}}``."""
+    out, name, spill = {}, "?", 0
     for line in log.splitlines():
         # The mangled name: <length><kernel name>ILi<head dim>E.
         entry = re.search(r"Compiling entry function '\S*?(?<=\d)"
@@ -593,9 +598,17 @@ def ptxas_summary(log: str) -> str:
             spill = int(spills.group(1)) + int(spills.group(2))
         regs = re.search(r"Used (\d+) registers", line)
         if regs:
-            out.append(f"{name}: {regs.group(1)} registers, {spill} spill "
-                       f"bytes")
-    return "; ".join(out)
+            out[name] = {"registers": int(regs.group(1)),
+                         "spill_bytes": spill}
+    return out
+
+
+def ptxas_summary(log: str) -> str:
+    """``ptxas_kernels`` as ``kernel<head dim>: N registers, S spill
+    bytes; ...``."""
+    return "; ".join(f"{name}: {k['registers']} registers, "
+                     f"{k['spill_bytes']} spill bytes"
+                     for name, k in ptxas_kernels(log).items())
 
 
 def build_warnings(log: str) -> list:
@@ -733,6 +746,12 @@ def kernel_phase(torch, attn):
         ("head_dim 80", 2, 2, 130, 130, 80, bf16, True, None),
         ("f32 causal", 2, 4, 500, 500, 128, f32, True, None),
         ("f32 kv_mask", 3, 2, 257, 300, 48, f32, False, [300, 100, 0]),
+        # K1's f32 variant at the int8 ViT shape (in batch), at Tq > Tkv
+        # under causal (rows before the first key), and at D = 30, which
+        # only 4-byte copies can load.
+        ("f32 vit", 64, 4, 65, 65, 32, f32, False, None),
+        ("f32 Tq>Tkv", 2, 2, 200, 77, 36, f32, True, None),
+        ("f32 D=30", 1, 2, 65, 65, 30, f32, False, None),
     ]
     flagship = None
     for name, b, h, tq, tkv, d, dt, causal, lengths in cases:
@@ -3814,7 +3833,8 @@ def zoo2_f32_k1(torch, attn, group, imgs):
     eager stacked forward of ``imgs`` (a bucket) with K1's launcher
     keeping each launch's folded inputs and outputs; every block's
     ``o`` and ``lse`` held against ``flash_attention_reference``.
-    Returns (shape, max |do|, max |dlse|)."""
+    Returns (shape, max |do|, max |dlse|, the times, the largest share of
+    o's tolerance any element takes)."""
     from rafiki_torch.models.vit import MAX_DEPTH
 
     calls = []
@@ -3838,7 +3858,7 @@ def zoo2_f32_k1(torch, attn, group, imgs):
           f"the int8 ViT forward made {len(calls)} K1 launches, {n_f32} "
           f"on f32, not one a block on f32")
     atol, rtol = TOL_O["float32"]
-    err_o = err_l = 0.0
+    err_o = err_l = share = 0.0
     for i, (q, k, v, mask, o, lse) in enumerate(calls):
         check(q.dtype == torch.float32
               and attn.flash_forward_variant(q, k, v) == "f32",
@@ -3852,8 +3872,9 @@ def zoo2_f32_k1(torch, attn, group, imgs):
               f"f32 K1 lse at block {i}: max |diff| {float(el.max()):.3e}")
         err_o, err_l = max(err_o, float(eo.max())), max(err_l,
                                                         float(el.max()))
+        share = max(share, float((eo / (atol + rtol * ro.abs())).max()))
     return list(calls[0][0].shape), err_o, err_l, zoo2_f32_times(
-        torch, attn, *calls[0][:4])
+        torch, attn, *calls[0][:4]), share
 
 
 def zoo2_f32_times(torch, attn, q, k, v, mask):
@@ -3877,6 +3898,16 @@ def zoo2_f32_times(torch, attn, q, k, v, mask):
     return {"ms": sum(runs["K1"]) / 2, "library_ms": sum(runs["lib"]) / 2,
             "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
             "shape": [b, h, t, t, d]}
+
+
+def int8_replay_ms(torch, group, bucket):
+    """Device ms of one replay of ``group``'s int8 runner at ``bucket``
+    (CUDA events over 10 replays)."""
+    runner = next((r for key, r in group._runners.runners.items()
+                   if key[0] == bucket and key[2] == "int8"), None)
+    check(runner is not None and runner.graph is not None,
+          f"no captured int8 runner at bucket {bucket}")
+    return time_ms(torch, runner.graph.replay, 10)
 
 
 def logged(fn, *args, **kw):
@@ -4263,8 +4294,9 @@ def zoo2_phase(torch, np, attn, card):
             f32_k1 = attn.flash_attention.variant_launches["f32"] - f32_0
             check(f32_k1 > 0, "the int8 ViT path launched no f32 K1")
             with uncounted(attn):
-                f32_shape, f32_do, f32_dlse, f32_t = zoo2_f32_k1(
+                f32_shape, f32_do, f32_dlse, f32_t, f32_share = zoo2_f32_k1(
                     torch, attn, g8, imgs[:512])
+                replay_ms = int8_replay_ms(torch, g8, 512)
             r32 = in_bursts(np, lambda x: stacked_rows(np, st, x), imgs, 512)
             acc32 = (r32.argmax(-1) == labels).mean(axis=1)
             acc8 = (r8.argmax(-1) == labels).mean(axis=1)
@@ -4307,7 +4339,8 @@ def zoo2_phase(torch, np, attn, card):
                   f"({f32_shape[0]},{f32_shape[1]},{f32_shape[2]},"
                   f"{f32_shape[2]},{f32_shape[3]}) against "
                   f"flash_attention_reference, all {MAX_DEPTH} blocks: max "
-                  f"|do| {f32_do:.3e} (tolerance {TOL_O['float32']}), max "
+                  f"|do| {f32_do:.3e} (tolerance {TOL_O['float32']}; the "
+                  f"largest element takes {f32_share:.3f} of its own), max "
                   f"|dlse| {f32_dlse:.3e} (tolerance {TOL_LSE}); as a CUDA "
                   f"graph {f32_t['ms']:.4f} ms (in turns with "
                   f"scaled_dot_product_attention in f32 "
@@ -4324,6 +4357,12 @@ def zoo2_phase(torch, np, attn, card):
                   f"1-512 for the ViT patches and the CNN's 6 convolutions "
                   f"({n_conv} convolutions); took "
                   f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+            k1_share = MAX_DEPTH * f32_t["ms"] / replay_ms
+            print(f"zoo2: (c) one replay of the int8 stacked ViT runner at "
+                  f"bucket 512 (2 members): {replay_ms:.4f} ms (CUDA "
+                  f"events, 10 replays); its {MAX_DEPTH} f32 K1 launches "
+                  f"at {f32_t['ms']:.4f} ms each (the graph time above) "
+                  f"take {100 * k1_share:.1f}% of it, on {card}", flush=True)
             out["int8"] = {"vit_acc": [float(a) for a in acc8],
                            "vit_acc_f32": [float(a) for a in acc32],
                            "vit_dp": float(np.abs(r8 - r32).max()),
@@ -4331,7 +4370,13 @@ def zoo2_phase(torch, np, attn, card):
                            "cnn_dp": float(np.abs(c8 - c32).max()),
                            "k1_f32_launches": f32_k1,
                            "k1_f32_shape": f32_shape, "k1_f32_do": f32_do,
-                           "k1_f32_dlse": f32_dlse, "k1_f32": f32_t}
+                           "k1_f32_dlse": f32_dlse,
+                           "k1_f32": dict(f32_t, launches=f32_k1,
+                                          launches_a_forward=MAX_DEPTH,
+                                          max_abs_err=f32_do,
+                                          tolerance_share=f32_share,
+                                          replay_ms=replay_ms,
+                                          share_of_replay=k1_share)}
             cnn.destroy()
         finally:
             dep.close()
@@ -5164,6 +5209,11 @@ def main() -> int:
             print(f"build: {name}.cu: {ptxas_summary(log)}", flush=True)
             for line in build_warnings(log):
                 print(f"build: {name}.cu: {line}", flush=True)
+        f32_regs = {name: k for name, k in ptxas_kernels(
+            _build.build_log("flash_fwd")).items() if "f32" in name}
+        print("build: K1's f32 variant: " + "; ".join(
+            f"{name}: {k['registers']} registers, {k['spill_bytes']} spill "
+            f"bytes" for name, k in f32_regs.items()), flush=True)
         k1 = timed("kernel", kernel_phase, torch, attn)
         k1_train, k2, k3 = timed("backward", backward_phase, torch, attn)
         params, train_launches = timed("train", train_phase, torch, np,
@@ -5198,7 +5248,7 @@ def main() -> int:
              zoo2_launches=zoo2["launches"][0],
              lifecycle_launches=life["launches"][0],
              zoo2_shapes=zoo2_rows(zoo2, "K1"),
-             zoo2_f32=zoo2["int8"]["k1_f32"],
+             zoo2_f32=dict(zoo2["int8"]["k1_f32"], registers=f32_regs),
              generate_buckets=gen["buckets"], **k1, **k1_train),
         dict(name="flash_bwd_dq (K2)", route="cuda",
              source=src + "flash_bwd_dq.cu",

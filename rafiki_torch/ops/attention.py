@@ -70,7 +70,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The variants of K1, K2 and K3 (csrc/flash_*.cu), in the order of
 # preference, with the codes their C entry points take: bf16 on `wgmma`
-# fed by TMA, bf16 on `mma.sync` for what TMA cannot address, f32 on FMA.
+# fed by TMA, bf16 on `mma.sync` for what TMA cannot address, f32 (K1's
+# on TF32 tensor cores in three passes over split operands, to f32
+# accuracy; K2's and K3's on FMA).
 VARIANTS = ("wgmma", "mma_sync", "f32")
 _VARIANT_CODES = {"f32": 0, "mma_sync": 1, "wgmma": 2}
 

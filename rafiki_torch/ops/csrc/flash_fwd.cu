@@ -43,9 +43,39 @@
 //    stages: `cp.async` brings tile j + 1 while tile j computes. Tiles
 //    wholly inside the mask skip the masking arithmetic, and the blocks
 //    with the most causal tiles start first.
-//  - f32: plain FMA in f32 (the reference computes in full f32), 8 warps
-//    of 8 rows; the lanes split the keys for the scores and the head dim
-//    for the accumulator.
+//  - f32 (the reference computes in full f32; the int8 ViT serving path
+//    attends in f32): `mma.sync` m16n8k8 on TF32 tensor cores, each product in
+//    three passes. One TF32 pass keeps 10 mantissa bits (about 5e-4 relative)
+//    and would miss the f32 tolerance tens of times over; each operand x is
+//    split into big = tf32(x) (round to nearest, ties away, as
+//    `cvt.rna.tf32.f32`, on the bit pattern) and small = x − big, rounded to
+//    TF32 too for q and k, and small·big′ + big·small′ + big·big′ leaves about
+//    2^-22 relative per product (p and v: small is read to 10 mantissa bits as
+//    it is, about 2^-21). Each 8-deep step of the scores sums into a fresh
+//    accumulator, added to the running scores in f32, so the tensor cores' own
+//    rounding of a sum stays at an 8-term partial; O accumulates in place. The
+//    softmax stays in f32 registers in the plain version's order (`ex2.approx`
+//    for its exponentials). Tiles fit short sequences: a warp owns 16 query
+//    rows, a block up to 8 warps spread evenly (5 for 65 tokens: one block a
+//    batch·head, its K and V read once), and keys walk 64-key tiles with the
+//    last trimmed to a multiple of 8: 80 × 72 for 65 × 65, where the 64/64
+//    tiling did 128 × 128. A warp walks the kv tiles its 64-row group walks
+//    (`kv_tiles`), as the plain version does, so the tiling-dependent rows
+//    below come out as the plain version's. K and V arrive by `cp.async` (16
+//    bytes where D % 4 == 0 and the bases are aligned, else 4) into two
+//    stages, a tile ahead of the one that computes. Bound: at the int8 ViT
+//    shape (1024, 4, 65, 65, 32) the 137 MB take 0.041 ms at 3.35 TB/s and the
+//    2.2 GFLOP 0.033 ms at f32's 67 TFLOP/s (the 9.1 GFLOP of three TF32
+//    passes over the fitted tiles take 0.018 ms at 495): bytes bound it.
+//    Choices against the obvious ones: `cvt.rna.tf32.f32` is done on the bit
+//    pattern, and p's and v's small parts are not rounded, since ptxas expands
+//    each cvt into about five instructions and the splits are most of the
+//    kernel's instructions (the scores are where sharp attention needs the
+//    bits); Q's fragments are read from shared memory at each step, not kept
+//    in registers, and DP = 32 is held to 128 registers, so three blocks (15
+//    warps) fit an SM; Q and K rows take a stride ≡ 8 (mod 32) with a step's
+//    head dims in the order 2t, 2t + 1, so each of their fragments is one
+//    conflict-free 8-byte load.
 //
 // Bound. At the flagship shape (1, 16, 2048, 128) causal the work is
 // 4·B·H·Tq·Tkv·D/2 ≈ 17.2 GFLOP against 33.6 MB moved: about 500 FLOP a
@@ -80,6 +110,7 @@
 #include <math.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "flash_hopper.cuh"
@@ -607,115 +638,309 @@ __global__ void __launch_bounds__(3 * WG, 1)
 
 // ----------------------------------------------------------------- f32
 
-constexpr int SIMT_WARPS = 8;
-constexpr int SIMT_THREADS = SIMT_WARPS * 32;
+// x rounded to TF32 (10 mantissa bits; ties away from zero), as the
+// 32-bit pattern `mma.sync` takes with its low 13 bits zero. This is what
+// `cvt.rna.tf32.f32` gives for a finite x, in two integer instructions;
+// ptxas expands the cvt into about five (it also sorts out NaN and
+// infinity).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small: big = tf32(x) and small = x − big, which f32 holds
+// exactly. ROUND: small rounded to TF32 too, and big + small keeps x to
+// about 2^-22; else `mma.sync` reads small to its top 10 mantissa bits
+// (dropping the rest), to about 2^-21, for two instructions less.
+template <bool ROUND>
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32(x);
+  const float rest = x - __uint_as_float(big);
+  small = ROUND ? tf32(rest) : __float_as_uint(rest);
+}
+
+// d += a·b for one m16n8k8 tile (TF32 in, f32 accumulate).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a·b of one 8-deep step to f32 accuracy from split operands (a[0],
+// b[0] big; a[1], b[1] small): small·big and big·small, then big·big.
+// small·small (2^-22 relative) is dropped.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&a)[2][4],
+                                     const uint32_t (&b)[2][2]) {
+  mma_tf32(d, a[1], b[0][0], b[0][1]);
+  mma_tf32(d, a[0], b[1][0], b[1][1]);
+  mma_tf32(d, a[0], b[0][0], b[0][1]);
+}
+
+// Rows [row0, row0 + rows) of a (T, D) f32 matrix into shared memory with
+// row stride LD, zero past T and past D, by `cp.async`: 16 bytes a copy
+// where `vec` (D % 4 == 0 and a 16-byte aligned base), else 4.
+template <int DP, int LD>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              int row0, int rows, int T,
+                                              int D, bool vec) {
+  if (vec) {
+    constexpr int CH = DP / 4;
+    for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
+      const int r = i / CH, c = (i % CH) * 4;
+      const bool in = row0 + r < T && c < D;
+      const float* from = in ? src + (size_t)(row0 + r) * D + c : src;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   ::"r"(smem_addr(dst + r * LD + c)), "l"(from),
+                   "r"(in ? 16 : 0));
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * DP; i += blockDim.x) {
+      const int r = i / DP, c = i % DP;
+      const bool in = row0 + r < T && c < D;
+      const float* from = in ? src + (size_t)(row0 + r) * D + c : src;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                   ::"r"(smem_addr(dst + r * LD + c)), "l"(from),
+                   "r"(in ? 4 : 0));
+    }
+  }
+}
+
+// Warps of a block of the f32 variant at most: 8 (128 query rows), 4 at
+// DP = 128, where Q and two stages of K and V would not fit otherwise.
+constexpr int f32_warps(int DP) { return DP == 128 ? 4 : 8; }
+
+// Shared memory of the f32 variant for blocks of w warps: Q, then two
+// stages of K and two of V.
+constexpr int f32_smem(int DP, int w) {
+  return (16 * w * (DP + 8) + 2 * BKV * ((DP + 8) + (DP + 4))) *
+         (int)sizeof(float);
+}
 
 template <int DP>
-__global__ void __launch_bounds__(SIMT_THREADS)
+__global__ void __launch_bounds__(f32_warps(DP) * 32, DP == 32 ? 2 : 1)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
                          const float* __restrict__ bias,
                          float* __restrict__ o, float* __restrict__ lse,
                          int H, int Tq, int Tkv, int D, int causal,
-                         float scale) {
-  constexpr int LDK = DP + 1;              // odd: lanes read rows conflict-free
-  constexpr int ROWS = BQ / SIMT_WARPS;    // query rows per warp
-  constexpr int DV = DP / 32;              // head dims per lane
-  constexpr int KV = BKV / 32;             // keys per lane
-  extern __shared__ float fsm[];
-  float* Qs = fsm;                  // BQ x DP
-  float* Ks = Qs + BQ * DP;         // BKV x LDK
-  float* Vs = Ks + BKV * LDK;       // BKV x DP
-  float* Ps = Vs + BKV * DP;        // BQ x BKV
+                         float scale, int vec, int pair) {
+  // Q and K rows: stride ≡ 8 (mod 32) floats, so the 8-byte fragment
+  // loads of a half-warp hit 32 banks once. V rows: ≡ 4, so the two
+  // 4-byte loads of a B fragment (keys 2t and 2t + 1) are conflict-free.
+  constexpr int LDQ = DP + 8, LDK = DP + 8, LDV = DP + 4;
+  constexpr int KD = DP / 8;    // k-steps of S; n-tiles of O
+  constexpr int NC = BKV / 8;   // 8-key chunks of a kv tile
+  extern __shared__ __align__(16) float fsm[];
+  const int w = blockDim.x / 32;
+  float* Qs = fsm;
+  float* Ks = Qs + 16 * w * LDQ;
+  float* Vs = Ks + 2 * BKV * LDK;
 
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
+  // Causal blocks further down the sequence have more tiles: start them
+  // first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 16 * w;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* qb = q + (size_t)bh * Tq * D;
-  const float* kb = k + (size_t)bh * Tkv * D;
-  const float* vb = v + (size_t)bh * Tkv * D;
-  const float* bb = bias ? bias + (size_t)(bh / H) * Tkv : nullptr;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 16 * warp;
+  const int shift = Tkv - Tq;
+  const float* bb = bias ? bias + (size_t)bh / H * Tkv : nullptr;
+  // The visiting rule of the plain version: a row walks the kv tiles of
+  // its 64-row group. The block walks those of its last real row.
+  const int nw = r0 < Tq ? kv_tiles(r0 & ~(BQ - 1), Tq, Tkv, causal) : 0;
+  const int n = kv_tiles((min(q0 + 16 * w, Tq) - 1) & ~(BQ - 1), Tq, Tkv,
+                         causal);
+  // Keys of the kv tile at kv0, trimmed to a multiple of 8.
+  auto keys = [&](int kv0) { return min(BKV, (Tkv - kv0 + 7) & ~7); };
+  // Tile j into stage j % 2; tile j + 1 lands while tile j computes.
+  auto load_kv = [&](int j) {
+    const size_t base = (size_t)bh * Tkv * D;
+    load_rows_f32<DP, LDK>(Ks + (j & 1) * BKV * LDK, k + base, j * BKV,
+                           keys(j * BKV), Tkv, D, vec);
+    load_rows_f32<DP, LDV>(Vs + (j & 1) * BKV * LDV, v + base, j * BKV,
+                           keys(j * BKV), Tkv, D, vec);
+  };
 
-  for (int i = threadIdx.x; i < BQ * DP; i += blockDim.x) {
-    const int r = i / DP, c = i % DP;
-    Qs[i] = (q0 + r < Tq && c < D) ? qb[(size_t)(q0 + r) * D + c] : 0.f;
+  if (n > 0) {
+    load_rows_f32<DP, LDQ>(Qs, q + (size_t)bh * Tq * D, q0, 16 * w, Tq, D,
+                           vec);
+    load_kv(0);
   }
+  cp_async_commit();
 
-  float acc[ROWS][DV];
-  float m[ROWS], l[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int d = 0; d < DV; ++d) acc[r][d] = 0.f;
-  }
+  // A fragment of Q for k-step kk, split: with the head dims of a step
+  // visited as 2t, 2t + 1 (k = t, t + 4), a row's pair is one 8-byte
+  // load. Q and K take the same order, so S is unchanged.
+  auto q_frag = [&](int kk, uint32_t(&a)[2][4]) {
+    const float* p = Qs + (16 * warp + g) * LDQ + 8 * kk + 2 * t;
+    const float2 x0 = *reinterpret_cast<const float2*>(p);
+    const float2 x1 = *reinterpret_cast<const float2*>(p + 8 * LDQ);
+    split<true>(x0.x, a[0][0], a[1][0]);
+    split<true>(x1.x, a[0][1], a[1][1]);
+    split<true>(x0.y, a[0][2], a[1][2]);
+    split<true>(x1.y, a[0][3], a[1][3]);
+  };
 
-  const int n_tiles = kv_tiles(q0, Tq, Tkv, causal);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * BKV;
+  float acc[KD][4];
+#pragma unroll
+  for (int d = 0; d < KD; ++d)
+    acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
+
+  for (int j = 0; j < n; ++j) {
+    if (j + 1 < n) load_kv(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j has landed; tile j + 1 may be in flight
     __syncthreads();
-    for (int i = threadIdx.x; i < BKV * DP; i += blockDim.x) {
-      const int r = i / DP, c = i % DP;
-      const bool in = kv0 + r < Tkv && c < D;
-      Ks[r * LDK + c] = in ? kb[(size_t)(kv0 + r) * D + c] : 0.f;
-      Vs[i] = in ? vb[(size_t)(kv0 + r) * D + c] : 0.f;
-    }
-    __syncthreads();
+    if (j < nw) {
+      const int kv0 = j * BKV;
+      const float* Kt = Ks + (j & 1) * BKV * LDK;
+      const float* Vt = Vs + (j & 1) * BKV * LDV;
+      const int nc = keys(kv0) / 8;
+      // Interior tiles (every key in range and visible to every row of
+      // the warp, no bias) need no mask, and only a trimmed last tile
+      // skips chunks: each case compiles to code without branches.
+      const bool masked = bb != nullptr || kv0 + BKV > Tkv ||
+                          (causal && kv0 + BKV - 1 > r0 + shift);
+      auto tile = [&](auto full, auto masking) {
+        constexpr bool FULL = decltype(full)::value;
+        constexpr bool MASKED = decltype(masking)::value;
+        auto live = [&](int c) { return FULL || c < nc; };
 
+        // S = Q·Kᵀ over the tile's chunks of 8 keys. Accumulator
+        // element e of chunk c: row g + 8·(e / 2), key 8c + 2t + e % 2.
+        float s[NC][4];
 #pragma unroll
-    for (int rr = 0; rr < ROWS; ++rr) {
-      const int r = warp * ROWS + rr;
-      const int row = q0 + r;
-      float x[KV];
-      float mx = m[rr];
+        for (int c = 0; c < NC; ++c)
+          s[c][0] = s[c][1] = s[c][2] = s[c][3] = 0.f;
+        // Unrolled at DP = 32, where it fits 128 registers unspilled.
+#pragma unroll(DP == 32 ? DP / 8 : 1)
+        for (int kk = 0; kk < KD; ++kk) {
+          uint32_t a[2][4];
+          q_frag(kk, a);
 #pragma unroll
-      for (int h = 0; h < KV; ++h) {
-        const int c = lane + 32 * h;
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot += Qs[r * DP + d] * Ks[c * LDK + d];
-        x[h] = mask_score(dot * scale, row, kv0 + c, Tq, Tkv, causal, bb);
-        mx = fmaxf(mx, x[h]);
-      }
+          for (int c = 0; c < NC; ++c) {
+            if (live(c)) {
+              const float2 kx = *reinterpret_cast<const float2*>(
+                  Kt + (8 * c + g) * LDK + 8 * kk + 2 * t);
+              uint32_t b[2][2];
+              split<true>(kx.x, b[0][0], b[1][0]);
+              split<true>(kx.y, b[0][1], b[1][1]);
+              float d[4] = {0.f, 0.f, 0.f, 0.f};
+              mma3(d, a, b);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float alpha = expf(m[rr] - mx);
-      float sum = 0.f;
+              for (int e = 0; e < 4; ++e) s[c][e] += d[e];
+            }
+          }
+        }
+
+        // The online softmax over the tile, in f32 as the plain version
+        // takes a kv tile.
+        float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int h = 0; h < KV; ++h) {
-        const float p = expf(x[h] - mx);
-        Ps[r * BKV + lane + 32 * h] = p;
-        sum += p;
-      }
+        for (int c = 0; c < NC; ++c) {
+          if (live(c)) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[rr] = l[rr] * alpha + sum;
-      m[rr] = mx;
-      __syncwarp();
+            for (int e = 0; e < 4; ++e) {
+              float x = s[c][e] * scale;
+              if constexpr (MASKED)
+                x = mask_score(x, r0 + g + 8 * (e >> 1),
+                               kv0 + 8 * c + 2 * t + (e & 1), Tq, Tkv,
+                               causal, bb);
+              s[c][e] = x;
+              mx[e >> 1] = fmaxf(mx[e >> 1], x);
+            }
+          }
+        }
+        float alpha[2];
 #pragma unroll
-      for (int dv = 0; dv < DV; ++dv) {
-        const int d = lane + 32 * dv;
-        float a = acc[rr][dv] * alpha;
-        for (int c = 0; c < BKV; ++c) a += Ps[r * BKV + c] * Vs[c * DP + d];
-        acc[rr][dv] = a;
-      }
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          // (x − max) is exact where both are NEG_INF: a row whose keys
+          // so far are all hidden weighs each of them 1, as the plain
+          // version does.
+          alpha[r] = ex2((m[r] - mx[r]) * LOG2E);
+          m[r] = mx[r];
+          l[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          if (live(c)) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[c][e] = ex2((s[c][e] - mx[e >> 1]) * LOG2E);
+              l[e >> 1] += s[c][e];
+            }
+          }
+        }
+#pragma unroll
+        for (int d = 0; d < KD; ++d) {
+          acc[d][0] *= alpha[0];
+          acc[d][1] *= alpha[0];
+          acc[d][2] *= alpha[1];
+          acc[d][3] *= alpha[1];
+        }
+
+        // O += P·V. With key 2t of a chunk as k = t and key 2t + 1 as
+        // k = t + 4, this lane's own accumulators (c0, c2, c1, c3) are
+        // its A fragment, and its B fragment is V's rows 2t and 2t + 1.
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          if (live(c)) {
+            uint32_t pa[2][4];
+            split<false>(s[c][0], pa[0][0], pa[1][0]);
+            split<false>(s[c][2], pa[0][1], pa[1][1]);
+            split<false>(s[c][1], pa[0][2], pa[1][2]);
+            split<false>(s[c][3], pa[0][3], pa[1][3]);
+            const float* vp = Vt + (8 * c + 2 * t) * LDV + g;
+#pragma unroll
+            for (int d = 0; d < KD; ++d) {
+              uint32_t b[2][2];
+              split<false>(vp[8 * d], b[0][0], b[1][0]);
+              split<false>(vp[8 * d + LDV], b[0][1], b[1][1]);
+              mma3(acc[d], pa, b);
+            }
+          }
+        }
+      };
+      using yes = std::true_type;
+      using no = std::false_type;
+      if (nc < NC)
+        tile(no{}, yes{});  // a trimmed tile is masked: keys past Tkv
+      else if (masked)
+        tile(yes{}, yes{});
+      else
+        tile(yes{}, no{});
     }
+    __syncthreads();  // every warp is done with this stage
   }
 
 #pragma unroll
-  for (int rr = 0; rr < ROWS; ++rr) {
-    const int row = q0 + warp * ROWS + rr;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r0 + g + 8 * r;
     if (row >= Tq) continue;
-    const float lc = fmaxf(l[rr], 1e-30f);
+    const float lc = fmaxf(l[r], 1e-30f);
+    float* orow = o + ((size_t)bh * Tq + row) * D;
 #pragma unroll
-    for (int dv = 0; dv < DV; ++dv) {
-      const int d = lane + 32 * dv;
-      if (d < D) o[((size_t)bh * Tq + row) * D + d] = acc[rr][dv] / lc;
+    for (int d = 0; d < KD; ++d) {
+      const int col = 8 * d + 2 * t;
+      const float o0 = acc[d][2 * r] / lc, o1 = acc[d][2 * r + 1] / lc;
+      if (pair && col + 1 < D) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(o0, o1);
+      } else {
+        if (col < D) orow[col] = o0;
+        if (col + 1 < D) orow[col + 1] = o1;
+      }
     }
-    if (lane == 0) lse[(size_t)bh * Tq + row] = m[rr] + logf(lc);
+    if (t == 0) lse[(size_t)bh * Tq + row] = m[r] + logf(lc);
   }
 }
 
@@ -776,25 +1001,34 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const float* bias, void* o, float* lse, int B, int H,
                        int Tq, int Tkv, int D, int causal, float scale,
                        cudaStream_t stream) {
-  const int smem =
-      (BQ * DP + BKV * (DP + 1) + BKV * DP + BQ * BKV) * (int)sizeof(float);
+  // Warps of 16 query rows, at most f32_warps(DP) a block, spread evenly
+  // over a batch·head's blocks: every block holds a real row, and a short
+  // sequence is one block a batch·head (5 warps at 65 tokens), its K and
+  // V read once.
+  const int groups = (Tq + 15) / 16;
+  const int least = (groups + f32_warps(DP) - 1) / f32_warps(DP);
+  const int w = (groups + least - 1) / least;
+  const int smem = f32_smem(DP, w);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  flash_fwd_f32_kernel<DP><<<grid, SIMT_THREADS, smem, stream>>>(
+  const int vec = D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  const int pair = D % 2 == 0 && reinterpret_cast<uintptr_t>(o) % 8 == 0;
+  const dim3 grid(B * H, (groups + w - 1) / w);
+  flash_fwd_f32_kernel<DP><<<grid, 32 * w, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), bias, static_cast<float*>(o), lse, H, Tq,
-      Tkv, D, causal, scale);
+      Tkv, D, causal, scale, vec, pair);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// variant: 0 = f32 FMA, 1 = bf16 mma.sync, 2 = bf16 wgmma; it must suit
-// the dtype, and wgmma needs D % 8 == 0 and 16-byte aligned q, k, v, o.
+// variant: 0 = f32 (split TF32), 1 = bf16 mma.sync, 2 = bf16 wgmma; it
+// must suit the dtype, and wgmma needs D % 8 == 0 and 16-byte aligned q,
+// k, v, o.
 // Returns the CUDA error of the launch (0 on success); launches on `stream`
 // and does not synchronise.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,

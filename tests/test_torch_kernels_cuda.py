@@ -101,6 +101,59 @@ def test_flash_fwd_matches_plain(card, shape, dtype, variant, causal, masked):
     assert _close(lse, rl, 1e-4, 1e-6)
 
 
+
+def _lengths_mask(card, b, tkv):
+    """A kv_mask whose examples keep tkv, tkv // 3 and 0 keys in turn
+    (0: an example fully padded)."""
+    lengths = torch.tensor([(tkv, tkv // 3, 0)[i % 3] for i in range(b)],
+                           device=card)
+    return torch.arange(tkv, device=card)[None, :] < lengths[:, None]
+
+
+# K1's f32 variant at the int8 ViT shape (in batch), one query row, a
+# short q against long keys, Tq > Tkv (causal rows before the first key),
+# D = 30 (4-byte loads only); then a q one float off alignment.
+F32_SHAPES = [((8, 4, 65, 65, 32), 0), ((3, 2, 1, 65, 32), 0),
+              ((2, 2, 17, 300, 36), 0), ((2, 2, 200, 77, 36), 0),
+              ((1, 2, 65, 65, 30), 0), ((3, 2, 65, 65, 32), 1)]
+
+
+@pytest.mark.parametrize("shape,offset", F32_SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_fwd_f32_matches_plain(card, shape, offset, causal, masked):
+    """The f32 variant (split TF32 on the tensor cores) at shapes its
+    fitted tiles and trimmed kv tiles meet, to the f32 tolerance."""
+    q, k, v, _ = _fwd_inputs(card, shape, torch.float32, False, offset)
+    mask = _lengths_mask(card, shape[0], shape[3]) if masked else None
+    assert attn.flash_forward_variant(q, k, v) == "f32"
+    o, lse = _k1(q, k, v, causal, mask, "f32")
+    ro, rl = attn.flash_attention_reference(q, k, v, causal=causal,
+                                            kv_mask=mask, return_lse=True)
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    assert bool(torch.isfinite(o).all())
+    assert _close(o, ro, *TOL[torch.float32])
+    assert _close(lse, rl, 1e-4, 1e-6)
+
+
+def test_flash_fwd_f32_graph_replays_its_eager_launch(card):
+    """A CUDA graph of the f32 variant (as a serving runner captures it)
+    replays what its eager launch gives, bit for bit."""
+    from rafiki_torch.torchenv import graph_capture
+
+    q, k, v, _ = _fwd_inputs(card, (8, 4, 65, 65, 32), torch.float32, False)
+    mask = _lengths_mask(card, 8, 65)
+    eo, el = attn.flash_attention(q, k, v, kv_mask=mask, return_lse=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with graph_capture(graph):
+        o, lse = attn.flash_attention(q, k, v, kv_mask=mask,
+                                      return_lse=True)
+    o.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(o, eo) and torch.equal(lse, el)
+
 @pytest.mark.parametrize("shape,offset", [((2, 2, 90, 150, 36), 0),
                                           ((1, 3, 130, 70, 128), 1)])
 @pytest.mark.parametrize("causal", [False, True])
