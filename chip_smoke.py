@@ -35,7 +35,10 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    their plain versions and, as the yardstick, ``torch.autograd.grad`` of
    ``scaled_dot_product_attention`` (dq, dk and dv together, so its time
    covers K2 and K3 at once), and K1's two bf16 variants in turns beside
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``; and K2's and K3's f32 variants at
+   the f32 causal shape (2, 4, 500, 500, 128) as CUDA graphs, in turns
+   with ``torch.autograd.grad`` of ``scaled_dot_product_attention`` in
+   f32, beside their plain versions and f32 bounds;
 5. train phase: trains ``TorchTransformerLM`` at flagship width
    (d_model 2048, 16 heads of 128, 8 layers, seq_len 2048, vocab 32768,
    batch 8, ``remat`` "dots", initialised on the card from the ``seed``
@@ -76,7 +79,10 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    requests from 8 clients and (4) four requests to a small engine that
    must preempt, checking every NDJSON stream, and prints tokens per
    second, time to first token, inter-token latency, decode steps, live
-   lanes a step and prefills skipped;
+   lanes a step and prefills skipped; with ``RAFIKI_TPU_SERVING_GENERATE``
+   on for the two windows, the registry's ``rafiki_tpu_lm_*`` family must
+   count the tokens streamed, one TTFT a request, the scheduler's decode
+   dispatches and its preemptions;
 8. automl phase, Rafiki's own loop on ``TorchFeedForward``: writes the
    synthetic image set at fashion-MNIST's split sizes and shape (60,000
    train and 10,000 val images of 28×28×1, 10 classes), runs a
@@ -171,11 +177,12 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    ``Retry-After``, no 5xx, ``/stats`` ``rejected`` equal to the
    clients' 429s, and a ``Client.predict`` answered after its retry;
 12. zoo2 phase, the rest of the zoo on the zoo phase's synthetic set
-   (made anew) and on sets at the Penn Treebank WSJ POS split's and UCI
-   Adult's sizes: (a) ``TorchViT`` at the reference's widths (d_model
-   128, 4 heads of 32, patch 4: 65 tokens, all 6 blocks, batch 256) one
-   epoch with its step captured as a CUDA graph (steps/s, images/s,
-   ``chip_util``, peak memory, a profiled captured step; the loss must
+   (made once, in the zoo phase) and on sets at the Penn Treebank WSJ
+   POS split's and UCI Adult's sizes: (a) ``TorchViT`` at the
+   reference's widths (d_model 128, 4 heads of 32, patch 4: 65 tokens,
+   all 6 blocks, batch 256) one epoch with its step captured as a CUDA
+   graph (steps/s, images/s, ``chip_util``, peak memory, a profiled
+   captured step; the loss must
    fall; 6 K1, 6 K2 and 6 K3 a step, all wgmma, counted at the eager
    steps and the capture), one step's loss and gradients against the
    same step on ``flash_attention_plain``, and K1, K2 and K3 on the
@@ -236,12 +243,37 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    admitted requests and device seconds; (f) the pipelined worker
    drained under load: every request answered, the worker STOPPED. The
    phase must take at most 90 s;
-14. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
+14. tenants phase, BASELINE config 5 through the observability plane: a
+   ``LocalPlatform`` on the card with trace tail sampling on
+   (``RAFIKI_TPU_TRACE_TAIL_SAMPLE`` 0.25), exemplars on and
+   ``RAFIKI_TPU_TRACE_DIR`` set; two users submit together, through
+   ``Client``, a ``TorchFeedForward`` job and a ViT job (the reference's
+   widths, 6 blocks, batch 256, one epoch) of 4 trials each with
+   ``CHIP_COUNT`` 1, on synthetic CIFAR-10-shaped sets, so the second
+   runs time-sliced on the first's card. It prints trials/hour, per-job
+   seconds, fairness and the jobs' overlap, the ``/status`` ``mfu``
+   readings (polled while the trials run) and their sum, the
+   ``GET /trial_phases`` body, K1-K3 launches and the trial traces'
+   sizes, and checks: every trial COMPLETED, the windows overlap, each
+   K1-K3 launch on wgmma, a ViT trial's ``mfu`` in (0, 1] while it runs
+   and ``{}`` after, one ``propose``/``train``/``eval``/``persist`` a
+   trial, every trial traced or counted skipped for a busy profiler, a
+   trace naming K2's and K3's kernels among its device events. Then the
+   ViT job's 2 best serve; a window of 8 clients without and one with
+   ``POST /inference_jobs/<id>/profile`` (2 s): every request 200, the
+   session counted ``start`` and ``stop``, its trace naming K1's kernel,
+   p50/p99 of both windows; then 64 requests under ``seed_tail``: one
+   verdict line each in ``trace_verdicts.jsonl``, ``GET /trace/<id>``
+   with spans for a kept trace and none for a dropped one, every
+   exemplar of ``GET /metrics?exemplars=1`` naming a kept trace;
+15. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
    ``library_covers`` names the kernels whose work one library call does,
    ``platform_launches``, ``zoo_launches``, ``ensemble_launches``,
-   ``zoo2_launches`` and ``lifecycle_launches`` the platform, zoo,
-   ensemble, zoo2 and lifecycle phases' launches (the platform's, zoo2's
-   and lifecycle's counted in ``launches`` too), ``zoo2_shapes`` each
+   ``zoo2_launches``, ``lifecycle_launches`` and ``tenants_launches``
+   the platform, zoo, ensemble, zoo2, lifecycle and tenants phases'
+   launches (the platform's, zoo2's, lifecycle's and tenants' counted in
+   ``launches`` too), K2's and K3's ``f32`` their f32 variants' numbers,
+   ``zoo2_shapes`` each
    kernel's numbers at the ViT and tagger shapes and ``zoo2_f32`` K1's
    f32 variant at the int8 ViT shape with its registers and spills, and,
    last, the ``{"ok": true,
@@ -258,6 +290,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -477,7 +510,7 @@ class ZooEnas(TorchEnas):
 """
 
 # The zoo2 phase: the rest of the zoo. ViT and the VGG-style CNN on the
-# zoo phase's synthetic CIFAR-10-shaped set (made anew: 50,000 + 10,000
+# zoo phase's synthetic CIFAR-10-shaped set (made once: 50,000 + 10,000
 # images of 32×32×3); the transformer tagger on a synthetic corpus at the
 # Penn Treebank WSJ POS split's size; the tabular MLPs at UCI Adult's.
 # (a) ViT at the reference's widths (d_model 128, 4 heads of 32, patch 4:
@@ -553,6 +586,50 @@ LIFE_HEADER = "X-Client"
 LIFE_BUCKETS = (1, 2, 4, 8)
 LIFE_GATHER_TIMEOUT = 5.0
 LIFE_MAX_S = 90.0
+# The tenants phase, BASELINE config 5 (concurrent multi-tenant train
+# jobs on one card): two users' jobs of 4 trials each, CHIP_COUNT 1,
+# submitted together to a LocalPlatform of one card, so the second runs
+# time-sliced on the first's: TorchFeedForward (its knob space, the
+# random advisor) and ViT at the reference's widths (d_model 128, 4
+# heads of 32, patch 4: 65 tokens, 6 blocks, batch 256) one epoch. The
+# ViT job trains on the zoo phases' synthetic CIFAR-10-shaped set
+# (50,000 + 10,000, made once in zoo2): 195 steps an epoch, so the
+# epoch's utilization has a window after the first 128-step chunk,
+# which pays the capture. The feed-forward job's set at the same image
+# shape is cut to 4,096 + 512 images (its knob space trains 5 epochs
+# at batch 32-128: 160-640 steps), since every kernel of a traced trial
+# becomes a trace event, of the other tenant's trial too, and a trace's
+# stop and write take seconds a 100 MiB. Tail sampling keeps a quarter
+# of the fast, clean traces; every trial is traced
+# (RAFIKI_TPU_TRACE_DIR) unless the profiler is busy with the other
+# tenant's trial. Then the ViT job's 2 best serve from one worker (an
+# uploaded model's members load apart, so they do not stack): a window
+# of 8 clients without and with a 2 s on-demand profile, then 64
+# traced requests.
+TENANT_FF_DATA = {"n_train": 4096, "n_val": 512, "image_shape": (32, 32, 3),
+                  "n_classes": 10, "name": "cifar10-ff"}
+TENANT_TRIALS = 4
+TENANT_VIT_SOURCE = """
+from rafiki_torch.model import FixedKnob
+from rafiki_torch.models import TorchViT
+
+
+class TenantViT(TorchViT):
+    # The reference's widths with its 6 blocks at batch 256; one epoch.
+    @staticmethod
+    def get_knob_config():
+        cfg = dict(TorchViT.get_knob_config())
+        cfg.update(depth=FixedKnob(6), batch_size=FixedKnob(256),
+                   max_epochs=FixedKnob(1))
+        return cfg
+"""
+TENANT_TAIL_SAMPLE = 0.25
+TENANT_POLL_S = 0.05
+TENANT_CLIENTS = 8
+TENANT_WINDOW_S = 3.0
+TENANT_PROFILE_S = 2.0
+TENANT_TRACED = 64
+TENANT_MAX_S = 150.0
 # K1's o at the zoo's shapes against its plain version, bf16: each p is
 # rounded to bf16 before p·v, and where the kernel's exp and the plain
 # version's round one p to neighbouring bf16 values the row moves by up
@@ -867,6 +944,55 @@ def bwd_variants(torch, attn, args, n: int):
     return {key: sum(r) / len(r) for key, r in runs.items()}
 
 
+def bwd_f32_times(torch, attn, args, errs):
+    """K2's and K3's f32 variants at one f32 causal shape as CUDA graphs,
+    in turns with ``torch.autograd.grad`` of
+    ``scaled_dot_product_attention`` in f32 (kernels, library, library,
+    kernels), beside their plain versions and their bounds at 4 bytes an
+    element and the f32 peak."""
+    import torch.nn.functional as F
+
+    q, k, v, do, lse, delta = args
+    b, h, t, d = q.shape
+    fns = {"K2": lambda: attn._flash_dq(q, k, v, do, lse, delta, True,
+                                         None, variant="f32"),
+           "K3": lambda: attn._flash_dkv(q, k, v, do, lse, delta, True,
+                                          None, variant="f32")}
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    runs = {key: [] for key in ("K2", "K3", "lib")}
+    for turn in ("kernels", "lib", "lib", "kernels"):
+        if turn == "lib":
+            runs["lib"].append(time_ms(torch, lambda: torch.autograd.grad(
+                out, (qg, kg, vg), do, retain_graph=True), 20))
+        else:
+            for key in ("K2", "K3"):
+                runs[key].append(graph_ms(torch, fns[key], 20))
+    plain = {"K2": time_ms(torch, lambda: attn.flash_attention_dq_reference(
+                 *args, causal=True), 3),
+             "K3": time_ms(torch, lambda: attn.flash_attention_dkv_reference(
+                 *args, causal=True), 3)}
+    bounds = dict(zip(("K2", "K3"), backward_bounds(b, h, t, t, d, True, 4)))
+    lib = sum(runs["lib"]) / 2
+    rows = {key: {"ms": sum(runs[key]) / 2, "plain_ms": plain[key],
+                  "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+                  "max_abs_err": (errs["dq"] if key == "K2"
+                                  else max(errs["dk"], errs["dv"]))}
+            for key in ("K2", "K3")}
+    print(f"kernel K2/K3 f32 ({b},{h},{t},{t},{d}) causal, CUDA-graph device "
+          f"time (in turns with the library): K2 {rows['K2']['ms']:.4f} ms "
+          f"(bound {rows['K2']['bound_ms']:.4f} ms, "
+          f"{rows['K2']['bound_by']}; plain {plain['K2']:.4f} ms); K3 "
+          f"{rows['K3']['ms']:.4f} ms (bound {rows['K3']['bound_ms']:.4f} "
+          f"ms, {rows['K3']['bound_by']}; plain {plain['K3']:.4f} ms); "
+          f"K2 + K3 {rows['K2']['ms'] + rows['K3']['ms']:.4f} ms against "
+          f"autograd.grad of scaled_dot_product_attention in f32 (dq, dk, "
+          f"dv) {lib:.4f} ms ({PEAK_F32_FLOPS:.3g} FLOP/s f32, 3.35 TB/s)",
+          flush=True)
+    return {"K2": rows["K2"], "K3": rows["K3"], "library_ms": lib,
+            "shape": [b, h, t, t, d]}
+
+
 def backward_phase(torch, attn):
     """K2 and K3 against their plain versions; returns the numbers of
     both at the flagship train shape."""
@@ -958,7 +1084,10 @@ def backward_phase(torch, attn):
             k1_errs = (float(err_o.max()), float(err_l.max()))
             del ko, kl, err_o, err_l
             flagship = (args, errs)
+        if name == "f32 causal":
+            f32_case = (args, errs["f32"])
         del dq, dk, dv, rq, rk, rv
+    f32_rows = bwd_f32_times(torch, attn, *f32_case)
 
     (q, k, v, do, lse, delta), errs = flagship
     b, h, t, d = q.shape
@@ -1018,13 +1147,17 @@ def backward_phase(torch, attn):
               "variant": "wgmma", "pair_ms": pair["wgmma"],
               "pair_mma_sync_ms": pair["mma_sync"],
               "pair_over_library": pair["wgmma"] / lib_ms}
+    shared_f32 = {"library_ms": f32_rows["library_ms"],
+                  "shape": f32_rows["shape"]}
     return (k1_train,
             {"max_abs_err": errs["wgmma"]["dq"], "ms": ms["K2", "wgmma"],
+             "f32": dict(f32_rows["K2"], **shared_f32),
              "plain_ms": plain_q, "bound_ms": b2_ms, "bound_by": b2_by,
              "mma_sync_ms": ms["K2", "mma_sync"],
              "mma_sync_max_abs_err": errs["mma_sync"]["dq"], **shared},
             {"max_abs_err": max(errs["wgmma"]["dk"], errs["wgmma"]["dv"]),
              "ms": ms["K3", "wgmma"], "plain_ms": plain_kv,
+             "f32": dict(f32_rows["K3"], **shared_f32),
              "bound_ms": b3_ms, "bound_by": b3_by,
              "mma_sync_ms": ms["K3", "mma_sync"],
              "mma_sync_max_abs_err": max(errs["mma_sync"]["dk"],
@@ -1210,10 +1343,14 @@ def profile(torch, fn, what, card, top=10):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    from rafiki_torch.observe.profiling import PROFILER_LOCK
+
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    # One profiler a process: the port's trial traces and on-demand
+    # sessions take the same lock.
+    with PROFILER_LOCK, torch_profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1753,6 +1890,7 @@ def generate_window(torch, np, attn, card, params, engine_cfg, bodies,
     app = PredictorService([worker.start()], device="cuda").start()
     try:
         reset_launch_counts(attn)
+        family0 = lm_family()
         t0 = time.perf_counter()
         with ThreadPoolExecutor(GEN_CLIENTS) as pool:
             results = list(pool.map(
@@ -1760,6 +1898,7 @@ def generate_window(torch, np, attn, card, params, engine_cfg, bodies,
         secs = time.perf_counter() - t0
         launches = launch_counts(attn)
         stats = worker.scheduler.stats()
+        family = {k: v - family0[k] for k, v in lm_family().items()}
     finally:
         app.stop()
         worker.stop()
@@ -1767,6 +1906,20 @@ def generate_window(torch, np, attn, card, params, engine_cfg, bodies,
     n_tok = sum(check_stream(fr, b["max_new"])
                 for (fr, _, _), b in zip(results, bodies))
     check(stats["errors"] == 0, f"{stats['errors']} decode loop errors")
+    # The registry's token family (observe.lm) against what the clients
+    # were streamed.
+    check(family["tokens"] == n_tok and family["ttft"] == len(bodies)
+          and family["dispatches"] == stats["decode_dispatches"]
+          and family["preemptions"] == stats["preemptions"],
+          f"the rafiki_tpu_lm_* family counted {family} for {n_tok} "
+          f"streamed tokens of {len(bodies)} requests")
+    print(f"generate {what}: the registry's rafiki_tpu_lm_* family: "
+          f"{family['tokens']:.0f} tokens (= streamed), "
+          f"{family['ttft']:.0f} TTFT observations (= requests), "
+          f"{family['dispatches']:.0f} decode dispatches, prefills run "
+          f"{family['prefill_run']:.0f} and cached "
+          f"{family['prefill_cached']:.0f}, {family['preemptions']:.0f} "
+          f"preemptions", flush=True)
     prefills = stats["prefills_run"]
     check(launches[0] == L * prefills and launches[3] == launches[0],
           f"K1 launched {launches[0]} times ({launches[3]} wgmma) for "
@@ -1797,6 +1950,32 @@ def generate_window(torch, np, attn, card, params, engine_cfg, bodies,
             "lanes": lanes}
 
 
+def lm_family():
+    """The registry's token serving family (``observe.lm``), as numbers:
+    tokens, TTFT and inter-token observations, decode dispatches,
+    prefills run and cached, preemptions."""
+    from rafiki_torch.observe import metrics
+
+    reg = metrics.registry()
+
+    def val(name, **labels):
+        fam = reg.find(name)
+        return 0.0 if fam is None else float(fam.value(**labels))
+
+    def count(name):
+        fam = reg.find(name)
+        return 0 if fam is None else fam.count()
+
+    return {"tokens": val("rafiki_tpu_lm_tokens_total"),
+            "ttft": count("rafiki_tpu_lm_time_to_first_token_seconds"),
+            "inter_token": count("rafiki_tpu_lm_inter_token_seconds"),
+            "dispatches": val("rafiki_tpu_lm_decode_dispatches_total"),
+            "prefill_run": val("rafiki_tpu_lm_prefill_total", mode="run"),
+            "prefill_cached": val("rafiki_tpu_lm_prefill_total",
+                                  mode="cached"),
+            "preemptions": val("rafiki_tpu_lm_preemptions_total")}
+
+
 def generate_phase(torch, np, attn, card, params):
     """Generative serving of the trained flagship: checks (1), (2), (5)
     and (6) on an engine held directly, then (3) the window of streamed
@@ -1822,19 +2001,36 @@ def generate_phase(torch, np, attn, card, params):
                "temperature": 0.8 if rng.random() < 0.5 else 0.0,
                "seed": i}
               for i in range(GEN_REQUESTS)]
-    window = generate_window(torch, np, attn, card, params, GEN_ENGINE,
-                             bodies, "(3)")
-    check(window["stats"]["prefills_cached"] >= 1,
-          "the shared prompt never hit the prefix cache")
+    # The token family exists while RAFIKI_TPU_SERVING_GENERATE is on,
+    # read once a process: on for the two windows, then off again.
+    import os
 
-    # (4) Preemption: 4 lanes of 100-id prompts growing to 300 tokens
-    # need 76 pages; the pool has 39.
-    small = dict(GEN_ENGINE, decode_batch=4, n_pages=40,
-                 prefix_cache_entries=0)
-    bodies = [{"tokens": rng.integers(0, V, 100).tolist(), "max_new": 200,
-               "temperature": 0.0, "seed": i} for i in range(4)]
-    pre = generate_window(torch, np, attn, card, params, small, bodies,
-                          "(4) preemption, engine " + json.dumps(small))
+    from rafiki_torch.observe import lm
+
+    saved = os.environ.get(lm.GENERATE_ENV)
+    os.environ[lm.GENERATE_ENV] = "1"
+    lm.reset_for_tests()
+    try:
+        window = generate_window(torch, np, attn, card, params, GEN_ENGINE,
+                                 bodies, "(3)")
+        check(window["stats"]["prefills_cached"] >= 1,
+              "the shared prompt never hit the prefix cache")
+
+        # (4) Preemption: 4 lanes of 100-id prompts growing to 300
+        # tokens need 76 pages; the pool has 39.
+        small = dict(GEN_ENGINE, decode_batch=4, n_pages=40,
+                     prefix_cache_entries=0)
+        bodies = [{"tokens": rng.integers(0, V, 100).tolist(),
+                   "max_new": 200, "temperature": 0.0, "seed": i}
+                  for i in range(4)]
+        pre = generate_window(torch, np, attn, card, params, small, bodies,
+                              "(4) preemption, engine " + json.dumps(small))
+    finally:
+        if saved is None:
+            os.environ.pop(lm.GENERATE_ENV, None)
+        else:
+            os.environ[lm.GENERATE_ENV] = saved
+        lm.reset_for_tests()
     check(pre["evictions"] >= 1 and pre["stats"]["preemptions"] >= 1,
           "pool pressure never preempted a sequence")
     out.update(window=window, preemption=pre)
@@ -1850,8 +2046,11 @@ def device_busy(torch, fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    from rafiki_torch.observe.profiling import PROFILER_LOCK
+
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with PROFILER_LOCK, torch_profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2721,12 +2920,13 @@ def entropy(np, probs):
     return float(-(probs * np.log(p)).sum())
 
 
-def zoo_phase(torch, np, attn, card):
+def zoo_phase(torch, np, attn, card, data_dir=None):
     """BASELINE configs 2 and 3 on the card: (a) DenseNet-121 trains one
     epoch at full width; (b) a Bayes search of DenseNet-121 trials; (c)
     an ENAS search at JaxEnas's sizes; (d) the 2 best ENAS trials behind
     ``POST /predict``; (e) none of K1, K2 and K3 launched. Returns the
-    phase's numbers."""
+    phase's numbers; with ``data_dir`` the image set is made there,
+    outlives the phase, and its paths are ``out["data"]``."""
     import os
     import tempfile
 
@@ -2750,7 +2950,10 @@ def zoo_phase(torch, np, attn, card):
           "the model loader does not resolve the zoo's classes")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        train, val = make_synthetic_image_dataset(tmp, seed=SEED, **ZOO_DATA)
+        train, val = make_synthetic_image_dataset(data_dir or tmp,
+                                                  seed=SEED, **ZOO_DATA)
+        if data_dir:
+            out["data"] = (train, val)
         ds = load_image_dataset(train)
         print(f"zoo: synthetic {ZOO_DATA['name']}-shaped set: {ds.size} "
               f"train and {ZOO_DATA['n_val']} val images of "
@@ -4079,13 +4282,14 @@ def conv64(torch, xq, wq, strides, pads):
     return y.permute(0, 2, 3, 1).round().long()
 
 
-def zoo2_phase(torch, np, attn, card):
+def zoo2_phase(torch, np, attn, card, image_set=None):
     """The rest of the zoo on the card: (a) ViT at full width, (b) a
     Bayes search of ViT trials and the 2 best stacked behind the
     predictor, (c) int8 serving of ViT and the CNN, (d) the CNN at full
     width, (e) the transformer tagger at full width, (f) the tabular
-    MLPs and the BiLSTM through ``test_model_class``. Returns the phase's
-    numbers and K1-K3 launches."""
+    MLPs and the BiLSTM through ``test_model_class``. ``image_set`` is
+    the zoo phase's (train, val) paths; None makes the set anew.
+    Returns the phase's numbers and K1-K3 launches."""
     import os
     import tempfile
 
@@ -4112,12 +4316,14 @@ def zoo2_phase(torch, np, attn, card):
     client = Client()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        train, val = make_synthetic_image_dataset(tmp, seed=SEED, **ZOO_DATA)
+        train, val = image_set or make_synthetic_image_dataset(
+            tmp, seed=SEED, **ZOO_DATA)
         vds = load_image_dataset(val)
         imgs, labels = vds.images[:ZOO2_VAL], vds.labels[:ZOO2_VAL]
-        print(f"zoo2: the zoo phase's synthetic {ZOO_DATA['name']}-shaped "
-              f"set made anew in {time.perf_counter() - t0:.2f} s",
-              flush=True)
+        if image_set is None:
+            print(f"zoo2: the zoo phase's synthetic "
+                  f"{ZOO_DATA['name']}-shaped set made anew in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
 
         # (a) ViT at full width.
         t0 = time.perf_counter()
@@ -5165,6 +5371,466 @@ def life_promote(port, token, job_id, trial_id, replace=None):
         return e.code, json.loads(e.read())
 
 
+class MfuPoller:
+    """``GET /status`` every ``TENANT_POLL_S`` on its own thread, keeping
+    each non-empty ``mfu`` reading with its time."""
+
+    def __init__(self, port, token):
+        self.url = f"http://127.0.0.1:{port}/status"
+        self.token = token
+        self.readings = []
+        self.errors = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            req = urllib.request.Request(
+                self.url, headers={"Authorization": f"Bearer {self.token}"})
+            try:
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    mfu = json.loads(r.read())["mfu"]
+            except (OSError, ValueError) as e:
+                self.errors.append(repr(e))
+                mfu = {}
+            if mfu:
+                self.readings.append((time.time(), mfu))
+            self._stop.wait(TENANT_POLL_S)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+
+def traced_ask(host, image):
+    """One single-image ``POST /predict`` sent without a trace id:
+    ``(status, seconds, the X-Trace-Id the edge minted or None)``."""
+    from rafiki_torch.cache import encode_payload
+
+    req = urllib.request.Request(
+        f"http://{host}/predict",
+        data=json.dumps({"query": encode_payload(image)}).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            r.read()
+            status, tid = r.status, r.headers.get("X-Trace-Id")
+    except urllib.error.HTTPError as e:
+        e.read()
+        status, tid = e.code, e.headers.get("X-Trace-Id")
+    return status, time.perf_counter() - t0, tid
+
+
+def load_window(np, host, imgs, stop):
+    """``TENANT_CLIENTS`` clients sending single images until ``stop``
+    is set; returns the pool and the futures of their (status, seconds)
+    lists."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def loop(i):
+        rng = np.random.default_rng(SEED + 100 + i)
+        got = []
+        while not stop.is_set():
+            status, dt, _ = traced_ask(host, imgs[int(rng.integers(
+                len(imgs)))])
+            got.append((status, dt))
+        return got
+
+    pool = ThreadPoolExecutor(TENANT_CLIENTS)
+    return pool, [pool.submit(loop, i) for i in range(TENANT_CLIENTS)]
+
+
+def trace_naming(paths, *needles):
+    """The first Chrome trace file among ``paths`` whose device kernel
+    events name each of ``needles``, with one such name a needle; else
+    ``(None, [])``. A file is parsed only when its bytes hold them all."""
+    for path in paths:
+        with open(path, "rb") as f:
+            raw = f.read()
+        if not all(n.encode() in raw for n in needles):
+            continue
+        names = {e.get("name", "") for e in json.loads(raw).get(
+            "traceEvents", []) if e.get("cat") == "kernel"}
+        found = [next((x for x in names if n in x), None) for n in needles]
+        if all(found):
+            return path, found
+    return None, []
+
+
+def tenants_phase(torch, np, attn, card, vit_data=None):
+    """BASELINE config 5 on the card through the observability plane: two
+    tenants' train jobs time-sliced on one card (trials/hour, per-job
+    seconds, fairness, overlap, the /status MFU gauges, /trial_phases,
+    the trials' device traces), then the ViT job served and profiled
+    under load through ``POST /inference_jobs/<id>/profile``, then a
+    window of tail-sampled traces held against their verdicts, the
+    span store and the exemplars. ``vit_data`` is the ViT job's (train,
+    val) paths, the zoo2 phase's set; None makes the same set anew.
+    Returns the phase's numbers and K1-K3 launches."""
+    import glob
+    import os
+    import re
+    import tempfile
+
+    from rafiki_torch.cache import Cache
+    from rafiki_torch.client import Client
+    from rafiki_torch.constants import (BudgetOption, TaskType,
+                                        TrialStatus, UserType)
+    from rafiki_torch.datasets import make_synthetic_image_dataset
+    from rafiki_torch.model.dataset import load_image_dataset
+    from rafiki_torch.observe import metrics, profiling, trace
+    from rafiki_torch.platform import LocalPlatform
+
+    t_phase = time.perf_counter()
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    trace_root = os.path.join(tmp.name, "traces")
+    env = {trace.TRACE_TAIL_SAMPLE_ENV: repr(TENANT_TAIL_SAMPLE),
+           profiling.TRACE_DIR_ENV: trace_root,
+           "RAFIKI_TPU_METRICS_EXEMPLARS": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    # Each session's stop and write, timed where the port does them.
+    stops = []
+    stop_profiler = profiling._stop_profiler
+
+    def timed_stop(prof, out_dir):
+        got = stop_profiler(prof, out_dir)
+        stops.append((out_dir,) + got)
+        return got
+
+    profiling._stop_profiler = timed_stop
+    # Switches read once a process, read again for this phase.
+    metrics.reset_exemplars_for_tests()
+    trace.reset_tail_for_tests()
+    plat = None
+    try:
+        t0 = time.perf_counter()
+        sets = {"vit": vit_data or make_synthetic_image_dataset(
+                    tmp.name, seed=SEED, **ZOO_DATA),
+                "ff": make_synthetic_image_dataset(tmp.name, seed=SEED,
+                                                   **TENANT_FF_DATA)}
+        vds = load_image_dataset(sets["vit"][1])
+        imgs = vds.images[:256]
+        print(f"tenants: the ViT job on the zoo phases' synthetic "
+              f"CIFAR-10-shaped set ({ZOO_DATA['n_train']} + {vds.size} "
+              f"images{', made anew' if vit_data is None else ''}), the "
+              f"feed-forward job on {TENANT_FF_DATA['n_train']} + "
+              f"{TENANT_FF_DATA['n_val']} images made in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        plat = LocalPlatform(http=True, supervise_interval=0)
+        port = plat.admin_port
+        root = Client(admin_port=port)
+        root.login("superadmin@rafiki", "rafiki")
+        specs = (("ff", "rafiki_torch.models.feedforward:TorchFeedForward",
+                  None), ("vit", "TenantViT", TENANT_VIT_SOURCE))
+        tenants = []
+        for i, (name, cls, src) in enumerate(specs):
+            root.create_user(f"tenant{i}@rafiki", "rafiki",
+                             UserType.MODEL_DEVELOPER)
+            c = Client(admin_port=port)
+            c.login(f"tenant{i}@rafiki", "rafiki")
+            model = c.create_model(f"tenant-{name}",
+                                   TaskType.IMAGE_CLASSIFICATION, cls,
+                                   model_source=src)
+            tenants.append((name, c, model))
+        phases0 = root._call("GET", "/trial_phases")["phases"]
+        traces0 = series(metrics, "rafiki_tpu_trial_traces_total", "event")
+        reset_launch_counts(attn)
+
+        # The two jobs, submitted together.
+        t0 = time.perf_counter()
+        jobs = {}
+        with MfuPoller(port, root._token) as poller:
+            for name, c, model in tenants:
+                jobs[name] = c.create_train_job(
+                    f"tenant-{name}", TaskType.IMAGE_CLASSIFICATION,
+                    [model["id"]],
+                    {BudgetOption.MODEL_TRIAL_COUNT: TENANT_TRIALS,
+                     BudgetOption.CHIP_COUNT: 1}, *sets[name],
+                    advisor_type="random")
+            owners = [list(o) for o in plat.allocator._owners]
+            for name, c, _ in tenants:
+                done = c.wait_until_train_job_done(jobs[name]["id"],
+                                                   timeout=600, poll=0.2)
+                check(done["status"] == "STOPPED",
+                      f"the {name} job ended {done['status']}")
+            train_s = time.perf_counter() - t0
+        launches = launch_counts(attn)
+        check(len(plat.allocator._owners) == 1 and len(owners[0]) == 2,
+              f"the jobs did not share the one card: owners {owners}")
+        rows, windows = {}, {}
+        for name, c, _ in tenants:
+            rows[name] = c.get_trials_of_train_job(jobs[name]["id"])
+            check(len(rows[name]) == TENANT_TRIALS and all(
+                r["status"] == TrialStatus.COMPLETED for r in rows[name]),
+                f"the {name} job's trials: "
+                f"{[r['status'] for r in rows[name]]}")
+            full = plat.meta.get_trials_of_train_job(jobs[name]["id"])
+            windows[name] = (min(t["started_at"] for t in full),
+                             max(t["finished_at"] for t in full))
+        (a0, a1), (b0, b1) = windows["ff"], windows["vit"]
+        overlap = min(a1, b1) - max(a0, b0)
+        check(overlap > 0, f"the jobs ran one after the other: {windows}")
+        per_job = {k: w[1] - w[0] for k, w in windows.items()}
+        fairness = min(per_job.values()) / max(per_job.values())
+        n_trials = 2 * TENANT_TRIALS
+        tph = n_trials * 3600 / train_s
+        check(launches[0] > 0 and launches[1] > 0 and launches[2] > 0
+              and launches[3:] == launches[:3],
+              f"the ViT job launched K1-K3 {launches[:3]}, on wgmma "
+              f"{launches[3:]}")
+        print(f"tenants: 2 jobs of {TENANT_TRIALS} trials (TorchFeedForward "
+              f"and ViT d_model 128, 4 heads of 32, 65 tokens, 6 blocks, "
+              f"batch 256, one epoch), CHIP_COUNT 1 each, time-sliced on "
+              f"the one card (owners {owners[0]}): {n_trials} trials in "
+              f"{train_s:.2f} s = {tph:.1f} trials/hour; per-job seconds "
+              f"ff {per_job['ff']:.2f}, vit {per_job['vit']:.2f}, fairness "
+              f"(min/max) {fairness:.3f}; the windows overlapped "
+              f"{overlap:.2f} s; K1, K2, K3 launches {launches[:3]}, all "
+              f"on wgmma, on {card}", flush=True)
+        for name in ("ff", "vit"):
+            for r in rows[name]:
+                print(f"tenants: {name} trial {r['no']}: knobs "
+                      f"{json.dumps(r['knobs'])}, val accuracy "
+                      f"{r['score']:.4f}", flush=True)
+
+        # The /status MFU gauges, read while the trials ran (a model
+        # trained outside a trial earlier in the process leaves an
+        # unlabelled series, as the reference's does: not this phase's).
+        vit_ids = {r["id"][:12] for r in rows["vit"]}
+        ours = vit_ids | {r["id"][:12] for r in rows["ff"]}
+        readings = [{k: v for k, v in m.items() if k in ours}
+                    for _, m in poller.readings]
+        readings = [m for m in readings if m]
+        vit_vals = [v for m in readings for k, v in m.items()
+                    if k in vit_ids]
+        sums = [sum(m.values()) for m in readings]
+        both = [m for m in readings if len(m) == 2 and set(m) & vit_ids]
+        check(vit_vals and all(0 < v <= 1 for v in vit_vals),
+              f"/status mfu while the ViT trials ran: {vit_vals[:8]} "
+              f"({len(readings)} readings of this phase's trials, poll "
+              f"errors {poller.errors[:3]})")
+        after = root._call("GET", "/status")["mfu"]
+        check(not set(after) & ours, f"/status mfu after the trials: "
+              f"{after}")
+        print(f"tenants: /status mfu every {TENANT_POLL_S * 1e3:.0f} ms: "
+              f"{len(readings)} readings of this phase's trials; the ViT "
+              f"trials' "
+              f"{len(vit_vals)} readings {min(vit_vals, default=0):.4f} to "
+              f"{max(vit_vals, default=0):.4f}; both tenants at once in "
+              f"{len(both)} readings; the sum of one reading up to "
+              f"{max(sums, default=0):.4f} (each trial's gauge counts its "
+              f"own steps, so the card's MFU is their sum); none of "
+              f"them after the trials (other series: {after})", flush=True)
+
+        # /trial_phases.
+        phases1 = root._call("GET", "/trial_phases")
+        counts = {p: phases1["phases"][p]["count"] - phases0[p]["count"]
+                  for p in phases1["phases"]}
+        check(all(counts[p] == n_trials
+                  for p in ("propose", "train", "eval", "persist")),
+              f"/trial_phases counted {counts} for {n_trials} trials")
+        print(f"tenants: GET /trial_phases: {json.dumps(phases1)}; this "
+              f"phase's counts {counts}", flush=True)
+
+        # The trials' device traces.
+        traces1 = series(metrics, "rafiki_tpu_trial_traces_total", "event")
+        ev = {e: traces1.get(e, 0.0) - traces0.get(e, 0.0)
+              for e in ("start", "busy")}
+        files = sorted(glob.glob(os.path.join(trace_root, "*",
+                                              "*.pt.trace.json")))
+        check(ev["start"] >= 1 and ev["start"] + ev["busy"] == n_trials
+              and len(files) == ev["start"],
+              f"trial traces: {ev}, {len(files)} files for {n_trials} "
+              f"trials")
+        path, names = trace_naming(files, "flash_bwd_dq_wgmma",
+                                   "flash_bwd_dkv_wgmma")
+        check(path is not None, f"no trial trace of {len(files)} names "
+              f"K2's and K3's kernels among its device events")
+        tid = os.path.basename(os.path.dirname(path))
+        whose = "vit" if tid[:12] in vit_ids else "ff"
+        print(f"tenants: {len(files)} trials traced into "
+              f"RAFIKI_TPU_TRACE_DIR, {ev['busy']:.0f} skipped for a busy "
+              f"profiler (counted, every trial COMPLETED); the {whose} "
+              f"trial's trace ({os.path.getsize(path) / 2**20:.1f} MiB) "
+              f"names {names[0][:60]} and {names[1][:60]} among its "
+              f"device events; trace sizes "
+              f"{[round(os.path.getsize(p) / 2**20, 1) for p in files]} "
+              f"MiB; each trace's stop and write (s) "
+              f"{[(round(a_, 2), round(b_, 2)) for _, _, a_, b_ in stops]}",
+              flush=True)
+        out.update(trials_per_hour=tph, per_job_s=per_job,
+                   fairness=fairness, overlap_s=overlap,
+                   train_launches=launches[:3],
+                   mfu_vit_max=max(vit_vals, default=0),
+                   mfu_sum_max=max(sums, default=0),
+                   traced=ev["start"], busy=ev["busy"],
+                   trace_mib=os.path.getsize(path) / 2**20)
+
+        # The ViT job served; a window without, then with a profile.
+        _, vit_client, _ = tenants[1]
+        t0 = time.perf_counter()
+        inf = vit_client.create_inference_job(jobs["vit"]["id"],
+                                              max_models=2)
+        cache = Cache(plat.bus)
+        wait_for(lambda: len(cache.running_workers(inf["id"])) == 1, 300,
+                 "the ViT job's worker did not register")
+        (sid, reg), = cache.running_worker_info(inf["id"]).items()
+        check(len(reg["trial_id"].split(",")) == 2,
+              f"the ViT worker registered {reg}")
+        host = vit_client.get_inference_job(inf["id"])["predictor_host"]
+        deploy_s = time.perf_counter() - t0
+
+        def window(profile_s=None):
+            stop = threading.Event()
+            pool, futs = load_window(np, host, imgs, stop)
+            res = None
+            try:
+                time.sleep(0.3)
+                if profile_s is None:
+                    time.sleep(TENANT_WINDOW_S)
+                else:
+                    status, res = vit_client._send(
+                        "POST", f"http://127.0.0.1:{port}/inference_jobs/"
+                        f"{inf['id']}/profile", {"duration_s": profile_s},
+                        {"Authorization": f"Bearer {vit_client._token}",
+                         "Content-Type": "application/json"})[:2]
+                    check(status == 200, f"the profile route answered "
+                          f"{status} {res}")
+                    wait_for(lambda: glob.glob(os.path.join(
+                        res["profile_dir"], "*.pt.trace.json")), 120,
+                        "the profile session wrote no trace")
+                    time.sleep(0.3)
+            finally:
+                stop.set()
+                got = [x for f in futs for x in f.result()]
+                pool.shutdown()
+            return got, res
+
+        reset_launch_counts(attn)
+        base, _ = window()
+        name = "rafiki_tpu_profile_sessions_total"
+        prof0 = series(metrics, name, "event")
+        loaded, res = window(TENANT_PROFILE_S)
+        prof1 = series(metrics, name, "event")
+        serve_launches = launch_counts(attn)
+        sess = {e: prof1.get(e, 0.0) - prof0.get(e, 0.0)
+                for e in ("start", "busy", "stop")}
+        for what, got in (("without", base), ("with", loaded)):
+            check(got and all(s_ == 200 for s_, _ in got),
+                  f"the window {what} the profile: statuses "
+                  f"{sorted({s_ for s_, _ in got})} of {len(got)}")
+        check(sess["start"] == 1 and sess["stop"] == 1 and sess["busy"] == 0,
+              f"rafiki_tpu_profile_sessions_total moved {sess}")
+        (ppath,) = glob.glob(os.path.join(res["profile_dir"],
+                                          "*.pt.trace.json"))
+        k1 = trace_naming([ppath], "flash_fwd_wgmma")[1]
+        check(k1, "the profile's device events name no K1 kernel")
+        lat_b = sorted(dt for _, dt in base)
+        lat_p = sorted(dt for _, dt in loaded)
+        print(f"tenants: the ViT job's 2 best as one worker (stacked: "
+              f"{reg['stacked']}; deployed in {deploy_s:.1f} s); "
+              f"{TENANT_CLIENTS} clients "
+              f"of single images: without a profile {len(base)} requests, "
+              f"p50 {percentile(lat_b, 50) * 1e3:.2f} ms, p99 "
+              f"{percentile(lat_b, 99) * 1e3:.2f} ms; with POST "
+              f"/inference_jobs/<id>/profile ({res['duration_s']} s) "
+              f"{len(loaded)} requests, p50 "
+              f"{percentile(lat_p, 50) * 1e3:.2f} ms, p99 "
+              f"{percentile(lat_p, 99) * 1e3:.2f} ms, all 200; sessions "
+              f"{sess}, its stop {stops[-1][2]:.3f} s and write "
+              f"{stops[-1][3]:.3f} s on the serving thread; the trace "
+              f"({os.path.getsize(ppath) / 2**20:.1f} "
+              f"MiB) names {k1[0][:60]} among its device events; K1 "
+              f"launched {serve_launches[0]} times in the deploy and the "
+              f"windows ({serve_launches[3]} wgmma; replays run "
+              f"uncounted) on {card}", flush=True)
+        check(serve_launches[3] == serve_launches[0],
+              f"the deploy's K1 launches {serve_launches[0]}, wgmma "
+              f"{serve_launches[3]}")
+        out.update(p99_ms={"without": percentile(lat_b, 99) * 1e3,
+                           "with": percentile(lat_p, 99) * 1e3},
+                   serve_launches=serve_launches[:3])
+
+        # The tail-sampled window.
+        from concurrent.futures import ThreadPoolExecutor
+
+        trace.seed_tail(SEED)
+        tail0 = series(metrics, "rafiki_tpu_trace_tail_total", "verdict")
+        with ThreadPoolExecutor(TENANT_CLIENTS) as pool:
+            sent = list(pool.map(lambda x: traced_ask(host, x),
+                                 imgs[:TENANT_TRACED]))
+        tail1 = series(metrics, "rafiki_tpu_trace_tail_total", "verdict")
+        verdict_counts = {k: v - tail0.get(k, 0.0) for k, v in tail1.items()
+                          if v - tail0.get(k, 0.0)}
+        check(all(s_ == 200 and t_ for s_, _, t_ in sent),
+              "a traced request failed or came back without X-Trace-Id")
+        tids = [t_.split("-")[0] for _, _, t_ in sent]
+        verdicts = {}
+        with open(os.path.join(plat.services.log_dir,
+                               trace.VERDICT_FILE)) as f:
+            for line in f:
+                rec = json.loads(line)
+                verdicts.setdefault(rec["t"], []).append(rec["v"])
+        check(all(len(verdicts.get(t_, [])) == 1 for t_ in tids),
+              "a minted trace has not exactly one verdict line")
+        kept = [t_ for t_ in tids if verdicts[t_] == ["kept"]]
+        dropped = [t_ for t_ in tids if verdicts[t_] == ["dropped"]]
+        spans = {t_: root._call("GET", f"/trace/{t_}")["n_spans"]
+                 for t_ in tids}
+        check(kept and dropped and all(spans[t_] >= 1 for t_ in kept)
+              and all(spans[t_] == 0 for t_ in dropped),
+              f"spans of kept traces {[spans[t_] for t_ in kept]}, of "
+              f"dropped {[spans[t_] for t_ in dropped]}")
+        with urllib.request.urlopen(f"http://{host}/metrics?exemplars=1",
+                                    timeout=30) as r:
+            expo = r.read().decode()
+        ex_ids = set(re.findall(r'# \{trace_id="([0-9a-f]+)"\}', expo))
+        all_dropped = {t_ for t_, v in verdicts.items() if "dropped" in v}
+        ex_spans = {t_: root._call("GET", f"/trace/{t_}")["n_spans"]
+                    for t_ in ex_ids}
+        check(ex_ids and not ex_ids & all_dropped
+              and all(n > 0 for n in ex_spans.values()),
+              f"exemplars {len(ex_ids)}, of dropped traces "
+              f"{len(ex_ids & all_dropped)}, spans {ex_spans}")
+        print(f"tenants: {TENANT_TRACED} requests from {TENANT_CLIENTS} "
+              f"clients under tail sampling at {TENANT_TAIL_SAMPLE} "
+              f"(seed_tail({SEED})): one verdict line each; verdicts "
+              f"{verdict_counts}; GET /trace/<id> gives "
+              f"{min(spans[t_] for t_ in kept)} to "
+              f"{max(spans[t_] for t_ in kept)} spans for the {len(kept)} "
+              f"kept and none for the {len(dropped)} dropped; the "
+              f"{len(ex_ids)} exemplars in GET /metrics all name kept "
+              f"traces with spans", flush=True)
+        out.update(verdicts=verdict_counts, kept=len(kept),
+                   dropped=len(dropped), exemplars=len(ex_ids))
+        vit_client.stop_inference_job(inf["id"])
+    finally:
+        if plat is not None:
+            plat.shutdown()
+        profiling._stop_profiler = stop_profiler
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        metrics.reset_exemplars_for_tests()
+        trace.reset_tail_for_tests()
+        tmp.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    check(phase_s <= TENANT_MAX_S, f"the tenants phase took {phase_s:.1f} s")
+    out.update(launches=tuple(a + b for a, b in zip(
+        out["train_launches"], out["serve_launches"])), phase_s=phase_s)
+    print(f"tenants: phase took {phase_s:.1f} s", flush=True)
+    return out
+
+
 def zoo2_rows(zoo2, kernel):
     """One kernel's numbers at the zoo2 phase's ViT and tagger shapes."""
     return {what: dict(zoo2[part]["kernels"][kernel],
@@ -5225,12 +5891,18 @@ def main() -> int:
         automl = timed("automl", automl_phase, torch, np, attn, card)
         _, plat_launches = timed("platform", platform_phase, torch, np,
                                  attn, card, automl)
-        zoo = timed("zoo", zoo_phase, torch, np, attn, card)
-        ens = timed("ensemble", ensemble_phase, torch, np, attn, card,
-                    automl, zoo)
-        zoo2 = timed("zoo2", zoo2_phase, torch, np, attn, card)
-        life = timed("lifecycle", lifecycle_phase, torch, np, attn, card,
-                     zoo2)
+        # The zoo phase's image set is made once: zoo2 and the tenants
+        # phase's ViT job train on it too.
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data:
+            zoo = timed("zoo", zoo_phase, torch, np, attn, card, data)
+            ens = timed("ensemble", ensemble_phase, torch, np, attn, card,
+                        automl, zoo)
+            zoo2 = timed("zoo2", zoo2_phase, torch, np, attn, card,
+                         zoo["data"])
+            life = timed("lifecycle", lifecycle_phase, torch, np, attn,
+                         card, zoo2)
+            ten = timed("tenants", tenants_phase, torch, np, attn, card,
+                        zoo["data"])
     except Exception:
         traceback.print_exc()
         return 1
@@ -5240,13 +5912,14 @@ def main() -> int:
              replaces="rafiki_tpu/ops/attention.py:162",
              launches=(train_launches[0] + serve_launches + gen_launches
                        + plat_launches[0] + zoo2["launches"][0]
-                       + life["launches"][0]),
+                       + life["launches"][0] + ten["launches"][0]),
              generate_launches=gen_launches,
              platform_launches=plat_launches[0],
              zoo_launches=zoo["launches"][0],
              ensemble_launches=ens["launches"][0],
              zoo2_launches=zoo2["launches"][0],
              lifecycle_launches=life["launches"][0],
+             tenants_launches=ten["launches"][0],
              zoo2_shapes=zoo2_rows(zoo2, "K1"),
              zoo2_f32=dict(zoo2["int8"]["k1_f32"], registers=f32_regs),
              generate_buckets=gen["buckets"], **k1, **k1_train),
@@ -5254,23 +5927,27 @@ def main() -> int:
              source=src + "flash_bwd_dq.cu",
              replaces="rafiki_tpu/ops/attention.py:338",
              launches=(train_launches[1] + plat_launches[1]
-                       + zoo2["launches"][1] + life["launches"][1]),
+                       + zoo2["launches"][1] + life["launches"][1]
+                       + ten["launches"][1]),
              platform_launches=plat_launches[1],
              zoo_launches=zoo["launches"][1],
              ensemble_launches=ens["launches"][1],
              zoo2_launches=zoo2["launches"][1],
              lifecycle_launches=life["launches"][1],
+             tenants_launches=ten["launches"][1],
              zoo2_shapes=zoo2_rows(zoo2, "K2"), **k2),
         dict(name="flash_bwd_dkv (K3)", route="cuda",
              source=src + "flash_bwd_dkv.cu",
              replaces="rafiki_tpu/ops/attention.py:401",
              launches=(train_launches[2] + plat_launches[2]
-                       + zoo2["launches"][2] + life["launches"][2]),
+                       + zoo2["launches"][2] + life["launches"][2]
+                       + ten["launches"][2]),
              platform_launches=plat_launches[2],
              zoo_launches=zoo["launches"][2],
              ensemble_launches=ens["launches"][2],
              zoo2_launches=zoo2["launches"][2],
              lifecycle_launches=life["launches"][2],
+             tenants_launches=ten["launches"][2],
              zoo2_shapes=zoo2_rows(zoo2, "K3"), **k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

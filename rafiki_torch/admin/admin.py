@@ -28,10 +28,17 @@ predictor's edge cache is invalidated before the promote returns, so no
 later request is answered from a pre-promotion entry. Promotes are
 serialised by one lock.
 
-Not ported yet (ROADMAP, queue 1): on-demand profiling, the autoscaler,
-nodes, SLOs and alerts, capacity, trial phases, dataset uploads,
-service logs, attaching train workers, and the train-MFU gauge that
-``get_status`` reads (its ``mfu`` is empty).
+Observability: ``profile_inference_job`` starts a bounded device
+profile on one live worker of a job (``Cache.send_profile``; the
+artifact lands under ``<log_dir>/profiles/<job>/<ts>``),
+``get_trial_phases`` reads the trial-phase breakdown and the cache
+counters (``observe.phases``), and ``get_status``'s ``mfu`` reads the
+train loops' ``rafiki_tpu_train_mfu_ratio`` gauge by trial. Time-sliced
+trials each publish their own, so the card's MFU is their sum.
+
+Not ported yet (ROADMAP, queue 1): the autoscaler, nodes, SLOs and
+alerts, capacity, dataset uploads, service logs and attaching train
+workers.
 """
 
 from __future__ import annotations
@@ -585,6 +592,57 @@ class Admin:
                 service=stats["http_service"], route="/predict")
         return stats
 
+    def profile_inference_job(self, inference_job_id: str,
+                              duration_s: float = 5.0,
+                              claims: Optional[Dict[str, Any]] = None,
+                              ) -> Dict[str, Any]:
+        """Start a bounded on-demand device profile on one live worker
+        of the job (``POST /inference_jobs/<id>/profile``). The request
+        travels as a ``__profile__`` marker in the worker's queue, so
+        the worker starts the session between bursts and its serve loop
+        stops it at the deadline: serving never pauses. The trace lands
+        under ``<log_dir>/profiles/<job[:8]>/<ts>-<rand>``; a worker
+        whose profiler is busy skips the request, which the caller sees
+        as an empty directory."""
+        import os
+        import tempfile
+        import uuid
+
+        from ..observe.profiling import PROFILE_MAX_S
+
+        job = self._owned_inference_job(inference_job_id, claims)
+        if job["status"] != InferenceJobStatus.RUNNING:
+            raise ValueError(
+                f"inference job {inference_job_id} is not RUNNING")
+        try:
+            duration_s = float(duration_s)
+        except (TypeError, ValueError):
+            raise ValueError(f"duration_s {duration_s!r} is not a "
+                             f"number") from None
+        # The profiler holds buffers and the process's one session, so
+        # a long request is clamped, not honoured.
+        duration_s = min(max(0.5, duration_s), PROFILE_MAX_S)
+        rows = self.services.active_inference_workers(inference_job_id)
+        if not rows:
+            raise ValueError(
+                f"inference job {inference_job_id} has no active "
+                f"workers to profile")
+        target = rows[0]["service_id"]
+        base = self.services.log_dir or os.path.join(
+            tempfile.gettempdir(), "rafiki_tpu_profiles")
+        out_dir = os.path.join(
+            base, "profiles", inference_job_id[:8],
+            f"{int(time.time())}-{uuid.uuid4().hex[:6]}")
+        Cache(self.services.serving_bus()).send_profile(
+            target, out_dir, duration_s)
+        _log.info("profile session queued on worker %s of job %s "
+                  "(%.1fs into %s)", target[:8], inference_job_id[:8],
+                  duration_s, out_dir)
+        return {"inference_job_id": inference_job_id,
+                "service_id": target,
+                "duration_s": duration_s,
+                "profile_dir": out_dir}
+
     def get_trace(self, trace_id: str,
                   claims: Optional[Dict[str, Any]] = None,
                   ) -> Dict[str, Any]:
@@ -596,11 +654,33 @@ class Admin:
             return {"trace_id": trace_id, "n_spans": 0, "spans": []}
         return obs_trace.collect_trace(log_dir, trace_id)
 
+    def get_trial_phases(self) -> Dict[str, Any]:
+        """The trial phases' cumulative breakdown and the cache counters
+        (``GET /trial_phases``). ``resident`` says whether this process
+        has run trials (their series live in its registry)."""
+        from ..observe import phases as obs_phases
+
+        totals = obs_phases.phase_totals()
+        resident = any(v["count"] for v in totals.values())
+        phases = {
+            p: {"count": int(v["count"]),
+                "total_s": round(v["sum"], 3),
+                "mean_ms": round(v["sum"] / v["count"] * 1e3, 1)
+                if v["count"] else 0.0}
+            for p, v in totals.items()}
+        caches = {c: obs_phases.cache_counts(c)
+                  for c in ("dataset", "stage")}
+        return {"enabled": obs_metrics.metrics_enabled(),
+                "resident": resident, "phases": phases,
+                "caches": caches}
+
     # --- Node status ---
 
     def get_status(self) -> Dict[str, Any]:
-        """Chip allocation, running services by type and a per-node view
-        (service counts and heartbeat age)."""
+        """Chip allocation, running services by type, a per-node view
+        (service counts and heartbeat age) and ``mfu``: each running
+        trial's last MFU reading (the train loops'
+        ``rafiki_tpu_train_mfu_ratio`` gauge, by its ``trial`` label)."""
         alloc = self.services.allocator
         by_type: Dict[str, int] = {}
         nodes: Dict[str, Dict[str, Any]] = {}
@@ -621,13 +701,18 @@ class Admin:
                         or age < node["heartbeat_age_s"]:
                     node["heartbeat_age_s"] = age
         nodes.setdefault(this_node, {"services": 0, "heartbeat_age_s": 0.0})
+        mfu: Dict[str, float] = {}
+        gauge = obs_metrics.registry().find("rafiki_tpu_train_mfu_ratio")
+        if gauge is not None:
+            for labels, value in gauge.samples():
+                mfu[labels.get("trial", "(unlabeled)")] = round(value, 4)
         return {"n_chips": alloc.n_chips,
                 "free_chips": alloc.free_chips,
                 "chip_allocation": round(alloc.utilization(), 4),
                 "services_running": by_type,
                 "node_id": this_node,
                 "nodes": nodes,
-                "mfu": {}}
+                "mfu": mfu}
 
 
 def _public_model(m: Dict[str, Any]) -> Dict[str, Any]:

@@ -21,17 +21,24 @@ The port's copy of the routes of ``rafiki_tpu/admin/app.py`` that
                                        "replace_trial_id"}``: a trained
                                        trial into the running job
                                        (``Admin.promote_trial``)
+- ``POST /inference_jobs/<job_id>/profile`` ``{"duration_s"}`` (5 by
+                                       default, clamped to [0.5, 60]):
+                                       a device profile of one live
+                                       worker
+                                       (``Admin.profile_inference_job``)
 - ``GET  /trace/<trace_id>``           one trace's spans, in order
 - ``GET  /services``                   service rows
-- ``GET  /status``                     chips and running services
+- ``GET  /status``                     chips, running services and each
+                                       running trial's MFU
+- ``GET  /trial_phases``               the trial phases and the cache
+                                       counters
 - ``GET  /metrics``                    the process registry
                                        (``JsonHttpServer``)
 
 Auth: ``Authorization: Bearer <jwt>`` on everything but ``POST
 /tokens`` and ``GET /metrics``. Every other route of the reference
 answers 404 until it is ported (ROADMAP, queue 1): the dashboard,
-profile, autoscale, nodes, SLO, alerts, capacity, trial phases,
-datasets and service logs.
+autoscale, nodes, SLO, alerts, capacity, datasets and service logs.
 """
 
 from __future__ import annotations
@@ -68,9 +75,12 @@ class AdminApp:
              self._stop_inference_job),
             ("POST", "/inference_jobs/<job_id>/promote",
              self._promote_trial),
+            ("POST", "/inference_jobs/<job_id>/profile",
+             self._profile_inference_job),
             ("GET", "/trace/<trace_id>", self._get_trace),
             ("GET", "/services", self._list_services),
             ("GET", "/status", self._status),
+            ("GET", "/trial_phases", self._trial_phases),
         ], host=host, port=port, name="admin")
         self.host = self._http.host
         self.port = self._http.port
@@ -210,6 +220,12 @@ class AdminApp:
             params["job_id"], body["trial_id"],
             replace_trial_id=body.get("replace_trial_id"), claims=claims)
 
+    def _profile_inference_job(self, params, body, ctx):
+        claims = self._auth(ctx)
+        duration = (body or {}).get("duration_s", 5.0)
+        return 200, self.admin.profile_inference_job(
+            params["job_id"], duration_s=duration, claims=claims)
+
     def _list_services(self, params, body, ctx):
         claims = self._auth(ctx)
         return 200, self.admin.get_services(claims=claims)
@@ -217,3 +233,7 @@ class AdminApp:
     def _status(self, params, body, ctx):
         self._auth(ctx)
         return 200, self.admin.get_status()
+
+    def _trial_phases(self, params, body, ctx):
+        self._auth(ctx)
+        return 200, self.admin.get_trial_phases()

@@ -1,11 +1,12 @@
 """AdvisorWorker: one search shared by many train workers, over the bus.
 
-The port's copy of ``rafiki_tpu/advisor/worker.py`` without the trace
-envelope. The ``AdvisorWorker`` owns the advisor of one sub-train-job
-and serves an RPC loop on the bus; ``RemoteAdvisor`` is the train
-worker's proxy with the in-process advisor's
-``propose``/``feedback``/``forget``/``best``, so ``TrialRunner`` cannot
-tell the difference.
+The port's copy of ``rafiki_tpu/advisor/worker.py``. The
+``AdvisorWorker`` owns the advisor of one sub-train-job and serves an
+RPC loop on the bus; ``RemoteAdvisor`` is the train worker's proxy with
+the in-process advisor's ``propose``/``feedback``/``forget``/``best``,
+so ``TrialRunner`` cannot tell the difference. A request sent from a
+traced thread carries the trace envelope (``observe.trace``), and the
+advisor records its work on it as an ``advisor.<op>`` span.
 
 Queues: requests on ``adv:{sub_id}:req``; replies on a per-request queue
 ``adv:{sub_id}:rep:{req_id}``.
@@ -14,11 +15,13 @@ Queues: requests on ``adv:{sub_id}:req``; replies on a per-request queue
 from __future__ import annotations
 
 import threading
+import time
 import uuid
 from typing import Any, Dict, Optional, Tuple
 
 from ..bus import BaseBus
 from ..model.knobs import Knobs
+from ..observe import trace
 from .base import BaseAdvisor, Proposal
 
 
@@ -62,12 +65,28 @@ class AdvisorWorker:
             if req is None:
                 continue
             try:
-                self._dispatch(req)
+                self._handle(req)
             except Exception as e:
                 req_id = req.get("req_id")
                 if req_id:
                     self.bus.push(_rep_queue(self.sub_id, req_id),
                                   {"error": f"{type(e).__name__}: {e}"})
+
+    def _handle(self, req: Dict[str, Any]) -> None:
+        """Take the trace envelope off (a frame without one is served
+        the same) and time the advisor's work as a span under it."""
+        ctxs = trace.extract(req)
+        if not ctxs:
+            self._dispatch(req)
+            return
+        wall = time.time()
+        t0 = time.monotonic()
+        try:
+            self._dispatch(req)
+        finally:
+            trace.record_event(
+                f"advisor.{req.get('op')}", f"advisor-{self.sub_id[:8]}",
+                ctxs, wall, time.monotonic() - t0)
 
     def _dispatch(self, req: Dict[str, Any]) -> None:
         op, req_id = req.get("op"), req.get("req_id")
@@ -98,10 +117,19 @@ class RemoteAdvisor:
         self.sub_id = sub_train_job_id
         self.timeout = timeout
 
+    @staticmethod
+    def _inject_trace(req: Dict[str, Any]) -> Dict[str, Any]:
+        """Carry the calling thread's trace context, if any, in the
+        request frame (the serving scatter's envelope)."""
+        env = trace.inject([trace.current()])
+        if env is not None:
+            req[trace.ENVELOPE_KEY] = env
+        return req
+
     def _rpc(self, req: Dict[str, Any]) -> Dict[str, Any]:
         req_id = uuid.uuid4().hex
         req["req_id"] = req_id
-        self.bus.push(_req_queue(self.sub_id), req)
+        self.bus.push(_req_queue(self.sub_id), self._inject_trace(req))
         rep = self.bus.pop(_rep_queue(self.sub_id, req_id),
                            timeout=self.timeout)
         if rep is None:
@@ -118,13 +146,13 @@ class RemoteAdvisor:
         return None if d is None else Proposal.from_json(d)
 
     def feedback(self, proposal: Proposal, score: float) -> None:
-        self.bus.push(_req_queue(self.sub_id), {
+        self.bus.push(_req_queue(self.sub_id), self._inject_trace({
             "op": "feedback", "proposal": proposal.to_json(),
-            "score": float(score)})
+            "score": float(score)}))
 
     def forget(self, proposal: Proposal) -> None:
-        self.bus.push(_req_queue(self.sub_id), {
-            "op": "forget", "proposal": proposal.to_json()})
+        self.bus.push(_req_queue(self.sub_id), self._inject_trace({
+            "op": "forget", "proposal": proposal.to_json()}))
 
     def best(self) -> Optional[Tuple[Knobs, float]]:
         d = self._rpc({"op": "best"})["best"]

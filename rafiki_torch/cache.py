@@ -32,16 +32,17 @@ predictor sends it) and ``compute_s``, the worker's device seconds for
 its slice. Every send counts its estimated bytes, and every decode its
 host copy, in the serving wire series (``observe.wire``).
 
-Two control markers ride a worker's query queue, so they apply in queue
-order: ``__drain__`` (serve what came before, then exit) and
+Three control markers ride a worker's query queue, so they apply in
+queue order: ``__drain__`` (serve what came before, then exit),
 ``__restack__`` (swap one member of a stacked bin in place, after
-serving what came before, ``send_restack``).
+serving what came before, ``send_restack``) and ``__profile__`` (start
+a bounded device profile between bursts, ``send_profile``).
 
 ``TokenFrames`` is a ``Cache`` over a bus of its own: the reply queues
 of an in-process worker's generate requests.
 
-The reference's frontend registry, cross-node relay, profile marker and
-single-query frames are not ported.
+The reference's frontend registry, cross-node relay and single-query
+frames are not ported.
 """
 
 from __future__ import annotations
@@ -78,6 +79,12 @@ DRAIN_KEY = "__drain__"
 #: Restack marker frame key: a worker popping a frame with this key
 #: swaps one member of its stacked bin after serving the burst in hand.
 RESTACK_KEY = "__restack__"
+
+#: On-demand profiling marker (``Admin.profile_inference_job``): the
+#: worker starts a bounded ``torch.profiler`` session between bursts,
+#: in queue order like the drain and restack markers, so the session
+#: observes real serving traffic without pausing it.
+PROFILE_KEY = "__profile__"
 
 
 def encode_payload(value: Any) -> Any:
@@ -483,6 +490,15 @@ class Cache:
         self.bus.push(f"q:{worker_id}", {RESTACK_KEY: {
             "old": str(old_trial_id), "new": str(new_trial_id)}})
 
+    def send_profile(self, worker_id: str, out_dir: str,
+                     duration_s: float) -> None:
+        """Queue an on-demand profiling marker: the worker starts a
+        bounded device profile into ``out_dir`` between bursts and its
+        serve loop stops it once ``duration_s`` has passed. A worker
+        whose profiler is busy skips the request."""
+        self.bus.push(f"q:{worker_id}", {PROFILE_KEY: {
+            "dir": str(out_dir), "duration_s": float(duration_s)}})
+
     # --- Queries (inference worker side) ---
 
     def pop_queries(self, worker_id: str, max_items: int = 0,
@@ -496,7 +512,7 @@ class Cache:
                                  timeout=timeout)
         counting = _wire.counting()
         for it in items:
-            if DRAIN_KEY in it or RESTACK_KEY in it \
+            if DRAIN_KEY in it or RESTACK_KEY in it or PROFILE_KEY in it \
                     or it.get("op") == "generate":
                 continue  # a marker, or a token request routed whole
             if "batch" in it:

@@ -15,7 +15,12 @@ trains, evaluates, serves and (de)serialises it as the reference does:
   128 steps; one ``logger.log`` record per epoch carries ``epoch``,
   ``loss``, ``train_acc``, ``steps_per_sec`` and, on the card,
   ``chip_util`` (analytic FLOPs of the module's convolutions and dense
-  layers over the H100's bf16 peak). ``augment_in_graph(x, step)``
+  layers over the card's peak, ``observe.device_peak_flops``), which
+  is also the ``rafiki_tpu_train_mfu_ratio`` gauge, set each epoch
+  under the caller's bound labels beside the
+  ``rafiki_tpu_train_step_seconds`` histogram (ref :676-688, :775-778);
+  the dataset's ``load`` and ``stage`` are timed as trial phases
+  (``observe.phases``). ``augment_in_graph(x, step)``
   augments each normalised batch on the device (identity by default;
   the conv zoo's ``pad_crop_flip``, ref :231-257). The module runs in
   train mode, so a BatchNorm's running statistics update in place, in
@@ -64,7 +69,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
-from ..observe import H100_PEAK_BF16_FLOPS, MfuMeter
+from ..observe import MfuMeter, metrics
+from ..observe import phases as _phases
 from ..torchenv import (DeviceLike, graph_capture, resolve_device,
                         side_stream)
 from ..utils.hashing import M32, mix32
@@ -635,7 +641,9 @@ class TorchModel(BaseModel):
             raise NotImplementedError(
                 "checkpoint resume of TorchModel.train is not ported yet "
                 "(ROADMAP queue 1 item 5)")
+        t_load = time.monotonic()
         ds = load_image_dataset(dataset_path)
+        _phases.observe_phase("load", time.monotonic() - t_load)
         net = self._new_net(ds.n_classes, ds.image_shape)
         if shared_params is not None:
             self._merge_shared(net, shared_params)
@@ -652,14 +660,26 @@ class TorchModel(BaseModel):
                                     steps_per_epoch, max_epochs)
 
         # The whole dataset goes to the device once, as uint8.
-        steps = _TrainSteps(self, net, opt,
-                            torch.from_numpy(ds.images).to(self.device),
-                            torch.from_numpy(ds.labels).to(self.device),
-                            steps_per_epoch, batch_size)
-        on_card = self.device.type == "cuda"
+        data, labels = self._stage(ds)
+        steps = _TrainSteps(self, net, opt, data, labels, steps_per_epoch,
+                            batch_size)
+        # Utilization is a card's: on the CPU the step cost stays
+        # unknown, so no chip_util and no MFU gauge.
         meter = MfuMeter(
-            6 * batch_size * self._macs(net, ds.image_shape) if on_card
-            else 0, H100_PEAK_BF16_FLOPS if on_card else None)
+            6 * batch_size * self._macs(net, ds.image_shape)
+            if self.device.type == "cuda" else None, device=self.device)
+        # The step-time histogram and the MFU gauge carry the labels the
+        # caller bound (TrialRunner binds trial=<id>, and /status reads
+        # the gauge by trial).
+        mlabels = metrics.bound_labels()
+        reg = metrics.registry()
+        step_hist = reg.histogram(
+            "rafiki_tpu_train_step_seconds",
+            "Optimizer step wall time (chunk time / steps per chunk)")
+        mfu_gauge = reg.gauge(
+            "rafiki_tpu_train_mfu_ratio",
+            "Model-FLOPs-utilization of the trial's chip group "
+            "(published per epoch)")
         logger.define_plot("Training", ["loss", "train_acc", "chip_util"],
                            x_axis="epoch")
         early_stop = int(self.knobs.get("early_stop_epochs", 0))
@@ -682,9 +702,13 @@ class TorchModel(BaseModel):
             s = 0
             while s < steps_per_epoch:
                 k = min(chunk_steps, steps_per_epoch - s)
+                t_chunk = time.monotonic()
                 for _ in range(k):
                     steps.step()
                 loss_acc = steps.read_means(k)
+                # read_means is the chunk's sync, so this is wall time.
+                step_hist.observe((time.monotonic() - t_chunk) / k,
+                                  **mlabels)
                 step += k
                 s += k
                 meter.tick(k)
@@ -697,8 +721,10 @@ class TorchModel(BaseModel):
                 nw += k
             ep_loss /= max(nw, 1)
             ep_acc /= max(nw, 1)
-            util = ({"chip_util": round(meter.mfu, 6)}
-                    if meter.mfu is not None else {})
+            mfu = meter.mfu
+            util = {"chip_util": round(mfu, 6)} if mfu is not None else {}
+            if mfu is not None:
+                mfu_gauge.set(mfu, **mlabels)
             logger.log(epoch=epoch, loss=ep_loss, train_acc=ep_acc,
                        steps_per_sec=step / (time.time() - t0), **util)
             if early_stop:
@@ -713,6 +739,16 @@ class TorchModel(BaseModel):
         self._net = net
         self._invalidate_compiled()
 
+    def _stage(self, ds) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The whole set's images (uint8) and labels on the device, timed
+        as the ``stage`` phase. There is no staging cache yet (ROADMAP
+        queue 1 item 6): every call copies."""
+        t_stage = time.monotonic()
+        data = torch.from_numpy(ds.images).to(self.device)
+        labels = torch.from_numpy(ds.labels).to(self.device)
+        _phases.observe_phase("stage", time.monotonic() - t_stage)
+        return data, labels
+
     def _merge_shared(self, net: nn.Module, shared_params: Params) -> None:
         """Warm start: overlay the shared parameters whose flat name and
         shape match (ref ``_merge_shared``, :875-887)."""
@@ -724,9 +760,10 @@ class TorchModel(BaseModel):
     @torch.no_grad()
     def evaluate(self, dataset_path: str) -> float:
         net = self._require_net()
+        t_load = time.monotonic()
         ds = load_image_dataset(dataset_path)
-        data = torch.from_numpy(ds.images).to(self.device)
-        labels = torch.from_numpy(ds.labels).to(self.device)
+        _phases.observe_phase("load", time.monotonic() - t_load)
+        data, labels = self._stage(ds)
         bs = min(EVAL_BATCH, ds.size)
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
         for start in range(0, ds.size, bs):

@@ -46,7 +46,7 @@ from ..model.dataset import load_token_dataset
 from ..model.logger import logger
 from ..model.loop_ckpt import epoch_rng
 from ..model.optim import adamw, warmup_cosine_decay_schedule
-from ..observe import H100_PEAK_BF16_FLOPS, MfuMeter
+from ..observe import MfuMeter, metrics
 from ..ops.attention import flash_attention
 from ..torchenv import DeviceLike, resolve_device
 from .transformer import _sinusoidal
@@ -293,8 +293,16 @@ class TorchTransformerLM(BaseModel):
 
         logger.define_plot("Training", ["loss", "token_acc", "chip_util"],
                            x_axis="step")
-        meter = MfuMeter(self._flops_per_step(b), peak=(
-            H100_PEAK_BF16_FLOPS if self.device.type == "cuda" else None))
+        # Utilization is a card's: on the CPU the step cost stays
+        # unknown, so no chip_util and no MFU gauge.
+        meter = MfuMeter(self._flops_per_step(b)
+                         if self.device.type == "cuda" else None,
+                         device=self.device)
+        mlabels = metrics.bound_labels()
+        mfu_gauge = metrics.registry().gauge(
+            "rafiki_tpu_train_mfu_ratio",
+            "Model-FLOPs-utilization of the trial's chip group "
+            "(published per epoch)")
         rng = epoch_rng(int(self.knobs.get("seed", 0)), 0)
         hi = max(1, ds.size - (t + 1))
         done = 0
@@ -322,8 +330,10 @@ class TorchTransformerLM(BaseModel):
                 # tail chunk is short: both stay out of the window.
                 first_chunk = False
                 meter.reset()
-            util = ({"chip_util": round(meter.mfu, 6)}
-                    if meter.mfu is not None else {})
+            mfu = meter.mfu
+            util = {"chip_util": round(mfu, 6)} if mfu is not None else {}
+            if mfu is not None:  # the reference publishes it a chunk
+                mfu_gauge.set(mfu, **mlabels)
             logger.log(step=done, loss=loss_acc[0], token_acc=loss_acc[1],
                        **util)
         opt.zero_grad(set_to_none=True)

@@ -1,10 +1,28 @@
-"""Observability of the port: the train loop's MFU meter, the metrics
-registry (``metrics``), request tracing (``trace``) and the serving
-frontend's counters (``ServingStats``)."""
+"""Observability of the port, as the reference's ``observe`` package:
 
-from . import metrics, trace
-from .profiling import H100_PEAK_BF16_FLOPS, MfuMeter
+- ``metrics``: the process registry of counters, gauges and histograms,
+  exposed on every service's ``GET /metrics``;
+- ``trace``: trace ids minted at the HTTP edges, carried in bus
+  envelopes, spans in a segmented store with sidecar indexes, tail
+  sampling, stitched by the admin's ``GET /trace/<id>``;
+- ``phases``: trial-lifecycle phase timings and the cache counters
+  (``GET /trial_phases``);
+- ``attribution``: the serving ledger by bin and tenant;
+- ``ServingStats``: the serving front's counters;
+- ``profiling``: per-trial ``torch.profiler`` traces, on-demand device
+  profiles of a serving worker, the card's peak and the MFU meter.
+
+The token serving family of the generative plane is ``observe.lm``.
+"""
+
+from . import attribution, metrics, phases, trace
+from .profiling import (H100_PEAK_BF16_FLOPS, DeviceProfileSession,
+                        MfuMeter, device_peak_flops, flops_of_step,
+                        start_device_profile, trace_session,
+                        trial_trace_dir)
 from .serving import ServingStats
 
-__all__ = ["H100_PEAK_BF16_FLOPS", "MfuMeter", "ServingStats", "metrics",
-           "trace"]
+__all__ = ["attribution", "metrics", "phases", "trace", "ServingStats",
+           "H100_PEAK_BF16_FLOPS", "DeviceProfileSession", "MfuMeter",
+           "device_peak_flops", "flops_of_step", "start_device_profile",
+           "trace_session", "trial_trace_dir"]

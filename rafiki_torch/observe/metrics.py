@@ -199,9 +199,10 @@ class Histogram:
             from . import trace as _trace
 
             ctx = _trace.current()
-            # The port keeps every span of a traced request (no tail
-            # sampling), so any bound context may be an exemplar.
-            if ctx is not None:
+            # exemplar_ok: a tail-sampled trace whose verdict is still
+            # pending (or dropped) is not referenced, since the link
+            # would lead to an empty timeline.
+            if ctx is not None and _trace.exemplar_ok(ctx):
                 import time as _time
 
                 exemplar = (ctx.trace_id, float(v), _time.time())

@@ -90,3 +90,13 @@ def graph_capture(graph: "torch.cuda.CUDAGraph", pool: Any = None,
         finally:
             if collecting:
                 gc.enable()
+
+
+@contextlib.contextmanager
+def capture_exclusive() -> Iterator[None]:
+    """Hold the capture lock: no other thread of the process captures a
+    CUDA graph or works on a side stream meanwhile. A profiler's start
+    and stop take it, since switching CUPTI on or off during another
+    thread's capture may break that capture."""
+    with _CAPTURE_LOCK:
+        yield

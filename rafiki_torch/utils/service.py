@@ -17,7 +17,9 @@ Every server observes itself, as the reference's does:
 - the trace edge: an ``X-Trace-Id`` header is honoured (else a sampled
   trace is minted), bound to the handler's thread
   (``observe.trace.current()``), recorded as the ``http <METHOD>
-  <route>`` span and echoed in the reply's ``X-Trace-Id`` header.
+  <route>`` span and echoed in the reply's ``X-Trace-Id`` header; the
+  edge that minted the trace gives its tail verdict
+  (``observe.trace.complete``) when the request ends.
 
 A handler is ``handler(params, body, ctx) -> (status, obj)`` or
 ``(status, obj, headers)``: ``params`` holds the path's captures,
@@ -231,12 +233,18 @@ class JsonHttpServer:
                         trace.record_event(
                             f"http {method} {route}", name, [tctx], wall,
                             dur, attrs={"status": status}, child=False)
+                        # The tail verdict: this edge minted the trace,
+                        # so its outcome decides what is kept (errors
+                        # and slow requests always, the rest sampled).
+                        trace.complete(tctx, dur, error=status >= 500)
                         headers = dict(headers or {})
                         headers.setdefault(trace.TRACE_HEADER,
                                            tctx.header_value())
                     if outer._observe:
                         # Observed inside the request's context, so a
-                        # bucket's exemplar names its trace.
+                        # bucket's exemplar names its trace, and after
+                        # the tail verdict, so it names only a trace
+                        # that was kept.
                         with trace.use(tctx):
                             outer._http_hist.observe(dur, service=name,
                                                      route=route)

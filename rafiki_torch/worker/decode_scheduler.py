@@ -22,9 +22,11 @@ on a dedicated thread. The pending queue is the ONLY shared state and
 ``_cv`` is its lock — the engine itself is single-threaded by contract
 and touched only by the loop thread.
 
-The reference's ``observe.lm`` metrics become counters and samples on
-the scheduler (the port has no metrics registry yet); ``stats()`` reads
-them.
+The loop feeds the reference's token family in the metrics registry
+(``observe.lm``: TTFT, inter-token time, tokens, decode dispatches,
+prefills run and cached, preemptions, pool use; present only while
+``RAFIKI_TPU_SERVING_GENERATE`` is on). The scheduler also keeps the
+same counters and latency samples of its own, which ``stats()`` reads.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ import threading
 import time
 from collections import deque
 from typing import Any, Dict, Optional
+
+from ..observe import lm as _lm
 
 _log = logging.getLogger(__name__)
 
@@ -179,8 +183,10 @@ class DecodeScheduler:
                            self.worker_id)
             self._error_frame(req["query_id"], "admission failed")
             return
+        cached = eng.prefill_skipped_total > skipped0
+        _lm.count_prefill(cached=cached)
         with self._stats_lock:
-            if eng.prefill_skipped_total > skipped0:
+            if cached:
                 self.prefills_cached_total += 1
             else:
                 self.prefills_run_total += 1
@@ -188,8 +194,10 @@ class DecodeScheduler:
         if st is None:
             st = {"query_id": req["query_id"], "frame": 0, "n_sent": 0}
             self._live[sid] = st
+            ttft = time.monotonic() - req["t0"]
+            _lm.observe_ttft(ttft)
             with self._stats_lock:
-                self._ttft_s.append(time.monotonic() - req["t0"])
+                self._ttft_s.append(ttft)
         # A resumed sequence keeps its frame numbering — the client's
         # stream just continues. The admit-time token is a frame either
         # way (it IS the first new token of this residency). Budget/EOS
@@ -203,6 +211,7 @@ class DecodeScheduler:
         if fin is not None:
             eng.finish(sid)
         self._push_token(sid, first, fin)
+        _lm.count_tokens(1)
         with self._stats_lock:
             self.tokens_total += 1
 
@@ -210,19 +219,27 @@ class DecodeScheduler:
         eng = self.engine
         t0 = time.monotonic()
         results, evicted = eng.step()
+        dt = time.monotonic() - t0
+        _lm.observe_inter_token(dt)
+        _lm.count_decode_dispatch(1)
+        _lm.count_tokens(len(results))
         with self._stats_lock:
-            self._inter_token_s.append(time.monotonic() - t0)
+            self._inter_token_s.append(dt)
             self.decode_dispatches_total += 1
             self.tokens_total += len(results)
         for ev in evicted:
             self._requeue_evicted(ev)
         for sid, tok, fin in results:
             self._push_token(sid, tok, fin)
+        pool, resident = eng.pool_used_ratio(), eng.resident_tokens()
+        _lm.set_pool_used(pool)
+        _lm.set_resident_tokens(resident)
         with self._stats_lock:
-            self.pool_used_ratio = eng.pool_used_ratio()
-            self.resident_tokens = eng.resident_tokens()
+            self.pool_used_ratio = pool
+            self.resident_tokens = resident
 
     def _requeue_evicted(self, ev: Dict[str, Any]) -> None:
+        _lm.count_preemption()
         with self._stats_lock:
             self.preemptions_total += 1
         st = self._live.get(ev["seq_id"])

@@ -66,8 +66,15 @@ failing worker does not fail the request. A burst whose frames carry
 trace envelopes records one ``worker.predict`` span under each trace
 (``observe.trace``), before its replies go out.
 
-Not ported yet: profiling markers, the bus reconnect loop and the
-periodic re-registration.
+A ``__profile__`` marker (``Cache.send_profile``, from the admin's
+``profile_inference_job``) starts a bounded ``torch.profiler`` session
+between bursts (``observe.profiling.start_device_profile``); the serve
+loop stops it once its deadline passes, or when the loop ends. The loop
+also resolves, each lap, the held spans of traces minted in another
+process (``trace.flush_remote_expired``).
+
+Not ported yet: the bus reconnect loop and the periodic
+re-registration.
 """
 
 from __future__ import annotations
@@ -86,11 +93,14 @@ import numpy as np
 import torch
 
 from ..bus import BaseBus
-from ..cache import DRAIN_KEY, RESTACK_KEY, WIRE_NDBATCH, Cache, TokenFrames
+from ..cache import (DRAIN_KEY, PROFILE_KEY, RESTACK_KEY, WIRE_NDBATCH,
+                     Cache, TokenFrames)
 from ..config import parse_tristate_bool
 from ..constants import ServiceStatus
 from ..model.base import BaseModel, Params
 from ..observe import attribution as _attr
+from ..observe import lm as _lm_obs
+from ..observe import profiling
 from ..observe import trace
 from ..observe import wire as _wire
 from ..parallel.chips import ChipGroup
@@ -508,8 +518,7 @@ def _generate_config() -> Optional[Dict[str, int]]:
     """The engine geometry a bus worker generates with, from the
     reference's variables, or None when ``RAFIKI_TPU_SERVING_GENERATE``
     is off (absent or a falsy spelling)."""
-    gate = os.environ.get("RAFIKI_TPU_SERVING_GENERATE", "")
-    if gate.strip().lower() in ("", "0", "false", "no", "off"):
+    if not _lm_obs.generate_enabled():
         return None
     env = os.environ.get
     return {"page_size": int(env("RAFIKI_TPU_GENERATE_PAGE_SIZE", "16")),
@@ -574,6 +583,9 @@ class BusInferenceWorker:
         self.stop_flag = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.model: Optional[Any] = None
+        # The on-demand profile session in progress (almost always
+        # None), stopped by the serve loop at its deadline.
+        self._profile: Optional[profiling.DeviceProfileSession] = None
 
     # --- Lifecycle ---
 
@@ -708,10 +720,36 @@ class BusInferenceWorker:
                                      status=ServiceStatus.ERRORED)
             raise
         finally:
+            self._stop_profile()
             self.cache.unregister_worker(self.inference_job_id,
                                          self.service_id)
             if self.model is not None:
                 self.model.destroy()
+
+    def _start_profile(self, req: Any) -> None:
+        """Apply one ``__profile__`` marker: begin a bounded device
+        profile. A malformed request, a session already running here or
+        a busy profiler skips it; serving goes on either way."""
+        out_dir = req.get("dir") if isinstance(req, dict) else None
+        if not out_dir:
+            _log.warning("inference worker %s: malformed profile request "
+                         "%r; ignoring", self.service_id, req)
+            return
+        if self._profile is not None:
+            _log.info("inference worker %s: a profile session is already "
+                      "running; request for %s skipped", self.service_id,
+                      out_dir)
+            return
+        try:
+            duration = float(req.get("duration_s", 5.0) or 5.0)
+        except (TypeError, ValueError):
+            duration = 5.0
+        self._profile = profiling.start_device_profile(out_dir, duration)
+
+    def _stop_profile(self) -> None:
+        if self._profile is not None:
+            self._profile.stop()
+            self._profile = None
 
     def _serve_loop(self) -> None:
         """Pop, dispatch, complete. With pipelining on, the burst just
@@ -726,10 +764,13 @@ class BusInferenceWorker:
             draining = any(DRAIN_KEY in it for it in items)
             restacks = [it[RESTACK_KEY] for it in items if RESTACK_KEY in it]
             for it in items:
-                if it.get("op") == "generate":
+                if PROFILE_KEY in it:
+                    self._start_profile(it[PROFILE_KEY])
+                elif it.get("op") == "generate":
                     self._route_generate(it)
             items = [it for it in items if DRAIN_KEY not in it
-                     and RESTACK_KEY not in it and it.get("op") != "generate"]
+                     and RESTACK_KEY not in it and PROFILE_KEY not in it
+                     and it.get("op") != "generate"]
             handle = self._dispatch_batch(items) if items else None
             # Everything queued before a restack marker, this burst
             # included, was dispatched to the old member set.
@@ -741,6 +782,12 @@ class BusInferenceWorker:
             if pending is not None:
                 self._complete_batch(*pending)
             pending = handle
+            # Held spans resolve on span writes; an idle worker writes
+            # none, so sweep here (one lock check when nothing waits).
+            trace.flush_remote_expired()
+            if self._profile is not None and \
+                    self._profile.expired(time.monotonic()):
+                self._stop_profile()
             if draining:
                 _log.info("inference worker %s drained", self.service_id)
                 break

@@ -12,9 +12,17 @@ model's log records go to the trial's log in the meta store (and on to
 whatever sink the calling thread had).
 
 The runner builds each model on ``device`` (CUDA unless the caller asks
-for the CPU). It leaves out the reference's trace sessions, metrics
-labels, phase timings, dataset stage owners and checkpoints (scoped or
-crash-resume), the proposal metadata of the advisors not ported yet
+for the CPU). As the reference's, it observes the ``propose``,
+``train``, ``eval`` and ``persist`` phases (``observe.phases``), binds
+the ``trial`` label for the train loop's step-time histogram and MFU
+gauge and removes those series when the trial ends, traces train and
+eval into ``$RAFIKI_TPU_TRACE_DIR/<trial_id>/`` when that is set
+(``observe.profiling.trace_session``; a busy profiler skips the trace),
+and records the persist tail as a ``trial.persist`` span with its
+stages, under the calling thread's trace or else one whose id is the
+trial id (``GET /trace/<trial_id>``). It leaves out the reference's
+dataset stage owners and checkpoints (scoped or crash-resume), the
+proposal metadata of the advisors not ported yet
 (``params_scope``, ``params_save_scope``, ``cold_start_knobs``,
 ``record_knobs``, ``train_kwargs``: warm starts here are scoped to the
 runner's ``worker_id``), and ``pipeline_persist`` (not ported yet): the
@@ -34,6 +42,10 @@ from ..advisor.base import Proposal
 from ..constants import BudgetOption, TrialStatus
 from ..model.base import BaseModel
 from ..model.logger import logger
+from ..observe import metrics
+from ..observe import phases as _phases
+from ..observe import trace as _trace
+from ..observe.profiling import trace_session, trial_trace_dir
 from ..store import MetaStore, ParamStore
 from ..torchenv import DeviceLike, resolve_device
 
@@ -130,7 +142,9 @@ class TrialRunner:
     def run_one(self, proposal: Optional[Proposal] = None,
                 ) -> Optional[Dict[str, Any]]:
         if proposal is None:
+            t_prop = time.monotonic()
             proposal = self.advisor.propose()
+            _phases.observe_phase("propose", time.monotonic() - t_prop)
         if proposal is None:  # advisor side says: search is over
             return None
         # A retrieval ERROR is not absence: cold-starting silently would
@@ -174,8 +188,20 @@ class TrialRunner:
         try:
             model = self.model_class(device=self.device, **knobs)
             try:
-                model.train(self.train_dataset_path, shared_params=shared)
-                score = float(model.evaluate(self.val_dataset_path))
+                # The label context attributes the train loop's MFU
+                # gauge and step-time histogram to this trial; the
+                # optional trace covers train and eval.
+                with trace_session(trial_trace_dir(trial_id)):
+                    t_train = time.monotonic()
+                    with metrics.label_context(trial=trial_id[:12]):
+                        model.train(self.train_dataset_path,
+                                    shared_params=shared)
+                    _phases.observe_phase("train",
+                                          time.monotonic() - t_train)
+                    t_eval = time.monotonic()
+                    score = float(model.evaluate(self.val_dataset_path))
+                    _phases.observe_phase("eval",
+                                          time.monotonic() - t_eval)
                 dumped = model.dump_parameters()
             finally:
                 model.destroy()
@@ -194,23 +220,52 @@ class TrialRunner:
                          proposal.trial_no, err)
         finally:
             logger.set_sink(prior_sink)
+            # The train series are the current trial's: a trial that
+            # ended stops reporting its last values as live, and its
+            # labels do not pile up in the registry.
+            for name in ("rafiki_tpu_train_mfu_ratio",
+                         "rafiki_tpu_train_step_seconds"):
+                m = metrics.registry().find(name)
+                if m is not None:
+                    m.remove(trial=trial_id[:12])
         return self.meta.get_trial(trial_id)
 
     def _finish_trial(self, trial_id: str, score: float,
                       dumped: Any) -> None:
         """The persist tail: save the parameters, then mark the trial
         COMPLETED. A failure here marks the trial ERRORED; the advisor's
-        feedback stands, since the score was real."""
+        feedback stands, since the score was real. The tail is one
+        ``trial.persist`` span with its stages' times, under the
+        thread's trace or else one whose trace id is the trial id."""
+        ctx = _trace.current() or _trace.TraceContext(str(trial_id))
+        t_persist = time.monotonic()
+        wall0 = time.time()
+        save_s = commit_s = 0.0
         try:
+            t = time.monotonic()
             params_id = self.params.save(
                 dumped, session_id=self.sub_train_job_id,
                 worker_id=self.worker_id, score=score)
+            save_s = time.monotonic() - t
+            t = time.monotonic()
             self.meta.mark_trial_completed(trial_id, score, params_id)
+            commit_s = time.monotonic() - t
         except Exception:
             err = traceback.format_exc()
             _log.warning("trial %s: persist tail failed; marking "
                          "errored:\n%s", trial_id[:8], err)
             self.meta.mark_trial_errored(trial_id, err)
+        finally:
+            dur = time.monotonic() - t_persist
+            _phases.observe_phase("persist", dur)
+            # The trial's log records went to the meta store as they
+            # came (no buffer to flush), so log_flush_ms is 0.
+            _trace.record_event(
+                "trial.persist", self.worker_id, [ctx], wall0, dur,
+                attrs={"trial_id": str(trial_id)[:12],
+                       "log_flush_ms": 0.0,
+                       "params_save_ms": round(save_s * 1e3, 3),
+                       "meta_commit_ms": round(commit_s * 1e3, 3)})
 
 
 def _jsonable_knobs(knobs: Dict[str, Any]) -> Dict[str, Any]:

@@ -229,16 +229,107 @@ def test_unported_routes_answer_404(both):
     for method, path in (("GET", "/"), ("GET", "/autoscale"),
                          ("GET", "/nodes"), ("GET", "/slo"),
                          ("GET", "/alerts"), ("GET", "/capacity"),
-                         ("GET", "/trial_phases"), ("GET", "/datasets"),
-                         ("POST", "/datasets"),
-                         ("GET", "/services/abc/logs"),
-                         ("POST", "/inference_jobs/abc/profile")):
+                         ("GET", "/datasets"), ("POST", "/datasets"),
+                         ("GET", "/services/abc/logs")):
         req = urllib.request.Request(
             f"http://127.0.0.1:{port.admin_port}{path}", method=method,
             headers={"Authorization": f"Bearer {root._token}"})
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(req, timeout=30)
         assert e.value.code == 404, path
+
+
+def _call(port, token, method, path, body=None):
+    """One admin call: (status, JSON body)."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Authorization": f"Bearer {token}",
+                 "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _wait_for_trace(path, timeout=30.0):
+    import glob
+    import os
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        found = glob.glob(os.path.join(path, "*.pt.trace.json"))
+        if found:
+            return found
+        time.sleep(0.1)
+    return []
+
+
+def test_trial_phases_and_profile_routes_answer(tmp_path, synth_image_data):
+    """The two routes ported with the observability plane answer:
+    ``GET /trial_phases`` counts one propose, train, eval and persist a
+    trial (and two loads and stages: train's and eval's); ``POST
+    /inference_jobs/<id>/profile`` clamps its duration to [0.5, 60] s,
+    refuses a bad duration and a job that is not RUNNING, and the worker
+    writes its profile into the directory the answer names."""
+    import json
+
+    from rafiki_torch.observe import phases
+
+    train_path, val_path = synth_image_data
+    before = phases.phase_totals()
+    p = _port(tmp_path, http=True, n_chips=1)
+    try:
+        root = Client(admin_port=p.admin_port)
+        root.login("superadmin@rafiki", "rafiki")
+        token = root._token
+        model = root.create_model("ff", TaskType.IMAGE_CLASSIFICATION,
+                                  PORT_FF)
+        job = root.create_train_job(
+            "app", TaskType.IMAGE_CLASSIFICATION, [model["id"]],
+            {BudgetOption.MODEL_TRIAL_COUNT: 2}, train_path, val_path,
+            advisor_type="random")
+        root.wait_until_train_job_done(job["id"], timeout=600, poll=0.2)
+        status, body = _call(p.admin_port, token, "GET", "/trial_phases")
+        assert status == 200
+        assert set(body) == {"enabled", "resident", "phases", "caches"}
+        assert body["resident"] and body["enabled"]
+        counts = {k: v["count"] - before[k]["count"]
+                  for k, v in body["phases"].items()}
+        assert counts == {"propose": 2, "load": 4, "stage": 4,
+                          "train": 2, "eval": 2, "persist": 2}
+        assert body["caches"] == {"dataset": {}, "stage": {}}
+        inf = root.create_inference_job(job["id"], max_models=1)
+        path = f"/inference_jobs/{inf['id']}/profile"
+        status, short = _call(p.admin_port, token, "POST", path,
+                              {"duration_s": 0.01})
+        assert status == 200 and short["duration_s"] == 0.5
+        assert set(short) == {"inference_job_id", "service_id",
+                              "duration_s", "profile_dir"}
+        traces = _wait_for_trace(short["profile_dir"])
+        assert len(traces) == 1
+        with open(traces[0]) as f:
+            meta = json.load(f)["rafiki_tpu_trace"]
+        assert meta["what"] == "on-demand profile"
+        status, long = _call(p.admin_port, token, "POST", path,
+                             {"duration_s": 1e6})
+        assert status == 200 and long["duration_s"] == 60.0
+        status, bad = _call(p.admin_port, token, "POST", path,
+                            {"duration_s": "soon"})
+        assert status == 400
+        root.stop_inference_job(inf["id"])
+        # The worker stops its session when its loop ends.
+        assert len(_wait_for_trace(long["profile_dir"])) == 1
+        status, body = _call(p.admin_port, token, "POST", path,
+                             {"duration_s": 1})
+        assert status == 400 and "not RUNNING" in body["error"]
+    finally:
+        p.shutdown()
 
 
 @pytest.mark.parametrize("budget", [
