@@ -145,7 +145,8 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    which must pick ``EnasAdvisor``: 7 search trials on the masked
    supernet, each after the first warm-starting every supernet tensor,
    and a final trial retraining the best architecture from scratch on
-   the single path; (d) the 2 best ENAS trials behind one predictor
+   the single path ((b) and (c) train on the set's first 20,480 train
+   images); (d) the 2 best ENAS trials behind one predictor
    (served = the members' mean, a 256-request window); (e) K1, K2 and K3
    not launched in the phase;
 11. ensemble phase, BASELINE config 4 as the reference serves a bin:
@@ -266,13 +267,41 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    verdict line each in ``trace_verdicts.jsonl``, ``GET /trace/<id>``
    with spans for a kept trace and none for a dropped one, every
    exemplar of ``GET /metrics?exemplars=1`` naming a kept trace;
-15. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
+15. processes phase, the node as processes on the one card, every
+   Python child started with jax made unimportable (a ``sitecustomize``
+   on its ``PYTHONPATH``, which also prints at its exit the child's
+   K1-K3 launches and whether it loaded or built each kernel library):
+   (a) ``python -m rafiki_torch broker``, the C++ broker built by g++ in
+   the child; (b) ``python -m rafiki_torch serve --bus tcp://...`` and,
+   through ``Client``, a ViT job of 4 trials at the reference's widths
+   (6 blocks, batch 256, one epoch) on the synthetic CIFAR-10-shaped
+   set cut to 8,192 + 1,024 images, with ``RAFIKI_TPU_TRACE_DIR`` set;
+   (c) ``python -m rafiki_torch join --train-job``: it exits 0 having
+   attached 1 worker, every trial COMPLETED, the trials' workers on two
+   nodes, a join node's trial trace naming K1's, K2's and K3's wgmma
+   kernels; (d) the 2 best trials served by the primary and ``join
+   --inference-job`` adding a replica in a third child: 8 single queries
+   to each replica over the bus bit for bit alike and within TOL_PROB of
+   the members' forward in this process, then 256 single-image requests
+   from 8 clients through the predictor (queries/s, p50/p99, shards by
+   replica: both took some, the bus's push, pop and push_many p50); (e)
+   the broker killed and restarted, empty, on its port while a client
+   sends (the nodes re-register every second): 200 again within 60 s;
+   (f) a second inference job of the same trials through a
+   ``ServicesManager`` on ``ProcessContainerManager``: its worker and
+   predictor are ``python -m rafiki_torch.container.services`` children
+   answering (d)'s single queries bit for bit, none alive after
+   ``destroy_service``. No child outlives the phase; the children load
+   the kernels and build none; the phase must take at most 100 s;
+16. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
    ``library_covers`` names the kernels whose work one library call does,
    ``platform_launches``, ``zoo_launches``, ``ensemble_launches``,
-   ``zoo2_launches``, ``lifecycle_launches`` and ``tenants_launches``
-   the platform, zoo, ensemble, zoo2, lifecycle and tenants phases'
-   launches (the platform's, zoo2's, lifecycle's and tenants' counted in
-   ``launches`` too), K2's and K3's ``f32`` their f32 variants' numbers,
+   ``zoo2_launches``, ``lifecycle_launches``, ``tenants_launches`` and
+   ``processes_launches`` the platform, zoo, ensemble, zoo2, lifecycle,
+   tenants and processes phases' launches (the platform's, zoo2's,
+   lifecycle's, tenants' and the processes' children's counted in
+   ``launches`` too; ``processes_trace_events`` each kernel's events in
+   the join node's trial trace), K2's and K3's ``f32`` their f32 variants' numbers,
    ``zoo2_shapes`` each
    kernel's numbers at the ViT and tagger shapes and ``zoo2_f32`` K1's
    f32 variant at the int8 ViT shape with its registers and spills, and,
@@ -438,6 +467,11 @@ ZOO_PROBES = 8
 # and the logits leave in bf16: one bf16 ulp of a logit below 32 (the
 # trained DenseNet-121's reach 26 on the synthetic set).
 TOL_ZOO_LOGITS = 0.125
+# (b) and (c) train on the set's first 20,480 train images (160 steps
+# an epoch at batch 128), cut from 50,000 to keep the whole script
+# under 750 s with the processes phase; they evaluate on all 10,000 val
+# images.
+ZOO_SEARCH_TRAIN = 20480
 # (b) A Bayes search of DenseNet trials: the 6th proposal is the first
 # from the fitted GP (n_initial 5).
 BAYES_TRIALS = 6
@@ -630,6 +664,103 @@ TENANT_WINDOW_S = 3.0
 TENANT_PROFILE_S = 2.0
 TENANT_TRACED = 64
 TENANT_MAX_S = 150.0
+# The processes phase: the node as processes on the one card. A broker
+# child (`python -m rafiki_torch broker`, the C++ broker built by g++), a
+# primary (`serve --bus tcp://...`) and `join` children: the train one
+# takes part of a ViT job of 4 trials at the reference's widths (d_model
+# 128, 4 heads of 32, patch 4: 65 tokens, 6 blocks, batch 256, one
+# epoch) on the zoo phases' synthetic CIFAR-10-shaped set cut to 8,192
+# + 1,024 images (32 steps an epoch), with every trial traced; the
+# inference one adds a replica of the 2 best trials' bin, which 8
+# clients then load with 256 single-image requests through the
+# predictor over the TCP bus. The broker is then killed and restarted
+# empty on its port while a client keeps sending, the nodes
+# re-registering every second. Last, a second inference job of the same
+# trials deploys through a ServicesManager on ProcessContainerManager:
+# its worker and predictor are `python -m rafiki_torch.container.services`
+# children. A trial's training waits at a gate until both nodes' workers
+# hold a trial, so the job splits over the two nodes. Every Python child
+# runs with jax and the reference made unimportable (a sitecustomize on
+# its PYTHONPATH), and reports its K1-K3 launches, the device memory its
+# allocator reserved at most, and whether it loaded or built each
+# kernel library when it exits.
+PROC_DATA = {"n_train": 8192, "n_val": 1024, "image_shape": (32, 32, 3),
+             "n_classes": 10, "name": "cifar10-proc"}
+PROC_TRIALS = 4
+PROC_DEPLOY = 2
+PROC_VIT_SOURCE = """
+import os
+import time
+
+from rafiki_torch.model import FixedKnob
+from rafiki_torch.models import TorchViT
+
+GATE = {gate!r}
+
+
+class ProcViT(TorchViT):
+    # The reference's widths with its 6 blocks at batch 256; one epoch.
+    # Training waits for the gate file (at most a minute).
+    @staticmethod
+    def get_knob_config():
+        cfg = dict(TorchViT.get_knob_config())
+        cfg.update(depth=FixedKnob(6), batch_size=FixedKnob(256),
+                   max_epochs=FixedKnob(1))
+        return cfg
+
+    def train(self, *args, **kwargs):
+        deadline = time.monotonic() + 60
+        while not os.path.exists(GATE) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        return super().train(*args, **kwargs)
+"""
+PROC_SINGLES = 8
+PROC_REQUESTS = 256
+PROC_CLIENTS = 8
+PROC_RECOVER_S = 60.0
+PROC_CHILD_S = 120.0
+PROC_MAX_S = 100.0
+# A child's sitecustomize: jax and the reference raise when imported;
+# at exit the child prints (and writes into PROC_REPORT_ENV's directory)
+# its K1-K3 launches, its wgmma launches, its allocator's peak reserve
+# and how it came by each kernel library.
+PROC_REPORT_ENV = "RAFIKI_SMOKE_REPORT_DIR"
+PROC_SITE = """import atexit, importlib.abc, json, os, sys
+
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'rafiki_tpu'):
+            raise ImportError(name + ' is blocked in this process')
+        return None
+
+
+sys.meta_path.insert(0, _Block())
+
+
+def _report():
+    attn = sys.modules.get('rafiki_torch.ops.attention')
+    build = sys.modules.get('rafiki_torch.ops._build')
+    fns = [getattr(attn, n) for n in ('flash_attention',
+           'flash_attention_dq', 'flash_attention_dkv')] if attn else []
+    torch = sys.modules.get('torch')
+    rec = {'pid': os.getpid(), 'role': (sys.argv[1:2] or [os.environ.get(
+               'RAFIKI_TPU_SERVICE_TYPE', '?')])[0],
+           'max_reserved_mib': round(torch.cuda.max_memory_reserved() / 2**20)
+           if torch is not None and torch.cuda.is_initialized() else 0,
+           'launches': [f.launches for f in fns],
+           'wgmma': [f.variant_launches['wgmma'] for f in fns],
+           'kernels': build.kernel_origins() if build else {},
+           'jax': 'jax' in sys.modules}
+    print('processes: child ' + json.dumps(rec), flush=True)
+    out = os.environ.get('RAFIKI_SMOKE_REPORT_DIR')
+    if out:
+        with open(os.path.join(out, '%d.json' % os.getpid()), 'w') as f:
+            json.dump(rec, f)
+
+
+atexit.register(_report)
+"""
 # K1's o at the zoo's shapes against its plain version, bf16: each p is
 # rounded to bf16 before p·v, and where the kernel's exp and the plain
 # version's round one p to neighbouring bf16 values the row moves by up
@@ -2970,6 +3101,12 @@ def zoo_phase(torch, np, attn, card, data_dir=None):
         meta = MetaStore(os.path.join(tmp, "meta.db"))
         params = ParamStore(os.path.join(tmp, "params"))
         user = meta.create_user("zoo@example.com", "-", "MODEL_DEVELOPER")
+        search_train = os.path.join(tmp, "search_train.npz")
+        np.savez(search_train, images=ds.images[:ZOO_SEARCH_TRAIN],
+                 labels=ds.labels[:ZOO_SEARCH_TRAIN],
+                 n_classes=ds.n_classes)
+        print(f"zoo: (b) and (c) train on the set's first "
+              f"{ZOO_SEARCH_TRAIN} train images", flush=True)
 
         # (b) A Bayes search of DenseNet-121 trials.
         t0 = time.perf_counter()
@@ -2983,8 +3120,8 @@ def zoo_phase(torch, np, attn, card, data_dir=None):
         check(isinstance(advisor, BayesOptAdvisor),
               f"make_advisor chose {type(advisor).__name__} for DenseNet")
         _, rows, search_s = zoo_search(meta, params, dn_model, dn_cls,
-                                       train, val, BAYES_TRIALS, advisor,
-                                       "zoo-bayes")
+                                       search_train, val, BAYES_TRIALS,
+                                       advisor, "zoo-bayes")
         check(len(rows) == BAYES_TRIALS and all(
             r["status"] == TrialStatus.COMPLETED for r in rows),
             f"Bayes trials: {[(r['status'], r.get('error')) for r in rows]}")
@@ -3026,8 +3163,8 @@ def zoo_phase(torch, np, attn, card, data_dir=None):
               f"make_advisor chose {type(advisor).__name__} for ENAS")
         h0 = entropy(np, advisor.arch_probs())
         job, rows, search_s = zoo_search(meta, params, en_model, en_cls,
-                                         train, val, ENAS_TRIALS, advisor,
-                                         "zoo-enas")
+                                         search_train, val, ENAS_TRIALS,
+                                         advisor, "zoo-enas")
         h1 = entropy(np, advisor.arch_probs())
         check(len(rows) == ENAS_TRIALS and all(
             r["status"] == TrialStatus.COMPLETED for r in rows),
@@ -5831,6 +5968,538 @@ def tenants_phase(torch, np, attn, card, vit_data=None):
     return out
 
 
+class Child:
+    """A child process of the processes phase in a session of its own, so
+    a kill reaches what it started too; its merged output is read on a
+    thread, and the lines that say what it did are printed."""
+
+    SHOWN = ("rafiki-tpu ", "bus broker", "native broker", "attached ",
+             "train job done", "inference job stopped", "timed out",
+             "processes: child")
+
+    def __init__(self, name, argv, env):
+        self.name = name
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True,
+                                     start_new_session=True)
+        self.lines = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            line = line.rstrip("\n")
+            self.lines.append(line)
+            if any(s in line for s in self.SHOWN):
+                print(f"processes: [{self.name}] {line}", flush=True)
+
+    def wait_line(self, text, secs):
+        """The first output line holding ``text`` and the seconds since
+        the child started; fails at ``secs`` or when the child exits
+        without it."""
+        deadline = time.monotonic() + secs
+        while True:
+            for line in list(self.lines):
+                if text in line:
+                    return line, time.perf_counter() - self.t0
+            if self.proc.poll() is not None:
+                self._reader.join(timeout=5)
+                if not any(text in line for line in self.lines):
+                    check(False, f"{self.name} exited "
+                          f"{self.proc.returncode} before {text!r}: "
+                          f"{self.lines[-30:]}")
+            check(time.monotonic() < deadline,
+                  f"{self.name}: no {text!r} within {secs} s: "
+                  f"{self.lines[-30:]}")
+            time.sleep(0.05)
+
+    def wait(self, secs):
+        try:
+            rc = self.proc.wait(timeout=secs)
+        except subprocess.TimeoutExpired:
+            check(False, f"{self.name} did not exit within {secs} s: "
+                  f"{self.lines[-30:]}")
+        self._reader.join(timeout=5)
+        return rc
+
+    def signal(self, sig):
+        import os
+
+        try:
+            os.killpg(self.proc.pid, sig)
+        except ProcessLookupError:
+            pass
+
+    def stop(self):
+        """SIGTERM to the session, SIGKILL to what is left after 20 s."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                pass
+        self.signal(signal.SIGKILL)
+        self.proc.wait(timeout=20)
+        self._reader.join(timeout=5)
+
+
+def session_alive(pid):
+    """Whether any process of the session led by ``pid`` is left."""
+    import os
+
+    try:
+        os.killpg(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def ask(host, image, timeout):
+    """One single-image ``POST /predict``: (status, seconds, answer); a
+    transport failure is status 0."""
+    from rafiki_torch.cache import encode_payload
+
+    req = urllib.request.Request(
+        f"http://{host}/predict",
+        data=json.dumps({"query": encode_payload(image)}).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            body = json.loads(r.read())
+            return r.status, time.perf_counter() - t0, body["prediction"]
+    except urllib.error.HTTPError as e:
+        e.read()
+        return e.code, time.perf_counter() - t0, None
+    except (OSError, ValueError):
+        return 0, time.perf_counter() - t0, None
+
+
+def processes_phase(torch, np, attn, card):
+    """The node as processes on the one card: a broker child, a primary
+    (``serve``) and two ``join`` children over the TCP bus, then a
+    second inference job whose services are processes of their own.
+    (a) the C++ broker built by g++ in its child; (b) a ViT job of 4
+    trials through ``Client``; (c) a ``join`` child takes part: every
+    trial COMPLETED, the trials' workers on two nodes, a join node's
+    trial trace naming K1-K3's wgmma kernels; (d) the 2 best trials
+    served by the primary and a replica in a third child: single queries
+    bit for bit across the replicas and within TOL_PROB of the script's
+    own forward, a 256-request window in which both replicas took
+    shards; (e) the broker killed and restarted empty while a client
+    sends: serving answers again within PROC_RECOVER_S; (f) a second
+    inference job deployed through a ``ServicesManager`` on
+    ``ProcessContainerManager``: its answers (d)'s bit for bit, no child
+    alive after ``destroy_service``. No child outlives the phase.
+    Returns the phase's numbers and the children's K1-K3 launches."""
+    import glob
+    import os
+    import signal
+    import socket
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rafiki_torch.admin import ServicesManager
+    from rafiki_torch.bus import BusClient
+    from rafiki_torch.cache import Cache, encode_payload
+    from rafiki_torch.client import Client
+    from rafiki_torch.constants import (BudgetOption, TaskType, TrialStatus,
+                                        UserType)
+    from rafiki_torch.container import ProcessContainerManager
+    from rafiki_torch.datasets import make_synthetic_image_dataset
+    from rafiki_torch.model.dataset import load_image_dataset
+    from rafiki_torch.observe import metrics
+    from rafiki_torch.parallel.chips import ChipAllocator
+    from rafiki_torch.store import MetaStore, ParamStore
+    from rafiki_torch.utils.model_loader import load_model_class
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_proc_")
+    root = tmp.name
+    work = os.path.join(root, "work")
+    site = os.path.join(root, "site")
+    reports = os.path.join(root, "reports")
+    traces = os.path.join(root, "traces")
+    gate = os.path.join(root, "gate")
+    for d in (site, reports):
+        os.makedirs(d)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(PROC_SITE)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env.pop("RAFIKI_TPU_PLATFORM", None)  # unset: the card
+    env["PYTHONPATH"] = os.pathsep.join(
+        [site, repo] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                        else []))
+    env.update({"RAFIKI_TPU_TRACE_DIR": traces,
+                "RAFIKI_TPU_WORKER_REREGISTER": "1.0",
+                PROC_REPORT_ENV: reports})
+    children = []
+    svc_procs = {}
+    out = {}
+    meta = services = None
+    saved = {k: os.environ.get(k) for k in ("PYTHONPATH", PROC_REPORT_ENV,
+                                            "RAFIKI_TPU_WORKER_REREGISTER")}
+
+    def child(name, *args):
+        c = Child(name, [sys.executable, "-m", "rafiki_torch", *args], env)
+        children.append(c)
+        return c
+
+    try:
+        # (a) and (b): the broker and the primary start together (a
+        # node's bus client connects at its first operation).
+        with socket.socket() as s_:
+            s_.bind(("127.0.0.1", 0))
+            bport = s_.getsockname()[1]
+        uri = f"tcp://127.0.0.1:{bport}"
+        broker = child("broker", "broker", "--port", str(bport))
+        serve = child("serve", "serve", "--workdir", work, "--port", "0",
+                      "--bus", uri)
+        t0 = time.perf_counter()
+        data = make_synthetic_image_dataset(root, seed=SEED, **PROC_DATA)
+        vds = load_image_dataset(data[1])
+        imgs = vds.images
+        data_s = time.perf_counter() - t0
+        line, broker_s = broker.wait_line("bus broker (", PROC_CHILD_S)
+        built = [x for x in broker.lines if "native broker:" in x]
+        check("NativeBusServer" in line and built,
+              f"the broker child started {line!r} ({built})")
+        plat_line, _ = serve.wait_line("rafiki-tpu platform:", PROC_CHILD_S)
+        check(torch.cuda.get_device_name(0) in plat_line,
+              f"the serve child printed {plat_line!r}")
+        admin_line, serve_s = serve.wait_line("admin on http://",
+                                              PROC_CHILD_S)
+        port = int(re.search(r"http://[^:/]+:(\d+)", admin_line).group(1))
+        print(f"processes: (a) broker child up in {broker_s:.2f} s "
+              f"({built[0].split(': ', 1)[-1]}; {line.split('] ')[-1]}); "
+              f"(b) serve child up in {serve_s:.2f} s on {card}; the "
+              f"synthetic CIFAR-10-shaped set cut to "
+              f"{PROC_DATA['n_train']} + {PROC_DATA['n_val']} images made "
+              f"in {data_s:.2f} s", flush=True)
+
+        # (b) the job, through Client; (c) a join child takes part.
+        root_c = Client(admin_port=port)
+        root_c.login("superadmin@rafiki", "rafiki")
+        root_c.create_user("procs@rafiki", "rafiki",
+                           UserType.MODEL_DEVELOPER)
+        c = Client(admin_port=port)
+        c.login("procs@rafiki", "rafiki")
+        model = c.create_model("procs-vit", TaskType.IMAGE_CLASSIFICATION,
+                               "ProcViT",
+                               model_source=PROC_VIT_SOURCE.format(gate=gate))
+        t_train = time.perf_counter()
+        job = c.create_train_job(
+            "procs-vit", TaskType.IMAGE_CLASSIFICATION, [model["id"]],
+            {BudgetOption.MODEL_TRIAL_COUNT: PROC_TRIALS,
+             BudgetOption.CHIP_COUNT: 1}, *data, advisor_type="random")
+        joiner = child("join", "join", "--workdir", work, "--bus", uri,
+                       "--train-job", job["id"], "--timeout", "300")
+        _, join_s = joiner.wait_line("attached 1 worker", PROC_CHILD_S)
+        meta = MetaStore(os.path.join(work, "meta.db"))
+        sub = meta.get_sub_train_jobs(job["id"])[0]
+        wait_for(lambda: len({t["worker_id"] for t in meta.get_trials(
+            sub["id"])}) >= 2, PROC_CHILD_S,
+            "the two nodes' workers did not both take a trial")
+        open(gate, "w").close()
+        check(joiner.wait(PROC_CHILD_S) == 0, f"the join child failed: "
+              f"{joiner.lines[-30:]}")
+        check(any("train job done" in x for x in joiner.lines),
+              "the join child did not see the job done")
+        done = c.wait_until_train_job_done(job["id"], timeout=PROC_CHILD_S,
+                                           poll=0.2)
+        train_s = time.perf_counter() - t_train
+        check(done["status"] == "STOPPED", f"the job ended {done['status']}")
+        rows = meta.get_trials_of_train_job(job["id"])
+        check(len(rows) == PROC_TRIALS and all(
+            r["status"] == TrialStatus.COMPLETED for r in rows),
+            f"the job's trials: {[r['status'] for r in rows]}")
+        node_of = {r["id"]: meta.get_service(r["worker_id"])["node_id"]
+                   for r in rows}
+        nodes = sorted(set(node_of.values()))
+        check(len(nodes) == 2, f"the trials' workers span {nodes}")
+        trial_s = {n: [round(r["finished_at"] - r["started_at"], 2)
+                       for r in rows if node_of[r["id"]] == n]
+                   for n in nodes}
+        joined = [r for r in rows if "/join-" in node_of[r["id"]]]
+        files = sorted(f for r in joined for f in glob.glob(os.path.join(
+            traces, r["id"], "*.pt.trace.json")))
+        path, names = trace_naming(files, "flash_fwd_wgmma",
+                                   "flash_bwd_dq_wgmma",
+                                   "flash_bwd_dkv_wgmma")
+        check(path is not None, f"no trace of the join node's "
+              f"{len(joined)} trials ({len(files)} files) names K1-K3's "
+              f"wgmma kernels among its device events")
+        with open(path) as f:
+            events = [e.get("name", "") for e in json.load(f).get(
+                "traceEvents", []) if e.get("cat") == "kernel"]
+        trace_events = [sum(n in e for e in events) for n in names]
+        print(f"processes: (c) join child attached in {join_s:.2f} s; "
+              f"{PROC_TRIALS} ViT trials (d_model 128, 4 heads of 32, 65 "
+              f"tokens, 6 blocks, batch 256, one epoch) in {train_s:.2f} s, "
+              f"all COMPLETED, their seconds by node {trial_s} (a "
+              f"trial's wait at the gate included); the join node's "
+              f"trial trace "
+              f"({os.path.getsize(path) / 2**20:.1f} MiB) names "
+              f"{[n[:48] for n in names]}, {trace_events} kernel events",
+              flush=True)
+        out.update(train_s=train_s, join_s=join_s, serve_s=serve_s,
+                   broker_s=broker_s, trace_events=trace_events)
+
+        # (d) the 2 best served by the primary and a replica child; (f)'s
+        # job deployed meanwhile through ProcessContainerManager.
+        t0 = time.perf_counter()
+        inf = c.create_inference_job(job["id"], max_models=PROC_DEPLOY)
+        replica = child("replica", "join", "--workdir", work, "--bus", uri,
+                        "--inference-job", inf["id"], "--timeout", "600")
+        user_id = meta.get_user_by_email("procs@rafiki")["id"]
+        inf2 = meta.create_inference_job(user_id, job["id"], "STARTED")
+        os.environ.update(PYTHONPATH=env["PYTHONPATH"],
+                          RAFIKI_TPU_WORKER_REREGISTER="1.0",
+                          **{PROC_REPORT_ENV: reports})
+        services = ServicesManager(
+            meta, ProcessContainerManager(), ChipAllocator(1),
+            "smoke/processes", log_dir=os.path.join(work, "logs"),
+            meta_uri=os.path.join(work, "meta.db"),
+            params_dir=os.path.join(work, "params"), bus_uri=uri)
+        t_f = time.perf_counter()
+        services.create_inference_services(inf2["id"], inf["trial_ids"])
+        svc_procs = dict(services.container._procs)
+        meta.update_inference_job(inf2["id"], status="RUNNING")
+        cache = Cache(BusClient("127.0.0.1", bport))
+        replica.wait_line("attached 1 replica worker", PROC_CHILD_S)
+        wait_for(lambda: len(cache.running_workers(inf["id"])) == 2,
+                 PROC_CHILD_S, "the two replicas did not register")
+        replica_s = time.perf_counter() - t0
+        host = c.get_inference_job(inf["id"])["predictor_host"]
+        wids = sorted(cache.running_workers(inf["id"]))
+        singles = imgs[:PROC_SINGLES]
+
+        def direct(wid, img):
+            bid = cache.send_query_shards([(wid, 0, 1, "s")],
+                                          [encode_payload(img)])
+            got = cache.gather_prediction_batches(bid, 1, timeout=60)
+            check(len(got) == 1, f"worker {wid[:8]} did not answer")
+            return np.asarray(got[0]["predictions"][0], np.float64)
+
+        rows_of = {w: np.stack([direct(w, x) for x in singles])
+                   for w in wids}
+        check(np.array_equal(rows_of[wids[0]], rows_of[wids[1]]),
+              "the two replicas' answers differ")
+        params = ParamStore(os.path.join(work, "params"))
+        own = []
+        with uncounted(attn):
+            for tid in inf["trial_ids"]:
+                trial = meta.get_trial(tid)
+                row = meta.get_model(trial["model_id"])
+                cls = load_model_class(row["model_class"],
+                                       row["model_source"])
+                m = cls(device="cuda", **cls.validate_knobs(trial["knobs"]))
+                m.load_parameters(params.load(trial["params_id"]))
+                own.append(np.asarray(m.predict(list(singles)), np.float64))
+                m.destroy()
+        params.close()
+        err = float(np.abs(rows_of[wids[0]] - np.mean(own, axis=0)).max())
+        check(err <= TOL_PROB, f"a replica's answer is {err:.3g} from the "
+              f"members' own forward (tolerance {TOL_PROB})")
+        via = [ask(host, x, 60) for x in singles]
+        check(all(s_ == 200 for s_, _, _ in via),
+              f"single queries through the predictor: "
+              f"{[s_ for s_, _, _ in via]}")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().replace("\n", "; ")
+        print(f"processes: (d) the 2 best trials' bin on the primary and a "
+              f"replica child, both registered {replica_s:.2f} s after the "
+              f"deploy; {PROC_SINGLES} single queries to each replica over "
+              f"the bus bit for bit alike, {err:.3g} from the script's own "
+              f"forward of the members (tolerance {TOL_PROB}); device memory "
+              f"by process (pid, MiB): {smi} (this script: pid "
+              f"{os.getpid()})", flush=True)
+
+        pick = np.random.default_rng(SEED + 7).integers(
+            len(imgs), size=PROC_REQUESTS)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(PROC_CLIENTS) as pool:
+            window = list(pool.map(lambda i: ask(host, imgs[i], 300),
+                                   pick))
+        wall = time.perf_counter() - t0
+        check(all(s_ == 200 for s_, _, _ in window),
+              f"the window's statuses {sorted({s_ for s_, _, _ in window})}")
+        lat = sorted(dt for _, dt, _ in window)
+        with urllib.request.urlopen(f"http://{host}/metrics",
+                                    timeout=30) as r:
+            expo = metrics.parse_exposition(r.read().decode())
+        took = {}
+        for labels, v in expo.get(
+                "rafiki_tpu_serving_replica_gather_seconds_count", []):
+            took[labels.get("worker")] = took.get(labels.get("worker"),
+                                                  0) + v
+        check(all(took.get(w[:8], 0) > 0 for w in wids),
+              f"shards by replica: {took} (replicas {wids})")
+        bus_p50 = {op: (metrics.histogram_percentiles_ms(
+            expo.get("rafiki_tpu_bus_op_seconds_bucket", []), qs=(0.5,),
+            op=op) or [None])[0] for op in ("push", "pop", "push_many")}
+        qps = PROC_REQUESTS / wall
+        print(f"processes: (d) {PROC_REQUESTS} single-image requests from "
+              f"{PROC_CLIENTS} clients through the predictor over the TCP "
+              f"bus: all 200, {qps:.1f} queries/s, p50 "
+              f"{percentile(lat, 50) * 1e3:.2f} ms, p99 "
+              f"{percentile(lat, 99) * 1e3:.2f} ms; shards by replica "
+              f"{ {k: int(v) for k, v in took.items()} }; the primary's "
+              f"rafiki_tpu_bus_op_seconds p50 (ms) {bus_p50}; on {card}",
+              flush=True)
+        out.update(qps=qps, p50_ms=percentile(lat, 50) * 1e3,
+                   p99_ms=percentile(lat, 99) * 1e3, bus_p50_ms=bus_p50,
+                   replica_s=replica_s, shards=took)
+
+        # (e) the broker killed and restarted, empty, while a client
+        # sends.
+        stop = threading.Event()
+        sent = []
+
+        def keep_asking():
+            i = 0
+            while not stop.is_set():
+                status, _, _ = ask(host, imgs[i % len(imgs)], 15)
+                sent.append((time.monotonic(), status))
+                i += 1
+
+        sender = threading.Thread(target=keep_asking, daemon=True)
+        sender.start()
+        time.sleep(0.5)
+        t_kill = time.monotonic()
+        broker.signal(signal.SIGKILL)
+        broker.wait(30)
+        broker2 = child("broker2", "broker", "--port", str(bport))
+        broker2.wait_line("bus broker (", PROC_CHILD_S)
+        t_up = time.monotonic()
+        try:
+            wait_for(lambda: any(t > t_up and s_ == 200 for t, s_ in sent),
+                     PROC_RECOVER_S, "serving did not answer 200 again "
+                     f"within {PROC_RECOVER_S} s of the broker's restart")
+        finally:
+            stop.set()
+            sender.join(timeout=30)
+        first_ok = min(t for t, s_ in sent if t > t_up and s_ == 200)
+        recover_s = first_ok - t_kill
+        failed = sum(1 for t, s_ in sent if t_kill < t < first_ok
+                     and s_ != 200)
+        print(f"processes: (e) the broker child killed and restarted empty "
+              f"on port {bport} ({t_up - t_kill:.2f} s to its PORT line) "
+              f"while a client sent: 200 again {recover_s:.2f} s after the "
+              f"kill; {failed} of {len(sent)} requests failed in between",
+              flush=True)
+        out.update(recover_s=recover_s, restart_s=t_up - t_kill)
+
+        # (f) the ProcessContainerManager job answers (d)'s queries.
+        wait_for(lambda: cache.running_workers(inf2["id"]) and meta.
+                 get_inference_job(inf2["id"])["predictor_host"],
+                 PROC_CHILD_S, "the service processes did not come up")
+        f_s = time.perf_counter() - t_f
+        (f_wid,) = cache.running_workers(inf2["id"])
+        f_rows = np.stack([direct(f_wid, x) for x in singles])
+        check(np.array_equal(f_rows, rows_of[wids[0]]),
+              "the service process's answers differ from (d)'s")
+        host2 = meta.get_inference_job(inf2["id"])["predictor_host"]
+        via2 = [ask(host2, x, 60) for x in singles]
+        check([p for _, _, p in via2] == [p for _, _, p in via],
+              "answers through the service processes' predictor differ "
+              "from the primary's")
+        services.stop_inference_services(inf2["id"])
+        meta.update_inference_job(inf2["id"], status="STOPPED")
+        alive = [pid for pid, p in ((p.pid, p) for p in svc_procs.values())
+                 if p.poll() is None]
+        check(not alive, f"service processes alive after destroy_service: "
+              f"{alive}")
+        print(f"processes: (f) an inference job of the same trials through "
+              f"a ServicesManager on ProcessContainerManager: "
+              f"{len(svc_procs)} `python -m rafiki_torch.container.services`"
+              f" children (worker and predictor) up in {f_s:.2f} s; "
+              f"{PROC_SINGLES} single queries to its worker and through its "
+              f"predictor bit for bit (d)'s; none alive after "
+              f"destroy_service", flush=True)
+        out.update(services_s=f_s)
+
+        # The nodes leave together; the broker last (a leaving node
+        # unregisters over it).
+        c.stop_inference_job(inf["id"])
+        serve.signal(signal.SIGTERM)
+        for ch in (replica, serve):
+            check(ch.wait(PROC_CHILD_S) == 0,
+                  f"the {ch.name} child failed: {ch.lines[-30:]}")
+        broker2.signal(signal.SIGTERM)
+        check(broker2.wait(PROC_CHILD_S) == 0,
+              f"the broker2 child failed: {broker2.lines[-30:]}")
+    except Exception:
+        for ch in children:
+            print(f"processes: [{ch.name}] last lines: {ch.lines[-30:]}",
+                  flush=True)
+        raise
+    finally:
+        if services is not None:
+            for svc in meta.get_services(node_id="smoke/processes"):
+                services.container.destroy_service(svc["id"])
+        for p in svc_procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+        for ch in children:
+            ch.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if meta is not None:
+            meta.close()
+        left = [ch.name for ch in children if session_alive(ch.proc.pid)]
+        left += [p.pid for p in svc_procs.values()
+                 if session_alive(p.pid)]
+        reps = []
+        for f in sorted(glob.glob(os.path.join(reports, "*.json"))):
+            with open(f) as fh:
+                reps.append(json.load(fh))
+        tmp.cleanup()
+    check(not left, f"children left running: {left}")
+    names = {ch.proc.pid: ch.name for ch in children}
+    names.update({p.pid: f"service-{p.pid}" for p in svc_procs.values()})
+    rep = {names.get(r["pid"], str(r["pid"])): r for r in reps}
+    check(not any(r["jax"] for r in reps), "a child imported jax")
+    used = {k: r for k, r in rep.items() if r["kernels"]}
+    check(all(set(r["kernels"].values()) == {"loaded"}
+              for r in used.values()),
+          f"a child built kernels the parent had built: "
+          f"{ {k: r['kernels'] for k, r in used.items()} }")
+    for who, n in (("join", 3), ("serve", 1), ("replica", 1)):
+        r = rep.get(who)
+        check(r is not None and all(x > 0 for x in r["launches"][:n])
+              and r["wgmma"] == r["launches"],
+              f"the {who} child's K1-K3 launches: {r}")
+    svc = [r for k, r in rep.items() if k.startswith("service-")
+           and r["launches"]]
+    check(any(r["launches"][0] > 0 and r["wgmma"] == r["launches"]
+              for r in svc), f"the service processes' launches: {svc}")
+    launches = tuple(sum(r["launches"][i] for r in reps if r["launches"])
+                     for i in range(3))
+    phase_s = time.perf_counter() - t_phase
+    print(f"processes: children's K1, K2, K3 launches "
+          f"{ {k: r['launches'] for k, r in rep.items() if r['launches']} }"
+          f", all wgmma, every library loaded, none built; total "
+          f"{launches}; their allocators' peak reserve (MiB) "
+          f"{ {k: r['max_reserved_mib'] for k, r in rep.items()} }, this "
+          f"script's {torch.cuda.max_memory_reserved() / 2**20:.0f} (all "
+          f"phases); no child imported jax; none left running; phase "
+          f"took {phase_s:.1f} s", flush=True)
+    check(phase_s <= PROC_MAX_S, f"the processes phase took {phase_s:.1f} s")
+    out.update(launches=launches, phase_s=phase_s)
+    return out
+
+
 def zoo2_rows(zoo2, kernel):
     """One kernel's numbers at the zoo2 phase's ViT and tagger shapes."""
     return {what: dict(zoo2[part]["kernels"][kernel],
@@ -5903,6 +6572,7 @@ def main() -> int:
                          card, zoo2)
             ten = timed("tenants", tenants_phase, torch, np, attn, card,
                         zoo["data"])
+        procs = timed("processes", processes_phase, torch, np, attn, card)
     except Exception:
         traceback.print_exc()
         return 1
@@ -5912,7 +6582,8 @@ def main() -> int:
              replaces="rafiki_tpu/ops/attention.py:162",
              launches=(train_launches[0] + serve_launches + gen_launches
                        + plat_launches[0] + zoo2["launches"][0]
-                       + life["launches"][0] + ten["launches"][0]),
+                       + life["launches"][0] + ten["launches"][0]
+                       + procs["launches"][0]),
              generate_launches=gen_launches,
              platform_launches=plat_launches[0],
              zoo_launches=zoo["launches"][0],
@@ -5920,6 +6591,8 @@ def main() -> int:
              zoo2_launches=zoo2["launches"][0],
              lifecycle_launches=life["launches"][0],
              tenants_launches=ten["launches"][0],
+             processes_launches=procs["launches"][0],
+             processes_trace_events=procs["trace_events"][0],
              zoo2_shapes=zoo2_rows(zoo2, "K1"),
              zoo2_f32=dict(zoo2["int8"]["k1_f32"], registers=f32_regs),
              generate_buckets=gen["buckets"], **k1, **k1_train),
@@ -5928,26 +6601,30 @@ def main() -> int:
              replaces="rafiki_tpu/ops/attention.py:338",
              launches=(train_launches[1] + plat_launches[1]
                        + zoo2["launches"][1] + life["launches"][1]
-                       + ten["launches"][1]),
+                       + ten["launches"][1] + procs["launches"][1]),
              platform_launches=plat_launches[1],
              zoo_launches=zoo["launches"][1],
              ensemble_launches=ens["launches"][1],
              zoo2_launches=zoo2["launches"][1],
              lifecycle_launches=life["launches"][1],
              tenants_launches=ten["launches"][1],
+             processes_launches=procs["launches"][1],
+             processes_trace_events=procs["trace_events"][1],
              zoo2_shapes=zoo2_rows(zoo2, "K2"), **k2),
         dict(name="flash_bwd_dkv (K3)", route="cuda",
              source=src + "flash_bwd_dkv.cu",
              replaces="rafiki_tpu/ops/attention.py:401",
              launches=(train_launches[2] + plat_launches[2]
                        + zoo2["launches"][2] + life["launches"][2]
-                       + ten["launches"][2]),
+                       + ten["launches"][2] + procs["launches"][2]),
              platform_launches=plat_launches[2],
              zoo_launches=zoo["launches"][2],
              ensemble_launches=ens["launches"][2],
              zoo2_launches=zoo2["launches"][2],
              lifecycle_launches=life["launches"][2],
              tenants_launches=ten["launches"][2],
+             processes_launches=procs["launches"][2],
+             processes_trace_events=procs["trace_events"][2],
              zoo2_shapes=zoo2_rows(zoo2, "K3"), **k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -320,6 +320,25 @@ class Admin:
             time.sleep(poll)
         return False
 
+    def attach_workers(self, train_job_id: str, chips_per_trial: int = 1,
+                       ) -> List[Dict[str, Any]]:
+        """Training scale-out: one more train worker for each sub-job of
+        a RUNNING train job, on this node's chips. A join node sharing
+        the meta store, the params directory and the bus calls it; its
+        workers take proposals from the job's advisor service, so the
+        search stays one search."""
+        job = self.meta.get_train_job(train_job_id)
+        if job is None:
+            raise ValueError(f"unknown train job {train_job_id}")
+        if job["status"] != TrainJobStatus.RUNNING:
+            raise ValueError(f"train job {train_job_id} is not RUNNING")
+        attached = []
+        for sub in self.meta.get_sub_train_jobs(train_job_id):
+            svc = self.services.add_train_worker(sub["id"], chips_per_trial)
+            if svc is not None:
+                attached.append(svc)
+        return attached
+
     def attach_inference_workers(self, inference_job_id: str,
                                  chips_per_worker: int = 1,
                                  ) -> List[Dict[str, Any]]:
@@ -690,7 +709,7 @@ class Admin:
             by_type[s["service_type"]] = by_type.get(s["service_type"],
                                                      0) + 1
             nid = this_node if self.services.is_local(s) \
-                else s["node_id"]
+                else (s.get("node_id") or "(unowned)")
             node = nodes.setdefault(nid, {"services": 0,
                                           "heartbeat_age_s": None})
             node["services"] += 1

@@ -21,8 +21,19 @@ card, two trials make one worker serving the bin ``"a,b"``. A job's
 first worker may share a chip already in use (the time-sliced tier,
 thread services only), so a full card still admits a second job.
 
-Services are stamped with the node that launched them, and this node
-supervises and stops only its own (and rows without a node).
+Services are stamped with the node that launched them. A node
+supervises and stops only its own services (and, on a primary that
+adopts them, rows without a node); another node's RUNNING rows are
+credible while that node's heartbeat is at most ``NODE_LEASE`` seconds
+old (``RAFIKI_TPU_NODE_LEASE``, read when the manager is built), and a
+sweep marks them ERRORED once it lapses. So several nodes (a primary
+and the ``join`` nodes beside it) share one meta store, params
+directory and TCP bus.
+
+Every service's environment carries what a service process needs to
+open the same substrate: the store URIs, the bus URI, the log
+directory, the node's id and its device type (``RAFIKI_TPU_PLATFORM``).
+The thread runtime ignores them and uses the platform's shared context.
 
 Promotion's two primitives: ``swap_inference_worker`` launches a worker
 for a trial and waits for its bus registration before it stops the
@@ -30,17 +41,15 @@ workers it replaces, so a bin never loses its vote; and
 ``drain_inference_worker`` retires one worker gracefully (unregistered,
 then a ``__drain__`` marker: it answers what was queued and exits).
 
-Not ported yet: other nodes' leases (the reference marks a foreign row
-ERRORED once its node's heartbeat is ``NODE_LEASE`` old), the
-autoscaler, the SLO engine, the scrape cache, the node registry, the
-scoped-checkpoint sweep, and the store and bus addresses in a service's
-environment, which the process manager will need.
+Not ported yet: the autoscaler, the SLO engine, the scrape cache, the
+node registry and the scoped-checkpoint sweep.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -50,6 +59,7 @@ from ..constants import (BudgetOption, EnvVars, InferenceJobStatus,
 from ..container.manager import ContainerManager
 from ..parallel.chips import ChipAllocator
 from ..store import MetaStore
+from ..torchenv import PLATFORM_ENV
 
 _log = logging.getLogger(__name__)
 
@@ -71,19 +81,32 @@ def normalize_budget(budget: Optional[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 class ServicesManager:
-    #: The reference's liveness lease, in seconds; the platform's
-    #: heartbeat refreshes it four times a lease.
-    NODE_LEASE = 120.0
-
     def __init__(self, meta: MetaStore, container: ContainerManager,
                  allocator: ChipAllocator, node_id: str,
-                 log_dir: str = ""):
+                 log_dir: str = "", *, meta_uri: str = ":memory:",
+                 params_dir: str = "", bus_uri: str = "",
+                 adopt_unowned: bool = True):
         self.meta = meta
         self.container = container
         self.allocator = allocator
         self.node_id = node_id
         # The services' shared log directory (the span log); "" = none.
         self.log_dir = log_dir
+        # What a service process opens; thread services ignore them.
+        self.meta_uri = meta_uri
+        self.params_dir = params_dir
+        self.bus_uri = bus_uri
+        # Only the node that owns the workdir (the primary) adopts rows
+        # without a node: a join node stopping or sweeping them would
+        # disrupt the primary's jobs.
+        self.adopt_unowned = adopt_unowned
+        # The liveness lease of another node's rows, seconds; the
+        # platform's heartbeat refreshes this node's four times a lease.
+        self.NODE_LEASE = float(os.environ.get("RAFIKI_TPU_NODE_LEASE",
+                                               120.0))
+        # The bus to reap stale registrations on, opened at first use
+        # when the container manager has no shared context.
+        self._reap_bus = None
         # Dead inference workers whose respawn found no chips: their
         # rows are ERRORED, out of the RUNNING scan, so each sweep
         # retries them until a worker lands or the job stops.
@@ -107,8 +130,18 @@ class ServicesManager:
 
     def _base_env(self, service_id: str, service_type: str,
                   ) -> Dict[str, str]:
-        return {EnvVars.SERVICE_ID: service_id,
-                EnvVars.SERVICE_TYPE: service_type}
+        env = {
+            EnvVars.META_URI: self.meta_uri,
+            EnvVars.PARAMS_DIR: self.params_dir,
+            EnvVars.BUS_URI: self.bus_uri,
+            EnvVars.SERVICE_ID: service_id,
+            EnvVars.SERVICE_TYPE: service_type,
+            EnvVars.NODE_ID: self.node_id,
+            PLATFORM_ENV: self.allocator.device_type,
+        }
+        if self.log_dir:
+            env[EnvVars.LOG_DIR] = self.log_dir
+        return env
 
     def _stop_service(self, service_id: str) -> None:
         svc = self.meta.get_service(service_id)
@@ -127,9 +160,11 @@ class ServicesManager:
 
     def _sharing_ok(self) -> bool:
         """Whether time-sliced chip co-ownership is allowed: only with
-        thread services. It is a liveness fallback for a job's FIRST
-        worker, never extra capacity."""
-        return self.container.supports_chip_sharing
+        thread services, and not with ``RAFIKI_TPU_CHIP_SHARE=0``. It is
+        a liveness fallback for a job's FIRST worker, never extra
+        capacity."""
+        return self.container.supports_chip_sharing \
+            and os.environ.get("RAFIKI_TPU_CHIP_SHARE", "1") != "0"
 
     def _launch_on_group(self, svc_row: Dict[str, Any], group,
                          env: Dict[str, str]) -> Dict[str, Any]:
@@ -209,29 +244,48 @@ class ServicesManager:
             for w in self.meta.get_train_job_workers(sub["id"]):
                 self._stop_service(w["service_id"])
 
+    def _ownership(self, svc: Dict[str, Any]) -> str:
+        """``"local"``, ``"foreign"`` or ``"unowned-skip"``: a row
+        without a node is this node's when it adopts such rows (a
+        primary), and neither stopped nor judged by a join node."""
+        nid = svc.get("node_id")
+        if nid == self.node_id:
+            return "local"
+        if nid is None:
+            return "local" if self.adopt_unowned else "unowned-skip"
+        return "foreign"
+
     def is_local(self, svc: Dict[str, Any]) -> bool:
-        """Whether this node launched the service (a row without a node
-        is adopted)."""
-        return svc.get("node_id") in (None, self.node_id)
+        """Whether this node launched (or adopted) the service."""
+        return self._ownership(svc) == "local"
 
     @staticmethod
     def last_heartbeat(svc: Dict[str, Any]) -> float:
         """A service's last liveness signal (its creation counts)."""
         return svc.get("heartbeat_at") or svc.get("created_at") or 0.0
 
+    def _lease_fresh(self, svc: Dict[str, Any]) -> bool:
+        return time.time() - self.last_heartbeat(svc) <= self.NODE_LEASE
+
     def heartbeat(self) -> None:
         """Refresh this node's liveness lease."""
         self.meta.touch_node_services(self.node_id)
 
     def train_services_active(self, train_job_id: str) -> bool:
-        """True while any TRAIN worker this node launched for the job is
-        alive, by its container manager."""
+        """True while any TRAIN worker of the job is alive: this node's
+        by its container manager, another node's (a join node's) by its
+        row while that node's lease is fresh, so a node that died
+        without shutting down stops holding the job open once its lease
+        lapses."""
         for sub in self.meta.get_sub_train_jobs(train_job_id):
             for w in self.meta.get_train_job_workers(sub["id"]):
                 svc = self.meta.get_service(w["service_id"])
                 if svc["service_type"] != ServiceType.TRAIN \
-                        or svc["status"] not in _ACTIVE \
-                        or not self.is_local(svc):
+                        or svc["status"] not in _ACTIVE:
+                    continue
+                if self._ownership(svc) != "local":
+                    if self._lease_fresh(svc):
+                        return True
                     continue
                 if self.container.service_alive(
                         svc["container_id"] or svc["id"]):
@@ -329,8 +383,26 @@ class ServicesManager:
                                              inference_job_id, trial_id)
 
     def serving_bus(self):
-        """The bus the serving plane rides (the thread services')."""
-        return self.container.ctx.bus
+        """The bus this node's serving plane rides: the thread services'
+        shared one, else a client of ``bus_uri``, opened once."""
+        bus = getattr(getattr(self.container, "ctx", None), "bus", None)
+        if bus is not None:
+            return bus
+        if self._reap_bus is None:
+            from ..bus import connect
+
+            self._reap_bus = connect(self.bus_uri)
+        return self._reap_bus
+
+    def _reap_worker_registration(self, job_id: str,
+                                  service_id: str) -> None:
+        """Drop a dead worker's bus registration, best effort: a broker
+        that is down forgot it anyway."""
+        try:
+            Cache(self.serving_bus()).unregister_worker(job_id, service_id)
+        except (ConnectionError, OSError, RuntimeError):
+            _log.warning("could not reap the bus registration of dead "
+                         "worker %s", service_id[:8], exc_info=True)
 
     def active_inference_workers(self, inference_job_id: str,
                                  ) -> List[Dict[str, Any]]:
@@ -413,7 +485,9 @@ class ServicesManager:
             self._stop_service(w["service_id"])
 
     def stop_own_services(self) -> None:
-        """Stop every still-active service this node launched."""
+        """Stop every still-active service this node launched: a node
+        leaving a shared meta store must leave no row that reads as a
+        live worker."""
         for svc in self.meta.get_services():
             if svc["status"] in _ACTIVE and self.is_local(svc):
                 self._stop_service(svc["id"])
@@ -421,16 +495,28 @@ class ServicesManager:
     # --- Supervision ---
 
     def supervise(self) -> List[str]:
-        """One sweep over this node's RUNNING services: mark the dead
+        """One sweep over the RUNNING services: mark this node's dead
         ones ERRORED, restart a dead train worker on a fresh chip group
         and give a dead inference worker's bin a fresh worker while its
-        job is live. Returns the ids of the restarted services."""
+        job is live; mark another node's rows ERRORED once its lease
+        lapsed. Returns the ids of the restarted services."""
         restarted: List[str] = []
         pending, self._pending_respawns = self._pending_respawns, []
         try:
             for svc in self.meta.get_services(status=ServiceStatus.RUNNING):
-                if not self.is_local(svc) or self.container.service_alive(
-                        svc["container_id"] or svc["id"]):
+                own = self._ownership(svc)
+                if own == "unowned-skip":
+                    continue
+                if own == "foreign":
+                    if not self._lease_fresh(svc):
+                        self.meta.update_service(
+                            svc["id"], status=ServiceStatus.ERRORED)
+                        _log.warning("lease expired on %s from node %s; "
+                                     "marked errored", svc["id"][:8],
+                                     svc["node_id"])
+                    continue
+                if self.container.service_alive(svc["container_id"]
+                                                or svc["id"]):
                     continue
                 self.meta.update_service(svc["id"],
                                          status=ServiceStatus.ERRORED)
@@ -491,7 +577,7 @@ class ServicesManager:
         if reap:
             # A dead worker never ran its unregister: reap its stale
             # registration so the predictor stops sending it shards.
-            Cache(self.serving_bus()).unregister_worker(job_id, svc["id"])
+            self._reap_worker_registration(job_id, svc["id"])
         job = self.meta.get_inference_job(job_id)
         if job is None or job["status"] not in (
                 InferenceJobStatus.STARTED, InferenceJobStatus.RUNNING):

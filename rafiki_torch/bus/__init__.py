@@ -1,28 +1,38 @@
 """Message bus: queues and a key-value registry for the traffic between
 the platform's services.
 
-The port's copy of ``rafiki_tpu/bus``: the ``BaseBus`` interface and its
-in-process backend ``MemoryBus``, on which every service of one
-``LocalPlatform`` shares one object. The reference's TCP broker and its
-native (C++) broker carry the bus between processes and hosts; they
-come with the process manager (ROADMAP, queue 1).
+The port's copy of ``rafiki_tpu/bus``, one interface with three
+backends on one wire:
+
+- ``MemoryBus``: in-process; every service of one process shares one
+  object;
+- ``BusClient`` -> ``BusServer``: a TCP broker of the project's own
+  (length-prefixed JSON frames, blocking pops on condition variables)
+  for services in several processes or on several hosts;
+- ``NativeBusServer`` (``bus.native``): the same wire served by a C++
+  ``poll()`` loop, built with g++ at first use; ``serve_broker`` picks
+  it when a toolchain exists.
+
+Tensors never ride the bus: it carries control-plane JSON and the
+base64-framed query payloads.
 """
 
 from .base import BaseBus
 from .memory import MemoryBus
+from .native import NativeBusServer, serve_broker
+from .tcp import BusClient, BusOpError, BusServer
 
-__all__ = ["BaseBus", "MemoryBus", "connect"]
+__all__ = ["BaseBus", "MemoryBus", "BusClient", "BusOpError", "BusServer",
+           "NativeBusServer", "serve_broker", "connect"]
 
 
 def connect(uri: str = "") -> BaseBus:
     """Open a bus from a URI: ``""`` and ``"memory://"`` give the
-    process-wide ``MemoryBus``. A ``tcp://`` URI raises: the port has no
-    broker yet."""
+    process-wide ``MemoryBus``; ``"tcp://host:port"`` a client of the
+    broker there."""
     if not uri or uri.startswith("memory://"):
         return MemoryBus.shared()
     if uri.startswith("tcp://"):
-        raise NotImplementedError(
-            f"bus uri {uri!r}: the TCP and native brokers are not ported "
-            "yet (ROADMAP.md, queue 1); use the in-process bus ('' or "
-            "'memory://')")
+        host, _, port = uri[len("tcp://"):].partition(":")
+        return BusClient(host or "127.0.0.1", int(port or 6380))
     raise ValueError(f"unsupported bus uri: {uri!r}")

@@ -1,8 +1,10 @@
 """The bus interface every backend implements.
 
-The port's copy of ``BaseBus`` from ``rafiki_tpu/bus/base.py`` without
-the metrics hooks and the inter-node relay. Values are JSON-serialisable
-Python objects (dict, list, str, number, None); numpy payloads ride
+The port's copy of ``rafiki_tpu/bus/base.py``: ``BaseBus`` with the
+inter-node relay pushes, which a single broker serves as plain pushes,
+and the bus's metric families (``queue_kind`` labels them by the
+serving protocol's queue kind). Values are JSON-serialisable Python
+objects (dict, list, str, number, None); numpy payloads ride
 base64-framed (``rafiki_torch.cache``).
 """
 
@@ -10,6 +12,55 @@ from __future__ import annotations
 
 import abc
 from typing import Any, List, Optional, Sequence, Tuple
+
+from ..observe import metrics
+
+
+def queue_kind(queue: Optional[str]) -> str:
+    """A queue's metric label: queue names embed uuids (``r:{batch_id}``)
+    and worker ids (``q:{worker_id}``), so the series label by kind."""
+    if not queue:
+        return "other"
+    if queue.startswith("q:"):
+        return "query"
+    if queue.startswith("r:"):
+        return "reply"
+    return "other"
+
+
+def bus_op_histogram() -> Optional["metrics.Histogram"]:
+    """The per-op bus latency histogram, or None when metrics are off
+    (decided when a backend is built). A blocking ``pop`` or ``pop_all``
+    records its wait too."""
+    if not metrics.metrics_enabled():
+        return None
+    return metrics.registry().histogram(
+        "rafiki_tpu_bus_op_seconds",
+        "Bus operation latency (backend x op x queue kind; blocking "
+        "pops include wait time)")
+
+
+def bus_reconnect_counter() -> Optional["metrics.Counter"]:
+    """The TCP client's reconnect attempts (None when metrics are off)."""
+    if not metrics.metrics_enabled():
+        return None
+    return metrics.registry().counter(
+        "rafiki_tpu_bus_reconnects_total",
+        "TCP bus client reconnect attempts after a transport failure "
+        "(backend is always tcp)")
+
+
+def bus_relay_counter() -> Optional["metrics.Counter"]:
+    """Relay frames by direction (``out`` forwarded to a peer broker,
+    ``in`` executed here for a peer, ``fallback`` executed here because
+    the peer is unknown or down); None when metrics are off. A broker
+    resolves it only once it has a node id or a peer, so a single
+    broker never registers the series."""
+    if not metrics.metrics_enabled():
+        return None
+    return metrics.registry().counter(
+        "rafiki_tpu_bus_relay_total",
+        "Inter-node bus relay frames by direction (out/in/fallback)")
 
 
 class BaseBus(abc.ABC):
@@ -25,6 +76,17 @@ class BaseBus(abc.ABC):
         pushes one frame per worker."""
         for queue, value in items:
             self.push(queue, value)
+
+    def relay_push(self, node: str, queue: str, value: Any) -> None:
+        """Push toward the broker that owns ``node``'s queues. A single
+        broker owns every queue, so this is a plain push; the TCP client
+        sends it through its broker's inter-node relay."""
+        self.push(queue, value)
+
+    def relay_push_many(self, node: str,
+                        items: Sequence[Tuple[str, Any]]) -> None:
+        """Batch form of ``relay_push`` (one round trip, one hop)."""
+        self.push_many(items)
 
     @abc.abstractmethod
     def pop(self, queue: str, timeout: float = 0.0) -> Optional[Any]:
@@ -65,3 +127,11 @@ class BaseBus(abc.ABC):
     @abc.abstractmethod
     def keys(self, prefix: str = "") -> List[str]:
         pass
+
+    # --- Lifecycle ---
+
+    def close(self) -> None:
+        pass
+
+    def ping(self) -> bool:
+        return True

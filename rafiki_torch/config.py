@@ -1,27 +1,45 @@
-"""Typed node configuration: the serving knobs of one node, validated.
+"""Typed node configuration: one validated object per node process.
 
-The port's copy of the serving part of ``NodeConfig`` from
-``rafiki_tpu/config.py`` (:27, :369-447, :456-470, :641-653). Each
+The port's copy of ``NodeConfig`` from ``rafiki_tpu/config.py`` (:27,
+:49-70, :369-700), with the fields whose consumers the port has. Each
 field ``x`` is read from ``RAFIKI_TPU_<X>``; precedence is an explicit
-override, then the environment, then the default. ``apply_env()``
-writes the serving tunables back into ``os.environ``, which is how the
-services built later in the process (the predictor, the inference
-workers) read them at construction.
+override (the CLI's arguments), then the environment, then the
+default. ``apply_env()`` writes the tunables back into ``os.environ``,
+which is how the services built later in the process, and the service
+processes it spawns, read them at construction.
 
-Fields: the micro-batcher's (``serving_microbatch``, the fill window
-and its bounds, ``serving_max_batch``, ``serving_max_inflight``,
-``serving_queue_cap``), replica sharding (``serving_shard_replicas``),
-per-client fairness (``serving_client_header``,
-``serving_client_share``), the three serving switches the port's
-workers read (``serving_quant``, ``serving_stacked``,
-``serving_generate``), the edge cache (``serving_cache_bytes``,
-``serving_cache_ttl_s``, ``serving_cache_admit_after``), confidence
-tiering (``serving_tier_threshold``), the pipelined worker's auto
-threshold (``pipeline_sync_min``), the attribution ledger
-(``serving_attribution``) and the workload recorder
-(``workload_record``, ``workload_max_mb``,
-``workload_retain_segments``). The reference's cluster, autoscale,
-node lease, SLO and trace fields are not here yet.
+Fields:
+
+- the node's own: ``workdir``, ``port``, ``n_chips``, ``bus_uri``,
+  ``supervise_interval``, ``log_level``, ``trace_dir`` (per-trial
+  device traces), and ``coordinator``, ``num_processes`` and
+  ``process_id``, which the ``serve`` CLI parses and refuses for now
+  (multi-GPU, ROADMAP queue 1 item 8);
+- placement and leases: ``chip_share`` (the time-sliced tier for a
+  job's first worker; the reference reads ``RAFIKI_TPU_CHIP_SHARE``
+  without a field), ``max_chip_share``, ``node_lease`` and
+  ``worker_reregister``;
+- the TCP bus client's ``bus_retry_base_s`` and ``bus_retry_total_s``,
+  and ``metrics_port``, a service process's metrics-only server;
+- the serving front's: the micro-batcher's (``serving_microbatch``,
+  the fill window and its bounds, ``serving_max_batch``,
+  ``serving_max_inflight``, ``serving_queue_cap``), replica sharding
+  (``serving_shard_replicas``), per-client fairness
+  (``serving_client_header``, ``serving_client_share``), the three
+  serving switches the port's workers read (``serving_quant``,
+  ``serving_stacked``, ``serving_generate``), the edge cache
+  (``serving_cache_bytes``, ``serving_cache_ttl_s``,
+  ``serving_cache_admit_after``), confidence tiering
+  (``serving_tier_threshold``), the pipelined worker's auto threshold
+  (``pipeline_sync_min``), the attribution ledger
+  (``serving_attribution``) and the workload recorder
+  (``workload_record``, ``workload_max_mb``,
+  ``workload_retain_segments``).
+
+Left out until their modules come (ROADMAP, queue 1): ``probe_timeout``
+(the port does not probe the card; without one it raises), the
+autoscaler's, the SLO plane's and the cluster fabric's fields, the
+fault plan, and ``checkpoint_trials``.
 """
 
 from __future__ import annotations
@@ -53,8 +71,42 @@ def parse_tristate_bool(raw: str) -> Optional[bool]:
 
 @dataclass(frozen=True)
 class NodeConfig:
-    """The serving tunables of a node. Env var for field ``x``:
-    ``RAFIKI_TPU_<X>``."""
+    """Everything a ``python -m rafiki_torch serve`` node needs. Env var
+    for field ``x``: ``RAFIKI_TPU_<X>``."""
+
+    # --- The node ---
+    workdir: str = "./rafiki_workdir"
+    port: int = 3000
+    n_chips: Optional[int] = None          # None = every CUDA device
+    bus_uri: str = ""                      # "" = in-process bus
+    supervise_interval: float = 10.0       # 0 turns the sweep off
+    log_level: str = "info"
+    trace_dir: str = ""                    # per-trial device traces
+
+    # --- Multi-process membership (parsed; refused by serve for now) ---
+    coordinator: str = ""
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+
+    # --- Placement and leases ---
+    # A job's first worker may time-share a chip others own when no
+    # exclusive one is free (thread services only); off = never.
+    chip_share: bool = True
+    # Owners a chip may have in that time-sliced tier.
+    max_chip_share: int = 4
+    # An inference worker re-asserts its bus registration this often,
+    # so a restarted broker learns it again.
+    worker_reregister: float = 5.0
+    # How long another node's RUNNING row stays credible without a
+    # heartbeat, seconds.
+    node_lease: float = 120.0
+
+    # --- The TCP bus client's reconnection ---
+    bus_retry_base_s: float = 0.05
+    bus_retry_total_s: float = 15.0
+
+    # A service process's metrics-only HTTP server; 0 = none.
+    metrics_port: int = 0
 
     # --- Serving frontend: continuous cross-request micro-batching ---
     serving_microbatch: bool = True        # off = one scatter a request
@@ -161,6 +213,12 @@ class NodeConfig:
         return cls._types_cache
 
     def validate(self) -> "NodeConfig":
+        if not (0 <= self.port <= 65535):
+            raise ValueError(f"port {self.port} out of range")
+        if self.n_chips is not None and self.n_chips <= 0:
+            raise ValueError("n_chips must be positive (or unset)")
+        if self.supervise_interval < 0:
+            raise ValueError("supervise_interval must be >= 0")
         if self.serving_fill_window < 0:
             raise ValueError("serving_fill_window must be >= 0")
         if self.serving_max_batch < 1 or self.serving_max_inflight < 1 \
@@ -204,11 +262,53 @@ class NodeConfig:
             raise ValueError(
                 f"serving_stacked {self.serving_stacked!r} is not one "
                 f"of on/off")
+        if self.worker_reregister <= 0:
+            raise ValueError("worker_reregister must be positive")
+        if self.node_lease <= 0:
+            raise ValueError("node_lease must be positive (it bounds "
+                             "foreign-node liveness detection)")
+        if self.max_chip_share < 1:
+            raise ValueError("max_chip_share must be >= 1 (1 = no "
+                             "time-sliced co-ownership)")
+        if self.bus_retry_base_s <= 0:
+            raise ValueError("bus_retry_base_s must be positive")
+        if self.bus_retry_total_s < 0:
+            raise ValueError("bus_retry_total_s must be >= 0 "
+                             "(0 disables the retry budget)")
+        if not (0 <= self.metrics_port <= 65535):
+            raise ValueError(f"metrics_port {self.metrics_port} out of "
+                             f"range (0 = no standalone server)")
+        if self.log_level.upper() not in (
+                "DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL"):
+            raise ValueError(f"unknown log_level {self.log_level!r}")
+        multi = [self.coordinator != "", self.num_processes is not None,
+                 self.process_id is not None]
+        if any(multi) and not all(multi):
+            raise ValueError("coordinator, num_processes and process_id "
+                             "must be given together")
+        if self.bus_uri and not (self.bus_uri.startswith("tcp://")
+                                 or self.bus_uri.startswith("memory://")):
+            raise ValueError(f"unsupported bus_uri {self.bus_uri!r}")
         return self
 
     def apply_env(self) -> None:
-        """Export the serving tunables, so the services built later in
-        this process resolve the values this config validated."""
+        """Export the tunables, so the services built later in this
+        process, and the service processes it spawns, resolve the values
+        this config validated."""
+        if self.trace_dir:
+            os.environ[self.env_name("trace_dir")] = self.trace_dir
+        os.environ[self.env_name("chip_share")] = \
+            "1" if self.chip_share else "0"
+        for f in ("max_chip_share", "worker_reregister", "node_lease",
+                  "bus_retry_base_s", "bus_retry_total_s"):
+            os.environ[self.env_name(f)] = str(getattr(self, f))
+        # 0 = no metrics server: an exported "0" would make a service
+        # process bind a random port, so the variable goes instead.
+        if self.metrics_port:
+            os.environ[self.env_name("metrics_port")] = \
+                str(self.metrics_port)
+        else:
+            os.environ.pop(self.env_name("metrics_port"), None)
         os.environ[self.env_name("serving_microbatch")] = \
             "1" if self.serving_microbatch else "0"
         os.environ[self.env_name("serving_shard_replicas")] = \

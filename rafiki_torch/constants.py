@@ -1,10 +1,9 @@
 """Platform enums and constants.
 
 The port's copy of ``rafiki_tpu/constants.py``: the same strings, so
-rows written by either package's stores read the same. ``EnvVars``
-keeps the names the platform's thread services read; the reference's
-store and bus addresses (for its process services), ``LOG_DIR``,
-``METRICS_ADDR`` and ``NODE_ID`` wait for what reads them.
+rows written by either package's stores read the same, and the same
+``EnvVars`` names, so a service's environment reads the same to either
+package's ``container/services.py``.
 """
 
 
@@ -95,7 +94,13 @@ class EnvVars:
     """The environment a ``ServicesManager`` gives each service it
     launches, which ``container.build_service`` reads. The names are the
     reference's. ``CHIPS`` is the service's chip group: comma-separated
-    CUDA device indices (the counterpart of ``CUDA_VISIBLE_DEVICES``)."""
+    CUDA device indices (the counterpart of ``CUDA_VISIBLE_DEVICES``).
+    ``META_URI``, ``PARAMS_DIR`` and ``BUS_URI`` are the stores and the
+    bus a service in a process of its own opens; ``LOG_DIR`` the shared
+    log directory; ``NODE_ID`` the node that placed it.
+    ``METRICS_ADDR`` is set by a service process itself, to the address
+    its metrics server bound. The device a service process runs on is
+    ``torchenv.PLATFORM_ENV``."""
 
     SERVICE_ID = "RAFIKI_TPU_SERVICE_ID"
     SERVICE_TYPE = "RAFIKI_TPU_SERVICE_TYPE"
@@ -103,3 +108,10 @@ class EnvVars:
     INFERENCE_JOB_ID = "RAFIKI_TPU_INFERENCE_JOB_ID"
     TRIAL_ID = "RAFIKI_TPU_TRIAL_ID"
     CHIPS = "RAFIKI_TPU_CHIPS"
+    WORKDIR = "RAFIKI_TPU_WORKDIR"
+    META_URI = "RAFIKI_TPU_META_URI"
+    BUS_URI = "RAFIKI_TPU_BUS_URI"
+    PARAMS_DIR = "RAFIKI_TPU_PARAMS_DIR"
+    LOG_DIR = "RAFIKI_TPU_LOG_DIR"
+    METRICS_ADDR = "RAFIKI_TPU_METRICS_ADDR"
+    NODE_ID = "RAFIKI_TPU_NODE_ID"

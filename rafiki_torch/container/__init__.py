@@ -1,15 +1,16 @@
 """Container runtime: how the platform's services run.
 
 The port's copy of ``rafiki_tpu/container``: the ``ContainerManager``
-contract and its thread runtime, in which every service is a thread of
-the process that owns the node's cards, and ``build_service``, the
-service entry point as a function. The reference's process and docker
-managers start ``python -m rafiki_tpu.container.services``; the port's
-own process entry waits for them (ROADMAP, queue 1).
+contract and its runtimes (threads of the process that owns the node's
+cards, processes of their own, docker containers), and the service
+entry: ``build_service`` as a function, ``python -m
+rafiki_torch.container.services`` as a process.
 """
 
-from .manager import ContainerManager, ThreadContainerManager
+from .manager import (ContainerManager, DockerContainerManager,
+                      ProcessContainerManager, ThreadContainerManager)
 from .services import SystemContext, build_service
 
-__all__ = ["ContainerManager", "SystemContext", "ThreadContainerManager",
-           "build_service"]
+__all__ = ["ContainerManager", "ThreadContainerManager",
+           "ProcessContainerManager", "DockerContainerManager",
+           "SystemContext", "build_service"]

@@ -13,16 +13,27 @@
   profiles of a serving worker, the card's peak and the MFU meter.
 
 The token serving family of the generative plane is ``observe.lm``.
+
+``profiling``'s names load with their first use, so what imports only
+the registry or the spans (the bus, a broker process) does not import
+torch.
 """
 
+import importlib
+
 from . import attribution, metrics, phases, trace
-from .profiling import (H100_PEAK_BF16_FLOPS, DeviceProfileSession,
-                        MfuMeter, device_peak_flops, flops_of_step,
-                        start_device_profile, trace_session,
-                        trial_trace_dir)
 from .serving import ServingStats
 
+_PROFILING = ("H100_PEAK_BF16_FLOPS", "DeviceProfileSession", "MfuMeter",
+              "device_peak_flops", "flops_of_step", "start_device_profile",
+              "trace_session", "trial_trace_dir")
+
 __all__ = ["attribution", "metrics", "phases", "trace", "ServingStats",
-           "H100_PEAK_BF16_FLOPS", "DeviceProfileSession", "MfuMeter",
-           "device_peak_flops", "flops_of_step", "start_device_profile",
-           "trace_session", "trial_trace_dir"]
+           *_PROFILING]
+
+
+def __getattr__(name):
+    if name in _PROFILING:
+        return getattr(importlib.import_module(".profiling", __name__),
+                       name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -539,3 +539,26 @@ def histogram_percentiles_ms(samples: List[Tuple[Dict[str, str], float]],
         v = bucket_percentile(buckets, q)
         out.append(round(v * 1e3, 3) if v is not None else None)
     return out
+
+
+# --- The metrics-only server of a service process ---
+
+#: A service process (``python -m rafiki_torch.container.services``)
+#: starts ``serve_metrics`` on this port when it is set (0 = a free
+#: port).
+METRICS_PORT_ENV = "RAFIKI_TPU_METRICS_PORT"
+
+
+def serve_metrics(host: str = "0.0.0.0", port: int = 0,
+                  name: str = "metrics"):
+    """A ``JsonHttpServer``, started, whose only routes are the
+    ``GET /metrics`` every such server has and a health ``GET /``: the
+    scrape surface of a train or inference worker in a process of its
+    own. Services that are threads of the admin's process need none,
+    since the admin serves the same registry."""
+    from ..utils.service import JsonHttpServer
+
+    server = JsonHttpServer(
+        [("GET", "/", lambda params, body, ctx: (200, {"status": "ok"}))],
+        host=host, port=port, name=name)
+    return server.start()

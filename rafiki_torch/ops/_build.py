@@ -8,7 +8,9 @@ flags, so a build is reused until a source changes. A failed build
 raises; nothing falls back to another path.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits
-for them together.
+for them together. Service processes on the same checkout load the
+libraries their parent built; ``kernel_origins()`` says, for this
+process, which it built and which it loaded.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -112,11 +114,24 @@ def build_log(name: str) -> str:
     return path.read_text() if path.exists() else ""
 
 
+#: How this process came by each library it loaded: "built" (its own
+#: nvcc run) or "loaded" (a build already on disk).
+_ORIGINS: Dict[str, str] = {}
+
+
+def kernel_origins() -> Dict[str, str]:
+    """``{name: "built" | "loaded"}`` of the libraries this process
+    loaded."""
+    return dict(_ORIGINS)
+
+
 @functools.lru_cache(maxsize=None)
 def load_kernel(name: str) -> ctypes.CDLL:
     """The bound library of ``csrc/<name>.cu``, built if needed."""
-    if not _lib_path(name).exists():
+    built = not _lib_path(name).exists()
+    if built:
         build_all([name])
+    _ORIGINS[name] = "built" if built else "loaded"
     lib = ctypes.CDLL(str(_lib_path(name)))
     symbol, argtypes = _ENTRY[name]
     fn = getattr(lib, symbol)

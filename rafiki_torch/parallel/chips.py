@@ -21,15 +21,16 @@ a backend without them: first fit on a contiguous index range.
 
 ``allocate(..., shared_ok=True)`` keeps the reference's time-sliced
 tier: when no exclusive range is free, a group may be placed on chips
-others already own, least-subscribed first, up to ``MAX_SHARE`` owners
-a chip (the reference's default; its ``RAFIKI_TPU_MAX_CHIP_SHARE`` is
-not ported). Only the thread container manager allows it: its services
-share one process and one CUDA context, so their launches interleave on
-the card.
+others already own, least-subscribed first, up to ``max_share`` owners
+a chip: ``RAFIKI_TPU_MAX_CHIP_SHARE`` (``NodeConfig.max_chip_share``),
+read at each call, else ``MAX_SHARE``. Only the thread container
+manager allows it: its services share one process and one CUDA
+context, so their launches interleave on the card.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -38,8 +39,9 @@ import torch
 
 from ..torchenv import DeviceLike, resolve_device
 
-#: Owners a chip may have in the time-sliced tier.
+#: Owners a chip may have in the time-sliced tier, by default.
 MAX_SHARE = 4
+MAX_SHARE_ENV = "RAFIKI_TPU_MAX_CHIP_SHARE"
 
 
 @dataclass(frozen=True)
@@ -101,20 +103,26 @@ class ChipAllocator:
         self._owners: List[List[str]] = [[] for _ in range(n_chips)]
         self._groups: Dict[str, ChipGroup] = {}
 
-    def allocate(self, n: int, name: str, *,
-                 shared_ok: bool = False) -> Optional[ChipGroup]:
+    def allocate(self, n: int, name: str, *, shared_ok: bool = False,
+                 max_share: Optional[int] = None) -> Optional[ChipGroup]:
         """Allocate ``n`` contiguous chips; None when none fit.
         ``shared_ok`` adds the time-sliced tier: exclusive placement
         first, then ever more subscribed chips, one load tier at a time,
-        up to ``MAX_SHARE`` owners a chip."""
+        up to ``max_share`` owners a chip (None: the environment's, else
+        ``MAX_SHARE``)."""
         if n <= 0:
             raise ValueError("n must be positive")
+        if max_share is None:
+            try:
+                max_share = int(os.environ.get(MAX_SHARE_ENV, MAX_SHARE))
+            except ValueError:
+                max_share = MAX_SHARE
         with self._lock:
             if name in self._groups:
                 raise ValueError(
                     f"group {name!r} already holds chips; release it first")
             idx = None
-            for cap in range(MAX_SHARE if shared_ok else 1):
+            for cap in range(max_share if shared_ok else 1):
                 allowed = {i for i, o in enumerate(self._owners)
                            if len(o) <= cap}
                 if len(allowed) >= n:

@@ -2,14 +2,25 @@
 
 The port's copy of ``rafiki_tpu/platform.py`` (:31-259), the composition
 root it builds by default: every service a thread
-(``ThreadContainerManager``), the process-local ``MemoryBus``, sqlite
-meta and safetensors params under the workdir, a ``ChipAllocator`` over
-the node's CUDA devices, the ``ServicesManager`` and the ``Admin``, and
-the admin REST service when ``http=True``. A supervisor thread sweeps
-for dead services every ``supervise_interval`` seconds (0 turns it off)
-and a heartbeat thread keeps this node's lease fresh. The process's
-span sink is ``<workdir>/logs/spans.jsonl`` (``observe.trace``), which
-the admin's ``GET /trace/<id>`` reads.
+(``ThreadContainerManager``), the bus ``bus_uri`` names (the
+process-local ``MemoryBus`` by default, or a TCP broker's client),
+sqlite meta and safetensors params under the workdir, a
+``ChipAllocator`` over the node's CUDA devices, the ``ServicesManager``
+and the ``Admin``, and the admin REST service when ``http=True``. A
+supervisor thread sweeps for dead services every ``supervise_interval``
+seconds (0 turns it off) and a heartbeat thread keeps this node's lease
+fresh. The process's span sink is ``<workdir>/logs/spans.jsonl``
+(``observe.trace``), which the admin's ``GET /trace/<id>`` reads.
+``from_config`` builds one from a validated ``NodeConfig`` (the
+``serve`` CLI's path).
+
+A primary node's identity is stable across restarts (host and
+workdir), so a restarted node sweeps its own stale rows; an exclusive
+flock on ``<workdir>/node.lock`` refuses a second primary on the same
+workdir. A join node shares a primary's workdir and bus: it passes a
+``node_id`` of its own (no flock), ``stop_jobs_on_shutdown=False`` (it
+must not stop the cluster's jobs when it leaves) and
+``adopt_unowned=False``; on shutdown every node stops what it launched.
 
 ``device=None`` means CUDA: on a box without a card construction
 raises, before it touches the workdir, and never carries on on the CPU.
@@ -17,10 +28,7 @@ raises, before it touches the workdir, and never carries on on the CPU.
 allocator's ``n_chips`` chips (1 by default) being the host's CPU.
 
 The reference's autoscaler, SLO engine and node registry are off by
-default there and not ported here; ``from_config`` waits for the
-``serve`` CLI and ``NodeConfig``, and the options of a node that joins
-another's workdir (``node_id``, ``adopt_unowned``,
-``stop_jobs_on_shutdown``) for the ``join`` CLI.
+default there and not ported here.
 """
 
 from __future__ import annotations
@@ -60,8 +68,11 @@ class LocalPlatform:
                  n_chips: Optional[int] = None, http: bool = False,
                  admin_port: int = 0, bus_uri: str = "",
                  supervise_interval: float = 10.0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 stop_jobs_on_shutdown: bool = True, node_id: str = "",
+                 adopt_unowned: bool = True):
         self.device = resolve_device(device)
+        self.stop_jobs_on_shutdown = stop_jobs_on_shutdown
         self._tmp = None
         if workdir is None:
             self._tmp = tempfile.TemporaryDirectory(prefix="rafiki_torch_")
@@ -69,27 +80,35 @@ class LocalPlatform:
         self.workdir = workdir
         os.makedirs(workdir, exist_ok=True)
 
-        # A node's identity is stable across restarts (host + workdir),
-        # so a restarted node's supervise sweep finds its own rows. Two
-        # live primaries on one workdir would each judge the other's
-        # services dead: an exclusive flock, held for the process's
-        # life, refuses the second before it opens anything.
-        wd = hashlib.sha1(os.path.abspath(workdir).encode()).hexdigest()[:8]
-        node_id = f"{socket.gethostname()}/{wd}"
-        self._lock_fd = os.open(os.path.join(workdir, "node.lock"),
-                                os.O_CREAT | os.O_RDWR, 0o644)
-        try:
-            fcntl.flock(self._lock_fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
-        except OSError:
-            os.close(self._lock_fd)
-            self._lock_fd = None
-            raise RuntimeError(
-                f"another primary node already serves workdir {workdir!r} "
-                f"(node_id {node_id}); a second one would supervise-kill "
-                f"the first's workers. Use a different workdir.") from None
+        # A primary's identity is stable across restarts (host +
+        # workdir), so a restarted node's supervise sweep finds its own
+        # rows. Two live primaries on one workdir would each judge the
+        # other's services dead: an exclusive flock, held for the
+        # process's life, refuses the second before it opens anything.
+        # A join node names itself and shares the workdir by design.
+        self._lock_fd = None
+        if not node_id:
+            wd = hashlib.sha1(
+                os.path.abspath(workdir).encode()).hexdigest()[:8]
+            node_id = f"{socket.gethostname()}/{wd}"
+            self._lock_fd = os.open(os.path.join(workdir, "node.lock"),
+                                    os.O_CREAT | os.O_RDWR, 0o644)
+            try:
+                fcntl.flock(self._lock_fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            except OSError:
+                os.close(self._lock_fd)
+                self._lock_fd = None
+                raise RuntimeError(
+                    f"another primary node already serves workdir "
+                    f"{workdir!r} (node_id {node_id}); a second one would "
+                    f"supervise-kill the first's workers. Use a different "
+                    f"workdir, or join the cluster with `rafiki_torch "
+                    f"join`.") from None
 
-        self.meta = MetaStore(os.path.join(workdir, "meta.db"))
-        self.params = ParamStore(os.path.join(workdir, "params"))
+        meta_uri = os.path.join(workdir, "meta.db")
+        params_dir = os.path.join(workdir, "params")
+        self.meta = MetaStore(meta_uri)
+        self.params = ParamStore(params_dir)
         self.bus = connect(bus_uri)
         self.ctx = SystemContext(meta=self.meta, params=self.params,
                                  bus=self.bus, device_type=self.device.type)
@@ -97,7 +116,9 @@ class LocalPlatform:
         self.allocator = ChipAllocator(n_chips, device=self.device)
         self.services = ServicesManager(
             self.meta, self.container, self.allocator, node_id,
-            log_dir=os.path.join(workdir, "logs"))
+            log_dir=os.path.join(workdir, "logs"), meta_uri=meta_uri,
+            params_dir=params_dir, bus_uri=bus_uri,
+            adopt_unowned=adopt_unowned)
         # Every service thread of this process (HTTP edges, batcher,
         # workers) appends its spans here.
         observe_trace.configure(self.services.log_dir)
@@ -137,6 +158,16 @@ class LocalPlatform:
                                            daemon=True)
         self._heartbeat.start()
 
+    @classmethod
+    def from_config(cls, cfg, http: bool = False,
+                    device: DeviceLike = None) -> "LocalPlatform":
+        """Construct from one validated ``NodeConfig`` (the ``serve``
+        CLI's path)."""
+        return cls(workdir=cfg.workdir, n_chips=cfg.n_chips, http=http,
+                   admin_port=cfg.port, bus_uri=cfg.bus_uri,
+                   supervise_interval=cfg.supervise_interval,
+                   device=device)
+
     @property
     def admin_port(self) -> int:
         assert self.app is not None, "platform started without http=True"
@@ -149,16 +180,22 @@ class LocalPlatform:
         self._heartbeat.join(timeout=5)
         if self.app is not None:
             self.app.stop()
-        for job in self.meta.get_train_jobs(status="RUNNING"):
-            self.services.stop_train_services(job["id"])
-        for job in self.meta.get_inference_jobs(status="RUNNING"):
-            self.services.stop_inference_services(job["id"])
+        if self.stop_jobs_on_shutdown:
+            for job in self.meta.get_train_jobs(status="RUNNING"):
+                self.services.stop_train_services(job["id"])
+            for job in self.meta.get_inference_jobs(status="RUNNING"):
+                self.services.stop_inference_services(job["id"])
+        # Either way, stop what this node launched: a leaving join node
+        # must leave no RUNNING row to read as a live remote worker.
         self.services.stop_own_services()
         self.meta.close()
         self.params.close()
         observe_trace.release(self.services.log_dir)
         observe_workload.configure(None)
-        MemoryBus.reset_shared()
+        if isinstance(self.bus, MemoryBus):
+            MemoryBus.reset_shared()
+        else:
+            self.bus.close()
         if self._lock_fd is not None:  # releases the flock too
             os.close(self._lock_fd)
             self._lock_fd = None

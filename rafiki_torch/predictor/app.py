@@ -44,6 +44,9 @@ A service is built one of two ways:
   micro-batching is off; each bin's slice is sharded over its replicas
   unless sharding is off. A bin that does not answer within the gather
   timeout loses its vote; a query no bin answered comes back null.
+  A service process (``container/services.py``) builds it on the port
+  ``RAFIKI_TPU_PORT`` names (0, the default, picks a free one) and
+  runs it in the foreground (``run``) until SIGTERM stops it.
 
 Each knob resolves as the reference's: an explicit argument, then its
 ``RAFIKI_TPU_SERVING_*`` variable (``NodeConfig.apply_env`` exports
@@ -211,6 +214,7 @@ class PredictorService:
         self._direct_cap = 0
         self._direct_pending: Dict[str, int] = {}
         self._direct_lock = threading.Lock()
+        self._stopped = threading.Event()
         self.stats = ServingStats(
             service=_label or f"local-{uuid.uuid4().hex[:4]}")
         self._http = JsonHttpServer([
@@ -314,6 +318,12 @@ class PredictorService:
                 queue_cap=qcap, client_share=share, stats=svc.stats)
         return svc
 
+    def run(self) -> None:
+        """A service process's foreground: start, then wait until
+        ``stop`` (SIGTERM's handler) has stopped the service."""
+        self.start()
+        self._stopped.wait()
+
     def start(self) -> "PredictorService":
         if self.batcher is not None:
             self.batcher.start()
@@ -348,6 +358,7 @@ class PredictorService:
         if self.meta is not None:
             self.meta.update_service(self.service_id,
                                      status=ServiceStatus.STOPPED)
+        self._stopped.set()
 
     @property
     def running(self) -> bool:

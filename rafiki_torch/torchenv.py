@@ -10,12 +10,30 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import os
 import threading
-from typing import Any, Iterator, Optional, Union
+from typing import Any, Iterator, Mapping, Optional, Union
 
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+
+#: The device type a service process runs on, ``cuda`` or ``cpu``: the
+#: reference's resolved-platform variable, which its children honour.
+#: A ``ServicesManager`` writes its node's device type into every
+#: service's environment.
+PLATFORM_ENV = "RAFIKI_TPU_PLATFORM"
+
+
+def env_device(env: Optional[Mapping[str, str]] = None) -> torch.device:
+    """The device ``PLATFORM_ENV`` names in ``env`` (``os.environ`` by
+    default), resolved: unset means CUDA, which raises without a card;
+    any other word than ``cuda`` or ``cpu`` raises ``ValueError``."""
+    env = os.environ if env is None else env
+    raw = (env.get(PLATFORM_ENV) or "cuda").strip().lower()
+    if raw not in ("cuda", "cpu"):
+        raise ValueError(f"{PLATFORM_ENV}={raw!r}: expected cuda or cpu")
+    return resolve_device(raw)
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -49,6 +67,9 @@ def sync(device: Optional[torch.device] = None) -> None:
 #: the graph or breaks the capture, and a capture's start synchronises
 #: the device, which breaks a capture running on another thread. Two
 #: inference workers building their first runners at once did both.
+#: The lock is the process's own: a service process on the same card
+#: has a CUDA context, streams and graph pools of its own, and captures
+#: there are not ordered against captures here.
 _CAPTURE_LOCK = threading.Lock()
 
 

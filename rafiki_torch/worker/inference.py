@@ -73,8 +73,19 @@ loop stops it once its deadline passes, or when the loop ends. The loop
 also resolves, each lap, the held spans of traces minted in another
 process (``trace.flush_remote_expired``).
 
-Not ported yet: the bus reconnect loop and the periodic
-re-registration.
+The worker outlives its bus. A broker keeps its queues and registry in
+memory, so a restarted broker has forgotten every registration: the
+worker re-asserts its registration every ``RAFIKI_TPU_WORKER_REREGISTER``
+seconds (5 by default), and a bus failure in the serve loop (the broker
+gone mid-pop) is absorbed: the burst in flight is completed if it can
+be, the worker waits a second, registers again and serves on, without a
+supervise restart. A broker that keeps REPORTING failures
+(``BusOpError``: a protocol mismatch, not an outage) for more than
+``RAFIKI_TPU_WORKER_MAX_OP_ERRORS`` laps in a row (30) with no good lap
+between is a fault: the loop raises and the service goes ERRORED.
+``kill()`` is the hard stop: the worker leaves its row RUNNING and its
+registration standing, what a dead node leaves, so the supervise sweep
+is what notices.
 """
 
 from __future__ import annotations
@@ -92,7 +103,7 @@ from typing import Any, Dict, List, Optional, Tuple, Type
 import numpy as np
 import torch
 
-from ..bus import BaseBus
+from ..bus import BaseBus, BusOpError
 from ..cache import (DRAIN_KEY, PROFILE_KEY, RESTACK_KEY, WIRE_NDBATCH,
                      Cache, TokenFrames)
 from ..config import parse_tristate_bool
@@ -580,6 +591,14 @@ class BusInferenceWorker:
         self._gen_thread: Optional[threading.Thread] = None
         self._reg_info: Dict[str, Any] = {}
         self._attr_closed = False
+        # The registration is a lease, re-asserted this often.
+        self.reregister_interval = float(os.environ.get(
+            "RAFIKI_TPU_WORKER_REREGISTER", "5.0"))
+        # Reported bus failures in a row before the worker errors out.
+        self.max_op_errors = int(os.environ.get(
+            "RAFIKI_TPU_WORKER_MAX_OP_ERRORS", "30"))
+        # Set by kill(): the loop's exit skips the clean shutdown.
+        self.hard_killed = False
         self.stop_flag = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.model: Optional[Any] = None
@@ -597,6 +616,15 @@ class BusInferenceWorker:
         return self
 
     def stop(self, join_timeout: float = 10.0) -> None:
+        self.stop_flag.set()
+        if self._thread is not None:
+            self._thread.join(timeout=join_timeout)
+
+    def kill(self, join_timeout: float = 10.0) -> None:
+        """The hard stop: the serve loop exits at its next pop and the
+        worker dies without marking its row or unregistering (a burst
+        already in flight still completes)."""
+        self.hard_killed = True
         self.stop_flag.set()
         if self._thread is not None:
             self._thread.join(timeout=join_timeout)
@@ -664,6 +692,9 @@ class BusInferenceWorker:
     # --- The loop ---
 
     def run(self) -> None:
+        from ..utils.service_logs import bind_service_log
+
+        bind_service_log(getattr(self, "log_path", None))
         try:
             self.model, score = self._load_model()
             # The runners (CUDA graphs on the card) are built before the
@@ -706,10 +737,18 @@ class BusInferenceWorker:
             self.meta.update_service(self.service_id,
                                      status=ServiceStatus.ERRORED)
             raise
+        killed = False
         try:
             self._serve_loop()
             self._stop_generate()
             self._close_attr_owner()
+            if self.hard_killed:
+                # A dead node's wreckage: the row stays RUNNING and the
+                # registration stale; what is the process's own goes.
+                killed = True
+                _log.error("inference worker %s killed: row left RUNNING, "
+                           "registration stale", self.service_id)
+                return
             self.meta.update_service(self.service_id,
                                      status=ServiceStatus.STOPPED)
         except Exception:
@@ -721,10 +760,19 @@ class BusInferenceWorker:
             raise
         finally:
             self._stop_profile()
-            self.cache.unregister_worker(self.inference_job_id,
-                                         self.service_id)
+            if not killed:
+                self._unregister_best_effort()
             if self.model is not None:
                 self.model.destroy()
+
+    def _unregister_best_effort(self) -> None:
+        """Drop the registration on the way out; a broker that is gone
+        forgot it anyway."""
+        try:
+            self.cache.unregister_worker(self.inference_job_id,
+                                         self.service_id)
+        except (ConnectionError, OSError, RuntimeError):
+            pass
 
     def _start_profile(self, req: Any) -> None:
         """Apply one ``__profile__`` marker: begin a bounded device
@@ -755,42 +803,87 @@ class BusInferenceWorker:
         """Pop, dispatch, complete. With pipelining on, the burst just
         dispatched stays pending while the next pop (which does not
         wait) and dispatch run; markers apply after the burst they came
-        with, in queue order."""
+        with, in queue order. The registration is re-asserted every
+        ``reregister_interval`` seconds; a bus failure costs the burst
+        in flight at most (its clients time out and retry), then a
+        second's wait and a new registration."""
         pending = None
+        last_reg = time.monotonic()
+        op_errors = 0
         while not self.stop_flag.is_set():
-            items = self.cache.pop_queries(
-                self.service_id, max_items=self.MAX_BATCH,
-                timeout=0.0 if pending is not None else self.BATCH_TIMEOUT)
-            draining = any(DRAIN_KEY in it for it in items)
-            restacks = [it[RESTACK_KEY] for it in items if RESTACK_KEY in it]
-            for it in items:
-                if PROFILE_KEY in it:
-                    self._start_profile(it[PROFILE_KEY])
-                elif it.get("op") == "generate":
-                    self._route_generate(it)
-            items = [it for it in items if DRAIN_KEY not in it
-                     and RESTACK_KEY not in it and PROFILE_KEY not in it
-                     and it.get("op") != "generate"]
-            handle = self._dispatch_batch(items) if items else None
-            # Everything queued before a restack marker, this burst
-            # included, was dispatched to the old member set.
-            for req in restacks:
-                self._restack_member(req)
-            if not self.pipeline and handle is not None:
-                self._complete_batch(*handle)
-                handle = None
-            if pending is not None:
-                self._complete_batch(*pending)
-            pending = handle
-            # Held spans resolve on span writes; an idle worker writes
-            # none, so sweep here (one lock check when nothing waits).
-            trace.flush_remote_expired()
-            if self._profile is not None and \
-                    self._profile.expired(time.monotonic()):
-                self._stop_profile()
-            if draining:
-                _log.info("inference worker %s drained", self.service_id)
-                break
+            try:
+                if time.monotonic() - last_reg >= self.reregister_interval:
+                    self.cache.register_worker(self.inference_job_id,
+                                               self.service_id,
+                                               info=self._reg_info)
+                    last_reg = time.monotonic()
+                items = self.cache.pop_queries(
+                    self.service_id, max_items=self.MAX_BATCH,
+                    timeout=(0.0 if pending is not None
+                             else self.BATCH_TIMEOUT))
+                draining = any(DRAIN_KEY in it for it in items)
+                restacks = [it[RESTACK_KEY] for it in items
+                            if RESTACK_KEY in it]
+                for it in items:
+                    if PROFILE_KEY in it:
+                        self._start_profile(it[PROFILE_KEY])
+                    elif it.get("op") == "generate":
+                        self._route_generate(it)
+                items = [it for it in items if DRAIN_KEY not in it
+                         and RESTACK_KEY not in it
+                         and PROFILE_KEY not in it
+                         and it.get("op") != "generate"]
+                handle = self._dispatch_batch(items) if items else None
+                # Everything queued before a restack marker, this burst
+                # included, was dispatched to the old member set.
+                for req in restacks:
+                    self._restack_member(req)
+                    last_reg = time.monotonic()
+                if not self.pipeline and handle is not None:
+                    self._complete_batch(*handle)
+                    handle = None
+                if pending is not None:
+                    self._complete_batch(*pending)
+                pending = handle
+                op_errors = 0
+                # Held spans resolve on span writes; an idle worker
+                # writes none, so sweep here (one lock check when
+                # nothing waits).
+                trace.flush_remote_expired()
+                if self._profile is not None and \
+                        self._profile.expired(time.monotonic()):
+                    self._stop_profile()
+                if draining:
+                    _log.info("inference worker %s drained",
+                              self.service_id)
+                    break
+            except (ConnectionError, OSError, RuntimeError) as e:
+                # A transport failure heals when the broker is back, so
+                # it is retried for ever; a reported one that persists
+                # does not.
+                if isinstance(e, BusOpError):
+                    op_errors += 1
+                    if op_errors > self.max_op_errors:
+                        raise
+                else:
+                    op_errors = 0
+                _log.warning("inference worker %s lost the bus; "
+                             "registering again and serving on",
+                             self.service_id, exc_info=True)
+                if pending is not None:
+                    try:
+                        self._complete_batch(*pending)
+                    except (ConnectionError, OSError, RuntimeError):
+                        pass  # the burst is lost; its clients retry
+                    pending = None
+                self.stop_flag.wait(1.0)
+                try:
+                    self.cache.register_worker(self.inference_job_id,
+                                               self.service_id,
+                                               info=self._reg_info)
+                    last_reg = time.monotonic()
+                except (ConnectionError, OSError, RuntimeError):
+                    pass  # the broker is still down; the next lap retries
         if pending is not None:
             self._complete_batch(*pending)
 

@@ -7,6 +7,11 @@ the loop to ``TrialRunner``, which builds every model on its chip
 group's device. Its service row goes RUNNING, then STOPPED when the
 budget is spent (or its stop flag is set), or ERRORED when it crashes.
 
+``TrainWorker.from_env`` builds one from a service process's
+environment (the stores, the bus, the chip group and the device that
+``RAFIKI_TPU_PLATFORM`` names). A worker given a log file
+(``log_path``) writes its thread's records there.
+
 The reference also wraps the advisor in a ``PrefetchAdvisor`` and runs
 the runner with ``pipeline_persist``; neither is ported yet (ROADMAP,
 queue 1), so each trial asks the advisor when it starts and persists
@@ -16,12 +21,13 @@ inline.
 from __future__ import annotations
 
 import logging
+import os
 import threading
-from typing import Any, Optional
+from typing import Any, Mapping, Optional
 
 from ..advisor.worker import RemoteAdvisor
-from ..bus import BaseBus
-from ..constants import ServiceStatus
+from ..bus import BaseBus, connect
+from ..constants import EnvVars, ServiceStatus
 from ..parallel.chips import ChipGroup
 from ..store import MetaStore, ParamStore
 from ..torchenv import DeviceLike, resolve_device
@@ -49,6 +55,23 @@ class TrainWorker:
         self.stop_flag = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None,
+                 ) -> "TrainWorker":
+        """The worker a service environment (``os.environ`` by default)
+        names, on the device ``RAFIKI_TPU_PLATFORM`` names."""
+        from ..torchenv import env_device
+
+        env = environ if environ is not None else dict(os.environ)
+        device = env_device(env)
+        chips = (ChipGroup.from_env(env[EnvVars.CHIPS], device.type)
+                 if env.get(EnvVars.CHIPS) else None)
+        return cls(env[EnvVars.SERVICE_ID], env[EnvVars.SUB_TRAIN_JOB_ID],
+                   MetaStore(env[EnvVars.META_URI]),
+                   ParamStore(env[EnvVars.PARAMS_DIR]),
+                   connect(env.get(EnvVars.BUS_URI, "")), chips=chips,
+                   device=device)
+
     # --- Service lifecycle ---
 
     def start(self) -> "TrainWorker":
@@ -69,6 +92,9 @@ class TrainWorker:
     # --- The loop ---
 
     def run(self) -> None:
+        from ..utils.service_logs import bind_service_log
+
+        bind_service_log(getattr(self, "log_path", None))
         sub = self.meta.get_sub_train_job(self.sub_id)
         if sub is None:
             raise ValueError(f"unknown sub_train_job {self.sub_id}")

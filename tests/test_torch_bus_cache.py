@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 
 from rafiki_torch import cache as pc
+from rafiki_torch.bus import BusClient as PortBusClient
+from rafiki_torch.bus import BusServer as PortBusServer
 from rafiki_torch.bus import MemoryBus as PortBus
 from rafiki_torch.bus import connect as port_connect
 from rafiki_torch.predictor.predictor import \
@@ -144,8 +146,14 @@ def test_memory_bus_answers_as_the_reference():
     assert _bus_script(PortBus()) == _bus_script(RefBus())
     assert port_connect("") is PortBus.shared()
     assert port_connect("memory://") is PortBus.shared()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_connect("tcp://127.0.0.1:6380")
+    server = PortBusServer().start()
+    try:
+        client = port_connect(server.uri)
+        assert isinstance(client, PortBusClient)
+        assert client.ping()
+        client.close()
+    finally:
+        server.stop()
     with pytest.raises(ValueError):
         port_connect("redis://x")
 

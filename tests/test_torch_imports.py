@@ -78,7 +78,9 @@ def test_importing_the_port_loads_no_jax():
                 "rafiki_torch.predictor.predictor",
                 "rafiki_torch.utils.service",
                 "rafiki_torch.observe.attribution",
-                "rafiki_torch.observe.workload"):
+                "rafiki_torch.observe.workload", "rafiki_torch.__main__",
+                "rafiki_torch.bus.tcp", "rafiki_torch.bus.native",
+                "rafiki_torch.utils.service_logs"):
         assert mod in mods, mod
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -133,6 +135,31 @@ def test_the_platform_imports_without_jax_the_reference_or_requests():
             f"sys.meta_path.insert(0, Block())\n"
             f"for m in ('rafiki_torch.platform', 'rafiki_torch.client',\n"
             f"          'rafiki_torch.quickstart'):\n"
+            f"    importlib.import_module(m)\n"
+            f"loaded = sorted(m for m in sys.modules\n"
+            f"                if m.split('.')[0] in {blocked!r})\n"
+            f"print(loaded)\n"
+            f"sys.exit(1 if loaded else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_process_entries_import_with_jax_sklearn_and_pil_blocked():
+    """What a node's processes run (the CLI, the TCP and native brokers,
+    the service entry) imports with ``jax``, ``rafiki_tpu``,
+    ``requests``, ``sklearn`` and ``PIL`` blocked, and loads none."""
+    blocked = ("jax", "jaxlib", "rafiki_tpu", "requests", "sklearn", "PIL")
+    code = (f"import importlib, importlib.abc, sys\n"
+            f"class Block(importlib.abc.MetaPathFinder):\n"
+            f"    def find_spec(self, name, path=None, target=None):\n"
+            f"        if name.split('.')[0] in {blocked!r}:\n"
+            f"            raise ImportError(f'{{name}} is blocked')\n"
+            f"        return None\n"
+            f"sys.meta_path.insert(0, Block())\n"
+            f"for m in ('rafiki_torch.__main__', 'rafiki_torch.bus.tcp',\n"
+            f"          'rafiki_torch.bus.native',\n"
+            f"          'rafiki_torch.container.services'):\n"
             f"    importlib.import_module(m)\n"
             f"loaded = sorted(m for m in sys.modules\n"
             f"                if m.split('.')[0] in {blocked!r})\n"

@@ -254,8 +254,12 @@ def test_serving_stats_snapshot_equals_the_reference():
     assert snaps[0]["coalescing_factor"] == 1.5
 
 
+# The serving part of NodeConfig (the node's own fields are held
+# against the reference in test_torch_node_config.py).
 SERVING_FIELDS = [f.name for f in
-                  pconfig.NodeConfig.__dataclass_fields__.values()]
+                  pconfig.NodeConfig.__dataclass_fields__.values()
+                  if f.name.startswith(("serving_", "pipeline_",
+                                        "workload_"))]
 
 
 def test_nodeconfig_serving_defaults_equal_the_reference():
