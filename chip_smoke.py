@@ -293,13 +293,45 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    answering (d)'s single queries bit for bit, none alive after
    ``destroy_service``. No child outlives the phase; the children load
    the kernels and build none; the phase must take at most 100 s;
-16. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
+16. cluster phase, the fault plane and the cluster serving fabric over
+   TCP brokers in this process, with zoo2 (b)'s ViT trials (the
+   reference's widths, 6 blocks) served from ``LocalPlatform``s: (a)
+   with the fabric off and no fault plan, a deployed bin and its
+   frontends register no ``rafiki_tpu_node_*``, ``_bus_relay_*``,
+   ``_serving_fabric_*`` or ``_fault_injections_total`` series and
+   ``GET /nodes`` answers ``{"enabled": false}``; (b) two frontends of
+   the job with an edge cache admitting on first touch, 8 unique images
+   sent to each: 16 queries reach the device with the fabric off, 8 with
+   it on, with 8 peer hits each bit for bit the scatter's answer; (c) a
+   promote through ``Admin`` acknowledged by both frontends, whose next
+   queries miss and scatter again, and a direct ``POST
+   /cache/invalidate`` gossiped to the other frontend, whose next query
+   misses; (d) two node-scoped brokers, peered, a ViT worker popping
+   from the second: a scatter from the first node through the relay
+   answers as a local scatter, the relay counters reading out +2, in +2,
+   fallback +0 once the hops have landed, then a relay push to the
+   stopped second broker counts one fallback within the retry budget;
+   (e) two ``LocalPlatform`` nodes on one workdir: ``GET /nodes`` lists
+   both live, ``/status`` gives ``cluster.nodes_live`` 2, and a node's
+   shutdown withdraws its record; (f) the stack armed quietly, a clean
+   window, then ``worker.crash:n=1;bus.delay:p=0.02,ms=2`` under 8
+   clients against a bin of two replicas, one on each node: every query
+   answered, the crash counted once, ``supervise`` respawning the
+   replica (its runner builds launching K1 on wgmma) back into the shard
+   plan, the seconds from the death to the full plan printed; then
+   ``node.kill`` of the secondary node, the bin answering from the
+   primary's replica until the secondary's next sweep respawns its own;
+   then ``http.error:route=/predict,n=1``, exactly one 503; (g) memory
+   bus push+pop operations a second, disarmed against armed with no
+   rules (a record, no limit). The phase must take at most 90 s;
+17. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
    ``library_covers`` names the kernels whose work one library call does,
    ``platform_launches``, ``zoo_launches``, ``ensemble_launches``,
-   ``zoo2_launches``, ``lifecycle_launches``, ``tenants_launches`` and
-   ``processes_launches`` the platform, zoo, ensemble, zoo2, lifecycle,
-   tenants and processes phases' launches (the platform's, zoo2's,
-   lifecycle's, tenants' and the processes' children's counted in
+   ``zoo2_launches``, ``lifecycle_launches``, ``tenants_launches``,
+   ``processes_launches`` and ``cluster_launches`` the platform, zoo,
+   ensemble, zoo2, lifecycle, tenants, processes and cluster phases'
+   launches (the platform's, zoo2's, lifecycle's, tenants', the
+   processes' children's and the cluster phase's counted in
    ``launches`` too; ``processes_trace_events`` each kernel's events in
    the join node's trial trace), K2's and K3's ``f32`` their f32 variants' numbers,
    ``zoo2_shapes`` each
@@ -761,6 +793,23 @@ def _report():
 
 atexit.register(_report)
 """
+# The cluster phase serves zoo2 (b)'s ViT trials (the reference's
+# widths, 6 blocks, one epoch). (b) sends CLUSTER_IMAGES unique images to
+# each of two frontends whose edge caches admit on first touch; (f) runs
+# CLUSTER_CLIENTS closed-loop clients against a bin of two replicas, a
+# clean window of CLUSTER_CLEAN_S, then the crash; (g) times
+# CLUSTER_BUS_OPS push+pop pairs on a memory bus each way, twice.
+CLUSTER_IMAGES = 8
+CLUSTER_CACHE_BYTES = 64 << 20
+CLUSTER_PROBE_S = 2.0
+CLUSTER_CLIENTS = 8
+CLUSTER_CLEAN_S = 2.0
+CLUSTER_GATHER_S = 4.0
+CLUSTER_CHAOS_PLAN = "worker.crash:n=1;bus.delay:p=0.02,ms=2"
+CLUSTER_SEED = 16
+CLUSTER_BUS_OPS = 100000
+CLUSTER_WAIT_S = 60.0
+CLUSTER_MAX_S = 90.0
 # K1's o at the zoo's shapes against its plain version, bf16: each p is
 # rounded to bf16 before p·v, and where the kernel's exp and the plain
 # version's round one p to neighbouring bf16 values the row moves by up
@@ -6500,6 +6549,566 @@ def processes_phase(torch, np, attn, card):
     return out
 
 
+CLUSTER_FAMILIES = ("rafiki_tpu_node_", "rafiki_tpu_bus_relay_",
+                    "rafiki_tpu_serving_fabric_",
+                    "rafiki_tpu_fault_injections_total")
+
+
+def cluster_families(metrics):
+    """The cluster fabric's and the fault plane's families in the
+    process registry."""
+    fams = set()
+    for line in metrics.registry().expose().splitlines():
+        name = line.split("{")[0].split(" ")[0]
+        if line and not line.startswith("#") \
+                and name.startswith(CLUSTER_FAMILIES):
+            fams.add(name)
+    return sorted(fams)
+
+
+def cluster_trials(plat, root, trials, name, n):
+    """A STOPPED train job holding the first ``n`` of zoo2 (b)'s ViT
+    trials (best first) in ``plat``'s stores: ``(job, trial ids)``."""
+    from rafiki_torch.constants import TaskType
+
+    model = plat.admin.create_model(root["id"], name,
+                                    TaskType.IMAGE_CLASSIFICATION,
+                                    "rafiki_torch.models.vit:TorchViT")
+    job = plat.meta.create_train_job(root["id"], name,
+                                     TaskType.IMAGE_CLASSIFICATION, {}, "-",
+                                     "-", "STOPPED")
+    sub = plat.meta.create_sub_train_job(job["id"], model["id"], "STOPPED")
+    tids = []
+    for i, (knobs, p, score) in enumerate(trials[:n]):
+        t = plat.meta.create_trial(sub["id"], model["id"], i + 1, "RUNNING",
+                                   knobs=knobs)
+        plat.meta.mark_trial_completed(t["id"], score,
+                                       plat.params.save(p, session_id=name))
+        tids.append(t["id"])
+    return job, tids
+
+
+def replicas_in_plan(predictor):
+    groups, _, _ = predictor._group_replicas()
+    return sum(len(members) for members in groups.values())
+
+
+def cluster_phase(torch, np, attn, card, zoo2):
+    """The fault plane and the cluster serving fabric on the card, with
+    zoo2 (b)'s ViT trials (6 blocks) served from ``LocalPlatform``s
+    over TCP brokers in this process: (a) no cluster or fault surface
+    with the fabric off and no plan; (b) two frontends' edge caches,
+    fabric off and on; (c) a promote's fan-out and a gossiped
+    invalidation; (d) the relay between two node-scoped brokers, then a
+    dead peer; (e) two nodes in the registry; (f) a worker crash, a
+    node kill and an injected 503 under load on a bin of two replicas;
+    (g) the cost of arming the plane on the memory bus. Returns the
+    phase's numbers and K1-K3 launches."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rafiki_torch import faults
+    from rafiki_torch.bus import BusClient, BusServer, MemoryBus
+    from rafiki_torch.cache import Cache, encode_payload
+    from rafiki_torch.client import Client
+    from rafiki_torch.constants import ServiceStatus, ServiceType
+    from rafiki_torch.observe import metrics
+    from rafiki_torch.platform import LocalPlatform
+    from rafiki_torch.predictor.app import PredictorService
+    from rafiki_torch.worker.inference import BusInferenceWorker
+
+    t_phase = time.perf_counter()
+    reset_launch_counts(attn)
+    trials = zoo2["lifecycle"]["trials"]
+    imgs = zoo2["lifecycle"]["val"][0]
+    check(len(trials) >= 2, f"{len(trials)} ViT trials")
+    keys = ("RAFIKI_TPU_CLUSTER_FABRIC", "RAFIKI_TPU_CLUSTER_PROBE_TIMEOUT_S",
+            faults.PLAN_ENV, faults.SEED_ENV)
+    saved = {k: os.environ.get(k) for k in keys}
+    for k in keys:
+        os.environ.pop(k, None)
+    faults.reset()
+    out = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_")
+    brokers, plats, fronts, workers = [], [], [], []
+    stop = threading.Event()
+    pool = None
+
+    def front(job_id, tag, i):
+        f = PredictorService.for_job(
+            f"cl-{tag}{i}", job_id, None,
+            BusClient(brokers[0].host, brokers[0].port),
+            cache_bytes=CLUSTER_CACHE_BYTES, cache_admit_after=1,
+            microbatch=False)
+        fronts.append(f)
+        return f.start()
+
+    def addr(svc):
+        return f"{svc.host}:{svc.port}"
+
+    def events(svc):
+        return series(metrics, "rafiki_tpu_serving_fabric_total", "event",
+                      service=svc.stats.service)
+
+    def injected(site, kind):
+        return series(metrics, "rafiki_tpu_fault_injections_total", "kind",
+                      site=site).get(kind, 0.0)
+
+    def relay():
+        return series(metrics, "rafiki_tpu_bus_relay_total", "direction")
+
+    def relay_delta(base):
+        now = relay()
+        return {k: now.get(k, 0.0) - base.get(k, 0.0)
+                for k in ("out", "in", "fallback")}
+
+    try:
+        # (a) The fabric off, no plan: a deployed bin and two frontends.
+        check(not faults.enabled() and not cluster_families(metrics),
+              f"cluster or fault series before the phase: "
+              f"{cluster_families(metrics)}")
+        broker = BusServer().start()
+        brokers.append(broker)
+        t0 = time.perf_counter()
+        plat = LocalPlatform(workdir=os.path.join(tmp.name, "p"), http=True,
+                             supervise_interval=0, bus_uri=broker.uri)
+        plats.append(plat)
+        root = plat.meta.get_user_by_email("superadmin@rafiki")
+        job, tids = cluster_trials(plat, root, trials, "vit-cluster", 2)
+        inf = plat.admin.create_inference_job(root["id"], job["id"],
+                                              max_models=1)
+        cache = Cache(plat.bus)
+        wait_for(lambda: len(cache.running_workers(inf["id"])) == 1,
+                 CLUSTER_WAIT_S, "the ViT worker did not register")
+        deploy_s = time.perf_counter() - t0
+        (wid0,) = cache.running_workers(inf["id"])
+        w0 = plat.container.get(wid0)
+        token = Client(admin_port=plat.admin_port).login(
+            "superadmin@rafiki", "rafiki")["token"]
+        nodes_off = json.loads(admin_get(plat.admin_port, "/nodes", token))
+        off = [front(inf["id"], "off", i) for i in range(2)]
+        batch = imgs[:CLUSTER_IMAGES]
+        n0 = w0.queries_served
+        asked_off = [ask(addr(f), x, 120) for f in off for x in batch]
+        served_off = w0.queries_served - n0
+        check(all(s_ == 200 and a is not None for s_, _, a in asked_off),
+              f"(b) fabric off: statuses {[s_ for s_, _, _ in asked_off]}")
+        hooks = {"worker": w0._fault, "bus client": plat.bus._fault,
+                 "admin http": plat.app._http._fault,
+                 "frontend http": off[0]._http._fault,
+                 "services": plat.services._node_faults}
+        fams = cluster_families(metrics)
+        check(nodes_off == {"enabled": False}
+              and plat.node_registry is None
+              and not any(f._fabric or f._m_fabric for f in off)
+              and all(h is None for h in hooks.values()) and not fams,
+              f"(a) surface with the fabric off: /nodes {nodes_off}, "
+              f"hooks {hooks}, series {fams}")
+        print(f"cluster: (a) the fabric off and no plan: the best ViT "
+              f"trial's worker registered {deploy_s:.2f} s after the "
+              f"deploy; GET /nodes {nodes_off}; no fault hook at the "
+              f"worker, the bus client, the HTTP servers or the node; no "
+              f"rafiki_tpu_node_*, _bus_relay_*, _serving_fabric_* or "
+              f"_fault_injections_total series", flush=True)
+        for f in off:
+            f.stop()
+        fronts.clear()
+
+        # (b) The fabric on: the same 8 images to each frontend.
+        os.environ["RAFIKI_TPU_CLUSTER_FABRIC"] = "1"
+        os.environ["RAFIKI_TPU_CLUSTER_PROBE_TIMEOUT_S"] = \
+            str(CLUSTER_PROBE_S)
+        fa, fb = [front(inf["id"], "on", i) for i in range(2)]
+        check(fa._fabric and fb._fabric, "the frontends are off the fabric")
+        n1 = w0.queries_served
+        asked_a = [ask(addr(fa), x, 120) for x in batch]
+        asked_b = [ask(addr(fb), x, 120) for x in batch]
+        served_on = w0.queries_served - n1
+        ev_a, ev_b = events(fa), events(fb)
+        same = all(b[2] == a[2] for a, b in zip(asked_a, asked_b))
+        same_off = all(a[2] == o[2] for a, o in zip(
+            asked_a, asked_off[:CLUSTER_IMAGES]))
+        check(served_off == 2 * CLUSTER_IMAGES
+              and served_on == CLUSTER_IMAGES
+              and ev_b == {"peer_hit": float(CLUSTER_IMAGES)}
+              and ev_a == {"peer_miss": float(CLUSTER_IMAGES)}
+              and all(s_ == 200 for s_, _, _ in asked_a + asked_b)
+              and same and same_off,
+              f"(b) device queries off {served_off}, on {served_on}; "
+              f"events A {ev_a}, B {ev_b}; peer answers equal {same}, the "
+              f"fabric-off answers equal {same_off}")
+        scatter_ms = 1e3 * sum(dt for _, dt, _ in asked_a) / len(asked_a)
+        hit_ms = 1e3 * sum(dt for _, dt, _ in asked_b) / len(asked_b)
+        print(f"cluster: (b) two frontends of the job over the TCP bus, "
+              f"edge caches admitting on first touch, {CLUSTER_IMAGES} "
+              f"unique images to each: {served_off} queries reached the "
+              f"device with the fabric off, {served_on} with it on "
+              f"(ratio {served_off / served_on:.2f}); frontend B's "
+              f"{ev_b.get('peer_hit', 0):.0f} peer hits bit for bit A's "
+              f"scatter answers (and the fabric-off ones); a request "
+              f"{scatter_ms:.2f} ms on A (probe + scatter), {hit_ms:.2f} "
+              f"ms on B (peer hit); on {card}", flush=True)
+        out.update(served_off=served_off, served_on=served_on,
+                   ratio=served_off / served_on, scatter_ms=scatter_ms,
+                   peer_hit_ms=hit_ms)
+
+        # (c) A promote's fan-out, then a direct invalidation's gossip.
+        epochs = (fa.edge_cache.epoch, fb.edge_cache.epoch)
+        t0 = time.perf_counter()
+        plat.admin.promote_trial(inf["id"], tids[1])
+        promote_s = time.perf_counter() - t0
+        acked = (fa.edge_cache.epoch > epochs[0],
+                 fb.edge_cache.epoch > epochs[1])
+        n2 = w0.queries_served
+        ev_a, ev_b = events(fa), events(fb)
+        again = [ask(addr(fa), batch[0], 120), ask(addr(fb), batch[1], 120)]
+        rescattered = w0.queries_served - n2
+        miss_a = events(fa).get("peer_miss", 0) - ev_a.get("peer_miss", 0)
+        miss_b = events(fb).get("peer_miss", 0) - ev_b.get("peer_miss", 0)
+        changed = (again[0][2] != asked_a[0][2],
+                   again[1][2] != asked_b[1][2])
+        check(all(acked) and rescattered == 2 and miss_a == miss_b == 1
+              and all(s_ == 200 for s_, _, _ in again) and all(changed),
+              f"(c) promote: acknowledged {acked}, rescattered "
+              f"{rescattered}, peer misses {miss_a} {miss_b}, answers "
+              f"changed {changed}")
+        ev_a, ev_b = events(fa), events(fb)
+        epoch_b = fb.edge_cache.epoch
+        n3 = w0.queries_served
+        status, _, _ = post(f"{fa.url}/cache/invalidate", {})
+        wait_for(lambda: fb.edge_cache.epoch > epoch_b, 10,
+                 "(c) the gossip did not reach frontend B")
+        sent_ = events(fa).get("gossip_sent", 0) - ev_a.get("gossip_sent", 0)
+        recv_ = events(fb).get("gossip_recv", 0) - ev_b.get("gossip_recv", 0)
+        last = ask(addr(fb), batch[1], 120)
+        check(status == 200 and sent_ == 1 and recv_ == 1
+              and last[0] == 200 and w0.queries_served - n3 == 1
+              and last[2] == again[1][2],
+              f"(c) gossip: status {status}, sent {sent_}, received "
+              f"{recv_}, B's next query {last[0]} with "
+              f"{w0.queries_served - n3} device queries")
+        print(f"cluster: (c) an additive promote through Admin "
+              f"({promote_s:.2f} s, the new bin's worker included) "
+              f"acknowledged by both frontends; their next queries missed "
+              f"and scattered again ({rescattered} device queries on the "
+              f"first bin, the answers now the two bins' vote); a direct "
+              f"POST /cache/invalidate on A gossiped to B (gossip_sent "
+              f"{sent_:.0f}, gossip_recv {recv_:.0f}), whose next query "
+              f"missed and scattered", flush=True)
+        out.update(promote_s=promote_s)
+
+        # (d) The relay between two node-scoped brokers.
+        r1 = BusServer(node_id="smoke/n1").start()
+        brokers.append(r1)
+        r2 = BusServer(node_id="smoke/n2").start()
+        brokers.append(r2)
+        r1.add_peer("smoke/n2", r2.uri)
+        r2.add_peer("smoke/n1", r1.uri)
+        svc2 = plat.meta.create_service(ServiceType.INFERENCE,
+                                        ServiceStatus.DEPLOYING,
+                                        node_id="smoke/n2")
+        w2 = BusInferenceWorker(svc2["id"], "smoke-relay", tids[0],
+                                plat.meta, plat.params,
+                                BusClient(r2.host, r2.port), device="cuda",
+                                node="smoke/n2")
+        workers.append(w2)
+        w2.start()
+        c1 = Cache(BusClient(r1.host, r1.port))
+        c2 = Cache(BusClient(r2.host, r2.port))
+        wait_for(lambda: svc2["id"] in c2.running_workers("smoke-relay"),
+                 CLUSTER_WAIT_S, "(d) the relay's worker did not register")
+        reg = c2.running_worker_info("smoke-relay")[svc2["id"]]
+        enc = [encode_payload(x) for x in batch]
+        base = relay()
+        t0 = time.perf_counter()
+        bid = c1.send_query_shards([(svc2["id"], 0, len(enc), 0)], enc,
+                                   worker_nodes={svc2["id"]: "smoke/n2"},
+                                   local_node="smoke/n1")
+        got = c1.gather_prediction_batches(bid, 1, timeout=120)
+        relay_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 10
+        while relay_delta(base) != {"out": 2, "in": 2, "fallback": 0} \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)  # the reply's 'out' counts once it landed
+        hops = relay_delta(base)
+        base = relay()
+        bid = c2.send_query_shards([(svc2["id"], 0, len(enc), 0)], enc)
+        local = c2.gather_prediction_batches(bid, 1, timeout=120)
+        check(len(got) == 1 and len(local) == 1 and reg["node"] ==
+              "smoke/n2", f"(d) replies {len(got)} relayed, {len(local)} "
+              f"local; registration {reg}")
+        rows = np.stack([np.asarray(p, np.float64)
+                         for p in got[0]["predictions"]])
+        rows_l = np.stack([np.asarray(p, np.float64)
+                           for p in local[0]["predictions"]])
+        check(hops == {"out": 2, "in": 2, "fallback": 0}
+              and relay_delta(base) == {"out": 0, "in": 0, "fallback": 0}
+              and rows.shape == (CLUSTER_IMAGES, 10)
+              and np.isfinite(rows).all()
+              and np.array_equal(rows, rows_l),
+              f"(d) relay counters {hops}, then {relay_delta(base)}; "
+              f"relayed rows {rows.shape} equal the local scatter's "
+              f"{np.array_equal(rows, rows_l)}")
+        w2.stop()
+        r2.stop()
+        base = relay()
+        t0 = time.perf_counter()
+        c1.bus.relay_push("smoke/n2", "smoke-dead", {"v": 1})
+        dead_s = time.perf_counter() - t0
+        landed = c1.bus.pop("smoke-dead", timeout=2.0)
+        check(relay_delta(base) == {"out": 0, "in": 0, "fallback": 1}
+              and landed == {"v": 1} and dead_s < 10.0,
+              f"(d) dead peer: counters {relay_delta(base)}, landed "
+              f"{landed}, {dead_s:.2f} s")
+        print(f"cluster: (d) two node-scoped Python brokers, peered, a ViT "
+              f"worker (node {reg['node']}) popping from the second: "
+              f"{CLUSTER_IMAGES} images scattered from the first node "
+              f"through the relay in {relay_s * 1e3:.2f} ms (its bucket's "
+              f"runner build included) answered as a local scatter, bit "
+              f"for bit; relay out/in/fallback +{hops['out']:.0f}/"
+              f"+{hops['in']:.0f}/+{hops['fallback']:.0f} once the hops "
+              f"had landed; the second broker stopped, a relay push fell "
+              f"back to the first broker (+1) in {dead_s:.3f} s",
+              flush=True)
+        out.update(relay_ms=relay_s * 1e3, dead_peer_s=dead_s)
+
+        # (e) Two nodes on one workdir, built armed quietly for (f).
+        faults.set_plan("")
+        wq = os.path.join(tmp.name, "q")
+        q1 = LocalPlatform(workdir=wq, http=True, supervise_interval=0,
+                           bus_uri=broker.uri)
+        plats.append(q1)
+        q2 = LocalPlatform(workdir=wq, supervise_interval=0,
+                           bus_uri=broker.uri, node_id="smoke/join",
+                           stop_jobs_on_shutdown=False, adopt_unowned=False)
+        plats.append(q2)
+        token_q = Client(admin_port=q1.admin_port).login(
+            "superadmin@rafiki", "rafiki")["token"]
+        nodes = json.loads(admin_get(q1.admin_port, "/nodes", token_q))
+        status_q = json.loads(admin_get(q1.admin_port, "/status", token_q))
+        want = sorted([q1.services.node_id, "smoke/join"])
+        check(nodes.get("enabled") and sorted(nodes["nodes"]) == want
+              and all(r["live"] for r in nodes["nodes"].values())
+              and status_q.get("cluster", {}).get("nodes_live") == 2,
+              f"(e) GET /nodes {nodes}, /status cluster "
+              f"{status_q.get('cluster')}")
+        print(f"cluster: (e) two LocalPlatform nodes on one workdir and "
+              f"bus: GET /nodes lists {want}, both live (heartbeat ages "
+              f"{[r['heartbeat_age_s'] for r in nodes['nodes'].values()]} "
+              f"s); /status cluster {status_q['cluster']}", flush=True)
+
+        # (f) A bin of two replicas, one a node, under 8 clients.
+        rootq = q1.meta.get_user_by_email("superadmin@rafiki")
+        jobq, tidsq = cluster_trials(q1, rootq, trials, "vit-chaos", 1)
+        infq = q1.admin.create_inference_job(rootq["id"], jobq["id"],
+                                             max_models=1)
+        check(q2.services.add_inference_worker(infq["id"], tidsq[0])
+              is not None, "(f) the secondary admitted no replica")
+        cq = Cache(q1.bus)
+        wait_for(lambda: len(cq.running_workers(infq["id"])) == 2,
+                 CLUSTER_WAIT_S, "(f) the two replicas did not register")
+        hostq = q1.admin.get_inference_job(infq["id"])["predictor_host"]
+        prow = next(s_ for s_ in q1.meta.get_services()
+                    if s_["service_type"] == ServiceType.PREDICT
+                    and s_["status"] == ServiceStatus.RUNNING)
+        predq = q1.container.get(prow["id"]).predictor
+        predq.gather_timeout = CLUSTER_GATHER_S
+        info = cq.running_worker_info(infq["id"])
+        check(predq._node == q1.services.node_id and sorted(
+            i["node"] for i in info.values()) == want,
+            f"(f) the predictor's node {predq._node!r}, the replicas' "
+            f"{[i['node'] for i in info.values()]}")
+        wait_for(lambda: replicas_in_plan(predq) == 2, CLUSTER_WAIT_S,
+                 "(f) the shard plan does not hold both replicas")
+        owner = {sid: (q1 if q1.container.get(sid) is not None else q2)
+                 for sid in info}
+        sent = []
+
+        def load(k):
+            rng = np.random.default_rng(CLUSTER_SEED + k)
+            while not stop.is_set():
+                st, dt, ans = ask(hostq, imgs[int(rng.integers(len(imgs)))],
+                                  120)
+                sent.append((st, ans is not None, dt, time.monotonic()))
+
+        pool = ThreadPoolExecutor(CLUSTER_CLIENTS)
+        futs = [pool.submit(load, k) for k in range(CLUSTER_CLIENTS)]
+        time.sleep(CLUSTER_CLEAN_S)
+        clean = list(sent)
+        crashes = injected("worker", "crash")
+        faults.set_plan(CLUSTER_CHAOS_PLAN, seed=CLUSTER_SEED)
+        dead = []
+
+        def died():
+            dead.extend(s_ for s_, p in owner.items()
+                        if not p.container.get(s_).running)
+            return bool(dead)
+
+        wait_for(died, CLUSTER_WAIT_S, "(f) the injected crash never fired")
+        t_dead = time.monotonic()
+        (dead_id,) = dead
+        node_of_dead = owner[dead_id]
+        row_dead = q1.meta.get_service(dead_id)["status"]
+        stale = dead_id in cq.running_workers(infq["id"])
+        k1_before = launch_counts(attn)
+        restarted = []
+        wait_for(lambda: restarted.extend(node_of_dead.services.supervise())
+                 or restarted, CLUSTER_WAIT_S, "(f) supervise respawned "
+                 "nothing")
+        wait_for(lambda: restarted[0] in cq.running_workers(infq["id"])
+                 and replicas_in_plan(predq) == 2, CLUSTER_WAIT_S,
+                 "(f) the respawned replica is not in the plan")
+        recover_s = time.monotonic() - t_dead
+        k1_after = launch_counts(attn)
+        respawn_k1 = k1_after[0] - k1_before[0]
+        respawn_wg = k1_after[3] - k1_before[3]
+        crashed = injected("worker", "crash") - crashes
+        delays = injected("bus", "delay")
+        check(row_dead == ServiceStatus.RUNNING and stale
+              and crashed == 1 and len(restarted) == 1
+              and respawn_k1 > 0 and respawn_wg == respawn_k1,
+              f"(f) crash: row {row_dead}, registration stale {stale}, "
+              f"counted {crashed}, restarted {restarted}, K1 in the "
+              f"respawn {respawn_k1} ({respawn_wg} wgmma)")
+        owner[restarted[0]] = node_of_dead
+        # The batches the crash caught settle (a gather timeout) before
+        # the next injury: a resubmit racing a second death is a second
+        # fault, which the planner does not claim to survive.
+        time.sleep(CLUSTER_GATHER_S)
+        # The secondary node dies; the primary's replica answers.
+        kills = injected("node", "kill")
+        faults.set_plan("node.kill:op=smoke/join,n=1")
+        spared = q1.services.supervise()
+        q2.services.supervise()
+        t_kill = time.monotonic()
+        killed = injected("node", "kill") - kills
+        victim = [s_ for s_ in cq.running_workers(infq["id"])
+                  if owner.get(s_) is q2]
+        mid = [ask(hostq, x, 120) for x in batch[:4]]
+        respawned = []
+        wait_for(lambda: respawned.extend(q2.services.supervise())
+                 or respawned, CLUSTER_WAIT_S, "(f) the secondary's sweep "
+                 "respawned nothing")
+        wait_for(lambda: respawned[0] in cq.running_workers(infq["id"])
+                 and replicas_in_plan(predq) == 2, CLUSTER_WAIT_S,
+                 "(f) the secondary's new replica is not in the plan")
+        kill_s = time.monotonic() - t_kill
+        stop.set()
+        for f in futs:
+            f.result(timeout=300)
+        pool.shutdown()
+        pool = None
+        ok = sum(1 for st, a, _, _ in sent if st == 200 and a)
+        lost = [(st, a, round(dt, 3), round(t - t_dead, 3),
+                 round(t - t_kill, 3)) for st, a, dt, t in sent
+                if not (st == 200 and a)]
+        resubmits = predq._m_resubmits.value(service=predq.service)
+        quarantines = predq._m_quarantines.value(service=predq.service)
+        check(spared == [] and killed == 1 and len(victim) == 1
+              and q2.container.get(victim[0]) is None
+              and all(st == 200 and a is not None for st, _, a in mid)
+              and len(respawned) == 1 and ok == len(sent) and clean,
+              f"(f) node.kill: the primary's sweep {spared}, counted "
+              f"{killed}, victim {victim}, answers meanwhile "
+              f"{[st for st, _, _ in mid]}, respawned {respawned}; "
+              f"{ok} of {len(sent)} queries answered; not answered "
+              f"(status, answer, seconds, since the crash, since the "
+              f"kill): {lost}; resubmits {resubmits}, quarantines "
+              f"{quarantines}")
+        faults.set_plan("http.error:route=/predict,n=1")
+        statuses = [ask(hostq, x, 120)[0] for x in batch[:4]]
+        check(statuses == [503, 200, 200, 200],
+              f"(f) http.error: statuses {statuses}")
+        faults.set_plan(None)
+        lat = sorted(dt for _, _, dt, _ in sent)
+        print(f"cluster: (f) a bin of two replicas, one on each node, "
+              f"built armed quietly: {len(clean)} queries in a clean "
+              f"{CLUSTER_CLEAN_S:.0f} s window from {CLUSTER_CLIENTS} "
+              f"clients, then {CLUSTER_CHAOS_PLAN!r} (seed {CLUSTER_SEED})"
+              f": the crash counted {crashed:.0f} (on the "
+              f"{'primary' if node_of_dead is q1 else 'secondary'}), "
+              f"{delays:.0f} bus delays; the row left RUNNING and the "
+              f"registration stale until supervise respawned the replica "
+              f"(K1 launched {respawn_k1} times meanwhile, all wgmma: its "
+              f"runner builds and new buckets' captures): "
+              f"{recover_s:.2f} s from the death to the full plan; "
+              f"node.kill of smoke/join: the bin answered "
+              f"{len(mid)} of {len(mid)} queries from the primary's "
+              f"replica, and the secondary's next sweep had its replica "
+              f"back in the plan {kill_s:.2f} s after the kill; "
+              f"availability {ok}/{len(sent)} = {ok / len(sent):.4f} "
+              f"({resubmits:.0f} shards resubmitted, {quarantines:.0f} "
+              f"quarantines), p50 {percentile(lat, 50) * 1e3:.2f} ms, p99 "
+              f"{percentile(lat, 99) * 1e3:.2f} ms; http.error:route="
+              f"/predict,n=1 gave {statuses}", flush=True)
+        out.update(recover_s=recover_s, kill_s=kill_s, queries=len(sent),
+                   availability=ok / len(sent), respawn_k1=respawn_k1)
+
+        # (e) continued: a node's shutdown withdraws its record.
+        q2.shutdown()
+        plats.remove(q2)
+        after = json.loads(admin_get(q1.admin_port, "/nodes", token_q))
+        check(sorted(after["nodes"]) == [q1.services.node_id],
+              f"(e) after the secondary's shutdown: {after['nodes']}")
+        print(f"cluster: (e) the secondary's shutdown withdrew its record: "
+              f"GET /nodes lists {sorted(after['nodes'])}", flush=True)
+
+        # (g) The cost of arming: memory-bus push+pop pairs a second.
+        rates = {"disarmed": [], "armed": []}
+        for mode in ("disarmed", "armed", "armed", "disarmed"):
+            faults.set_plan("" if mode == "armed" else None)
+            bus = MemoryBus()
+            check((bus._fault is not None) == (mode == "armed"),
+                  f"(g) a {mode} bus's hook {bus._fault}")
+            t0 = time.perf_counter()
+            for i in range(CLUSTER_BUS_OPS):
+                bus.push("q", i)
+                bus.pop("q")
+            rates[mode].append(2 * CLUSTER_BUS_OPS
+                               / (time.perf_counter() - t0))
+        faults.set_plan(None)
+        off_r = sum(rates["disarmed"]) / 2
+        on_r = sum(rates["armed"]) / 2
+        print(f"cluster: (g) memory-bus operations a second, push and pop "
+              f"of {CLUSTER_BUS_OPS} items each way, in turns: disarmed "
+              f"{[round(r) for r in rates['disarmed']]}, armed with no "
+              f"rules {[round(r) for r in rates['armed']]}; armed / "
+              f"disarmed {on_r / off_r:.3f}", flush=True)
+        out.update(bus_ops_disarmed=off_r, bus_ops_armed=on_r)
+    finally:
+        stop.set()
+        if pool is not None:
+            pool.shutdown(wait=True)
+        faults.set_plan(None)
+        for f in fronts:
+            f.stop()
+        for w in workers:
+            w.stop()
+        for p in reversed(plats):
+            p.shutdown()
+        for b in brokers:
+            b.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.reset()
+        tmp.cleanup()
+    launches = launch_counts(attn)
+    phase_s = time.perf_counter() - t_phase
+    check(launches[0] > 0 and launches[3] == launches[0],
+          f"the cluster phase launched K1 {launches[0]} times, "
+          f"{launches[3]} on wgmma")
+    check(phase_s <= CLUSTER_MAX_S, f"the cluster phase took {phase_s:.1f} s")
+    print(f"cluster: K1, K2 and K3 launched {launches[:3]} times in the "
+          f"phase (runner builds of six workers and captures at new "
+          f"buckets; replays run uncounted), all K1 on wgmma; phase took "
+          f"{phase_s:.1f} s on {card}", flush=True)
+    out.update(launches=launches[:3], phase_s=phase_s)
+    return out
+
+
 def zoo2_rows(zoo2, kernel):
     """One kernel's numbers at the zoo2 phase's ViT and tagger shapes."""
     return {what: dict(zoo2[part]["kernels"][kernel],
@@ -6573,6 +7182,7 @@ def main() -> int:
             ten = timed("tenants", tenants_phase, torch, np, attn, card,
                         zoo["data"])
         procs = timed("processes", processes_phase, torch, np, attn, card)
+        clus = timed("cluster", cluster_phase, torch, np, attn, card, zoo2)
     except Exception:
         traceback.print_exc()
         return 1
@@ -6583,7 +7193,7 @@ def main() -> int:
              launches=(train_launches[0] + serve_launches + gen_launches
                        + plat_launches[0] + zoo2["launches"][0]
                        + life["launches"][0] + ten["launches"][0]
-                       + procs["launches"][0]),
+                       + procs["launches"][0] + clus["launches"][0]),
              generate_launches=gen_launches,
              platform_launches=plat_launches[0],
              zoo_launches=zoo["launches"][0],
@@ -6593,6 +7203,7 @@ def main() -> int:
              tenants_launches=ten["launches"][0],
              processes_launches=procs["launches"][0],
              processes_trace_events=procs["trace_events"][0],
+             cluster_launches=clus["launches"][0],
              zoo2_shapes=zoo2_rows(zoo2, "K1"),
              zoo2_f32=dict(zoo2["int8"]["k1_f32"], registers=f32_regs),
              generate_buckets=gen["buckets"], **k1, **k1_train),
@@ -6601,7 +7212,8 @@ def main() -> int:
              replaces="rafiki_tpu/ops/attention.py:338",
              launches=(train_launches[1] + plat_launches[1]
                        + zoo2["launches"][1] + life["launches"][1]
-                       + ten["launches"][1] + procs["launches"][1]),
+                       + ten["launches"][1] + procs["launches"][1]
+                       + clus["launches"][1]),
              platform_launches=plat_launches[1],
              zoo_launches=zoo["launches"][1],
              ensemble_launches=ens["launches"][1],
@@ -6610,13 +7222,15 @@ def main() -> int:
              tenants_launches=ten["launches"][1],
              processes_launches=procs["launches"][1],
              processes_trace_events=procs["trace_events"][1],
+             cluster_launches=clus["launches"][1],
              zoo2_shapes=zoo2_rows(zoo2, "K2"), **k2),
         dict(name="flash_bwd_dkv (K3)", route="cuda",
              source=src + "flash_bwd_dkv.cu",
              replaces="rafiki_tpu/ops/attention.py:401",
              launches=(train_launches[2] + plat_launches[2]
                        + zoo2["launches"][2] + life["launches"][2]
-                       + ten["launches"][2] + procs["launches"][2]),
+                       + ten["launches"][2] + procs["launches"][2]
+                       + clus["launches"][2]),
              platform_launches=plat_launches[2],
              zoo_launches=zoo["launches"][2],
              ensemble_launches=ens["launches"][2],
@@ -6625,6 +7239,7 @@ def main() -> int:
              tenants_launches=ten["launches"][2],
              processes_launches=procs["launches"][2],
              processes_trace_events=procs["trace_events"][2],
+             cluster_launches=clus["launches"][2],
              zoo2_shapes=zoo2_rows(zoo2, "K3"), **k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

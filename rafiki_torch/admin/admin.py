@@ -25,8 +25,14 @@ is launched and waited for before the replaced workers stop
 (``ServicesManager.swap_inference_worker``); without
 ``replace_trial_id`` the ensemble grows by one bin. Either way the
 predictor's edge cache is invalidated before the promote returns, so no
-later request is answered from a pre-promotion entry. Promotes are
-serialised by one lock.
+later request is answered from a pre-promotion entry: on every frontend
+the bus's frontend registry names (the cluster fabric), else on the job
+row's one predictor; each must acknowledge, or the promote raises.
+Promotes are serialised by one lock.
+
+The cluster view: ``get_nodes`` is the node registry's snapshot (the
+``GET /nodes`` body; ``{"enabled": false}`` off the fabric), and
+``get_status`` folds its live and registered counts in as ``cluster``.
 
 Observability: ``profile_inference_job`` starts a bounded device
 profile on one live worker of a job (``Cache.send_profile``; the
@@ -36,8 +42,7 @@ counters (``observe.phases``), and ``get_status``'s ``mfu`` reads the
 train loops' ``rafiki_tpu_train_mfu_ratio`` gauge by trial. Time-sliced
 trials each publish their own, so the card's MFU is their sum.
 
-Not ported yet (ROADMAP, queue 1): the autoscaler, nodes, SLOs and
-alerts, capacity, dataset uploads, service logs and attaching train
+Not ported yet (ROADMAP, queue 1): the autoscaler, SLOs and alerts, capacity, dataset uploads, service logs and attaching train
 workers.
 """
 
@@ -553,24 +558,38 @@ class Admin:
                                "restack failed")
 
     def _invalidate_predictor_cache(self, job: Dict[str, Any]) -> None:
-        """``POST /cache/invalidate`` on the job's predictor, which must
-        answer: raises when it does not, since cached pre-promotion
-        answers could otherwise outlive the swap."""
+        """``POST /cache/invalidate`` on each of the job's frontends,
+        each of which must answer: raises when one does not, since its
+        cached (or, through peer probes, re-exported) pre-promotion
+        answers could otherwise outlive the swap. The frontends are the
+        bus's frontend registry's (the cluster fabric); without an entry
+        there, the job row's one predictor."""
         from urllib.request import Request, urlopen
 
-        host = job.get("predictor_host")
-        if not host:
-            return  # no frontend yet: nothing is cached
+        hosts: List[str] = []
         try:
-            req = Request(f"http://{host}/cache/invalidate", data=b"{}",
-                          headers={"Content-Type": "application/json"},
-                          method="POST")
-            with urlopen(req, timeout=10) as resp:
-                json.loads(resp.read())
-        except OSError as e:
-            raise RuntimeError(
-                f"promotion applied but the predictor at {host} did not "
-                f"acknowledge cache invalidation: {e}") from None
+            hosts = sorted(Cache(self.services.serving_bus())
+                           .frontends(job["id"]).values())
+        except (ConnectionError, OSError, RuntimeError):
+            _log.warning("frontend registry unreachable; falling back to "
+                         "the job row's predictor host", exc_info=True)
+        if not hosts:
+            host = job.get("predictor_host")
+            if not host:
+                return  # no frontend yet: nothing is cached
+            hosts = [host]
+        for host in hosts:
+            try:
+                req = Request(f"http://{host}/cache/invalidate",
+                              data=b"{}",
+                              headers={"Content-Type": "application/json"},
+                              method="POST")
+                with urlopen(req, timeout=10) as resp:
+                    json.loads(resp.read())
+            except OSError as e:
+                raise RuntimeError(
+                    f"promotion applied but the predictor at {host} did "
+                    f"not acknowledge cache invalidation: {e}") from None
 
     def get_inference_jobs(self, user_id: str) -> List[Dict[str, Any]]:
         return [dict(j) for j in self.meta.get_inference_jobs(user_id)]
@@ -695,11 +714,21 @@ class Admin:
 
     # --- Node status ---
 
+    def get_nodes(self) -> Dict[str, Any]:
+        """The node registry's snapshot (the ``GET /nodes`` body), or
+        ``{"enabled": false}`` off the cluster fabric."""
+        registry = getattr(self.services, "node_registry", None)
+        if registry is None:
+            return {"enabled": False}
+        return registry.snapshot()
+
     def get_status(self) -> Dict[str, Any]:
         """Chip allocation, running services by type, a per-node view
-        (service counts and heartbeat age) and ``mfu``: each running
+        (service counts and heartbeat age), ``mfu``: each running
         trial's last MFU reading (the train loops'
-        ``rafiki_tpu_train_mfu_ratio`` gauge, by its ``trial`` label)."""
+        ``rafiki_tpu_train_mfu_ratio`` gauge, by its ``trial`` label),
+        and on the cluster fabric ``cluster``, the node registry's
+        health."""
         alloc = self.services.allocator
         by_type: Dict[str, int] = {}
         nodes: Dict[str, Dict[str, Any]] = {}
@@ -725,13 +754,23 @@ class Admin:
         if gauge is not None:
             for labels, value in gauge.samples():
                 mfu[labels.get("trial", "(unlabeled)")] = round(value, 4)
-        return {"n_chips": alloc.n_chips,
-                "free_chips": alloc.free_chips,
-                "chip_allocation": round(alloc.utilization(), 4),
-                "services_running": by_type,
-                "node_id": this_node,
-                "nodes": nodes,
-                "mfu": mfu}
+        out = {"n_chips": alloc.n_chips,
+               "free_chips": alloc.free_chips,
+               "chip_allocation": round(alloc.utilization(), 4),
+               "services_running": by_type,
+               "node_id": this_node,
+               "nodes": nodes,
+               "mfu": mfu}
+        # The node registry also counts live nodes that run no service
+        # yet, which the meta rows above cannot show.
+        registry = getattr(self.services, "node_registry", None)
+        if registry is not None:
+            try:
+                out["cluster"] = registry.health()
+            except (ConnectionError, OSError, RuntimeError):
+                out["cluster"] = {"fabric": True,
+                                  "error": "registry unreachable"}
+        return out
 
 
 def _public_model(m: Dict[str, Any]) -> Dict[str, Any]:

@@ -28,8 +28,12 @@ The port's copy of the routes of ``rafiki_tpu/admin/app.py`` that
                                        (``Admin.profile_inference_job``)
 - ``GET  /trace/<trace_id>``           one trace's spans, in order
 - ``GET  /services``                   service rows
-- ``GET  /status``                     chips, running services and each
-                                       running trial's MFU
+- ``GET  /status``                     chips, running services, each
+                                       running trial's MFU and, on the
+                                       cluster fabric, ``cluster``
+- ``GET  /nodes``                      the cluster node registry
+                                       (``{"enabled": false}`` off the
+                                       fabric)
 - ``GET  /trial_phases``               the trial phases and the cache
                                        counters
 - ``GET  /metrics``                    the process registry
@@ -38,7 +42,7 @@ The port's copy of the routes of ``rafiki_tpu/admin/app.py`` that
 Auth: ``Authorization: Bearer <jwt>`` on everything but ``POST
 /tokens`` and ``GET /metrics``. Every other route of the reference
 answers 404 until it is ported (ROADMAP, queue 1): the dashboard,
-autoscale, nodes, SLO, alerts, capacity, datasets and service logs.
+autoscale, SLO, alerts, capacity, datasets and service logs.
 """
 
 from __future__ import annotations
@@ -80,6 +84,7 @@ class AdminApp:
             ("GET", "/trace/<trace_id>", self._get_trace),
             ("GET", "/services", self._list_services),
             ("GET", "/status", self._status),
+            ("GET", "/nodes", self._nodes),
             ("GET", "/trial_phases", self._trial_phases),
         ], host=host, port=port, name="admin")
         self.host = self._http.host
@@ -233,6 +238,10 @@ class AdminApp:
     def _status(self, params, body, ctx):
         self._auth(ctx)
         return 200, self.admin.get_status()
+
+    def _nodes(self, params, body, ctx):
+        self._auth(ctx)
+        return 200, self.admin.get_nodes()
 
     def _trial_phases(self, params, body, ctx):
         self._auth(ctx)

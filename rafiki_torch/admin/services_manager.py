@@ -41,8 +41,16 @@ workers it replaces, so a bin never loses its vote; and
 ``drain_inference_worker`` retires one worker gracefully (unregistered,
 then a ``__drain__`` marker: it answers what was queued and exits).
 
-Not ported yet: the autoscaler, the SLO engine, the scrape cache, the
-node registry and the scoped-checkpoint sweep.
+On the cluster fabric the platform attaches a node registry
+(``node_registry``, ``admin/nodes.py``), whose announce rides
+``heartbeat``; off it, it stays None. The manager is a ``node`` fault
+site (``faults.site_hook``, resolved when it is built): a ``node.kill``
+whose ``op`` matches this node's id hard-kills every running service it
+owns at the end of a supervise sweep (rows left RUNNING, registrations
+stale), so its next sweep finds the wreckage and respawns it.
+
+Not ported yet: the autoscaler, the SLO engine (the consumers of
+``admin/scrape.py``) and the scoped-checkpoint sweep.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ import os
 import time
 from typing import Any, Dict, List, Optional
 
+from .. import faults
 from ..cache import Cache
 from ..constants import (BudgetOption, EnvVars, InferenceJobStatus,
                          ServiceStatus, ServiceType)
@@ -111,6 +120,11 @@ class ServicesManager:
         # rows are ERRORED, out of the RUNNING scan, so each sweep
         # retries them until a worker lands or the job stops.
         self._pending_respawns: List[Dict[str, Any]] = []
+        # The cluster node registry, attached by the platform only on
+        # the fabric; None costs heartbeat one attribute check.
+        self.node_registry = None
+        # The node.kill site; None when the fault plane is disarmed.
+        self._node_faults = faults.site_hook("node")
 
     # --- Launch plumbing ---
 
@@ -268,8 +282,16 @@ class ServicesManager:
         return time.time() - self.last_heartbeat(svc) <= self.NODE_LEASE
 
     def heartbeat(self) -> None:
-        """Refresh this node's liveness lease."""
+        """Refresh this node's liveness lease, and its node registry
+        record when there is one (a broker outage must not starve the
+        lease)."""
         self.meta.touch_node_services(self.node_id)
+        if self.node_registry is not None:
+            try:
+                self.node_registry.announce()
+            except (ConnectionError, OSError, RuntimeError):
+                _log.warning("node registry announce failed",
+                             exc_info=True)
 
     def train_services_active(self, train_job_id: str) -> bool:
         """True while any TRAIN worker of the job is alive: this node's
@@ -541,7 +563,30 @@ class ServicesManager:
                 pending.pop(0)
         finally:
             self._pending_respawns.extend(pending)
+        if self._node_faults is not None:
+            # At the sweep's end, so what it kills stays dead until the
+            # next sweep respawns it.
+            act = self._node_faults(op=self.node_id)
+            if act is not None and act[0] == "kill":
+                self._kill_node_services()
         return restarted
+
+    def _kill_node_services(self) -> None:
+        """The whole node's death (``node.kill``): hard-kill every
+        RUNNING service this node owns, with no meta update and no chip
+        release; the next sweep's dead-service path does the rest."""
+        victims = [svc for svc in self.meta.get_services()
+                   if svc["status"] == ServiceStatus.RUNNING
+                   and self.is_local(svc)]
+        _log.warning("node.kill fired on node %s: hard-killing %d running "
+                     "services", self.node_id, len(victims))
+        for svc in victims:
+            try:
+                self.container.kill_service(svc["container_id"]
+                                            or svc["id"])
+            except Exception:
+                _log.exception("node.kill: hard kill of %s failed",
+                               svc["id"][:8])
 
     @staticmethod
     def _note_restart(svc: Dict[str, Any],

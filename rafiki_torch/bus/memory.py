@@ -1,7 +1,10 @@
 """In-process bus backend: deques and one condition variable.
 
 The port's copy of ``MemoryBus`` from ``rafiki_tpu/bus/memory.py``
-without the metrics and fault-injection hooks.
+without its latency histogram. Its fault site (``faults.site_hook("bus")``,
+resolved when the bus is built; None when the plane is disarmed) is
+asked before each op: a ``drop`` discards a push, a ``delay`` sleeps,
+a ``disconnect`` raises ``ConnectionError``.
 """
 
 from __future__ import annotations
@@ -11,7 +14,8 @@ import time
 from collections import defaultdict, deque
 from typing import Any, List, Optional
 
-from .base import BaseBus
+from .. import faults
+from .base import BaseBus, queue_kind
 
 
 class MemoryBus(BaseBus):
@@ -38,21 +42,38 @@ class MemoryBus(BaseBus):
         self._cond = threading.Condition(self._lock)
         self._queues: dict = defaultdict(deque)
         self._kv: dict = {}
+        self._fault = faults.site_hook("bus")
+
+    def _inject(self, op: str, queue: str) -> bool:
+        """Ask the fault plan about one op: True discards it."""
+        return faults.should_drop(
+            self._fault(op=op, kind=queue_kind(queue)), op)
 
     # --- Queues ---
 
     def push(self, queue: str, value: Any) -> None:
+        if self._fault is not None and self._inject("push", queue):
+            return
         with self._cond:
             self._queues[queue].append(value)
             self._cond.notify_all()
 
     def push_many(self, items) -> None:
+        if self._fault is not None:
+            items = list(items)
+            if self._inject("push_many", items[0][0] if items else ""):
+                return
         with self._cond:
             for queue, value in items:
                 self._queues[queue].append(value)
             self._cond.notify_all()
 
     def pop(self, queue: str, timeout: float = 0.0) -> Optional[Any]:
+        if self._fault is not None:
+            self._inject("pop", queue)
+        return self._pop(queue, timeout)
+
+    def _pop(self, queue: str, timeout: float) -> Optional[Any]:
         deadline = time.monotonic() + timeout
         with self._cond:
             while not self._queues[queue]:
@@ -67,7 +88,9 @@ class MemoryBus(BaseBus):
 
     def pop_all(self, queue: str, max_items: int = 0,
                 timeout: float = 0.0) -> List[Any]:
-        first = self.pop(queue, timeout)
+        if self._fault is not None:
+            self._inject("pop_all", queue)
+        first = self._pop(queue, timeout)
         if first is None:
             return []
         out = [first]
@@ -97,10 +120,14 @@ class MemoryBus(BaseBus):
     # --- Key-value ---
 
     def set(self, key: str, value: Any) -> None:
+        if self._fault is not None:
+            self._inject("set", key)
         with self._lock:
             self._kv[key] = value
 
     def get(self, key: str) -> Optional[Any]:
+        if self._fault is not None:
+            self._inject("get", key)
         with self._lock:
             return self._kv.get(key)
 

@@ -16,8 +16,9 @@ retrying what the broker cannot have executed and the idempotent ops.
 The broker relays frames addressed to another node's broker
 (``add_peer``), one hop at most.
 
-The reference's fault-injection sites (its ``bus`` site hook) are left
-out: the port has no fault plane yet (ROADMAP, queue 1).
+The client is a ``bus`` fault site (``faults.site_hook``, resolved when
+the client is built): an injected ``disconnect`` also drops the calling
+thread's socket, so the next op reconnects as after a broker's death.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from typing import Any, List, Optional
 
 import time
 
+from .. import faults
 from .base import (BaseBus, bus_op_histogram, bus_reconnect_counter,
                    bus_relay_counter, queue_kind)
 from .memory import MemoryBus
@@ -358,6 +360,8 @@ class BusClient(BaseBus):
         # RAFIKI_TPU_METRICS=0, decided at construction.
         self._hist = bus_op_histogram()
         self._m_reconnects = bus_reconnect_counter()
+        # None when the fault plane is disarmed.
+        self._fault = faults.site_hook("bus")
 
     def _sock(self, timeout_cap: Optional[float] = None,
               ) -> socket.socket:
@@ -393,6 +397,15 @@ class BusClient(BaseBus):
             queue = inner.get("queue")
             if queue is None and inner.get("items"):
                 queue = inner["items"][0].get("queue")
+        if self._fault is not None:
+            op = str(req.get("op"))
+            try:
+                act = self._fault(op=op, kind=queue_kind(queue))
+            except ConnectionError:
+                self._drop()
+                raise
+            if faults.should_drop(act, op):
+                return None
         if self._hist is None:
             return self._call_inner(req)
         t0 = time.monotonic()

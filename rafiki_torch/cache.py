@@ -5,7 +5,10 @@ The port's copy of ``Cache`` from ``rafiki_tpu/cache.py``:
 - queries: ``q:{worker_id}`` (predictor -> one inference worker);
 - replies: ``r:{batch_id}`` (workers -> the waiting predictor), and the
   token frames of a generate request on ``r:{query_id}``;
-- registry: ``w:{inference_job_id}:{worker_id}`` -> worker info (kv).
+- registry: ``w:{inference_job_id}:{worker_id}`` -> worker info (kv),
+  and on the cluster fabric ``f:{inference_job_id}:{instance}`` -> a
+  predictor frontend's HTTP address (``register_frontend``), which peer
+  frontends probe and the admin's invalidation fans out to.
 
 Numpy queries ride the bus base64-framed, one ``__nd__`` frame per
 array. When every query of a shard is an array of one shape and dtype
@@ -41,8 +44,15 @@ a bounded device profile between bursts, ``send_profile``).
 ``TokenFrames`` is a ``Cache`` over a bus of its own: the reply queues
 of an in-process worker's generate requests.
 
-The reference's frontend registry, cross-node relay and single-query
-frames are not ported.
+Across nodes (the cluster fabric), ``send_query_shards`` given a
+worker-to-node map sends the shards bound for another node's workers
+through the bus relay, one ``relay_push_many`` (one inter-node hop) a
+node, each frame stamped ``onode`` with the sender's node; the worker's
+``send_prediction_batch(..., origin_node=)`` relays its reply back to
+that node's broker. Without the map every frame takes the plain
+``push_many``.
+
+The reference's single-query frames are not ported.
 """
 
 from __future__ import annotations
@@ -386,6 +396,26 @@ class Cache:
         return {k[len(prefix):]: self.bus.get(k) or {}
                 for k in self.bus.keys(prefix)}
 
+    # --- Frontend registry (the cluster fabric) ---
+
+    def register_frontend(self, inference_job_id: str, instance: str,
+                          addr: str) -> None:
+        self.bus.set(f"f:{inference_job_id}:{instance}", addr)
+
+    def unregister_frontend(self, inference_job_id: str,
+                            instance: str) -> None:
+        self.bus.delete(f"f:{inference_job_id}:{instance}")
+
+    def frontends(self, inference_job_id: str) -> Dict[str, str]:
+        """instance -> HTTP address of each registered frontend."""
+        prefix = f"f:{inference_job_id}:"
+        out: Dict[str, str] = {}
+        for k in self.bus.keys(prefix):
+            addr = self.bus.get(k)
+            if addr:
+                out[k[len(prefix):]] = str(addr)
+        return out
+
     # --- Query shards (predictor side) ---
 
     def send_query_shards(self, shards: List[tuple],
@@ -394,7 +424,9 @@ class Cache:
                           trace_ctxs: Optional[List] = None,
                           packed: Optional[PackedBatch] = None,
                           packed_ok: Collection[str] = (),
-                          tenants: Optional[List] = None) -> str:
+                          tenants: Optional[List] = None,
+                          worker_nodes: Optional[Dict[str, str]] = None,
+                          local_node: str = "") -> str:
         """Scatter slices of one batch in one ``push_many``. ``shards``
         is ``[(worker_id, start, count, shard_id), ...]``; each frame
         carries its slice and the ``shard`` id its worker echoes back.
@@ -405,16 +437,23 @@ class Cache:
         requests' trace contexts (the envelope). ``tenants``, the batch's
         ``[(tenant, n_queries), ...]``, rides each frame scaled down to
         its slice (rounded down: a share that rounds to nothing goes
-        unattributed rather than overcounted)."""
+        unattributed rather than overcounted). With ``worker_nodes``
+        (worker -> node) and ``local_node``, the shards of a worker on
+        another node go through the relay, one ``relay_push_many`` a
+        node, stamped ``onode``; the rest take one ``push_many``."""
         batch_id = batch_id or uuid.uuid4().hex
         env = _trace_envelope(trace_ctxs)
         n = packed.n if packed is not None else len(encoded_queries)
         counting = _wire.counting()
         frames = []
+        remote: Dict[str, List[tuple]] = {}
         for worker_id, start, count, shard_id in shards:
             frame: Dict[str, Any] = {"batch_id": batch_id,
                                      "shard": shard_id,
                                      "rw": [WIRE_NDBATCH]}
+            wnode = (worker_nodes or {}).get(worker_id, "")
+            if wnode and local_node and wnode != local_node:
+                frame["onode"] = local_node
             if tenants:
                 tenant_env = _attr.inject_tenants(
                     [(t, int(c * count / max(n, 1))) for t, c in tenants])
@@ -434,8 +473,15 @@ class Cache:
                                       _payload_nbytes(frame["queries"]))
             if env is not None:
                 frame[_trace.ENVELOPE_KEY] = env
-            frames.append((f"q:{worker_id}", frame))
-        self.bus.push_many(frames)
+            if "onode" in frame:
+                remote.setdefault(wnode, []).append(
+                    (f"q:{worker_id}", frame))
+            else:
+                frames.append((f"q:{worker_id}", frame))
+        if frames:
+            self.bus.push_many(frames)
+        for wnode, items in remote.items():
+            self.bus.relay_push_many(wnode, items)
         return batch_id
 
     def gather_prediction_batches(self, batch_id: str, n_workers: int,
@@ -541,7 +587,8 @@ class Cache:
                               shard: Optional[Any] = None,
                               confidence: Optional[List] = None,
                               compute_s: Optional[float] = None,
-                              packed_ok: bool = False) -> None:
+                              packed_ok: bool = False,
+                              origin_node: Optional[str] = None) -> None:
         """``weight`` is how many ensemble members this reply already
         averages (a worker serving a bin of several trials reports more
         than 1, so the predictor's mean stays unweighted over trials).
@@ -550,7 +597,8 @@ class Cache:
         ``compute_s`` (the slice's device seconds) feed the predictor's
         tiering and its chip-seconds-avoided estimate. ``packed_ok``
         (the query frame advertised ``rw``) lets dense float rows ride
-        one packed frame."""
+        one packed frame. ``origin_node`` (the query frame's ``onode``)
+        relays the reply back to that node's broker."""
         frame: Dict[str, Any] = {"worker_id": worker_id,
                                  "weight": int(weight)}
         packed_frame = (pack_prediction_rows(predictions)
@@ -572,7 +620,10 @@ class Cache:
             frame["confidence"] = confidence
         if compute_s is not None:
             frame["compute_s"] = compute_s
-        self.bus.push(f"r:{batch_id}", frame)
+        if origin_node:
+            self.bus.relay_push(origin_node, f"r:{batch_id}", frame)
+        else:
+            self.bus.push(f"r:{batch_id}", frame)
 
     # --- Generative serving (token streaming) ---
     #

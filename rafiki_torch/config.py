@@ -34,12 +34,24 @@ Fields:
   (``pipeline_sync_min``), the attribution ledger
   (``serving_attribution``) and the workload recorder
   (``workload_record``, ``workload_max_mb``,
-  ``workload_retain_segments``).
+  ``workload_retain_segments``);
+- the inference worker's ``serving_pipeline`` (tri-state: ``auto``, the
+  default, is None) and the generation engine's ``generate_page_size``,
+  ``generate_pool_pages``, ``generate_decode_batch`` and
+  ``generate_max_new``;
+- observability: ``metrics``, ``metrics_exemplars``, ``trace_sample``,
+  ``trace_max_mb``, ``trace_retain_segments``, ``trace_retain_mb``,
+  ``trace_tail_sample`` and ``trace_tail_slow_ms``;
+- the fault plane's ``fault_plan`` (parsed by ``validate``, so a typo
+  fails the node's construction) and ``fault_seed`` (``faults.py``);
+- the cluster fabric's ``cluster_fabric`` (off by default: no node
+  registry, no frontend registry, no relay routing, no new series or
+  thread), ``cluster_probe_timeout_s`` and ``cluster_locality_boost``.
 
 Left out until their modules come (ROADMAP, queue 1): ``probe_timeout``
 (the port does not probe the card; without one it raises), the
-autoscaler's, the SLO plane's and the cluster fabric's fields, the
-fault plan, and ``checkpoint_trials``.
+autoscaler's and the SLO plane's fields, ``serving_packed_wire`` and
+``checkpoint_trials``.
 """
 
 from __future__ import annotations
@@ -58,6 +70,12 @@ _PREFIX = "RAFIKI_TPU_"
 
 def _parse_bool(raw: str) -> bool:
     return raw.strip().lower() not in ("0", "false", "no", "off", "")
+
+
+def cluster_fabric_enabled() -> bool:
+    """The cluster fabric's gate, ``RAFIKI_TPU_CLUSTER_FABRIC`` (off by
+    default), read by each part when it is built."""
+    return _parse_bool(os.environ.get(_PREFIX + "CLUSTER_FABRIC", "0"))
 
 
 def parse_tristate_bool(raw: str) -> Optional[bool]:
@@ -153,8 +171,45 @@ class NodeConfig:
     workload_record: bool = False
     workload_max_mb: float = 64.0
     workload_retain_segments: int = 4
+    # One burst in flight on an inference worker: None = auto (measure
+    # the sync round trip, pipeline_sync_min above).
+    serving_pipeline: Optional[bool] = None
+
+    # --- Generation engine (RAFIKI_TPU_SERVING_GENERATE workers) ---
+    generate_page_size: int = 16           # tokens a KV page
+    generate_pool_pages: int = 256         # pages; page 0 is scratch
+    generate_decode_batch: int = 8         # lanes a decode step
+    generate_max_new: int = 128            # tokens a request, at most
+
+    # --- Robustness: the fault plane (faults.py) ---
+    # ";"-separated site.kind:params rules; "" = disarmed.
+    fault_plan: str = ""
+    # The PRNG seed of p= rules: a seeded plan replays its decisions.
+    fault_seed: int = 0
+
+    # --- The cluster serving fabric ---
+    # Off: no node registry, frontend registry, peer probes, gossip or
+    # relay routing, and no new series or thread.
+    cluster_fabric: bool = False
+    # The bound on one peer-cache probe, seconds.
+    cluster_probe_timeout_s: float = 0.25
+    # A same-node replica's shard weight is multiplied by this.
+    cluster_locality_boost: float = 1.0
+
+    # --- Observability ---
+    metrics: bool = True                   # /metrics and the series
+    trace_sample: float = 1.0              # fresh traces sampled, 0..1
+    trace_max_mb: float = 64.0             # a span segment's size cap
+    trace_retain_segments: int = 4         # rolled segments kept
+    trace_retain_mb: float = 256.0         # their byte budget
+    # Tail sampling: fast, ok traces kept at this rate (1.0 = off);
+    # errors and those slower than trace_tail_slow_ms always.
+    trace_tail_sample: float = 1.0
+    trace_tail_slow_ms: float = 250.0
+    metrics_exemplars: bool = False
 
     _types_cache = None  # deliberately un-annotated: not a field
+    _tristate_cache = None
 
     @classmethod
     def env_name(cls, field: str) -> str:
@@ -183,6 +238,8 @@ class NodeConfig:
         target = cls._field_types().get(name, str)
         try:
             if target is bool:
+                if name in cls._tristate_bools():
+                    return parse_tristate_bool(raw)
                 if raw.strip().lower() == "auto":
                     raise ValueError("'auto' is only valid for "
                                      "tri-state fields")
@@ -198,9 +255,11 @@ class NodeConfig:
 
     @classmethod
     def _field_types(cls) -> Dict[str, type]:
-        """The scalar type of each field, ``Optional`` unwrapped."""
+        """The scalar type of each field, ``Optional`` unwrapped; an
+        ``Optional[bool]`` field is tri-state (``auto`` is None)."""
         if cls._types_cache is None:
             resolved: Dict[str, type] = {}
+            tristate = set()
             hints = typing.get_type_hints(cls)
             for f in dataclasses.fields(cls):
                 hint = hints.get(f.name, str)
@@ -208,9 +267,17 @@ class NodeConfig:
                     args = [a for a in typing.get_args(hint)
                             if a is not type(None)]
                     hint = args[0] if len(args) == 1 else str
+                    if hint is bool:
+                        tristate.add(f.name)
                 resolved[f.name] = hint if isinstance(hint, type) else str
+            cls._tristate_cache = tristate
             cls._types_cache = resolved
         return cls._types_cache
+
+    @classmethod
+    def _tristate_bools(cls) -> set:
+        cls._field_types()
+        return cls._tristate_cache
 
     def validate(self) -> "NodeConfig":
         if not (0 <= self.port <= 65535):
@@ -262,6 +329,15 @@ class NodeConfig:
             raise ValueError(
                 f"serving_stacked {self.serving_stacked!r} is not one "
                 f"of on/off")
+        if self.generate_page_size < 1:
+            raise ValueError("generate_page_size must be >= 1")
+        if self.generate_pool_pages < 2:
+            raise ValueError("generate_pool_pages must be >= 2 "
+                             "(page 0 is reserved scratch)")
+        if self.generate_decode_batch < 1:
+            raise ValueError("generate_decode_batch must be >= 1")
+        if self.generate_max_new < 1:
+            raise ValueError("generate_max_new must be >= 1")
         if self.worker_reregister <= 0:
             raise ValueError("worker_reregister must be positive")
         if self.node_lease <= 0:
@@ -275,6 +351,32 @@ class NodeConfig:
         if self.bus_retry_total_s < 0:
             raise ValueError("bus_retry_total_s must be >= 0 "
                              "(0 disables the retry budget)")
+        if self.cluster_probe_timeout_s <= 0:
+            raise ValueError("cluster_probe_timeout_s must be positive "
+                             "(it bounds the single peer-cache probe)")
+        if self.cluster_locality_boost < 1.0:
+            raise ValueError("cluster_locality_boost must be >= 1 "
+                             "(1.0 = no locality preference; below 1 "
+                             "would PENALIZE same-node replicas)")
+        if self.fault_plan.strip():
+            # A typo'd plan fails the node's construction.
+            from .faults import FaultPlan
+
+            FaultPlan.parse(self.fault_plan, seed=self.fault_seed)
+        if not (0.0 <= self.trace_sample <= 1.0):
+            raise ValueError("trace_sample must be within [0, 1]")
+        if self.trace_max_mb <= 0:
+            raise ValueError("trace_max_mb must be positive")
+        if self.trace_retain_segments < 1:
+            raise ValueError("trace_retain_segments must be >= 1 "
+                             "(1 = the legacy single .1 generation)")
+        if self.trace_retain_mb <= 0:
+            raise ValueError("trace_retain_mb must be positive")
+        if not (0.0 <= self.trace_tail_sample <= 1.0):
+            raise ValueError("trace_tail_sample must be within [0, 1] "
+                             "(1.0 disables tail sampling)")
+        if self.trace_tail_slow_ms < 0:
+            raise ValueError("trace_tail_slow_ms must be >= 0")
         if not (0 <= self.metrics_port <= 65535):
             raise ValueError(f"metrics_port {self.metrics_port} out of "
                              f"range (0 = no standalone server)")
@@ -350,3 +452,37 @@ class NodeConfig:
                 self.serving_client_header
         else:
             os.environ.pop(self.env_name("serving_client_header"), None)
+        os.environ[self.env_name("serving_pipeline")] = \
+            "auto" if self.serving_pipeline is None \
+            else ("1" if self.serving_pipeline else "0")
+        for f in ("generate_page_size", "generate_pool_pages",
+                  "generate_decode_batch", "generate_max_new"):
+            os.environ[self.env_name(f)] = str(getattr(self, f))
+        # The fault plane arms from these when its first site is built;
+        # an empty plan pops both (absent = disarmed).
+        if self.fault_plan.strip():
+            os.environ[self.env_name("fault_plan")] = self.fault_plan
+            os.environ[self.env_name("fault_seed")] = str(self.fault_seed)
+        else:
+            os.environ.pop(self.env_name("fault_plan"), None)
+            os.environ.pop(self.env_name("fault_seed"), None)
+        if self.cluster_fabric:
+            os.environ[self.env_name("cluster_fabric")] = "1"
+        else:
+            os.environ.pop(self.env_name("cluster_fabric"), None)
+        for f in ("cluster_probe_timeout_s", "cluster_locality_boost"):
+            os.environ[self.env_name(f)] = str(getattr(self, f))
+        os.environ[self.env_name("metrics")] = "1" if self.metrics else "0"
+        for f in ("trace_sample", "trace_max_mb", "trace_retain_segments",
+                  "trace_retain_mb", "trace_tail_slow_ms"):
+            os.environ[self.env_name(f)] = str(getattr(self, f))
+        # Tail sampling off (1.0) pops its variable, as the reference.
+        if self.trace_tail_sample < 1.0:
+            os.environ[self.env_name("trace_tail_sample")] = \
+                str(self.trace_tail_sample)
+        else:
+            os.environ.pop(self.env_name("trace_tail_sample"), None)
+        if self.metrics_exemplars:
+            os.environ[self.env_name("metrics_exemplars")] = "1"
+        else:
+            os.environ.pop(self.env_name("metrics_exemplars"), None)

@@ -85,14 +85,23 @@ def _build(service_type: str, service_id: str, env: Mapping[str, str],
         return BusInferenceWorker(
             service_id, env[EnvVars.INFERENCE_JOB_ID],
             env[EnvVars.TRIAL_ID], ctx.meta, ctx.params, ctx.bus,
-            chips=chips, device=ctx.device_type)
+            chips=chips, device=ctx.device_type, node=_fabric_node(env))
     if service_type == ServiceType.PREDICT:
         from ..predictor.app import PredictorService
 
         return PredictorService.for_job(
             service_id, env[EnvVars.INFERENCE_JOB_ID], ctx.meta, ctx.bus,
-            port=int(env.get("RAFIKI_TPU_PORT", "0")))
+            port=int(env.get("RAFIKI_TPU_PORT", "0")),
+            node=_fabric_node(env))
     raise ValueError(f"unknown service type: {service_type!r}")
+
+
+def _fabric_node(env: Mapping[str, str]) -> str:
+    """The placing node's id, which a serving service uses only on the
+    cluster fabric ("" off it)."""
+    from ..config import cluster_fabric_enabled
+
+    return env.get(EnvVars.NODE_ID, "") if cluster_fabric_enabled() else ""
 
 
 def _build_advisor_service(sub_id: str, ctx: SystemContext) -> Any:

@@ -27,8 +27,14 @@ raises, before it touches the workdir, and never carries on on the CPU.
 ``device="cpu"`` (the tests) runs every service on the CPU, each of the
 allocator's ``n_chips`` chips (1 by default) being the host's CPU.
 
-The reference's autoscaler, SLO engine and node registry are off by
-default there and not ported here.
+With the cluster fabric on (``RAFIKI_TPU_CLUSTER_FABRIC``, read when
+the platform is built) the platform builds the node registry
+(``admin/nodes.py``) as ``node_registry``, announces this node at once
+and then on each heartbeat, and withdraws it on shutdown; off, it is
+None and nothing of it exists.
+
+The reference's autoscaler and SLO engine are off by default there and
+not ported here.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from typing import Optional
 from .admin import Admin, ServicesManager
 from .admin.app import AdminApp
 from .bus import MemoryBus, connect
+from .config import cluster_fabric_enabled
 from .container import SystemContext, ThreadContainerManager
 from .observe import trace as observe_trace
 from .observe import workload as observe_workload
@@ -126,6 +133,20 @@ class LocalPlatform:
         # next to it, in <workdir>/logs/workload.jsonl.
         observe_workload.configure(self.services.log_dir)
         self.admin = Admin(self.meta, self.params, self.services)
+        self.node_registry = None
+        if cluster_fabric_enabled():
+            from .admin.nodes import NodeRegistry
+
+            self.node_registry = NodeRegistry(
+                self.services.serving_bus, node_id=self.services.node_id,
+                n_chips=self.allocator.n_chips, bus_uri=bus_uri,
+                lease_s=self.services.NODE_LEASE)
+            self.services.node_registry = self.node_registry
+            try:
+                self.node_registry.announce()
+            except (ConnectionError, OSError, RuntimeError):
+                _log.warning("initial node registry announce failed; the "
+                             "heartbeat retries", exc_info=True)
         self.app: Optional[AdminApp] = None
         if http:
             self.app = AdminApp(self.admin, port=admin_port).start()
@@ -178,6 +199,12 @@ class LocalPlatform:
         if self._supervisor is not None:
             self._supervisor.join(timeout=5)
         self._heartbeat.join(timeout=5)
+        if self.node_registry is not None:
+            self.services.node_registry = None
+            try:
+                self.node_registry.close()  # withdraw, drop the series
+            except (ConnectionError, OSError, RuntimeError):
+                pass  # the broker may be gone already
         if self.app is not None:
             self.app.stop()
         if self.stop_jobs_on_shutdown:

@@ -75,6 +75,21 @@ to the workers, and a served request counts under it. With
 request leaves one workload record (``observe.workload``), 429s
 included.
 
+On the cluster fabric (``RAFIKI_TPU_CLUSTER_FABRIC``, read when the
+service is built, and only with an edge cache) the frontends of one job
+share their caches: each registers its address in the bus's frontend
+registry at ``start`` (``Cache.register_frontend``) and leaves it at
+``stop``; a missed key is first asked of ONE peer, picked by the key's
+hash, for at most ``RAFIKI_TPU_CLUSTER_PROBE_TIMEOUT_S`` seconds (``GET
+/cache/peek``), and a peer's answer is served and cached as a
+scatter's; a direct ``POST /cache/invalidate`` is gossiped to every
+peer with ``{"gossip": true}``, which is never passed on. The epoch is
+read before the probe, so an invalidation landing meanwhile drops the
+late insert. ``rafiki_tpu_serving_fabric_total{service,event}`` counts
+``peer_hit``, ``peer_miss``, ``probe_error``, ``gossip_sent`` and
+``gossip_recv``. Off, none of this exists: no registration, no probe,
+no series.
+
 Either way each query's per-worker (per-bin) predictions combine
 through ``ensemble_predictions``, which skips a worker's error reply,
 and a generate request goes to one generating worker, round-robin.
@@ -84,16 +99,19 @@ from __future__ import annotations
 
 import itertools
 import json
+import logging
 import os
 import threading
 import time
 import uuid
 from concurrent.futures import TimeoutError as FutureTimeout
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from urllib.parse import quote
+from urllib.request import Request, urlopen
 
 from ..bus import BaseBus
 from ..cache import decode_payload
-from ..config import NodeConfig, _parse_bool
+from ..config import NodeConfig, _parse_bool, cluster_fabric_enabled
 from ..constants import ServiceStatus
 from ..observe import ServingStats, trace
 from ..observe import attribution as _attr
@@ -106,6 +124,8 @@ from ..worker.inference import InferenceWorker
 from .batcher import Backpressure, MicroBatcher
 from .edge_cache import EdgeCache, query_key
 from .predictor import Predictor, ensemble_predictions
+
+_log = logging.getLogger(__name__)
 
 #: A started generate request: its query id and the function that pops
 #: its frames, ``pop(query_id, timeout=...)``.
@@ -207,6 +227,11 @@ class PredictorService:
         self.microbatch = False
         self.client_header = ""
         self.edge_cache: Optional[EdgeCache] = None
+        # The cluster fabric's cache sharing (``for_job`` with an edge
+        # cache and the fabric on), else plain bool checks.
+        self._fabric = False
+        self._fabric_probe_timeout = 0.25
+        self._m_fabric = None
         # Snapshots of the ledger's and the recorder's switches: off,
         # a request pays one bool check for each.
         self._attribution = _attr.enabled()
@@ -244,6 +269,7 @@ class PredictorService:
                 cache_ttl_s: Optional[float] = None,
                 cache_admit_after: Optional[int] = None,
                 tier_threshold: Optional[float] = None,
+                node: Optional[str] = None,
                 ) -> "PredictorService":
         """The predictor service of one inference job, over the bus. A
         request waits at most the workers' warm-up, the gather timeout
@@ -262,7 +288,8 @@ class PredictorService:
             service=label,
             tier_threshold=(
                 tier_threshold if tier_threshold is not None else
-                float(_env_knob("serving_tier_threshold", "0") or 0)))
+                float(_env_knob("serving_tier_threshold", "0") or 0)),
+            node=node)
         svc = cls(host=host, port=port,
                   timeout=(predictor.worker_wait_timeout
                            + predictor.gather_timeout + 60.0),
@@ -284,6 +311,16 @@ class PredictorService:
                     cache_admit_after if cache_admit_after is not None
                     else _env_knob("serving_cache_admit_after", "2")),
                 service=label)
+            if cluster_fabric_enabled():
+                svc._fabric = True
+                svc._fabric_probe_timeout = float(
+                    _env_knob("cluster_probe_timeout_s", "0.25") or 0.25)
+                if obs_metrics.metrics_enabled():
+                    svc._m_fabric = obs_metrics.registry().counter(
+                        "rafiki_tpu_serving_fabric_total",
+                        "Cache-fabric events between peer frontends "
+                        "(event=peer_hit|peer_miss|probe_error|"
+                        "gossip_sent|gossip_recv)")
         if microbatch is None:
             microbatch = _parse_bool(_env_knob("serving_microbatch", "1"))
         svc.microbatch = microbatch
@@ -335,9 +372,26 @@ class PredictorService:
             self.meta.update_inference_job(
                 self.inference_job_id,
                 predictor_host=f"{self.host}:{self.port}")
+        if self._fabric:
+            # Keyed by the per-instance label (service ids are reused
+            # within a process). A failed registration leaves this
+            # frontend serving, unseen by its peers.
+            try:
+                self.predictor.cache.register_frontend(
+                    self.inference_job_id, self.stats.service,
+                    f"{self.host}:{self.port}")
+            except (ConnectionError, OSError, RuntimeError):
+                _log.warning("cache-fabric frontend registration failed",
+                             exc_info=True)
         return self
 
     def stop(self) -> None:
+        if self._fabric:
+            try:
+                self.predictor.cache.unregister_frontend(
+                    self.inference_job_id, self.stats.service)
+            except (ConnectionError, OSError, RuntimeError):
+                pass  # the broker is gone, and the entry with it
         # The batcher first: it fails every waiting request at once, so
         # no handler holds the HTTP server's shutdown.
         if self.batcher is not None:
@@ -350,6 +404,8 @@ class PredictorService:
             self.predictor.close()
         if self.edge_cache is not None:
             self.edge_cache.close()
+        if self._m_fabric is not None:
+            self._m_fabric.remove(service=self.stats.service)
         for name in ("rafiki_tpu_http_request_seconds",
                      "rafiki_tpu_http_requests_total"):
             m = obs_metrics.registry().find(name)
@@ -403,10 +459,19 @@ class PredictorService:
 
     def _cache_invalidate(self, params, body, ctx):
         """Empty the edge cache and bump its epoch: after this answers,
-        no request is served an answer computed before it."""
+        no request is served an answer computed before it. On the
+        fabric a direct invalidation is gossiped to every peer; a
+        gossiped one (``{"gossip": true}``) is not passed on."""
         if self.edge_cache is None:
             return 200, {"enabled": False}
-        return 200, {"enabled": True, "epoch": self.edge_cache.invalidate()}
+        gossip = bool(body and body.get("gossip"))
+        epoch = self.edge_cache.invalidate()
+        if self._fabric:
+            if gossip:
+                self._fabric_event("gossip_recv")
+            else:
+                self._gossip_invalidate()
+        return 200, {"enabled": True, "epoch": epoch}
 
     def _cache_peek(self, params, body, ctx):
         """Whether the cache holds ``key``, without touching it."""
@@ -415,6 +480,63 @@ class PredictorService:
         found, value = self.edge_cache.peek(ctx.query_one("key") or "")
         return 200, {"enabled": True, "found": found,
                      "value": value if found else None}
+
+    # --- The cache fabric ---
+
+    def _fabric_event(self, event: str) -> None:
+        if self._m_fabric is not None:
+            self._m_fabric.inc(service=self.stats.service, event=event)
+
+    def _fabric_peers(self) -> List[str]:
+        """The addresses of the job's other registered frontends, read
+        from the bus at each miss (frontends come and go at deploy
+        rate)."""
+        try:
+            peers = self.predictor.cache.frontends(self.inference_job_id)
+        except (ConnectionError, OSError, RuntimeError):
+            return []
+        return sorted(addr for inst, addr in peers.items()
+                      if inst != self.stats.service)
+
+    def _peer_probe(self, key: str) -> Any:
+        """Ask ONE peer, picked by the key's hash, whether it holds
+        ``key``: its value, or None. Never raises; the probe timeout
+        bounds the latency it adds."""
+        peers = self._fabric_peers()
+        if not peers:
+            return None
+        addr = peers[int(key[:8] or "0", 16) % len(peers)]
+        try:
+            with urlopen(f"http://{addr}/cache/peek?key={quote(key)}",
+                         timeout=self._fabric_probe_timeout) as resp:
+                reply = json.loads(resp.read())
+        except (OSError, ValueError):
+            self._fabric_event("probe_error")
+            return None
+        if reply.get("found"):
+            self._fabric_event("peer_hit")
+            return reply.get("value")
+        self._fabric_event("peer_miss")
+        return None
+
+    def _gossip_invalidate(self) -> None:
+        """One hop of invalidation to every peer, best effort: the
+        admin's promote-path fan-out is what the promotion relies on;
+        this makes a direct invalidation reach the peers within a probe
+        timeout rather than a TTL."""
+        for addr in self._fabric_peers():
+            try:
+                req = Request(f"http://{addr}/cache/invalidate",
+                              data=b'{"gossip": true}',
+                              headers={"Content-Type": "application/json"},
+                              method="POST")
+                with urlopen(req, timeout=self._fabric_probe_timeout) as r:
+                    r.read()
+            except OSError:
+                _log.warning("cache-fabric gossip to %s failed", addr,
+                             exc_info=True)
+                continue
+            self._fabric_event("gossip_sent")
 
     def _run_queries(self, encoded: List[Any],
                      client: Optional[str] = None,
@@ -454,9 +576,20 @@ class PredictorService:
             else:
                 lead_pos[key] = i
                 misses.append((i, key, payload))
-        # Read before the dispatch: a promotion landing meanwhile bumps
-        # it, and resolve() then drops the stale insert.
+        # Read before the probe and the dispatch: an invalidation landing
+        # meanwhile bumps it, and resolve() then drops the stale insert.
         epoch = cache.epoch
+        if misses and self._fabric:
+            # A key a peer holds is computed once for the cluster.
+            still = []
+            for i, key, flight in misses:
+                value = self._peer_probe(key)
+                if value is not None:
+                    results[i] = value
+                    cache.resolve(key, value, epoch, flight=flight)
+                else:
+                    still.append((i, key, flight))
+            misses = still
         if misses:
             try:
                 sub = self._dispatch_queries(

@@ -12,8 +12,11 @@ rotating. A shard still missing at the straggler deadline
 (``_partial_wait``) is resubmitted once to a sibling and its replica
 quarantined, for one gather timeout doubling with each consecutive
 strike: it takes no shard meanwhile while its bin has another replica
-(where the reference still sends it single-query batches). A bin with
-no sibling loses its vote instead of stalling the batch. Each query's
+(where the reference still sends it single-query batches). A shard
+whose siblings all missed the same deadline is resubmitted to the first
+of them that answers its own shard (where the reference leaves it
+unanswered). A bin with no sibling loses its vote instead of stalling
+the batch. Each query's
 answer is the weighted ``ensemble_predictions`` over the bins that
 replied; a query no bin answered comes back None. Shards bound for a
 worker that advertises the packed wire ride one ``__ndbatch__`` frame.
@@ -34,6 +37,15 @@ With the attribution ledger on, each plan's per-bin query counts and
 the batch's admission wait are accounted, and the batch's tenant mix
 rides the shard frames (an escalation carries its own subset's mix,
 from the per-query ``tenant_rows``).
+
+On the cluster fabric (``RAFIKI_TPU_CLUSTER_FABRIC``, read when the
+predictor is built) the predictor knows its node (``node``, else
+``RAFIKI_TPU_NODE_ID``) and each worker's, from its registration: a
+scatter or a resubmit sends another node's shards through the bus relay
+(``Cache.send_query_shards`` with the node map), and with
+``RAFIKI_TPU_CLUSTER_LOCALITY_BOOST`` above 1 a same-node replica's
+weight in the split is multiplied by it. Off the fabric the node is ""
+and every scatter is as before.
 
 ``predict_submit`` scatters now and returns the finisher that gathers,
 which the micro-batcher's gather thread calls while its batcher thread
@@ -224,7 +236,8 @@ class Predictor:
                  worker_wait_timeout: float = 120.0,
                  shard_replicas: Optional[bool] = None,
                  service: Optional[str] = None,
-                 tier_threshold: Optional[float] = None):
+                 tier_threshold: Optional[float] = None,
+                 node: Optional[str] = None):
         self.inference_job_id = inference_job_id
         self.cache = Cache(bus)
         self.gather_timeout = gather_timeout
@@ -244,6 +257,20 @@ class Predictor:
             shard_replicas = _parse_bool(os.environ.get(
                 "RAFIKI_TPU_SERVING_SHARD_REPLICAS", "1"))
         self.shard_replicas = shard_replicas
+        # The cluster fabric, read once: this frontend's node and the
+        # same-node weight boost; off, "" and 1.0.
+        from ..config import NodeConfig, cluster_fabric_enabled
+        from ..constants import EnvVars
+
+        fabric = cluster_fabric_enabled()
+        self._node = ((node if node is not None else
+                       os.environ.get(EnvVars.NODE_ID, "")) or "") \
+            if fabric else ""
+        self._locality_boost = float(os.environ.get(
+            NodeConfig.env_name("cluster_locality_boost"), "1.0")
+            or 1.0) if fabric else 1.0
+        # worker_id -> its node from its registration ("" unknown).
+        self._nodes: Dict[str, str] = {}
         self._rr = 0  # replica rotation
         # worker_id -> trial bin and -> takes the packed wire: fixed per
         # worker id, so read from the registry once.
@@ -339,6 +366,7 @@ class Predictor:
             self._bins[worker_id] = bin_id
             self._wire_ok[worker_id] = WIRE_NDBATCH in (
                 info.get("wire") or ())
+            self._nodes[worker_id] = str(info.get("node") or "")
             score = info.get("score")
             if isinstance(score, (int, float)):
                 self._bin_score[bin_id] = float(score)
@@ -356,8 +384,8 @@ class Predictor:
         with self._state_lock:
             if len(self._bins) > 2 * len(workers) + 8:
                 live = set(workers)
-                for table in ("_bins", "_wire_ok", "_lat", "_penalized",
-                              "_strikes"):
+                for table in ("_bins", "_wire_ok", "_nodes", "_lat",
+                              "_penalized", "_strikes"):
                     setattr(self, table,
                             {w: v for w, v in getattr(self, table).items()
                              if w in live})
@@ -474,9 +502,16 @@ class Predictor:
         A quarantined replica sits out while its bin has another: the
         reference leaves it in the rotating pick and in the split, so a
         single-query batch (or a large one's small slice) still lands
-        on it and waits out the fixed straggler deadline."""
+        on it and waits out the fixed straggler deadline.
+
+        With a locality boost above 1, a same-node replica's weight is
+        multiplied by it: the latency EWMA still rules once the measured
+        gap exceeds the boost."""
+        nodes: Dict[str, str] = {}
         with self._state_lock:
             out = set(self._penalized)
+            if self._node and self._locality_boost > 1.0:
+                nodes = dict(self._nodes)
         plan: List[_Shard] = []
         for bin_id, members in sorted(groups.items()):
             members = [w for w in members if w not in out] or members
@@ -491,7 +526,9 @@ class Predictor:
             known = [v for w in order
                      if (v := lat.get(w)) is not None and v > 0]
             default = sum(known) / len(known) if known else 1.0
-            weights = [1.0 / max(lat.get(w, default), 1e-6) for w in order]
+            weights = [(self._locality_boost
+                        if nodes.get(w) == self._node else 1.0)
+                       / max(lat.get(w, default), 1e-6) for w in order]
             total_w = sum(weights)
             raw = [n * w / total_w for w in weights]
             sizes = [int(r) for r in raw]
@@ -602,6 +639,14 @@ class Predictor:
                                 for w in members if self._wire_ok.get(w))
         return _WirePayload(queries, pre_encoded, capable)
 
+    def _plan_nodes(self, plan: List[_Shard]) -> Optional[Dict[str, str]]:
+        """The worker -> node map of one plan's scatter; None off the
+        fabric (every frame takes the local broker)."""
+        if not self._node:
+            return None
+        with self._state_lock:
+            return {s.worker: self._nodes.get(s.worker, "") for s in plan}
+
     def _scatter(self, plan: List[_Shard], wire: _WirePayload,
                  trace_ctxs: Optional[List[Any]],
                  tenants: Optional[List[Any]] = None,
@@ -614,7 +659,8 @@ class Predictor:
         enc, packed = wire.for_plan(plan)
         batch_id = self.cache.send_query_shards(
             [s.wire() for s in plan], enc, trace_ctxs=trace_ctxs,
-            packed=packed, packed_ok=wire.capable, tenants=tenants)
+            packed=packed, packed_ok=wire.capable, tenants=tenants,
+            worker_nodes=self._plan_nodes(plan), local_node=self._node)
         if self._m_shards is not None:
             self._m_shards.inc(len(plan), service=self.service)
         bin_queries: Dict[str, int] = {}
@@ -732,13 +778,54 @@ class Predictor:
                        trace_ctxs: Optional[List[Any]]) -> None:
         """Collect replies until every shard is matched or the gather
         timeout lapses. Shards still missing at the partial deadline
-        that have a live sibling are resubmitted to it once."""
+        that have a live sibling are resubmitted to it once. A sibling
+        that missed the same deadline is no rescue until it answers its
+        own shard: a shard whose siblings all missed waits for the first
+        of them to answer and is resubmitted to it then (the reference
+        leaves it unanswered, and its bin loses the vote, when the
+        siblings are merely slow)."""
         t0 = time.monotonic()
         deadline = t0 + self.gather_timeout
         can_resubmit = any(len(groups.get(s.bin, ())) > 1 for s in plan)
         partial = (t0 + self._partial_wait(plan)
                    if can_resubmit else deadline)
         resubmitted = False
+        held: List[_Shard] = []  # missing, every sibling missing too
+
+        def resubmit(retries: List[_Shard]) -> None:
+            nonlocal resubmitted
+            resubmitted = True
+            enc, packed = wire.for_plan(retries)
+            self.cache.send_query_shards(
+                [s.wire() for s in retries], enc, batch_id=batch_id,
+                trace_ctxs=trace_ctxs, packed=packed,
+                packed_ok=wire.capable,
+                worker_nodes=self._plan_nodes(retries),
+                local_node=self._node)
+            plan.extend(retries)
+            if self._m_resubmits is not None:
+                self._m_resubmits.inc(len(retries), service=self.service)
+            _log.warning("batch %s: %d shard(s) missing at partial "
+                         "deadline; resubmitted to sibling replicas",
+                         batch_id, len(retries))
+
+        def retry_of(s: _Shard, pick: str) -> _Shard:
+            retry = _Shard(pick, s.bin, s.start, s.count)
+            retry.resubmitted = True
+            retry.t_sent = time.monotonic()
+            retry.pair = s
+            s.pair = retry
+            return retry
+
+        def rescue(worker: Optional[str]) -> None:
+            """A held shard goes to the first sibling that answers."""
+            ready = [s for s in held if s.reply is None
+                     and worker != s.worker
+                     and worker in groups.get(s.bin, ())]
+            if ready:
+                for s in ready:
+                    held.remove(s)
+                resubmit([retry_of(s, worker) for s in ready])
 
         def drain(until: float) -> None:
             # One reply a pop: a bulk pop would wait out the timeout for
@@ -756,46 +843,31 @@ class Predictor:
                     return
                 for r in replies:
                     self._match_reply(r, plan)
+                    if held:
+                        rescue(r.get("worker_id"))
 
         drain(partial)
         missing = [s for s in plan if s.reply is None]
         if missing and can_resubmit:
             retries: List[_Shard] = []
-            now = time.monotonic()
             for s in missing:
                 self._penalize(s.worker)
             # The latency snapshot after the penalties; a sibling that
-            # missed the same deadline is never a rescue.
+            # missed the same deadline is not a rescue yet.
             with self._state_lock:
                 lat = dict(self._lat)
             missing_workers = {s.worker for s in missing}
             for s in missing:
-                siblings = [w for w in groups.get(s.bin, ())
-                            if w != s.worker and w not in missing_workers]
-                if not siblings:
-                    continue
-                pick = min(siblings, key=lambda w: lat.get(w, 1.0))
-                retry = _Shard(pick, s.bin, s.start, s.count)
-                retry.resubmitted = True
-                retry.t_sent = now
-                retry.pair = s
-                s.pair = retry
-                retries.append(retry)
+                members = [w for w in groups.get(s.bin, ())
+                           if w != s.worker]
+                siblings = [w for w in members if w not in missing_workers]
+                if siblings:
+                    retries.append(retry_of(
+                        s, min(siblings, key=lambda w: lat.get(w, 1.0))))
+                elif members:
+                    held.append(s)
             if retries:
-                resubmitted = True
-                enc, packed = wire.for_plan(retries)
-                self.cache.send_query_shards(
-                    [s.wire() for s in retries], enc, batch_id=batch_id,
-                    trace_ctxs=trace_ctxs, packed=packed,
-                    packed_ok=wire.capable)
-                plan.extend(retries)
-                if self._m_resubmits is not None:
-                    self._m_resubmits.inc(len(retries),
-                                          service=self.service)
-                _log.warning(
-                    "batch %s: %d shard(s) missing at partial deadline;"
-                    " resubmitted to sibling replicas", batch_id,
-                    len(retries))
+                resubmit(retries)
         drain(deadline)
         unmatched = [s for s in plan
                      if s.reply is None and not s.superseded]

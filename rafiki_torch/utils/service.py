@@ -1,7 +1,6 @@
 """JSON-over-HTTP service plumbing on the stdlib ``http.server``.
 
-The port's copy of ``rafiki_tpu/utils/service.py`` without its fault
-hook: a route table whose paths may hold ``<param>`` captures, GET, POST
+The port's copy of ``rafiki_tpu/utils/service.py``: a route table whose paths may hold ``<param>`` captures, GET, POST
 and DELETE, the query string, JSON bodies in and out, replies streamed
 with chunked transfer encoding, a cap on the body size, graceful start
 and stop. The admin REST service and the predictor are built on it.
@@ -20,6 +19,10 @@ Every server observes itself, as the reference's does:
   <route>`` span and echoed in the reply's ``X-Trace-Id`` header; the
   edge that minted the trace gives its tail verdict
   (``observe.trace.complete``) when the request ends.
+
+Every server is an ``http`` fault site (``faults.site_hook``, resolved
+when the server is built): an injected ``error`` answers its code before
+the handler runs, and an injected ``timeout`` stalls the request first.
 
 A handler is ``handler(params, body, ctx) -> (status, obj)`` or
 ``(status, obj, headers)``: ``params`` holds the path's captures,
@@ -44,6 +47,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
+from .. import faults
 from ..observe import metrics, trace
 
 _log = logging.getLogger(__name__)
@@ -169,6 +173,8 @@ class JsonHttpServer:
             self._http_count = reg.counter(
                 "rafiki_tpu_http_requests_total",
                 "Requests served per service + route pattern + status")
+        # None when the fault plane is disarmed.
+        self._fault = faults.site_hook("http")
         outer = self
 
         class _Handler(BaseHTTPRequestHandler):
@@ -201,6 +207,13 @@ class JsonHttpServer:
                     match = pattern.match(parsed.path)
                     if match is None:
                         continue
+                    if outer._fault is not None:
+                        act = outer._fault(op=method, route=route)
+                        if act is not None and act[0] == "error":
+                            self._reply(act[1], {
+                                "error": f"injected: http.error "
+                                         f"({act[1]})"})
+                            return
                     # The trace edge: honour an incoming X-Trace-Id or
                     # mint a sampled trace, bound for the handler so
                     # the batcher and the scatter carry it on.

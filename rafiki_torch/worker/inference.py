@@ -86,6 +86,19 @@ between is a fault: the loop raises and the service goes ERRORED.
 ``kill()`` is the hard stop: the worker leaves its row RUNNING and its
 registration standing, what a dead node leaves, so the supervise sweep
 is what notices.
+
+The bus worker is a ``worker`` fault site (``faults.site_hook``,
+resolved when it is built; None when the plane is disarmed), asked
+before each burst's dispatch: ``worker.slow`` sleeps there, and
+``worker.crash`` raises ``InjectedCrash``, which kills the serve loop as
+``kill()`` does (row left RUNNING, registration stale, the burst in
+flight lost). ``queries_served`` counts the queries its bursts took to
+the device.
+
+On the cluster fabric the registration carries ``node``, the id of the
+node that placed the worker (its service environment's
+``RAFIKI_TPU_NODE_ID``); a shard that came from another node carries
+that node's id (``onode``), and its reply is relayed back there.
 """
 
 from __future__ import annotations
@@ -103,6 +116,7 @@ from typing import Any, Dict, List, Optional, Tuple, Type
 import numpy as np
 import torch
 
+from .. import faults
 from ..bus import BaseBus, BusOpError
 from ..cache import (DRAIN_KEY, PROFILE_KEY, RESTACK_KEY, WIRE_NDBATCH,
                      Cache, TokenFrames)
@@ -560,8 +574,10 @@ class BusInferenceWorker:
                  trial_id: str, meta: MetaStore, params: ParamStore,
                  bus: BaseBus, chips: Optional[ChipGroup] = None, *,
                  device: DeviceLike = None,
-                 pipeline: Optional[bool] = None):
+                 pipeline: Optional[bool] = None, node: str = ""):
         self.service_id = service_id
+        # The placing node's id on the cluster fabric, "" off it.
+        self.node = node
         self.inference_job_id = inference_job_id
         self.trial_id = trial_id
         self.meta = meta
@@ -605,6 +621,10 @@ class BusInferenceWorker:
         # The on-demand profile session in progress (almost always
         # None), stopped by the serve loop at its deadline.
         self._profile: Optional[profiling.DeviceProfileSession] = None
+        #: Queries this worker's bursts took to the device.
+        self.queries_served = 0
+        # None when the fault plane is disarmed.
+        self._fault = faults.site_hook("worker")
 
     # --- Lifecycle ---
 
@@ -726,7 +746,8 @@ class BusInferenceWorker:
                 "quant": (self._quant_req if self._quant_active
                           else None),
                 "stacked": self._stacked_active,
-                "staging": self._stager.mode}
+                "staging": self._stager.mode,
+                "node": self.node or None}
             self.cache.register_worker(self.inference_job_id,
                                        self.service_id, info=self._reg_info)
             _attr.open_owner()
@@ -751,6 +772,15 @@ class BusInferenceWorker:
                 return
             self.meta.update_service(self.service_id,
                                      status=ServiceStatus.STOPPED)
+        except faults.InjectedCrash:
+            # The injected kill -9: as kill(), what the process held
+            # goes, and the row and the registration are left to the
+            # supervise sweep.
+            killed = True
+            self._stop_generate()
+            self._close_attr_owner()
+            _log.error("inference worker %s: injected crash; row left "
+                       "RUNNING, registration stale", self.service_id)
         except Exception:
             _log.exception("inference worker %s crashed", self.service_id)
             self._stop_generate()
@@ -896,6 +926,10 @@ class BusInferenceWorker:
         ``predict_submit`` query by query. Returns the arguments of
         ``_complete_batch``; the mode and the bin are taken now, since a
         later dispatch or a restack changes them before completion."""
+        if self._fault is not None:
+            # worker.slow sleeps here; worker.crash raises through the
+            # serve loop (n= counts these dispatches).
+            self._fault(op="predict")
         trace_ctxs = trace.extract_frames(items)
         tenants = _attr.extract_frames_tenants(items)
         t0 = (time.time(), time.monotonic())
@@ -907,7 +941,7 @@ class BusInferenceWorker:
                 self.cache.send_prediction_batch(
                     it["batch_id"], self.service_id,
                     [err] * max(1, int(it.get("n", 1) or 1)),
-                    shard=it.get("shard"))
+                    shard=it.get("shard"), origin_node=it.get("onode"))
             else:
                 good.append(it)
         attr = {"tenants": tenants, "bucket": None, "dtype": None,
@@ -987,6 +1021,7 @@ class BusInferenceWorker:
                 burst_s, attrs={"n_queries": n,
                                 "trial_id": str(attr["bin"])})
         weight = int(getattr(self.model, "last_weight", 1))
+        self.queries_served += n
         if self._quant_active:
             _wire.count_quant(n, self._quant_req)
         if n:
@@ -1007,7 +1042,8 @@ class BusInferenceWorker:
                 confidence=(confidence[start:start + count]
                             if confidence is not None else None),
                 compute_s=round(burst_s * count / max(n, 1), 6),
-                packed_ok=WIRE_NDBATCH in (it.get("rw") or ()))
+                packed_ok=WIRE_NDBATCH in (it.get("rw") or ()),
+                origin_node=it.get("onode"))
 
     # --- Promotion ---
 

@@ -80,7 +80,8 @@ def test_importing_the_port_loads_no_jax():
                 "rafiki_torch.observe.attribution",
                 "rafiki_torch.observe.workload", "rafiki_torch.__main__",
                 "rafiki_torch.bus.tcp", "rafiki_torch.bus.native",
-                "rafiki_torch.utils.service_logs"):
+                "rafiki_torch.utils.service_logs", "rafiki_torch.faults",
+                "rafiki_torch.admin.nodes", "rafiki_torch.admin.scrape"):
         assert mod in mods, mod
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -158,7 +159,9 @@ def test_the_process_entries_import_with_jax_sklearn_and_pil_blocked():
             f"        return None\n"
             f"sys.meta_path.insert(0, Block())\n"
             f"for m in ('rafiki_torch.__main__', 'rafiki_torch.bus.tcp',\n"
-            f"          'rafiki_torch.bus.native',\n"
+            f"          'rafiki_torch.bus.native', 'rafiki_torch.faults',\n"
+            f"          'rafiki_torch.admin.nodes',\n"
+            f"          'rafiki_torch.admin.scrape',\n"
             f"          'rafiki_torch.container.services'):\n"
             f"    importlib.import_module(m)\n"
             f"loaded = sorted(m for m in sys.modules\n"

@@ -171,3 +171,118 @@ def test_serve_refuses_a_node_over_several_processes():
         pmain.main(["serve", "--coordinator", "127.0.0.1:1",
                     "--num-processes", "2", "--process-id", "0"])
     assert "queue 1 item 8" in str(e.value.code)
+
+
+# --- The fields of the fault plane, the cluster fabric, observability,
+# the pipelined worker and the generation engine ---
+
+NEW_FIELDS = ["serving_pipeline", "generate_page_size",
+              "generate_pool_pages", "generate_decode_batch",
+              "generate_max_new", "fault_plan", "fault_seed",
+              "cluster_fabric", "cluster_probe_timeout_s",
+              "cluster_locality_boost", "metrics", "trace_sample",
+              "trace_max_mb", "trace_retain_segments", "trace_retain_mb",
+              "trace_tail_sample", "trace_tail_slow_ms",
+              "metrics_exemplars"]
+
+
+@pytest.mark.parametrize("field", NEW_FIELDS)
+def test_new_field_default_and_name_equal_the_reference(field):
+    assert getattr(pconfig.NodeConfig(), field) == \
+        getattr(rconfig.NodeConfig(), field)
+    assert pconfig.NodeConfig.env_name(field) == \
+        rconfig.NodeConfig.env_name(field)
+    assert pconfig.NodeConfig._field_types()[field] is \
+        rconfig.NodeConfig._field_types()[field]
+
+
+def _new_outcome(cls, env, overrides):
+    try:
+        cfg = cls.from_env(env=env, **overrides)
+    except ValueError as e:
+        return str(e)
+    return {f: getattr(cfg, f) for f in NEW_FIELDS}
+
+
+@pytest.mark.parametrize("env,overrides", [
+    ({}, {}),
+    ({"RAFIKI_TPU_SERVING_PIPELINE": "auto"}, {}),
+    ({"RAFIKI_TPU_SERVING_PIPELINE": "0"}, {}),
+    ({"RAFIKI_TPU_SERVING_PIPELINE": "on"}, {}),
+    ({"RAFIKI_TPU_CLUSTER_FABRIC": "1",
+      "RAFIKI_TPU_CLUSTER_PROBE_TIMEOUT_S": "2.0",
+      "RAFIKI_TPU_CLUSTER_LOCALITY_BOOST": "4",
+      "RAFIKI_TPU_FAULT_PLAN": "worker.crash:n=1;bus.delay:p=0.02,ms=2",
+      "RAFIKI_TPU_FAULT_SEED": "11", "RAFIKI_TPU_METRICS": "0",
+      "RAFIKI_TPU_METRICS_EXEMPLARS": "yes",
+      "RAFIKI_TPU_TRACE_SAMPLE": "0.5", "RAFIKI_TPU_TRACE_MAX_MB": "8",
+      "RAFIKI_TPU_TRACE_RETAIN_SEGMENTS": "2",
+      "RAFIKI_TPU_TRACE_RETAIN_MB": "32",
+      "RAFIKI_TPU_TRACE_TAIL_SAMPLE": "0.25",
+      "RAFIKI_TPU_TRACE_TAIL_SLOW_MS": "100",
+      "RAFIKI_TPU_GENERATE_PAGE_SIZE": "32",
+      "RAFIKI_TPU_GENERATE_POOL_PAGES": "512",
+      "RAFIKI_TPU_GENERATE_DECODE_BATCH": "4",
+      "RAFIKI_TPU_GENERATE_MAX_NEW": "64"}, {}),
+    ({"RAFIKI_TPU_CLUSTER_FABRIC": "auto"}, {}),
+    ({"RAFIKI_TPU_FAULT_SEED": "x"}, {}),
+    ({"RAFIKI_TPU_FAULT_PLAN": "bus.explode"}, {}),
+    ({}, {"fault_plan": "worker.crash:N=2"}),
+    ({}, {"fault_plan": "bus.delay:p=0.5,n=3"}),
+    ({}, {"cluster_probe_timeout_s": 0.0}),
+    ({}, {"cluster_locality_boost": 0.5}),
+    ({}, {"trace_sample": 1.5}), ({}, {"trace_max_mb": 0.0}),
+    ({}, {"trace_retain_segments": 0}), ({}, {"trace_retain_mb": -1.0}),
+    ({}, {"trace_tail_sample": -0.1}), ({}, {"trace_tail_slow_ms": -1.0}),
+    ({}, {"generate_page_size": 0}), ({}, {"generate_pool_pages": 1}),
+    ({}, {"generate_decode_batch": 0}), ({}, {"generate_max_new": 0}),
+    ({}, {"serving_pipeline": False, "cluster_fabric": True,
+          "fault_plan": "http.error:route=/predict,n=1"})])
+def test_new_fields_parse_and_validate_as_the_reference(env, overrides):
+    got = [_new_outcome(cls, env, overrides) for cls in CONFIGS]
+    assert got[0] == got[1]
+
+
+NEW_EXPORTED = ["RAFIKI_TPU_SERVING_PIPELINE", "RAFIKI_TPU_FAULT_PLAN",
+                "RAFIKI_TPU_FAULT_SEED", "RAFIKI_TPU_CLUSTER_FABRIC",
+                "RAFIKI_TPU_CLUSTER_PROBE_TIMEOUT_S",
+                "RAFIKI_TPU_CLUSTER_LOCALITY_BOOST", "RAFIKI_TPU_METRICS",
+                "RAFIKI_TPU_METRICS_EXEMPLARS", "RAFIKI_TPU_TRACE_SAMPLE",
+                "RAFIKI_TPU_TRACE_MAX_MB",
+                "RAFIKI_TPU_TRACE_RETAIN_SEGMENTS",
+                "RAFIKI_TPU_TRACE_RETAIN_MB",
+                "RAFIKI_TPU_TRACE_TAIL_SAMPLE",
+                "RAFIKI_TPU_TRACE_TAIL_SLOW_MS",
+                "RAFIKI_TPU_GENERATE_PAGE_SIZE",
+                "RAFIKI_TPU_GENERATE_POOL_PAGES",
+                "RAFIKI_TPU_GENERATE_DECODE_BATCH",
+                "RAFIKI_TPU_GENERATE_MAX_NEW"]
+
+
+@pytest.mark.parametrize("overrides", [
+    {}, {"serving_pipeline": True, "cluster_fabric": True,
+         "cluster_probe_timeout_s": 0.5, "cluster_locality_boost": 2.0,
+         "fault_plan": "node.kill:op=vm/b,n=1", "fault_seed": 4,
+         "metrics": False, "metrics_exemplars": True,
+         "trace_sample": 0.1, "trace_tail_sample": 0.5,
+         "trace_retain_segments": 2, "generate_max_new": 32},
+    {"serving_pipeline": False, "trace_tail_sample": 1.0}])
+def test_new_fields_round_trip_through_apply_env(overrides):
+    saved = dict(os.environ)
+    exported, back = [], []
+    try:
+        for cls in CONFIGS:
+            for k in NEW_EXPORTED:
+                os.environ[k] = "stale"
+            cfg = cls.from_env(env={}, **overrides)
+            cfg.apply_env()
+            exported.append({k: os.environ.get(k) for k in NEW_EXPORTED})
+            # What apply_env wrote reads back as the same config.
+            again = cls.from_env(env=dict(os.environ))
+            back.append({f: getattr(again, f) == getattr(cfg, f)
+                         for f in NEW_FIELDS})
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    assert exported[0] == exported[1]
+    assert all(all(b.values()) for b in back), back

@@ -227,7 +227,7 @@ def test_unported_routes_answer_404(both):
     root = Client(admin_port=port.admin_port)
     root.login("superadmin@rafiki", "rafiki")
     for method, path in (("GET", "/"), ("GET", "/autoscale"),
-                         ("GET", "/nodes"), ("GET", "/slo"),
+                         ("GET", "/slo"),
                          ("GET", "/alerts"), ("GET", "/capacity"),
                          ("GET", "/datasets"), ("POST", "/datasets"),
                          ("GET", "/services/abc/logs")):
