@@ -142,17 +142,18 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    6 DenseNet-121 trials through ``make_advisor`` with no type, which
    must pick ``BayesOptAdvisor`` (the 6th proposal from the fitted GP);
    (c) an ENAS search at ``JaxEnas``'s sizes through ``make_advisor``,
-   which must pick ``EnasAdvisor``: 7 search trials on the masked
+   which must pick ``EnasAdvisor``: 5 search trials on the masked
    supernet, each after the first warm-starting every supernet tensor,
    and a final trial retraining the best architecture from scratch on
-   the single path ((b) and (c) train on the set's first 20,480 train
-   images); (d) the 2 best ENAS trials behind one predictor
+   the single path ((b) and (c) train on the set's first 10,240 train
+   images and evaluate on its first 2,048 val images); (d) the 2 best
+   ENAS trials behind one predictor
    (served = the members' mean, a 256-request window); (e) K1, K2 and K3
    not launched in the phase;
 11. ensemble phase, BASELINE config 4 as the reference serves a bin:
    (a) 4 DenseNet-121 members (the zoo phase's trained one and three
    from seeds) in one bin behind ``BusInferenceWorker``, the predictor
-   and ``Client``: a window of 512 single-image requests from 8 clients
+   and ``Client``: a window of 256 single-image requests from 8 clients
    with ``RAFIKI_TPU_SERVING_STACKED`` on (every burst one stacked
    dispatch; a fallback burst fails the phase) and one with it off (4
    dispatches a burst), served = the members' stacked float64 mean
@@ -167,7 +168,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    DenseNet-121 on the generic fallback (argmax agreement and accuracy
    against f32 on 1,024 val images, peak memory); (d) no K1-K3 launch.
    Between (a) and its member rows, the serving front's ``front:``
-   lines on the stacked bin's worker: (a) the 512-request window with
+   lines on the stacked bin's worker: (a) the 256-request window with
    micro-batching on and off (queries/s, p50/p99, batches and queries a
    batch from ``/stats``, the worker's bursts, answers against the
    worker's own rows); (b) a second replica: both take shards, the rows
@@ -178,8 +179,8 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    ``Retry-After``, no 5xx, ``/stats`` ``rejected`` equal to the
    clients' 429s, and a ``Client.predict`` answered after its retry;
 12. zoo2 phase, the rest of the zoo on the zoo phase's synthetic set
-   (made once, in the zoo phase) and on sets at the Penn Treebank WSJ
-   POS split's and UCI Adult's sizes: (a) ``TorchViT`` at the
+   (made once, in the zoo phase) and on sets cut from the Penn Treebank
+   WSJ POS split's and UCI Adult's sizes: (a) ``TorchViT`` at the
    reference's widths (d_model 128, 4 heads of 32, patch 4: 65 tokens,
    all 6 blocks, batch 256) one epoch with its step captured as a CUDA
    graph (steps/s, images/s, ``chip_util``, peak memory, a profiled
@@ -324,15 +325,40 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    then ``http.error:route=/predict,n=1``, exactly one 503; (g) memory
    bus push+pop operations a second, disarmed against armed with no
    rules (a record, no limit). The phase must take at most 90 s;
-17. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
+17. autoscale phase, the serving control loop on the card, with zoo2
+   (b)'s best ViT trial (6 blocks) served from ``LocalPlatform``s built
+   through ``NodeConfig``: (a) with the autoscaler off and no SLO rules,
+   a deployed bin and its frontend register no ``rafiki_tpu_autoscale_*``
+   or ``rafiki_tpu_slo_*`` series, ``GET /autoscale``, ``/slo`` and
+   ``/alerts`` answer ``{"enabled": false}`` and ``GET /capacity``'s gate
+   is green under the default policy, and a clean window of 8 clients
+   sets the latency objective's threshold; (b) the loop armed on a bin
+   of one replica (at most 2, up cooldown 1 s, supervise every 0.5 s,
+   one job-scoped p99 rule with windows of seconds), 8 clients, then
+   ``worker.slow`` at several times the threshold: the alert goes
+   pending then firing, ``GET /autoscale`` records ``scale_up`` for
+   ``slo_firing``, the second replica's runner builds launch K1 on
+   wgmma and it takes shards; (c) the plan disarmed: the alert
+   resolves, ``scale_down`` drains the newest replica under load, the
+   bin is back to one replica and its chip share released, ``/alerts``
+   shows pending, firing, resolved and ``/slo`` the budget spent;
+   every query of (b) and (c) answered; (d) 16 clients against the
+   frontend's small admission queue draw 429s and the next sweep
+   records ``scale_up`` for ``backpressure``; (e) the recorded workload
+   replayed over ``FleetModel.from_exposition`` of the bin's live
+   device-time histogram under the live knobs, the simulated p99 and
+   actions printed beside the live ones (a record, no limit); (f)
+   ``python -m rafiki_torch.capacity score --trace ramp`` exits 0, and
+   1 under a degraded policy. The phase must take at most 75 s;
+18. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
    ``library_covers`` names the kernels whose work one library call does,
    ``platform_launches``, ``zoo_launches``, ``ensemble_launches``,
    ``zoo2_launches``, ``lifecycle_launches``, ``tenants_launches``,
-   ``processes_launches`` and ``cluster_launches`` the platform, zoo,
-   ensemble, zoo2, lifecycle, tenants, processes and cluster phases'
-   launches (the platform's, zoo2's, lifecycle's, tenants', the
-   processes' children's and the cluster phase's counted in
-   ``launches`` too; ``processes_trace_events`` each kernel's events in
+   ``processes_launches``, ``cluster_launches`` and
+   ``autoscale_launches`` the platform, zoo, ensemble, zoo2, lifecycle,
+   tenants, processes, cluster and autoscale phases' launches (the
+   platform's, zoo2's, lifecycle's, tenants', the processes' children's,
+   the cluster and the autoscale phases' counted in ``launches`` too; ``processes_trace_events`` each kernel's events in
    the join node's trial trace), K2's and K3's ``f32`` their f32 variants' numbers,
    ``zoo2_shapes`` each
    kernel's numbers at the ViT and tagger shapes and ``zoo2_f32`` K1's
@@ -499,17 +525,20 @@ ZOO_PROBES = 8
 # and the logits leave in bf16: one bf16 ulp of a logit below 32 (the
 # trained DenseNet-121's reach 26 on the synthetic set).
 TOL_ZOO_LOGITS = 0.125
-# (b) and (c) train on the set's first 20,480 train images (160 steps
-# an epoch at batch 128), cut from 50,000 to keep the whole script
-# under 750 s with the processes phase; they evaluate on all 10,000 val
-# images.
-ZOO_SEARCH_TRAIN = 20480
+# (b) and (c) train on the set's first 10,240 train images (80 steps an
+# epoch at batch 128) and evaluate on its first 2,048 val images, cut
+# from 50,000 and 10,000 (to 20,480 train images with the processes
+# phase, to 10,240 and 2,048 with the autoscale phase) to keep the whole
+# script under 750 s. At 5,120 every ENAS trial stayed at chance.
+ZOO_SEARCH_TRAIN = 10240
+ZOO_SEARCH_VAL = 2048
 # (b) A Bayes search of DenseNet trials: the 6th proposal is the first
 # from the fitted GP (n_initial 5).
 BAYES_TRIALS = 6
-# (c) An ENAS search at JaxEnas's sizes: 7 search trials and 1 final
-# (final_train_frac 0.15), cut from what a user would run.
-ENAS_TRIALS = 8
+# (c) An ENAS search at JaxEnas's sizes: 5 search trials and 1 final
+# (final_train_frac 0.15), cut from what a user would run (7 and 1
+# before the autoscale phase).
+ENAS_TRIALS = 6
 ZOO_DEPLOY = 2
 
 # The ensemble phase: BASELINE config 4 (ensemble serving of top-k
@@ -523,7 +552,9 @@ ENSEMBLE_MEMBERS = 4
 # each member's load runs the source anew, so the members' classes
 # differ.
 ENSEMBLE_KNOBS = dict(DENSENET_KNOBS, max_epochs=6)
-ENSEMBLE_WINDOW = 512
+# Each window's requests (cut from 512 with the autoscale phase, to keep
+# the whole script under 750 s).
+ENSEMBLE_WINDOW = 256
 ENSEMBLE_BUCKETS = (1, 32, 512)
 ENSEMBLE_VAL = 1024
 # The serving front's backpressure check: a front with this admission
@@ -577,8 +608,9 @@ class ZooEnas(TorchEnas):
 
 # The zoo2 phase: the rest of the zoo. ViT and the VGG-style CNN on the
 # zoo phase's synthetic CIFAR-10-shaped set (made once: 50,000 + 10,000
-# images of 32×32×3); the transformer tagger on a synthetic corpus at the
-# Penn Treebank WSJ POS split's size; the tabular MLPs at UCI Adult's.
+# images of 32×32×3); the transformer tagger on a synthetic corpus cut
+# from the Penn Treebank WSJ POS split's size; the tabular MLPs on a
+# table cut from UCI Adult's.
 # (a) ViT at the reference's widths (d_model 128, 4 heads of 32, patch 4:
 # 65 tokens), all 6 blocks, batch 256, one epoch (cut from 3-40).
 ZOO2_VIT = {"d_model": 128, "n_heads": 4, "patch": 4, "depth": 6,
@@ -615,19 +647,22 @@ ZOO2_CNN = {"width_16ths": 16, "batch_size": 256, "learning_rate": 1e-3,
 ZOO2_CNN_MIN_ACC = 0.95
 # (e) The tagger at the knob space's largest widths: d_model 256, 4 heads
 # of 64, 6 layers, max_len 128, dropout 0.1, batch 64, one epoch (cut
-# from 3-30). The corpus: 38,219 train and 5,527 val sentences (the WSJ
-# POS split's sizes) of 3-128 tokens over 20,000 words and 45 tags.
+# from 3-30). The corpus: 19,110 train sentences (half the WSJ POS
+# split's 38,219, cut with the autoscale phase to keep the whole script
+# under 750 s) and 5,527 val (the split's), of 3-128 tokens over 20,000
+# words and 45 tags.
 ZOO2_TAGGER = {"d_model": 256, "n_heads": 4, "n_layers": 6, "max_len": 128,
                "vocab_size": 16384, "batch_size": 64, "dropout": 0.1,
                "learning_rate": 1e-3, "max_epochs": 1}
-ZOO2_CORPUS = {"n_train": 38219, "n_val": 5527, "vocab": 20000,
+ZOO2_CORPUS = {"n_train": 19110, "n_val": 5527, "vocab": 20000,
                "n_tags": 45, "max_len": 128}
 # Val token accuracy after the epoch must clear ten times chance (1/45):
 # 20,000 words hashed into 16,383 rows leave about 70% of the words
 # sharing a row with another, which caps what any tagger reads.
 ZOO2_TAGGER_MIN_ACC = 0.25
-# (f) UCI Adult's sizes: 32,561 train and 16,281 val rows of 14 features.
-ZOO2_TABLE = {"n_train": 32561, "n_val": 16281, "n_features": 14}
+# (f) UCI Adult's 14 features, 8,192 train and 4,096 val rows (cut from
+# its 32,561 and 16,281 with the autoscale phase).
+ZOO2_TABLE = {"n_train": 8192, "n_val": 4096, "n_features": 14}
 ZOO2_TAB_KNOBS = {"hidden": 128, "depth": 2, "learning_rate": 1e-3,
                   "batch_size": 128, "max_epochs": 5, "seed": 0}
 ZOO2_POS_KNOBS = {"embed_dim": 64, "hidden": 64, "learning_rate": 1e-2,
@@ -810,6 +845,39 @@ CLUSTER_SEED = 16
 CLUSTER_BUS_OPS = 100000
 CLUSTER_WAIT_S = 60.0
 CLUSTER_MAX_S = 90.0
+# The autoscale phase serves zoo2 (b)'s best ViT trial. AUTOSCALE_CLIENTS
+# closed-loop clients send single images; after a warm-up of
+# AUTOSCALE_WARM_S (the runner's first buckets), a clean window of
+# AUTOSCALE_CLEAN_S sets the p99 objective's threshold (the least
+# latency bucket bound at least AUTOSCALE_THRESHOLD_X times the clean p99,
+# and at least AUTOSCALE_MIN_THRESHOLD_MS), and worker.slow sleeps
+# AUTOSCALE_SLOW_X times that threshold before each dispatch. The
+# frontend admits AUTOSCALE_QUEUE_CAP queries: more than the clients of
+# (b) and (c) can hold, far fewer than AUTOSCALE_BURST_CLIENTS sending
+# AUTOSCALE_BURST_IMAGES images a request, which draw 429s in (d). The
+# queue's high water is 1.0 (no queue_high scale-up with 8 clients) and
+# its low water 0.25.
+AUTOSCALE_CLIENTS = 8
+AUTOSCALE_BURST_CLIENTS = 16
+AUTOSCALE_BURST_IMAGES = 4
+AUTOSCALE_WARM_S = 1.0
+AUTOSCALE_QUEUE_CAP = 12
+AUTOSCALE_CLEAN_S = 2.0
+AUTOSCALE_THRESHOLD_X = 3.0
+AUTOSCALE_MIN_THRESHOLD_MS = 10.0
+AUTOSCALE_SLOW_X = 2
+AUTOSCALE_SWEEP_S = 0.5
+AUTOSCALE_RULE = ("vit-p99:p99<{ms:g}ms,window=30,fast=2,slow=4,burn=2,"
+                  "for=1,resolve=2")
+AUTOSCALE_KNOBS = {"autoscale_max_replicas": 2, "autoscale_up_cooldown_s": 1.0,
+                   "autoscale_down_cooldown_s": 3.0,
+                   "autoscale_queue_high": 1.0, "autoscale_queue_low": 0.25,
+                   "autoscale_mfu_floor": 0.0}
+AUTOSCALE_DEGRADED = '{"queue_high": 0.98, "max_replicas": 1, ' \
+    '"up_cooldown_s": 60}'
+AUTOSCALE_SEED = 17
+AUTOSCALE_WAIT_S = 30.0
+AUTOSCALE_MAX_S = 75.0
 # K1's o at the zoo's shapes against its plain version, bf16: each p is
 # rounded to bf16 before p·v, and where the kernel's exp and the plain
 # version's round one p to neighbouring bf16 values the row moves by up
@@ -3154,8 +3222,14 @@ def zoo_phase(torch, np, attn, card, data_dir=None):
         np.savez(search_train, images=ds.images[:ZOO_SEARCH_TRAIN],
                  labels=ds.labels[:ZOO_SEARCH_TRAIN],
                  n_classes=ds.n_classes)
+        vds = load_image_dataset(val)
+        search_val = os.path.join(tmp, "search_val.npz")
+        np.savez(search_val, images=vds.images[:ZOO_SEARCH_VAL],
+                 labels=vds.labels[:ZOO_SEARCH_VAL],
+                 n_classes=vds.n_classes)
         print(f"zoo: (b) and (c) train on the set's first "
-              f"{ZOO_SEARCH_TRAIN} train images", flush=True)
+              f"{ZOO_SEARCH_TRAIN} train images and evaluate on its first "
+              f"{ZOO_SEARCH_VAL} val images", flush=True)
 
         # (b) A Bayes search of DenseNet-121 trials.
         t0 = time.perf_counter()
@@ -3169,8 +3243,8 @@ def zoo_phase(torch, np, attn, card, data_dir=None):
         check(isinstance(advisor, BayesOptAdvisor),
               f"make_advisor chose {type(advisor).__name__} for DenseNet")
         _, rows, search_s = zoo_search(meta, params, dn_model, dn_cls,
-                                       search_train, val, BAYES_TRIALS,
-                                       advisor, "zoo-bayes")
+                                       search_train, search_val,
+                                       BAYES_TRIALS, advisor, "zoo-bayes")
         check(len(rows) == BAYES_TRIALS and all(
             r["status"] == TrialStatus.COMPLETED for r in rows),
             f"Bayes trials: {[(r['status'], r.get('error')) for r in rows]}")
@@ -3212,8 +3286,8 @@ def zoo_phase(torch, np, attn, card, data_dir=None):
               f"make_advisor chose {type(advisor).__name__} for ENAS")
         h0 = entropy(np, advisor.arch_probs())
         job, rows, search_s = zoo_search(meta, params, en_model, en_cls,
-                                         search_train, val, ENAS_TRIALS,
-                                         advisor, "zoo-enas")
+                                         search_train, search_val,
+                                         ENAS_TRIALS, advisor, "zoo-enas")
         h1 = entropy(np, advisor.arch_probs())
         check(len(rows) == ENAS_TRIALS and all(
             r["status"] == TrialStatus.COMPLETED for r in rows),
@@ -4859,8 +4933,8 @@ def zoo2_model_class(np, card, cls, task, data, knobs, queries,
 
 
 def zoo2_tagger(torch, np, attn, card, tmp):
-    """(e) The transformer tagger at full width on a corpus at the WSJ POS
-    split's size: one epoch, the kernels at its shape on its own q, k, v
+    """(e) The transformer tagger at full width on a corpus cut from the
+    WSJ POS split's size (``ZOO2_CORPUS``): one epoch, the kernels at its shape on its own q, k, v
     with ``kv_mask``, one block's output and the logits on the kernels
     against the plain attention, served through ``POST /predict``."""
     import os
@@ -6554,14 +6628,14 @@ CLUSTER_FAMILIES = ("rafiki_tpu_node_", "rafiki_tpu_bus_relay_",
                     "rafiki_tpu_fault_injections_total")
 
 
-def cluster_families(metrics):
-    """The cluster fabric's and the fault plane's families in the
-    process registry."""
+def registry_families(metrics, prefixes):
+    """The families in the process registry whose names start with one
+    of ``prefixes`` (the cluster fabric's and the fault plane's, or the
+    control loop's)."""
     fams = set()
     for line in metrics.registry().expose().splitlines():
         name = line.split("{")[0].split(" ")[0]
-        if line and not line.startswith("#") \
-                and name.startswith(CLUSTER_FAMILIES):
+        if line and not line.startswith("#") and name.startswith(prefixes):
             fams.add(name)
     return sorted(fams)
 
@@ -6664,9 +6738,9 @@ def cluster_phase(torch, np, attn, card, zoo2):
 
     try:
         # (a) The fabric off, no plan: a deployed bin and two frontends.
-        check(not faults.enabled() and not cluster_families(metrics),
-              f"cluster or fault series before the phase: "
-              f"{cluster_families(metrics)}")
+        before = registry_families(metrics, CLUSTER_FAMILIES)
+        check(not faults.enabled() and not before,
+              f"cluster or fault series before the phase: {before}")
         broker = BusServer().start()
         brokers.append(broker)
         t0 = time.perf_counter()
@@ -6697,7 +6771,7 @@ def cluster_phase(torch, np, attn, card, zoo2):
                  "admin http": plat.app._http._fault,
                  "frontend http": off[0]._http._fault,
                  "services": plat.services._node_faults}
-        fams = cluster_families(metrics)
+        fams = registry_families(metrics, CLUSTER_FAMILIES)
         check(nodes_off == {"enabled": False}
               and plat.node_registry is None
               and not any(f._fabric or f._m_fabric for f in off)
@@ -7109,6 +7183,426 @@ def cluster_phase(torch, np, attn, card, zoo2):
     return out
 
 
+AUTOSCALE_FAMILIES = ("rafiki_tpu_autoscale_", "rafiki_tpu_slo_")
+
+
+def decisions(scaler, action, reason=None):
+    """The autoscaler's applied decisions of one kind, oldest first."""
+    return [d for d in reversed(scaler.snapshot()["decisions"])
+            if d["action"] == action and d.get("applied")
+            and (reason is None or d["reason"] == reason)]
+
+
+def autoscale_phase(torch, np, attn, card, zoo2):
+    """The serving control loop on the card, with zoo2 (b)'s best ViT
+    trial (6 blocks) served from ``LocalPlatform``s built through
+    ``NodeConfig``: (a) no control-loop surface with the loop off, and
+    the clean p99 that sets the objective; (b) an SLO alert under
+    ``worker.slow`` driving a scale-up; (c) the alert resolving and a
+    drain back to one replica under load; (d) 429s driving a scale-up;
+    (e) the recorded workload replayed against the live device-time
+    histogram; (f) the capacity CLI's exit codes. Returns the phase's
+    numbers and K1-K3 launches."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rafiki_torch import faults
+    from rafiki_torch.admin import capacity
+    from rafiki_torch.cache import Cache, encode_payload
+    from rafiki_torch.client import Client
+    from rafiki_torch.config import NodeConfig
+    from rafiki_torch.constants import ServiceStatus
+    from rafiki_torch.observe import attribution, metrics, replay, workload
+    from rafiki_torch.observe import slo as slo_mod
+    from rafiki_torch.platform import LocalPlatform
+    from rafiki_torch.predictor.app import PredictorService
+
+    t_phase = time.perf_counter()
+    reset_launch_counts(attn)
+    trials = zoo2["lifecycle"]["trials"]
+    imgs = zoo2["lifecycle"]["val"][0]
+    check(len(trials) >= 1, f"{len(trials)} ViT trials")
+    saved_env = dict(os.environ)
+    faults.reset()
+    out = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_autoscale_")
+    plats = []
+    stop = threading.Event()
+    pool = None
+    sent = []
+
+    def node(name, **fields):
+        """A platform from a validated NodeConfig, as ``serve`` builds
+        one; its switches exported first."""
+        cfg = NodeConfig(workdir=os.path.join(tmp.name, name), port=0,
+                         supervise_interval=AUTOSCALE_SWEEP_S,
+                         serving_attribution=True, workload_record=True,
+                         serving_queue_cap=AUTOSCALE_QUEUE_CAP,
+                         **fields).validate()
+        cfg.apply_env()
+        # The ledger and the recorder read their switches once a process.
+        attribution.reset_for_tests()
+        workload.reset_for_tests()
+        plat = LocalPlatform.from_config(cfg, http=True)
+        plats.append(plat)
+        return plat
+
+    def deploy(plat, name):
+        root = plat.meta.get_user_by_email("superadmin@rafiki")
+        job, _ = cluster_trials(plat, root, trials, name, 1)
+        inf = plat.admin.create_inference_job(root["id"], job["id"],
+                                              max_models=1)
+        cache = Cache(plat.bus)
+        wait_for(lambda: len(cache.running_workers(inf["id"])) == 1,
+                 AUTOSCALE_WAIT_S, f"{name}: the ViT worker did not "
+                 f"register")
+        token = Client(admin_port=plat.admin_port).login(
+            "superadmin@rafiki", "rafiki")["token"]
+        return (inf, cache, token,
+                plat.admin.get_inference_job(inf["id"])["predictor_host"])
+
+    def ask_many(host, batch):
+        """One ``POST /predict`` of several images: (status, seconds,
+        whether every image was answered)."""
+        req = urllib.request.Request(
+            f"http://{host}/predict", data=json.dumps(
+                {"queries": [encode_payload(x) for x in batch]}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                preds = json.loads(r.read())["predictions"]
+                return (r.status, time.perf_counter() - t0,
+                        len(preds) == len(batch)
+                        and all(p is not None for p in preds))
+        except urllib.error.HTTPError as e:
+            e.read()
+            return e.code, time.perf_counter() - t0, False
+
+    def load(host, n, tag, per_request=1):
+        """``n`` closed-loop clients until ``stop``, each request
+        ``per_request`` images; a 429 backs off 10 ms."""
+        def client(k):
+            rng = np.random.default_rng(AUTOSCALE_SEED + k)
+            while not stop.is_set():
+                pick = rng.integers(len(imgs), size=per_request)
+                if per_request == 1:
+                    st, dt, ans = ask(host, imgs[int(pick[0])], 120)
+                    ans = ans is not None
+                else:
+                    st, dt, ans = ask_many(host, imgs[pick])
+                sent.append((tag, st, ans, dt, time.monotonic()))
+                if st == 429:
+                    time.sleep(0.01)
+
+        ex = ThreadPoolExecutor(n)
+        return ex, [ex.submit(client, k) for k in range(n)]
+
+    def halt(ex, futs):
+        stop.set()
+        for f in futs:
+            f.result(timeout=300)
+        ex.shutdown()
+        stop.clear()
+
+    def route(plat, token, path):
+        return json.loads(admin_get(plat.admin_port, path, token))
+
+    try:
+        # (a) The loop off: a deployed bin, its frontend and a clean
+        # window that sets the objective's threshold.
+        plat0 = node("off")
+        inf0, _, token0, host0 = deploy(plat0, "vit-as-off")
+        pool, futs = load(host0, AUTOSCALE_CLIENTS, "warm")
+        time.sleep(AUTOSCALE_WARM_S)
+        t_clean = time.monotonic()
+        time.sleep(AUTOSCALE_CLEAN_S)
+        halt(pool, futs)
+        pool = None
+        clean = [x for x in sent if x[4] - x[3] >= t_clean]
+        check(clean and all(st == 200 and a for _, st, a, _, _ in clean),
+              f"(a) clean window: {len(clean)} queries, statuses "
+              f"{sorted({st for _, st, _, _, _ in clean})}")
+        clean_p99 = percentile(sorted(dt for *_, dt, _ in clean), 99)
+        want = max(AUTOSCALE_THRESHOLD_X * clean_p99 * 1e3,
+                   AUTOSCALE_MIN_THRESHOLD_MS)
+        threshold_ms = min(b * 1e3 for b in metrics.LATENCY_BUCKETS
+                           if b * 1e3 >= want)
+        slow_ms = int(AUTOSCALE_SLOW_X * threshold_ms)
+        rule = AUTOSCALE_RULE.format(ms=threshold_ms)
+        off_routes = {p: route(plat0, token0, p)
+                      for p in ("/autoscale", "/slo", "/alerts")}
+        cap0 = route(plat0, token0, "/capacity")
+        fams = registry_families(metrics, AUTOSCALE_FAMILIES)
+        check(plat0.services.autoscaler is None
+              and plat0.services.slo_engine is None and not fams
+              and off_routes == {p: {"enabled": False} for p in off_routes}
+              and cap0["enabled"] and cap0["gate"]["ok"]
+              and cap0["policy_source"] == "defaults",
+              f"(a) the loop off: routes {off_routes}, /capacity gate "
+              f"{cap0.get('gate', {}).get('ok')}, series {fams}")
+        print(f"autoscale: (a) the loop off: a bin of the best ViT trial "
+              f"and its frontend; no rafiki_tpu_autoscale_* or "
+              f"rafiki_tpu_slo_* series; GET /autoscale, /slo and /alerts "
+              f"{{\"enabled\": false}}; GET /capacity's canned-ramp gate "
+              f"green under the default policy (simulated p99 "
+              f"{cap0['gate']['latency_ms']['p99']} ms); {len(clean)} "
+              f"queries from {AUTOSCALE_CLIENTS} clients in a clean "
+              f"{AUTOSCALE_CLEAN_S:.0f} s window, p99 "
+              f"{clean_p99 * 1e3:.2f} ms: the objective {rule!r}, "
+              f"worker.slow at {slow_ms} ms", flush=True)
+        out.update(clean_p99_ms=clean_p99 * 1e3, threshold_ms=threshold_ms)
+        plat0.shutdown()
+        plats.remove(plat0)
+
+        # (b) The loop armed; an SLO alert drives a scale-up.
+        plat = node("on", autoscale=True, slo_rules=rule,
+                    **AUTOSCALE_KNOBS)
+        scaler, engine = plat.services.autoscaler, plat.services.slo_engine
+        check(scaler is not None and engine is not None,
+              f"the loop is not armed: {scaler} {engine}")
+        faults.set_plan("")  # armed quietly before the workers are built
+        inf, cache, token, host = deploy(plat, "vit-as")
+        (wid0,) = cache.running_workers(inf["id"])
+        # The worker's first buckets are captured through a frontend of
+        # the phase's own, whose latency histogram the objective does not
+        # read: a capture's stall is not the bin's steady latency.
+        warm = PredictorService.for_job("as-warm", inf["id"], None,
+                                        plat.bus).start()
+        pool, futs = load(f"{warm.host}:{warm.port}", AUTOSCALE_CLIENTS,
+                          "warm")
+        time.sleep(AUTOSCALE_WARM_S)
+        halt(pool, futs)
+        warm.stop()
+        wall_warm = time.time()
+        sent.clear()
+        pool, futs = load(host, AUTOSCALE_CLIENTS, "b")
+        time.sleep(AUTOSCALE_CLEAN_S)
+
+        def settled():
+            return all(i["state"] == "ok"
+                       for o in engine.snapshot()["objectives"]
+                       for i in o["instances"])
+
+        wait_for(settled, AUTOSCALE_WAIT_S,
+                 "(b) the clean bin's alert did not settle")
+        blips = len(engine.alerts_snapshot()["alerts"])
+        check(decisions(scaler, "scale_up") == [],
+              f"(b) before the fault: alerts "
+              f"{engine.alerts_snapshot()['alerts']}, decisions "
+              f"{scaler.snapshot()['decisions']}")
+        epoch_arm = engine.epoch
+        k1_armed = launch_counts(attn)
+        faults.set_plan(f"worker.slow:ms={slow_ms}")
+        t_arm = time.monotonic()
+        name = rule.split(":")[0]
+        wait_for(lambda: name in engine.alerts_snapshot()["firing"],
+                 AUTOSCALE_WAIT_S, "(b) the alert never fired")
+        t_fire = time.monotonic()
+        wait_for(lambda: decisions(scaler, "scale_up", "slo_firing"),
+                 AUTOSCALE_WAIT_S, "(b) no slo_firing scale-up")
+        up = decisions(scaler, "scale_up", "slo_firing")[0]
+        wid1 = next(w["service_id"] for w in
+                    plat.services.active_inference_workers(inf["id"])
+                    if w["service_id"] != wid0)
+
+        def first_shard():
+            w = plat.container.get(wid1)
+            return w is not None and w.queries_served > 0
+
+        wait_for(lambda: wid1 in cache.running_workers(inf["id"])
+                 and first_shard(), AUTOSCALE_WAIT_S,
+                 "(b) the new replica took no shard")
+        t_shard = time.monotonic()
+        k1_up = launch_counts(attn)
+        up_k1 = k1_up[0] - k1_armed[0]
+        up_wg = k1_up[3] - k1_armed[3]
+        check(up["service_id"] == wid1[:8] and up_k1 > 0
+              and up_wg == up_k1,
+              f"(b) scale-up {up}, new replica {wid1[:8]}, K1 launched "
+              f"{up_k1} times ({up_wg} wgmma)")
+        print(f"autoscale: (b) the loop armed on a bin of one replica "
+              f"(supervise every {AUTOSCALE_SWEEP_S} s, {AUTOSCALE_KNOBS}); "
+              f"under {AUTOSCALE_CLIENTS} clients, worker.slow:ms={slow_ms} "
+              f"armed ({blips} alert transitions in the clean window "
+              f"before it): the alert fired {t_fire - t_arm:.2f} s after the "
+              f"arming; scale_up for slo_firing (signals "
+              f"{up['signals']}); the new "
+              f"replica {wid1[:8]}'s first shard {t_shard - t_fire:.2f} s "
+              f"after the firing (K1 launched {up_k1} times meanwhile, all "
+              f"wgmma: its runner builds)", flush=True)
+        out.update(arm_to_fire_s=t_fire - t_arm,
+                   fire_to_shard_s=t_shard - t_fire, up_k1=up_k1)
+
+        # (c) The plan disarmed: the alert resolves, then a drain.
+        faults.set_plan("")
+        t_disarm = time.monotonic()
+        wait_for(lambda: name not in engine.alerts_snapshot()["firing"],
+                 AUTOSCALE_WAIT_S, "(c) the alert never resolved")
+        t_resolved = time.monotonic()
+        wait_for(lambda: decisions(scaler, "scale_down"), AUTOSCALE_WAIT_S,
+                 "(c) no scale-down")
+        down = decisions(scaler, "scale_down")[0]
+        wait_for(lambda: len(plat.services.active_inference_workers(
+            inf["id"])) == 1 and wid1 not in cache.running_workers(
+            inf["id"]), AUTOSCALE_WAIT_S, "(c) the bin kept two replicas")
+        # The drain runs inside the sweep: from the decision's start (its
+        # wall-clock stamp) to the bin seen with one replica.
+        drain_s = time.time() - down["t"]
+        time.sleep(1.0)  # clients keep sending to the single replica
+        halt(pool, futs)
+        pool = None
+        owners = [len(o) for o in plat.allocator._owners]
+        row1 = plat.meta.get_service(wid1)["status"]
+        served = [x for x in sent if x[0] == "b"]
+        ok = sum(1 for _, st, a, _, _ in served if st == 200 and a)
+        alerts = route(plat, token, "/alerts")
+        trans = [a["transition"] for a in reversed(alerts["alerts"])
+                 if a["objective"] == name and a["epoch"] > epoch_arm]
+        slo_now = route(plat, token, "/slo")
+        [inst] = slo_now["objectives"][0]["instances"]
+        check(down["service_id"] == wid1[:8] and down["drained"]
+              and row1 == ServiceStatus.STOPPED and owners == [1]
+              and ok == len(served) and trans == ["pending", "firing",
+                                                  "resolved"]
+              and inst["state"] == "ok" and inst["budget_remaining"] < 1.0,
+              f"(c) scale-down {down}, the replica's row {row1}, chip "
+              f"owners {owners}; {ok} of {len(served)} queries answered; "
+              f"transitions {trans}; /slo {inst}")
+        lat = sorted(dt for *_, dt, _ in served)
+        resolved = next(a for a in alerts["alerts"]
+                        if a["objective"] == name
+                        and a["transition"] == "resolved")
+        print(f"autoscale: (c) the plan disarmed: the alert resolved "
+              f"{t_resolved - t_disarm:.2f} s later; scale_down drained "
+              f"{wid1[:8]} {down['t'] - resolved['t']:.2f} s after that (down "
+              f"cooldown {AUTOSCALE_KNOBS['autoscale_down_cooldown_s']} s "
+              f"from the scale-up), the drain taking {drain_s:.2f} s from "
+              f"the decision to one replica, its chip share released "
+              f"(owners {owners}); {ok}/{len(served)} queries answered "
+              f"through (b) and (c), p50 {percentile(lat, 50) * 1e3:.2f} "
+              f"ms, p99 {percentile(lat, 99) * 1e3:.2f} ms; GET /alerts "
+              f"{trans}; GET /slo budget remaining "
+              f"{inst['budget_remaining']} of the {inst['total']:.0f} "
+              f"requests in the window", flush=True)
+        out.update(resolve_s=t_resolved - t_disarm,
+                   drain_s=drain_s, answered=ok,
+                   queries=len(served))
+
+        # (d) Backpressure drives a scale-up.
+        pool, futs = load(host, AUTOSCALE_BURST_CLIENTS, "d",
+                          AUTOSCALE_BURST_IMAGES)
+        t_burst = time.monotonic()
+        wait_for(lambda: decisions(scaler, "scale_up", "backpressure"),
+                 AUTOSCALE_WAIT_S, "(d) no backpressure scale-up")
+        t_bp = time.monotonic()
+        halt(pool, futs)
+        pool = None
+        bp = decisions(scaler, "scale_up", "backpressure")[0]
+        burst = [x for x in sent if x[0] == "d"]
+        n429 = sum(1 for _, st, _, _, _ in burst if st == 429)
+        wait_for(lambda: len(cache.running_workers(inf["id"])) == 2,
+                 AUTOSCALE_WAIT_S, "(d) the new replica did not register")
+        check(n429 > 0 and bp["signals"]["backpressure_delta"] > 0
+              and all(st == 429 or (st == 200 and a)
+                      for _, st, a, _, _ in burst),
+              f"(d) {n429} 429s of {len(burst)}; {bp}")
+        print(f"autoscale: (d) {AUTOSCALE_BURST_CLIENTS} clients of "
+              f"{AUTOSCALE_BURST_IMAGES} images a request against an "
+              f"admission queue of {AUTOSCALE_QUEUE_CAP} queries: "
+              f"{n429} of {len(burst)} requests answered 429; scale_up "
+              f"for backpressure {t_bp - t_burst:.2f} s after the burst "
+              f"began (signals {bp['signals']})", flush=True)
+
+        # (e) The recorded workload replayed against the live histogram.
+        job_label = f'job="{inf["id"][:12]}"'
+        live = [line for line in urllib.request.urlopen(
+            f"http://{host}/metrics", timeout=30).read().decode()
+            .splitlines() if line.startswith(
+                f"{replay.FLEET_SOURCE_SERIES}_bucket")
+            and job_label in line]
+        fleet = replay.FleetModel.from_exposition("\n".join(live) + "\n")
+        check(fleet is not None, "(e) no live device-time histogram")
+        trace = [r for r in capacity.resolve_trace(plat.services.log_dir)
+                 if r.get("job") == inf["id"][:12]
+                 and float(r.get("t") or 0.0) >= wall_warm]
+        sim = replay.SimKnobs(seed=AUTOSCALE_SEED,
+                              sweep_interval_s=AUTOSCALE_SWEEP_S,
+                              queue_cap=float(AUTOSCALE_QUEUE_CAP),
+                              max_batch=AUTOSCALE_QUEUE_CAP,
+                              provision_delay_s=t_shard - t_fire)
+        report = replay.simulate(trace, fleet=fleet, sim=sim,
+                                 policy=scaler.policy.knobs,
+                                 objectives=slo_mod.parse_rules(rule))
+        live_ms = sorted(float(r["dur_ms"]) for r in trace
+                         if r.get("status") == 200)
+        live_actions = {}
+        for d in scaler.snapshot()["decisions"]:
+            if d.get("applied"):
+                k = f"{d['action']}:{d['reason']}"
+                live_actions[k] = live_actions.get(k, 0) + 1
+        check(report["served"] > 0 and live_ms, f"(e) replay {report}")
+        print(f"autoscale: (e) the phase's {len(trace)} recorded requests "
+              f"replayed over the bin's live device-time histogram "
+              f"({len(fleet.bins)} bin) under the live knobs: simulated "
+              f"p50 {report['latency_ms']['p50']} ms, p99 "
+              f"{report['latency_ms']['p99']} ms, {report['rejected']} "
+              f"rejected, actions {report['actions']}, SLO "
+              f"{report['slo'][name]['state']} (fired "
+              f"{report['slo'][name]['firing_s']} s); live p50 "
+              f"{percentile(live_ms, 50):.2f} ms, p99 "
+              f"{percentile(live_ms, 99):.2f} ms, "
+              f"{len(trace) - len(live_ms)} rejected, actions "
+              f"{live_actions}", flush=True)
+        out.update(sim_p99_ms=report["latency_ms"]["p99"],
+                   live_p99_ms=percentile(live_ms, 99),
+                   sim_actions=report["actions"], live_actions=live_actions)
+
+        # (f) The capacity CLI's exit codes.
+        root_dir = os.path.dirname(os.path.abspath(__file__))
+        rcs = []
+        for extra in ([], ["--policy", AUTOSCALE_DEGRADED]):
+            done = subprocess.run(
+                [sys.executable, "-m", "rafiki_torch.capacity", "score",
+                 "--trace", "ramp"] + extra, cwd=root_dir,
+                capture_output=True, text=True, timeout=120)
+            rcs.append((done.returncode,
+                        json.loads(done.stdout)["violations"]
+                        if done.stdout.strip() else done.stderr[-300:]))
+        check([rc for rc, _ in rcs] == [0, 1],
+              f"(f) the CLI's exit codes {rcs}")
+        print(f"autoscale: (f) python -m rafiki_torch.capacity score "
+              f"--trace ramp: exit {rcs[0][0]}; with --policy "
+              f"{AUTOSCALE_DEGRADED}: exit {rcs[1][0]}, violations "
+              f"{rcs[1][1]}", flush=True)
+    finally:
+        stop.set()
+        if pool is not None:
+            pool.shutdown(wait=True)
+        faults.set_plan(None)
+        for p in reversed(plats):
+            p.shutdown()
+        os.environ.clear()
+        os.environ.update(saved_env)
+        faults.reset()
+        attribution.reset_for_tests()
+        workload.reset_for_tests()
+        tmp.cleanup()
+    launches = launch_counts(attn)
+    phase_s = time.perf_counter() - t_phase
+    check(launches[0] > 0 and launches[3] == launches[0],
+          f"the autoscale phase launched K1 {launches[0]} times, "
+          f"{launches[3]} on wgmma")
+    check(phase_s <= AUTOSCALE_MAX_S,
+          f"the autoscale phase took {phase_s:.1f} s")
+    print(f"autoscale: K1, K2 and K3 launched {launches[:3]} times in the "
+          f"phase (runner builds of four workers and captures at new "
+          f"buckets; replays run uncounted), all K1 on wgmma; phase took "
+          f"{phase_s:.1f} s on {card}", flush=True)
+    out.update(launches=launches[:3], phase_s=phase_s)
+    return out
+
+
 def zoo2_rows(zoo2, kernel):
     """One kernel's numbers at the zoo2 phase's ViT and tagger shapes."""
     return {what: dict(zoo2[part]["kernels"][kernel],
@@ -7183,6 +7677,8 @@ def main() -> int:
                         zoo["data"])
         procs = timed("processes", processes_phase, torch, np, attn, card)
         clus = timed("cluster", cluster_phase, torch, np, attn, card, zoo2)
+        scale = timed("autoscale", autoscale_phase, torch, np, attn, card,
+                      zoo2)
     except Exception:
         traceback.print_exc()
         return 1
@@ -7193,7 +7689,8 @@ def main() -> int:
              launches=(train_launches[0] + serve_launches + gen_launches
                        + plat_launches[0] + zoo2["launches"][0]
                        + life["launches"][0] + ten["launches"][0]
-                       + procs["launches"][0] + clus["launches"][0]),
+                       + procs["launches"][0] + clus["launches"][0]
+                       + scale["launches"][0]),
              generate_launches=gen_launches,
              platform_launches=plat_launches[0],
              zoo_launches=zoo["launches"][0],
@@ -7204,6 +7701,7 @@ def main() -> int:
              processes_launches=procs["launches"][0],
              processes_trace_events=procs["trace_events"][0],
              cluster_launches=clus["launches"][0],
+             autoscale_launches=scale["launches"][0],
              zoo2_shapes=zoo2_rows(zoo2, "K1"),
              zoo2_f32=dict(zoo2["int8"]["k1_f32"], registers=f32_regs),
              generate_buckets=gen["buckets"], **k1, **k1_train),
@@ -7213,7 +7711,7 @@ def main() -> int:
              launches=(train_launches[1] + plat_launches[1]
                        + zoo2["launches"][1] + life["launches"][1]
                        + ten["launches"][1] + procs["launches"][1]
-                       + clus["launches"][1]),
+                       + clus["launches"][1] + scale["launches"][1]),
              platform_launches=plat_launches[1],
              zoo_launches=zoo["launches"][1],
              ensemble_launches=ens["launches"][1],
@@ -7223,6 +7721,7 @@ def main() -> int:
              processes_launches=procs["launches"][1],
              processes_trace_events=procs["trace_events"][1],
              cluster_launches=clus["launches"][1],
+             autoscale_launches=scale["launches"][1],
              zoo2_shapes=zoo2_rows(zoo2, "K2"), **k2),
         dict(name="flash_bwd_dkv (K3)", route="cuda",
              source=src + "flash_bwd_dkv.cu",
@@ -7230,7 +7729,7 @@ def main() -> int:
              launches=(train_launches[2] + plat_launches[2]
                        + zoo2["launches"][2] + life["launches"][2]
                        + ten["launches"][2] + procs["launches"][2]
-                       + clus["launches"][2]),
+                       + clus["launches"][2] + scale["launches"][2]),
              platform_launches=plat_launches[2],
              zoo_launches=zoo["launches"][2],
              ensemble_launches=ens["launches"][2],
@@ -7240,6 +7739,7 @@ def main() -> int:
              processes_launches=procs["launches"][2],
              processes_trace_events=procs["trace_events"][2],
              cluster_launches=clus["launches"][2],
+             autoscale_launches=scale["launches"][2],
              zoo2_shapes=zoo2_rows(zoo2, "K3"), **k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,8 +42,13 @@ counters (``observe.phases``), and ``get_status``'s ``mfu`` reads the
 train loops' ``rafiki_tpu_train_mfu_ratio`` gauge by trial. Time-sliced
 trials each publish their own, so the card's MFU is their sum.
 
-Not ported yet (ROADMAP, queue 1): the autoscaler, SLOs and alerts, capacity, dataset uploads, service logs and attaching train
-workers.
+The control loop: ``get_autoscale``, ``get_slo`` and ``get_alerts`` are
+the autoscaler's and the SLO engine's snapshots (``{"enabled": false}``
+when the part is off), and ``get_capacity`` is the capacity engine's
+(``admin/capacity.py``), always enabled.
+
+Not ported yet (ROADMAP, queue 1): dataset uploads, service logs and
+attaching train workers.
 """
 
 from __future__ import annotations
@@ -711,6 +716,40 @@ class Admin:
         return {"enabled": obs_metrics.metrics_enabled(),
                 "resident": resident, "phases": phases,
                 "caches": caches}
+
+    # --- The control loop ---
+
+    def get_autoscale(self) -> Dict[str, Any]:
+        """The autoscaler's decision ring and per-bin targets (the
+        ``GET /autoscale`` body), or ``{"enabled": false}`` when off."""
+        scaler = getattr(self.services, "autoscaler", None)
+        if scaler is None:
+            return {"enabled": False}
+        return scaler.snapshot()
+
+    def get_slo(self) -> Dict[str, Any]:
+        """The SLO engine's objectives and instances (``GET /slo``), or
+        ``{"enabled": false}`` when no rule is armed."""
+        engine = getattr(self.services, "slo_engine", None)
+        if engine is None:
+            return {"enabled": False}
+        return engine.snapshot()
+
+    def get_alerts(self) -> Dict[str, Any]:
+        """The SLO engine's alert transitions, newest first
+        (``GET /alerts``), or ``{"enabled": false}``."""
+        engine = getattr(self.services, "slo_engine", None)
+        if engine is None:
+            return {"enabled": False}
+        return engine.alerts_snapshot()
+
+    def get_capacity(self) -> Dict[str, Any]:
+        """The recorded-workload inventory and a canned-ramp gate of the
+        policy this node would apply (``GET /capacity``); always
+        enabled, since the gate needs only the simulator."""
+        from . import capacity as capacity_mod
+
+        return capacity_mod.admin_snapshot(self.services)
 
     # --- Node status ---
 

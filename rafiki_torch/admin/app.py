@@ -36,13 +36,22 @@ The port's copy of the routes of ``rafiki_tpu/admin/app.py`` that
                                        fabric)
 - ``GET  /trial_phases``               the trial phases and the cache
                                        counters
+- ``GET  /autoscale``                  the autoscaler's decisions and
+                                       per-bin targets
+- ``GET  /slo``, ``GET /alerts``       the SLO engine's objectives and
+                                       its alert transitions (each
+                                       ``{"enabled": false}`` when its
+                                       part is off)
+- ``GET  /capacity``                   the recorded workload and the
+                                       canned-ramp gate of this node's
+                                       policy (always enabled)
 - ``GET  /metrics``                    the process registry
                                        (``JsonHttpServer``)
 
 Auth: ``Authorization: Bearer <jwt>`` on everything but ``POST
 /tokens`` and ``GET /metrics``. Every other route of the reference
 answers 404 until it is ported (ROADMAP, queue 1): the dashboard,
-autoscale, SLO, alerts, capacity, datasets and service logs.
+datasets and service logs.
 """
 
 from __future__ import annotations
@@ -86,6 +95,10 @@ class AdminApp:
             ("GET", "/status", self._status),
             ("GET", "/nodes", self._nodes),
             ("GET", "/trial_phases", self._trial_phases),
+            ("GET", "/autoscale", self._autoscale),
+            ("GET", "/slo", self._slo),
+            ("GET", "/alerts", self._alerts),
+            ("GET", "/capacity", self._capacity),
         ], host=host, port=port, name="admin")
         self.host = self._http.host
         self.port = self._http.port
@@ -246,3 +259,19 @@ class AdminApp:
     def _trial_phases(self, params, body, ctx):
         self._auth(ctx)
         return 200, self.admin.get_trial_phases()
+
+    def _autoscale(self, params, body, ctx):
+        self._auth(ctx)
+        return 200, self.admin.get_autoscale()
+
+    def _slo(self, params, body, ctx):
+        self._auth(ctx)
+        return 200, self.admin.get_slo()
+
+    def _alerts(self, params, body, ctx):
+        self._auth(ctx)
+        return 200, self.admin.get_alerts()
+
+    def _capacity(self, params, body, ctx):
+        self._auth(ctx)
+        return 200, self.admin.get_capacity()

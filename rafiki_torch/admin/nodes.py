@@ -15,8 +15,8 @@ A record is live while its heartbeat is younger than ``lease_s`` (the
 node lease): a node that died without withdrawing stops counting one
 lease later.
 
-``spread_ok``'s consumer, the autoscaler, is not ported yet (ROADMAP,
-queue 1).
+``spread_ok`` is the autoscaler's vote (``admin/autoscaler.py``
+``_scale_up``): one placing node a pressure round.
 """
 
 from __future__ import annotations

@@ -9,10 +9,9 @@ advertised ``/metrics`` addresses grouped by the node that placed them
 (``ScrapeCache``), through which each endpoint is fetched once a sweep,
 failures included.
 
-Its consumers, the SLO engine's and the autoscaler's sweeps, which ride
-the supervise sweep in the reference (``services_manager.py:727-751``),
-are not ported yet (ROADMAP, queue 1): nothing in the port calls these
-on its own.
+Its consumers are the SLO engine's and the autoscaler's sweeps, which
+ride the supervise sweep on one ``ScrapeCache``
+(``ServicesManager._sweep_control_loop``).
 """
 
 from __future__ import annotations

@@ -49,8 +49,15 @@ whose ``op`` matches this node's id hard-kills every running service it
 owns at the end of a supervise sweep (rows left RUNNING, registrations
 stale), so its next sweep finds the wreckage and respawns it.
 
-Not ported yet: the autoscaler, the SLO engine (the consumers of
-``admin/scrape.py``) and the scoped-checkpoint sweep.
+The serving control loop rides the supervise sweep: the platform
+attaches an SLO engine (``slo_engine``, ``admin/slo_engine.py``) when
+``RAFIKI_TPU_SLO_RULES`` names objectives and an autoscaler
+(``autoscaler``, ``admin/autoscaler.py``) when ``RAFIKI_TPU_AUTOSCALE``
+is on. After the dead-service pass both read one ``ScrapeCache``, the
+SLO sweep first, so a firing alert is the autoscaler's pressure in the
+same sweep. Off, each is None and costs one attribute check.
+
+Not ported yet: the scoped-checkpoint sweep.
 """
 
 from __future__ import annotations
@@ -120,6 +127,11 @@ class ServicesManager:
         # rows are ERRORED, out of the RUNNING scan, so each sweep
         # retries them until a worker lands or the job stops.
         self._pending_respawns: List[Dict[str, Any]] = []
+        # The control loop (admin/autoscaler.py, admin/slo_engine.py),
+        # attached by the platform only when armed; None costs supervise
+        # one attribute check each.
+        self.autoscaler = None
+        self.slo_engine = None
         # The cluster node registry, attached by the platform only on
         # the fabric; None costs heartbeat one attribute check.
         self.node_registry = None
@@ -563,6 +575,8 @@ class ServicesManager:
                 pending.pop(0)
         finally:
             self._pending_respawns.extend(pending)
+        if self.slo_engine is not None or self.autoscaler is not None:
+            self._sweep_control_loop()
         if self._node_faults is not None:
             # At the sweep's end, so what it kills stays dead until the
             # next sweep respawns it.
@@ -570,6 +584,22 @@ class ServicesManager:
             if act is not None and act[0] == "kill":
                 self._kill_node_services()
         return restarted
+
+    def _sweep_control_loop(self) -> None:
+        """The SLO sweep, then the autoscaler's, over one shared scrape
+        cache (each endpoint fetched once). Each is isolated: its failure
+        is logged and the supervise sweep goes on."""
+        from .scrape import ScrapeCache
+
+        scrapes = ScrapeCache()
+        for name, consumer in (("slo", self.slo_engine),
+                               ("autoscale", self.autoscaler)):
+            if consumer is None:
+                continue
+            try:
+                consumer.sweep(scrapes=scrapes)
+            except Exception:
+                _log.exception("%s sweep failed", name)
 
     def _kill_node_services(self) -> None:
         """The whole node's death (``node.kill``): hard-kill every

@@ -46,12 +46,16 @@ Fields:
   fails the node's construction) and ``fault_seed`` (``faults.py``);
 - the cluster fabric's ``cluster_fabric`` (off by default: no node
   registry, no frontend registry, no relay routing, no new series or
-  thread), ``cluster_probe_timeout_s`` and ``cluster_locality_boost``.
+  thread), ``cluster_probe_timeout_s`` and ``cluster_locality_boost``;
+- the serving control loop's: the autoscaler's ``autoscale`` (off by
+  default) and its ``autoscale_*`` policy knobs, whose
+  ``autoscale_periodicity`` table ``validate`` loads, and the SLO
+  plane's ``slo_rules`` (parsed by ``validate``; "" = off),
+  ``slo_webhook_url`` and ``slo_alert_log_mb``.
 
 Left out until their modules come (ROADMAP, queue 1): ``probe_timeout``
-(the port does not probe the card; without one it raises), the
-autoscaler's and the SLO plane's fields, ``serving_packed_wire`` and
-``checkpoint_trials``.
+(the port does not probe the card; without one it raises),
+``serving_packed_wire`` and ``checkpoint_trials``.
 """
 
 from __future__ import annotations
@@ -180,6 +184,36 @@ class NodeConfig:
     generate_pool_pages: int = 256         # pages; page 0 is scratch
     generate_decode_batch: int = 8         # lanes a decode step
     generate_max_new: int = 128            # tokens a request, at most
+
+    # --- The autoscaler (admin/autoscaler.py) ---
+    # Off: supervise pays one attribute check and no autoscale series
+    # exists.
+    autoscale: bool = False
+    autoscale_dry_run: bool = False        # record, do not actuate
+    autoscale_max_replicas: int = 4        # a bin's ceiling
+    autoscale_step: int = 1                # replicas added a sweep
+    autoscale_up_cooldown_s: float = 10.0
+    autoscale_down_cooldown_s: float = 60.0
+    # The hysteresis band over queue_depth/queue_cap.
+    autoscale_queue_high: float = 0.25
+    autoscale_queue_low: float = 0.02
+    autoscale_p99_high_ms: float = 0.0     # 0 = p99 not consulted
+    # Idle-train preemption: a sub-job under this MFU for idle_sweeps
+    # sweeps gives a worker to a starved bin (0 = never).
+    autoscale_mfu_floor: float = 0.05
+    autoscale_idle_sweeps: int = 3
+    # Predictive scale-ahead (0 = off) and its learned periodicity
+    # table ("" = the queue trend only).
+    autoscale_predict_horizon_s: float = 0.0
+    autoscale_periodicity: str = ""
+    autoscale_predict_ramp_ratio: float = 1.5
+
+    # --- The SLO plane (observe/slo.py, admin/slo_engine.py) ---
+    # A rules file (.json/.toml) or the inline grammar; "" = off, no
+    # slo series.
+    slo_rules: str = ""
+    slo_webhook_url: str = ""              # "" = no webhook thread
+    slo_alert_log_mb: float = 16.0         # alerts.jsonl's roll size
 
     # --- Robustness: the fault plane (faults.py) ---
     # ";"-separated site.kind:params rules; "" = disarmed.
@@ -343,6 +377,36 @@ class NodeConfig:
         if self.node_lease <= 0:
             raise ValueError("node_lease must be positive (it bounds "
                              "foreign-node liveness detection)")
+        if self.autoscale_max_replicas < 1 or self.autoscale_step < 1:
+            raise ValueError("autoscale_max_replicas and autoscale_step "
+                             "must be >= 1")
+        if self.autoscale_up_cooldown_s < 0 \
+                or self.autoscale_down_cooldown_s < 0:
+            raise ValueError("autoscale cooldowns must be >= 0")
+        if not (0.0 <= self.autoscale_queue_low
+                <= self.autoscale_queue_high <= 1.0):
+            raise ValueError("need 0 <= autoscale_queue_low <= "
+                             "autoscale_queue_high <= 1")
+        if self.autoscale_p99_high_ms < 0:
+            raise ValueError("autoscale_p99_high_ms must be >= 0 "
+                             "(0 = p99 not consulted)")
+        if self.autoscale_mfu_floor < 0:
+            raise ValueError("autoscale_mfu_floor must be >= 0 "
+                             "(0 disables preemption)")
+        if self.autoscale_idle_sweeps < 1:
+            raise ValueError("autoscale_idle_sweeps must be >= 1")
+        if self.autoscale_predict_horizon_s < 0:
+            raise ValueError("autoscale_predict_horizon_s must be >= 0 "
+                             "(0 disables predictive scale-ahead)")
+        if self.autoscale_predict_ramp_ratio < 1.0:
+            raise ValueError("autoscale_predict_ramp_ratio must be "
+                             ">= 1 (a recurring ramp must mean MORE "
+                             "load, not less)")
+        if self.autoscale_periodicity.strip():
+            # A missing or malformed table fails the node's construction.
+            from .admin.capacity import load_periodicity
+
+            load_periodicity(self.autoscale_periodicity)
         if self.max_chip_share < 1:
             raise ValueError("max_chip_share must be >= 1 (1 = no "
                              "time-sliced co-ownership)")
@@ -377,6 +441,20 @@ class NodeConfig:
                              "(1.0 disables tail sampling)")
         if self.trace_tail_slow_ms < 0:
             raise ValueError("trace_tail_slow_ms must be >= 0")
+        if self.slo_rules.strip():
+            # A typo'd objective, or a rules file that is missing or
+            # does not parse, fails the node's construction.
+            from .observe.slo import parse_rules
+
+            parse_rules(self.slo_rules)
+        if self.slo_webhook_url and not (
+                self.slo_webhook_url.startswith("http://")
+                or self.slo_webhook_url.startswith("https://")):
+            raise ValueError(
+                f"slo_webhook_url {self.slo_webhook_url!r} must be an "
+                f"http(s) URL")
+        if self.slo_alert_log_mb <= 0:
+            raise ValueError("slo_alert_log_mb must be positive")
         if not (0 <= self.metrics_port <= 65535):
             raise ValueError(f"metrics_port {self.metrics_port} out of "
                              f"range (0 = no standalone server)")
@@ -458,6 +536,30 @@ class NodeConfig:
         for f in ("generate_page_size", "generate_pool_pages",
                   "generate_decode_batch", "generate_max_new"):
             os.environ[self.env_name(f)] = str(getattr(self, f))
+        # The platform builds the autoscaler and the SLO engine from
+        # these; the switches, the table and the rules pop when off
+        # (absent = disarmed).
+        if self.autoscale:
+            os.environ[self.env_name("autoscale")] = "1"
+        else:
+            os.environ.pop(self.env_name("autoscale"), None)
+        os.environ[self.env_name("autoscale_dry_run")] = \
+            "1" if self.autoscale_dry_run else "0"
+        for f in ("autoscale_max_replicas", "autoscale_step",
+                  "autoscale_up_cooldown_s", "autoscale_down_cooldown_s",
+                  "autoscale_queue_high", "autoscale_queue_low",
+                  "autoscale_p99_high_ms", "autoscale_mfu_floor",
+                  "autoscale_idle_sweeps",
+                  "autoscale_predict_horizon_s",
+                  "autoscale_predict_ramp_ratio",
+                  "slo_alert_log_mb"):
+            os.environ[self.env_name(f)] = str(getattr(self, f))
+        for f in ("autoscale_periodicity", "slo_rules",
+                  "slo_webhook_url"):
+            if getattr(self, f).strip():
+                os.environ[self.env_name(f)] = getattr(self, f)
+            else:
+                os.environ.pop(self.env_name(f), None)
         # The fault plane arms from these when its first site is built;
         # an empty plan pops both (absent = disarmed).
         if self.fault_plan.strip():

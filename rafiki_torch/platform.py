@@ -33,8 +33,12 @@ the platform is built) the platform builds the node registry
 and then on each heartbeat, and withdraws it on shutdown; off, it is
 None and nothing of it exists.
 
-The reference's autoscaler and SLO engine are off by default there and
-not ported here.
+The serving control loop is built only when armed, when the platform
+is built: the autoscaler (``admin/autoscaler.py``) with
+``RAFIKI_TPU_AUTOSCALE`` on, the SLO engine (``admin/slo_engine.py``)
+when ``RAFIKI_TPU_SLO_RULES`` names objectives. Each is attached to the
+services manager, whose supervise sweep runs them, and closed (its
+series dropped) on shutdown. Off, each is None and nothing of it exists.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ from typing import Optional
 from .admin import Admin, ServicesManager
 from .admin.app import AdminApp
 from .bus import MemoryBus, connect
-from .config import cluster_fabric_enabled
+from .config import _parse_bool, cluster_fabric_enabled
 from .container import SystemContext, ThreadContainerManager
 from .observe import trace as observe_trace
 from .observe import workload as observe_workload
@@ -133,6 +137,18 @@ class LocalPlatform:
         # next to it, in <workdir>/logs/workload.jsonl.
         observe_workload.configure(self.services.log_dir)
         self.admin = Admin(self.meta, self.params, self.services)
+        self.autoscaler = None
+        if _parse_bool(os.environ.get("RAFIKI_TPU_AUTOSCALE", "0")):
+            from .admin.autoscaler import Autoscaler
+
+            self.autoscaler = Autoscaler.from_env(self.services, self.meta)
+            self.services.autoscaler = self.autoscaler
+        self.slo_engine = None
+        if os.environ.get("RAFIKI_TPU_SLO_RULES", "").strip():
+            from .admin.slo_engine import SloEngine
+
+            self.slo_engine = SloEngine.from_env(self.services, self.meta)
+            self.services.slo_engine = self.slo_engine
         self.node_registry = None
         if cluster_fabric_enabled():
             from .admin.nodes import NodeRegistry
@@ -199,6 +215,12 @@ class LocalPlatform:
         if self._supervisor is not None:
             self._supervisor.join(timeout=5)
         self._heartbeat.join(timeout=5)
+        if self.autoscaler is not None:
+            self.services.autoscaler = None
+            self.autoscaler.close()  # drop the autoscale series
+        if self.slo_engine is not None:
+            self.services.slo_engine = None
+            self.slo_engine.close()  # drop the slo series
         if self.node_registry is not None:
             self.services.node_registry = None
             try:

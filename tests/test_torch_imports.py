@@ -81,7 +81,11 @@ def test_importing_the_port_loads_no_jax():
                 "rafiki_torch.observe.workload", "rafiki_torch.__main__",
                 "rafiki_torch.bus.tcp", "rafiki_torch.bus.native",
                 "rafiki_torch.utils.service_logs", "rafiki_torch.faults",
-                "rafiki_torch.admin.nodes", "rafiki_torch.admin.scrape"):
+                "rafiki_torch.admin.nodes", "rafiki_torch.admin.scrape",
+                "rafiki_torch.observe.slo", "rafiki_torch.observe.replay",
+                "rafiki_torch.admin.slo_engine",
+                "rafiki_torch.admin.autoscaler",
+                "rafiki_torch.admin.capacity", "rafiki_torch.capacity"):
         assert mod in mods, mod
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"

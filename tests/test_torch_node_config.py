@@ -286,3 +286,126 @@ def test_new_fields_round_trip_through_apply_env(overrides):
         os.environ.update(saved)
     assert exported[0] == exported[1]
     assert all(all(b.values()) for b in back), back
+
+
+# --- The serving control loop's fields: the autoscaler and the SLO plane ---
+
+LOOP_FIELDS = ["autoscale", "autoscale_dry_run", "autoscale_max_replicas",
+               "autoscale_step", "autoscale_up_cooldown_s",
+               "autoscale_down_cooldown_s", "autoscale_queue_high",
+               "autoscale_queue_low", "autoscale_p99_high_ms",
+               "autoscale_mfu_floor", "autoscale_idle_sweeps",
+               "autoscale_predict_horizon_s", "autoscale_periodicity",
+               "autoscale_predict_ramp_ratio", "slo_rules",
+               "slo_webhook_url", "slo_alert_log_mb"]
+
+
+@pytest.mark.parametrize("field", LOOP_FIELDS)
+def test_loop_field_default_and_name_equal_the_reference(field):
+    assert getattr(pconfig.NodeConfig(), field) == \
+        getattr(rconfig.NodeConfig(), field)
+    assert pconfig.NodeConfig.env_name(field) == \
+        rconfig.NodeConfig.env_name(field)
+    assert pconfig.NodeConfig._field_types()[field] is \
+        rconfig.NodeConfig._field_types()[field]
+
+
+def _loop_outcome(cls, env, overrides):
+    try:
+        cfg = cls.from_env(env=env, **overrides)
+    except ValueError as e:
+        return str(e)
+    return {f: getattr(cfg, f) for f in LOOP_FIELDS}
+
+
+@pytest.fixture()
+def tables(tmp_path):
+    good = tmp_path / "good.json"
+    good.write_text('{"period_s": 60, "bin_s": 30, "qps": [1.0, 2.0]}')
+    bad = tmp_path / "bad.json"
+    bad.write_text('{"period_s": 60, "bin_s": 30, "qps": [1.0]}')
+    rules = tmp_path / "rules.json"
+    rules.write_text('{"objectives": [{"name": "a", "type": "ratio", '
+                     '"target": 0.99}]}')
+    return {"good": str(good), "bad": str(bad), "rules": str(rules),
+            "absent": str(tmp_path / "absent.json")}
+
+
+@pytest.mark.parametrize("env,overrides", [
+    ({}, {}),
+    ({"RAFIKI_TPU_AUTOSCALE": "1", "RAFIKI_TPU_AUTOSCALE_DRY_RUN": "yes",
+      "RAFIKI_TPU_AUTOSCALE_MAX_REPLICAS": "2",
+      "RAFIKI_TPU_AUTOSCALE_STEP": "2",
+      "RAFIKI_TPU_AUTOSCALE_UP_COOLDOWN_S": "1",
+      "RAFIKI_TPU_AUTOSCALE_DOWN_COOLDOWN_S": "4",
+      "RAFIKI_TPU_AUTOSCALE_QUEUE_HIGH": "0.5",
+      "RAFIKI_TPU_AUTOSCALE_QUEUE_LOW": "0.1",
+      "RAFIKI_TPU_AUTOSCALE_P99_HIGH_MS": "80",
+      "RAFIKI_TPU_AUTOSCALE_MFU_FLOOR": "0",
+      "RAFIKI_TPU_AUTOSCALE_IDLE_SWEEPS": "5",
+      "RAFIKI_TPU_AUTOSCALE_PREDICT_HORIZON_S": "30",
+      "RAFIKI_TPU_AUTOSCALE_PREDICT_RAMP_RATIO": "2",
+      "RAFIKI_TPU_AUTOSCALE_PERIODICITY": "@good",
+      "RAFIKI_TPU_SLO_RULES": "p99:p99<50ms,window=60;a:ratio>=0.99",
+      "RAFIKI_TPU_SLO_WEBHOOK_URL": "http://127.0.0.1:9/hook",
+      "RAFIKI_TPU_SLO_ALERT_LOG_MB": "2"}, {}),
+    ({"RAFIKI_TPU_SLO_RULES": "@rules"}, {}),
+    ({"RAFIKI_TPU_AUTOSCALE": "auto"}, {}),
+    ({"RAFIKI_TPU_AUTOSCALE_STEP": "two"}, {}),
+    ({}, {"autoscale_max_replicas": 0}), ({}, {"autoscale_step": 0}),
+    ({}, {"autoscale_up_cooldown_s": -1.0}),
+    ({}, {"autoscale_down_cooldown_s": -1.0}),
+    ({}, {"autoscale_queue_low": 0.5, "autoscale_queue_high": 0.4}),
+    ({}, {"autoscale_queue_high": 1.5}),
+    ({}, {"autoscale_p99_high_ms": -1.0}),
+    ({}, {"autoscale_mfu_floor": -0.1}), ({}, {"autoscale_idle_sweeps": 0}),
+    ({}, {"autoscale_predict_horizon_s": -1.0}),
+    ({}, {"autoscale_predict_ramp_ratio": 0.9}),
+    ({}, {"autoscale_periodicity": "@bad"}),
+    ({}, {"autoscale_periodicity": "@absent"}),
+    ({}, {"slo_rules": "x:p99<50ms,bogus=1"}),
+    ({}, {"slo_rules": "@absent"}),
+    ({}, {"slo_webhook_url": "ftp://pager"}),
+    ({}, {"slo_alert_log_mb": 0.0})])
+def test_loop_fields_parse_and_validate_as_the_reference(env, overrides,
+                                                         tables):
+    def sub(v):
+        return tables[v[1:]] if isinstance(v, str) and v.startswith("@") \
+            else v
+
+    env = {k: sub(v) for k, v in env.items()}
+    overrides = {k: sub(v) for k, v in overrides.items()}
+    got = [_loop_outcome(cls, env, overrides) for cls in CONFIGS]
+    assert got[0] == got[1]
+
+
+LOOP_EXPORTED = [pconfig.NodeConfig.env_name(f) for f in LOOP_FIELDS]
+
+
+@pytest.mark.parametrize("overrides", [
+    {}, {"autoscale": True, "autoscale_dry_run": True,
+         "autoscale_max_replicas": 2, "autoscale_up_cooldown_s": 1.0,
+         "autoscale_periodicity": "@good",
+         "slo_rules": "p99:p99<50ms", "slo_webhook_url": "https://x/y",
+         "slo_alert_log_mb": 4.0}])
+def test_loop_fields_round_trip_through_apply_env(overrides, tables):
+    overrides = {k: tables[v[1:]] if isinstance(v, str) and
+                 v.startswith("@") else v for k, v in overrides.items()}
+    saved = dict(os.environ)
+    exported, back = [], []
+    try:
+        for cls in CONFIGS:
+            for k in LOOP_EXPORTED:
+                os.environ[k] = "stale"
+            cfg = cls.from_env(env={}, **overrides)
+            cfg.apply_env()
+            exported.append({k: os.environ.get(k) for k in LOOP_EXPORTED})
+            again = cls.from_env(env={k: v for k, v in os.environ.items()
+                                      if k in LOOP_EXPORTED})
+            back.append({f: getattr(again, f) == getattr(cfg, f)
+                         for f in LOOP_FIELDS})
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    assert exported[0] == exported[1]
+    assert all(all(b.values()) for b in back), back

@@ -226,9 +226,7 @@ def test_unported_routes_answer_404(both):
     port = both[0][1]
     root = Client(admin_port=port.admin_port)
     root.login("superadmin@rafiki", "rafiki")
-    for method, path in (("GET", "/"), ("GET", "/autoscale"),
-                         ("GET", "/slo"),
-                         ("GET", "/alerts"), ("GET", "/capacity"),
+    for method, path in (("GET", "/"),
                          ("GET", "/datasets"), ("POST", "/datasets"),
                          ("GET", "/services/abc/logs")):
         req = urllib.request.Request(

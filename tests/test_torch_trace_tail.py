@@ -157,6 +157,9 @@ def test_envelope_tail_marks_and_the_remote_hold(stores, monkeypatch):
     monkeypatch.setenv("RAFIKI_TPU_TRACE_TAIL_SAMPLE", "0.5")
     results = {}
     for kind, (tr, me, log_dir) in stores.items():
+        # Each package's counter is process-global: other test files
+        # may have moved it, so its pass is compared as a delta.
+        before = _tail_counts(me)
         ctxs = [tr.TraceContext(f"{i:032x}", span_id=f"{i:016x}",
                                 tail=True) for i in (101, 102, 103)]
         ctxs.append(tr.TraceContext(f"{104:032x}", span_id=f"{104:016x}"))
@@ -179,7 +182,10 @@ def test_envelope_tail_marks_and_the_remote_hold(stores, monkeypatch):
         tr.flush_remote_tail()  # the third: no verdict, kept on doubt
         counts = {tid: tr.collect_trace(log_dir, tid)["n_spans"]
                   for tid in (c.trace_id for c in got)}
-        results[kind] = (env, held, still, counts, _tail_counts(me))
+        after = _tail_counts(me)
+        deltas = {v: after.get(v, 0) - before.get(v, 0)
+                  for v in sorted(set(after) | set(before))}
+        results[kind] = (env, held, still, counts, deltas)
     assert results["port"] == results["ref"]
     env, held, still, counts, _ = results["port"]
     assert env["tail"] == [0, 1, 2]
