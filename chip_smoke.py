@@ -350,18 +350,37 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    actions printed beside the live ones (a record, no limit); (f)
    ``python -m rafiki_torch.capacity score --trace ramp`` exits 0, and
    1 under a degraded policy. The phase must take at most 75 s;
-18. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
+18. operator phase, the operator and data surface over HTTP to one
+   ``LocalPlatform`` on the card: (a) zoo2's first 8,192 train images
+   and its 1,024 val images uploaded as ``.npz`` files with
+   ``Client.create_dataset``, listed by ``GET /datasets?task=``, a
+   duplicate name refused and a forged Content-Length answered 413; (b)
+   a train job of 2 ViT trials at zoo2 (b)'s widths (6 blocks, batch
+   256, 2 epochs) names the uploaded paths and trains from the stored
+   files, launching K1, K2 and K3 on wgmma, each trial's logs holding
+   the ``Training`` plot record and one loss an epoch; (c)
+   ``GET /services/<id>/logs`` gives the train worker's and the
+   inference worker's tails, another user 403; (d) the best trial
+   deployed with ``serving_packed_wire`` off (no ``ndbatch1`` offered,
+   no wire series) and then on, the same 64 images answering bit for
+   bit equal, each window's queries/s and p99 printed, and one query
+   through ``Cache.send_query`` answered as ``/predict`` answers it; (e)
+   ``GET /`` serves the dashboard and every request the page makes
+   answers non-404; (f) ``chip_utilization`` above 0 while the job ran
+   and 0 after. The phase must take at most 60 s;
+19. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
    ``library_covers`` names the kernels whose work one library call does,
    ``platform_launches``, ``zoo_launches``, ``ensemble_launches``,
    ``zoo2_launches``, ``lifecycle_launches``, ``tenants_launches``,
-   ``processes_launches``, ``cluster_launches`` and
-   ``autoscale_launches`` the platform, zoo, ensemble, zoo2, lifecycle,
-   tenants, processes, cluster and autoscale phases' launches (the
-   platform's, zoo2's, lifecycle's, tenants', the processes' children's,
-   the cluster and the autoscale phases' counted in ``launches`` too; ``processes_trace_events`` each kernel's events in
-   the join node's trial trace), K2's and K3's ``f32`` their f32 variants' numbers,
-   ``zoo2_shapes`` each
-   kernel's numbers at the ViT and tagger shapes and ``zoo2_f32`` K1's
+   ``processes_launches``, ``cluster_launches``, ``autoscale_launches``
+   and ``operator_launches`` the platform, zoo, ensemble, zoo2,
+   lifecycle, tenants, processes, cluster, autoscale and operator
+   phases' launches (the platform's, zoo2's, lifecycle's, tenants', the
+   processes' children's, the cluster, the autoscale and the operator
+   phases' counted in ``launches`` too; ``processes_trace_events``
+   each kernel's events in the join node's trial trace), K2's and K3's
+   ``f32`` their f32 variants' numbers, ``zoo2_shapes`` each kernel's
+   numbers at the ViT and tagger shapes and ``zoo2_f32`` K1's
    f32 variant at the int8 ViT shape with its registers and spills, and,
    last, the ``{"ok": true,
    "device": ...}`` line.
@@ -878,6 +897,40 @@ AUTOSCALE_DEGRADED = '{"queue_high": 0.98, "max_replicas": 1, ' \
 AUTOSCALE_SEED = 17
 AUTOSCALE_WAIT_S = 30.0
 AUTOSCALE_MAX_S = 75.0
+# The operator phase: the operator and data surface of one node on the
+# card, driven over HTTP as a user of the dashboard or the client does.
+# zoo2's image arrays (the zoo phases' synthetic CIFAR-10-shaped set: its
+# first OPERATOR_TRAIN train images and zoo2's ZOO2_VAL val images) are
+# written as .npz files and uploaded (POST /datasets); a train job of
+# OPERATOR_TRIALS ViT trials at zoo2 (b)'s widths (d_model 128, 4 heads
+# of 32, patch 4: 65 tokens, 6 blocks, batch 256) trains OPERATOR_EPOCHS
+# epochs (32 steps each) from the stored files; the best trial is
+# deployed with the packed wire off, then on, each answering the same
+# OPERATOR_WINDOW images as single-image requests from one client, in
+# order: each request is then a burst of its own at bucket 1 under both
+# wires, so the two sets of answers must agree bit for bit.
+OPERATOR_TRAIN = 8192
+OPERATOR_TRIALS = 2
+OPERATOR_EPOCHS = 2
+OPERATOR_WINDOW = 64
+OPERATOR_WAIT_S = 60.0
+OPERATOR_MAX_S = 60.0
+OPERATOR_VIT_SOURCE = """
+from rafiki_torch.model import FixedKnob
+from rafiki_torch.models import TorchViT
+
+
+class OperatorViT(TorchViT):
+    # zoo2 (b)'s widths with all 6 blocks at batch 256.
+    @staticmethod
+    def get_knob_config():
+        cfg = dict(TorchViT.get_knob_config())
+        cfg.update(depth=FixedKnob(6), batch_size=FixedKnob(256),
+                   max_epochs=FixedKnob({epochs}))
+        return cfg
+""".format(epochs=OPERATOR_EPOCHS)
+WIRE_FAMILIES = ("rafiki_tpu_serving_wire_bytes_total",
+                 "rafiki_tpu_serving_host_copies_total")
 # K1's o at the zoo's shapes against its plain version, bf16: each p is
 # rounded to bf16 before p·v, and where the kernel's exp and the plain
 # version's round one p to neighbouring bf16 values the row moves by up
@@ -4636,6 +4689,12 @@ def zoo2_phase(torch, np, attn, card, image_set=None):
                        for t in meta.get_best_trials_of_train_job(
                            job["id"], max_count=ZOO2_VIT_TRIALS)],
             "val": (imgs, labels)}
+        # The operator phase uploads the set's first train images.
+        tds = load_image_dataset(train)
+        out["operator"] = {"train": (tds.images[:OPERATOR_TRAIN],
+                                     tds.labels[:OPERATOR_TRAIN]),
+                           "n_classes": tds.n_classes}
+        del tds
         params.close()
         meta.close()
         dep = EnsembleDeploy(os.path.join(tmp, "deploy"))
@@ -7603,6 +7662,381 @@ def autoscale_phase(torch, np, attn, card, zoo2):
     return out
 
 
+DASHBOARD_FETCH = re.compile(r'api\("(GET|POST)",\s*["`]([^"`]*)["`]'
+                             r'|fetch\(`([^`?]*)[^`]*`,\s*\{method:\s*"(\w+)"')
+
+
+def dashboard_fetches(html):
+    """(method, path) of every request the dashboard page makes, each
+    ``${...}`` as ``<x>``, without the query string."""
+    out = set()
+    for m in DASHBOARD_FETCH.finditer(html):
+        method, path = (m.group(1), m.group(2)) if m.group(1) \
+            else (m.group(4), m.group(3))
+        out.add((method, re.sub(r"\$\{[^}]*\}", "<x>", path.split("?")[0])))
+    return sorted(out)
+
+
+def admin_status(port, method, path, token):
+    """The status of one admin request with the bearer token and no
+    body."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method,
+        headers={"Authorization": f"Bearer {token}"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            r.read()
+            return r.status
+    except urllib.error.HTTPError as e:
+        e.read()
+        return e.code
+
+
+def forged_upload(port):
+    """The first line of the answer to a ``POST /datasets`` that claims
+    a body of 1 TiB and sends none."""
+    import socket
+
+    conn = socket.create_connection(("127.0.0.1", port), timeout=30)
+    try:
+        conn.sendall(("POST /datasets?name=x&task=T HTTP/1.1\r\n"
+                      "Host: 127.0.0.1\r\n"
+                      "Content-Type: application/octet-stream\r\n"
+                      f"Content-Length: {1 << 40}\r\n\r\n").encode())
+        return conn.recv(4096).decode().splitlines()[0]
+    finally:
+        conn.close()
+
+
+def operator_phase(torch, np, attn, card, zoo2):
+    """The operator and data surface on the card, over HTTP to one
+    ``LocalPlatform``: (a) zoo2's images uploaded as datasets; (b) a
+    ViT job trained from the uploaded files (K1-K3 on wgmma, the trials'
+    plot and loss records); (c) the train and inference workers' logs;
+    (d) the best trial served with the packed wire off and then on, the
+    same answers bit for bit, and one query through ``Cache.send_query``;
+    (e) the dashboard and every route it fetches; (f) the chips'
+    utilization. Returns the phase's numbers and K1-K3 launches."""
+    import os
+
+    from rafiki_torch.cache import Cache
+    from rafiki_torch.client import Client, ClientError
+    from rafiki_torch.constants import TaskType, UserType
+    from rafiki_torch.observe import metrics, wire
+    from rafiki_torch.platform import LocalPlatform
+    from rafiki_torch.web import dashboard_html
+
+    t_phase = time.perf_counter()
+    reset_launch_counts(attn)
+    timgs, tlabels = zoo2["operator"]["train"]
+    vimgs, vlabels = zoo2["lifecycle"]["val"]
+    n_classes = zoo2["operator"]["n_classes"]
+    saved_env = dict(os.environ)
+    out = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_operator_")
+    plat = None
+    try:
+        plat = LocalPlatform(workdir=os.path.join(tmp.name, "node"),
+                             http=True, supervise_interval=1.0)
+        port = plat.admin_port
+        client = Client(admin_port=port)
+        token = client.login("superadmin@rafiki", "rafiki")["token"]
+
+        # (a) The sets uploaded; listed; a duplicate and a forged size
+        # refused.
+        t0 = time.perf_counter()
+        files = {}
+        for name, x, y in (("train", timgs, tlabels),
+                           ("val", vimgs, vlabels)):
+            files[name] = os.path.join(tmp.name, f"{name}.npz")
+            np.savez(files[name], images=x, labels=y, n_classes=n_classes)
+        up = {n: client.create_dataset(f"cifar-{n}",
+                                       TaskType.IMAGE_CLASSIFICATION, f)
+              for n, f in files.items()}
+        up_s = time.perf_counter() - t0
+        listed = client.get_datasets(task=TaskType.IMAGE_CLASSIFICATION)
+        none_listed = client.get_datasets(task=TaskType.POS_TAGGING)
+        try:
+            client.create_dataset("cifar-val", TaskType.IMAGE_CLASSIFICATION,
+                                  files["val"])
+            dup = None
+        except ClientError as e:
+            dup = e.status
+        forged = forged_upload(port)
+        check(sorted(d["name"] for d in listed) == ["cifar-train",
+                                                    "cifar-val"]
+              and none_listed == [] and dup == 400 and " 413 " in forged
+              and all(os.path.getsize(up[n]["path"])
+                      == os.path.getsize(files[n])
+                      == up[n]["size_bytes"] for n in files)
+              and all(os.path.dirname(up[n]["path"])
+                      == os.path.join(plat.workdir, "datasets")
+                      for n in files),
+              f"(a) uploads {up}, listed {listed}, duplicate {dup}, forged "
+              f"{forged!r}")
+        print(f"operator: (a) {len(timgs)} train and {len(vimgs)} val "
+              f"images uploaded as .npz over POST /datasets "
+              f"({sum(u['size_bytes'] for u in up.values())} bytes) in "
+              f"{up_s:.2f} s, stored in the node's datasets dir; GET "
+              f"/datasets?task=IMAGE_CLASSIFICATION lists both, "
+              f"?task=POS_TAGGING none; a duplicate name answered "
+              f"{dup}; a forged 1 TiB Content-Length answered "
+              f"{forged.split(' ', 1)[1]!r} before any body", flush=True)
+
+        # (b) A ViT job trained from the uploaded files.
+        model = client.create_model("vit-op", TaskType.IMAGE_CLASSIFICATION,
+                                    "OperatorViT",
+                                    model_source=OPERATOR_VIT_SOURCE)
+        t0 = time.perf_counter()
+        job = client.create_train_job(
+            "operator", TaskType.IMAGE_CLASSIFICATION, [model["id"]],
+            {"MODEL_TRIAL_COUNT": OPERATOR_TRIALS}, up["train"]["path"],
+            up["val"]["path"])
+        util_max = 0.0
+        deadline = time.monotonic() + OPERATOR_WAIT_S
+        while True:
+            util_max = max(util_max, plat.services.chip_utilization())
+            row = client.get_train_job(job["id"])
+            if row["status"] in ("STOPPED", "ERRORED"):
+                break
+            check(time.monotonic() < deadline,
+                  f"(b) the train job still {row['status']}")
+            time.sleep(0.1)
+        train_s = time.perf_counter() - t0
+        trials = client.get_trials_of_train_job(job["id"])
+        launches_b = launch_counts(attn)
+        logs = {t["id"]: [r["record"] for r in
+                          client.get_trial_logs(t["id"])]
+                for t in trials}
+        plots = {tid: [r["plot"] for r in recs if r.get("type") == "plot"]
+                 for tid, recs in logs.items()}
+        losses = {tid: [r["values"]["loss"] for r in recs
+                        if r.get("type") == "values"
+                        and "loss" in r.get("values", {})]
+                  for tid, recs in logs.items()}
+        check(row["status"] == "STOPPED" and len(trials) == OPERATOR_TRIALS
+              and all(t["status"] == "COMPLETED"
+                      and 0.0 <= t["score"] <= 1.0 for t in trials)
+              and all(any(p["title"] == "Training" and "loss" in
+                          p["metrics"] and p["x_axis"] == "epoch"
+                          for p in plots[t["id"]]) for t in trials)
+              and all(len(losses[t["id"]]) == OPERATOR_EPOCHS
+                      and all(math.isfinite(v) for v in losses[t["id"]])
+                      for t in trials),
+              f"(b) job {row['status']}, trials "
+              f"{[(t['status'], t.get('score')) for t in trials]}, "
+              f"plots {plots}, losses {losses}")
+        check(all(launches_b[i] > 0 and launches_b[3 + i] == launches_b[i]
+                  for i in range(3)),
+              f"(b) K1-K3 launches {launches_b}")
+        print(f"operator: (b) a train job of {OPERATOR_TRIALS} ViT trials "
+              f"(6 blocks, d_model 128, batch 256, {OPERATOR_EPOCHS} epochs "
+              f"of {len(timgs) // 256} steps) named the uploaded paths and "
+              f"trained from the stored files in {train_s:.2f} s: scores "
+              f"{[round(t['score'], 4) for t in trials]}; each trial's GET "
+              f"/trials/<id>/logs holds the 'Training' plot record and the "
+              f"epoch losses "
+              f"{[[round(v, 4) for v in losses[t['id']]] for t in trials]}; "
+              f"K1, K2, K3 launched {launches_b[:3]} times, all on wgmma; "
+              f"chip_utilization {util_max} while the job ran", flush=True)
+        out.update(upload_s=up_s, train_s=train_s,
+                   scores=[t["score"] for t in trials],
+                   train_launches=launches_b[:3], util_running=util_max)
+
+        cache = Cache(plat.bus)
+        best = max(trials, key=lambda t: t["score"])
+        window = vimgs[:OPERATOR_WINDOW]
+
+        def deploy(mode):
+            """The best trial behind a predictor, its cache, predictor
+            and worker built under ``mode``: (job, worker id, host,
+            registration)."""
+            os.environ[wire.PACKED_WIRE_ENV] = mode
+            wire.reset_for_tests()
+            inf = client.create_inference_job(job["id"], max_models=1)
+            wait_for(lambda: len(cache.running_workers(inf["id"])) == 1,
+                     OPERATOR_WAIT_S, f"(d) the {mode} worker did not "
+                     f"register")
+            (wid,) = cache.running_workers(inf["id"])
+            info = cache.running_worker_info(inf["id"])[wid]
+            host = client.get_inference_job(inf["id"])["predictor_host"]
+            return inf, wid, host, info
+
+        def serve_window(host):
+            """The window's images, one request each from one client, in
+            order: (answers, queries/s, p50 ms, p99 ms)."""
+            answers, lat = [], []
+            t0 = time.perf_counter()
+            for img in window:
+                st, dt, ans = ask(host, img, 120)
+                check(st == 200 and ans is not None,
+                      f"(d) /predict answered {st}")
+                answers.append(ans)
+                lat.append(dt)
+            secs = time.perf_counter() - t0
+            lat.sort()
+            return (np.asarray(answers, np.float64), len(lat) / secs,
+                    percentile(lat, 50) * 1e3, percentile(lat, 99) * 1e3)
+
+        def wire_samples():
+            out = []
+            for name in WIRE_FAMILIES:
+                fam = metrics.registry().find(name)
+                out.extend(fam.samples() if fam is not None else ())
+            return out
+
+        def undeploy(inf):
+            client.stop_inference_job(inf["id"])
+            wait_for(lambda: not cache.running_workers(inf["id"])
+                     and not plat.services.active_inference_workers(
+                         inf["id"]), OPERATOR_WAIT_S,
+                     "(d) the deployment did not stop")
+
+        # (d, first half) The wire off: the earlier phases' wire series
+        # are dropped, so what exists after the window is this one's.
+        for name in WIRE_FAMILIES:
+            fam = metrics.registry().find(name)
+            if fam is not None:
+                fam.remove()
+        inf_off, wid_off, host_off, info_off = deploy("off")
+
+        # (c) The workers' logs: the train worker's and this inference
+        # worker's; another user is refused.
+        svcs = client.get_services()
+        train_svc = [x for x in svcs if x["service_type"] == "TRAIN"]
+        check(train_svc and any(x["id"] == wid_off for x in svcs),
+              f"(c) services {svcs}")
+        tails = {what: client.get_service_logs(sid) for what, sid in
+                 (("train", train_svc[0]["id"]), ("inference", wid_off))}
+        client.create_user("peek@example.com", "pw", UserType.APP_DEVELOPER)
+        other = Client(admin_port=port)
+        other.login("peek@example.com", "pw")
+        refused = []
+        for sid in (train_svc[0]["id"], wid_off):
+            try:
+                other.get_service_logs(sid)
+                refused.append(200)
+            except ClientError as e:
+                refused.append(e.status)
+        check(all(t["captured"] and t["log"].strip() for t in tails.values())
+              and "trial" in tails["train"]["log"]
+              and wid_off in tails["inference"]["log"]
+              and refused == [403, 403] and other.get_services() == [],
+              f"(c) tails {tails}, another user {refused}")
+        print(f"operator: (c) GET /services/<id>/logs: the train worker's "
+              f"tail {len(tails['train']['log'])} bytes "
+              f"({len(tails['train']['log'].splitlines())} lines, its "
+              f"trials' records), the inference worker's "
+              f"{len(tails['inference']['log'])} bytes; another user sees no "
+              f"service and gets {refused} for both logs", flush=True)
+
+        # (d) Served with the wire off, then on.
+        off_ans, off_qps, off_p50, off_p99 = serve_window(host_off)
+        off_samples = wire_samples()
+        check(info_off["wire"] == [] and off_samples == []
+              and not wire.counting(),
+              f"(d) off: registration {info_off}, wire series "
+              f"{off_samples}")
+        undeploy(inf_off)
+        inf_on, wid_on, host_on, info_on = deploy("on")
+        on_ans, on_qps, on_p50, on_p99 = serve_window(host_on)
+        on_bytes = series(metrics, "rafiki_tpu_serving_wire_bytes_total",
+                          "format")
+        check(info_on["wire"] == ["ndbatch1"] and on_bytes.get("packed", 0) > 0
+              and on_ans.shape == (OPERATOR_WINDOW, n_classes)
+              and np.isfinite(on_ans).all()
+              and np.abs(on_ans.sum(axis=1) - 1.0).max() < 1e-4,
+              f"(d) on: registration {info_on}, wire bytes {on_bytes}")
+        diff = np.abs(off_ans - on_ans).max()
+        check(np.array_equal(off_ans, on_ans),
+              f"(d) the wire off and on answered apart by {diff}")
+        qid = cache.send_query(wid_on, window[0])
+        replies = cache.gather_predictions(qid, 1, timeout=30.0)
+        check(len(replies) == 1 and replies[0]["worker_id"] == wid_on
+              and np.array_equal(np.asarray(replies[0]["prediction"],
+                                            np.float64), on_ans[0]),
+              f"(d) send_query answered {replies}")
+        for mode, qps, p50, p99 in (("off", off_qps, off_p50, off_p99),
+                                    ("on", on_qps, on_p50, on_p99)):
+            print("operator: (d) window " + json.dumps({
+                "packed_wire": mode, "requests": OPERATOR_WINDOW,
+                "clients": 1, "queries_per_s": round(qps, 2),
+                "p50_ms": round(p50, 3), "p99_ms": round(p99, 3)}),
+                flush=True)
+        print(f"operator: (d) the best trial (score {best['score']:.4f}) "
+              f"deployed with the packed wire off (the worker offers "
+              f"{info_off['wire']}, no rafiki_tpu_serving_wire_bytes_total "
+              f"series) and then on (offers {info_on['wire']}, "
+              f"{on_bytes} wire bytes by format): the {OPERATOR_WINDOW} "
+              f"answers bit for bit equal; Cache.send_query to the live "
+              f"worker and gather_predictions gave the /predict answer "
+              f"for the first image, bit for bit", flush=True)
+        out.update(off_qps=off_qps, off_p99_ms=off_p99, on_qps=on_qps,
+                   on_p99_ms=on_p99)
+
+        # (e) The dashboard and every route it fetches.
+        page = urllib.request.urlopen(f"http://127.0.0.1:{port}/",
+                                      timeout=60)
+        html = page.read().decode()
+        ctype = page.headers.get("Content-Type", "")
+        ids = {"/services/<x>/logs": wid_on,
+               "/inference_jobs/<x>/stats": inf_on["id"],
+               "/train_jobs/<x>/trials": job["id"],
+               "/trials/<x>/logs": best["id"],
+               "/trace/<x>": "0" * 32}
+        fetched = dashboard_fetches(html)
+        statuses = {}
+        for method, path in fetched:
+            concrete = (ids[path] if method == "GET" and path in ids
+                        else "nope").join(path.split("<x>")) \
+                if "<x>" in path else path
+            statuses[f"{method} {path}"] = admin_status(port, method,
+                                                        concrete, token)
+        check(page.status == 200 and ctype.startswith("text/html")
+              and html == dashboard_html()
+              and all(st != 404 for st in statuses.values())
+              and all(st == 200 for k, st in statuses.items()
+                      if k.startswith("GET "))
+              and len(fetched) >= 20,
+              f"(e) GET / {page.status} {ctype}; routes {statuses}")
+        print(f"operator: (e) GET / answered {page.status} {ctype} without "
+              f"a token; the page's {len(fetched)} requests answered "
+              f"{statuses} with the admin's token (each GET with a live id, "
+              f"each POST with an unknown id or no body)", flush=True)
+
+        # (f) Utilization: above 0 while the job ran, 0 once it and the
+        # deployment stopped.
+        undeploy(inf_on)
+        wait_for(lambda: plat.services.chip_utilization() == 0.0,
+                 OPERATOR_WAIT_S, "(f) chips still held")
+        util_after = plat.services.chip_utilization()
+        check(util_max > 0 and util_after == 0.0,
+              f"(f) utilization {util_max} then {util_after}")
+        print(f"operator: (f) ServicesManager.chip_utilization "
+              f"{util_max} while the job ran, {util_after} once it and the "
+              f"deployments stopped", flush=True)
+    finally:
+        if plat is not None:
+            plat.shutdown()
+        os.environ.clear()
+        os.environ.update(saved_env)
+        wire.reset_for_tests()
+        tmp.cleanup()
+    launches = launch_counts(attn)
+    phase_s = time.perf_counter() - t_phase
+    check(launches[0] > 0 and all(launches[3 + i] == launches[i]
+                                  for i in range(3)),
+          f"the operator phase launched K1-K3 {launches}")
+    check(phase_s <= OPERATOR_MAX_S,
+          f"the operator phase took {phase_s:.1f} s")
+    print(f"operator: K1, K2 and K3 launched {launches[:3]} times in the "
+          f"phase (the trials' steps, captures and evaluations, and the "
+          f"two workers' runner builds; replays run uncounted), all on "
+          f"wgmma; phase took {phase_s:.1f} s on {card}", flush=True)
+    out.update(launches=launches[:3], phase_s=phase_s)
+    return out
+
+
 def zoo2_rows(zoo2, kernel):
     """One kernel's numbers at the zoo2 phase's ViT and tagger shapes."""
     return {what: dict(zoo2[part]["kernels"][kernel],
@@ -7679,6 +8113,8 @@ def main() -> int:
         clus = timed("cluster", cluster_phase, torch, np, attn, card, zoo2)
         scale = timed("autoscale", autoscale_phase, torch, np, attn, card,
                       zoo2)
+        oper = timed("operator", operator_phase, torch, np, attn, card,
+                     zoo2)
     except Exception:
         traceback.print_exc()
         return 1
@@ -7690,7 +8126,7 @@ def main() -> int:
                        + plat_launches[0] + zoo2["launches"][0]
                        + life["launches"][0] + ten["launches"][0]
                        + procs["launches"][0] + clus["launches"][0]
-                       + scale["launches"][0]),
+                       + scale["launches"][0] + oper["launches"][0]),
              generate_launches=gen_launches,
              platform_launches=plat_launches[0],
              zoo_launches=zoo["launches"][0],
@@ -7702,6 +8138,7 @@ def main() -> int:
              processes_trace_events=procs["trace_events"][0],
              cluster_launches=clus["launches"][0],
              autoscale_launches=scale["launches"][0],
+             operator_launches=oper["launches"][0],
              zoo2_shapes=zoo2_rows(zoo2, "K1"),
              zoo2_f32=dict(zoo2["int8"]["k1_f32"], registers=f32_regs),
              generate_buckets=gen["buckets"], **k1, **k1_train),
@@ -7711,7 +8148,8 @@ def main() -> int:
              launches=(train_launches[1] + plat_launches[1]
                        + zoo2["launches"][1] + life["launches"][1]
                        + ten["launches"][1] + procs["launches"][1]
-                       + clus["launches"][1] + scale["launches"][1]),
+                       + clus["launches"][1] + scale["launches"][1]
+                       + oper["launches"][1]),
              platform_launches=plat_launches[1],
              zoo_launches=zoo["launches"][1],
              ensemble_launches=ens["launches"][1],
@@ -7722,6 +8160,7 @@ def main() -> int:
              processes_trace_events=procs["trace_events"][1],
              cluster_launches=clus["launches"][1],
              autoscale_launches=scale["launches"][1],
+             operator_launches=oper["launches"][1],
              zoo2_shapes=zoo2_rows(zoo2, "K2"), **k2),
         dict(name="flash_bwd_dkv (K3)", route="cuda",
              source=src + "flash_bwd_dkv.cu",
@@ -7729,7 +8168,8 @@ def main() -> int:
              launches=(train_launches[2] + plat_launches[2]
                        + zoo2["launches"][2] + life["launches"][2]
                        + ten["launches"][2] + procs["launches"][2]
-                       + clus["launches"][2] + scale["launches"][2]),
+                       + clus["launches"][2] + scale["launches"][2]
+                       + oper["launches"][2]),
              platform_launches=plat_launches[2],
              zoo_launches=zoo["launches"][2],
              ensemble_launches=ens["launches"][2],
@@ -7740,6 +8180,7 @@ def main() -> int:
              processes_trace_events=procs["trace_events"][2],
              cluster_launches=clus["launches"][2],
              autoscale_launches=scale["launches"][2],
+             operator_launches=oper["launches"][2],
              zoo2_shapes=zoo2_rows(zoo2, "K3"), **k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

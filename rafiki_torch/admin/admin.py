@@ -47,16 +47,24 @@ the autoscaler's and the SLO engine's snapshots (``{"enabled": false}``
 when the part is off), and ``get_capacity`` is the capacity engine's
 (``admin/capacity.py``), always enabled.
 
-Not ported yet (ROADMAP, queue 1): dataset uploads, service logs and
-attaching train workers.
+The operator's data: ``create_dataset`` stores an uploaded dataset
+file under ``datasets_dir`` (a name the server makes, so a client's
+file name cannot leave the directory) and returns its row, whose
+``path`` a train job names; ``get_service_logs`` reads the tail of one
+service's log file under ``services.log_dir``. A user who is not an
+admin sees only the services of their own jobs, and their logs.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
+import re
+import sqlite3
 import threading
 import time
+import uuid
 from typing import Any, Dict, List, Optional
 
 from ..cache import Cache
@@ -68,6 +76,7 @@ from ..observe import trace as obs_trace
 from ..store import MetaStore, ParamStore
 from ..utils import auth
 from ..utils.model_loader import load_model_class
+from ..utils.service_logs import service_log_path, tail_log
 from .services_manager import ServicesManager, normalize_budget
 
 _log = logging.getLogger(__name__)
@@ -77,11 +86,15 @@ class Admin:
     def __init__(self, meta: MetaStore, params: ParamStore,
                  services: ServicesManager, jwt_secret: str = "rafiki-tpu",
                  superadmin_email: str = "superadmin@rafiki",
-                 superadmin_password: str = "rafiki"):
+                 superadmin_password: str = "rafiki",
+                 datasets_dir: str = ""):
         self.meta = meta
         self.params = params
         self.services = services
         self.jwt_secret = jwt_secret
+        # Where uploads land; "" refuses uploads (a job can always name
+        # a dataset by its path on the node).
+        self.datasets_dir = datasets_dir
         # A promote spans a registration wait; two at once could both
         # pass the "already served" check.
         self._promote_lock = threading.Lock()
@@ -197,21 +210,84 @@ class Admin:
                    task: Optional[str] = None) -> List[Dict[str, Any]]:
         return [_public_model(m) for m in self.meta.get_models(user_id, task)]
 
+    # --- Datasets ---
+
+    def create_dataset(self, user_id: str, name: str, task: str,
+                       data: bytes, filename: str = "") -> Dict[str, Any]:
+        """Store an uploaded dataset file and return its row; its
+        ``path`` is what a train job takes as a dataset path. The
+        format is checked by the loader at train time; the upload only
+        keeps the bytes. The stored name is the server's: only the
+        client's extension survives, sanitised."""
+        if not self.datasets_dir:
+            raise ValueError("this node has no datasets dir configured")
+        if not data:
+            raise ValueError("empty dataset upload")
+        os.makedirs(self.datasets_dir, exist_ok=True)
+        ext = os.path.splitext(filename or "")[1]
+        if not re.fullmatch(r"\.[A-Za-z0-9]{1,8}", ext or ""):
+            ext = ".zip"
+        safe = re.sub(r"[^A-Za-z0-9._-]", "_", name)[:48] or "dataset"
+        # The bytes land before the row: a failed write must not leave
+        # a row without a file holding the name.
+        path = os.path.join(self.datasets_dir,
+                            f"{uuid.uuid4().hex[:12]}-{safe}{ext}")
+        with open(path, "wb") as f:
+            f.write(data)
+        try:
+            row = self.meta.create_dataset(user_id, name, task, path,
+                                           len(data))
+        except sqlite3.IntegrityError:
+            os.unlink(path)
+            raise ValueError(
+                f"you already have a dataset named {name!r}; pick "
+                f"another name")
+        return dict(row)
+
+    def get_datasets(self, user_id: str,
+                     task: Optional[str] = None) -> List[Dict[str, Any]]:
+        return self.meta.get_datasets(user_id, task=task)
+
     # --- Services ---
+
+    def _sees_all_services(self,
+                           claims: Optional[Dict[str, Any]]) -> bool:
+        return claims is None or claims.get("user_type") in (
+            UserType.SUPERADMIN, UserType.ADMIN)
 
     def get_services(self, claims: Optional[Dict[str, Any]] = None,
                      ) -> List[Dict[str, Any]]:
         """Service rows, newest first. Admins see every service; other
         users only those working for their own jobs."""
         rows = self.meta.get_services()
-        if claims is not None and claims.get("user_type") not in (
-                UserType.SUPERADMIN, UserType.ADMIN):
+        if not self._sees_all_services(claims):
             owned = self.meta.get_owned_service_ids(claims.get("user_id"))
             rows = [r for r in rows if r["id"] in owned]
         rows.sort(key=lambda r: r["created_at"], reverse=True)
         return [{k: r.get(k) for k in
                  ("id", "service_type", "status", "chips", "node_id",
                   "created_at", "stopped_at")} for r in rows]
+
+    def get_service_logs(self, service_id: str, max_bytes: int = 65536,
+                         claims: Optional[Dict[str, Any]] = None,
+                         ) -> Dict[str, Any]:
+        """The tail of one service's log. Logs carry knobs, scores and
+        dataset paths: only the owner of the service's job, or an
+        admin, reads them. ``captured`` is false when the service never
+        wrote one."""
+        svc = self.meta.get_service(service_id)
+        if svc is None:
+            raise ValueError(f"unknown service {service_id}")
+        if not self._sees_all_services(claims):
+            owner = self.meta.get_service_owner(service_id)
+            self.check_access(claims, owner or "")
+        text = None
+        if self.services.log_dir:
+            text = tail_log(
+                service_log_path(self.services.log_dir, service_id),
+                max_bytes=max_bytes)
+        return {"service_id": service_id, "status": svc["status"],
+                "log": text, "captured": text is not None}
 
     # --- Train jobs ---
 
@@ -286,10 +362,12 @@ class Admin:
     def stop_train_job(self, train_job_id: str,
                        claims: Optional[Dict[str, Any]] = None) -> None:
         self._owned_train_job(train_job_id, claims)
-        self.services.stop_train_services(train_job_id)
+        # Marked first, as an inference job is: a supervise sweep must
+        # not restart a worker of a job that is stopping.
         self.meta.update_train_job(train_job_id,
                                    status=TrainJobStatus.STOPPED,
                                    stopped_at=time.time())
+        self.services.stop_train_services(train_job_id)
 
     def get_best_trials(self, train_job_id: str, max_count: int = 2,
                         claims: Optional[Dict[str, Any]] = None,
@@ -602,10 +680,13 @@ class Admin:
     def stop_inference_job(self, inference_job_id: str,
                            claims: Optional[Dict[str, Any]] = None) -> None:
         self._owned_inference_job(inference_job_id, claims)
-        self.services.stop_inference_services(inference_job_id)
+        # The job is marked first: a supervise sweep that finds a worker
+        # dead while it stops must see the job no longer live, or it
+        # gives the bin a fresh worker that nothing stops.
         self.meta.update_inference_job(inference_job_id,
                                        status=InferenceJobStatus.STOPPED,
                                        stopped_at=time.time())
+        self.services.stop_inference_services(inference_job_id)
 
     def get_inference_job_stats(self, inference_job_id: str,
                                 claims: Optional[Dict[str, Any]] = None,
@@ -647,9 +728,7 @@ class Admin:
         under ``<log_dir>/profiles/<job[:8]>/<ts>-<rand>``; a worker
         whose profiler is busy skips the request, which the caller sees
         as an empty directory."""
-        import os
         import tempfile
-        import uuid
 
         from ..observe.profiling import PROFILE_MAX_S
 

@@ -1,8 +1,9 @@
 """Admin REST API: the HTTP surface over ``Admin``.
 
-The port's copy of the routes of ``rafiki_tpu/admin/app.py`` that
-``Client`` and the quickstart use:
+The port's copy of the routes of ``rafiki_tpu/admin/app.py``, all of
+them:
 
+- ``GET  /``                           the dashboard (``web/``), no auth
 - ``POST /tokens``                     login -> ``{user_id, user_type, token}``
 - ``POST /users``, ``GET /users``      (admin) create, list users
 - ``POST /users/<user_id>/ban``        (admin) ban a user
@@ -27,7 +28,14 @@ The port's copy of the routes of ``rafiki_tpu/admin/app.py`` that
                                        worker
                                        (``Admin.profile_inference_job``)
 - ``GET  /trace/<trace_id>``           one trace's spans, in order
+- ``POST /datasets``                   upload a dataset: the file is the
+                                       raw body (a type that is not
+                                       JSON), ``?name=&task=&filename=``
+- ``GET  /datasets``                   the caller's datasets (``?task=``)
 - ``GET  /services``                   service rows
+- ``GET  /services/<service_id>/logs`` the tail of one service's log
+                                       (``?max_bytes=``, 65536 by
+                                       default)
 - ``GET  /status``                     chips, running services, each
                                        running trial's MFU and, on the
                                        cluster fabric, ``cluster``
@@ -48,10 +56,8 @@ The port's copy of the routes of ``rafiki_tpu/admin/app.py`` that
 - ``GET  /metrics``                    the process registry
                                        (``JsonHttpServer``)
 
-Auth: ``Authorization: Bearer <jwt>`` on everything but ``POST
-/tokens`` and ``GET /metrics``. Every other route of the reference
-answers 404 until it is ported (ROADMAP, queue 1): the dashboard,
-datasets and service logs.
+Auth: ``Authorization: Bearer <jwt>`` on everything but ``GET /``,
+``POST /tokens`` and ``GET /metrics``.
 """
 
 from __future__ import annotations
@@ -59,14 +65,18 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 from ..constants import UserType
-from ..utils.service import HttpError, JsonHttpServer
+from ..utils.service import HttpError, JsonHttpServer, RawResponse
 from .admin import Admin
+
+_WRITE_TYPES = {UserType.SUPERADMIN, UserType.ADMIN,
+                UserType.MODEL_DEVELOPER, UserType.APP_DEVELOPER}
 
 
 class AdminApp:
     def __init__(self, admin: Admin, host: str = "127.0.0.1", port: int = 0):
         self.admin = admin
         self._http = JsonHttpServer([
+            ("GET", "/", self._dashboard),
             ("POST", "/tokens", self._login),
             ("POST", "/users", self._create_user),
             ("GET", "/users", self._list_users),
@@ -91,7 +101,10 @@ class AdminApp:
             ("POST", "/inference_jobs/<job_id>/profile",
              self._profile_inference_job),
             ("GET", "/trace/<trace_id>", self._get_trace),
+            ("POST", "/datasets", self._create_dataset),
+            ("GET", "/datasets", self._list_datasets),
             ("GET", "/services", self._list_services),
+            ("GET", "/services/<service_id>/logs", self._service_logs),
             ("GET", "/status", self._status),
             ("GET", "/nodes", self._nodes),
             ("GET", "/trial_phases", self._trial_phases),
@@ -131,6 +144,12 @@ class AdminApp:
         return body
 
     # --- Routes ---
+
+    def _dashboard(self, params, body, ctx):
+        from ..web import dashboard_html
+
+        return 200, RawResponse("text/html; charset=utf-8",
+                                dashboard_html())
 
     def _login(self, params, body, ctx):
         body = self._need(body, "email", "password")
@@ -244,9 +263,37 @@ class AdminApp:
         return 200, self.admin.profile_inference_job(
             params["job_id"], duration_s=duration, claims=claims)
 
+    def _create_dataset(self, params, body, ctx):
+        claims = self._auth(ctx, *_WRITE_TYPES)
+        # The file is the raw body (a browser posts the File, the
+        # client streams it); its name and task ride the query string.
+        name = ctx.query_one("name")
+        task = ctx.query_one("task")
+        if not name or not task:
+            raise HttpError(400, "need ?name= and ?task= query params")
+        if ctx.raw_body is None:
+            raise HttpError(
+                400, "dataset bytes must be the request body with a "
+                     "non-JSON Content-Type (application/octet-stream)")
+        return 201, self.admin.create_dataset(
+            claims["user_id"], name, task, ctx.raw_body,
+            filename=ctx.query_one("filename", ""))
+
+    def _list_datasets(self, params, body, ctx):
+        claims = self._auth(ctx)
+        return 200, self.admin.get_datasets(claims["user_id"],
+                                            task=ctx.query_one("task"))
+
     def _list_services(self, params, body, ctx):
         claims = self._auth(ctx)
         return 200, self.admin.get_services(claims=claims)
+
+    def _service_logs(self, params, body, ctx):
+        claims = self._auth(ctx)
+        max_bytes = int(ctx.query_one("max_bytes", "65536"))
+        return 200, self.admin.get_service_logs(params["service_id"],
+                                                max_bytes=max_bytes,
+                                                claims=claims)
 
     def _status(self, params, body, ctx):
         self._auth(ctx)

@@ -71,7 +71,7 @@ from typing import Any, Dict, List, Optional
 from .. import faults
 from ..cache import Cache
 from ..constants import (BudgetOption, EnvVars, InferenceJobStatus,
-                         ServiceStatus, ServiceType)
+                         ServiceStatus, ServiceType, TrainJobStatus)
 from ..container.manager import ContainerManager
 from ..parallel.chips import ChipAllocator
 from ..store import MetaStore
@@ -633,6 +633,13 @@ class ServicesManager:
         row = self.meta.get_train_job_worker(svc["id"])
         if row is None:
             return None
+        # Only while its job is live: a worker that died as its job
+        # stopped is not restarted.
+        sub = self.meta.get_sub_train_job(row["sub_train_job_id"])
+        job = self.meta.get_train_job(sub["train_job_id"]) if sub else None
+        if job is None or job["status"] not in (TrainJobStatus.STARTED,
+                                                TrainJobStatus.RUNNING):
+            return None
         # shared_ok as at admission: a worker admitted time-sliced could
         # otherwise never restart on a still-full card.
         return self.add_train_worker(
@@ -672,3 +679,10 @@ class ServicesManager:
         if new_svc is None:
             self._pending_respawns.append(svc)
         return new_svc
+
+    # --- Utilization ---
+
+    def chip_utilization(self) -> float:
+        """The share of this node's chips that hold a service (a
+        time-sliced chip counts once)."""
+        return self.allocator.utilization()

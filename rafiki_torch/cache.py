@@ -17,8 +17,16 @@ ONE ``__ndbatch__`` frame: a contiguous buffer with a shape, dtype and
 offsets header (``PackedBatch``). A query frame carrying
 ``"rw": ["ndbatch1"]`` lets the worker pack its reply the same way
 (``pack_prediction_rows``). The frames are the reference's byte for
-byte, the packed wire always on (the reference's default), so the two
-packages decode each other's frames.
+byte, so the two packages decode each other's frames. The packed wire
+is ``RAFIKI_TPU_SERVING_PACKED_WIRE`` (``observe.wire``), read when a
+``Cache`` is built: with ``off`` or ``compat`` its query frames carry
+no ``rw`` and its replies are per-query, whatever the frame asked.
+
+The reference's per-query calls are here too: ``send_query`` pushes
+one query (``{"query_id", "query"}``) that the worker answers with
+``send_prediction`` on ``r:{query_id}``, which ``gather_predictions``
+collects; ``send_query_batch`` and ``send_query_batch_fanout`` scatter
+one whole batch to one worker or to several.
 
 A query frame carries the ``"_trace"`` envelope (``observe.trace``)
 of the requests it serves: the contexts the caller passes, else the
@@ -51,8 +59,6 @@ node, each frame stamped ``onode`` with the sender's node; the worker's
 ``send_prediction_batch(..., origin_node=)`` relays its reply back to
 that node's broker. Without the map every frame takes the plain
 ``push_many``.
-
-The reference's single-query frames are not ported.
 """
 
 from __future__ import annotations
@@ -330,6 +336,9 @@ class Cache:
         self.bus = bus
         self._reap_later: List[tuple] = []  # (monotonic_ts, queue_key)
         self._reap_lock = threading.Lock()
+        # Read once: "on" lets this side's query frames ask for packed
+        # replies (rw) and its replies pack when asked.
+        self._packed_wire_on = _wire.packed_wire_mode() == "on"
 
     def _reap_stale(self, now: float) -> None:
         with self._reap_lock:
@@ -416,6 +425,93 @@ class Cache:
                 out[k[len(prefix):]] = str(addr)
         return out
 
+    # --- Queries (predictor side) ---
+
+    def send_query(self, worker_id: str, query: Any,
+                   query_id: Optional[str] = None) -> str:
+        """Push one query to one worker; its reply comes back on
+        ``r:{query_id}`` (``gather_predictions``)."""
+        query_id = query_id or uuid.uuid4().hex
+        frame = {"query_id": query_id, "query": encode_payload(query)}
+        env = _trace_envelope()
+        if env is not None:
+            frame[_trace.ENVELOPE_KEY] = env
+        self.bus.push(f"q:{worker_id}", frame)
+        return query_id
+
+    def gather_predictions(self, query_id: str, n_workers: int,
+                           timeout: float = 5.0) -> List[Dict[str, Any]]:
+        """Collect up to ``n_workers`` workers' replies to one query."""
+        def decode(item):
+            item["prediction"] = decode_payload(item["prediction"])
+            return item
+
+        return self._gather(f"r:{query_id}", n_workers, timeout, decode)
+
+    def send_query_batch(self, worker_id: str, queries: List[Any],
+                         batch_id: Optional[str] = None,
+                         pre_encoded: bool = False,
+                         trace_ctxs: Optional[List] = None) -> str:
+        """Push one batch of queries to one worker as one frame;
+        ``pre_encoded`` skips ``encode_payload`` for a caller that sends
+        the same batch to several workers."""
+        batch_id = batch_id or uuid.uuid4().hex
+        if not pre_encoded:
+            queries = [encode_payload(q) for q in queries]
+        frame = {"batch_id": batch_id, "queries": queries}
+        if self._packed_wire_on:
+            frame["rw"] = [WIRE_NDBATCH]
+        env = _trace_envelope(trace_ctxs)
+        if env is not None:
+            frame[_trace.ENVELOPE_KEY] = env
+        self.bus.push(f"q:{worker_id}", frame)
+        return batch_id
+
+    def send_query_batch_fanout(self, worker_ids: List[str],
+                                encoded_queries: Optional[List[Any]],
+                                batch_id: Optional[str] = None,
+                                trace_ctxs: Optional[List] = None,
+                                packed: Optional[PackedBatch] = None,
+                                packed_ok: Collection[str] = (),
+                                tenants: Optional[List] = None,
+                                ) -> str:
+        """Scatter one pre-encoded batch to every worker in one
+        ``push_many``; the encoded list is shared by the frames, never
+        copied. A worker in ``packed_ok`` gets the whole batch as one
+        packed ``batch`` frame (encoded once for all of them), the rest
+        the per-query list (``encoded_queries``, None only when every
+        worker is in ``packed_ok``). ``tenants`` rides every frame as
+        the ``_tenant`` envelope."""
+        batch_id = batch_id or uuid.uuid4().hex
+        env = _trace_envelope(trace_ctxs)
+        tenant_env = _attr.inject_tenants(tenants)
+        counting = _wire.counting()
+        packed_frame = None
+        if packed is not None and any(w in packed_ok for w in worker_ids):
+            packed_frame = packed.slice(0, packed.n)
+        frames = []
+        for w in worker_ids:
+            frame: Dict[str, Any] = {"batch_id": batch_id}
+            if self._packed_wire_on:
+                frame["rw"] = [WIRE_NDBATCH]
+            if packed_frame is not None and w in packed_ok:
+                frame["batch"] = packed_frame
+                if counting:
+                    _wire.count_bytes("packed", "scatter",
+                                      _payload_nbytes(packed_frame))
+            else:
+                frame["queries"] = encoded_queries
+                if counting:
+                    _wire.count_bytes("perquery", "scatter",
+                                      _payload_nbytes(encoded_queries))
+            if env is not None:
+                frame[_trace.ENVELOPE_KEY] = env
+            if tenant_env is not None:
+                frame[_attr.ENVELOPE_KEY] = tenant_env
+            frames.append((f"q:{w}", frame))
+        self.bus.push_many(frames)
+        return batch_id
+
     # --- Query shards (predictor side) ---
 
     def send_query_shards(self, shards: List[tuple],
@@ -449,8 +545,9 @@ class Cache:
         remote: Dict[str, List[tuple]] = {}
         for worker_id, start, count, shard_id in shards:
             frame: Dict[str, Any] = {"batch_id": batch_id,
-                                     "shard": shard_id,
-                                     "rw": [WIRE_NDBATCH]}
+                                     "shard": shard_id}
+            if self._packed_wire_on:
+                frame["rw"] = [WIRE_NDBATCH]
             wnode = (worker_nodes or {}).get(worker_id, "")
             if wnode and local_node and wnode != local_node:
                 frame["onode"] = local_node
@@ -550,10 +647,11 @@ class Cache:
     def pop_queries(self, worker_id: str, max_items: int = 0,
                     timeout: float = 1.0) -> List[Dict[str, Any]]:
         """Blocking batched pop: waits for the first item, drains the
-        burst. A packed ``batch`` is decoded here to an ``(n, *shape)``
-        array; a corrupt one becomes ``batch=None`` with ``batch_error``
-        and the header's ``n`` (capped), and the worker answers it with
-        per-query errors instead of failing."""
+        burst. An item is one query (``query``), a batch (``queries``)
+        or a packed batch (``batch``), decoded here to an ``(n,
+        *shape)`` array; a corrupt one becomes ``batch=None`` with
+        ``batch_error`` and the header's ``n`` (capped), and the worker
+        answers it with per-query errors instead of failing."""
         items = self.bus.pop_all(f"q:{worker_id}", max_items=max_items,
                                  timeout=timeout)
         counting = _wire.counting()
@@ -574,13 +672,23 @@ class Cache:
                                              _CORRUPT_REPLY_CAP))
                     except (AttributeError, TypeError, ValueError):
                         it["n"] = 0
-            else:
+            elif "queries" in it:
                 it["queries"] = [decode_payload(q) for q in it["queries"]]
                 if counting:
                     _wire.count_copies("decode", sum(
                         1 for q in it["queries"]
                         if isinstance(q, np.ndarray)))
+            else:
+                it["query"] = decode_payload(it["query"])
         return items
+
+    def send_prediction(self, query_id: str, worker_id: str,
+                        prediction: Any, weight: int = 1) -> None:
+        """Answer one ``send_query`` query; ``weight`` as in
+        ``send_prediction_batch``."""
+        self.bus.push(f"r:{query_id}", {
+            "worker_id": worker_id, "weight": int(weight),
+            "prediction": encode_payload(prediction)})
 
     def send_prediction_batch(self, batch_id: str, worker_id: str,
                               predictions: List[Any], weight: int = 1,
@@ -597,12 +705,13 @@ class Cache:
         ``compute_s`` (the slice's device seconds) feed the predictor's
         tiering and its chip-seconds-avoided estimate. ``packed_ok``
         (the query frame advertised ``rw``) lets dense float rows ride
-        one packed frame. ``origin_node`` (the query frame's ``onode``)
-        relays the reply back to that node's broker."""
+        one packed frame, while this side's packed wire is on.
+        ``origin_node`` (the query frame's ``onode``) relays the reply
+        back to that node's broker."""
         frame: Dict[str, Any] = {"worker_id": worker_id,
                                  "weight": int(weight)}
         packed_frame = (pack_prediction_rows(predictions)
-                        if packed_ok else None)
+                        if packed_ok and self._packed_wire_on else None)
         if packed_frame is not None:
             frame["batch"] = packed_frame
             if _wire.counting():

@@ -3,10 +3,11 @@
 The port's copy of ``Client`` from ``rafiki_tpu/client/client.py``
 (:42-259), on the standard library's ``urllib.request``: the reference
 uses ``requests``, which the card's machine does not have. The method
-surface is the reference's (``login``, ``create_model``,
-``create_train_job``, ``create_inference_job``, ``predict``, ...), less
-the dataset and service-log calls whose routes are not ported.
-``predict`` frames numpy queries with the port's ``encode_payload``.
+surface is the reference's (``login``, ``create_dataset``,
+``create_model``, ``create_train_job``, ``create_inference_job``,
+``get_service_logs``, ``predict``, ...). ``create_dataset`` streams the
+file as the request's raw body. ``predict`` frames numpy queries with
+the port's ``encode_payload``.
 
 Retries: a GET is retried after a transport failure (a POST that may
 have run is never sent twice); a 429 is retried for any method, after
@@ -17,11 +18,13 @@ any work.
 from __future__ import annotations
 
 import json
+import os
 import socket
 import time
 import urllib.error
 import urllib.request
 from typing import Any, Dict, List, Optional
+from urllib.parse import quote
 
 import numpy as np
 
@@ -51,10 +54,11 @@ class Client:
     # --- Plumbing ---
 
     def _send(self, method: str, url: str, body: Optional[Dict[str, Any]],
-              headers: Dict[str, str]):
+              headers: Dict[str, str], data: Any = None):
         """One request: ``(status, decoded body, response headers)``; an
-        HTTP error status is an answer, not an exception."""
-        data = None
+        HTTP error status is an answer, not an exception. ``data`` (a
+        file, with its Content-Length in ``headers``) is sent as it is
+        in place of a JSON ``body``."""
         if body:
             data = json.dumps(body).encode()
             headers = dict(headers, **{"Content-Type": "application/json"})
@@ -147,11 +151,44 @@ class Client:
         return self._call("GET", "/models" + (f"?task={task}" if task
                                               else ""))
 
+    # --- Datasets ---
+
+    def create_dataset(self, name: str, task: str,
+                       file_path: str) -> Dict[str, Any]:
+        """Upload a dataset file; the row's ``path`` is what
+        ``create_train_job`` takes as a dataset path. Not retried: an
+        upload that may have landed is not sent twice."""
+        headers = {"Content-Type": "application/octet-stream",
+                   "Content-Length": str(os.path.getsize(file_path))}
+        if self._token:
+            headers["Authorization"] = f"Bearer {self._token}"
+        url = (f"{self._base}/datasets?name={quote(name)}"
+               f"&task={quote(task)}"
+               f"&filename={quote(os.path.basename(file_path))}")
+        with open(file_path, "rb") as f:
+            status, data, _ = self._send("POST", url, None, headers, data=f)
+        if status >= 400:
+            raise ClientError(status, data.get("error", "unknown error")
+                              if isinstance(data, dict) else "unknown error")
+        return data
+
+    def get_datasets(self, task: Optional[str] = None,
+                     ) -> List[Dict[str, Any]]:
+        return self._call("GET", "/datasets" + (f"?task={task}" if task
+                                                else ""))
+
     # --- Services ---
 
     def get_services(self) -> List[Dict[str, Any]]:
         """Service rows (type, status, chips, node)."""
         return self._call("GET", "/services")
+
+    def get_service_logs(self, service_id: str,
+                         max_bytes: int = 65536) -> Dict[str, Any]:
+        """The tail of one service's log: ``{"service_id", "status",
+        "log", "captured"}``."""
+        return self._call(
+            "GET", f"/services/{service_id}/logs?max_bytes={max_bytes}")
 
     def get_status(self) -> Dict[str, Any]:
         """Node status: chips in all and free, running services."""

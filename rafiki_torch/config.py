@@ -25,9 +25,11 @@ Fields:
   the fill window and its bounds, ``serving_max_batch``,
   ``serving_max_inflight``, ``serving_queue_cap``), replica sharding
   (``serving_shard_replicas``), per-client fairness
-  (``serving_client_header``, ``serving_client_share``), the three
-  serving switches the port's workers read (``serving_quant``,
-  ``serving_stacked``, ``serving_generate``), the edge cache
+  (``serving_client_header``, ``serving_client_share``), the serving
+  switches (``serving_packed_wire``, which the cache, the predictor and
+  the inference worker read, and ``serving_quant``,
+  ``serving_stacked`` and ``serving_generate``, which the workers
+  read), the edge cache
   (``serving_cache_bytes``, ``serving_cache_ttl_s``,
   ``serving_cache_admit_after``), confidence tiering
   (``serving_tier_threshold``), the pipelined worker's auto threshold
@@ -54,8 +56,8 @@ Fields:
   ``slo_webhook_url`` and ``slo_alert_log_mb``.
 
 Left out until their modules come (ROADMAP, queue 1): ``probe_timeout``
-(the port does not probe the card; without one it raises),
-``serving_packed_wire`` and ``checkpoint_trials``.
+(the port does not probe the card; without one it raises) and
+``checkpoint_trials``.
 """
 
 from __future__ import annotations
@@ -66,8 +68,9 @@ import typing
 from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Optional, Union
 
-from .observe.wire import QUANT_MODES, QUANT_OFF_SPELLINGS, \
-    STACKED_SPELLINGS, stacked_mode
+from .observe.wire import (known_packed_wire_spelling,
+                           known_quant_spelling, known_stacked_spelling,
+                           packed_wire_mode, stacked_mode)
 
 _PREFIX = "RAFIKI_TPU_"
 
@@ -148,6 +151,11 @@ class NodeConfig:
     # and the share of the admission queue one client may hold.
     serving_client_header: str = ""
     serving_client_share: float = 0.25
+    # The packed batch wire (``observe/wire.py``): "on" packs a shard
+    # toward a worker that advertises it, "compat" sends per-query
+    # frames but keeps the wire series, "off" per-query frames and no
+    # wire series.
+    serving_packed_wire: str = "on"
     # The inference workers' switches (``observe/wire.py``): int8
     # weights ("" = the trained dtype), stacked bins, generation.
     serving_quant: str = ""
@@ -354,12 +362,15 @@ class NodeConfig:
             raise ValueError("workload_max_mb must be positive")
         if self.workload_retain_segments < 1:
             raise ValueError("workload_retain_segments must be >= 1")
-        if self.serving_quant.strip().lower() not in \
-                QUANT_OFF_SPELLINGS + QUANT_MODES:
+        if not known_packed_wire_spelling(self.serving_packed_wire):
+            raise ValueError(
+                f"serving_packed_wire {self.serving_packed_wire!r} is "
+                f"not one of on/off/compat")
+        if not known_quant_spelling(self.serving_quant):
             raise ValueError(
                 f"serving_quant {self.serving_quant!r} is not one of "
                 f"''/int8")
-        if self.serving_stacked.strip().lower() not in STACKED_SPELLINGS:
+        if not known_stacked_spelling(self.serving_stacked):
             raise ValueError(
                 f"serving_stacked {self.serving_stacked!r} is not one "
                 f"of on/off")
@@ -510,6 +521,8 @@ class NodeConfig:
             os.environ[self.env_name("serving_generate")] = "1"
         else:
             os.environ.pop(self.env_name("serving_generate"), None)
+        os.environ[self.env_name("serving_packed_wire")] = \
+            packed_wire_mode(self.serving_packed_wire)
         if self.serving_quant.strip():
             os.environ[self.env_name("serving_quant")] = \
                 self.serving_quant

@@ -49,6 +49,11 @@ class ModelLogger:
         self._emit({"type": "plot", "plot": {
             "title": title, "metrics": list(metrics), "x_axis": x_axis}})
 
+    def define_loss_plot(self) -> None:
+        """The loss-by-epoch chart, for a model that logs ``loss`` each
+        epoch."""
+        self.define_plot("Loss over epochs", ["loss"], x_axis="epoch")
+
 
 def _to_py(v: Any) -> Any:
     # numpy / torch scalars → python scalars so records stay JSON-serialisable

@@ -1,7 +1,16 @@
-"""The serving variables the port's inference workers read, and the
-serving wire series: the port's copy of ``rafiki_tpu/observe/wire.py``
-without the packed-wire switch (the port's packed wire is always on).
+"""The serving switches, and the serving wire series: the port's copy of
+``rafiki_tpu/observe/wire.py``.
 
+- ``RAFIKI_TPU_SERVING_PACKED_WIRE`` (``NodeConfig.serving_packed_wire``,
+  ``packed_wire_mode``): ``on`` (the default) packs a shard of
+  same-shape arrays into one ``__ndbatch__`` frame toward a worker that
+  advertises ``ndbatch1``, and lets a query frame ask for a packed reply
+  (``rw``); ``off`` sends the per-query frames only, advertises nothing
+  and registers no wire series; ``compat`` sends the per-query frames
+  but keeps the series. The cache, the predictor and the inference
+  worker each read it once, when they are built. An unknown spelling
+  fails safe to ``compat``, with a warning: a mistyped rollback must
+  not leave the packed wire on.
 - ``RAFIKI_TPU_SERVING_QUANT``: ``""`` (or an off spelling) serves the
   trained dtype, ``"int8"`` serves int8 weights. An unknown spelling
   serves unquantized, with a warning.
@@ -9,11 +18,14 @@ without the packed-wire switch (the port's packed wire is always on).
   congruent members serves as one stacked dispatch a burst. An unknown
   spelling turns it off, with a warning.
 
-Both fail safe rather than raise: a worker's environment is set by
+Each fails safe rather than raising: a worker's environment is set by
 hand, and a typo must degrade to the plain path, not stop every worker.
+``NodeConfig.validate`` refuses a spelling outside the vocabularies
+below (``known_*_spelling``).
 
 The series, each registered on first use and only while metrics are on
-(a process that never serves a kind registers none of its series):
+(a process that never serves a kind registers none of its series); the
+wire series also only while the packed wire is not ``off``:
 
 - ``rafiki_tpu_serving_wire_bytes_total{format=packed|perquery,
   direction=scatter|reply}``: estimated payload bytes at every send;
@@ -41,13 +53,46 @@ from . import metrics as _metrics
 
 _log = logging.getLogger(__name__)
 
+PACKED_WIRE_ENV = "RAFIKI_TPU_SERVING_PACKED_WIRE"
 QUANT_ENV = "RAFIKI_TPU_SERVING_QUANT"
 STACKED_ENV = "RAFIKI_TPU_SERVING_STACKED"
 
+PACKED_WIRE_SPELLINGS = ("", "1", "on", "true", "yes",
+                         "0", "off", "false", "no", "compat")
 QUANT_OFF_SPELLINGS = ("", "0", "off", "none", "no", "false")
 QUANT_MODES = ("int8",)
 STACKED_SPELLINGS = ("", "1", "on", "true", "yes",
                      "0", "off", "false", "no")
+
+
+def known_packed_wire_spelling(raw: str) -> bool:
+    return raw.strip().lower() in PACKED_WIRE_SPELLINGS
+
+
+def known_quant_spelling(raw: str) -> bool:
+    return raw.strip().lower() in QUANT_OFF_SPELLINGS + QUANT_MODES
+
+
+def known_stacked_spelling(raw: str) -> bool:
+    return raw.strip().lower() in STACKED_SPELLINGS
+
+
+def packed_wire_mode(raw: Optional[str] = None) -> str:
+    """``"on"``, ``"off"`` or ``"compat"``, from ``raw`` or the
+    environment (default on); an unknown spelling is ``"compat"``."""
+    if raw is None:
+        raw = os.environ.get(PACKED_WIRE_ENV, "on")
+    raw = raw.strip().lower()
+    if raw == "compat":
+        return "compat"
+    if raw in ("0", "false", "no", "off"):
+        return "off"
+    if raw in PACKED_WIRE_SPELLINGS:
+        return "on"
+    _log.warning("%s=%r is not one of on/off/compat; failing safe to "
+                 "'compat' (legacy frames, wire metrics kept)",
+                 PACKED_WIRE_ENV, raw)
+    return "compat"
 
 
 def quant_mode(raw: Optional[str] = None) -> str:
@@ -81,7 +126,7 @@ def stacked_mode(raw: Optional[str] = None) -> bool:
 
 
 #: (wire bytes counter, host copies counter), or (None, None) with
-#: metrics off; resolved on first use.
+#: metrics or the packed wire off; resolved on first use.
 _state: Optional[Tuple] = None
 _quant_counter = None
 #: (dispatch counter, dispatches-per-query gauge), or (None, None).
@@ -96,7 +141,8 @@ def _counters() -> Tuple:
         with _lock:
             s = _state
             if s is None:
-                if _metrics.metrics_enabled():
+                if packed_wire_mode() != "off" \
+                        and _metrics.metrics_enabled():
                     reg = _metrics.registry()
                     s = (
                         reg.counter(
@@ -201,7 +247,8 @@ def observe_dispatches_per_query(dispatches: int, queries: int) -> None:
 
 def reset_for_tests() -> None:
     """Forget the resolved series, so a test that flips
-    ``RAFIKI_TPU_METRICS`` or ``RAFIKI_TPU_SERVING_STACKED`` sees it."""
+    ``RAFIKI_TPU_METRICS``, ``RAFIKI_TPU_SERVING_PACKED_WIRE`` or
+    ``RAFIKI_TPU_SERVING_STACKED`` sees it."""
     global _state, _quant_counter, _stacked_state
     with _lock:
         _state = None

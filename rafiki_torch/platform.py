@@ -10,7 +10,8 @@ and the ``Admin``, and the admin REST service when ``http=True``. A
 supervisor thread sweeps for dead services every ``supervise_interval``
 seconds (0 turns it off) and a heartbeat thread keeps this node's lease
 fresh. The process's span sink is ``<workdir>/logs/spans.jsonl``
-(``observe.trace``), which the admin's ``GET /trace/<id>`` reads.
+(``observe.trace``), which the admin's ``GET /trace/<id>`` reads, and
+uploaded datasets land in ``<workdir>/datasets``.
 ``from_config`` builds one from a validated ``NodeConfig`` (the
 ``serve`` CLI's path).
 
@@ -136,7 +137,9 @@ class LocalPlatform:
         # The workload records (on with RAFIKI_TPU_WORKLOAD_RECORD) go
         # next to it, in <workdir>/logs/workload.jsonl.
         observe_workload.configure(self.services.log_dir)
-        self.admin = Admin(self.meta, self.params, self.services)
+        # Uploaded datasets (POST /datasets) land in <workdir>/datasets.
+        self.admin = Admin(self.meta, self.params, self.services,
+                           datasets_dir=os.path.join(workdir, "datasets"))
         self.autoscaler = None
         if _parse_bool(os.environ.get("RAFIKI_TPU_AUTOSCALE", "0")):
             from .admin.autoscaler import Autoscaler

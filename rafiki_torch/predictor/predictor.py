@@ -19,7 +19,9 @@ unanswered). A bin with no sibling loses its vote instead of stalling
 the batch. Each query's
 answer is the weighted ``ensemble_predictions`` over the bins that
 replied; a query no bin answered comes back None. Shards bound for a
-worker that advertises the packed wire ride one ``__ndbatch__`` frame.
+worker that advertises the packed wire ride one ``__ndbatch__`` frame,
+unless ``RAFIKI_TPU_SERVING_PACKED_WIRE`` was ``off`` or ``compat`` when
+the predictor was built.
 
 Confidence tiering (``tier_threshold``, else
 ``RAFIKI_TPU_SERVING_TIER_THRESHOLD``; 0 = off): with several bins
@@ -276,6 +278,9 @@ class Predictor:
         # worker id, so read from the registry once.
         self._bins: Dict[str, str] = {}
         self._wire_ok: Dict[str, bool] = {}
+        # Packing is read once (``RAFIKI_TPU_SERVING_PACKED_WIRE``):
+        # "compat" and "off" keep every shard on per-query frames.
+        self._packed_wire = _wire.packed_wire_mode() == "on"
         # bin -> eval score from its registration (the best bin), and
         # bin -> EWMA of its device seconds a query (the savings).
         self._bin_score: Dict[str, float] = {}
@@ -634,9 +639,11 @@ class Predictor:
 
     def _build_wire(self, queries: List[Any], pre_encoded: bool,
                     groups: Dict[str, List[str]]) -> _WirePayload:
-        with self._state_lock:
-            capable = frozenset(w for members in groups.values()
-                                for w in members if self._wire_ok.get(w))
+        capable: frozenset = frozenset()
+        if self._packed_wire:
+            with self._state_lock:
+                capable = frozenset(w for members in groups.values()
+                                    for w in members if self._wire_ok.get(w))
         return _WirePayload(queries, pre_encoded, capable)
 
     def _plan_nodes(self, plan: List[_Shard]) -> Optional[Dict[str, str]]:

@@ -1,12 +1,12 @@
 """MetaStore: the AutoML loop's durable state on stdlib sqlite3.
 
-The port's copy of ``rafiki_tpu/store/meta.py``: users, models, train
-jobs, sub-train jobs, trials, trial logs, inference jobs, services and
-the job-to-service mappings the admin and its services manager read and
-write. The schema of those tables and the row dicts are the
-reference's, so either package reads a database the other wrote. The
-datasets table waits with the upload route, and the reference's warning
-about a database on a network filesystem with its node registry.
+The port's copy of ``rafiki_tpu/store/meta.py``: users, models,
+uploaded datasets, train jobs, sub-train jobs, trials, trial logs,
+inference jobs, services and the job-to-service mappings the admin and
+its services manager read and write. The schema of those tables and the
+row dicts are the reference's, so either package reads a database the
+other wrote. The reference's warning about a database on a network
+filesystem waits with its node registry.
 """
 
 from __future__ import annotations
@@ -109,6 +109,16 @@ CREATE TABLE IF NOT EXISTS services (
     heartbeat_at REAL,
     created_at REAL NOT NULL,
     stopped_at REAL
+);
+CREATE TABLE IF NOT EXISTS datasets (
+    id TEXT PRIMARY KEY,
+    user_id TEXT NOT NULL,
+    name TEXT NOT NULL,
+    task TEXT NOT NULL,
+    path TEXT NOT NULL,
+    size_bytes INTEGER NOT NULL,
+    created_at REAL NOT NULL,
+    UNIQUE (user_id, name)
 );
 CREATE TABLE IF NOT EXISTS train_job_workers (
     service_id TEXT PRIMARY KEY,
@@ -250,6 +260,30 @@ class MetaStore:
                    task: Optional[str] = None) -> List[Row]:
         sql = ("SELECT * FROM models WHERE (user_id = ? "
                "OR access_right = 'PUBLIC')")
+        args: list = [user_id]
+        if task is not None:
+            sql += " AND task = ?"
+            args.append(task)
+        return self._select(sql + " ORDER BY created_at", tuple(args))
+
+    # --- Datasets ---
+
+    def create_dataset(self, user_id: str, name: str, task: str,
+                       path: str, size_bytes: int) -> Row:
+        """Raises ``sqlite3.IntegrityError`` when the user already has a
+        dataset of that name."""
+        return self._insert("datasets", {
+            "id": _new_id(), "user_id": user_id, "name": name,
+            "task": task, "path": path, "size_bytes": int(size_bytes),
+            "created_at": _now()})
+
+    def get_dataset(self, dataset_id: str) -> Optional[Row]:
+        return self._one("SELECT * FROM datasets WHERE id = ?",
+                         (dataset_id,))
+
+    def get_datasets(self, user_id: str,
+                     task: Optional[str] = None) -> List[Row]:
+        sql = "SELECT * FROM datasets WHERE user_id = ?"
         args: list = [user_id]
         if task is not None:
             sql += " AND task = ?"
@@ -500,6 +534,21 @@ class MetaStore:
         return self._one(
             "SELECT * FROM inference_job_workers WHERE service_id = ?",
             (service_id,))
+
+    def get_service_owner(self, service_id: str) -> Optional[str]:
+        """The user whose job a service works for, or None for a
+        service no job maps (the service-log route's owner check)."""
+        row = self._one(
+            "SELECT tj.user_id AS user_id FROM train_job_workers w "
+            "JOIN sub_train_jobs s ON s.id = w.sub_train_job_id "
+            "JOIN train_jobs tj ON tj.id = s.train_job_id "
+            "WHERE w.service_id = ?", (service_id,))
+        if row is None:
+            row = self._one(
+                "SELECT ij.user_id AS user_id FROM inference_job_workers w "
+                "JOIN inference_jobs ij ON ij.id = w.inference_job_id "
+                "WHERE w.service_id = ?", (service_id,))
+        return row["user_id"] if row else None
 
     def get_owned_service_ids(self, user_id: str) -> set:
         """Every service id working for a job owned by ``user_id``."""

@@ -1,9 +1,20 @@
 """JSON-over-HTTP service plumbing on the stdlib ``http.server``.
 
 The port's copy of ``rafiki_tpu/utils/service.py``: a route table whose paths may hold ``<param>`` captures, GET, POST
-and DELETE, the query string, JSON bodies in and out, replies streamed
-with chunked transfer encoding, a cap on the body size, graceful start
-and stop. The admin REST service and the predictor are built on it.
+and DELETE, the query string, JSON bodies in and out, raw bodies in
+(a dataset upload), replies streamed with chunked transfer encoding, a
+cap on the body size, graceful start and stop. The admin REST service
+and the predictor are built on it.
+
+A request's body is read by its ``Content-Type``, as the reference
+reads it: JSON for a JSON type or none (a body that does not parse is
+400); for ``application/x-www-form-urlencoded`` (curl's ``-d``) JSON
+when it parses, else the raw bytes; the raw bytes for any other type,
+never sniffed. The raw bytes reach the handler as
+``RequestContext.raw_body``. The cap is ``RAFIKI_TPU_MAX_UPLOAD_MB``
+(256 MiB by default), read when the server is built unless ``max_body``
+is given: a body over it gets 413 before a byte of it is read, and the
+connection closes.
 
 Every server observes itself, as the reference's does:
 
@@ -27,9 +38,10 @@ the handler runs, and an injected ``timeout`` stalls the request first.
 A handler is ``handler(params, body, ctx) -> (status, obj)`` or
 ``(status, obj, headers)``: ``params`` holds the path's captures,
 ``body`` the parsed JSON body (None without one) and ``ctx`` the
-request's headers and query string (``RequestContext``). A handler
+request's headers, query string and raw body (``RequestContext``). A handler
 that takes a single argument is given the body alone. ``obj`` is sent
-as JSON, or streamed when it is a ``StreamResponse``. A handler may
+as JSON, as it is when it is a ``RawResponse`` (the dashboard's HTML),
+or streamed when it is a ``StreamResponse``. A handler may
 raise ``HttpError`` for a chosen status; a ``PermissionError`` answers
 401, or the ``status`` it carries (403 for a caller who is not the
 owner); a ``ValueError`` answers 400 and any other exception 500.
@@ -39,6 +51,7 @@ from __future__ import annotations
 
 import inspect
 import json
+import os
 import logging
 import re
 import threading
@@ -56,9 +69,12 @@ Handler = Callable[..., Tuple]
 
 
 class RequestContext:
-    def __init__(self, headers, query: Dict[str, List[str]]):
+    def __init__(self, headers, query: Dict[str, List[str]],
+                 raw_body: Optional[bytes] = None):
         self.headers = headers
         self.query = query
+        # A body that is not JSON (a dataset upload); None otherwise.
+        self.raw_body = raw_body
 
     @property
     def bearer_token(self) -> Optional[str]:
@@ -83,8 +99,8 @@ class HttpError(Exception):
 
 
 class RawResponse:
-    """A handler return value sent as it is (Prometheus text), not as
-    JSON."""
+    """A handler return value sent as it is (Prometheus text, the
+    dashboard's HTML), not as JSON."""
 
     def __init__(self, content_type: str, data):
         self.content_type = content_type
@@ -154,9 +170,14 @@ class JsonHttpServer:
 
     def __init__(self, routes: List[Tuple[str, str, Handler]],
                  host: str = "127.0.0.1", port: int = 0,
-                 name: str = "http", max_body: int = 64 << 20):
+                 name: str = "http", max_body: Optional[int] = None):
         routes = list(routes)
         self.name = name
+        # Bodies are buffered before dispatch, so one forged
+        # Content-Length must not exhaust the process's memory.
+        if max_body is None:
+            max_body = int(os.environ.get("RAFIKI_TPU_MAX_UPLOAD_MB",
+                                          "256")) * 1024 * 1024
         self.max_body = max_body
         self._observe = metrics.metrics_enabled()
         if self._observe and not any(p == "/metrics" for _, p, _ in routes):
@@ -191,16 +212,33 @@ class JsonHttpServer:
                     # reuse a connection with the unread body in it.
                     self.close_connection = True
                     self._reply(413, {"error": f"request body {length} "
-                                      f"bytes exceeds {outer.max_body}"})
+                                      f"bytes exceeds limit "
+                                      f"{outer.max_body}"})
                     return
                 body = None
+                raw_body = None
                 if length:
-                    try:
-                        body = json.loads(self.rfile.read(length))
-                    except json.JSONDecodeError:
-                        self._reply(400, {"error": "invalid JSON body"})
-                        return
-                ctx = RequestContext(self.headers, parse_qs(parsed.query))
+                    raw = self.rfile.read(length)
+                    ctype = (self.headers.get("Content-Type") or "").lower()
+                    if "json" in ctype or not ctype:
+                        try:
+                            body = json.loads(raw)
+                        except json.JSONDecodeError:
+                            self._reply(400, {"error": "invalid JSON body"})
+                            return
+                    elif "x-www-form-urlencoded" in ctype:
+                        # curl -d's type, under which clients often send
+                        # JSON: parsed when it parses.
+                        try:
+                            body = json.loads(raw)
+                        except json.JSONDecodeError:
+                            raw_body = raw
+                    else:
+                        # Any other type reaches the handler as bytes,
+                        # even a CSV that happens to parse as JSON.
+                        raw_body = raw
+                ctx = RequestContext(self.headers, parse_qs(parsed.query),
+                                     raw_body=raw_body)
                 for m, route, pattern, handler in outer._routes:
                     if m != method:
                         continue

@@ -7,8 +7,7 @@ itself to its file (``bind_service_log``) and a handler on the
 package's logger routes each record of that thread there; a service
 that is a process of its own takes every thread's records with a plain
 file handler on the root logger (``attach_process_log``). The admin's
-``GET /services/<id>/logs`` route, which reads these files, is not
-ported yet (ROADMAP, queue 1).
+``GET /services/<id>/logs`` route reads a file's tail (``tail_log``).
 """
 
 from __future__ import annotations
@@ -90,3 +89,18 @@ def attach_process_log(log_path: Optional[str]) -> None:
     if root.level == logging.NOTSET or root.level > logging.INFO:
         root.setLevel(logging.INFO)
     root.addHandler(handler)
+
+
+def tail_log(log_path: str, max_bytes: int = 65536) -> Optional[str]:
+    """The last ``max_bytes`` of a service's log, from the first whole
+    line in them; None when the service never wrote one (or runs on a
+    node whose files this one cannot see)."""
+    try:
+        size = os.path.getsize(log_path)
+        with open(log_path, "r", encoding="utf-8", errors="replace") as f:
+            if size > max_bytes:
+                f.seek(size - max_bytes)
+                f.readline()  # the partial first line
+            return f.read()
+    except OSError:
+        return None

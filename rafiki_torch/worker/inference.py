@@ -20,8 +20,11 @@ Two workers share this module:
   (``rafiki_tpu/worker/inference.py``): it loads the trials of its bin
   from the meta and param stores onto its chip group's device,
   registers on the bus (``Cache.register_worker``), pops query shards,
-  predicts, replies with ``send_prediction_batch`` and honours the
-  drain marker. A bin of several trials (``"a,b"``, packed onto one
+  predicts, replies with ``send_prediction_batch`` (a single query of
+  ``Cache.send_query`` with ``send_prediction``) and honours the drain
+  marker. Its registration offers the packed wire (``"wire":
+  ["ndbatch1"]``) only when ``RAFIKI_TPU_SERVING_PACKED_WIRE`` is on
+  when it is built. A bin of several trials (``"a,b"``, packed onto one
   chip group when groups are short) is served as the reference's
   ``_PackedEnsemble`` does: congruent members stacked, one dispatch a
   burst (``RAFIKI_TPU_SERVING_STACKED``, on by default), others member
@@ -598,6 +601,10 @@ class BusInferenceWorker:
         self.send_confidence = float(os.environ.get(
             "RAFIKI_TPU_SERVING_TIER_THRESHOLD", "0") or 0) > 0
         self._gen_cfg = _generate_config()
+        # The packed wire is offered ("wire" in the registration) only
+        # when RAFIKI_TPU_SERVING_PACKED_WIRE is on at construction.
+        self._wire_formats = ([WIRE_NDBATCH]
+                              if _wire.packed_wire_mode() == "on" else [])
         self._quant_req = _wire.quant_mode()
         self._quant_active = False
         self._stacked_req = _wire.stacked_mode()
@@ -742,7 +749,7 @@ class BusInferenceWorker:
                 "trial_id": self.trial_id, "score": score,
                 "pipeline": bool(self.pipeline),
                 "sync_latency_ms": self.sync_ms,
-                "wire": [WIRE_NDBATCH], "gen": gen_info,
+                "wire": self._wire_formats, "gen": gen_info,
                 "quant": (self._quant_req if self._quant_active
                           else None),
                 "stacked": self._stacked_active,
@@ -951,9 +958,13 @@ class BusInferenceWorker:
             flat: List[Any] = []
             spans = []  # (item, start, count)
             for it in good:
-                rows = it["batch"] if "batch" in it else it["queries"]
-                spans.append((it, len(flat), len(rows)))
-                flat.extend(rows[i] for i in range(len(rows)))
+                if "batch" in it or "queries" in it:
+                    rows = it["batch"] if "batch" in it else it["queries"]
+                    spans.append((it, len(flat), len(rows)))
+                    flat.extend(rows[i] for i in range(len(rows)))
+                else:  # one query of Cache.send_query
+                    spans.append((it, len(flat), 1))
+                    flat.append(it["query"])
             n = len(flat)
             submit = getattr(self.model, "predict_submit", None)
             if not flat:
@@ -1035,6 +1046,10 @@ class BusInferenceWorker:
         confidence = ([prediction_confidence(p) for p in preds]
                       if self.send_confidence else None)
         for it, start, count in spans:
+            if "batch_id" not in it:
+                self.cache.send_prediction(it["query_id"], self.service_id,
+                                           preds[start], weight=weight)
+                continue
             self.cache.send_prediction_batch(
                 it["batch_id"], self.service_id,
                 preds[start:start + count], weight=weight,

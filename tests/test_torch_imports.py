@@ -85,7 +85,8 @@ def test_importing_the_port_loads_no_jax():
                 "rafiki_torch.observe.slo", "rafiki_torch.observe.replay",
                 "rafiki_torch.admin.slo_engine",
                 "rafiki_torch.admin.autoscaler",
-                "rafiki_torch.admin.capacity", "rafiki_torch.capacity"):
+                "rafiki_torch.admin.capacity", "rafiki_torch.capacity",
+                "rafiki_torch.web"):
         assert mod in mods, mod
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"

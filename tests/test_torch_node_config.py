@@ -409,3 +409,44 @@ def test_loop_fields_round_trip_through_apply_env(overrides, tables):
         os.environ.update(saved)
     assert exported[0] == exported[1]
     assert all(all(b.values()) for b in back), back
+
+
+# --- The packed-wire switch ---
+
+def test_serving_packed_wire_default_and_name_equal_the_reference():
+    field = "serving_packed_wire"
+    assert pconfig.NodeConfig().serving_packed_wire == \
+        rconfig.NodeConfig().serving_packed_wire == "on"
+    assert pconfig.NodeConfig.env_name(field) == \
+        rconfig.NodeConfig.env_name(field) == \
+        "RAFIKI_TPU_SERVING_PACKED_WIRE"
+    assert pconfig.NodeConfig._field_types()[field] is \
+        rconfig.NodeConfig._field_types()[field]
+
+
+@pytest.mark.parametrize("raw", ["on", "off", "compat", "", "1", "0",
+                                 " OFF ", "yes", "no", "Compat", "offf",
+                                 "compatible", "2"])
+def test_serving_packed_wire_validates_and_exports_as_the_reference(raw):
+    """``validate`` refuses the same spellings with the same message,
+    and ``apply_env`` exports the same normalised mode."""
+    key = "RAFIKI_TPU_SERVING_PACKED_WIRE"
+    saved = dict(os.environ)
+    got = []
+    try:
+        for cls in CONFIGS:
+            os.environ[key] = "stale"
+            try:
+                cls.from_env(env={}, serving_packed_wire=raw).apply_env()
+            except ValueError as e:
+                got.append(("refused", str(e)))
+                continue
+            got.append(("exported", os.environ.get(key)))
+            again = cls.from_env(env=dict(os.environ))
+            assert again.serving_packed_wire == os.environ[key]
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    assert got[0] == got[1]
+    assert got[0][0] == ("refused" if raw.strip().lower() in
+                         ("offf", "compatible", "2") else "exported")

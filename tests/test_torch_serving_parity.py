@@ -264,7 +264,8 @@ SERVING_FIELDS = [f.name for f in
 
 def test_nodeconfig_serving_defaults_equal_the_reference():
     port, ref = pconfig.NodeConfig(), rconfig.NodeConfig()
-    assert len(SERVING_FIELDS) == 23  # serving_pipeline among them
+    # serving_pipeline and serving_packed_wire among them
+    assert len(SERVING_FIELDS) == 24
     for f in SERVING_FIELDS:
         assert getattr(port, f) == getattr(ref, f), f
         assert pconfig.NodeConfig.env_name(f) == \
