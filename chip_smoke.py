@@ -368,16 +368,42 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    ``GET /`` serves the dashboard and every request the page makes
    answers non-404; (f) ``chip_utilization`` above 0 while the job ran
    and 0 after. The phase must take at most 60 s;
-19. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
+19. search phase, checkpoint resume and the trial pipeline: ViT trials
+   at zoo2 (b)'s widths on 4,096 of the operator phase's images (16
+   steps of 256 an epoch). (a) Two uninterrupted 3-epoch runs set the
+   card's run-to-run spread; a ``TrialRunner`` trial under
+   ``RAFIKI_TPU_CKPT=1`` dies once epoch 1 is logged and checkpointed,
+   and its proposal run again logs ``resumed from checkpoint epoch 1``,
+   trains only epoch 2, ends within the spread of the first run, and
+   its directory goes; (b) an ASHA job (``advisor_type="asha"``,
+   max_epochs 1-9, rungs 1, 3, 9) of 15 trials through
+   ``LocalPlatform`` reaches the top rung, every promoted trial logging
+   its scoped checkpoint's resume and epochs from its last rung's end
+   and recording the cumulative budget; the top configuration trained
+   again for 9 uninterrupted epochs under ``schedule_total_epochs`` 9
+   ends within the spread of its rung chain; no scoped directory is
+   left; the epochs trained and recorded printed; (c) a PBT job,
+   population 4, one epoch a round, two rounds: every round-2 trial
+   warm-starts from a member's scope and records max_epochs 2; (d) both
+   jobs ran through the train worker's prefetch and pipelined persist
+   tail: each job's median gap from a trial's last epoch to the next
+   train start and its persist tail's seconds printed, the advisors'
+   books balanced, and a 2-trial worker's close forgets the proposal it
+   prefetched; (e) the transformer tagger (d_model 256, 4 heads of 64,
+   2 layers, ``kv_mask``): a 1-epoch rung then the 2-epoch rung resumed
+   ends within two uninterrupted runs' distance. K1-K3 launch on wgmma
+   throughout. The phase must take at most 60 s;
+20. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
    ``library_covers`` names the kernels whose work one library call does,
    ``platform_launches``, ``zoo_launches``, ``ensemble_launches``,
    ``zoo2_launches``, ``lifecycle_launches``, ``tenants_launches``,
-   ``processes_launches``, ``cluster_launches``, ``autoscale_launches``
-   and ``operator_launches`` the platform, zoo, ensemble, zoo2,
-   lifecycle, tenants, processes, cluster, autoscale and operator
-   phases' launches (the platform's, zoo2's, lifecycle's, tenants', the
-   processes' children's, the cluster, the autoscale and the operator
-   phases' counted in ``launches`` too; ``processes_trace_events``
+   ``processes_launches``, ``cluster_launches``, ``autoscale_launches``,
+   ``operator_launches`` and ``search_launches`` the platform, zoo,
+   ensemble, zoo2, lifecycle, tenants, processes, cluster, autoscale,
+   operator and search phases' launches (the platform's, zoo2's,
+   lifecycle's, tenants', the processes' children's, the cluster, the
+   autoscale, the operator and the search phases' counted in
+   ``launches`` too; ``processes_trace_events``
    each kernel's events in the join node's trial trace), K2's and K3's
    ``f32`` their f32 variants' numbers, ``zoo2_shapes`` each kernel's
    numbers at the ViT and tagger shapes and ``zoo2_f32`` K1's
@@ -931,6 +957,48 @@ class OperatorViT(TorchViT):
 """.format(epochs=OPERATOR_EPOCHS)
 WIRE_FAMILIES = ("rafiki_tpu_serving_wire_bytes_total",
                  "rafiki_tpu_serving_host_copies_total")
+# The search phase: checkpoint resume and the trial pipeline on the card.
+# ViT trials at zoo2 (b)'s widths (d_model 128, 4 heads of 32, patch 4,
+# 65 tokens, 6 blocks, batch 256) train on the first SEARCH_TRAIN of the
+# operator phase's images (16 steps an epoch) and are scored on
+# SEARCH_VAL of zoo2's val images. (a) A trial of SEARCH_EPOCHS epochs
+# through a TrialRunner under RAFIKI_TPU_CKPT=1 dies once epoch 1 is
+# logged and checkpointed, and its proposal is run again; (b) an ASHA job
+# of SEARCH_ASHA_TRIALS trials over max_epochs 1-9 (eta 3: rungs 1, 3,
+# 9), enough to reach the top rung; (c) a PBT job, population 4, one
+# epoch a round, two rounds; (d) both through LocalPlatform's train
+# worker with prefetch and the pipelined persist tail (its defaults),
+# and a 2-trial worker of its own whose close must refund the proposal
+# it prefetched; (e) the transformer tagger at zoo2 (e)'s widths cut to
+# SEARCH_TAGGER_LAYERS layers, on SEARCH_CORPUS sentences of the WSJ
+# split's shape (16 steps of 64), a 1-epoch rung then the 2-epoch rung
+# resumed.
+SEARCH_TRAIN = 4096
+SEARCH_VAL = 512
+SEARCH_EPOCHS = 3
+SEARCH_ASHA_TRIALS = 15
+SEARCH_PBT_POPULATION = 4
+SEARCH_TAGGER_LAYERS = 2
+SEARCH_CORPUS = {"n_train": 1024, "n_val": 256, "vocab": 20000,
+                 "n_tags": 45, "max_len": 128}
+SEARCH_WAIT_S = 120.0
+SEARCH_MAX_S = 60.0
+SEARCH_KNOBS = {"learning_rate": 1e-3, "weight_decay": 1e-4}
+SEARCH_VIT_SOURCE = """
+from rafiki_torch.model import FixedKnob, IntegerKnob
+from rafiki_torch.models import TorchViT
+
+
+class SearchViT(TorchViT):
+    # zoo2 (b)'s widths with all 6 blocks at batch 256; the epoch
+    # budget 1-9, so that eta 3 gives the rungs 1, 3 and 9.
+    @staticmethod
+    def get_knob_config():
+        cfg = dict(TorchViT.get_knob_config())
+        cfg.update(depth=FixedKnob(6), batch_size=FixedKnob(256),
+                   max_epochs=IntegerKnob(1, 9))
+        return cfg
+"""
 # K1's o at the zoo's shapes against its plain version, bf16: each p is
 # rounded to bf16 before p·v, and where the kernel's exp and the plain
 # version's round one p to neighbouring bf16 values the row moves by up
@@ -8037,6 +8105,414 @@ def operator_phase(torch, np, attn, card, zoo2):
     return out
 
 
+def param_dist(np, a, b):
+    """The largest |a - b| over two parameter dicts' tensors (``_meta``
+    entries left out)."""
+    return max(float(np.abs(np.asarray(a[k], np.float64)
+                            - np.asarray(b[k], np.float64)).max())
+               for k in a if not k.startswith("_"))
+
+
+def trial_records(meta, trial_id):
+    return [x["record"] for x in meta.get_trial_logs(trial_id)]
+
+
+def record_epochs(recs):
+    return [r["values"]["epoch"] for r in recs if r["type"] == "values"
+            and "epoch" in r["values"]]
+
+
+def record_msgs(recs):
+    return [r["values"]["msg"] for r in recs if r["type"] == "values"
+            and "msg" in r["values"]]
+
+
+class _Died(Exception):
+    pass
+
+
+def search_phase(torch, np, attn, card, zoo2):
+    """Checkpoint resume and the trial pipeline on the card: (a) a ViT
+    trial that dies after epoch 1 resumes its crash checkpoint
+    (``RAFIKI_TPU_CKPT=1``) and ends where an uninterrupted run ends,
+    within the card's own run-to-run spread; (b) an ASHA job through
+    ``LocalPlatform`` whose promotions resume their rungs' scoped
+    checkpoints, its top configuration held against an uninterrupted
+    9-epoch run; (c) a PBT job, round 2 warm-starting from the
+    population; (d) both through the train worker's prefetch and
+    pipelined persist tail, and a worker's close refunding its
+    prefetched proposal; (e) the transformer tagger's rung resume.
+    Returns the phase's numbers and K1-K3 launches."""
+    import os
+    import statistics
+
+    from rafiki_torch.advisor import AshaAdvisor
+    from rafiki_torch.advisor.base import Proposal
+    from rafiki_torch.bus import connect
+    from rafiki_torch.constants import (ServiceStatus, ServiceType,
+                                        TaskType, TrialStatus, UserType)
+    from rafiki_torch.datasets import make_synthetic_corpus_dataset
+    from rafiki_torch.model.logger import logger
+    from rafiki_torch.models import TorchTransformerTagger
+    from rafiki_torch.observe import phases
+    from rafiki_torch.platform import LocalPlatform
+    from rafiki_torch.store import CheckpointManager, MetaStore, ParamStore
+    from rafiki_torch.utils.model_loader import load_model_class
+    from rafiki_torch.worker.runner import TrialRunner
+    from rafiki_torch.worker.train import TrainWorker
+
+    t_phase = time.perf_counter()
+    reset_launch_counts(attn)
+    timgs, tlabels = zoo2["operator"]["train"]
+    vimgs, vlabels = zoo2["lifecycle"]["val"]
+    n_classes = zoo2["operator"]["n_classes"]
+    vit_cls = load_model_class("SearchViT", SEARCH_VIT_SOURCE)
+    saved_env = dict(os.environ)
+    out = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_search_")
+    plat = None
+    try:
+        train = os.path.join(tmp.name, "train.npz")
+        val = os.path.join(tmp.name, "val.npz")
+        np.savez(train, images=timgs[:SEARCH_TRAIN],
+                 labels=tlabels[:SEARCH_TRAIN], n_classes=n_classes)
+        np.savez(val, images=vimgs[:SEARCH_VAL], labels=vlabels[:SEARCH_VAL],
+                 n_classes=n_classes)
+        steps = SEARCH_TRAIN // 256
+
+        # (a) Crash resume.
+        t0 = time.perf_counter()
+        knobs = vit_cls.validate_knobs(dict(SEARCH_KNOBS,
+                                            max_epochs=SEARCH_EPOCHS))
+        runs = []
+        for _ in range(2):
+            m = vit_cls(device="cuda", **knobs)
+            m.train(train)
+            runs.append(m.dump_parameters())
+            m.destroy()
+        spread = param_dist(np, runs[0], runs[1])
+        os.environ["RAFIKI_TPU_CKPT"] = "1"
+        meta = MetaStore(os.path.join(tmp.name, "a.db"))
+        params = ParamStore(os.path.join(tmp.name, "a-params"))
+        proposal = Proposal(trial_no=1, knobs=dict(knobs))
+
+        class Proposed:
+            """The advisor side of a proposal that is run twice."""
+
+            def feedback(self, p, score):
+                pass
+
+            def forget(self, p):
+                pass
+
+        runner = TrialRunner(vit_cls, Proposed(), train, val, meta, params,
+                             "search-a", device="cuda")
+
+        def dies(rec):
+            if rec.get("type") == "values" \
+                    and rec["values"].get("epoch") == 2:
+                raise _Died("the worker died once epoch 1 was saved")
+
+        prior = logger.current_sink()
+        logger.set_sink(dies)
+        try:
+            dead = runner.run_one(proposal)
+        finally:
+            logger.set_sink(prior)
+        root = os.path.join(params.params_dir, "ckpt")
+        dirs = os.listdir(root)
+        saved = (CheckpointManager(os.path.join(root, dirs[0])).steps()
+                 if len(dirs) == 1 else dirs)
+        check(dead["status"] == TrialStatus.ERRORED and saved == [0, 1],
+              f"(a) the dying trial {dead['status']}, checkpoints {saved}")
+        t_res = time.perf_counter()
+        row = runner.run_one(proposal)
+        resume_s = time.perf_counter() - t_res
+        recs = trial_records(meta, row["id"])
+        got = params.load(row["params_id"]) if row["params_id"] else {}
+        dist = param_dist(np, got, runs[0]) if got else math.inf
+        check(row["status"] == TrialStatus.COMPLETED
+              and "resumed from checkpoint epoch 1" in record_msgs(recs)
+              and record_epochs(recs) == [2] and os.listdir(root) == [],
+              f"(a) the rerun {row['status']}, epochs "
+              f"{record_epochs(recs)}, messages {record_msgs(recs)}, "
+              f"left {os.listdir(root)}")
+        check(dist <= spread,
+              f"(a) the resumed run ends {dist} from the uninterrupted "
+              f"one, two uninterrupted runs {spread} apart")
+        os.environ.pop("RAFIKI_TPU_CKPT")
+        params.close()
+        meta.close()
+        print(f"search: (a) crash resume: two uninterrupted {SEARCH_EPOCHS}-"
+              f"epoch ViT runs (6 blocks, d_model 128, batch 256, {steps} "
+              f"steps an epoch) lie {spread:.3g} apart (largest |Δ| of a "
+              f"parameter: the card's run-to-run spread); under "
+              f"RAFIKI_TPU_CKPT=1 a TrialRunner trial died once epoch 1 "
+              f"was logged and checkpointed (ckpt_0, ckpt_1 on disk), and "
+              f"its proposal run again logged 'resumed from checkpoint "
+              f"epoch 1', trained only epoch 2 ({resume_s:.2f} s with its "
+              f"evaluation and persist) and ends {dist:.3g} from the first "
+              f"uninterrupted run; its directory went with the trial; "
+              f"(a) took {time.perf_counter() - t0:.1f} s on {card}",
+              flush=True)
+        out.update(spread=spread, crash_dist=dist)
+
+        # (b)-(d) ASHA and PBT jobs through the platform's train worker.
+        plat = LocalPlatform(workdir=os.path.join(tmp.name, "node"),
+                             supervise_interval=0)
+        user = plat.admin.create_user("search@example.com", "pw",
+                                      UserType.MODEL_DEVELOPER)
+        model = plat.admin.create_model(
+            user["id"], "vit-search", TaskType.IMAGE_CLASSIFICATION,
+            "SearchViT", model_source=SEARCH_VIT_SOURCE)
+
+        def run_job(advisor_type, n):
+            """(job, sub-job, trials by number, seconds, persist tail
+            seconds, the advisor service's advisor)."""
+            before = phases.phase_totals()["persist"]
+            t0 = time.perf_counter()
+            job = plat.admin.create_train_job(
+                user["id"], f"search-{advisor_type}",
+                TaskType.IMAGE_CLASSIFICATION, [model["id"]],
+                {"MODEL_TRIAL_COUNT": n}, train, val,
+                advisor_type=advisor_type)
+            (sub,) = plat.meta.get_sub_train_jobs(job["id"])
+            advisor = None
+            for w in plat.meta.get_train_job_workers(sub["id"]):
+                svc = plat.meta.get_service(w["service_id"])
+                if svc["service_type"] == ServiceType.ADVISOR:
+                    advisor = plat.container.get(
+                        svc["container_id"] or svc["id"]).advisor
+            check(plat.admin.wait_until_train_job_done(
+                job["id"], timeout=SEARCH_WAIT_S, poll=0.05),
+                f"the {advisor_type} job did not end")
+            secs = time.perf_counter() - t0
+            persist = phases.phase_totals()["persist"]
+            trials = sorted(plat.meta.get_trials_of_train_job(job["id"]),
+                            key=lambda t: t["no"])
+            check(len(trials) == n and all(
+                t["status"] == TrialStatus.COMPLETED for t in trials),
+                f"the {advisor_type} job's trials "
+                f"{[(t['status'], t.get('error')) for t in trials]}")
+            return (job, sub, trials, secs,
+                    (persist["sum"] - before["sum"],
+                     persist["count"] - before["count"]), advisor)
+
+        def gaps(trials):
+            """Seconds from each trial's last epoch record to the next
+            trial's first record (its train start): its evaluation, its
+            persist hand-off, the next proposal and the next model's
+            build."""
+            spans = []
+            for t in trials:
+                recs = trial_records(plat.meta, t["id"])
+                spans.append((min(r["time"] for r in recs),
+                              max(r["time"] for r in recs
+                                  if r["type"] == "values"
+                                  and "epoch" in r["values"])))
+            return [b[0] - a[1] for a, b in zip(spans, spans[1:])]
+
+        # (b) ASHA.
+        t0 = time.perf_counter()
+        job, sub, trials, asha_s, asha_persist, asha_adv = run_job(
+            "asha", SEARCH_ASHA_TRIALS)
+        by_scope, trained, recorded, bad = {}, 0, 0, []
+        for t in trials:
+            scope = t["proposal"]["meta"]["ckpt_scope"]
+            budget = t["knobs"]["max_epochs"]
+            recs = trial_records(plat.meta, t["id"])
+            prev = by_scope.get(scope, 0)
+            epochs = record_epochs(recs)
+            resumed = f"resumed from checkpoint epoch {prev - 1}" in \
+                record_msgs(recs)
+            if epochs != list(range(prev, budget)) or \
+                    (prev > 0) != resumed or budget not in (1, 3, 9):
+                bad.append((t["no"], scope, prev, budget, epochs,
+                            record_msgs(recs)))
+            by_scope[scope] = budget
+            trained += len(epochs)
+            recorded += budget
+        budgets = [t["knobs"]["max_epochs"] for t in trials]
+        check(not bad and 9 in budgets,
+              f"(b) rungs {budgets}; trials off their rung: {bad}")
+        top = [t for t in trials if t["knobs"]["max_epochs"] == 9][0]
+        left = [n for n in os.listdir(os.path.join(plat.params.params_dir,
+                                                   "ckpt"))
+                if n.startswith(f"{sub['id']}-asha-cfg-")] \
+            if os.path.isdir(os.path.join(plat.params.params_dir, "ckpt")) \
+            else []
+        check(left == [], f"(b) scoped checkpoints left: {left}")
+        m = vit_cls(device="cuda", **vit_cls.validate_knobs(
+            dict(top["knobs"])))
+        m.train(train, schedule_total_epochs=9)
+        top_dist = param_dist(np, plat.params.load(top["params_id"]),
+                              m.dump_parameters())
+        m.destroy()
+        check(top_dist <= spread,
+              f"(b) the top rung ends {top_dist} from an uninterrupted "
+              f"9-epoch run, beyond (a)'s spread {spread}")
+        print(f"search: (b) ASHA through LocalPlatform, {SEARCH_ASHA_TRIALS} "
+              f"trials in {asha_s:.2f} s, rungs {budgets} (ladder 1, 3, 9: "
+              f"max_epochs IntegerKnob(1, 9), eta 3); every promoted trial "
+              f"logged the resume of its configuration's scoped checkpoint "
+              f"and epochs from its last rung's end, and recorded the "
+              f"cumulative budget; epochs trained {trained} against "
+              f"{recorded} recorded ({recorded - trained} saved by the "
+              f"resumes); the top configuration (score "
+              f"{top['score']:.4f}) trained again uninterrupted for 9 "
+              f"epochs under schedule_total_epochs 9 ends {top_dist:.3g} "
+              f"from its rung chain; no asha-cfg-* directory left after "
+              f"the budget; (b) took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        out.update(asha_s=asha_s, asha_trained=trained,
+                   asha_recorded=recorded, top_dist=top_dist)
+
+        # (c) PBT.
+        t0 = time.perf_counter()
+        n_pbt = 2 * SEARCH_PBT_POPULATION
+        job_c, sub_c, trials_c, pbt_s, pbt_persist, pbt_adv = run_job(
+            "pbt", n_pbt)
+        pop = {f"pbt-{i}" for i in range(SEARCH_PBT_POPULATION)}
+        round2 = trials_c[SEARCH_PBT_POPULATION:]
+        warm = [trial_warm_starts(plat.meta, t["id"]) for t in round2]
+        exploited = sum(t["proposal"]["meta"]["params_scope"]
+                        != t["proposal"]["meta"]["params_save_scope"]
+                        for t in round2)
+        check(all(t["knobs"]["max_epochs"] == 1
+                  for t in trials_c[:SEARCH_PBT_POPULATION])
+              and all(t["knobs"]["max_epochs"] == 2 for t in round2)
+              and all(w and w[0] > 0 for w in warm)
+              and all(t["proposal"]["meta"]["params_scope"] in pop
+                      for t in round2),
+              f"(c) budgets {[t['knobs']['max_epochs'] for t in trials_c]},"
+              f" warm starts {warm}, scopes "
+              f"{[t['proposal']['meta'] for t in round2]}")
+        print(f"search: (c) PBT through LocalPlatform, population "
+              f"{SEARCH_PBT_POPULATION}, one epoch a round, two rounds: "
+              f"{n_pbt} trials in {pbt_s:.2f} s; every round-2 trial "
+              f"warm-started {warm[0][0]} tensors from a member's scope "
+              f"and recorded max_epochs 2; {exploited} of "
+              f"{SEARCH_PBT_POPULATION} exploited a winner (retrieved "
+              f"another member's scope); scores "
+              f"{[round(t['score'], 4) for t in trials_c]}; (c) took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out.update(pbt_s=pbt_s, exploited=exploited)
+
+        # (d) The pipeline: the jobs' gaps and tails; a worker's close.
+        t0 = time.perf_counter()
+        asha_gaps, pbt_gaps = gaps(trials), gaps(trials_c)
+        balanced = [
+            asha_adv._pending == {}
+            and asha_adv._trial_no - asha_adv._forgotten
+            == SEARCH_ASHA_TRIALS,
+            all(v == 0 for v in pbt_adv._inflight.values())
+            and pbt_adv._trial_no - pbt_adv._forgotten == n_pbt]
+        check(all(balanced), f"(d) the advisors' books {balanced}")
+        meta = MetaStore(os.path.join(tmp.name, "d.db"))
+        params = ParamStore(os.path.join(tmp.name, "d-params"))
+        u = meta.create_user("d@example.com", "-", UserType.MODEL_DEVELOPER)
+        row = meta.create_model(u["id"], "vit", TaskType.IMAGE_CLASSIFICATION,
+                                "SearchViT", {},
+                                model_source=SEARCH_VIT_SOURCE)
+        job_d = meta.create_train_job(u["id"], "d",
+                                      TaskType.IMAGE_CLASSIFICATION,
+                                      {"MODEL_TRIAL_COUNT": 2}, train, val,
+                                      status="RUNNING")
+        sub_d = meta.create_sub_train_job(job_d["id"], row["id"],
+                                          status="RUNNING")
+        svc = meta.create_service(ServiceType.TRAIN, ServiceStatus.STARTED)
+        adv = AshaAdvisor(vit_cls.get_knob_config(), seed=SEED)
+        worker = TrainWorker(svc["id"], sub_d["id"], meta, params,
+                             connect(""), advisor=adv, device="cuda")
+        worker.start()
+        worker.join(SEARCH_WAIT_S)
+        done_d = meta.get_trials(sub_d["id"], status=TrialStatus.COMPLETED)
+        check(not worker.running and len(done_d) == 2
+              and adv._trial_no == 3 and adv._forgotten == 1
+              and adv._pending == {},
+              f"(d) the worker's trials {len(done_d)}, proposals "
+              f"{adv._trial_no}, refunds {adv._forgotten}, pending "
+              f"{adv._pending}")
+        params.close()
+        meta.close()
+        for name, g, (ps, pn) in (("ASHA", asha_gaps, asha_persist),
+                                  ("PBT", pbt_gaps, pbt_persist)):
+            print(f"search: (d) {name} job: median gap from a trial's last "
+                  f"epoch to the next trial's train start "
+                  f"{statistics.median(g):.3f} s (min {min(g):.3f}, max "
+                  f"{max(g):.3f}; the evaluation, the persist hand-off, "
+                  f"the prefetched proposal and the next model's build); "
+                  f"persist tail {ps:.3f} s over {pn} trials, on the "
+                  f"persist thread", flush=True)
+        print(f"search: (d) both jobs ran with the worker's prefetch and "
+              f"pipelined persist tail (its defaults); the advisors' books "
+              f"balance (ASHA nothing pending, PBT nothing in flight); a "
+              f"worker of its own with an uncapped ASHA advisor ran its "
+              f"2-trial budget and its close forgot the third, prefetched "
+              f"proposal (1 refund, nothing pending); (d) took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out.update(asha_gap_s=statistics.median(asha_gaps),
+                   pbt_gap_s=statistics.median(pbt_gaps),
+                   asha_persist_s=asha_persist[0],
+                   pbt_persist_s=pbt_persist[0])
+
+        # (e) The tagger's rung resume.
+        t0 = time.perf_counter()
+        corpus = make_synthetic_corpus_dataset(
+            os.path.join(tmp.name, "wsj"), seed=SEED, name="wsj",
+            **SEARCH_CORPUS)
+        tknobs = dict(ZOO2_TAGGER, n_layers=SEARCH_TAGGER_LAYERS,
+                      max_epochs=2)
+        before = launch_counts(attn)
+        truns = []
+        for _ in range(2):
+            m = TorchTransformerTagger(device="cuda", **tknobs)
+            m.train(corpus[0])
+            truns.append(m.dump_parameters())
+        tspread = param_dist(np, truns[0], truns[1])
+        ck = os.path.join(tmp.name, "tagger-ck")
+        m = TorchTransformerTagger(device="cuda", **dict(tknobs,
+                                                         max_epochs=1))
+        m.train(corpus[0], checkpoint_dir=ck, checkpoint_final_epoch=True,
+                schedule_total_epochs=2)
+        m = TorchTransformerTagger(device="cuda", **tknobs)
+        _, eps = logged(m.train, corpus[0], checkpoint_dir=ck,
+                        checkpoint_final_epoch=True, schedule_total_epochs=2)
+        tdist = param_dist(np, m.dump_parameters(), truns[0])
+        tl = [a - b for a, b in zip(launch_counts(attn), before)]
+        check([e["epoch"] for e in eps] == [1] and tdist <= tspread
+              and all(tl[i] > 0 and tl[3 + i] == tl[i] for i in range(3)),
+              f"(e) the resumed rung's epochs {eps}, distance {tdist}, two "
+              f"uninterrupted runs {tspread}; launches {tl}")
+        print(f"search: (e) transformer tagger (d_model 256, 4 heads of 64, "
+              f"{SEARCH_TAGGER_LAYERS} layers, max_len 128, dropout 0.1, "
+              f"kv_mask), {SEARCH_CORPUS['n_train']} sentences (16 steps of "
+              f"64): two uninterrupted 2-epoch runs lie {tspread:.3g} apart; "
+              f"a 1-epoch rung, then the 2-epoch rung resumed (epoch 1 "
+              f"only), ends {tdist:.3g} from the first; K1, K2, K3 "
+              f"launched {tl[:3]} times, all wgmma; (e) took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out.update(tagger_spread=tspread, tagger_dist=tdist)
+    finally:
+        if plat is not None:
+            plat.shutdown()
+        os.environ.clear()
+        os.environ.update(saved_env)
+        tmp.cleanup()
+    launches = launch_counts(attn)
+    phase_s = time.perf_counter() - t_phase
+    check(all(launches[i] > 0 and launches[3 + i] == launches[i]
+              for i in range(3)),
+          f"the search phase launched K1-K3 {launches}")
+    check(phase_s <= SEARCH_MAX_S, f"the search phase took {phase_s:.1f} s")
+    print(f"search: K1, K2 and K3 launched {launches[:3]} times in the "
+          f"phase (warm-up steps, captures and evaluations of the ViT "
+          f"trials, the tagger's eager steps; replays run uncounted), all "
+          f"on wgmma; phase took {phase_s:.1f} s on {card}", flush=True)
+    out.update(launches=launches[:3], phase_s=phase_s)
+    return out
+
+
 def zoo2_rows(zoo2, kernel):
     """One kernel's numbers at the zoo2 phase's ViT and tagger shapes."""
     return {what: dict(zoo2[part]["kernels"][kernel],
@@ -8115,6 +8591,7 @@ def main() -> int:
                       zoo2)
         oper = timed("operator", operator_phase, torch, np, attn, card,
                      zoo2)
+        search = timed("search", search_phase, torch, np, attn, card, zoo2)
     except Exception:
         traceback.print_exc()
         return 1
@@ -8126,7 +8603,8 @@ def main() -> int:
                        + plat_launches[0] + zoo2["launches"][0]
                        + life["launches"][0] + ten["launches"][0]
                        + procs["launches"][0] + clus["launches"][0]
-                       + scale["launches"][0] + oper["launches"][0]),
+                       + scale["launches"][0] + oper["launches"][0]
+                       + search["launches"][0]),
              generate_launches=gen_launches,
              platform_launches=plat_launches[0],
              zoo_launches=zoo["launches"][0],
@@ -8139,6 +8617,7 @@ def main() -> int:
              cluster_launches=clus["launches"][0],
              autoscale_launches=scale["launches"][0],
              operator_launches=oper["launches"][0],
+             search_launches=search["launches"][0],
              zoo2_shapes=zoo2_rows(zoo2, "K1"),
              zoo2_f32=dict(zoo2["int8"]["k1_f32"], registers=f32_regs),
              generate_buckets=gen["buckets"], **k1, **k1_train),
@@ -8149,7 +8628,7 @@ def main() -> int:
                        + zoo2["launches"][1] + life["launches"][1]
                        + ten["launches"][1] + procs["launches"][1]
                        + clus["launches"][1] + scale["launches"][1]
-                       + oper["launches"][1]),
+                       + oper["launches"][1] + search["launches"][1]),
              platform_launches=plat_launches[1],
              zoo_launches=zoo["launches"][1],
              ensemble_launches=ens["launches"][1],
@@ -8161,6 +8640,7 @@ def main() -> int:
              cluster_launches=clus["launches"][1],
              autoscale_launches=scale["launches"][1],
              operator_launches=oper["launches"][1],
+             search_launches=search["launches"][1],
              zoo2_shapes=zoo2_rows(zoo2, "K2"), **k2),
         dict(name="flash_bwd_dkv (K3)", route="cuda",
              source=src + "flash_bwd_dkv.cu",
@@ -8169,7 +8649,7 @@ def main() -> int:
                        + zoo2["launches"][2] + life["launches"][2]
                        + ten["launches"][2] + procs["launches"][2]
                        + clus["launches"][2] + scale["launches"][2]
-                       + oper["launches"][2]),
+                       + oper["launches"][2] + search["launches"][2]),
              platform_launches=plat_launches[2],
              zoo_launches=zoo["launches"][2],
              ensemble_launches=ens["launches"][2],
@@ -8181,6 +8661,7 @@ def main() -> int:
              cluster_launches=clus["launches"][2],
              autoscale_launches=scale["launches"][2],
              operator_launches=oper["launches"][2],
+             search_launches=search["launches"][2],
              zoo2_shapes=zoo2_rows(zoo2, "K3"), **k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

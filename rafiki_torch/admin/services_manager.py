@@ -32,7 +32,8 @@ directory and TCP bus.
 
 Every service's environment carries what a service process needs to
 open the same substrate: the store URIs, the bus URI, the log
-directory, the node's id and its device type (``RAFIKI_TPU_PLATFORM``).
+directory, the node's id and its device type (``RAFIKI_TPU_PLATFORM``),
+and the operator's ``RAFIKI_TPU_ADVISOR_PREFETCH`` where it is set.
 The thread runtime ignores them and uses the platform's shared context.
 
 Promotion's two primitives: ``swap_inference_worker`` launches a worker
@@ -57,7 +58,8 @@ is on. After the dead-service pass both read one ``ScrapeCache``, the
 SLO sweep first, so a firing alert is the autoscaler's pressure in the
 same sweep. Off, each is None and costs one attribute check.
 
-Not ported yet: the scoped-checkpoint sweep.
+Every stop of a train job sweeps its sub-jobs' scoped rung
+checkpoints (``<params_dir>/ckpt/<sub_id>-*``).
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ from __future__ import annotations
 import logging
 import math
 import os
+import shutil
 import time
 from typing import Any, Dict, List, Optional
 
@@ -167,6 +170,11 @@ class ServicesManager:
         }
         if self.log_dir:
             env[EnvVars.LOG_DIR] = self.log_dir
+        # The operator's prefetch switch reaches every child, whatever
+        # environment its container gives it (ref :156-158).
+        if "RAFIKI_TPU_ADVISOR_PREFETCH" in os.environ:
+            env["RAFIKI_TPU_ADVISOR_PREFETCH"] = \
+                os.environ["RAFIKI_TPU_ADVISOR_PREFETCH"]
         return env
 
     def _stop_service(self, service_id: str) -> None:
@@ -266,9 +274,25 @@ class ServicesManager:
         return svc
 
     def stop_train_services(self, train_job_id: str) -> None:
+        """Every stop of a train job (``stop_train_job``, its wind-down,
+        its end after the workers gave up) comes here, so this is also
+        where the job's scoped rung checkpoints are swept: a stopped job
+        never reaches the workers' own sweep (ref :276-300). A worker
+        restarted mid-job does not come through here."""
         for sub in self.meta.get_sub_train_jobs(train_job_id):
             for w in self.meta.get_train_job_workers(sub["id"]):
                 self._stop_service(w["service_id"])
+            self._sweep_scoped_checkpoints(sub["id"])
+
+    def _sweep_scoped_checkpoints(self, sub_id: str) -> None:
+        if not self.params_dir:
+            return
+        root = os.path.join(self.params_dir, "ckpt")
+        if not os.path.isdir(root):
+            return
+        for name in os.listdir(root):
+            if name.startswith(f"{sub_id}-"):
+                shutil.rmtree(os.path.join(root, name), ignore_errors=True)
 
     def _ownership(self, svc: Dict[str, Any]) -> str:
         """``"local"``, ``"foreign"`` or ``"unowned-skip"``: a row

@@ -1,9 +1,10 @@
 """Advisor factory: pick a strategy from the knob config.
 
-The port of ``rafiki_tpu/advisor/registry.py`` (:21-42). Given no type,
-an ``ArchKnob`` space gets the ENAS controller, a space with searchable
-dimensions the Bayesian GP, anything else random search. The
-reference's ``"asha"`` and ``"pbt"`` are not ported yet and raise.
+The port of ``rafiki_tpu/advisor/registry.py`` (:21-42): a type given
+by name (``"random"``, ``"bayes"``, ``"enas"``, ``"asha"``, ``"pbt"``)
+is built; given no type, an ``ArchKnob`` space gets the ENAS
+controller, a space with searchable dimensions the Bayesian GP,
+anything else random search (never ASHA or PBT unless asked for).
 """
 
 from __future__ import annotations
@@ -12,18 +13,20 @@ from typing import Optional
 
 from ..model.knobs import ArchKnob, KnobConfig, searchable_dims
 from ..torchenv import DeviceLike
+from .asha import AshaAdvisor
 from .base import BaseAdvisor
 from .bayes import BayesOptAdvisor
 from .enas import EnasAdvisor
+from .pbt import PbtAdvisor
 from .random_advisor import RandomAdvisor
 
 ADVISOR_TYPES = {
     "random": RandomAdvisor,
     "bayes": BayesOptAdvisor,
     "enas": EnasAdvisor,
+    "asha": AshaAdvisor,
+    "pbt": PbtAdvisor,
 }
-#: The reference's advisor types that the port does not have yet.
-NOT_PORTED = ("asha", "pbt")
 
 
 def make_advisor(knob_config: KnobConfig, seed: int = 0,
@@ -32,10 +35,6 @@ def make_advisor(knob_config: KnobConfig, seed: int = 0,
                  device: DeviceLike = None) -> BaseAdvisor:
     """The strategy for one search. ``device`` is where the ENAS
     controller runs (the card unless the caller asks for the CPU)."""
-    if advisor_type in NOT_PORTED:
-        raise NotImplementedError(
-            f"advisor {advisor_type!r} is not ported yet (ROADMAP.md, "
-            "queue 1 item 5)")
     if advisor_type is None:
         if any(isinstance(k, ArchKnob) for k in knob_config.values()):
             advisor_type = "enas"
@@ -46,7 +45,7 @@ def make_advisor(knob_config: KnobConfig, seed: int = 0,
     cls = ADVISOR_TYPES.get(advisor_type)
     if cls is None:
         raise ValueError(f"Unknown advisor type: {advisor_type!r}; one of "
-                         f"{sorted(ADVISOR_TYPES) + list(NOT_PORTED)}")
+                         f"{sorted(ADVISOR_TYPES)}")
     if cls is EnasAdvisor:
         return cls(knob_config, seed, total_trials=total_trials,
                    device=device)

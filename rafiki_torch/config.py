@@ -55,9 +55,13 @@ Fields:
   plane's ``slo_rules`` (parsed by ``validate``; "" = off),
   ``slo_webhook_url`` and ``slo_alert_log_mb``.
 
-Left out until their modules come (ROADMAP, queue 1): ``probe_timeout``
-(the port does not probe the card; without one it raises) and
-``checkpoint_trials``.
+- the trial loop's: ``checkpoint_trials`` (``RAFIKI_TPU_CKPT``, the
+  runner's crash-resume checkpoints, off by default) and
+  ``advisor_prefetch`` (the train worker's ``PrefetchAdvisor``, on by
+  default).
+
+Left out until its module comes (ROADMAP, queue 1): ``probe_timeout``
+(the port does not probe the card; without one it raises).
 """
 
 from __future__ import annotations
@@ -238,6 +242,13 @@ class NodeConfig:
     # A same-node replica's shard weight is multiplied by this.
     cluster_locality_boost: float = 1.0
 
+    # --- The trial loop ---
+    # Mid-trial epoch checkpoints a re-proposed trial resumes after a
+    # worker died (RAFIKI_TPU_CKPT).
+    checkpoint_trials: bool = False
+    # Train workers compute the next proposal while a trial trains.
+    advisor_prefetch: bool = True
+
     # --- Observability ---
     metrics: bool = True                   # /metrics and the series
     trace_sample: float = 1.0              # fresh traces sampled, 0..1
@@ -250,12 +261,15 @@ class NodeConfig:
     trace_tail_slow_ms: float = 250.0
     metrics_exemplars: bool = False
 
-    _types_cache = None  # deliberately un-annotated: not a field
+    # Fields whose variables are not RAFIKI_TPU_<FIELD> (the
+    # reference's names). Un-annotated, so none of these is a field.
+    _ENV_MAP = {"checkpoint_trials": "RAFIKI_TPU_CKPT"}
+    _types_cache = None
     _tristate_cache = None
 
     @classmethod
     def env_name(cls, field: str) -> str:
-        return _PREFIX + field.upper()
+        return cls._ENV_MAP.get(field, _PREFIX + field.upper())
 
     @classmethod
     def from_env(cls, env: Optional[Mapping[str, str]] = None,
@@ -488,6 +502,14 @@ class NodeConfig:
         this config validated."""
         if self.trace_dir:
             os.environ[self.env_name("trace_dir")] = self.trace_dir
+        # The runner reads the checkpoint switch a trial, the train
+        # worker the prefetch switch when its loop starts.
+        if self.checkpoint_trials:
+            os.environ[self.env_name("checkpoint_trials")] = "1"
+        else:
+            os.environ.pop(self.env_name("checkpoint_trials"), None)
+        os.environ[self.env_name("advisor_prefetch")] = \
+            "1" if self.advisor_prefetch else "0"
         os.environ[self.env_name("chip_share")] = \
             "1" if self.chip_share else "0"
         for f in ("max_chip_share", "worker_reregister", "node_lease",

@@ -136,6 +136,67 @@ class ScheduledOptimizer:
         self.opt.step()
         self._count.add_(1)
 
+    # --- Checkpoint state ---
+
+    def steps_taken(self) -> int:
+        """Updates so far: the device count on the card (replays of a
+        captured ``device_step`` advance only that), else the host's."""
+        return int(self._count) if self._count is not None else self.count
+
+    def set_steps_taken(self, n: int) -> None:
+        self.count = int(n)
+        if self._count is not None:
+            self._count.fill_(int(n))
+
+    def state_tensors(self):
+        """The inner optimizer's state tensors in a fixed order (by
+        parameter, then by key), created first where no step has run
+        yet (``prime_state``), so that a resume can copy into them
+        before the first step and before a capture."""
+        self.prime_state()
+        out = []
+        for group in self.opt.param_groups:
+            for p in group["params"]:
+                st = self.opt.state.get(p, {})
+                out.extend(st[k] for k in sorted(st)
+                           if isinstance(st[k], torch.Tensor))
+        return out
+
+    def prime_state(self) -> None:
+        """The state each parameter's first step would create, made now:
+        Adam's and AdamW's ``step`` (an f32 scalar, on the parameter's
+        device when fused or capturable, else on the CPU) and zero
+        moments for each parameter that takes gradients, as
+        ``torch.optim.Adam._init_group`` makes them; ``NesterovSGD``'s
+        zero ``trace`` for each parameter. A zero state is what the
+        first step would start from, so a primed run steps as an
+        unprimed one."""
+        for group in self.opt.param_groups:
+            for p in group["params"]:
+                st = self.opt.state[p]
+                if st:
+                    continue
+                if isinstance(self.opt, NesterovSGD):
+                    st["trace"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                elif isinstance(self.opt, (torch.optim.Adam,
+                                           torch.optim.AdamW)):
+                    if not p.requires_grad:
+                        del self.opt.state[p]
+                        continue
+                    on_dev = group["capturable"] or group["fused"]
+                    st["step"] = torch.zeros(
+                        (), dtype=torch.float32,
+                        device=p.device if on_dev else "cpu")
+                    for k in ("exp_avg", "exp_avg_sq") + (
+                            ("max_exp_avg_sq",) if group["amsgrad"]
+                            else ()):
+                        st[k] = torch.zeros_like(
+                            p, memory_format=torch.preserve_format)
+                else:
+                    raise TypeError(f"no checkpoint state for "
+                                    f"{type(self.opt).__name__}")
+
 
 def _adam_kwargs(params, peak_lr: float):
     """Adam's settings at optax's defaults and its lr: on the card a

@@ -29,7 +29,11 @@ trains, evaluates, serves and (de)serialises it as the reference does:
   no data-parallel rounding of the batch: it is only capped at the
   dataset's size. On the card the step is captured once as a CUDA graph
   and replayed (``_TrainSteps``), the counterpart of the reference's
-  many steps per compiled dispatch.
+  many steps per compiled dispatch. The lr schedule spans
+  ``schedule_total_epochs`` when a caller gives more than the run's
+  ``max_epochs``, and ``checkpoint_dir`` turns on checkpoint resume
+  (ref :693-712, :790-870; ``loop_ckpt.LoopCheckpointer``, with the
+  early-stop counters beside the state).
 - ``evaluate`` (ref :890-991): argmax accuracy over the staged set in
   batches of up to 1024.
 - ``predict`` / ``predict_submit`` / ``predict_proba`` (ref :994-1070):
@@ -79,7 +83,8 @@ from .bridge import (dense_from_jax, dense_from_jax_tensors, dense_to_jax,
                      overlay_params)
 from .dataset import load_image_dataset
 from .logger import logger
-from .loop_ckpt import epoch_rng
+from .loop_ckpt import (LoopCheckpointer, TrainState, epoch_rng,
+                        schedule_epochs)
 from .optim import ScheduledOptimizer, scheduled_adam
 
 #: Steps per device round trip of the train loop (ref :666).
@@ -139,6 +144,12 @@ def pad_crop_flip(x: torch.Tensor, seed: int, step: torch.Tensor,
         return x
     ys, xs, flip = crop_flip_draw(seed, step, b, pad)
     return crop_flip(x, ys, xs, flip, pad)
+
+
+def _es_arrays(best_loss: float, bad_epochs: int) -> Dict[str, np.ndarray]:
+    """The early-stop counters saved beside the state (ref :815-832)."""
+    return {"es_best_loss": np.asarray(best_loss, np.float64),
+            "es_bad_epochs": np.asarray(bad_epochs, np.int64)}
 
 
 class _TrainSteps:
@@ -637,10 +648,6 @@ class TorchModel(BaseModel):
 
     def train(self, dataset_path: str, *,
               shared_params: Optional[Params] = None, **kwargs: Any) -> None:
-        if kwargs.get("checkpoint_dir"):
-            raise NotImplementedError(
-                "checkpoint resume of TorchModel.train is not ported yet "
-                "(ROADMAP queue 1 item 5)")
         t_load = time.monotonic()
         ds = load_image_dataset(dataset_path)
         _phases.observe_phase("load", time.monotonic() - t_load)
@@ -657,7 +664,8 @@ class TorchModel(BaseModel):
         steps_per_epoch = max(1, ds.size // batch_size)
         seed = int(self.knobs.get("seed", 0))
         opt = self.create_optimizer(list(net.parameters()),
-                                    steps_per_epoch, max_epochs)
+                                    steps_per_epoch,
+                                    schedule_epochs(kwargs, max_epochs))
 
         # The whole dataset goes to the device once, as uint8.
         data, labels = self._stage(ds)
@@ -684,12 +692,31 @@ class TorchModel(BaseModel):
                            x_axis="epoch")
         early_stop = int(self.knobs.get("early_stop_epochs", 0))
         best_loss, bad_epochs = float("inf"), 0
+        # Checkpoint resume (ref :693-712): the state is restored into
+        # the parameters, the optimizer's state and counts and the step
+        # counter before the first step, and so before the capture.
+        ckpt = LoopCheckpointer(kwargs)
+        state = TrainState(net, opt, steps.step_no) if ckpt.enabled \
+            else None
+        start_epoch = 0
+        if state is not None:
+            start_epoch, extras = ckpt.restore(state)
+            if start_epoch:
+                best_loss = float(np.asarray(extras.get(
+                    "es_best_loss", np.inf)).reshape(-1)[0])
+                bad_epochs = int(np.asarray(extras.get(
+                    "es_bad_epochs", 0)).reshape(-1)[0])
+                if early_stop and bad_epochs >= early_stop:
+                    # The restored run had stopped early: an
+                    # uninterrupted run trains nothing further.
+                    start_epoch = max_epochs
         chunk_steps = max(1, min(steps_per_epoch, CHUNK_STEPS))
         first_chunk = True
         net.train()
         t0 = time.time()
         step = 0
-        for epoch in range(max_epochs):
+        last_epoch = None
+        for epoch in range(start_epoch, max_epochs):
             order = epoch_rng(seed, epoch).permutation(ds.size)
             need = steps_per_epoch * batch_size
             if need > ds.size:
@@ -727,6 +754,7 @@ class TorchModel(BaseModel):
                 mfu_gauge.set(mfu, **mlabels)
             logger.log(epoch=epoch, loss=ep_loss, train_acc=ep_acc,
                        steps_per_sec=step / (time.time() - t0), **util)
+            last_epoch = epoch
             if early_stop:
                 if ep_loss < best_loss - 1e-4:
                     best_loss, bad_epochs = ep_loss, 0
@@ -734,6 +762,12 @@ class TorchModel(BaseModel):
                     bad_epochs += 1
                     if bad_epochs >= early_stop:
                         break
+            if state is not None:
+                ckpt.after_epoch(epoch, state, max_epochs,
+                                 _es_arrays(best_loss, bad_epochs))
+        if state is not None:
+            ckpt.after_loop(last_epoch, state,
+                            _es_arrays(best_loss, bad_epochs))
         steps.close()
         net.eval()
         self._net = net

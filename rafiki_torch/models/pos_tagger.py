@@ -20,10 +20,12 @@ share (the reference's two classes repeat it): the whole encoded set
 on the device once; each epoch's order ``epoch_rng(seed,
 epoch).permutation(size)``, a short last batch filled by ``np.resize``;
 the loss the cross-entropy masked by each sentence's length, token
-accuracy alike, one log record an epoch; ``predict`` returns each
-sentence's per-token tag distributions, cut to its length, from
-batches padded to a power of two; ``dump_parameters`` the reference's
-flat names plus ``_meta/tag_names_json``.
+accuracy alike, one log record an epoch; the lr schedule over
+``schedule_total_epochs`` when given and checkpoint resume under
+``checkpoint_dir`` (``loop_ckpt``, ref :147, :181-183); ``predict``
+returns each sentence's per-token tag distributions, cut to its length,
+from batches padded to a power of two; ``dump_parameters`` the
+reference's flat names plus ``_meta/tag_names_json``.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from ..model.base import BaseModel, Params
 from ..model.bridge import dense_from_jax, dense_to_jax, overlay_params
 from ..model.dataset import hash_token_ids, load_corpus_dataset
 from ..model.logger import logger
-from ..model.loop_ckpt import epoch_rng
+from ..model.loop_ckpt import (LoopCheckpointer, TrainState, epoch_rng,
+                               schedule_epochs)
 from ..model.optim import ScheduledOptimizer, scheduled_adam
 from ..torchenv import DeviceLike, resolve_device
 from .layers import Dense, Embed, lecun_normal_
@@ -109,10 +112,6 @@ class _CorpusTagger(BaseModel):
 
     def train(self, dataset_path: str, *,
               shared_params: Optional[Params] = None, **kwargs: Any) -> None:
-        if kwargs.get("checkpoint_dir"):
-            raise NotImplementedError(
-                f"checkpoint resume of {type(self).__name__}.train is not "
-                "ported yet (ROADMAP queue 1 item 5)")
         ds = load_corpus_dataset(dataset_path)
         net = self._new_net(ds.tag_names)
         if shared_params is not None:
@@ -135,14 +134,21 @@ class _CorpusTagger(BaseModel):
                              int(self.knobs.get("trial_epochs", 1)))
         steps = max(1, ds.size // batch_size)
         opt = self.create_optimizer(list(net.parameters()),
-                                    steps * max_epochs)
+                                    steps * schedule_epochs(kwargs,
+                                                            max_epochs))
         seed = int(self.knobs.get("seed", 0))
         step_t = torch.zeros((), dtype=torch.int64, device=dev)
         cols = torch.arange(self.max_len, device=dev)
         logger.define_plot("Training", ["loss", "token_acc"],
                            x_axis="epoch")
+        # Checkpoint resume (ref :181-183; the transformer's :631): the
+        # state, with the step counter that the dropout draws hash.
+        ckpt = LoopCheckpointer(kwargs)
+        state = TrainState(net, opt, step_t) if ckpt.enabled else None
+        start_epoch = ckpt.restore(state)[0] if state is not None else 0
+        last_epoch = None
         net.train()
-        for epoch in range(max_epochs):
+        for epoch in range(start_epoch, max_epochs):
             order = epoch_rng(seed, epoch).permutation(ds.size)
             if steps * batch_size > ds.size:
                 order = np.resize(order, steps * batch_size)
@@ -166,6 +172,11 @@ class _CorpusTagger(BaseModel):
                 step_t += 1
             means = (sums / steps).tolist()
             logger.log(epoch=epoch, loss=means[0], token_acc=means[1])
+            last_epoch = epoch
+            if state is not None:
+                ckpt.after_epoch(epoch, state, max_epochs)
+        if state is not None:
+            ckpt.after_loop(last_epoch, state)
         net.eval()
         self._net = net
 

@@ -7,7 +7,9 @@ units with ReLU and a ``Dense`` to the output, all in f32; features
 standardised by the training set's mean and ``std + 1e-6``, kept in
 ``_meta/json`` with the output width and the feature names; Adam under
 a cosine decay to ``alpha`` 0.01 with no weight decay (ref :134-135);
-cross-entropy for the classifier and MSE for the regressor.
+cross-entropy for the classifier and MSE for the regressor; the
+schedule over ``schedule_total_epochs`` when given and checkpoint
+resume under ``checkpoint_dir`` (``loop_ckpt``, ref :125, :161).
 ``train`` accepts ``shared_params`` and ignores it, as the reference
 does: a trial starts from the model's own initialisation.
 ``evaluate`` is accuracy or R²; ``predict`` gives class probabilities or
@@ -29,7 +31,8 @@ from ..model.base import BaseModel, Params
 from ..model.bridge import dense_from_jax, dense_to_jax
 from ..model.dataset import load_tabular_dataset
 from ..model.logger import logger
-from ..model.loop_ckpt import epoch_rng
+from ..model.loop_ckpt import (LoopCheckpointer, TrainState, epoch_rng,
+                               schedule_epochs)
 from ..model.optim import scheduled_adam
 from ..torchenv import DeviceLike, resolve_device
 from .layers import Dense
@@ -93,10 +96,6 @@ class _TabBase(BaseModel):
 
     def train(self, dataset_path: str, *,
               shared_params: Optional[Params] = None, **kwargs: Any) -> None:
-        if kwargs.get("checkpoint_dir"):
-            raise NotImplementedError(
-                f"checkpoint resume of {type(self).__name__}.train is not "
-                "ported yet (ROADMAP queue 1 item 5)")
         ds = load_tabular_dataset(dataset_path)
         if self.regression:
             out_dim = 1
@@ -126,10 +125,14 @@ class _TabBase(BaseModel):
         steps = max(1, ds.size // batch_size)
         opt = scheduled_adam(list(net.parameters()),
                              float(self.knobs.get("learning_rate", 1e-3)),
-                             steps * max_epochs)
+                             steps * schedule_epochs(kwargs, max_epochs))
         seed = int(self.knobs.get("seed", 0))
         logger.define_plot("Training", ["loss"], x_axis="epoch")
-        for epoch in range(max_epochs):
+        ckpt = LoopCheckpointer(kwargs)
+        state = TrainState(net, opt) if ckpt.enabled else None
+        start_epoch = ckpt.restore(state)[0] if state is not None else 0
+        last_epoch = None
+        for epoch in range(start_epoch, max_epochs):
             order = epoch_rng(seed, epoch).permutation(ds.size)
             if steps * batch_size > ds.size:
                 order = np.resize(order, steps * batch_size)
@@ -148,6 +151,11 @@ class _TabBase(BaseModel):
                 opt.step()
                 total += loss.detach()
             logger.log(epoch=epoch, loss=float(total) / steps)
+            last_epoch = epoch
+            if state is not None:
+                ckpt.after_epoch(epoch, state, max_epochs)
+        if state is not None:
+            ckpt.after_loop(last_epoch, state)
         self._net = net
 
     @torch.no_grad()

@@ -7,15 +7,19 @@ the loop to ``TrialRunner``, which builds every model on its chip
 group's device. Its service row goes RUNNING, then STOPPED when the
 budget is spent (or its stop flag is set), or ERRORED when it crashes.
 
+As the reference's, the worker wraps the advisor in a
+``PrefetchAdvisor`` unless ``RAFIKI_TPU_ADVISOR_PREFETCH`` is off (the
+next proposal computes while a trial trains, one observation stale),
+runs the runner with ``pipeline_persist`` (the persist tail on a
+thread), sweeps the sub-job's scoped checkpoints once its budget is
+spent (not after a stop: the ServicesManager sweeps then), and closes
+the runner and the prefetcher on every way out, which refunds the last
+prefetched proposal.
+
 ``TrainWorker.from_env`` builds one from a service process's
 environment (the stores, the bus, the chip group and the device that
 ``RAFIKI_TPU_PLATFORM`` names). A worker given a log file
 (``log_path``) writes its thread's records there.
-
-The reference also wraps the advisor in a ``PrefetchAdvisor`` and runs
-the runner with ``pipeline_persist``; neither is ported yet (ROADMAP,
-queue 1), so each trial asks the advisor when it starts and persists
-inline.
 """
 
 from __future__ import annotations
@@ -25,9 +29,11 @@ import os
 import threading
 from typing import Any, Mapping, Optional
 
+from ..advisor.prefetch import PrefetchAdvisor
 from ..advisor.worker import RemoteAdvisor
 from ..bus import BaseBus, connect
-from ..constants import EnvVars, ServiceStatus
+from ..config import _parse_bool
+from ..constants import EnvVars, ServiceStatus, TrialStatus
 from ..parallel.chips import ChipGroup
 from ..store import MetaStore, ParamStore
 from ..torchenv import DeviceLike, resolve_device
@@ -35,6 +41,10 @@ from ..utils.model_loader import load_model_class
 from .runner import TrialRunner
 
 _log = logging.getLogger(__name__)
+
+#: The advisor-prefetch switch (``NodeConfig.advisor_prefetch``), on
+#: unless it reads false; read when the worker's loop starts.
+ADVISOR_PREFETCH_ENV = "RAFIKI_TPU_ADVISOR_PREFETCH"
 
 
 class TrainWorker:
@@ -82,8 +92,11 @@ class TrainWorker:
 
     def stop(self, join_timeout: float = 10.0) -> None:
         self.stop_flag.set()
+        self.join(join_timeout)
+
+    def join(self, timeout: Optional[float] = None) -> None:
         if self._thread is not None:
-            self._thread.join(timeout=join_timeout)
+            self._thread.join(timeout=timeout)
 
     @property
     def running(self) -> bool:
@@ -104,14 +117,24 @@ class TrainWorker:
                                        model_row.get("model_source"))
         self.meta.update_service(self.service_id,
                                  status=ServiceStatus.RUNNING)
+        advisor = self.advisor
+        prefetch: Optional[PrefetchAdvisor] = None
+        if _parse_bool(os.environ.get(ADVISOR_PREFETCH_ENV, "1")):
+            advisor = prefetch = PrefetchAdvisor(advisor)
         runner = TrialRunner(
-            model_class, self.advisor, job["train_dataset_path"],
+            model_class, advisor, job["train_dataset_path"],
             job["val_dataset_path"], self.meta, self.params, self.sub_id,
             model_id=sub["model_id"], worker_id=self.service_id,
             budget=job["budget"], device=self.device,
-            stop_flag=self.stop_flag)
+            stop_flag=self.stop_flag, pipeline_persist=True)
         try:
             runner.run()
+            # The job is over (its budget spent, not a stop or a crash):
+            # its halving configurations' scoped checkpoints go.
+            if not self.stop_flag.is_set() and runner.budget.exhausted(
+                    len(self.meta.get_trials(
+                        self.sub_id, status=TrialStatus.COMPLETED))):
+                runner.cleanup_scoped_checkpoints()
             self.meta.update_service(self.service_id,
                                      status=ServiceStatus.STOPPED)
         except Exception:
@@ -119,3 +142,9 @@ class TrainWorker:
             self.meta.update_service(self.service_id,
                                      status=ServiceStatus.ERRORED)
             raise
+        finally:
+            # run() drained the persist stage; close() ends its thread,
+            # and the prefetcher's close refunds the proposal it holds.
+            runner.close()
+            if prefetch is not None:
+                prefetch.close()

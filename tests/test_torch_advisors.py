@@ -39,8 +39,9 @@ from rafiki_tpu.model import (ArchKnob as JaxArchKnob,
                               IntegerKnob as JaxIntegerKnob,
                               PolicyKnob as JaxPolicyKnob)
 from rafiki_tpu.models import JaxDenseNet, JaxEnas, JaxFeedForward
-from rafiki_torch.advisor import (BayesOptAdvisor, EnasAdvisor,
-                                  RandomAdvisor, make_advisor)
+from rafiki_torch.advisor import (AshaAdvisor, BayesOptAdvisor,
+                                  EnasAdvisor, PbtAdvisor, RandomAdvisor,
+                                  make_advisor)
 from rafiki_torch.advisor.bayes import GaussianProcess
 from rafiki_torch.advisor.enas import _Controller
 from rafiki_torch.constants import ParamsType
@@ -319,8 +320,7 @@ def test_make_advisor_types():
     assert isinstance(make_advisor(ENAS, advisor_type="random"),
                       RandomAdvisor)
     assert isinstance(make_advisor(ENAS, device="cpu"), EnasAdvisor)
-    for name in ("asha", "pbt"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_advisor(cfg, advisor_type=name)
+    for name, cls in (("asha", AshaAdvisor), ("pbt", PbtAdvisor)):
+        assert isinstance(make_advisor(cfg, advisor_type=name), cls)
     with pytest.raises(ValueError, match="Unknown advisor type"):
         make_advisor(cfg, advisor_type="nope")

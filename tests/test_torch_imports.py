@@ -86,7 +86,9 @@ def test_importing_the_port_loads_no_jax():
                 "rafiki_torch.admin.slo_engine",
                 "rafiki_torch.admin.autoscaler",
                 "rafiki_torch.admin.capacity", "rafiki_torch.capacity",
-                "rafiki_torch.web"):
+                "rafiki_torch.web", "rafiki_torch.store.checkpoint",
+                "rafiki_torch.advisor.asha", "rafiki_torch.advisor.pbt",
+                "rafiki_torch.advisor.prefetch"):
         assert mod in mods, mod
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"

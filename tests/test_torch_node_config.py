@@ -183,7 +183,7 @@ NEW_FIELDS = ["serving_pipeline", "generate_page_size",
               "cluster_locality_boost", "metrics", "trace_sample",
               "trace_max_mb", "trace_retain_segments", "trace_retain_mb",
               "trace_tail_sample", "trace_tail_slow_ms",
-              "metrics_exemplars"]
+              "metrics_exemplars", "checkpoint_trials", "advisor_prefetch"]
 
 
 @pytest.mark.parametrize("field", NEW_FIELDS)
@@ -225,6 +225,10 @@ def _new_outcome(cls, env, overrides):
       "RAFIKI_TPU_GENERATE_DECODE_BATCH": "4",
       "RAFIKI_TPU_GENERATE_MAX_NEW": "64"}, {}),
     ({"RAFIKI_TPU_CLUSTER_FABRIC": "auto"}, {}),
+    ({"RAFIKI_TPU_CKPT": "1", "RAFIKI_TPU_ADVISOR_PREFETCH": "0"}, {}),
+    ({"RAFIKI_TPU_CKPT": "auto"}, {}),
+    ({"RAFIKI_TPU_CKPT": "off", "RAFIKI_TPU_ADVISOR_PREFETCH": "yes"},
+     {"checkpoint_trials": True}),
     ({"RAFIKI_TPU_FAULT_SEED": "x"}, {}),
     ({"RAFIKI_TPU_FAULT_PLAN": "bus.explode"}, {}),
     ({}, {"fault_plan": "worker.crash:N=2"}),
@@ -256,7 +260,8 @@ NEW_EXPORTED = ["RAFIKI_TPU_SERVING_PIPELINE", "RAFIKI_TPU_FAULT_PLAN",
                 "RAFIKI_TPU_GENERATE_PAGE_SIZE",
                 "RAFIKI_TPU_GENERATE_POOL_PAGES",
                 "RAFIKI_TPU_GENERATE_DECODE_BATCH",
-                "RAFIKI_TPU_GENERATE_MAX_NEW"]
+                "RAFIKI_TPU_GENERATE_MAX_NEW", "RAFIKI_TPU_CKPT",
+                "RAFIKI_TPU_ADVISOR_PREFETCH"]
 
 
 @pytest.mark.parametrize("overrides", [
@@ -265,7 +270,8 @@ NEW_EXPORTED = ["RAFIKI_TPU_SERVING_PIPELINE", "RAFIKI_TPU_FAULT_PLAN",
          "fault_plan": "node.kill:op=vm/b,n=1", "fault_seed": 4,
          "metrics": False, "metrics_exemplars": True,
          "trace_sample": 0.1, "trace_tail_sample": 0.5,
-         "trace_retain_segments": 2, "generate_max_new": 32},
+         "trace_retain_segments": 2, "generate_max_new": 32,
+         "checkpoint_trials": True, "advisor_prefetch": False},
     {"serving_pipeline": False, "trace_tail_sample": 1.0}])
 def test_new_fields_round_trip_through_apply_env(overrides):
     saved = dict(os.environ)

@@ -80,14 +80,23 @@ def test_an_enas_job_without_an_advisor_type_runs_the_enas_advisor(
         assert all(t["knobs"]["share_params"] and t["knobs"]["downscale"]
                    for t in search)
         assert not final["knobs"]["share_params"]
-        best = max(search, key=lambda t: t["score"])
+        # The train worker prefetches each proposal while the trial
+        # before it trains, one observation stale: the final proposal
+        # was made before the last search trial's score came, so it
+        # retrains the best of the search trials scored by then.
+        best = max(search[:-1], key=lambda t: t["score"])
         assert final["knobs"]["arch"] == best["knobs"]["arch"]
         # Warm starts through the platform's ParamStore: none for the
         # first search trial and the final one, every supernet tensor
         # (stored, without the two _meta entries) for the others.
+        # The worker's persist tail is pipelined: trial N's save may
+        # still be in flight when trial N+1 retrieves, but trial N-1's
+        # has landed (one tail in flight at a time), so the second
+        # search trial may start cold and every later one warm.
         n_supernet = len(p.params.load(search[0]["params_id"])) - 2
         assert _warm_starts(dev, search[0]["id"]) == []
-        for t in search[1:]:
+        assert _warm_starts(dev, search[1]["id"]) in ([], [n_supernet])
+        for t in search[2:]:
             assert _warm_starts(dev, t["id"]) == [n_supernet], t["no"]
         assert _warm_starts(dev, final["id"]) == []
         n_single = len(p.params.load(final["params_id"])) - 2
