@@ -393,20 +393,53 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    2 layers, ``kv_mask``): a 1-epoch rung then the 2-epoch rung resumed
    ends within two uninterrupted runs' distance. K1-K3 launch on wgmma
    throughout. The phase must take at most 60 s;
-20. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
+20. data phase, data staging and real data: (a) ``TorchPosTagger`` and
+   ``TorchTransformerTagger`` trained on the bundled English corpus
+   (``prepare_bundled_pos_corpus``, 679 hand-tagged sentences) through
+   ``rafiki_torch.accuracy_parity``'s corpus rows, with the reference's
+   knobs (20 and 30 epochs), each val token accuracy against its band
+   (0.89, 0.84), the transformer's K1-K3 launches against the count its
+   steps and its evaluation give, all wgmma, and K1 and K2 with K3 at its
+   launched shape (batch 32 padded to max_len 64, 4 heads of 32,
+   ``kv_mask``) against their plain versions, timed beside
+   ``scaled_dot_product_attention`` and its ``autograd.grad``; (b) a
+   ``TrialRunner`` sub-train job of 4 one-epoch ViT trials at zoo2 (b)'s
+   widths on the search phase's 4,096 + 512 images, both residency
+   caches cleared first: each cache counts 2 misses and 6 hits, the
+   ``stage`` seconds of trial 1 against trials 2-4 and both bytes
+   gauges printed; the same 4 trials with
+   ``RAFIKI_TPU_DATASET_CACHE_BYTES=0`` and
+   ``RAFIKI_TPU_STAGE_CACHE_BYTES=0`` end bit for bit equal, and every
+   staged tensor's sha-256 is unchanged after the 8 trials; (c) trial 1
+   again with ``RAFIKI_TPU_STAGE_BYTES`` below its set's bytes, on the
+   per-chunk path in chunks of 4 steps: bit for bit the staged trial, no
+   stage-cache entry; its train call timed in turns with the staged
+   path's (staged, per-chunk, per-chunk, staged) and the host seconds of
+   its chunks' gathers printed; then at the port's 128-step chunks, on
+   the set tiled to 2 chunks, its chunk loads overlapped with the
+   device's steps (the port's) against blocking (the first design, kept
+   in this script), in turns, all bit for bit the staged train; (d) the flagship LM (the train phase's
+   parameters) evaluating 16 windows of 2048 ids twice on the staged
+   stream (a stage miss, then a hit) and once on the host path (the
+   cache off): each evaluation's windows bit for bit those cut here
+   from the stream, the three logits bit for bit equal, and so their
+   cross-entropy and accuracy, K1 8 a forward, all wgmma. The phase
+   must take at most 60 s;
+21. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
    ``library_covers`` names the kernels whose work one library call does,
    ``platform_launches``, ``zoo_launches``, ``ensemble_launches``,
    ``zoo2_launches``, ``lifecycle_launches``, ``tenants_launches``,
    ``processes_launches``, ``cluster_launches``, ``autoscale_launches``,
-   ``operator_launches`` and ``search_launches`` the platform, zoo,
-   ensemble, zoo2, lifecycle, tenants, processes, cluster, autoscale,
-   operator and search phases' launches (the platform's, zoo2's,
-   lifecycle's, tenants', the processes' children's, the cluster, the
-   autoscale, the operator and the search phases' counted in
-   ``launches`` too; ``processes_trace_events``
+   ``operator_launches``, ``search_launches`` and ``data_launches`` the
+   platform, zoo, ensemble, zoo2, lifecycle, tenants, processes,
+   cluster, autoscale, operator, search and data phases' launches (the
+   platform's, zoo2's, lifecycle's, tenants', the processes' children's,
+   the cluster, the autoscale, the operator, the search and the data
+   phases' counted in ``launches`` too; ``processes_trace_events``
    each kernel's events in the join node's trial trace), K2's and K3's
    ``f32`` their f32 variants' numbers, ``zoo2_shapes`` each kernel's
-   numbers at the ViT and tagger shapes and ``zoo2_f32`` K1's
+   numbers at the ViT and tagger shapes, ``data_shape`` at the real
+   corpus's tagger shape and ``zoo2_f32`` K1's
    f32 variant at the int8 ViT shape with its registers and spills, and,
    last, the ``{"ok": true,
    "device": ...}`` line.
@@ -999,6 +1032,21 @@ class SearchViT(TorchViT):
                    max_epochs=IntegerKnob(1, 9))
         return cfg
 """
+# The data phase: data staging and real data. (a) Both taggers on the
+# bundled English corpus through rafiki_torch.accuracy_parity's corpus
+# rows (its knobs and bands); (b) one TrialRunner sub-train job of
+# DATA_TRIALS one-epoch ViT trials at zoo2 (b)'s widths on the search
+# phase's SEARCH_TRAIN + SEARCH_VAL images, with both residency caches on
+# and then off; (c) one of them on the per-chunk path, in chunks of
+# DATA_CHUNK_STEPS steps; (d) the flagship LM's evaluation of a stream
+# of at least 16 windows of 2048 ids, staged twice and then unstaged.
+DATA_TRIALS = 4
+DATA_LRS = (1e-3, 5e-4, 2e-3, 3e-4)
+DATA_CHUNK_STEPS = 4
+# (c) at the port's own CHUNK_STEPS: a set of this many full chunks.
+DATA_BIG_CHUNKS = 2
+DATA_LM_VAL = 1 << 16
+DATA_MAX_S = 60.0
 # K1's o at the zoo's shapes against its plain version, bf16: each p is
 # rounded to bf16 before p·v, and where the kernel's exp and the plain
 # version's round one p to neighbouring bf16 values the row moves by up
@@ -4310,11 +4358,12 @@ def plain_attention(attn):
         q.contiguous(), k.contiguous(), v.contiguous(), kv_mask=m)
 
 
-def zoo2_kernels(torch, attn, card, what, q, k, v, mask):
+def zoo2_kernels(torch, attn, card, what, q, k, v, mask, tag="zoo2:"):
     """K1, K2 and K3 on one of the zoo's real attention inputs (bf16,
     non-causal) against their plain versions, then timed beside
     ``scaled_dot_product_attention`` and its ``autograd.grad``; returns
-    the kernel table's numbers for the shape."""
+    the kernel table's numbers for the shape. ``tag`` begins the line
+    it prints."""
     import torch.nn.functional as F
 
     q, k, v = (x.detach().contiguous() for x in (q, k, v))
@@ -4387,7 +4436,7 @@ def zoo2_kernels(torch, attn, card, what, q, k, v, mask):
         *args, kv_mask=mask), 3)
     b1, by1 = attention_bound(b, h, t, t, d, False, 2)
     (b2, by2), (b3, by3) = backward_bounds(b, h, t, t, d, False, 2)
-    print(f"zoo2: kernels at the {what} shape ({b},{h},{t},{t},{d}) bf16 "
+    print(f"{tag} kernels at the {what} shape ({b},{h},{t},{t},{d}) bf16 "
           f"non-causal, mask={mask is not None} (the model's own q, k, v): "
           f"K1 max|do| {float(err_o.max()):.3e} (tolerance "
           f"{TOL_O_ROW}*max|v| + TOL_O), max|dlse| {float(err_l.max()):.3e}; "
@@ -8512,6 +8561,443 @@ def search_phase(torch, np, attn, card, zoo2):
     out.update(launches=launches[:3], phase_s=phase_s)
     return out
 
+def staged_digests(torch, np):
+    """{key: sha-256 of the tensor's bytes} of every staging-cache
+    entry."""
+    import hashlib
+
+    from rafiki_torch.model import torch_model
+
+    out = {}
+    for key, (value, _, _) in list(torch_model._STAGE_CACHE._entries.items()):
+        h = hashlib.sha256()
+        for t in value:
+            h.update(t.cpu().numpy().tobytes())
+        out[key] = h.hexdigest()
+    return out
+
+
+def data_phase(torch, np, attn, card, zoo2, lm_params):
+    """Data staging and real data on the card: (a) both taggers trained
+    on the bundled English corpus against their bands, the transformer's
+    K1-K3 launches against its steps and the kernels timed at its shape;
+    (b) a 4-trial ViT job through ``TrialRunner`` with both caches on (2
+    misses and 6 hits each, the staged tensors unchanged) and again with
+    both off, bit for bit; (c) a trial on the per-chunk path, bit for bit
+    the staged one, caching nothing; (d) the flagship LM's evaluation on
+    the staged stream (a miss, then a hit) and on the host path, equal.
+    Returns the phase's numbers and K1-K3 launches."""
+    import os
+
+    from rafiki_torch import accuracy_parity
+    from rafiki_torch.advisor.base import Proposal
+    from rafiki_torch.constants import TrialStatus
+    from rafiki_torch.datasets import make_synthetic_token_dataset
+    from rafiki_torch.model import dataset as mds
+    from rafiki_torch.model import torch_model
+    from rafiki_torch.model.dataset import (load_corpus_dataset,
+                                            load_token_dataset)
+    from rafiki_torch.models import TorchTransformerLM, TorchTransformerTagger
+    from rafiki_torch.observe import phases
+    from rafiki_torch.store import MetaStore, ParamStore
+    from rafiki_torch.utils.model_loader import load_model_class
+    from rafiki_torch.worker.runner import TrialRunner
+
+    t_phase = time.perf_counter()
+    reset_launch_counts(attn)
+    saved_env = dict(os.environ)
+    saved_chunk = torch_model.CHUNK_STEPS
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_data_")
+    out = {}
+
+    def counts(cache):
+        c = phases.cache_counts(cache)
+        return {e: c.get(e, 0) for e in ("hit", "miss", "evict")}
+
+    def gauge(cache):
+        return int(phases._reg()[f"{cache}_cache_bytes"].samples()[0][1])
+
+    try:
+        # (a) Both taggers on the bundled English corpus.
+        t0 = time.perf_counter()
+        before = launch_counts(attn)
+        rows = accuracy_parity.corpus_rows(os.path.join(tmp.name, "pos"),
+                                           "cuda")
+        got = [a - b for a, b in zip(launch_counts(attn), before)]
+        train = load_corpus_dataset(os.path.join(tmp.name, "pos",
+                                                 "pos_train.zip"))
+        val = load_corpus_dataset(os.path.join(tmp.name, "pos",
+                                               "pos_val.zip"))
+        tknobs = dict(accuracy_parity.CORPUS_ROWS[1][1])
+        b, t, L = tknobs["batch_size"], tknobs["max_len"], tknobs["n_layers"]
+        steps = train.size // b * tknobs["max_epochs"]
+        bucket = 1 << (val.size - 1).bit_length()
+        want = [L * steps + L, L * steps, L * steps]
+        check(got[:3] == want and got[3:] == got[:3],
+              f"(a) the tagger launched K1-K3 {got}, not {want} on wgmma")
+        for row in rows:
+            check(row["ok"], f"(a) {row['model']} val token accuracy "
+                  f"{row['acc']:.4f} below its band {row['band']}")
+            print(f"data: (a) {row['model']} on the bundled English corpus "
+                  f"({train.size} train and {val.size} val sentences, "
+                  f"{len(train.tag_names)} tags): val token accuracy "
+                  f"{row['acc']:.4f} against its band {row['band']} (the "
+                  f"reference measured 0.913-0.920 and 0.871-0.889 over "
+                  f"three split seeds), {row['seconds']:.2f} s on {card}",
+                  flush=True)
+        print(f"data: (a) the transformer tagger (d_model 128, 4 heads of "
+              f"32, {L} layers, batch {b}, bf16, kv_mask) pads every "
+              f"sentence to max_len {t}: K1-K3 launched at ({b},4,{t},{t},"
+              f"32) in training and at ({bucket},4,{t},{t},32) in its "
+              f"evaluation, K1 {got[0]}, K2 {got[1]}, K3 {got[2]} times "
+              f"({L} each a step of {steps}, K1 {L} more for the "
+              f"evaluation), all wgmma; (a) took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        m = TorchTransformerTagger(device="cuda", **tknobs)
+        net = m._new_net(train.tag_names).eval()
+        ids, _ = m._encode(train.sentences[:b])
+        ids = torch.from_numpy(ids).to("cuda")
+        calls = []
+        with torch.no_grad():
+            x_in = net.Embed_0(ids) + net.pe[None, :t].to(torch.bfloat16)
+            net._EncoderBlock_0(x_in, recording(m.attention, calls),
+                                ids != 0)
+        q, k, v, mask = calls[0]
+        with uncounted(attn):
+            kern = zoo2_kernels(torch, attn, card, "real-corpus tagger", q,
+                                k, v, mask, tag="data: (a)")
+        del m, net, calls, q, k, v
+        out.update(corpus={r["model"]: r["acc"] for r in rows},
+                   tagger_launches=got[:3], kernels=kern)
+
+        # (b) The caches over a 4-trial ViT job, on and off.
+        t0 = time.perf_counter()
+        timgs, tlabels = zoo2["operator"]["train"]
+        vimgs, vlabels = zoo2["lifecycle"]["val"]
+        n_classes = zoo2["operator"]["n_classes"]
+        vit_cls = load_model_class("SearchViT", SEARCH_VIT_SOURCE)
+        train_p = os.path.join(tmp.name, "train.npz")
+        val_p = os.path.join(tmp.name, "val.npz")
+        np.savez(train_p, images=timgs[:SEARCH_TRAIN],
+                 labels=tlabels[:SEARCH_TRAIN], n_classes=n_classes)
+        np.savez(val_p, images=vimgs[:SEARCH_VAL],
+                 labels=vlabels[:SEARCH_VAL], n_classes=n_classes)
+        proposals = [Proposal(trial_no=i + 1, knobs=vit_cls.validate_knobs(
+            dict(SEARCH_KNOBS, learning_rate=lr, max_epochs=1)))
+            for i, lr in enumerate(DATA_LRS[:DATA_TRIALS])]
+
+        class Proposed:
+            def feedback(self, p, score):
+                pass
+
+            def forget(self, p):
+                pass
+
+        def job(name):
+            """Each proposal once through one runner: (parameters,
+            stage seconds, train seconds) a trial."""
+            meta = MetaStore(os.path.join(tmp.name, f"{name}.db"))
+            params = ParamStore(os.path.join(tmp.name, f"{name}-params"))
+            runner = TrialRunner(vit_cls, Proposed(), train_p, val_p, meta,
+                                 params, f"data-{name}", device="cuda")
+            res = []
+            for p in proposals:
+                ph0 = phases.phase_totals()
+                row = runner.run_one(p)
+                ph1 = phases.phase_totals()
+                check(row["status"] == TrialStatus.COMPLETED,
+                      f"(b) a {name} trial {row['status']}")
+                res.append((params.load(row["params_id"]),
+                            ph1["stage"]["sum"] - ph0["stage"]["sum"],
+                            ph1["train"]["sum"] - ph0["train"]["sum"]))
+            params.close()
+            meta.close()
+            return res
+
+        mds.clear_dataset_cache()
+        torch_model.clear_stage_cache()
+        d0, s0 = counts("dataset"), counts("stage")
+        cached = job("cached")
+        dd = {e: counts("dataset")[e] - d0[e] for e in d0}
+        sd = {e: counts("stage")[e] - s0[e] for e in s0}
+        check(dd == sd == {"hit": 6, "miss": 2, "evict": 0},
+              f"(b) dataset cache {dd}, stage cache {sd}")
+        digests = staged_digests(torch, np)
+        check(len(digests) == 2, f"(b) {len(digests)} staged entries")
+        bytes_ds, bytes_st = gauge("dataset"), gauge("stage")
+        os.environ[mds.DATASET_CACHE_ENV] = "0"
+        os.environ[torch_model.STAGE_CACHE_ENV] = "0"
+        d1, s1 = counts("dataset"), counts("stage")
+        uncached = job("uncached")
+        check(counts("dataset") == d1 and counts("stage") == s1,
+              "(b) the caches counted events with their budgets at 0")
+        for i, (a, c) in enumerate(zip(cached, uncached)):
+            dist = param_dist(np, a[0], c[0])
+            check(dist == 0, f"(b) trial {i + 1}: cached and uncached "
+                  f"parameters {dist} apart")
+        check(staged_digests(torch, np) == digests,
+              "(b) a staged tensor changed over the 8 trials")
+        os.environ.pop(mds.DATASET_CACHE_ENV)
+        os.environ.pop(torch_model.STAGE_CACHE_ENV)
+        stage_s = [r[1] for r in cached]
+        print(f"data: (b) {DATA_TRIALS} one-epoch ViT trials (6 blocks, "
+              f"d_model 128, batch 256, {SEARCH_TRAIN} + {SEARCH_VAL} "
+              f"images) through one TrialRunner: dataset cache {dd}, stage "
+              f"cache {sd}; stage phase seconds trial 1 {stage_s[0]:.4f} "
+              f"(train and val copied) against trials 2-4 "
+              + ", ".join(f"{x:.6f}" for x in stage_s[1:])
+              + f" (hits); gauges: dataset cache {bytes_ds} bytes, stage "
+              f"cache {bytes_st} bytes; the same {DATA_TRIALS} trials with "
+              f"RAFIKI_TPU_DATASET_CACHE_BYTES=0 and "
+              f"RAFIKI_TPU_STAGE_CACHE_BYTES=0 counted no event and ended "
+              f"bit for bit equal, trial by trial; the 2 staged entries' "
+              f"sha-256 unchanged after all {2 * DATA_TRIALS} trials; (b) "
+              f"took {time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        out.update(stage_s=stage_s, dataset_cache_bytes=bytes_ds,
+                   stage_cache_bytes=bytes_st)
+
+        # (c) The per-chunk path.
+        t0 = time.perf_counter()
+        set_bytes = SEARCH_TRAIN * int(np.prod(timgs.shape[1:]))
+        torch_model.CHUNK_STEPS = DATA_CHUNK_STEPS
+        loader_cls = torch_model._ChunkLoader
+        real_load = loader_cls.load
+        gathers = []
+
+        def timed_load(self, sel):
+            t_load = time.perf_counter()
+            real_load(self, sel)
+            gathers[-1] += time.perf_counter() - t_load
+
+        def train_once(chunked, path=train_p, evaluate=True, event="hit"):
+            """Trial 1's knobs, trained by one call on ``path``: (its
+            seconds to the end of its device work, parameters)."""
+            if chunked:
+                os.environ[torch_model.STAGE_BYTES_ENV] = str(set_bytes - 1)
+            else:
+                os.environ.pop(torch_model.STAGE_BYTES_ENV, None)
+            gathers.append(0.0)
+            m = vit_cls(device="cuda", **proposals[0].knobs)
+            ph0, s0 = phases.phase_totals()["stage"]["count"], counts("stage")
+            torch.cuda.synchronize()
+            t_tr = time.perf_counter()
+            m.train(path)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t_tr
+            staged = (phases.phase_totals()["stage"]["count"] - ph0,
+                      {e: counts("stage")[e] - s0[e] for e in s0})
+            none = {"hit": 0, "miss": 0, "evict": 0}
+            want = (0, none) if chunked else (1, dict(none, **{event: 1}))
+            kind = "per-chunk" if chunked else "staged"
+            check(staged == want, f"(c) a {kind} train staged {staged} "
+                  f"(phases, events), not {want}")
+            if chunked and evaluate:
+                # The val set is under the threshold: its evaluation
+                # hits (b)'s entry and adds none.
+                out["chunk_acc"] = m.evaluate(val_p)
+            got = m.dump_parameters()
+            m.destroy()
+            return secs, got
+
+        loader_cls.load = timed_load
+        try:
+            info0 = torch_model.stage_cache_info()
+            runs = [train_once(c) for c in (False, True, True, False)]
+        finally:
+            loader_cls.load = real_load
+        check(torch_model.stage_cache_info() == info0,
+              "(c) the per-chunk trials made a stage-cache entry")
+        for i, (_, got) in enumerate(runs):
+            dist = param_dist(np, got, cached[0][0])
+            check(dist == 0, f"(c) train {i + 1} of 4 "
+                  f"({'per-chunk' if i in (1, 2) else 'staged'}) ended "
+                  f"{dist} from the staged trial")
+        chunk_s = [runs[1][0], runs[2][0]]
+        staged_s = [runs[0][0], runs[3][0]]
+        batch = proposals[0].knobs["batch_size"]
+        n_chunks = -(-(SEARCH_TRAIN // batch) // DATA_CHUNK_STEPS)
+        print(f"data: (c) RAFIKI_TPU_STAGE_BYTES={set_bytes - 1} (the set "
+              f"is {set_bytes} image bytes): trial 1 again, in turns "
+              f"staged, per-chunk, per-chunk, staged; the per-chunk train "
+              f"in {n_chunks} chunks of {DATA_CHUNK_STEPS} steps of "
+              f"{batch} images gathered into one pinned host buffer "
+              f"while the device ran the chunk before, and copied into one "
+              f"device buffer: parameters bit for bit the staged trial's "
+              f"in all 4, no stage-cache entry (the per-chunk trains no "
+              f"stage event; the staged ones hit (b)'s entry), val "
+              f"accuracy {out['chunk_acc']:.4f}; train call seconds "
+              f"(to the end of its device work) per-chunk "
+              + ", ".join(f"{x:.4f}" for x in chunk_s)
+              + " against staged "
+              + ", ".join(f"{x:.4f}" for x in staged_s)
+              + "; host seconds in the per-chunk trains' chunk loads "
+              + ", ".join(f"{gathers[i]:.4f}" for i in (1, 2))
+              + f"; (c) took {time.perf_counter() - t0:.1f} s on {card}",
+              flush=True)
+        torch_model.CHUNK_STEPS = saved_chunk
+        os.environ.pop(torch_model.STAGE_BYTES_ENV, None)
+        out.update(chunk_train_s=chunk_s, staged_train_s=staged_s,
+                   chunk_load_s=[gathers[1], gathers[2]])
+
+        # (c) again at full chunks, the loads overlapped against blocking.
+        t0 = time.perf_counter()
+        big_p = os.path.join(tmp.name, "big.npz")
+        n_big = DATA_BIG_CHUNKS * torch_model.CHUNK_STEPS * batch
+        np.savez(big_p, images=np.resize(timgs[:SEARCH_TRAIN],
+                                         (n_big, *timgs.shape[1:])),
+                 labels=np.resize(tlabels[:SEARCH_TRAIN], n_big),
+                 n_classes=n_classes)
+        big_bytes = n_big * int(np.prod(timgs.shape[1:]))
+
+        def blocking_load(self, sel):
+            """The first design's load: the host waits for the queued
+            steps, then gathers the chunk and copies it from pageable
+            memory, while the device waits."""
+            torch.cuda.synchronize()
+            t_load = time.perf_counter()
+            flat = sel.reshape(-1)
+            self.data[:flat.size].copy_(
+                torch.from_numpy(self.ds.images[flat]))
+            self.labels[:flat.size].copy_(
+                torch.from_numpy(self.ds.labels[flat].astype(np.int32)))
+            gathers[-1] += time.perf_counter() - t_load
+
+        big = {}
+        try:
+            # The first staged call loads and stages the set (untimed
+            # here: its load and stage misses).
+            _, ref = train_once(False, big_p, event="miss")
+            for how in ("blocking", "overlapped", "overlapped", "blocking",
+                        "staged"):
+                if how != "staged":
+                    loader_cls.load = timed_load if how == "overlapped" \
+                        else blocking_load
+                secs, got = train_once(how != "staged", big_p, False)
+                loader_cls.load = real_load
+                dist = param_dist(np, got, ref)
+                check(dist == 0, f"(c) a full-chunk {how} train ended "
+                      f"{dist} from the staged one")
+                big.setdefault(how, []).append((secs, gathers[-1]))
+        finally:
+            loader_cls.load = real_load
+            os.environ.pop(torch_model.STAGE_BYTES_ENV, None)
+            mds.clear_dataset_cache()
+            torch_model.clear_stage_cache()
+
+        def pairs(how):
+            return ", ".join(f"{a:.4f} (loads {b:.4f})" for a, b in big[how])
+
+        print(f"data: (c) full chunks: {n_big} images ({big_bytes} bytes, "
+              f"the search set tiled), one epoch of "
+              f"{n_big // batch} steps in {DATA_BIG_CHUNKS} chunks of "
+              f"{torch_model.CHUNK_STEPS}, in turns blocking, overlapped, "
+              f"overlapped, blocking, staged, all bit for bit the staged "
+              f"train: train call seconds with the chunk loads overlapped "
+              f"{pairs('overlapped')}, blocking as first designed "
+              f"{pairs('blocking')}, staged (a stage hit) "
+              f"{big['staged'][0][0]:.4f}; (c) full chunks took "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        out.update(full_chunk_s={k: [a for a, _ in v]
+                                 for k, v in big.items()})
+
+        # (d) The flagship LM's staged evaluation.
+        t0 = time.perf_counter()
+        _, lm_val = make_synthetic_token_dataset(
+            os.path.join(tmp.name, "tok"), n_train=1 << 12,
+            n_val=DATA_LM_VAL, vocab_size=FLAGSHIP["vocab_size"], seed=SEED)
+        knobs = TorchTransformerLM.validate_knobs(FLAGSHIP)
+        lm = TorchTransformerLM(device="cuda", **knobs)
+        lm.load_parameters(lm_params)
+        dims = lm._dims()
+        n_l, n_win = FLAGSHIP["n_layers"], min(16, (DATA_LM_VAL - 1)
+                                               // dims["t"])
+        stream = load_token_dataset(lm_val).ids
+        want = torch.from_numpy(np.stack(
+            [stream[i * dims["t"]:(i + 1) * dims["t"] + 1]
+             for i in range(n_win)]).astype(np.int64)).to("cuda")
+        s3 = counts("stage")
+        accs, lms, ces, seen = [], [], [], []
+        first = None
+        windows, forward = lm._eval_windows, lm._forward
+
+        def record_windows(dataset_path):
+            seen.append(windows(dataset_path))
+            return seen[-1]
+
+        def record_forward(x):
+            seen.append(forward(x))
+            return seen[-1]
+
+        lm._eval_windows, lm._forward = record_windows, record_forward
+        for off in (False, False, True):
+            if off:
+                os.environ[torch_model.STAGE_CACHE_ENV] = "0"
+            k0 = launch_counts(attn)
+            t_ev = time.perf_counter()
+            accs.append(lm.evaluate(lm_val))
+            lms.append(time.perf_counter() - t_ev)
+            kd = [a - c for a, c in zip(launch_counts(attn), k0)]
+            check(kd == [n_l, 0, 0, n_l, 0, 0],
+                  f"(d) an evaluation launched {kd}, not K1 {n_l} on "
+                  f"wgmma")
+            wins, logits = seen
+            seen.clear()
+            check(wins.dtype == torch.int64 and torch.equal(wins, want),
+                  f"(d) evaluation {len(accs)}'s windows are not the "
+                  f"stream's {n_win} windows cut on the host")
+            if first is None:
+                first = logits
+            check(torch.equal(logits, first),
+                  f"(d) evaluation {len(accs)}'s logits differ from the "
+                  f"first's")
+            ces.append(float(torch.nn.functional.cross_entropy(
+                logits.flatten(0, 1), wins[:, 1:].flatten())))
+            del wins, logits
+        del first, want
+        os.environ.pop(torch_model.STAGE_CACHE_ENV)
+        sd = {e: counts("stage")[e] - s3[e] for e in s3}
+        check(sd == {"hit": 1, "miss": 1, "evict": 0},
+              f"(d) the LM's stage events {sd}")
+        check(accs[0] == accs[1] == accs[2] and 0 <= accs[0] <= 1
+              and ces[0] == ces[1] == ces[2] and math.isfinite(ces[0]),
+              f"(d) the three evaluations: accuracy {accs}, "
+              f"cross-entropy {ces}")
+        lm.destroy()
+        del lm
+        torch.cuda.empty_cache()
+        print(f"data: (d) the flagship LM (the train phase's parameters) "
+              f"evaluated {n_win} windows of {dims['t']} ids of a "
+              f"{DATA_LM_VAL}-id stream three times: staged (a stage miss, "
+              f"{lms[0]:.3f} s), staged again (a hit, {lms[1]:.3f} s) and "
+              f"with RAFIKI_TPU_STAGE_CACHE_BYTES=0 on the host path "
+              f"({lms[2]:.3f} s): each time the windows bit for bit those "
+              f"cut here from the stream (ids and targets), the ({n_win}, "
+              f"{dims['t']}, {FLAGSHIP['vocab_size']}) f32 logits bit for "
+              f"bit the first's, cross-entropy {ces[0]!r} nats and "
+              f"next-token accuracy {accs[0]!r} (the 16-step flagship "
+              f"ranks no next token of this stream first); K1 {n_l} a "
+              f"forward at ({n_win},{dims['h']},{dims['t']},{dims['t']},"
+              f"{dims['d'] // dims['h']}) causal, all wgmma; (d) took "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        out.update(lm_acc=accs[0], lm_ce=ces[0], lm_eval_s=lms)
+    finally:
+        torch_model.CHUNK_STEPS = saved_chunk
+        os.environ.clear()
+        os.environ.update(saved_env)
+        tmp.cleanup()
+    launches = launch_counts(attn)
+    phase_s = time.perf_counter() - t_phase
+    check(all(launches[i] > 0 and launches[3 + i] == launches[i]
+              for i in range(3)), f"the data phase launched K1-K3 {launches}")
+    check(phase_s <= DATA_MAX_S, f"the data phase took {phase_s:.1f} s")
+    print(f"data: K1, K2 and K3 launched {launches[:3]} times in the phase "
+          f"(the tagger's eager steps and evaluation, the ViT trials' "
+          f"warm-up steps, captures and evaluations, the LM's three "
+          f"forwards; replays run uncounted), all on wgmma; phase took "
+          f"{phase_s:.1f} s on {card}", flush=True)
+    out.update(launches=launches[:3], phase_s=phase_s)
+    return out
+
 
 def zoo2_rows(zoo2, kernel):
     """One kernel's numbers at the zoo2 phase's ViT and tagger shapes."""
@@ -8519,6 +9005,12 @@ def zoo2_rows(zoo2, kernel):
                        shape=zoo2[part]["kernels"]["shape"],
                        mask=zoo2[part]["kernels"]["mask"])
             for what, part in (("vit", "vit"), ("tagger", "tagger"))}
+
+
+def data_row(data, kernel):
+    """One kernel's numbers at the real corpus's tagger shape."""
+    return dict(data["kernels"][kernel], shape=data["kernels"]["shape"],
+                mask=data["kernels"]["mask"])
 
 
 def timed(name, fn, *args):
@@ -8592,6 +9084,8 @@ def main() -> int:
         oper = timed("operator", operator_phase, torch, np, attn, card,
                      zoo2)
         search = timed("search", search_phase, torch, np, attn, card, zoo2)
+        data = timed("data", data_phase, torch, np, attn, card, zoo2,
+                     params)
     except Exception:
         traceback.print_exc()
         return 1
@@ -8604,7 +9098,7 @@ def main() -> int:
                        + life["launches"][0] + ten["launches"][0]
                        + procs["launches"][0] + clus["launches"][0]
                        + scale["launches"][0] + oper["launches"][0]
-                       + search["launches"][0]),
+                       + search["launches"][0] + data["launches"][0]),
              generate_launches=gen_launches,
              platform_launches=plat_launches[0],
              zoo_launches=zoo["launches"][0],
@@ -8618,7 +9112,9 @@ def main() -> int:
              autoscale_launches=scale["launches"][0],
              operator_launches=oper["launches"][0],
              search_launches=search["launches"][0],
+             data_launches=data["launches"][0],
              zoo2_shapes=zoo2_rows(zoo2, "K1"),
+             data_shape=data_row(data, "K1"),
              zoo2_f32=dict(zoo2["int8"]["k1_f32"], registers=f32_regs),
              generate_buckets=gen["buckets"], **k1, **k1_train),
         dict(name="flash_bwd_dq (K2)", route="cuda",
@@ -8628,7 +9124,8 @@ def main() -> int:
                        + zoo2["launches"][1] + life["launches"][1]
                        + ten["launches"][1] + procs["launches"][1]
                        + clus["launches"][1] + scale["launches"][1]
-                       + oper["launches"][1] + search["launches"][1]),
+                       + oper["launches"][1] + search["launches"][1]
+                       + data["launches"][1]),
              platform_launches=plat_launches[1],
              zoo_launches=zoo["launches"][1],
              ensemble_launches=ens["launches"][1],
@@ -8641,7 +9138,9 @@ def main() -> int:
              autoscale_launches=scale["launches"][1],
              operator_launches=oper["launches"][1],
              search_launches=search["launches"][1],
-             zoo2_shapes=zoo2_rows(zoo2, "K2"), **k2),
+             data_launches=data["launches"][1],
+             zoo2_shapes=zoo2_rows(zoo2, "K2"),
+             data_shape=data_row(data, "K2"), **k2),
         dict(name="flash_bwd_dkv (K3)", route="cuda",
              source=src + "flash_bwd_dkv.cu",
              replaces="rafiki_tpu/ops/attention.py:401",
@@ -8649,7 +9148,8 @@ def main() -> int:
                        + zoo2["launches"][2] + life["launches"][2]
                        + ten["launches"][2] + procs["launches"][2]
                        + clus["launches"][2] + scale["launches"][2]
-                       + oper["launches"][2] + search["launches"][2]),
+                       + oper["launches"][2] + search["launches"][2]
+                       + data["launches"][2]),
              platform_launches=plat_launches[2],
              zoo_launches=zoo["launches"][2],
              ensemble_launches=ens["launches"][2],
@@ -8662,7 +9162,9 @@ def main() -> int:
              autoscale_launches=scale["launches"][2],
              operator_launches=oper["launches"][2],
              search_launches=search["launches"][2],
-             zoo2_shapes=zoo2_rows(zoo2, "K3"), **k3)]}), flush=True)
+             data_launches=data["launches"][2],
+             zoo2_shapes=zoo2_rows(zoo2, "K3"),
+             data_shape=data_row(data, "K3"), **k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

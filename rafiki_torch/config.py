@@ -56,9 +56,12 @@ Fields:
   ``slo_webhook_url`` and ``slo_alert_log_mb``.
 
 - the trial loop's: ``checkpoint_trials`` (``RAFIKI_TPU_CKPT``, the
-  runner's crash-resume checkpoints, off by default) and
+  runner's crash-resume checkpoints, off by default),
   ``advisor_prefetch`` (the train worker's ``PrefetchAdvisor``, on by
-  default).
+  default) and the residency caches' ``dataset_cache_bytes`` (the host
+  dataset cache), ``stage_cache_bytes`` (the device staging cache) and
+  ``stage_bytes`` (the largest set staged whole), each read per call
+  by its cache.
 
 Left out until its module comes (ROADMAP, queue 1): ``probe_timeout``
 (the port does not probe the card; without one it raises).
@@ -248,6 +251,16 @@ class NodeConfig:
     checkpoint_trials: bool = False
     # Train workers compute the next proposal while a trial trains.
     advisor_prefetch: bool = True
+    # The host dataset cache: parsed sets stay resident across trials,
+    # keyed by (path, mtime, size), a byte-budget LRU. 0 disables it.
+    dataset_cache_bytes: int = 1 << 30
+    # The device staging cache: a set's uint8 images and int32 labels
+    # stay on the card across trials. 0 disables it.
+    stage_cache_bytes: int = 2 << 30
+    # Sets of up to this many image bytes are staged whole on the card
+    # (one copy, batches gathered by index); larger ones a chunk at a
+    # time.
+    stage_bytes: int = 2 << 30
 
     # --- Observability ---
     metrics: bool = True                   # /metrics and the series
@@ -435,6 +448,12 @@ class NodeConfig:
         if self.max_chip_share < 1:
             raise ValueError("max_chip_share must be >= 1 (1 = no "
                              "time-sliced co-ownership)")
+        if self.dataset_cache_bytes < 0 or self.stage_cache_bytes < 0:
+            raise ValueError("dataset_cache_bytes and stage_cache_bytes "
+                             "must be >= 0 (0 disables the cache)")
+        if self.stage_bytes < 0:
+            raise ValueError("stage_bytes must be >= 0 (0 forces "
+                             "per-chunk staging)")
         if self.bus_retry_base_s <= 0:
             raise ValueError("bus_retry_base_s must be positive")
         if self.bus_retry_total_s < 0:
@@ -510,6 +529,12 @@ class NodeConfig:
             os.environ.pop(self.env_name("checkpoint_trials"), None)
         os.environ[self.env_name("advisor_prefetch")] = \
             "1" if self.advisor_prefetch else "0"
+        # The dataset and staging caches read their budgets per call.
+        os.environ[self.env_name("dataset_cache_bytes")] = \
+            str(self.dataset_cache_bytes)
+        os.environ[self.env_name("stage_cache_bytes")] = \
+            str(self.stage_cache_bytes)
+        os.environ[self.env_name("stage_bytes")] = str(self.stage_bytes)
         os.environ[self.env_name("chip_share")] = \
             "1" if self.chip_share else "0"
         for f in ("max_chip_share", "worker_reregister", "node_lease",

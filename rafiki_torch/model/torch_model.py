@@ -6,8 +6,15 @@ Zoo models declare a module (``create_module``) and knobs; this class
 trains, evaluates, serves and (de)serialises it as the reference does:
 
 - ``train`` (ref :476-813) stages the whole uint8 dataset on the device
-  once; each step gathers its batch there by index and normalises it
-  (``/255``), so the host sends index tensors, never images. Each
+  once, through the staging cache below; each step gathers its batch
+  there by index and normalises it (``/255``), so the host sends index
+  tensors, never images. A set of more than ``RAFIKI_TPU_STAGE_BYTES``
+  image bytes (read per call) goes to the device a chunk at a time
+  instead (ref :735-751): each chunk's rows, in the epoch's order, are
+  copied into one fixed device buffer that the steps index with
+  identity tables, so the captured step stays valid and both paths feed
+  it the same rows in the same order. The host gathers the next chunk
+  while the device runs this one's steps (``_ChunkLoader``). Each
   epoch's order is ``epoch_rng(seed, epoch).permutation(size)``, wrapped
   with ``np.resize`` when the set is smaller than one epoch's steps. The
   loss is f32 softmax cross-entropy on f32-cast logits; loss and train
@@ -35,7 +42,20 @@ trains, evaluates, serves and (de)serialises it as the reference does:
   (ref :693-712, :790-870; ``loop_ckpt.LoopCheckpointer``, with the
   early-stop counters beside the state).
 - ``evaluate`` (ref :890-991): argmax accuracy over the staged set in
-  batches of up to 1024.
+  batches of up to 1024; a set over ``RAFIKI_TPU_STAGE_BYTES`` ships
+  each batch from the host instead.
+- The device staging cache (ref :96-215): ``staged_dataset_arrays``
+  and ``staged_token_ids`` keep a set's uint8 images and int32 labels,
+  or its int32 token stream, on the device across trials, in a
+  byte-budget LRU (``RAFIKI_TPU_STAGE_CACHE_BYTES``, read per call; 0
+  disables it) keyed by the fingerprint the set was loaded under and
+  the device. An entry is a copy made by a blocking transfer before it
+  is cached: never a view of the host cache's read-only arrays (on the
+  CPU ``torch.from_numpy`` would alias them), and never half copied
+  when another thread takes it. Nothing writes a staged tensor: the
+  steps gather from it into new tensors. A train call keeps its own
+  reference for the trial's life, so an eviction only drops the
+  cache's.
 - ``predict`` / ``predict_submit`` / ``predict_proba`` (ref :994-1070):
   a 2-D query gains a channel axis and a shape mismatch raises
   ``ValueError``; all-uint8 batches go to the device as uint8 and are
@@ -63,6 +83,7 @@ trains, evaluates, serves and (de)serialises it as the reference does:
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -81,7 +102,8 @@ from ..utils.hashing import M32, mix32
 from .base import BaseModel, Params
 from .bridge import (dense_from_jax, dense_from_jax_tensors, dense_to_jax,
                      overlay_params)
-from .dataset import load_image_dataset
+from .dataset import (ByteBudgetLRU, ImageDataset, dataset_fingerprint,
+                      env_bytes, load_image_dataset)
 from .logger import logger
 from .loop_ckpt import (LoopCheckpointer, TrainState, epoch_rng,
                         schedule_epochs)
@@ -93,6 +115,101 @@ CHUNK_STEPS = 128
 EVAL_BATCH = 1024
 #: Eager train steps on the card before the step is captured.
 WARMUP_STEPS = 3
+
+#: A set of more image bytes than this is staged a chunk at a time
+#: (ref :636-647; ``NodeConfig.stage_bytes``, read per call).
+STAGE_BYTES_ENV = "RAFIKI_TPU_STAGE_BYTES"
+STAGE_BYTES_DEFAULT = 2 << 30  # keep NodeConfig.stage_bytes equal
+
+STAGE_CACHE_ENV = "RAFIKI_TPU_STAGE_CACHE_BYTES"
+STAGE_CACHE_DEFAULT = 2 << 30  # keep NodeConfig.stage_cache_bytes equal
+
+#: key -> (images, labels) or (ids,), on the device.
+_STAGE_CACHE = ByteBudgetLRU("stage")
+
+
+def stage_bytes_limit() -> int:
+    """The image bytes over which a set is staged a chunk at a time."""
+    return env_bytes(STAGE_BYTES_ENV, STAGE_BYTES_DEFAULT)
+
+
+def stage_cache_budget() -> int:
+    """The device staging cache's byte budget (0 disables it)."""
+    return env_bytes(STAGE_CACHE_ENV, STAGE_CACHE_DEFAULT)
+
+
+def clear_stage_cache() -> None:
+    _STAGE_CACHE.clear()
+
+
+def stage_cache_info() -> Dict[str, int]:
+    return _STAGE_CACHE.info()
+
+
+def _stage_key(dataset_path: str, ds: Any, device: torch.device,
+               nbytes: int, budget: int, *tag: str) -> Any:
+    """The staging cache's key, or None when the entry is not to be
+    cached: the budget is 0 or too small, or the file is gone. The
+    fingerprint is the one the set was loaded under (a set made in
+    memory takes the file's current one); the device's type and index
+    stand where the reference has the mesh's device ids."""
+    if budget <= 0 or nbytes > budget:
+        return None
+    fp = getattr(ds, "fingerprint", None)
+    if fp is None:
+        try:
+            fp = dataset_fingerprint(dataset_path)
+        except OSError:
+            return None  # the file vanished after the load
+    return (*tag, fp, (device.type, device.index))
+
+
+def _staged(dataset_path: str, ds: Any, device: torch.device,
+            nbytes: int, make: Callable[[], Tuple[torch.Tensor, ...]],
+            *tag: str) -> Tuple[torch.Tensor, ...]:
+    """The cache's entry for ``ds`` on ``device``, or ``make()``'s,
+    cached when the budget holds its ``nbytes``."""
+    budget = stage_cache_budget()
+    key = _stage_key(dataset_path, ds, device, nbytes, budget, *tag)
+    if key is not None:
+        entry = _STAGE_CACHE.get(key)
+        if entry is not None:
+            _phases.cache_event("stage", "hit")
+            return entry
+        _phases.cache_event("stage", "miss")
+    entry = make()
+    if key is not None:
+        _STAGE_CACHE.put(key, entry, nbytes, budget)
+    return entry
+
+
+def staged_dataset_arrays(dataset_path: str, ds: ImageDataset,
+                          device: DeviceLike = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(uint8 images, int32 labels)`` of ``ds`` on ``device``, cached
+    across trials (ref :137-174): trials 2..N of a sub-train job copy
+    nothing. ``train`` and ``evaluate`` share the entry."""
+    device = resolve_device(device)
+    # torch.tensor copies, blocking: on the card the entry is whole
+    # before it is cached, and on the CPU it never aliases ds's arrays.
+    return _staged(
+        dataset_path, ds, device,
+        int(ds.images.nbytes) + 4 * int(ds.labels.shape[0]),
+        lambda: (torch.tensor(ds.images, device=device),
+                 torch.tensor(ds.labels.astype(np.int32), device=device)))
+
+
+def staged_token_ids(dataset_path: str, ds: Any,
+                     device: DeviceLike = None) -> torch.Tensor:
+    """A token set's int32 id stream on ``device``, in the same cache
+    and under the same ``stage`` counters as the image arrays, its key
+    tagged ``"token"`` (ref :177-215): the LM's evaluations 2..N gather
+    their windows from it on the device and copy no ids."""
+    device = resolve_device(device)
+    ids = ds.ids if ds.ids.dtype == np.int32 else ds.ids.astype(np.int32)
+    return _staged(dataset_path, ds, device, int(ids.nbytes),
+                   lambda: (torch.tensor(ids, device=device),),
+                   "token")[0]
 
 
 def _reflect(p: torch.Tensor, n: int) -> torch.Tensor:
@@ -157,7 +274,9 @@ class _TrainSteps:
 
     A step reads its batch's indices from this epoch's index table (one
     host-to-device copy an epoch) at a device row counter, gathers and
-    normalises the batch on the device, and adds its loss and train
+    normalises the batch on the device (``data`` and ``labels`` are
+    only read: the gather makes new tensors; the int32 labels become
+    int64 there, for the loss), and adds its loss and train
     accuracy to device sums that the host reads once per chunk. On the
     CPU every step runs eagerly. On the card the first ``WARMUP_STEPS``
     run eagerly on a side stream (the optimizer's state and the
@@ -193,7 +312,7 @@ class _TrainSteps:
         sel = self.order.index_select(0, self.row.view(1)).view(-1)
         x = self.model.augment_in_graph(self.data[sel].float() / 255.0,
                                         self.step_no)
-        y = self.labels[sel]
+        y = self.labels[sel].long()
         logits = self.model._logits(self.net, x).float()
         loss = F.cross_entropy(logits, y)
         loss.backward()
@@ -236,6 +355,45 @@ class _TrainSteps:
 
     def close(self) -> None:
         self.graph = None
+
+
+class _ChunkLoader:
+    """The per-chunk path's copies into the head of the fixed device
+    ``data`` and ``labels`` buffers.
+
+    ``load(sel)`` gathers the images and labels of the rows ``sel`` (a
+    chunk's ``(k, batch)`` slice of the epoch's order) into one host
+    buffer, pinned on the card, and queues their copy on the current
+    stream without waiting for it. The train loop calls it for chunk
+    i + 1 once chunk i's steps are queued, so the host's gather runs
+    while the device runs those steps; in the stream the copy comes
+    after them (they read the buffers' previous contents) and before
+    chunk i + 1's. The host buffer is written again only once the copy
+    that read it has ended."""
+
+    def __init__(self, ds: ImageDataset, data: torch.Tensor,
+                 labels: torch.Tensor):
+        self.ds, self.data, self.labels = ds, data, labels
+        self.on_card = data.device.type == "cuda"
+        self.host_x = torch.empty(data.shape, dtype=torch.uint8,
+                                  pin_memory=self.on_card)
+        self.host_y = torch.empty(labels.shape, dtype=torch.int32,
+                                  pin_memory=self.on_card)
+        self.copied: Optional[torch.cuda.Event] = None
+
+    def load(self, sel: np.ndarray) -> None:
+        flat = sel.reshape(-1)
+        n = flat.size
+        if self.copied is not None:
+            self.copied.synchronize()
+        np.take(self.ds.images, flat, axis=0, out=self.host_x.numpy()[:n],
+                mode="clip")  # in range; "clip" writes without a buffer
+        self.host_y.numpy()[:n] = self.ds.labels[flat]
+        self.data[:n].copy_(self.host_x[:n], non_blocking=True)
+        self.labels[:n].copy_(self.host_y[:n], non_blocking=True)
+        if self.on_card:
+            self.copied = torch.cuda.Event()
+            self.copied.record()
 
 
 # --- Serving: int8 products, quantisation and predict runners ---------
@@ -667,10 +825,24 @@ class TorchModel(BaseModel):
                                     steps_per_epoch,
                                     schedule_epochs(kwargs, max_epochs))
 
-        # The whole dataset goes to the device once, as uint8.
-        data, labels = self._stage(ds)
+        chunk_steps = max(1, min(steps_per_epoch, CHUNK_STEPS))
+        # The whole dataset goes to the device once, as uint8, through
+        # the staging cache; an oversized one a chunk at a time into a
+        # fixed buffer that the steps index with identity tables.
+        staged = ds.images.nbytes <= stage_bytes_limit()
+        if staged:
+            data, labels = self._stage(dataset_path, ds)
+        else:
+            rows = chunk_steps * batch_size
+            data = torch.empty((rows, *ds.image_shape), dtype=torch.uint8,
+                               device=self.device)
+            labels = torch.empty((rows,), dtype=torch.int32,
+                                 device=self.device)
+            identity = ((np.arange(steps_per_epoch) % chunk_steps)[:, None]
+                        * batch_size + np.arange(batch_size)[None, :])
         steps = _TrainSteps(self, net, opt, data, labels, steps_per_epoch,
                             batch_size)
+        loader = None if staged else _ChunkLoader(ds, data, labels)
         # Utilization is a card's: on the CPU the step cost stays
         # unknown, so no chip_util and no MFU gauge.
         meter = MfuMeter(
@@ -710,7 +882,6 @@ class TorchModel(BaseModel):
                     # The restored run had stopped early: an
                     # uninterrupted run trains nothing further.
                     start_epoch = max_epochs
-        chunk_steps = max(1, min(steps_per_epoch, CHUNK_STEPS))
         first_chunk = True
         net.train()
         t0 = time.time()
@@ -723,15 +894,20 @@ class TorchModel(BaseModel):
                 # Tiny dataset: wrap so every epoch still takes full
                 # batches.
                 order = np.resize(order, need)
-            steps.new_epoch(order[:need].reshape(steps_per_epoch,
-                                                 batch_size))
+            sel_all = order[:need].reshape(steps_per_epoch, batch_size)
+            steps.new_epoch(sel_all if staged else identity)
             ep_loss, ep_acc, nw = 0.0, 0.0, 0
             s = 0
+            if loader is not None:
+                loader.load(sel_all[:chunk_steps])
             while s < steps_per_epoch:
                 k = min(chunk_steps, steps_per_epoch - s)
                 t_chunk = time.monotonic()
                 for _ in range(k):
                     steps.step()
+                if loader is not None and s + k < steps_per_epoch:
+                    # The next chunk, while the device runs this one.
+                    loader.load(sel_all[s + k:s + k + chunk_steps])
                 loss_acc = steps.read_means(k)
                 # read_means is the chunk's sync, so this is wall time.
                 step_hist.observe((time.monotonic() - t_chunk) / k,
@@ -773,13 +949,12 @@ class TorchModel(BaseModel):
         self._net = net
         self._invalidate_compiled()
 
-    def _stage(self, ds) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The whole set's images (uint8) and labels on the device, timed
-        as the ``stage`` phase. There is no staging cache yet (ROADMAP
-        queue 1 item 6): every call copies."""
+    def _stage(self, dataset_path: str,
+               ds: ImageDataset) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The whole set's uint8 images and int32 labels on the device,
+        from the staging cache, timed as the ``stage`` phase."""
         t_stage = time.monotonic()
-        data = torch.from_numpy(ds.images).to(self.device)
-        labels = torch.from_numpy(ds.labels).to(self.device)
+        data, labels = staged_dataset_arrays(dataset_path, ds, self.device)
         _phases.observe_phase("stage", time.monotonic() - t_stage)
         return data, labels
 
@@ -797,13 +972,23 @@ class TorchModel(BaseModel):
         t_load = time.monotonic()
         ds = load_image_dataset(dataset_path)
         _phases.observe_phase("load", time.monotonic() - t_load)
-        data, labels = self._stage(ds)
+        staged = ds.images.nbytes <= stage_bytes_limit()
+        if staged:
+            data, labels = self._stage(dataset_path, ds)
         bs = min(EVAL_BATCH, ds.size)
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
         for start in range(0, ds.size, bs):
-            x = data[start:start + bs].float() / 255.0
-            logits = self._logits(net, x)
-            correct += (logits.argmax(-1) == labels[start:start + bs]).sum()
+            if staged:
+                xb = data[start:start + bs]
+                yb = labels[start:start + bs]
+            else:
+                # An oversized set ships each batch (ref :955-971).
+                xb = torch.tensor(ds.images[start:start + bs],
+                                  device=self.device)
+                yb = torch.tensor(ds.labels[start:start + bs],
+                                  device=self.device)
+            logits = self._logits(net, xb.float() / 255.0)
+            correct += (logits.argmax(-1) == yb).sum()
         return float(int(correct) / ds.size)
 
     # --- BaseModel: predict ---

@@ -46,6 +46,8 @@ from ..model.dataset import load_token_dataset
 from ..model.logger import logger
 from ..model.loop_ckpt import epoch_rng
 from ..model.optim import adamw, warmup_cosine_decay_schedule
+from ..model.torch_model import (stage_bytes_limit, stage_cache_budget,
+                                 staged_token_ids)
 from ..observe import MfuMeter, metrics
 from ..ops.attention import flash_attention
 from ..torchenv import DeviceLike, resolve_device
@@ -340,14 +342,36 @@ class TorchTransformerLM(BaseModel):
 
     def evaluate(self, dataset_path: str) -> float:
         """Mean next-token accuracy over up to 16 contiguous windows, as
-        the reference computes it."""
+        the reference computes it (ref :380-418), on the windows of
+        ``_eval_windows``."""
+        wins = self._eval_windows(dataset_path)
+        logits = self._forward(wins[:, :-1])
+        return float((logits.argmax(-1) == wins[:, 1:]).float().mean())
+
+    def _eval_windows(self, dataset_path: str) -> torch.Tensor:
+        """``evaluate``'s (n_win, T + 1) int64 windows on the device:
+        window i is ids ``[i·T, i·T + T]`` of the stream, for up to 16.
+
+        A stream the staging cache can hold (``0 < bytes <= min(
+        RAFIKI_TPU_STAGE_BYTES, RAFIKI_TPU_STAGE_CACHE_BYTES)``, and long
+        enough for every window) stays on the device across calls
+        (``staged_token_ids``), and the windows are gathered there by
+        indices made there: evaluations 2..N copy no ids. Otherwise the
+        windows are cut on the host, as before; staging the whole stream
+        uncached on every call would copy more than 16 windows. Both
+        paths give the same windows."""
         ds = load_token_dataset(dataset_path)
         t = self._dims()["t"]
         n_win = max(1, min(16, (ds.size - 1) // t))
+        if 0 < int(ds.ids.nbytes) <= min(stage_bytes_limit(),
+                                           stage_cache_budget()) \
+                and ds.size >= n_win * t + 1:
+            ids_dev = staged_token_ids(dataset_path, ds, self.device)
+            sel = (torch.arange(n_win, device=self.device)[:, None] * t
+                   + torch.arange(t + 1, device=self.device)[None, :])
+            return ids_dev[sel].long()
         wins = np.stack([ds.ids[i * t:i * t + t + 1] for i in range(n_win)])
-        wins = torch.from_numpy(wins.astype(np.int64)).to(self.device)
-        logits = self._forward(wins[:, :-1])
-        return float((logits.argmax(-1) == wins[:, 1:]).float().mean())
+        return torch.from_numpy(wins.astype(np.int64)).to(self.device)
 
     def predict(self, queries: List[Any]) -> List[Any]:
         """Scores token-id sequences: mean next-token log-probability

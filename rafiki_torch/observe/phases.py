@@ -14,8 +14,9 @@ train job's trials/hour goes; these series break it down:
   ``rafiki_tpu_trial_stage_cache_total{event=hit|miss|evict}``, with
   ``rafiki_tpu_trial_dataset_cache_bytes`` and
   ``rafiki_tpu_trial_stage_cache_bytes``: the host dataset cache and
-  the device staging cache. The port has neither cache yet (ROADMAP
-  queue 1 item 6), so the families exist and read zero.
+  the device staging cache (``model/dataset.py`` and
+  ``model/torch_model.py``). A sub-train job's trials 2..N show as
+  misses staying flat while hits grow.
 
 Stdlib only. Labels are bounded (phase names, cache events), never a
 trial's, so the series need no clean-up and sum over a whole window.

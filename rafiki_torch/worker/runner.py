@@ -50,8 +50,9 @@ eval into ``$RAFIKI_TPU_TRACE_DIR/<trial_id>/`` when that is set
 (``observe.profiling.trace_session``; a busy profiler skips the trace),
 and records the persist tail as a ``trial.persist`` span with its
 stages, under the calling thread's trace or else one whose id is the
-trial id (``GET /trace/<trial_id>``). It leaves out the reference's
-dataset stage owners (the port has no staging cache). A ``stop_flag``
+trial id (``GET /trace/<trial_id>``). It binds the sub-train job as
+the ``stage_owner`` of the residency caches' entries around train and
+eval, as the reference does. A ``stop_flag``
 (a ``threading.Event``) ends the run before the next trial.
 """
 
@@ -71,6 +72,7 @@ from typing import Any, Callable, Dict, List, Optional, Type
 from ..advisor.base import Proposal
 from ..constants import BudgetOption, TrialStatus
 from ..model.base import BaseModel
+from ..model.dataset import stage_owner
 from ..model.logger import logger
 from ..observe import metrics
 from ..observe import phases as _phases
@@ -398,16 +400,22 @@ class TrialRunner:
             try:
                 # The label context attributes the train loop's MFU
                 # gauge and step-time histogram to this trial; the
-                # optional trace covers train and eval.
+                # optional trace covers train and eval. stage_owner
+                # marks the cache entries the trial makes as this
+                # sub-train job's, so evictions under budget pressure
+                # take other jobs' sets first (ref :435-450).
                 with trace_session(trial_trace_dir(trial_id)):
                     t_train = time.monotonic()
-                    with metrics.label_context(trial=trial_id[:12]):
+                    with metrics.label_context(trial=trial_id[:12]), \
+                            stage_owner(self.sub_train_job_id):
                         model.train(self.train_dataset_path,
                                     shared_params=shared, **train_kwargs)
                     _phases.observe_phase("train",
                                           time.monotonic() - t_train)
                     t_eval = time.monotonic()
-                    score = float(model.evaluate(self.val_dataset_path))
+                    with stage_owner(self.sub_train_job_id):
+                        score = float(
+                            model.evaluate(self.val_dataset_path))
                     _phases.observe_phase("eval",
                                           time.monotonic() - t_eval)
                 save_scope = proposal.meta.get("params_save_scope") \

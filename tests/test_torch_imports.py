@@ -88,7 +88,9 @@ def test_importing_the_port_loads_no_jax():
                 "rafiki_torch.admin.capacity", "rafiki_torch.capacity",
                 "rafiki_torch.web", "rafiki_torch.store.checkpoint",
                 "rafiki_torch.advisor.asha", "rafiki_torch.advisor.pbt",
-                "rafiki_torch.advisor.prefetch"):
+                "rafiki_torch.advisor.prefetch", "rafiki_torch.datasets",
+                "rafiki_torch.datasets.prep", "rafiki_torch.model.sklearn_model",
+                "rafiki_torch.models.sk", "rafiki_torch.accuracy_parity"):
         assert mod in mods, mod
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -124,6 +126,22 @@ def test_the_port_imports_without_the_packages_the_card_lacks():
             f"                if m.split('.')[0] in {ABSENT_ON_THE_CARD!r})\n"
             f"print(loaded)\n"
             f"sys.exit(1 if loaded else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_data_packages_load_neither_sklearn_nor_pil():
+    """Importing the port's ``datasets``, ``model`` and ``models``
+    packages (the sklearn family and the PIL formats included) loads
+    neither: each is imported inside the function that needs it."""
+    code = ("import sys\n"
+            "import rafiki_torch.datasets, rafiki_torch.model\n"
+            "import rafiki_torch.models, rafiki_torch.accuracy_parity\n"
+            "loaded = sorted(m for m in sys.modules\n"
+            "                if m.split('.')[0] in ('sklearn', 'PIL'))\n"
+            "print(loaded)\n"
+            "sys.exit(1 if loaded else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -231,7 +249,7 @@ KNOBS = {"d_model": 256, "n_layers": 2, "seq_len": 256, "batch_size": 4,
                                    "platform", "allocator", "bus_worker",
                                    "densenet", "enas", "enas_advisor",
                                    "vit", "cnn", "tagger", "pos_tagger",
-                                   "tabular"])
+                                   "tabular", "staging"])
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_entry_points_raise_without_a_card(entry, device):
     if torch.cuda.is_available():
@@ -259,6 +277,12 @@ def test_entry_points_raise_without_a_card(entry, device):
              "tagger": models.TorchTransformerTagger,
              "pos_tagger": models.TorchPosTagger,
              "tabular": models.TorchTabMlpClf}[entry](device=device)
+        elif entry == "staging":
+            from rafiki_torch.model.dataset import ImageDataset
+            from rafiki_torch.model.torch_model import staged_dataset_arrays
+            staged_dataset_arrays(
+                "t.npz", ImageDataset(np.zeros((2, 4, 4, 1), np.uint8),
+                                      np.zeros(2, np.int64), 2), device)
         elif entry == "enas_advisor":
             from rafiki_torch.advisor import make_advisor
             from rafiki_torch.models import TorchEnas

@@ -276,7 +276,8 @@ def _wait_for_trace(path, timeout=30.0):
 def test_trial_phases_and_profile_routes_answer(tmp_path, synth_image_data):
     """The two routes ported with the observability plane answer:
     ``GET /trial_phases`` counts one propose, train, eval and persist a
-    trial (and two loads and stages: train's and eval's); ``POST
+    trial (and two loads and stages: train's and eval's), and its caches
+    one lookup a load and a stage (a hit or a miss); ``POST
     /inference_jobs/<id>/profile`` clamps its duration to [0.5, 60] s,
     refuses a bad duration and a job that is not RUNNING, and the worker
     writes its profile into the directory the answer names."""
@@ -286,6 +287,7 @@ def test_trial_phases_and_profile_routes_answer(tmp_path, synth_image_data):
 
     train_path, val_path = synth_image_data
     before = phases.phase_totals()
+    cached = {c: phases.cache_counts(c) for c in ("dataset", "stage")}
     p = _port(tmp_path, http=True, n_chips=1)
     try:
         root = Client(admin_port=p.admin_port)
@@ -306,7 +308,11 @@ def test_trial_phases_and_profile_routes_answer(tmp_path, synth_image_data):
                   for k, v in body["phases"].items()}
         assert counts == {"propose": 2, "load": 4, "stage": 4,
                           "train": 2, "eval": 2, "persist": 2}
-        assert body["caches"] == {"dataset": {}, "stage": {}}
+        assert set(body["caches"]) == {"dataset", "stage"}
+        for cache, was in cached.items():
+            got = body["caches"][cache]
+            assert sum(got.get(e, 0) - was.get(e, 0)
+                       for e in ("hit", "miss")) == 4, (cache, got, was)
         inf = root.create_inference_job(job["id"], max_models=1)
         path = f"/inference_jobs/{inf['id']}/profile"
         status, short = _call(p.admin_port, token, "POST", path,
