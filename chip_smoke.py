@@ -425,21 +425,44 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    from the stream, the three logits bit for bit equal, and so their
    cross-entropy and accuracy, K1 8 a forward, all wgmma. The phase
    must take at most 60 s;
-21. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
+21. parallel phase, the mesh and intra-trial parallelism: the
+   transformer tagger at the widest point of its knob space (d_model
+   256, 8 heads of 32, 6 layers, max_len 512, batch 64, vocab 16384,
+   dropout 0) on a corpus of 64 sentences of 256-512 tokens, on a mesh
+   of 4 entries that all name the one card (``ChipGroup(indices=(0,) *
+   4)`` bound to the thread, as a worker binds its group), in the
+   parallelism tour's seven modes: dp 4, sp 2 ring, sp 2 all-to-all,
+   ``moe_experts`` 4 over ep 2, pp 2, pp 2 × sp 2 and pp 2 × ep 2 (the
+   composed modes at 2 microbatches). Each mode against the
+   single-device tagger on the same weights: (a) the logits of the
+   batch (tolerances below), (b) one AdamW step's loss and parameters,
+   (c) 16 one-step epochs through ``train``, the first and last loss,
+   K1-K3 launches equal to the count predicted from the mesh (the
+   ring's none), all wgmma, (d) its ``dump_parameters`` loaded into a
+   single-device tagger giving the same probabilities and tags; then K1
+   and K2 with K3 at the Ulysses rank's shape (32, 4, 512, 512, 32) with
+   ``kv_mask`` against their plain versions, timed beside
+   ``scaled_dot_product_attention`` and its ``autograd.grad``, and one
+   dp row's whole Ulysses forward (the re-chunks' copies and K1). It
+   prints the mesh's entries and the number of distinct cards (1). The
+   phase must take at most 60 s;
+22. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
    ``library_covers`` names the kernels whose work one library call does,
    ``platform_launches``, ``zoo_launches``, ``ensemble_launches``,
    ``zoo2_launches``, ``lifecycle_launches``, ``tenants_launches``,
    ``processes_launches``, ``cluster_launches``, ``autoscale_launches``,
-   ``operator_launches``, ``search_launches`` and ``data_launches`` the
-   platform, zoo, ensemble, zoo2, lifecycle, tenants, processes,
-   cluster, autoscale, operator, search and data phases' launches (the
-   platform's, zoo2's, lifecycle's, tenants', the processes' children's,
-   the cluster, the autoscale, the operator, the search and the data
-   phases' counted in ``launches`` too; ``processes_trace_events``
+   ``operator_launches``, ``search_launches``, ``data_launches`` and
+   ``parallel_launches`` the platform, zoo, ensemble, zoo2, lifecycle,
+   tenants, processes, cluster, autoscale, operator, search, data and
+   parallel phases' launches (the platform's, zoo2's, lifecycle's,
+   tenants', the processes' children's, the cluster, the autoscale, the
+   operator, the search, the data and the parallel phases' counted in
+   ``launches`` too; ``processes_trace_events``
    each kernel's events in the join node's trial trace), K2's and K3's
    ``f32`` their f32 variants' numbers, ``zoo2_shapes`` each kernel's
    numbers at the ViT and tagger shapes, ``data_shape`` at the real
-   corpus's tagger shape and ``zoo2_f32`` K1's
+   corpus's tagger shape, ``parallel_shape`` at the Ulysses rank's
+   shape and ``zoo2_f32`` K1's
    f32 variant at the int8 ViT shape with its registers and spills, and,
    last, the ``{"ok": true,
    "device": ...}`` line.
@@ -449,6 +472,7 @@ Any failed check exits non-zero without the last line.
 
 from __future__ import annotations
 
+import faulthandler
 import functools
 import json
 import math
@@ -1047,6 +1071,57 @@ DATA_CHUNK_STEPS = 4
 DATA_BIG_CHUNKS = 2
 DATA_LM_VAL = 1 << 16
 DATA_MAX_S = 60.0
+# The parallel phase: the transformer tagger at the widest point of its
+# knob space on a mesh of PAR_ENTRIES entries, each naming the one card,
+# in the parallelism tour's seven modes. A corpus of PAR_SENTENCES (one
+# batch) sentences of PAR_LENGTHS tokens (every sp shard holds real and
+# padded tokens) trains PAR_STEPS one-step epochs in each mode.
+PAR_STEPS = 16
+PAR_TAGGER = {"d_model": 256, "n_heads": 8, "n_layers": 6, "max_len": 512,
+              "batch_size": 64, "vocab_size": 16384, "dropout": 0.0,
+              "learning_rate": 1e-2, "max_epochs": PAR_STEPS, "seed": SEED}
+PAR_ENTRIES = 4
+PAR_MODES = (("dp 4", {}),
+             ("sp 2 ring", {"sequence_parallel": 2}),
+             ("sp 2 all-to-all", {"sequence_parallel": 2,
+                                  "sp_schedule": "alltoall"}),
+             ("ep 2 moe 4", {"moe_experts": 4, "expert_parallel": 2}),
+             ("pp 2", {"pipeline_parallel": 2, "pp_microbatches": 0}),
+             # The composed modes take 2 microbatches of 32 sentences: the
+             # auto count (8) quadruples their host-bound schedules.
+             ("pp 2 x sp 2", {"pipeline_parallel": 2, "sequence_parallel": 2,
+                              "pp_microbatches": 2}),
+             ("pp 2 x ep 2", {"pipeline_parallel": 2, "moe_experts": 4,
+                              "expert_parallel": 2, "pp_microbatches": 2}))
+PAR_SENTENCES = 64
+PAR_VAL = 16
+PAR_LENGTHS = (256, 512)
+PAR_VOCAB = 500
+PAR_TAGS = 5
+PAR_MAX_S = 60.0
+# (a) a mode's bf16 logits against the single-device tagger's on the
+# same weights, at every real token: the port's tagger parity (2^-5)
+# where a row meets the single device's kernels and products (dp,
+# Ulysses, pp); the zoo's kernel-against-plain tolerance (0.125) where
+# the ring folds its shards in f32 instead of K1. A MoE mode routes each
+# token by an argmax over bf16 router logits, which products of other
+# batch shapes round otherwise, so a near tie may pick another expert:
+# there the tolerance may fail at up to PAR_FLIP_SHARE of the tokens.
+TOL_PAR_LOGITS = 2 ** -5
+TOL_PAR_LOGITS_LOOSE = TOL_ZOO_LOGITS
+PAR_FLIP_SHARE = 0.01
+# (b) one AdamW step from the same parameters: the losses within
+# TOL_STEP_LOSS; the updated parameters within TOL_PAR_STEP of the
+# single-device update's size (norms over all parameters). AdamW's
+# first step is near lr·sign(g): an element whose gradient rounds to
+# the other sign moves by 2·lr.
+TOL_PAR_STEP = 0.1
+# (d) a mode's file in a single-device tagger: the probabilities at every
+# real val token within TOL_PAR_PROB of the mode's own, and the same tag
+# but where the two best tags' probabilities are within PAR_NEAR_TIE (in
+# a MoE mode both may fail at up to PAR_FLIP_SHARE of the tokens).
+TOL_PAR_PROB = 2e-2
+PAR_NEAR_TIE = 0.02
 # K1's o at the zoo's shapes against its plain version, bf16: each p is
 # rounded to bf16 before p·v, and where the kernel's exp and the plain
 # version's round one p to neighbouring bf16 values the row moves by up
@@ -8999,6 +9074,287 @@ def data_phase(torch, np, attn, card, zoo2, lm_params):
     return out
 
 
+def par_corpus(np, out_dir):
+    """A corpus of PAR_SENTENCES train and PAR_VAL val sentences whose
+    lengths are uniform in PAR_LENGTHS, each word with a fixed majority
+    tag and 5% of tags at random (``make_synthetic_corpus_dataset``'s
+    recipe at these lengths). Returns the two paths."""
+    import os
+
+    from rafiki_torch.model.dataset import write_corpus_dataset
+
+    rng = np.random.default_rng(SEED + 21)
+    word_tag = rng.integers(0, PAR_TAGS, size=PAR_VOCAB)
+    names = [f"TAG{i}" for i in range(PAR_TAGS)]
+    paths = []
+    for split, n in (("train", PAR_SENTENCES), ("val", PAR_VAL)):
+        sents, tags = [], []
+        for _ in range(n):
+            length = int(rng.integers(PAR_LENGTHS[0], PAR_LENGTHS[1] + 1))
+            ids = rng.integers(0, PAR_VOCAB, size=length)
+            sents.append([f"w{i}" for i in ids])
+            noisy = np.where(rng.random(length) < 0.05,
+                             rng.integers(0, PAR_TAGS, size=length),
+                             word_tag[ids])
+            tags.append([names[t] for t in noisy])
+        paths.append(write_corpus_dataset(
+            sents, tags, os.path.join(out_dir, f"par_{split}.zip"),
+            tag_names=names))
+    return paths
+
+
+def par_step(torch, model, net, ids, lens, tags):
+    """One AdamW step of ``model``'s on ``net``, as the corpus loop takes
+    it (the masked cross-entropy plus ``train_logits``' term, the
+    optimizer over PAR_STEPS steps); returns the loss."""
+    import torch.nn.functional as F
+
+    opt = model.create_optimizer(list(net.parameters()), PAR_STEPS)
+    step = torch.zeros((), dtype=torch.int64, device="cuda")
+    opt.zero_grad()
+    out, extra = model.train_logits(net, ids, lens, step)
+    mask = (torch.arange(ids.shape[1], device="cuda")[None, :]
+            < lens[:, None]).float()
+    losses = F.cross_entropy(out.transpose(1, 2), tags, reduction="none")
+    loss = (losses * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    if extra is not None:
+        loss = loss + extra
+    loss.backward()
+    opt.step()
+    return float(loss.detach())
+
+
+def par_launches(mesh, extra, batch, n_layers):
+    """K1's launches in one forward of a mode, predicted from the mesh
+    (each of K2 and K3 as many in its backward): none for the ring;
+    else one a layer for every dp rank, sp rank and, in the pipeline,
+    microbatch (``pp_microbatches``, or the largest divisor of the
+    rank's rows up to 4·pp)."""
+    dp, pp, sp = (mesh.shape[a] for a in ("dp", "pp", "sp"))
+    if sp > 1 and extra.get("sp_schedule", "ring") == "ring":
+        return 0
+    micro = 1
+    if pp > 1:
+        rows = batch // dp
+        micro = extra.get("pp_microbatches", 0) or min(rows, 4 * pp)
+        while rows % micro:
+            micro -= 1
+    return n_layers * dp * sp * micro
+
+
+def parallel_phase(torch, np, attn, card):
+    """The mesh and intra-trial parallelism on the card: the transformer
+    tagger at the widest point of its knob space (PAR_TAGGER) in the
+    parallelism tour's seven modes on a mesh of PAR_ENTRIES entries, each
+    the one card, bound to the thread as a worker binds its group. Each
+    mode against the single-device tagger on the same weights: (a) the
+    logits of a fixed batch, (b) one AdamW step's loss and parameters;
+    (c) PAR_STEPS steps through ``train`` (first and last loss), its
+    K1-K3 launches against the count predicted from the mesh, all
+    wgmma; (d) its file loaded into a single-device tagger predicting
+    the same tags. K1 and K2 with K3 timed at the Ulysses shape. Returns
+    the phase's numbers and K1-K3 launches."""
+    import copy
+
+    from rafiki_torch.model.dataset import load_corpus_dataset
+    from rafiki_torch.models import TorchTransformerTagger
+    from rafiki_torch.parallel.chips import ChipGroup
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_par_")
+    group = ChipGroup(indices=(0,) * PAR_ENTRIES)
+    b, t, n_l = (PAR_TAGGER[k] for k in ("batch_size", "max_len",
+                                         "n_layers"))
+    out = {"modes": {}}
+    totals = [0] * 6
+    try:
+        train_path, val_path = par_corpus(np, tmp.name)
+        ds = load_corpus_dataset(train_path)
+        val = load_corpus_dataset(val_path).sentences
+        n_tok = sum(len(x) for x in ds.sentences)
+        probe = TorchTransformerTagger(device="cuda", **PAR_TAGGER)
+        ids_np, lens_np = probe._encode(ds.sentences)
+        tags_np = np.zeros((b, t), np.int64)
+        for i, tg in enumerate(ds.tags):
+            tags_np[i, :len(tg)] = tg[:t]
+        ids = torch.from_numpy(ids_np).cuda()
+        lens = torch.from_numpy(lens_np).cuda()
+        tags = torch.from_numpy(tags_np).cuda()
+        real = ids != 0
+        print(f"parallel: corpus of {b} train sentences ({n_tok} tokens, "
+              f"lengths {PAR_LENGTHS[0]}-{PAR_LENGTHS[1]} padded to {t}) "
+              f"and {len(val)} val, {PAR_VOCAB} words, {PAR_TAGS} tags; "
+              f"mesh of {PAR_ENTRIES} entries on {torch.cuda.device_count()} "
+              f"card(s)", flush=True)
+        singles = {}
+        for name, extra in PAR_MODES:
+            moe = extra.get("moe_experts", 0)
+            if moe not in singles:
+                sm = TorchTransformerTagger(device="cuda", moe_experts=moe,
+                                            **PAR_TAGGER)
+                net0 = sm._new_net(ds.tag_names)
+                net1 = copy.deepcopy(net0)
+                with uncounted(attn):
+                    with torch.no_grad():
+                        want = sm.logits(net0, ids, lens).float()
+                    loss1 = par_step(torch, sm, net1, ids, lens, tags)
+                check(sm.mesh.size == 1, "the single-device tagger's mesh "
+                      f"has {sm.mesh.size} entries")
+                singles[moe] = (net0, want, net1, loss1)
+            net0, want, net1, loss1 = singles[moe]
+            t_mode = time.perf_counter()
+            group.bind_to_thread()
+            try:
+                m = TorchTransformerTagger(device="cuda", **PAR_TAGGER,
+                                           **extra)
+                mesh = m.mesh
+                check(mesh.size == PAR_ENTRIES and mesh.distinct() == 1,
+                      f"{name}: mesh {mesh}")
+                # (a) The logits of the fixed batch.
+                with uncounted(attn), torch.no_grad():
+                    got = m.logits(net0, ids, lens).float()
+                tok_err = (got - want).abs().amax(-1)[real]
+                err = float(tok_err.max())
+                ring = (extra.get("sequence_parallel", 1) > 1
+                        and extra.get("sp_schedule", "ring") == "ring")
+                tol = TOL_PAR_LOGITS_LOOSE if ring else TOL_PAR_LOGITS
+                allowed = PAR_FLIP_SHARE if moe else 0.0
+                over = float((tok_err > tol).float().mean())
+                check(over <= allowed, f"{name}: (a) logits off by more than "
+                      f"{tol} at {over:.2%} of the real tokens (max "
+                      f"{err:.3e}; {allowed:.0%} allowed)")
+                # (b) One AdamW step from the same parameters.
+                net2 = copy.deepcopy(net0)
+                with uncounted(attn):
+                    loss2 = par_step(torch, m, net2, ids, lens, tags)
+                num = den = 0.0
+                for (k, p0), p1, p2 in zip(net0.named_parameters(),
+                                           net1.parameters(),
+                                           net2.parameters()):
+                    num += float((p2 - p1).detach().double().square().sum())
+                    den += float((p1 - p0).detach().double().square().sum())
+                rel = math.sqrt(num / max(den, 1e-30))
+                check(abs(loss2 - loss1) <= TOL_STEP_LOSS and rel <= TOL_PAR_STEP,
+                      f"{name}: (b) step loss {loss2!r} against {loss1!r}, "
+                      f"parameters {rel:.3e} of the update off")
+                del net2
+                # (c) PAR_STEPS steps through train(), counted.
+                reset_launch_counts(attn)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, epochs = logged(m.train, train_path)
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+                got_l = launch_counts(attn)
+                per = par_launches(mesh, extra, b, n_l)
+                pred = [per * PAR_STEPS] * 3
+                check(list(got_l[:3]) == pred and got_l[3:] == got_l[:3],
+                      f"{name}: (c) K1-K3 launched {got_l}, predicted "
+                      f"{pred} all on wgmma")
+                totals = [a + c for a, c in zip(totals, got_l)]
+                losses = [e["loss"] for e in epochs]
+                check(len(losses) == PAR_STEPS and all(
+                    math.isfinite(x) for x in losses) and losses[-1]
+                    < losses[0], f"{name}: (c) losses {losses}")
+                # (d) Its file in a single-device tagger.
+                single = TorchTransformerTagger(device="cuda",
+                                                moe_experts=moe,
+                                                **PAR_TAGGER)
+                with uncounted(attn):
+                    pm = m.predict_probs(val)
+                    single.load_parameters(m.dump_parameters())
+                    ps = single.predict_probs(val)
+                top2 = np.sort(ps, axis=-1)[..., -2:]
+                clear = (top2[..., 1] - top2[..., 0]) > PAR_NEAR_TIE
+                vmask = np.zeros(pm.shape[:2], bool)
+                for i, sent in enumerate(val):
+                    vmask[i, :min(len(sent), t)] = True
+                same = pm.argmax(-1) == ps.argmax(-1)
+                ties = int((vmask & ~clear).sum())
+                flips = int((~same & vmask & clear).sum())
+                p_err = np.abs(pm - ps).max(-1)[vmask]
+                p_over = int((p_err > TOL_PAR_PROB).sum())
+                n_val = int(vmask.sum())
+                check(flips <= allowed * n_val and p_over <= allowed * n_val,
+                      f"{name}: (d) in a single-device tagger {flips} clear "
+                      f"tags of {n_val} differ, {p_over} probabilities off "
+                      f"by more than {TOL_PAR_PROB} (max "
+                      f"{float(p_err.max()):.3e})")
+                m.destroy()
+                single.destroy()
+            finally:
+                ChipGroup.unbind_thread()
+            mode_s = time.perf_counter() - t_mode
+            shape = "x".join(f"{a}{v}" for a, v in mesh.shape.items()
+                             if v > 1)
+            print(f"parallel: {name} (mesh {shape}, {mesh.size} entries, "
+                  f"{mesh.distinct()} card): (a) logits at real tokens max "
+                  f"|diff| {err:.3e} from the single-device tagger, over "
+                  f"{tol} at {over:.3%} of them; (b) one step: loss {loss2!r} against "
+                  f"{loss1!r}, parameters {rel:.3e} of the update off "
+                  f"(tolerance {TOL_PAR_STEP}); (c) {PAR_STEPS} steps in "
+                  f"{train_s:.2f} s ({train_s / PAR_STEPS * 1e3:.1f} ms a "
+                  f"step, {PAR_STEPS * b * t / train_s:.0f} tokens/s padded), "
+                  f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, K1-K3 "
+                  f"{list(got_l[:3])} (predicted {per} a step each), all "
+                  f"wgmma; (d) its file in a single-device tagger: "
+                  f"probabilities at {n_val} val tokens max |diff| "
+                  f"{float(p_err.max()):.3e} (over {TOL_PAR_PROB} at "
+                  f"{p_over}), {flips} clear tags differ ({ties} near ties "
+                  f"not held); mode "
+                  f"took {mode_s:.1f} s on {card}", flush=True)
+            out["modes"][name] = {"logit_err": err, "logit_over": over,
+                                  "tag_flips": flips,
+                                  "prob_err": float(p_err.max()),
+                                  "step_rel": rel,
+                                  "loss_first": losses[0],
+                                  "loss_last": losses[-1],
+                                  "step_ms": train_s / PAR_STEPS * 1e3,
+                                  "launches": list(got_l[:3]), "s": mode_s}
+        # K1 and K2 with K3 at the Ulysses shape, on the model's own
+        # q, k, v: dp rank 0's sp rank 0 after the re-chunk.
+        net0 = singles[0][0]
+        with torch.no_grad():
+            x = net0.Embed_0(ids) + net0.pe[None, :t].to(torch.bfloat16)
+            blk = net0._EncoderBlock_0
+            qkv = blk.Dense_0(blk.LayerNorm_0(x)).chunk(3, dim=-1)
+            h = PAR_TAGGER["n_heads"]
+            q, k, v = (y.reshape(b, t, h, -1).transpose(1, 2) for y in qkv)
+            dp_u, sp_u = PAR_ENTRIES // 2, 2
+            bu, hu = b // dp_u, h // sp_u
+            qu, ku, vu = (y[:bu, :hu].contiguous() for y in (q, k, v))
+            mask = real[:bu]
+        with uncounted(attn):
+            kern = zoo2_kernels(torch, attn, card, "Ulysses", qu, ku, vu,
+                                mask, tag="parallel:")
+        # The whole Ulysses attention of one dp row (both re-chunks, the
+        # copies to contiguous and K1 on each sp rank).
+        tl = t // sp_u
+        shards = [[y[:bu, :, j * tl:(j + 1) * tl] for j in range(sp_u)]
+                  for y in (q, k, v)]
+        mshards = [mask[:, j * tl:(j + 1) * tl] for j in range(sp_u)]
+        with uncounted(attn), torch.no_grad():
+            uly_ms = time_ms(torch, lambda: attn.ulysses_attention(
+                *shards, kv_masks=mshards), 10)
+        print(f"parallel: one dp row's Ulysses attention forward at the "
+              f"tagger's shape ({sp_u} sequence shards of ({bu},{h},{tl},"
+              f"{PAR_TAGGER['d_model'] // h})): "
+              f"{uly_ms:.4f} ms (CUDA events), of which K1 on its "
+              f"{sp_u} ranks {sp_u * kern['K1']['ms']:.4f} ms; the rest "
+              f"the re-chunks and copies, on {card}", flush=True)
+        out.update(kernels=kern, ulysses_ms=uly_ms)
+    finally:
+        tmp.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    check(phase_s <= PAR_MAX_S, f"the parallel phase took {phase_s:.1f} s")
+    print(f"parallel: K1, K2 and K3 launched {totals[:3]} times in the "
+          f"phase's {PAR_STEPS}-step trainings, all on wgmma; mesh of "
+          f"{PAR_ENTRIES} entries on 1 distinct card; phase took "
+          f"{phase_s:.1f} s on {card}", flush=True)
+    out.update(launches=totals[:3], phase_s=phase_s)
+    return out
+
+
 def zoo2_rows(zoo2, kernel):
     """One kernel's numbers at the zoo2 phase's ViT and tagger shapes."""
     return {what: dict(zoo2[part]["kernels"][kernel],
@@ -9032,6 +9388,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # A crash in native code (CUDA, CUPTI, a kernel's host side)
+    # prints every thread's Python stack to stderr before the process
+    # dies, so the phase and call that crashed are on record.
+    faulthandler.enable(all_threads=True)
     try:
         from rafiki_torch.ops import _build
         from rafiki_torch.ops import attention as attn
@@ -9086,6 +9446,7 @@ def main() -> int:
         search = timed("search", search_phase, torch, np, attn, card, zoo2)
         data = timed("data", data_phase, torch, np, attn, card, zoo2,
                      params)
+        par = timed("parallel", parallel_phase, torch, np, attn, card)
     except Exception:
         traceback.print_exc()
         return 1
@@ -9098,7 +9459,8 @@ def main() -> int:
                        + life["launches"][0] + ten["launches"][0]
                        + procs["launches"][0] + clus["launches"][0]
                        + scale["launches"][0] + oper["launches"][0]
-                       + search["launches"][0] + data["launches"][0]),
+                       + search["launches"][0] + data["launches"][0]
+                       + par["launches"][0]),
              generate_launches=gen_launches,
              platform_launches=plat_launches[0],
              zoo_launches=zoo["launches"][0],
@@ -9113,6 +9475,8 @@ def main() -> int:
              operator_launches=oper["launches"][0],
              search_launches=search["launches"][0],
              data_launches=data["launches"][0],
+             parallel_launches=par["launches"][0],
+             parallel_shape=data_row(par, "K1"),
              zoo2_shapes=zoo2_rows(zoo2, "K1"),
              data_shape=data_row(data, "K1"),
              zoo2_f32=dict(zoo2["int8"]["k1_f32"], registers=f32_regs),
@@ -9125,7 +9489,7 @@ def main() -> int:
                        + ten["launches"][1] + procs["launches"][1]
                        + clus["launches"][1] + scale["launches"][1]
                        + oper["launches"][1] + search["launches"][1]
-                       + data["launches"][1]),
+                       + data["launches"][1] + par["launches"][1]),
              platform_launches=plat_launches[1],
              zoo_launches=zoo["launches"][1],
              ensemble_launches=ens["launches"][1],
@@ -9139,6 +9503,8 @@ def main() -> int:
              operator_launches=oper["launches"][1],
              search_launches=search["launches"][1],
              data_launches=data["launches"][1],
+             parallel_launches=par["launches"][1],
+             parallel_shape=data_row(par, "K2"),
              zoo2_shapes=zoo2_rows(zoo2, "K2"),
              data_shape=data_row(data, "K2"), **k2),
         dict(name="flash_bwd_dkv (K3)", route="cuda",
@@ -9149,7 +9515,7 @@ def main() -> int:
                        + ten["launches"][2] + procs["launches"][2]
                        + clus["launches"][2] + scale["launches"][2]
                        + oper["launches"][2] + search["launches"][2]
-                       + data["launches"][2]),
+                       + data["launches"][2] + par["launches"][2]),
              platform_launches=plat_launches[2],
              zoo_launches=zoo["launches"][2],
              ensemble_launches=ens["launches"][2],
@@ -9163,6 +9529,8 @@ def main() -> int:
              operator_launches=oper["launches"][2],
              search_launches=search["launches"][2],
              data_launches=data["launches"][2],
+             parallel_launches=par["launches"][2],
+             parallel_shape=data_row(par, "K3"),
              zoo2_shapes=zoo2_rows(zoo2, "K3"),
              data_shape=data_row(data, "K3"), **k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {

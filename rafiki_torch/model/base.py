@@ -73,6 +73,15 @@ class BaseModel(abc.ABC):
 
     # --- Optional hooks ---
 
+    def predict_submit(self, queries: List[Any]):
+        """Dispatch prediction and return a zero-arg finisher yielding
+        ``predict(queries)``'s result. The default runs ``predict`` at
+        once, so an error raises here; device models override it to
+        return before the device work completes, so a serving loop can
+        pipeline bursts (``TorchModel.predict_submit``)."""
+        predictions = self.predict(queries)
+        return lambda: predictions
+
     def destroy(self) -> None:
         """Release device/process resources. Idempotent."""
 

@@ -17,7 +17,10 @@ with ``.`` for ``/``, and the leaf maps by its kind:
 - an ``Embed``'s ``embedding`` is ``nn.Embedding``'s ``weight`` as it
   is;
 - a module's own parameter (ViT's ``params/cls`` and
-  ``params/pos_embed``) keeps its name and layout;
+  ``params/pos_embed``) keeps its name and layout, and so do a MoE
+  block's router and expert stacks (``moe_gate`` (D, E), ``expert_w1``
+  (E, D, F), ``expert_b1`` (E, F), ``expert_w2`` (E, F, D),
+  ``expert_b2`` (E, D)), which the port holds in flax's layout;
 - ``batch_stats``' ``mean`` and ``var`` are the buffers
   ``running_mean`` and ``running_var``;
 - an LSTM cell (``OptimizedLSTMCell_0``, the ENAS controller's
@@ -54,6 +57,9 @@ from .base import Params
 
 LINEARS = ("qkv", "proj", "w1", "w2")
 NORMS = ("ln1", "ln2")
+#: A MoE block's own parameters, kept in flax's layout.
+MOE_LEAVES = frozenset(("moe_gate", "expert_w1", "expert_b1", "expert_w2",
+                        "expert_b2"))
 
 
 #: OIHW <-> HWIO.
@@ -80,7 +86,9 @@ def torch_name(key: str, ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
     elif not path:
         pass
     elif coll == "params":
-        if leaf == "kernel" and ndim == 2:
+        if leaf in MOE_LEAVES:
+            name = leaf
+        elif leaf == "kernel" and ndim == 2:
             name, perm = "weight", (1, 0)
         elif leaf == "kernel" and ndim == 4:
             name, perm = "weight", _TO_OIHW
@@ -102,7 +110,7 @@ def jax_name(key: str, ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
     (None: the same layout)."""
     *path, name = key.split(".")
     coll, leaf, perm = "params", None, None
-    if not path:
+    if not path or name in MOE_LEAVES:
         leaf = name
     elif name == "weight" and ndim == 2 and path[-1].startswith("Embed"):
         leaf = "embedding"

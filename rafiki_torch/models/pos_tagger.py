@@ -19,8 +19,11 @@ tensors that the bridge maps from flax's eight gate layers.
 share (the reference's two classes repeat it): the whole encoded set
 on the device once; each epoch's order ``epoch_rng(seed,
 epoch).permutation(size)``, a short last batch filled by ``np.resize``;
-the loss the cross-entropy masked by each sentence's length, token
-accuracy alike, one log record an epoch; the lr schedule over
+the loss the cross-entropy masked by each sentence's length (plus
+what ``train_logits`` adds, the transformer's MoE term), token accuracy
+alike, one log record an epoch; the batch and each predict bucket a
+multiple of ``batch_multiple()`` (the transformer's data-parallel
+ranks); the lr schedule over
 ``schedule_total_epochs`` when given and checkpoint resume under
 ``checkpoint_dir`` (``loop_ckpt``, ref :147, :181-183); ``predict``
 returns each sentence's per-token tag distributions, cut to its length,
@@ -85,6 +88,17 @@ class _CorpusTagger(BaseModel):
                          ) -> ScheduledOptimizer:
         raise NotImplementedError
 
+    def train_logits(self, net: nn.Module, ids: torch.Tensor,
+                     lengths: torch.Tensor, step: torch.Tensor):
+        """(logits, a term to add to the loss or None) for a train
+        step; by default ``logits`` and no term."""
+        return self.logits(net, ids, lengths, step), None
+
+    def batch_multiple(self) -> int:
+        """What a batch's size must be a multiple of: a model split over
+        data-parallel ranks gives their count."""
+        return 1
+
     # --- Plumbing ---
 
     @property
@@ -127,6 +141,9 @@ class _CorpusTagger(BaseModel):
 
         batch_size = max(1, min(int(self.knobs.get(
             "batch_size", self.default_batch_size)), ds.size))
+        # Rounded to the data-parallel ranks (the transformer's :542).
+        mult = self.batch_multiple()
+        batch_size = max(mult, (batch_size // mult) * mult)
         max_epochs = int(self.knobs.get("max_epochs",
                                         self.default_max_epochs))
         if self.knobs.get("quick_train", False):
@@ -158,13 +175,16 @@ class _CorpusTagger(BaseModel):
             for s in range(steps):
                 sel = order_d[s]
                 opt.zero_grad()
-                out = self.logits(net, ids_d[sel], len_d[sel], step_t)
+                out, extra = self.train_logits(net, ids_d[sel], len_d[sel],
+                                               step_t)
                 mask = (cols[None, :] < len_d[sel][:, None]).float()
                 y = tags_d[sel]
                 losses = F.cross_entropy(out.transpose(1, 2), y,
                                          reduction="none")
                 n = torch.clamp_min(mask.sum(), 1.0)
                 loss = (losses * mask).sum() / n
+                if extra is not None:
+                    loss = loss + extra
                 loss.backward()
                 opt.step()
                 acc = ((out.detach().argmax(-1) == y).float() * mask).sum() / n
@@ -192,7 +212,7 @@ class _CorpusTagger(BaseModel):
         for s in range(0, len(sentences), PREDICT_CHUNK):
             chunk, lens = ids[s:s + PREDICT_CHUNK], lengths[s:s + PREDICT_CHUNK]
             n = chunk.shape[0]
-            bucket = 1
+            bucket = self.batch_multiple()
             while bucket < n:
                 bucket *= 2
             if n < bucket:

@@ -18,6 +18,11 @@ reference does.
   ``flash_backward_variant`` picks the variant of both); on CPU tensors
   each runs its plain version. There is no fallback between the two: a
   CUDA tensor either reaches the kernels or the call raises.
+- ``ring_attention``, ``ulysses_attention`` and
+  ``sequence_sharded_attention`` — sequence parallelism over a mesh's
+  ``sp`` axis on lists of per-rank shards (the ring in plain torch, as
+  the reference's is XLA code; Ulysses on ``default_attention`` per
+  rank, so K1-K3 on the card).
 - ``flash_attention_plain`` — the same function and gradient on the
   plain versions whatever the device, to hold the kernels' path against.
 - ``flash_attention_reference`` — the plain version of K1: online softmax
@@ -539,6 +544,10 @@ def _attend_chunk(q, k, v, m, l, o, *, scale, q_ids, kv_ids, causal,
     return m_new, l_new, o_new
 
 
+def _finish(o, l):
+    return o / torch.clamp(l, min=1e-30)[..., None]
+
+
 def blockwise_attention(q, k, v, *, causal: bool = False,
                         block_kv: int = 256, kv_mask=None):
     """The reference's ``blockwise_attention`` (ref :105-159) in plain
@@ -573,7 +582,7 @@ def blockwise_attention(q, k, v, *, causal: bool = False,
             q, k[:, :, sl], v[:, :, sl], m, l, o, scale=scale, q_ids=q_ids,
             kv_ids=kv_ids[sl], causal=causal,
             kv_mask=None if kv_mask is None else kv_mask[:, sl])
-    return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    return _finish(o, l).to(q.dtype)
 
 
 def default_attention(*, causal: bool = False):
@@ -592,6 +601,129 @@ def default_attention(*, causal: bool = False):
                                kv_mask=kv_mask)
 
     return attend
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism over the sp axis, on the shard lists of one mesh
+# row: entry r of each list is rank r's shard, on rank r's device.
+# ---------------------------------------------------------------------------
+
+
+def ring_attention(qs, ks, vs, *, causal: bool = False, kv_masks=None):
+    """Ring attention (ref :614-676) over ``n = len(qs)`` sequence
+    shards: rank ``r`` holds the ``r``-th slice ``(B, H, T/n, D)`` of a
+    length-T sequence. In step ``i`` rank ``r`` folds the shard of rank
+    ``(r - i) mod n`` (copied to its device, the ``ppermute``) into its
+    online-softmax state, with global positions (``rank · T/n + j``) for
+    the causal mask and that shard's ``kv_masks`` entry, so the result is
+    full-sequence attention. Each fold runs under
+    ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``: the
+    backward recomputes its scores. Plain torch on every device, as the
+    reference's ring is XLA, not Pallas. Returns the output shards."""
+    from torch.utils.checkpoint import checkpoint
+
+    n = len(qs)
+    b, h, t_local, d = qs[0].shape
+    scale = 1.0 / math.sqrt(d)
+    outs = []
+    for r, q in enumerate(qs):
+        dev = q.device
+        local_ids = torch.arange(t_local, device=dev)
+        q_ids = r * t_local + local_ids
+        m = torch.full((b, h, t_local), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, h, t_local), dtype=torch.float32, device=dev)
+        o = torch.zeros((b, h, t_local, d), dtype=torch.float32, device=dev)
+        for step in range(n):
+            owner = (r - step) % n
+            k = ks[owner].to(dev, non_blocking=True)
+            v = vs[owner].to(dev, non_blocking=True)
+            mask = (None if kv_masks is None
+                    else kv_masks[owner].to(dev, non_blocking=True))
+
+            # Every loop variable is bound here: the backward reruns
+            # ``fold`` after the loops have moved on.
+            def fold(q, k, v, m, l, o, mask=mask, q_ids=q_ids,
+                     kv_ids=owner * t_local + local_ids):
+                return _attend_chunk(q, k, v, m, l, o, scale=scale,
+                                     q_ids=q_ids, kv_ids=kv_ids,
+                                     causal=causal, kv_mask=mask)
+
+            m, l, o = checkpoint(fold, q, k, v, m, l, o, use_reentrant=False)
+        outs.append(_finish(o, l).to(q.dtype))
+    return outs
+
+
+def ulysses_attention(qs, ks, vs, *, causal: bool = False, kv_masks=None):
+    """All-to-all sequence parallelism (ref :679-728): re-chunk the ``n``
+    sequence shards ``(B, H, T/n, D)`` into head shards ``(B, H/n, T, D)``
+    (rank ``r`` gathers heads ``r·H/n`` on from every shard, the first
+    all-to-all), all-gather ``kv_masks``, run ``default_attention`` on
+    each rank (``flash_attention``: K1 on the card, with K2 and K3 for
+    the gradient; the blockwise formulation on the CPU, as the reference
+    takes it off the TPU) and re-chunk back. Needs ``H % n == 0``."""
+    n = len(qs)
+    b, h, t_local, d = qs[0].shape
+    if h % n != 0:
+        raise ValueError(f"ulysses needs heads % sp == 0; got {h} % {n}")
+    hn = h // n
+    attend = default_attention(causal=causal)
+
+    def seq_to_heads(xs, r):
+        dev = qs[r].device
+        return torch.cat([x[:, r * hn:(r + 1) * hn].to(dev, non_blocking=True)
+                          for x in xs], dim=2)
+
+    per_rank = []
+    for r in range(n):
+        dev = qs[r].device
+        mask = None if kv_masks is None else torch.cat(
+            [m.to(dev, non_blocking=True) for m in kv_masks], dim=1)
+        per_rank.append(attend(seq_to_heads(qs, r), seq_to_heads(ks, r),
+                               seq_to_heads(vs, r), mask))
+    return [torch.cat([o[:, :, j * t_local:(j + 1) * t_local].to(
+                qs[j].device, non_blocking=True) for o in per_rank], dim=1)
+            for j in range(n)]
+
+
+def sequence_sharded_attention(q, k, v, mesh, *, causal: bool = False,
+                               batch_axis: Optional[str] = "dp",
+                               kv_mask=None, mode: str = "ring"):
+    """``(B, H, T, D)`` q, k, v sharded with the batch over ``dp`` (or
+    replicated when ``batch_axis`` is None) and the sequence over ``sp``
+    on ``mesh`` (``parallel.mesh``), the chosen schedule run on each
+    batch shard's row of sequence shards, and the output gathered back
+    on q's device (ref :743-777). ``kv_mask`` (B, T) shards with k.
+    ``mode``: ``"ring"`` (``ring_attention``) or ``"alltoall"``
+    (``ulysses_attention``, needs heads % sp == 0)."""
+    if mode not in ("ring", "alltoall"):
+        raise ValueError(f"unknown sequence-parallel mode {mode!r}")
+    inner = ring_attention if mode == "ring" else ulysses_attention
+    sp = mesh.shape["sp"]
+    dp = mesh.shape["dp"] if batch_axis is not None else 1
+    b, t = q.shape[0], q.shape[2]
+    if b % dp or t % sp:
+        raise ValueError(f"batch {b} and length {t} must divide over "
+                         f"dp={dp} and sp={sp}")
+    bl, tl = b // dp, t // sp
+    rows = []
+    for i in range(dp):
+        devs = [mesh.device((i, 0, 0, j, 0)) for j in range(sp)]
+        rb = slice(i * bl, (i + 1) * bl)
+
+        def shards(x):
+            return [x[rb, :, j * tl:(j + 1) * tl].to(devs[j],
+                                                     non_blocking=True)
+                    for j in range(sp)]
+
+        masks = None if kv_mask is None else [
+            kv_mask[rb, j * tl:(j + 1) * tl].to(devs[j], non_blocking=True)
+            for j in range(sp)]
+        outs = inner(shards(q), shards(k), shards(v), causal=causal,
+                     kv_masks=masks)
+        rows.append(torch.cat([o.to(q.device, non_blocking=True)
+                               for o in outs], dim=2))
+    return torch.cat(rows, dim=0)
 
 
 for _fn in (flash_attention, flash_attention_dq, flash_attention_dkv):

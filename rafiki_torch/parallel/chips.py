@@ -4,10 +4,15 @@ The port's copy of ``ChipGroup`` and ``ChipAllocator`` from
 ``rafiki_tpu/parallel/chips.py`` (:34-86, :127-360). The scheduler
 assigns each worker a contiguous range of device indices, carried in
 the service's environment as ``EnvVars.CHIPS`` (the counterpart of
-``CUDA_VISIBLE_DEVICES``). Where the reference binds a jax mesh of the
-group's devices to the worker's thread, a group here hands its
-``torch.device`` to the worker it is given to (``device=``); the port's
-models run on one device, the group's first.
+``CUDA_VISIBLE_DEVICES``). A worker runs on its group's first device
+(``ChipGroup.device``) and binds the group to its thread
+(``bind_to_thread``, ref :67-86), so that a model that builds a mesh
+(``parallel.mesh.build_mesh``; the transformer tagger's parallel modes)
+finds the group's devices through ``ChipGroup.current()``: the thread's
+group, else the environment's, else every CUDA device. A group's
+indices may repeat: ``ChipGroup(indices=(0,) * 4)`` is a mesh of four
+entries on one card, the counterpart of the reference tests' virtual
+devices. The allocator hands out distinct chips only.
 
 The allocator counts the node's CUDA devices and raises when there is
 none: it never reports a card it does not have. A platform asked to run
@@ -16,8 +21,10 @@ then being the host's CPU.
 
 The reference places a group on the TPU's ICI torus as the most compact
 free box (``discover_topology``, :88-126); the cards of one host expose
-no such coordinates, so placement here is the reference's fallback for
-a backend without them: first fit on a contiguous index range.
+no such coordinates (``discover_topology`` gives None for CUDA and CPU
+devices, as the reference does for devices without ``.coords``), so
+placement here is the reference's fallback for a backend without them:
+first fit on a contiguous index range.
 
 ``allocate(..., shared_ok=True)`` keeps the reference's time-sliced
 tier: when no exclusive range is free, a group may be placed on chips
@@ -33,11 +40,12 @@ from __future__ import annotations
 import os
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from ..torchenv import DeviceLike, resolve_device
+from ..constants import EnvVars
+from ..torchenv import PLATFORM_ENV, DeviceLike, resolve_device
 
 #: Owners a chip may have in the time-sliced tier, by default.
 MAX_SHARE = 4
@@ -64,6 +72,14 @@ class ChipGroup:
             return torch.device("cpu")
         return torch.device(self.device_type, self.indices[0])
 
+    def devices(self) -> List[torch.device]:
+        """The group's devices in group order, one an index: CUDA
+        devices, or the CPU once an index for a group of a platform run
+        on the CPU. ``device`` is the first of them."""
+        if self.device_type == "cpu":
+            return [torch.device("cpu")] * len(self.indices)
+        return [torch.device(self.device_type, i) for i in self.indices]
+
     def to_env(self) -> str:
         return ",".join(str(i) for i in self.indices)
 
@@ -74,6 +90,58 @@ class ChipGroup:
         if not idx:
             raise ValueError("an empty chip group")
         return ChipGroup(indices=idx, device_type=device_type)
+
+    # --- Thread-scoped binding (ref :67-86) ---
+    #
+    # Worker threads sharing one process cannot partition devices through
+    # the process-wide environment; each service thread binds its group
+    # here and models resolve it through ``current()``.
+
+    _tls = threading.local()
+
+    def bind_to_thread(self) -> None:
+        ChipGroup._tls.group = self
+
+    @staticmethod
+    def unbind_thread() -> None:
+        ChipGroup._tls.group = None
+
+    @staticmethod
+    def bound() -> Optional["ChipGroup"]:
+        """The thread's group, else the one ``EnvVars.CHIPS`` names (on
+        the device type ``PLATFORM_ENV`` names, CUDA by default), else
+        None."""
+        group = getattr(ChipGroup._tls, "group", None)
+        if group is not None:
+            return group
+        value = os.environ.get(EnvVars.CHIPS, "")
+        if not value:
+            return None
+        kind = (os.environ.get(PLATFORM_ENV) or "cuda").strip().lower()
+        return ChipGroup.from_env(value, "cpu" if kind == "cpu" else "cuda")
+
+    @staticmethod
+    def current() -> "ChipGroup":
+        """``bound()``, else every CUDA device of the node (raises
+        without a card, as ``resolve_device`` does)."""
+        group = ChipGroup.bound()
+        if group is not None:
+            return group
+        resolve_device("cuda")
+        return ChipGroup(indices=tuple(range(torch.cuda.device_count())))
+
+
+def discover_topology(devices: Sequence) -> Optional[List[tuple]]:
+    """Per-device physical coordinates, or None when the devices have
+    none (ref :88-103). ``torch.device``s carry no ``.coords``, so for
+    CUDA and CPU devices this is None and the allocator places by index."""
+    coords = []
+    for d in devices:
+        c = getattr(d, "coords", None)
+        if c is None or len(c) < 2:
+            return None
+        coords.append(tuple(int(v) for v in c))
+    return coords if len(set(coords)) == len(coords) else None
 
 
 class ChipAllocator:

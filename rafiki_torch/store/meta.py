@@ -310,6 +310,18 @@ class MetaStore:
         return self._one("SELECT * FROM train_jobs WHERE id = ?",
                          (train_job_id,))
 
+    def get_train_job_by_app(self, user_id: str, app: str,
+                             app_version: int = -1) -> Optional[Row]:
+        """The user's train job of ``app``: its latest version when
+        ``app_version`` is -1, else that version."""
+        if app_version == -1:
+            return self._one(
+                "SELECT * FROM train_jobs WHERE user_id = ? AND app = ? "
+                "ORDER BY app_version DESC", (user_id, app))
+        return self._one(
+            "SELECT * FROM train_jobs WHERE user_id = ? AND app = ? "
+            "AND app_version = ?", (user_id, app, app_version))
+
     def get_train_jobs(self, user_id: Optional[str] = None,
                        status: Optional[str] = None) -> List[Row]:
         sql, args = "SELECT * FROM train_jobs WHERE 1=1", []
@@ -431,6 +443,13 @@ class MetaStore:
     def get_inference_job(self, job_id: str) -> Optional[Row]:
         return self._one("SELECT * FROM inference_jobs WHERE id = ?",
                          (job_id,))
+
+    def get_inference_job_by_train_job(self, train_job_id: str
+                                       ) -> Optional[Row]:
+        """The newest inference job of ``train_job_id``."""
+        return self._one(
+            "SELECT * FROM inference_jobs WHERE train_job_id = ? "
+            "ORDER BY created_at DESC", (train_job_id,))
 
     def get_inference_jobs(self, user_id: Optional[str] = None,
                            status: Optional[str] = None) -> List[Row]:

@@ -30,7 +30,8 @@ Two workers share this module:
   burst (``RAFIKI_TPU_SERVING_STACKED``, on by default), others member
   by member; with ``RAFIKI_TPU_SERVING_QUANT=int8`` every member serves
   from int8 weights. An all-packed burst of one shape and dtype is
-  copied into a pinned staging buffer of its bucket (``_HostStager``)
+  copied into a pinned staging buffer of its bucket
+  (``parallel.transfer.HostStager``)
   and served from there. With
   ``RAFIKI_TPU_SERVING_GENERATE`` on, a worker whose model can generate
   also serves token generation from the bus, its engine sized by the
@@ -132,6 +133,7 @@ from ..observe import profiling
 from ..observe import trace
 from ..observe import wire as _wire
 from ..parallel.chips import ChipGroup
+from ..parallel.transfer import HostStager
 from ..store import MetaStore, ParamStore
 from ..torchenv import DeviceLike, resolve_device
 from ..utils.model_loader import load_model_class
@@ -394,10 +396,8 @@ class _PackedEnsemble:
                     self.stacked.member_finishers(handles), len(queries))
         finishers = []
         for m in self.models:
-            submit = getattr(m, "predict_submit", None)
             try:
-                finishers.append(submit(queries) if submit is not None
-                                 else (lambda m=m: m.predict(queries)))
+                finishers.append(m.predict_submit(queries))
             except Exception:
                 _log.exception("packed member dispatch failed; dropping "
                                "its vote")
@@ -507,41 +507,6 @@ class _PackedEnsemble:
             m.destroy()
 
 
-class _HostStager:
-    """Reusable host staging buffers, two a ``(bucket, shape, dtype)``,
-    made on first use and kept (the buckets are a power-of-two ladder).
-    On the card they are pinned (``torch.empty(..., pin_memory=True)``
-    viewed as numpy), so the copy to a runner's static input is
-    asynchronous; rows past a burst's count keep stale bytes, whose
-    outputs are sliced away. Two are enough: a burst's finisher reads
-    its results back, which orders the copy out of its buffer before
-    the burst after next refills it."""
-
-    def __init__(self, device):
-        self.pinned = torch.device(device).type == "cuda"
-        #: The registration's ``staging``: ``pinned`` or ``pageable``.
-        self.mode = "pinned" if self.pinned else "pageable"
-        self._bufs: Dict[Any, list] = {}
-
-    def _new(self, bucket: int, shape: tuple, dtype) -> np.ndarray:
-        if not self.pinned:
-            return np.empty((bucket, *shape), dtype)
-        t = torch.empty((bucket, *shape),
-                        dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
-                        pin_memory=True)
-        return t.numpy()
-
-    def buffer(self, bucket: int, shape: tuple, dtype) -> np.ndarray:
-        key = (bucket, tuple(shape), np.dtype(dtype).str)
-        entry = self._bufs.get(key)
-        if entry is None:
-            entry = [self._new(bucket, shape, dtype),
-                     self._new(bucket, shape, dtype), 0]
-            self._bufs[key] = entry
-        entry[2] ^= 1
-        return entry[entry[2]]
-
-
 def _generate_config() -> Optional[Dict[str, int]]:
     """The engine geometry a bus worker generates with, from the
     reference's variables, or None when ``RAFIKI_TPU_SERVING_GENERATE``
@@ -609,7 +574,7 @@ class BusInferenceWorker:
         self._quant_active = False
         self._stacked_req = _wire.stacked_mode()
         self._stacked_active = False
-        self._stager = _HostStager(self.device)
+        self._stager = HostStager(self.device)
         self._gen_sched: Optional[DecodeScheduler] = None
         self._gen_thread: Optional[threading.Thread] = None
         self._reg_info: Dict[str, Any] = {}
@@ -722,6 +687,10 @@ class BusInferenceWorker:
         from ..utils.service_logs import bind_service_log
 
         bind_service_log(getattr(self, "log_path", None))
+        # The group's devices for every mesh a model builds on this
+        # thread (ref :565-566); unbound on the way out.
+        if self.chips is not None:
+            self.chips.bind_to_thread()
         try:
             self.model, score = self._load_model()
             # The runners (CUDA graphs on the card) are built before the
@@ -764,6 +733,8 @@ class BusInferenceWorker:
             self._stop_generate()
             self.meta.update_service(self.service_id,
                                      status=ServiceStatus.ERRORED)
+            if self.chips is not None:
+                ChipGroup.unbind_thread()
             raise
         killed = False
         try:
@@ -801,6 +772,8 @@ class BusInferenceWorker:
                 self._unregister_best_effort()
             if self.model is not None:
                 self.model.destroy()
+            if self.chips is not None:
+                ChipGroup.unbind_thread()
 
     def _unregister_best_effort(self) -> None:
         """Drop the registration on the way out; a broker that is gone
@@ -966,13 +939,11 @@ class BusInferenceWorker:
                     spans.append((it, len(flat), 1))
                     flat.append(it["query"])
             n = len(flat)
-            submit = getattr(self.model, "predict_submit", None)
             if not flat:
                 finisher = lambda: []  # noqa: E731 - an all-corrupt burst
-            elif submit is None:
-                finisher = lambda: self.model.predict(flat)  # noqa: E731
             else:
-                finisher = self._submit(lambda: submit(flat), n)
+                finisher = self._submit(
+                    lambda: self.model.predict_submit(flat), n)
         attr["mode"] = getattr(self.model, "last_mode", "single")
         return finisher, spans, n, trace_ctxs, t0, attr
 

@@ -115,6 +115,10 @@ class TrainWorker:
         model_row = self.meta.get_model(sub["model_id"])
         model_class = load_model_class(model_row["model_class"],
                                        model_row.get("model_source"))
+        # The group's devices for every mesh a model builds on this
+        # thread (ref :104-108); unbound on the way out.
+        if self.chips is not None:
+            self.chips.bind_to_thread()
         self.meta.update_service(self.service_id,
                                  status=ServiceStatus.RUNNING)
         advisor = self.advisor
@@ -148,3 +152,5 @@ class TrainWorker:
             runner.close()
             if prefetch is not None:
                 prefetch.close()
+            if self.chips is not None:
+                ChipGroup.unbind_thread()

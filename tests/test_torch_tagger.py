@@ -203,8 +203,18 @@ def test_parameter_files_interchange():
                                         ("pipeline_parallel", 2),
                                         ("moe_experts", 4)])
 def test_the_parallel_knobs_raise(knob, value):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        TorchTransformerTagger(device="cpu", **{knob: value})
+    """The parallel knobs are ported: on a mesh of the model's device
+    alone, or in a combination the reference refuses, each raises the
+    reference's ``ValueError`` where the mesh is built."""
+    other, match = {
+        "sequence_parallel": ({}, "1 devices not divisible by pp"),
+        "expert_parallel": ({}, "needs moe_experts set"),
+        "pipeline_parallel": ({"n_layers": 3}, "must divide n_layers"),
+        "moe_experts": ({"expert_parallel": 3}, "divisible by it"),
+    }[knob]
+    m = TorchTransformerTagger(device="cpu", **{knob: value}, **other)
+    with pytest.raises(ValueError, match=match):
+        m.mesh
 
 
 def test_hashed_dropout_draws_per_step_and_keeps_the_scale():
