@@ -446,18 +446,43 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    dp row's whole Ulysses forward (the re-chunks' copies and K1). It
    prints the mesh's entries and the number of distinct cards (1). The
    phase must take at most 60 s;
-22. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
+22. dp phase, data and tensor parallelism of the other families on a
+   mesh of 4 entries that all name the one card, bound to the thread as
+   a worker binds its group, each against the single device on the same
+   weights and data: (a) the flagship LM at full width (batch 8 over dp
+   4) from the train phase's parameters, two steps through ``train``:
+   the losses within ``TOL_STEP_LOSS``, the parameters within
+   ``TOL_PAR_STEP`` of the update, and K1-K3 launched 2·2·8·4, 2·8·4
+   and 2·8·4 times (every rank's forward, its rerun under "dots" and
+   its backward), all wgmma; (b) ViT at zoo2 (a)'s widths with
+   ``tensor_parallel`` 2 (dp 2 × tp 2): one step, K1-K3 against the
+   count from the mesh, the column-parallel layers over 2 tp ranks, the
+   probabilities of 256 images on the mesh against one device's; (c)
+   DenseNet-121 at dp 4: one step in float32 without TF32, its
+   parameters within ``TOL_DP_F32_STEP`` and the running statistics of
+   its 120 BatchNorms (normalised by the whole batch's moments) within
+   ``TOL_DP_STATS`` of their move, then a 4-step bf16 epoch of
+   ``densenet_small`` whose last step replays the graph captured over
+   the 4 lockstep ranks; (d) the tables and the BiLSTM at dp 4, one
+   epoch each; (e) a
+   ``TrainWorker`` given ``ChipGroup(indices=(0,) * 4)`` trains,
+   persists and serves a ViT trial, its K1-K3 against the count from
+   the mesh, its served answers (an ``InferenceWorker`` on the group)
+   against a single-device load of its parameters. It prints each
+   part's losses, step seconds and launches. The phase must take at
+   most 90 s;
+23. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
    ``library_covers`` names the kernels whose work one library call does,
    ``platform_launches``, ``zoo_launches``, ``ensemble_launches``,
    ``zoo2_launches``, ``lifecycle_launches``, ``tenants_launches``,
    ``processes_launches``, ``cluster_launches``, ``autoscale_launches``,
-   ``operator_launches``, ``search_launches``, ``data_launches`` and
-   ``parallel_launches`` the platform, zoo, ensemble, zoo2, lifecycle,
-   tenants, processes, cluster, autoscale, operator, search, data and
-   parallel phases' launches (the platform's, zoo2's, lifecycle's,
-   tenants', the processes' children's, the cluster, the autoscale, the
-   operator, the search, the data and the parallel phases' counted in
-   ``launches`` too; ``processes_trace_events``
+   ``operator_launches``, ``search_launches``, ``data_launches``,
+   ``parallel_launches`` and ``dp_launches`` the platform, zoo,
+   ensemble, zoo2, lifecycle, tenants, processes, cluster, autoscale,
+   operator, search, data, parallel and dp phases' launches (the
+   platform's, zoo2's, lifecycle's, tenants', the processes' children's,
+   the cluster, the autoscale, the operator, the search, the data, the
+   parallel and the dp phases' counted in ``launches`` too; ``processes_trace_events``
    each kernel's events in the join node's trial trace), K2's and K3's
    ``f32`` their f32 variants' numbers, ``zoo2_shapes`` each kernel's
    numbers at the ViT and tagger shapes, ``data_shape`` at the real
@@ -472,6 +497,7 @@ Any failed check exits non-zero without the last line.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import functools
 import json
@@ -1131,6 +1157,79 @@ TOL_O_ROW = 2 ** -8
 # A block's output on the kernels against the plain attention, bf16: two
 # bf16 ulps at the block's largest value.
 TOL_BLOCK = 2 ** -6
+# The dp phase: data and tensor parallelism of the other families on a
+# mesh of DP_ENTRIES entries, each naming the one card, bound to the
+# thread as a worker binds its group. (a) The flagship LM at full width
+# (the train phase's parameters) takes one step through train on a
+# stream of DP_LM_IDS ids, batch 8 over dp 4; (b) ViT at zoo2 (a)'s
+# widths (batch 256) with tensor_parallel 2, dp 2 x tp 2, one step on
+# DP_VIT_TRAIN images and its probabilities on DP_VIT_VAL; (c)
+# DenseNet-121 (batch 128) over dp 4, one step, then an epoch of
+# DP_DENSE_STEPS steps captured after WARMUP_STEPS eager ones against the
+# same epoch with every step eager; (d) the tables (batch 128) and the
+# BiLSTM (batch 64) over dp 4, one epoch each on zoo2 (f)'s shapes cut
+# to DP_TABLE and DP_CORPUS; (e) a TrainWorker given the 4-entry group
+# trains, persists and serves one ViT trial on DP_TRIAL_TRAIN images,
+# its parameters against the same trial trained on one device and on the
+# group with every step eager. Each against the single device on the
+# same weights and data.
+DP_ENTRIES = 4
+DP_LM_IDS = 1 << 16
+DP_VIT_TRAIN = 256
+DP_VIT_VAL = 256
+DP_DENSE_STEPS = 6
+# (c)'s epoch (3 eager steps, the capture and its first replay, 2 more
+# replays) on the smaller preset: DenseNet-121's eager steps over 4
+# lockstep threads took 2.8-5.1 s each on the card, host-bound (the
+# ranks' Python dispatch meets at each of 120 BatchNorms).
+DP_DENSE_CAPTURE = "densenet_small"
+DP_TABLE = {"n_train": 1024, "n_val": 512, "n_features": 14}
+DP_CORPUS = {"n_train": 1024, "n_val": 256, "vocab": 2000, "n_tags": 12,
+             "max_len": 64}
+DP_TRIAL_TRAIN = 2048
+DP_TRIAL_VAL = 512
+DP_MAX_S = 90.0
+# (a)'s planted fault: the 4th rank takes the 3rd rank's windows again
+# (windows 4-5 twice, 6-7 never), a fault that a sum over the ranks
+# cannot see; the step's parameters must then be more than TOL_PAR_STEP
+# of the update off, or the tolerance does not separate.
+DP_FAULT_BLOCKS = ((0, 2), (2, 4), (4, 6), (4, 6))
+# (b), (c), (d) one step or epoch from the same parameters: the losses
+# within TOL_STEP_LOSS, the parameters within TOL_PAR_STEP of the
+# single device's update (Adam's and SGD's first steps near lr·sign(g):
+# an element whose gradient rounds to the other sign moves by 2·lr); a
+# rank's products have a quarter of the rows, which cuBLAS and cuDNN
+# may sum in another order.
+# (c) DenseNet-121's one step runs in float32 with TF32 off: in bf16 its
+# gradient at the start is chaotic (one f32 ulp more on every input
+# pixel moved the whole model's gradient by 58% on the H100, the BN
+# scales' and biases' by up to 70%), which would hide any fault. There
+# the parameters must be within TOL_DP_F32_STEP of the single device's
+# update (measured 1.2e-2 for the worst tensor's gradient, 1.5e-6 at
+# densenet_tiny) and the running statistics of the 120 BatchNorms within
+# TOL_DP_STATS of their move (relative norms); a rank normalising by its
+# own 32 rows would move them by the ranks' spread.
+TOL_DP_F32_STEP = 5e-2
+TOL_DP_STATS = 1e-3
+# (b), (e) probabilities of the same parameters, on the mesh and on one
+# device: the bf16 logits may land a ulp apart (TOL_PAR_PROB). (c), (e)
+# the steps captured over the mesh against eager steps or one device's:
+# each step's loss within TOL_STEP_LOSS, the parameters (and (c)'s
+# running statistics) within TOL_PAR_STEP of their move.
+DP_VIT_SOURCE = """
+from rafiki_torch.model import FixedKnob
+from rafiki_torch.models import TorchViT
+
+
+class DpViT(TorchViT):
+    # zoo2 (a)'s widths and batch, one epoch.
+    @staticmethod
+    def get_knob_config():
+        cfg = dict(TorchViT.get_knob_config())
+        cfg.update(depth=FixedKnob(6), batch_size=FixedKnob(256),
+                   max_epochs=FixedKnob(1))
+        return cfg
+"""
 
 
 class SmokeFailure(Exception):
@@ -9355,6 +9454,637 @@ def parallel_phase(torch, np, attn, card):
     return out
 
 
+def f64_on_card(torch, a):
+    """An array or tensor as a float64 tensor on the card."""
+    import numpy as np
+
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return a.to("cuda", torch.float64)
+
+
+def dp_rel(torch, p0, p1, p2, keys):
+    """How far ``p2`` is from ``p1`` over ``p1``'s move from ``p0``:
+    ||p2 − p1|| / ||p1 − p0|| over the leaves ``keys`` of three flat
+    dicts of arrays or tensors (norms on the card, in f64)."""
+    num = den = 0.0
+    for k in keys:
+        a0, a1, a2 = (f64_on_card(torch, d[k]) for d in (p0, p1, p2))
+        num += float((a2 - a1).square().sum())
+        den += float((a1 - a0).square().sum())
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def dp_flips(torch, p0, p1, p2, keys):
+    """Where ``p2``'s move from ``p0`` and ``p1``'s point opposite ways:
+    (the share of the elements of ``keys`` whose moves have opposite
+    signs, the share of ||p2 − p1||² that those elements carry)."""
+    flips = n = 0
+    on_flips = total = 0.0
+    for k in keys:
+        a0, a1, a2 = (f64_on_card(torch, d[k]) for d in (p0, p1, p2))
+        opposite = (a1 - a0) * (a2 - a0) < 0
+        gap = (a2 - a1).square()
+        flips += int(opposite.sum())
+        n += a0.numel()
+        on_flips += float(gap[opposite].sum())
+        total += float(gap.sum())
+    return flips / max(n, 1), on_flips / max(total, 1e-30)
+
+
+def dp_records(fn, *args, **kw):
+    """``fn(*args, **kw)`` with the model logger's value records kept;
+    returns (result, the records' values)."""
+    from rafiki_torch.model.logger import logger
+
+    recs = []
+    prior = logger.current_sink()
+    logger.set_sink(recs.append)
+    try:
+        out = fn(*args, **kw)
+    finally:
+        logger.set_sink(prior)
+    return out, [r["values"] for r in recs if r["type"] == "values"]
+
+
+def dp_probs(np, name, a, b):
+    """(max |a − b|, clear tags that differ) of two (n, classes)
+    probability arrays; a tag is clear where ``b``'s two best are more
+    than PAR_NEAR_TIE apart."""
+    top2 = np.sort(b, axis=-1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > PAR_NEAR_TIE
+    flips = int(((a.argmax(-1) != b.argmax(-1)) & clear).sum())
+    err = float(np.abs(a - b).max())
+    check(err <= TOL_PAR_PROB and flips == 0,
+          f"{name}: probabilities on the mesh max |diff| {err:.3e} from one "
+          f"device (tolerance {TOL_PAR_PROB}), {flips} clear tags differ")
+    return err, flips
+
+
+def dp_phase(torch, np, attn, card, lm_params):
+    """Data and tensor parallelism of the other families on a mesh of
+    DP_ENTRIES entries, each the one card, bound to the thread as a
+    worker binds its group; each against the single device on the same
+    weights and data: (a) the flagship LM's step through ``train`` (K1-K3
+    on every rank) and a planted fault that the tolerance must catch,
+    (b) ViT over dp 2 × tp 2 (its step, probabilities, column-parallel
+    layers, K1-K3 on every rank), (c) DenseNet-121's step and running
+    statistics (BatchNorm over the whole batch) and an epoch captured
+    over the mesh against the same epoch's eager steps, (d) the tables
+    and the BiLSTM, (e) a ``TrainWorker`` given the group trains,
+    persists and serves a ViT trial, held against the same trial's
+    eager steps on the group and its steps on one device. Returns the
+    phase's numbers and the K1-K3 launches of its main paths."""
+    import os
+
+    from rafiki_torch.advisor import make_advisor
+    from rafiki_torch.bus import connect
+    from rafiki_torch.constants import (ServiceStatus, ServiceType,
+                                        TaskType, TrialStatus, UserType)
+    from rafiki_torch.datasets import (make_synthetic_corpus_dataset,
+                                       make_synthetic_image_dataset,
+                                       make_synthetic_tabular_dataset,
+                                       make_synthetic_token_dataset)
+    from rafiki_torch.model import torch_model
+    from rafiki_torch.model.bridge import dense_to_jax, lm_from_jax
+    from rafiki_torch.model.dataset import load_image_dataset
+    from rafiki_torch.models import (TorchDenseNet, TorchPosTagger,
+                                     TorchTabMlpClf, TorchTransformerLM,
+                                     TorchViT, layers)
+    from rafiki_torch.models import lm as lm_module
+    from rafiki_torch.parallel.chips import ChipGroup
+    from rafiki_torch.store import MetaStore, ParamStore
+    from rafiki_torch.utils.model_loader import load_model_class
+    from rafiki_torch.worker.inference import InferenceWorker
+    from rafiki_torch.worker.train import TrainWorker
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dp_")
+    group = ChipGroup(indices=(0,) * DP_ENTRIES)
+    out = {}
+    totals = [0] * 6
+
+    def on_group(fn, *args, **kw):
+        group.bind_to_thread()
+        try:
+            return fn(*args, **kw)
+        finally:
+            ChipGroup.unbind_thread()
+
+    def synced(fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def counted(fn, *args, **kw):
+        """A main path: ``fn``'s result, its seconds and its K1-K3
+        launches (counted from 0), added to the phase's."""
+        nonlocal totals
+        reset_launch_counts(attn)
+        res, secs = synced(fn, *args, **kw)
+        got = launch_counts(attn)
+        totals = [a + c for a, c in zip(totals, got)]
+        return res, secs, got
+
+    def checked(fn, *args, **kw):
+        """A run to compare with: ``fn``'s result and its seconds; its
+        launches are not the main path's."""
+        with uncounted(attn):
+            return synced(fn, *args, **kw)
+
+    def mesh_of(m, dp, tp=1):
+        mesh = m.mesh
+        check(mesh.size == DP_ENTRIES and mesh.distinct() == 1
+              and (mesh.shape["dp"], mesh.shape["tp"]) == (dp, tp),
+              f"mesh {mesh}: expected dp {dp} x tp {tp} on one card")
+        return mesh
+
+    def free(*models):
+        for m in models:
+            m.destroy()
+        torch.cuda.empty_cache()
+
+    @contextlib.contextmanager
+    def step_log():
+        """While open, each ``_TrainSteps`` step's (kind: eager, capture
+        or replay; seconds; loss, read off the step's device sums)."""
+        log = []
+        real = torch_model._TrainSteps.step
+
+        def step(self):
+            kind = ("replay" if self.graph is not None else "eager"
+                    if self.n_eager < torch_model.WARMUP_STEPS else
+                    "capture")
+            torch.cuda.synchronize()
+            before = float(self.sums[0])
+            t = time.perf_counter()
+            real(self)
+            torch.cuda.synchronize()
+            log.append((kind, time.perf_counter() - t,
+                        float(self.sums[0]) - before))
+
+        torch_model._TrainSteps.step = step
+        try:
+            yield log
+        finally:
+            torch_model._TrainSteps.step = real
+
+    @contextlib.contextmanager
+    def warmup_steps(n):
+        """``n`` eager steps before the capture (10**9: every step)."""
+        saved = torch_model.WARMUP_STEPS
+        torch_model.WARMUP_STEPS = n
+        try:
+            yield
+        finally:
+            torch_model.WARMUP_STEPS = saved
+
+    def graph_check(name, steps, eager):
+        """The largest gap of two step logs' per-step losses; fails
+        unless ``steps`` are WARMUP_STEPS eager ones, the capture and
+        replays, and ``eager`` as many eager steps."""
+        w = torch_model.WARMUP_STEPS
+        kinds = [k for k, _, _ in steps]
+        check(kinds == ["eager"] * w + ["capture"]
+              + ["replay"] * (len(kinds) - w - 1) and len(kinds) > w + 1
+              and [k for k, _, _ in eager] == ["eager"] * len(kinds),
+              f"{name}: steps {kinds} against {[k for k, _, _ in eager]}")
+        return max(abs(a[2] - b[2]) for a, b in zip(steps, eager))
+
+    try:
+        # (a) The flagship LM: one step through train, batch 8 over dp 4.
+        t0 = time.perf_counter()
+        # Two steps (the warm-up cosine needs a step past its one
+        # warm-up step), one record each.
+        knobs = dict(TorchTransformerLM.validate_knobs(FLAGSHIP),
+                     train_steps=2, steps_per_dispatch=1)
+        n_l = knobs["n_layers"]
+        lm_path, _ = make_synthetic_token_dataset(
+            os.path.join(tmp.name, "lm"), n_train=DP_LM_IDS, n_val=1 << 12,
+            vocab_size=knobs["vocab_size"], seed=SEED)
+
+        def lm_step():
+            m = TorchTransformerLM(device="cuda", **knobs)
+            m.load_parameters(lm_params)
+            _, recs = dp_records(m.train, lm_path)
+            return m, recs
+
+        def weights(m):
+            return {k: v.detach().clone()
+                    for k, v in m._net.state_dict().items()}
+
+        (m1, rec1), s1 = checked(lm_step)
+        p1 = weights(m1)
+        free(m1)
+        (m4, rec4), s4, got = on_group(counted, lm_step)
+        dp = mesh_of(m4, DP_ENTRIES).shape["dp"]
+        p4 = weights(m4)
+        free(m4)
+        # The planted fault: a rank's windows repeated.
+        real_blocks = lm_module.row_blocks
+        lm_module.row_blocks = lambda n, parts: list(DP_FAULT_BLOCKS)
+        try:
+            (mf, _), _ = on_group(checked, lm_step)
+        finally:
+            lm_module.row_blocks = real_blocks
+        pf = weights(mf)
+        free(mf)
+        loss1 = [r["loss"] for r in rec1]
+        loss4 = [r["loss"] for r in rec4]
+        p0 = lm_from_jax(lm_params)
+        rel = dp_rel(torch, p0, p1, p4, list(p1))
+        rel_fault = dp_rel(torch, p0, p1, pf, list(p1))
+        flip_share, flip_gap = dp_flips(torch, p0, p1, p4, list(p1))
+        pred = [2 * 2 * n_l * dp, 2 * n_l * dp, 2 * n_l * dp]
+        check(len(loss4) == len(loss1) == 2 and all(
+            abs(a - b) <= TOL_STEP_LOSS for a, b in zip(loss4, loss1))
+            and rel <= TOL_PAR_STEP,
+            f"(a) the LM's steps over dp {dp}: losses {loss4} against "
+            f"{loss1}, parameters {rel:.3e} of the update off")
+        check(rel_fault > TOL_PAR_STEP,
+              f"(a) with a rank's windows repeated the parameters are "
+              f"{rel_fault:.3e} of the update off, within {TOL_PAR_STEP}")
+        check(list(got[:3]) == pred and got[3:] == got[:3],
+              f"(a) K1-K3 launched {got}, predicted {pred} all on wgmma")
+        del p0, p1, p4, pf
+        torch.cuda.empty_cache()
+        print(f"dp: (a) the flagship LM (d_model 2048, 16 heads of 128, "
+              f"{n_l} layers, seq_len 2048, batch 8 over dp {dp}: 2 "
+              f"windows a rank) from the train phase's parameters, two "
+              f"steps through train: losses {loss4} against the single "
+              f"device's {loss1}; parameters {rel:.3e} of the update off "
+              f"(tolerance {TOL_PAR_STEP}), of which {flip_gap:.1%} of "
+              f"the squared gap on the {flip_share:.4%} of the elements "
+              f"that moved the other way; with the 4th rank taking the "
+              f"3rd rank's windows again (a planted fault) {rel_fault:.3e}; "
+              f"K1-K3 {list(got[:3])} = 2 "
+              f"steps x (2 x {n_l} layers, {n_l}, {n_l}) x {dp} ranks, all "
+              f"wgmma (remat 'dots' reruns K1); the train call "
+              f"{s4:.3f} s on the mesh, {s1:.3f} s on one device (the "
+              f"optimizer's state made in the first step); (a) took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out["lm"] = {"loss": loss4, "loss_single": loss1, "step_rel": rel,
+                     "fault_rel": rel_fault, "flip_share": flip_share,
+                     "flip_gap_share": flip_gap,
+                     "step_s": s4, "step_s_single": s1,
+                     "launches": list(got[:3])}
+
+        # (b) ViT at zoo2 (a)'s widths over dp 2 x tp 2.
+        t0 = time.perf_counter()
+        vit_train, vit_val = make_synthetic_image_dataset(
+            os.path.join(tmp.name, "vit"), n_train=DP_VIT_TRAIN,
+            n_val=DP_VIT_VAL, image_shape=(32, 32, 3), n_classes=10,
+            seed=SEED)
+        vk = dict(ZOO2_VIT)
+        depth = vk["depth"]
+        net0 = TorchViT(device="cuda", **vk).create_module(10, (32, 32, 3))
+        start = dense_to_jax(net0.state_dict())
+        meta = {"_meta/n_classes": np.asarray(10),
+                "_meta/image_shape": np.asarray([32, 32, 3])}
+        images = load_image_dataset(vit_val).images
+        columns = []
+        real_column = layers.column
+
+        def column(layer, x, fn, dim=-1):
+            if getattr(layer, "tp_shards", None) is not None:
+                columns.append(len(layer.tp_shards))
+            return real_column(layer, x, fn, dim)
+
+        def vit(**extra):
+            m = TorchViT(device="cuda", **vk, **extra)
+            _, epochs = logged(m.train, vit_train, shared_params=start)
+            return m, epochs
+
+        (v1, e1), vs1 = checked(vit)
+        ms = TorchViT(device="cuda", **vk)
+        ms.load_parameters({**start, **meta})
+        probs1, _ = checked(ms.predict_proba, images)
+        layers.column = column
+        try:
+            (v4, e4), vs4, got = on_group(counted, vit, tensor_parallel=2)
+
+            def mesh_probs():
+                mm = TorchViT(device="cuda", tensor_parallel=2, **vk)
+                mm.load_parameters({**start, **meta})
+                return mm, checked(mm.predict_proba, images)[0]
+
+            mm, probs4 = on_group(mesh_probs)
+        finally:
+            layers.column = real_column
+        dp = mesh_of(v4, 2, 2).shape["dp"]
+        mesh_of(mm, 2, 2)
+        rel = dp_rel(torch, start, v1.dump_parameters(), v4.dump_parameters(),
+                     list(start))
+        pred = [depth * (1 + dp), depth * dp, depth * dp]
+        check(abs(e4[0]["loss"] - e1[0]["loss"]) <= TOL_STEP_LOSS
+              and rel <= TOL_PAR_STEP,
+              f"(b) ViT's step over dp 2 x tp 2: loss {e4[0]['loss']!r} "
+              f"against {e1[0]['loss']!r}, parameters {rel:.3e} of the "
+              f"update off")
+        check(list(got[:3]) == pred and got[3:] == got[:3],
+              f"(b) K1-K3 launched {got}, predicted {pred} all on wgmma")
+        check(columns and set(columns) == {2},
+              f"(b) column-parallel calls {len(columns)} over "
+              f"{set(columns)} tp ranks")
+        p_err, _ = dp_probs(np, "(b) ViT", probs4, probs1)
+        free(v1, v4, ms, mm)
+        print(f"dp: (b) ViT (d_model 128, 4 heads of 32, patch 4, 6 "
+              f"blocks, batch 256 over dp 2 x tp 2) from the same "
+              f"parameters: one step's loss {e4[0]['loss']!r} against "
+              f"{e1[0]['loss']!r}, parameters {rel:.3e} of the update off; "
+              f"{len(columns)} column-parallel layer calls over 2 tp ranks "
+              f"(each block's QKV and first FFN kernels); K1-K3 "
+              f"{list(got[:3])} (K1 {depth} in the MFU probe's one-image "
+              f"forward, then {depth} blocks x {dp} dp ranks each), all "
+              f"wgmma; probabilities of {len(images)} images max |diff| "
+              f"{p_err:.3e} from one device; the step's train call "
+              f"{vs4:.3f} s on the mesh, {vs1:.3f} s on one device; (b) "
+              f"took {time.perf_counter() - t0:.1f} s", flush=True)
+        out["vit"] = {"loss": e4[0]["loss"], "loss_single": e1[0]["loss"],
+                      "step_rel": rel, "prob_err": p_err,
+                      "columns": len(columns), "launches": list(got[:3]),
+                      "step_s": vs4, "step_s_single": vs1}
+
+        # (c) DenseNet-121 over dp 4: one step, then a 4-step epoch.
+        t0 = time.perf_counter()
+        dk = dict(DENSENET_KNOBS)
+        bsz = dk["batch_size"]
+        dn1, _ = make_synthetic_image_dataset(
+            os.path.join(tmp.name, "dn1"), n_train=bsz, n_val=16,
+            image_shape=(32, 32, 3), n_classes=10, seed=SEED)
+        dn4, _ = make_synthetic_image_dataset(
+            os.path.join(tmp.name, "dn4"), n_train=bsz * DP_DENSE_STEPS,
+            n_val=16, image_shape=(32, 32, 3), n_classes=10, seed=SEED + 1)
+        start = dense_to_jax(TorchDenseNet(device="cuda", **dk).create_module(
+            10, (32, 32, 3)).state_dict())
+
+        def dense(path, **kw):
+            m = TorchDenseNet(device="cuda", **dk)
+            _, epochs = logged(m.train, path, shared_params=start, **kw)
+            return m, epochs
+
+        sk = dict(dk, arch=DP_DENSE_CAPTURE)
+        small_start = dense_to_jax(TorchDenseNet(
+            device="cuda", **sk).create_module(10, (32, 32, 3)).state_dict())
+
+        def small(path, warmup):
+            m = TorchDenseNet(device="cuda", **sk)
+            with warmup_steps(warmup):
+                _, epochs = logged(m.train, path, shared_params=small_start)
+            return m, epochs
+
+        # One step: its warm-up cosine spans two epochs' steps (one step
+        # cannot hold both its warm-up and its decay).
+        one = {"schedule_total_epochs": 2}
+
+        saved = (layers.COMPUTE, torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        layers.COMPUTE = torch.float32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            (d1, de1), ds1 = checked(dense, dn1, **one)
+            (d4, de4), ds4, _ = on_group(counted, dense, dn1, **one)
+        finally:
+            (layers.COMPUTE, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = saved
+        mesh_of(d4, DP_ENTRIES)
+        q1, q4 = d1.dump_parameters(), d4.dump_parameters()
+        stats = [k for k in start if k.startswith("batch_stats/")]
+        weights = [k for k in start if k.startswith("params/")]
+        rel_stats = dp_rel(torch, start, q1, q4, stats)
+        rel = dp_rel(torch, start, q1, q4, weights)
+        free(d1, d4)
+        check(abs(de4[0]["loss"] - de1[0]["loss"]) <= TOL_STEP_LOSS
+              and rel <= TOL_DP_F32_STEP and rel_stats <= TOL_DP_STATS,
+              f"(c) DenseNet-121's step over dp 4: loss {de4[0]['loss']!r} "
+              f"against {de1[0]['loss']!r}, parameters {rel:.3e} and "
+              f"running statistics {rel_stats:.3e} of their move off")
+        # The epoch captured over the mesh against every step eager.
+        with step_log() as eager_steps:
+            (de, _), ees = on_group(checked, small, dn4, 10 ** 9)
+        with step_log() as stepped:
+            (d4, de4b), es4, _ = on_group(counted, small, dn4,
+                                          torch_model.WARMUP_STEPS)
+        pe, pc = de.dump_parameters(), d4.dump_parameters()
+        free(de, d4)
+        graph_loss = graph_check(f"(c) the {DP_DENSE_STEPS}-step epoch",
+                                 stepped, eager_steps)
+        graph_rel = dp_rel(torch, small_start, pe, pc, [
+            k for k in small_start if k.startswith("params/")])
+        graph_stats = dp_rel(torch, small_start, pe, pc, [
+            k for k in small_start if k.startswith("batch_stats/")])
+        check(graph_loss <= TOL_STEP_LOSS and graph_rel <= TOL_PAR_STEP
+              and graph_stats <= TOL_PAR_STEP,
+              f"(c) the captured epoch over dp 4 against its eager steps: "
+              f"losses {graph_loss:.3e} apart, parameters {graph_rel:.3e} "
+              f"and running statistics {graph_stats:.3e} of their move off")
+        print(f"dp: (c) DenseNet-121 (growth 32, batch 128 over dp 4: 32 "
+              f"images a rank) from the same parameters, one step in "
+              f"float32 without TF32: loss {de4[0]['loss']!r} against "
+              f"{de1[0]['loss']!r}; parameters {rel:.3e} of the update "
+              f"off (tolerance {TOL_DP_F32_STEP}); "
+              f"the 120 BatchNorms' running statistics {rel_stats:.3e} of "
+              f"their move off (tolerance {TOL_DP_STATS}; each rank "
+              f"normalises by the whole batch's moments); the step's train "
+              f"call {ds4:.3f} s on the mesh (4 ranks in lockstep threads), "
+              f"{ds1:.3f} s on one device; a {DP_DENSE_STEPS}-step bf16 "
+              f"epoch of {DP_DENSE_CAPTURE} (blocks 4/4/4, growth 32) over "
+              f"dp 4 in {es4:.3f} s, its steps "
+              + ", ".join(f"{k} {t:.3f} s" for k, t, _ in stepped) +
+              f" (the capture's first replay included; the graph covers "
+              f"the 4 lockstep ranks), loss {de4b[0]['loss']:.4f}, against "
+              f"the same epoch with every step eager ({ees:.3f} s): "
+              f"per-step losses at most {graph_loss:.3e} apart, parameters "
+              f"{graph_rel:.3e} and running statistics {graph_stats:.3e} of "
+              f"their move off (tolerances {TOL_STEP_LOSS}, "
+              f"{TOL_PAR_STEP}); (c) took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out["densenet"] = {"loss": de4[0]["loss"],
+                           "loss_single": de1[0]["loss"], "step_rel": rel,
+                           "stats_rel": rel_stats, "step_s": ds4,
+                           "step_s_single": ds1, "epoch_s": es4,
+                           "epoch_s_eager": ees, "steps": stepped,
+                           "graph_loss_gap": graph_loss,
+                           "graph_rel": graph_rel,
+                           "graph_stats_rel": graph_stats}
+
+        # (d) The tables and the BiLSTM over dp 4, one epoch each.
+        t0 = time.perf_counter()
+        tab, _ = make_synthetic_tabular_dataset(
+            os.path.join(tmp.name, "tab"), n_classes=2, seed=SEED,
+            **DP_TABLE)
+        cor, _ = make_synthetic_corpus_dataset(
+            os.path.join(tmp.name, "pos"), seed=SEED, **DP_CORPUS)
+        rows = {}
+        for name, cls, path, kn in (
+                ("tables", TorchTabMlpClf, tab, ZOO2_TAB_KNOBS),
+                ("BiLSTM", TorchPosTagger, cor, ZOO2_POS_KNOBS)):
+            def fam(epochs, kn=kn, cls=cls, path=path):
+                m = cls(device="cuda", **dict(kn, max_epochs=epochs))
+                _, recs = logged(m.train, path)
+                return m, recs
+
+            (f0, _), _ = checked(fam, 0)
+            (f1, r1), fs1 = checked(fam, 1)
+            (f4, r4), fs4, got = on_group(counted, fam, 1)
+            mesh_of(f4, DP_ENTRIES)
+            a0, a1, a4 = (f.dump_parameters() for f in (f0, f1, f4))
+            keys = [k for k in a0 if not k.startswith("_meta/")]
+            rel = dp_rel(torch, a0, a1, a4, keys)
+            check(abs(r4[0]["loss"] - r1[0]["loss"]) <= TOL_STEP_LOSS
+                  and rel <= TOL_PAR_STEP and got[:3] == (0, 0, 0),
+                  f"(d) {name} over dp 4: loss {r4[0]['loss']!r} against "
+                  f"{r1[0]['loss']!r}, parameters {rel:.3e} of the update "
+                  f"off, K1-K3 {got[:3]}")
+            rows[name] = {"loss": r4[0]["loss"], "loss_single": r1[0]["loss"],
+                          "epoch_rel": rel, "epoch_s": fs4,
+                          "epoch_s_single": fs1}
+            free(f0, f1, f4)
+        print("dp: (d) " + "; ".join(
+            f"{n} ({'batch 128' if n == 'tables' else 'batch 64'} over dp "
+            f"4) one epoch from the same seeded parameters: loss "
+            f"{r['loss']!r} against {r['loss_single']!r}, parameters "
+            f"{r['epoch_rel']:.3e} of the update off, {r['epoch_s']:.3f} s "
+            f"on the mesh and {r['epoch_s_single']:.3f} s on one device"
+            for n, r in rows.items()) + f"; (d) took "
+            f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out.update(rows)
+
+        # (e) A TrainWorker given the 4-entry group: a ViT trial trained,
+        # persisted and served.
+        t0 = time.perf_counter()
+        tr, va = make_synthetic_image_dataset(
+            os.path.join(tmp.name, "trial"), n_train=DP_TRIAL_TRAIN,
+            n_val=DP_TRIAL_VAL, image_shape=(32, 32, 3), n_classes=10,
+            seed=SEED + 2)
+        ms_ = MetaStore(os.path.join(tmp.name, "e.db"))
+        ps_ = ParamStore(os.path.join(tmp.name, "e-params"))
+        u = ms_.create_user("dp@example.com", "-", UserType.MODEL_DEVELOPER)
+        row = ms_.create_model(u["id"], "vit", TaskType.IMAGE_CLASSIFICATION,
+                               "DpViT", {}, model_source=DP_VIT_SOURCE)
+        job = ms_.create_train_job(u["id"], "dp",
+                                   TaskType.IMAGE_CLASSIFICATION,
+                                   {"MODEL_TRIAL_COUNT": 1}, tr, va,
+                                   status="RUNNING")
+        sub = ms_.create_sub_train_job(job["id"], row["id"],
+                                       status="RUNNING")
+        svc = ms_.create_service(ServiceType.TRAIN, ServiceStatus.STARTED)
+        cls = load_model_class("DpViT", DP_VIT_SOURCE)
+        adv = make_advisor(cls.get_knob_config(), seed=SEED,
+                           advisor_type="random")
+        worker = TrainWorker(svc["id"], sub["id"], ms_, ps_, connect(""),
+                             chips=group, advisor=adv)
+
+        def trial():
+            worker.start()
+            worker.join(SEARCH_WAIT_S)
+
+        with step_log() as trial_steps:
+            _, ts, got = counted(trial)
+        done = ms_.get_trials(sub["id"], status=TrialStatus.COMPLETED)
+        check(not worker.running and len(done) == 1,
+              f"(e) the worker's trials {len(done)}")
+        steps = DP_TRIAL_TRAIN // 256
+        evals = -(-DP_TRIAL_VAL // torch_model.EVAL_BATCH)
+        per = depth * DP_ENTRIES
+        pred = [depth + (torch_model.WARMUP_STEPS + 1 + evals) * per,
+                (torch_model.WARMUP_STEPS + 1) * per,
+                (torch_model.WARMUP_STEPS + 1) * per]
+        check(steps > torch_model.WARMUP_STEPS and list(got[:3]) == pred
+              and got[3:] == got[:3],
+              f"(e) K1-K3 launched {got}, predicted {pred} all on wgmma")
+        params = ps_.load(done[0]["params_id"])
+        # The same trial again: on one device, and on the group with
+        # every step eager.
+        tk = cls.validate_knobs(done[0]["knobs"])
+        trial_start = dense_to_jax(cls(device="cuda", **tk).create_module(
+            10, (32, 32, 3)).state_dict())
+
+        def again(warmup):
+            m = cls(device="cuda", **tk)
+            with warmup_steps(warmup):
+                m.train(tr)
+            p = m.dump_parameters()
+            free(m)
+            return p
+
+        with step_log() as one_steps:
+            one_p, _ = checked(again, torch_model.WARMUP_STEPS)
+        with step_log() as eager_steps:
+            eager_p, _ = on_group(checked, again, 10 ** 9)
+        keys = list(trial_start)
+        graph_loss = graph_check("(e) the trial", trial_steps, eager_steps)
+        one_loss = max(abs(a[2] - b[2]) for a, b in zip(trial_steps,
+                                                        one_steps))
+        graph_rel = dp_rel(torch, trial_start, eager_p, params, keys)
+        one_rel = dp_rel(torch, trial_start, one_p, params, keys)
+        check(len(one_steps) == len(trial_steps)
+              and max(graph_loss, one_loss) <= TOL_STEP_LOSS
+              and max(graph_rel, one_rel) <= TOL_PAR_STEP,
+              f"(e) the trial's {len(trial_steps)} steps over the group: "
+              f"losses {graph_loss:.3e} from its eager steps and "
+              f"{one_loss:.3e} from one device's, parameters "
+              f"{graph_rel:.3e} and {one_rel:.3e} of their move off")
+
+        def serving():
+            w = InferenceWorker(cls, done[0]["knobs"], params,
+                                device="cuda")
+            # Built from the group bound here, as a serving worker binds
+            # its group on its thread.
+            check(w.model.mesh.size == DP_ENTRIES,
+                  f"(e) the serving model's mesh {w.model.mesh}")
+            return w
+
+        served_w = on_group(serving)
+        queries = list(load_image_dataset(va).images[:64])
+        served_w.start()
+        try:
+            served = np.asarray(checked(served_w.predict, queries)[0])
+        finally:
+            served_w.stop()
+        single = cls(device="cuda", **cls.validate_knobs(done[0]["knobs"]))
+        single.load_parameters(params)
+        own = np.asarray(checked(single.predict, queries)[0])
+        e_err, _ = dp_probs(np, "(e) the served trial", served, own)
+        ps_.close()
+        ms_.close()
+        print(f"dp: (e) a TrainWorker given ChipGroup(indices=(0,) * "
+              f"{DP_ENTRIES}) trained one ViT trial (knobs "
+              f"{ {k: done[0]['knobs'][k] for k in ('learning_rate', 'batch_size')} }, "
+              f"score {done[0]['score']:.4f}) over dp {DP_ENTRIES} in "
+              f"{ts:.2f} s and persisted it; K1-K3 {list(got[:3])} "
+              f"(predicted: the MFU probe's {depth}, then {steps} steps of "
+              f"which {torch_model.WARMUP_STEPS} eager and the capture "
+              f"count {per} each, the replays none, and the evaluation's "
+              f"{evals} batch {per} K1), all wgmma; against the same trial "
+              f"with every step eager on the group and on one device: "
+              f"per-step losses at most {graph_loss:.3e} and {one_loss:.3e} "
+              f"apart, parameters {graph_rel:.3e} and {one_rel:.3e} of "
+              f"their move off (tolerances {TOL_STEP_LOSS}, "
+              f"{TOL_PAR_STEP}); served by an "
+              f"InferenceWorker on the group (dp {DP_ENTRIES} buckets): "
+              f"{len(queries)} answers max |diff| {e_err:.3e} from a "
+              f"single-device load of its parameters; (e) took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out["trial"] = {"seconds": ts, "prob_err": e_err,
+                        "launches": list(got[:3]),
+                        "graph_loss_gap": graph_loss,
+                        "single_loss_gap": one_loss,
+                        "graph_rel": graph_rel, "single_rel": one_rel}
+    finally:
+        tmp.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    check(phase_s <= DP_MAX_S, f"the dp phase took {phase_s:.1f} s")
+    print(f"dp: K1, K2 and K3 launched {totals[:3]} times on the phase's "
+          f"main paths, all on wgmma; mesh of {DP_ENTRIES} entries on 1 "
+          f"distinct card; phase took {phase_s:.1f} s on {card}", flush=True)
+    out.update(launches=totals[:3], phase_s=phase_s)
+    return out
+
+
 def zoo2_rows(zoo2, kernel):
     """One kernel's numbers at the zoo2 phase's ViT and tagger shapes."""
     return {what: dict(zoo2[part]["kernels"][kernel],
@@ -9447,6 +10177,7 @@ def main() -> int:
         data = timed("data", data_phase, torch, np, attn, card, zoo2,
                      params)
         par = timed("parallel", parallel_phase, torch, np, attn, card)
+        dp = timed("dp", dp_phase, torch, np, attn, card, params)
     except Exception:
         traceback.print_exc()
         return 1
@@ -9460,7 +10191,7 @@ def main() -> int:
                        + procs["launches"][0] + clus["launches"][0]
                        + scale["launches"][0] + oper["launches"][0]
                        + search["launches"][0] + data["launches"][0]
-                       + par["launches"][0]),
+                       + par["launches"][0] + dp["launches"][0]),
              generate_launches=gen_launches,
              platform_launches=plat_launches[0],
              zoo_launches=zoo["launches"][0],
@@ -9476,6 +10207,7 @@ def main() -> int:
              search_launches=search["launches"][0],
              data_launches=data["launches"][0],
              parallel_launches=par["launches"][0],
+             dp_launches=dp["launches"][0],
              parallel_shape=data_row(par, "K1"),
              zoo2_shapes=zoo2_rows(zoo2, "K1"),
              data_shape=data_row(data, "K1"),
@@ -9489,7 +10221,8 @@ def main() -> int:
                        + ten["launches"][1] + procs["launches"][1]
                        + clus["launches"][1] + scale["launches"][1]
                        + oper["launches"][1] + search["launches"][1]
-                       + data["launches"][1] + par["launches"][1]),
+                       + data["launches"][1] + par["launches"][1]
+                       + dp["launches"][1]),
              platform_launches=plat_launches[1],
              zoo_launches=zoo["launches"][1],
              ensemble_launches=ens["launches"][1],
@@ -9504,6 +10237,7 @@ def main() -> int:
              search_launches=search["launches"][1],
              data_launches=data["launches"][1],
              parallel_launches=par["launches"][1],
+             dp_launches=dp["launches"][1],
              parallel_shape=data_row(par, "K2"),
              zoo2_shapes=zoo2_rows(zoo2, "K2"),
              data_shape=data_row(data, "K2"), **k2),
@@ -9515,7 +10249,8 @@ def main() -> int:
                        + ten["launches"][2] + procs["launches"][2]
                        + clus["launches"][2] + scale["launches"][2]
                        + oper["launches"][2] + search["launches"][2]
-                       + data["launches"][2] + par["launches"][2]),
+                       + data["launches"][2] + par["launches"][2]
+                       + dp["launches"][2]),
              platform_launches=plat_launches[2],
              zoo_launches=zoo["launches"][2],
              ensemble_launches=ens["launches"][2],
@@ -9530,6 +10265,7 @@ def main() -> int:
              search_launches=search["launches"][2],
              data_launches=data["launches"][2],
              parallel_launches=par["launches"][2],
+             dp_launches=dp["launches"][2],
              parallel_shape=data_row(par, "K3"),
              zoo2_shapes=zoo2_rows(zoo2, "K3"),
              data_shape=data_row(data, "K3"), **k3)]}), flush=True)

@@ -192,7 +192,8 @@ class StackedMembers:
         handles = []
         for start in range(0, imgs.shape[0], step):
             chunk = imgs[start:start + step]
-            handles.append((self._dispatch(padded_to_bucket(chunk)),
+            handles.append((self._dispatch(padded_to_bucket(
+                chunk, m0.mesh.shape["dp"])),
                             chunk.shape[0]))
         return handles
 

@@ -32,24 +32,38 @@ trains, evaluates, serves and (de)serialises it as the reference does:
   the conv zoo's ``pad_crop_flip``, ref :231-257). The module runs in
   train mode, so a BatchNorm's running statistics update in place, in
   the captured graph too; ``evaluate`` and ``predict`` run it in eval
-  mode, on the running statistics (ref :518-581). On one card there is
-  no data-parallel rounding of the batch: it is only capped at the
-  dataset's size. On the card the step is captured once as a CUDA graph
-  and replayed (``_TrainSteps``), the counterpart of the reference's
-  many steps per compiled dispatch. The lr schedule spans
+  mode, on the running statistics (ref :518-581). The batch is capped at
+  the dataset's size and rounded down to a multiple of the mesh's dp, at
+  least dp (ref :486-488). On the card the step is captured once as a
+  CUDA graph and replayed (``_TrainSteps``), the counterpart of the
+  reference's many steps per compiled dispatch; over a mesh of distinct
+  cards every step runs eagerly. The lr schedule spans
   ``schedule_total_epochs`` when a caller gives more than the run's
   ``max_epochs``, and ``checkpoint_dir`` turns on checkpoint resume
   (ref :693-712, :790-870; ``loop_ckpt.LoopCheckpointer``, with the
   early-stop counters beside the state).
+- The mesh (ref :460-466): ``mesh`` is built from the group bound to
+  the thread, ``tensor_parallel`` devices a data-parallel rank, or from
+  the model's device alone when none is bound. With more than one entry,
+  each dp rank gathers, normalises and augments its own rows of the step
+  on its device (the staged set is on each distinct device once) and
+  runs its replica of the module on the leaves it holds
+  (``parallel.data``: kernels over ``tp`` column-parallel, BatchNorm over
+  the whole batch); the logits are gathered on the model's device, the
+  loss is the whole batch's mean, and one optimizer update follows, the
+  ranks' gradients summed in each leaf's ``.grad``.
 - ``evaluate`` (ref :890-991): argmax accuracy over the staged set in
-  batches of up to 1024; a set over ``RAFIKI_TPU_STAGE_BYTES`` ships
-  each batch from the host instead.
+  dp-aligned batches of up to 1024, the last one padded, their rows
+  over the dp ranks; a set over ``RAFIKI_TPU_STAGE_BYTES`` ships each
+  batch from the host instead.
 - The device staging cache (ref :96-215): ``staged_dataset_arrays``
   and ``staged_token_ids`` keep a set's uint8 images and int32 labels,
   or its int32 token stream, on the device across trials, in a
   byte-budget LRU (``RAFIKI_TPU_STAGE_CACHE_BYTES``, read per call; 0
   disables it) keyed by the fingerprint the set was loaded under and
-  the device. An entry is a copy made by a blocking transfer before it
+  the device, or the distinct devices a mesh names
+  (``staged_mesh_arrays``: the images once on each, the labels on the
+  first; a mesh on one card shares the card's entry). An entry is a copy made by a blocking transfer before it
   is cached: never a view of the host cache's read-only arrays (on the
   CPU ``torch.from_numpy`` would alias them), and never half copied
   when another thread takes it. Nothing writes a staged tensor: the
@@ -63,13 +77,15 @@ trains, evaluates, serves and (de)serialises it as the reference does:
   output is an f32 softmax; queries go in chunks of
   ``max_predict_batch``, each zero-padded to its bucket.
 - Bucketed and staged predict (ref :1070-1220): ``predict_bucket(n,
-  dtype)`` is the power of two at or above ``n`` (one card has no
-  data-parallel axis to align to), and ``predict_staged_submit(buf, n)``
+  dtype)`` is the first of dp, 2·dp, 4·dp … at or above ``n``, its rows
+  over the dp ranks, and ``predict_staged_submit(buf, n)``
   serves a burst from a caller's staging buffer whose leading dim is
   exactly that bucket. Each ``(bucket, is_u8, quant)`` has its runner
   (``_dispatch_bucket``): on the card a CUDA graph on a static input,
   every runner of a model in one memory pool, a replay bit for bit the
-  eager forward; on the CPU the same forward, eagerly.
+  eager forward; on the CPU, and over distinct cards, the same forward,
+  eagerly. Under serving quantisation the int8 tensors are replicated on
+  every rank (ref :1304-1309).
 - Serving quantisation (ref :1222-1326): ``enable_serving_quant("int8")``
   makes every floating 2-D and 4-D ``kernel`` of the reference's flat
   layout int8 with per-output-channel scales, byte for byte the
@@ -96,6 +112,9 @@ from torch.func import functional_call
 
 from ..observe import MfuMeter, metrics
 from ..observe import phases as _phases
+from ..parallel.data import (group_mesh, mesh_apply, place_leaves,
+                             rank_coord, replica, row_blocks)
+from ..parallel.mesh import Mesh
 from ..torchenv import (DeviceLike, graph_capture, resolve_device,
                         side_stream)
 from ..utils.hashing import M32, mix32
@@ -146,13 +165,22 @@ def stage_cache_info() -> Dict[str, int]:
     return _STAGE_CACHE.info()
 
 
-def _stage_key(dataset_path: str, ds: Any, device: torch.device,
+def _where_key(where: Any) -> Tuple[Tuple[str, Optional[int]], ...]:
+    """The (type, index) of a device, or of each distinct device a mesh
+    names (``mesh_devices``): a card standing for 4 entries holds the
+    same tensors as the card alone, so both share one entry."""
+    devs = mesh_devices(where) if isinstance(where, Mesh) else [where]
+    return tuple((d.type, d.index) for d in devs)
+
+
+def _stage_key(dataset_path: str, ds: Any, where: Any,
                nbytes: int, budget: int, *tag: str) -> Any:
     """The staging cache's key, or None when the entry is not to be
     cached: the budget is 0 or too small, or the file is gone. The
     fingerprint is the one the set was loaded under (a set made in
-    memory takes the file's current one); the device's type and index
-    stand where the reference has the mesh's device ids."""
+    memory takes the file's current one); ``where`` is a device or a
+    mesh (``_where_key``: its distinct devices), where the reference
+    has the mesh's device ids (ref :160, :204)."""
     if budget <= 0 or nbytes > budget:
         return None
     fp = getattr(ds, "fingerprint", None)
@@ -161,16 +189,16 @@ def _stage_key(dataset_path: str, ds: Any, device: torch.device,
             fp = dataset_fingerprint(dataset_path)
         except OSError:
             return None  # the file vanished after the load
-    return (*tag, fp, (device.type, device.index))
+    return (*tag, fp, _where_key(where))
 
 
-def _staged(dataset_path: str, ds: Any, device: torch.device,
+def _staged(dataset_path: str, ds: Any, where: Any,
             nbytes: int, make: Callable[[], Tuple[torch.Tensor, ...]],
             *tag: str) -> Tuple[torch.Tensor, ...]:
-    """The cache's entry for ``ds`` on ``device``, or ``make()``'s,
-    cached when the budget holds its ``nbytes``."""
+    """The cache's entry for ``ds`` on ``where`` (a device or a mesh),
+    or ``make()``'s, cached when the budget holds its ``nbytes``."""
     budget = stage_cache_budget()
-    key = _stage_key(dataset_path, ds, device, nbytes, budget, *tag)
+    key = _stage_key(dataset_path, ds, where, nbytes, budget, *tag)
     if key is not None:
         entry = _STAGE_CACHE.get(key)
         if entry is not None:
@@ -197,6 +225,31 @@ def staged_dataset_arrays(dataset_path: str, ds: ImageDataset,
         int(ds.images.nbytes) + 4 * int(ds.labels.shape[0]),
         lambda: (torch.tensor(ds.images, device=device),
                  torch.tensor(ds.labels.astype(np.int32), device=device)))
+
+
+def mesh_devices(mesh: Mesh) -> List[torch.device]:
+    """The distinct devices a mesh's entries name, in entry order."""
+    return list(dict.fromkeys(mesh.devices.flat))
+
+
+def staged_mesh_arrays(dataset_path: str, ds: ImageDataset, mesh: Mesh
+                       ) -> Tuple[Dict[torch.device, torch.Tensor],
+                                  torch.Tensor]:
+    """``staged_dataset_arrays`` on a mesh (ref :137-174): the uint8
+    images once on each distinct device its entries name and the int32
+    labels on the first (the model's), in one cache entry keyed on
+    those devices (ref :160). A mesh on one card shares the card's own
+    entry. ``({device: images}, labels)``."""
+    devs = mesh_devices(mesh)
+    if len(devs) == 1:
+        images, labels = staged_dataset_arrays(dataset_path, ds, devs[0])
+        return {devs[0]: images}, labels
+    entry = _staged(
+        dataset_path, ds, mesh,
+        int(ds.images.nbytes) * len(devs) + 4 * int(ds.labels.shape[0]),
+        lambda: (*(torch.tensor(ds.images, device=d) for d in devs),
+                 torch.tensor(ds.labels.astype(np.int32), device=devs[0])))
+    return dict(zip(devs, entry[:-1])), entry[-1]
 
 
 def staged_token_ids(dataset_path: str, ds: Any,
@@ -236,13 +289,16 @@ def crop_flip(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     return x[bi[:, None, None], rows[:, :, None], cols[:, None, :]]
 
 
-def crop_flip_draw(seed: int, step: torch.Tensor, b: int, pad: int = 4):
+def crop_flip_draw(seed: int, step: torch.Tensor, b: int, pad: int = 4,
+                   row0: int = 0):
     """Row offsets, column offsets (each in [0, 2·pad]) and flips (p =
-    0.5) of the ``b`` rows of train step ``step`` (a device int64
-    scalar): a hash of (``seed``, ``step``, row), so no generator state
-    is read, a captured step draws anew at every replay, and eager
-    steps and replays draw the same. The draws are not ``jax.random``'s."""
-    rows = torch.arange(b, device=step.device)
+    0.5) of the ``b`` rows from row ``row0`` of train step ``step`` (a
+    device int64 scalar): a hash of (``seed``, ``step``, row), so no
+    generator state is read, a captured step draws anew at every replay,
+    eager steps and replays draw the same, and a data-parallel rank
+    draws its rows' share of the whole batch's draws. The draws are not
+    ``jax.random``'s."""
+    rows = torch.arange(row0, row0 + b, device=step.device)
     h = mix32(mix32(torch.full_like(step, seed & M32)) ^ (step & M32))
     h = mix32(h ^ rows)
     span = 2 * pad + 1
@@ -251,15 +307,16 @@ def crop_flip_draw(seed: int, step: torch.Tensor, b: int, pad: int = 4):
 
 
 def pad_crop_flip(x: torch.Tensor, seed: int, step: torch.Tensor,
-                  pad: int = 4, min_size: int = 16) -> torch.Tensor:
+                  pad: int = 4, min_size: int = 16,
+                  row0: int = 0) -> torch.Tensor:
     """The CIFAR recipe on the device: reflect-pad ``pad``, a random
     crop back to H × W and a horizontal flip with p = 0.5, drawn by
-    ``crop_flip_draw``. Images smaller than ``min_size`` pass through,
-    as in the reference."""
+    ``crop_flip_draw`` for the batch's rows from ``row0``. Images
+    smaller than ``min_size`` pass through, as in the reference."""
     b, h, w, _ = x.shape
     if min(h, w) < min_size:
         return x
-    ys, xs, flip = crop_flip_draw(seed, step, b, pad)
+    ys, xs, flip = crop_flip_draw(seed, step, b, pad, row0)
     return crop_flip(x, ys, xs, flip, pad)
 
 
@@ -291,16 +348,21 @@ class _TrainSteps:
     def __init__(self, model: "TorchModel", net: nn.Module,
                  opt: ScheduledOptimizer, data: torch.Tensor,
                  labels: torch.Tensor, steps_per_epoch: int,
-                 batch_size: int):
+                 batch_size: int,
+                 images: Optional[Dict[torch.device, torch.Tensor]] = None):
         dev = model.device
         self.model, self.net, self.opt = model, net, opt
-        self.data, self.labels = data, labels
+        self.labels = labels
+        # The images on each device of the mesh; ``data`` is the model's.
+        self.images = images if images is not None else {dev: data}
         self.order = torch.zeros((steps_per_epoch, batch_size),
                                  dtype=torch.int64, device=dev)
         self.row = torch.zeros((), dtype=torch.int64, device=dev)
         self.step_no = torch.zeros((), dtype=torch.int64, device=dev)
         self.sums = torch.zeros(2, dtype=torch.float32, device=dev)
-        self.on_card = dev.type == "cuda"
+        # Captured when every mesh entry is this card; over distinct
+        # cards every step runs eagerly.
+        self.on_card = dev.type == "cuda" and model.mesh.distinct() == 1
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.n_eager = 0
 
@@ -310,10 +372,9 @@ class _TrainSteps:
 
     def _forward_backward(self) -> None:
         sel = self.order.index_select(0, self.row.view(1)).view(-1)
-        x = self.model.augment_in_graph(self.data[sel].float() / 255.0,
-                                        self.step_no)
         y = self.labels[sel].long()
-        logits = self.model._logits(self.net, x).float()
+        logits = self.model._train_logits(self.net, self.images, sel,
+                                          self.step_no).float()
         loss = F.cross_entropy(logits, y)
         loss.backward()
         acc = (logits.detach().argmax(-1) == y).float().mean()
@@ -567,7 +628,8 @@ def dequantized_state(qvars: Dict[str, torch.Tensor],
 class PredictRunner:
     """One predict runner: ``fn`` on inputs of one shape and dtype.
 
-    On the CPU a call runs ``fn`` eagerly. On the card the runner is
+    On the CPU (and from ``eager``) a call runs ``fn`` eagerly. On the
+    card the runner is
     built by one eager run of ``fn`` on a side stream (the libraries make
     their workspaces there) and a capture of ``fn`` as a CUDA graph on a
     static input, in the memory pool ``pool`` that its owner shares
@@ -591,6 +653,15 @@ class PredictRunner:
         self.graph = torch.cuda.CUDAGraph()
         with torch.no_grad(), graph_capture(self.graph, pool):
             self.static_out = fn(self.static_in)
+
+    @classmethod
+    def eager(cls, fn: Callable[[torch.Tensor], torch.Tensor],
+              device: torch.device) -> "PredictRunner":
+        """A runner that runs ``fn`` eagerly at every call: a forward over
+        a mesh of distinct cards, which one graph does not hold."""
+        runner = cls.__new__(cls)
+        runner.fn, runner.device, runner.graph = fn, device, None
+        return runner
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -618,16 +689,18 @@ class PredictRunners:
         self._lock = threading.Lock()
 
     def run(self, key: Any, x: torch.Tensor,
-            make_fn: Callable[[], Callable[[torch.Tensor], torch.Tensor]]
-            ) -> torch.Tensor:
+            make_fn: Callable[[], Callable[[torch.Tensor], torch.Tensor]],
+            capture: bool = True) -> torch.Tensor:
         with self._lock:
             runner = self.runners.get(key)
             if runner is None:
                 if self.device.type == "cuda" and self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
                 try:
-                    runner = PredictRunner(make_fn(), x.shape, x.dtype,
-                                           self.device, self._pool)
+                    runner = PredictRunner(
+                        make_fn(), x.shape, x.dtype, self.device,
+                        self._pool) if capture else PredictRunner.eager(
+                            make_fn(), self.device)
                 except Exception:
                     self._pool = None
                     raise
@@ -655,21 +728,21 @@ def staged_chunk(buf: np.ndarray, n: int, shape,
     return buf
 
 
-def padded_to_bucket(chunk: np.ndarray) -> np.ndarray:
+def padded_to_bucket(chunk: np.ndarray, dp: int = 1) -> np.ndarray:
     """``chunk`` with zero rows up to its bucket."""
     n = chunk.shape[0]
-    bucket = predict_bucket_of(n)
+    bucket = predict_bucket_of(n, dp)
     if n == bucket:
         return chunk
     return np.concatenate([chunk, np.zeros((bucket - n, *chunk.shape[1:]),
                                            chunk.dtype)])
 
 
-def predict_bucket_of(n: int) -> int:
-    """The smallest power of two at or above ``n``: the predict bucket,
-    ``mesh.shape["dp"]``-aligned in the reference, where one card has a
-    dp of 1."""
-    bucket = 1
+def predict_bucket_of(n: int, dp: int = 1) -> int:
+    """The predict bucket of ``n`` rows: the smallest of ``dp``,
+    ``2·dp``, ``4·dp`` … at or above ``n``, so that the mesh's dp ranks
+    take equal rows (ref :1086-1088, :1123-1126)."""
+    bucket = dp
     while bucket < n:
         bucket *= 2
     return bucket
@@ -711,6 +784,8 @@ class TorchModel(BaseModel):
         self._quant_host = None
         self._quant_dev = None
         self._quant_layers: Optional[Dict[str, str]] = None
+        self._mesh: Optional[Mesh] = None
+        self._pred_replicas: Optional[List[nn.Module]] = None
 
     # --- Subclass API ---
 
@@ -747,11 +822,12 @@ class TorchModel(BaseModel):
         (the knob masks of a supernet)."""
         return {}
 
-    def augment_in_graph(self, x: torch.Tensor,
-                         step: torch.Tensor) -> torch.Tensor:
+    def augment_in_graph(self, x: torch.Tensor, step: torch.Tensor,
+                         row0: int = 0) -> torch.Tensor:
         """Augments a normalised (B, H, W, C) train batch on the device;
-        ``step`` is the device step counter (from 0 over the run).
-        Identity by default."""
+        ``step`` is the device step counter (from 0 over the run), and
+        ``row0`` the row of the whole batch where ``x`` starts (a
+        data-parallel rank's rows). Identity by default."""
         return x
 
     # --- Plumbing ---
@@ -775,6 +851,52 @@ class TorchModel(BaseModel):
     def _logits(self, net: nn.Module, x: torch.Tensor) -> torch.Tensor:
         """Normalised float32 images -> the module's logits."""
         return net(x, **self._extra_dev())
+
+    # --- The mesh (ref :460-466) ---
+
+    @property
+    def mesh(self) -> Mesh:
+        """The (dp, pp, ep, sp, tp) mesh over the devices of the group
+        bound to the thread, ``tensor_parallel`` of them a data-parallel
+        rank, or over the model's device alone when none is bound (a
+        group that ``tensor_parallel`` does not divide raises)."""
+        if self._mesh is None:
+            self._mesh = group_mesh(
+                self.device, tp=int(self.knobs.get("tensor_parallel", 1)))
+        return self._mesh
+
+    def _extra_on(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        return {k: v.to(device, non_blocking=True)
+                for k, v in self._extra_dev().items()}
+
+    def _replicas(self, net: nn.Module) -> List[nn.Module]:
+        """Each dp rank's replica of ``net`` on the leaves it holds, for
+        the eval-mode forwards (no rank writes, none sums)."""
+        mesh = self.mesh
+        placed = place_leaves(dict(net.named_parameters()), mesh)
+        return [replica(net, placed, rank_coord(i))
+                for i in range(mesh.shape["dp"])]
+
+    def _train_logits(self, net: nn.Module,
+                      images: Dict[torch.device, torch.Tensor],
+                      sel: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
+        """The logits of a train step's rows ``sel`` of the staged
+        ``images``, gathered and normalised on the device and augmented:
+        on the model's device, or each dp rank's rows on its device
+        through its replica (ref :518-535), gathered here."""
+        mesh = self.mesh
+        if mesh.size == 1:
+            x = self.augment_in_graph(images[self.device][sel].float()
+                                      / 255.0, step)
+            return self._logits(net, x)
+
+        def inputs(dev, lo, hi):
+            src = images.get(dev, images[self.device])
+            x = src[sel[lo:hi].to(src.device)].to(dev).float() / 255.0
+            return (self.augment_in_graph(x, step.to(dev), row0=lo),)
+
+        return mesh_apply(mesh, net, sel.shape[0], inputs, self.device,
+                          kwargs=self._extra_on)
 
     def _macs(self, net: nn.Module, image_shape) -> int:
         """Multiply-adds of one example through the module's dense
@@ -813,8 +935,10 @@ class TorchModel(BaseModel):
         if shared_params is not None:
             self._merge_shared(net, shared_params)
 
-        batch_size = max(1, min(int(self.knobs.get("batch_size", 128)),
-                                ds.size))
+        dp = self.mesh.shape["dp"]
+        # Never larger than the set, and a multiple of dp (ref :486-488).
+        batch_size = min(int(self.knobs.get("batch_size", 128)), ds.size)
+        batch_size = max(dp, (batch_size // dp) * dp)
         max_epochs = int(self.knobs.get("max_epochs", 5))
         if self.knobs.get("quick_train", False):
             max_epochs = min(max_epochs,
@@ -831,7 +955,8 @@ class TorchModel(BaseModel):
         # fixed buffer that the steps index with identity tables.
         staged = ds.images.nbytes <= stage_bytes_limit()
         if staged:
-            data, labels = self._stage(dataset_path, ds)
+            images, labels = self._stage(dataset_path, ds)
+            data = images[self.device]
         else:
             rows = chunk_steps * batch_size
             data = torch.empty((rows, *ds.image_shape), dtype=torch.uint8,
@@ -840,14 +965,16 @@ class TorchModel(BaseModel):
                                  device=self.device)
             identity = ((np.arange(steps_per_epoch) % chunk_steps)[:, None]
                         * batch_size + np.arange(batch_size)[None, :])
+            images = {self.device: data}
         steps = _TrainSteps(self, net, opt, data, labels, steps_per_epoch,
-                            batch_size)
+                            batch_size, images)
         loader = None if staged else _ChunkLoader(ds, data, labels)
         # Utilization is a card's: on the CPU the step cost stays
         # unknown, so no chip_util and no MFU gauge.
         meter = MfuMeter(
             6 * batch_size * self._macs(net, ds.image_shape)
-            if self.device.type == "cuda" else None, device=self.device)
+            if self.device.type == "cuda" else None,
+            n_devices=self.mesh.size, device=self.device)
         # The step-time histogram and the MFU gauge carry the labels the
         # caller bound (TrialRunner binds trial=<id>, and /status reads
         # the gauge by trial).
@@ -949,14 +1076,15 @@ class TorchModel(BaseModel):
         self._net = net
         self._invalidate_compiled()
 
-    def _stage(self, dataset_path: str,
-               ds: ImageDataset) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The whole set's uint8 images and int32 labels on the device,
-        from the staging cache, timed as the ``stage`` phase."""
+    def _stage(self, dataset_path: str, ds: ImageDataset
+               ) -> Tuple[Dict[torch.device, torch.Tensor], torch.Tensor]:
+        """The whole set's uint8 images on each device of the mesh and
+        its int32 labels on the model's device, from the staging cache,
+        timed as the ``stage`` phase."""
         t_stage = time.monotonic()
-        data, labels = staged_dataset_arrays(dataset_path, ds, self.device)
+        staged = staged_mesh_arrays(dataset_path, ds, self.mesh)
         _phases.observe_phase("stage", time.monotonic() - t_stage)
-        return data, labels
+        return staged
 
     def _merge_shared(self, net: nn.Module, shared_params: Params) -> None:
         """Warm start: overlay the shared parameters whose flat name and
@@ -974,21 +1102,43 @@ class TorchModel(BaseModel):
         _phases.observe_phase("load", time.monotonic() - t_load)
         staged = ds.images.nbytes <= stage_bytes_limit()
         if staged:
-            data, labels = self._stage(dataset_path, ds)
-        bs = min(EVAL_BATCH, ds.size)
+            images, labels = self._stage(dataset_path, ds)
+        mesh = self.mesh
+        dp = mesh.shape["dp"]
+        # dp-aligned batches, the last one padded (ref :903-904).
+        bs = max(dp, (min(EVAL_BATCH, ds.size) // dp) * dp)
+        reps = self._replicas(net) if mesh.size > 1 else None
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
         for start in range(0, ds.size, bs):
+            n = min(bs, ds.size - start)
+            rows = bs if reps is not None else n
             if staged:
-                xb = data[start:start + bs]
-                yb = labels[start:start + bs]
+                # Padding rows read row 0 and are not counted.
+                sel = torch.zeros(rows, dtype=torch.int64,
+                                  device=self.device)
+                sel[:n] = torch.arange(start, start + n, device=self.device)
+                yb = labels[sel[:n]]
+
+                def inputs(dev, lo, hi, sel=sel):
+                    src = images.get(dev, images[self.device])
+                    return (src[sel[lo:hi].to(src.device)].to(dev).float()
+                            / 255.0,)
             else:
                 # An oversized set ships each batch (ref :955-971).
-                xb = torch.tensor(ds.images[start:start + bs],
+                host = np.zeros((rows, *ds.image_shape), np.uint8)
+                host[:n] = ds.images[start:start + n]
+                xb = torch.tensor(host, device=self.device)
+                yb = torch.tensor(ds.labels[start:start + n],
                                   device=self.device)
-                yb = torch.tensor(ds.labels[start:start + bs],
-                                  device=self.device)
-            logits = self._logits(net, xb.float() / 255.0)
-            correct += (logits.argmax(-1) == yb).sum()
+
+                def inputs(dev, lo, hi, xb=xb):
+                    return (xb[lo:hi].to(dev).float() / 255.0,)
+            if reps is None:
+                logits = self._logits(net, *inputs(self.device, 0, n))
+            else:
+                logits = mesh_apply(mesh, net, rows, inputs, self.device,
+                                    replicas=reps, kwargs=self._extra_on)
+            correct += (logits[:n].argmax(-1) == yb).sum()
         return float(int(correct) / ds.size)
 
     # --- BaseModel: predict ---
@@ -1032,7 +1182,7 @@ class TorchModel(BaseModel):
     def predict_bucket(self, n: int,
                        dtype: Any = np.float32) -> Optional[int]:
         """The leading dim a staging buffer must have for an ``n``-query
-        staged burst (the power of two at or above ``n``), or None when
+        staged burst (``predict_bucket_of`` the mesh's dp), or None when
         the staged path cannot take it: ``n`` past ``max_predict_batch``,
         an unsupported dtype, or no loaded model."""
         if self._net is None or not self._meta.get("n_classes"):
@@ -1042,7 +1192,7 @@ class TorchModel(BaseModel):
         if np.dtype(dtype) not in [np.dtype(d)
                                    for d in self.predict_staged_dtypes]:
             return None
-        return predict_bucket_of(n)
+        return predict_bucket_of(n, self.mesh.shape["dp"])
 
     def predict_staged_submit(self, buf: np.ndarray,
                               n: int) -> Callable[[], List[Any]]:
@@ -1063,7 +1213,8 @@ class TorchModel(BaseModel):
     def _predict_bucket_submit(self, chunk: np.ndarray):
         """``chunk`` zero-padded to its bucket and dispatched: ``(device
         probabilities of the bucket, n)``."""
-        return self._dispatch_bucket(padded_to_bucket(chunk), chunk.shape[0])
+        return self._dispatch_bucket(
+            padded_to_bucket(chunk, self.mesh.shape["dp"]), chunk.shape[0])
 
     def _dispatch_bucket(self, chunk: np.ndarray, n: int):
         """``chunk``'s leading dim is exactly a bucket: run it on the
@@ -1071,7 +1222,8 @@ class TorchModel(BaseModel):
         Returns ``(device probabilities, n)``."""
         x, is_u8 = host_input(chunk)
         return self._runners.run((chunk.shape[0], is_u8, self._quant_mode),
-                                 x, lambda: self._predict_fn(is_u8)), n
+                                 x, lambda: self._predict_fn(is_u8),
+                                 self.mesh.distinct() == 1), n
 
     @property
     def captures(self) -> int:
@@ -1080,27 +1232,59 @@ class TorchModel(BaseModel):
 
     def _predict_fn(self, is_u8: bool) -> Callable[[torch.Tensor],
                                                    torch.Tensor]:
-        """The forward of one runner: input rows -> f32 probabilities;
-        under serving quantisation, from the int8 weights (the model's
+        """The forward of one runner: input rows -> f32 probabilities,
+        the rows over the mesh's dp ranks (ref :1144-1220); under
+        serving quantisation, from the int8 weights, replicated on every
+        rank as the reference keeps them (the model's
         ``quantized_apply``, or the generic fallback: the weights
         dequantised in the graph, the module unchanged)."""
         net = self._require_net()
-        extra = self._extra_dev()
+        mesh = self.mesh
         if self._quant_mode is None:
-            return lambda x: probabilities(
-                self._logits(net, normalised(x, is_u8)))
+            if mesh.size == 1:
+                return lambda x: probabilities(
+                    self._logits(net, normalised(x, is_u8)))
+            if self._pred_replicas is None:
+                self._pred_replicas = self._replicas(net)
+            reps = self._pred_replicas
+
+            def rows(x: torch.Tensor) -> torch.Tensor:
+                return probabilities(mesh_apply(
+                    mesh, net, x.shape[0], lambda dev, lo, hi: (normalised(
+                        x[lo:hi].to(dev, non_blocking=True), is_u8),),
+                    self.device, replicas=reps, kwargs=self._extra_on))
+
+            return rows
         qvars, scales, fvars, _ = self._quant_device_arrays()
+        by_dev = {d: tuple({k: v.to(d) for k, v in part.items()}
+                           for part in (qvars, scales, fvars))
+                  for d in mesh_devices(mesh)}
+
+        def forward(xf: torch.Tensor) -> torch.Tensor:
+            q, sc, f = by_dev[xf.device]
+            extra = self._extra_on(xf.device)
+            logits = self.quantized_apply(q, sc, f, xf, extra)
+            if logits is None:
+                logits = functional_call(net, dequantized_state(q, sc, f),
+                                         (xf,), extra)
+            return logits
 
         def fn(x: torch.Tensor) -> torch.Tensor:
-            xf = normalised(x, is_u8)
-            logits = self.quantized_apply(qvars, scales, fvars, xf, extra)
-            if logits is None:
-                logits = functional_call(
-                    net, dequantized_state(qvars, scales, fvars), (xf,),
-                    extra)
-            return probabilities(logits)
+            if mesh.size == 1:
+                return probabilities(forward(normalised(x, is_u8)))
+            outs = [forward(normalised(x[lo:hi].to(d, non_blocking=True),
+                                       is_u8)).to(self.device)
+                    for d, (lo, hi) in self._dp_blocks(x.shape[0])]
+            return probabilities(torch.cat(outs))
 
         return fn
+
+    def _dp_blocks(self, n: int) -> List[Tuple[torch.device,
+                                               Tuple[int, int]]]:
+        """Each dp rank's device and its rows of an ``n``-row batch."""
+        mesh = self.mesh
+        return [(mesh.device(rank_coord(i)), b) for i, b in
+                enumerate(row_blocks(n, mesh.shape["dp"])) if b[0] < b[1]]
 
     def _stack_queries(self, queries: List[Any]) -> np.ndarray:
         """Stack queries for the device, keeping all-uint8 batches uint8
@@ -1150,6 +1334,7 @@ class TorchModel(BaseModel):
         return self.quant_report()
 
     def _drop_quant(self) -> None:
+        self._pred_replicas = None
         self._quant_dev = None
         self._quant_host = None
         self._quant_layers = None
@@ -1238,6 +1423,7 @@ class TorchModel(BaseModel):
         """Runners and quantised weights follow the parameters; the
         asked-for quant mode stays."""
         self._runners.clear()
+        self._pred_replicas = None
         self._extra = None
         self._quant_dev = None
         self._quant_host = None

@@ -27,7 +27,7 @@ from ..model import CategoricalKnob, FixedKnob, FloatKnob, IntegerKnob
 from ..model.torch_model import (TorchModel, dynamic_int8_conv,
                                  dynamic_int8_matmul)
 from . import layers
-from .layers import Conv, cast, dense, make_dense
+from .layers import Conv, cast, column, dense, make_dense
 
 MAX_WIDTH = 64   # stage-0 channels; stage i uses MAX_WIDTH * 2**i
 N_STAGES = 3
@@ -69,7 +69,7 @@ class _Cnn(nn.Module):
                 h = F.max_pool2d(h, 2, 2)
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
         h = torch.relu(dense(self.Dense_0, h))
-        return F.linear(h.float(), self.Dense_1.weight, self.Dense_1.bias)
+        return column(self.Dense_1, h.float(), F.linear)
 
 
 class TorchCnn(TorchModel):

@@ -142,8 +142,9 @@ class TorchDenseNet(TorchModel):
             warmup_cosine_decay_schedule(0.1, 1.0, wsteps, total, 1e-3),
             total, weight_decay=float(self.knobs.get("weight_decay", 1e-4)))
 
-    def augment_in_graph(self, x, step):
-        return pad_crop_flip(x, int(self.knobs.get("seed", 0)) + 1, step)
+    def augment_in_graph(self, x, step, row0=0):
+        return pad_crop_flip(x, int(self.knobs.get("seed", 0)) + 1, step,
+                             row0=row0)
 
     def module_config(self) -> Any:
         """What the reference's ``_DenseNet`` compares: blocks, growth,

@@ -259,8 +259,9 @@ class TorchEnas(TorchModel):
             cosine_decay_schedule(1.0, total, alpha=1e-3), total,
             weight_decay=1e-4)
 
-    def augment_in_graph(self, x, step):
-        return pad_crop_flip(x, int(self.knobs.get("seed", 0)) + 1, step)
+    def augment_in_graph(self, x, step, row0=0):
+        return pad_crop_flip(x, int(self.knobs.get("seed", 0)) + 1, step,
+                             row0=row0)
 
     def module_config(self) -> Any:
         """What the reference's ``_EnasNet`` compares: blocks, cells,

@@ -37,6 +37,16 @@ small sizes shows poorly, so the zoo builds on these instead:
 - ``Embed``: flax's ``Embed``; the rows of its table in ``dtype``
   (bf16 for the transformer tagger, f32 for the BiLSTM).
 
+On a mesh (``parallel.data``) each data-parallel rank runs a replica of
+the module. A ``Dense``, ``Conv`` or ``dense`` layer whose kernel is
+split over ``tp`` computes each tp rank's slice of its output features
+on that rank's device and joins them (``column``). A ``BatchNorm`` in
+train mode with ``dp > 1`` normalises by the whole batch's moments: each
+rank's per-channel sum and sum of squares added over the ranks
+(``dp_sum``), the variance flax's ``E[x²] − E[x]²``; rank 0 alone
+updates the running statistics, once a step, as one flax ``BatchNorm``
+over the global batch does.
+
 ``COMPUTE`` is flax's ``dtype`` of these layers, bf16; ``cast`` casts
 an activation to it. Modules take and give NCHW tensors. Parameters
 start from flax's initialisers (a truncated LeCun-normal kernel; norm scale 1, bias 0),
@@ -46,6 +56,7 @@ drawn from an explicit ``torch.Generator``.
 from __future__ import annotations
 
 import math
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -83,10 +94,25 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
                               generator=gen)
 
 
+def column(layer: nn.Module, x: torch.Tensor,
+           fn: Callable[[torch.Tensor, torch.Tensor, Optional[torch.Tensor]],
+                        torch.Tensor], dim: int = -1) -> torch.Tensor:
+    """``fn(x, weight, bias)`` of ``layer``; on a rank's replica whose
+    kernel is split over ``tp`` (its ``tp_shards``, ``(device, weight,
+    bias)`` a tp rank), each tp rank's slice of the output features on
+    its device, joined along ``dim`` on ``x``'s device: the reference's
+    column parallelism and its all-gather of the activations."""
+    shards = getattr(layer, "tp_shards", None)
+    if shards is None:
+        return fn(x, layer.weight, layer.bias)
+    return torch.cat([fn(x.to(d, non_blocking=True), w, b).to(
+        x.device, non_blocking=True) for d, w, b in shards], dim=dim)
+
+
 def dense(layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
     """flax ``Dense(dtype=bfloat16)``: product and bias add in bf16."""
-    y = F.linear(cast(h), cast(layer.weight))
-    return y + cast(layer.bias)
+    return column(layer, h, lambda x, w, b: F.linear(cast(x), cast(w))
+                  + cast(b))
 
 
 def make_dense(in_features: int, out_features: int,
@@ -101,6 +127,8 @@ def make_dense(in_features: int, out_features: int,
 class Conv(nn.Module):
     """flax ``Conv(dtype=bfloat16, use_bias=False)`` on NCHW input."""
 
+    tp_shards = None  # set on a mesh's replica (``column``)
+
     def __init__(self, in_ch: int, out_ch: int, kernel: int,
                  gen: torch.Generator, stride: int = 1, padding: int = 0,
                  groups: int = 1, use_bias: bool = False):
@@ -112,11 +140,21 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(cast(x), cast(self.weight), None, self.stride,
-                     self.padding, 1, self.groups)
-        if self.bias is not None:
-            y = y + cast(self.bias).view(-1, 1, 1)
-        return y
+        def conv(x, w, b):
+            y = F.conv2d(cast(x), cast(w), None, self.stride, self.padding,
+                         1, self.groups)
+            return y if b is None else y + cast(b).view(-1, 1, 1)
+
+        if self.stride > 1 and x.requires_grad and x.device.type == "cpu" \
+                and x.is_contiguous(memory_format=torch.channels_last) \
+                and not x.is_contiguous():
+            # The CPU build's oneDNN backward of a strided convolution of
+            # a channels-last batch of 4 corrupts the heap (torch 2.13, a
+            # 1×1 kernel at stride 2): the product runs on a contiguous
+            # copy and its output goes back to channels-last.
+            return column(self, x.contiguous(), conv, dim=1).contiguous(
+                memory_format=torch.channels_last)
+        return column(self, x, conv, dim=1)
 
     def macs(self, out: torch.Tensor) -> int:
         """Multiply-adds of one example whose output is ``out``."""
@@ -126,6 +164,13 @@ class Conv(nn.Module):
 
 class BatchNorm(nn.Module):
     """flax ``BatchNorm(momentum=0.9, dtype=float32)`` over NCHW."""
+
+    #: A mesh's replica of it sums its moments over the ranks: its
+    #: ``dp_sum``, and ``dp_writer`` on the rank that updates the
+    #: running statistics.
+    needs_dp_sum = True
+    dp_sum = None
+    dp_writer = False
 
     def __init__(self, channels: int):
         super().__init__()
@@ -147,6 +192,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(xf, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, BN_EPS)
+        if self.dp_sum is not None:
+            return self._whole_batch(xf, self.dp_sum)
         # The library's train-mode kernel normalises with the batch's
         # biased variance, as flax does. With momentum 1 it leaves the
         # batch mean and the *unbiased* variance in the scratch buffers;
@@ -162,6 +209,29 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(BN_MOMENTUM).add_(
                 var * ((1 - BN_MOMENTUM) * (n - 1) / n))
         return y
+
+    def _whole_batch(self, xf: torch.Tensor, dp_sum) -> torch.Tensor:
+        """Train mode on a rank of a mesh: the whole batch's mean and
+        biased variance from every rank's sums (``dp_sum``), in f32;
+        the running statistics updated by rank 0 alone."""
+        view = (1, -1, 1, 1)
+        # A fill, not a copy from the host: a captured step holds it.
+        n = xf.new_full((1,), float(xf.numel() // xf.shape[1]))
+        part = torch.cat([xf.sum(dim=(0, 2, 3)),
+                          (xf * xf).sum(dim=(0, 2, 3)), n])
+        total = dp_sum(part)
+        c = xf.shape[1]
+        count = total[2 * c]
+        mean = total[:c] / count
+        var = torch.clamp_min(total[c:2 * c] / count - mean * mean, 0.0)
+        if self.dp_writer:
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_(
+                    mean.detach() * (1 - BN_MOMENTUM))
+                self.running_var.mul_(BN_MOMENTUM).add_(
+                    var.detach() * (1 - BN_MOMENTUM))
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return (xf - mean.view(view)) * mul.view(view) + self.bias.view(view)
 
 
 class GroupNorm(nn.Module):
@@ -197,6 +267,8 @@ class Dense(nn.Module):
     (flax's ``dtype=float32``), else in ``COMPUTE`` with the product
     rounded before the bias is added."""
 
+    tp_shards = None  # set on a mesh's replica (``column``)
+
     def __init__(self, in_features: int, out_features: int,
                  gen: torch.Generator, use_bias: bool = True,
                  f32: bool = False):
@@ -209,8 +281,12 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         to = (lambda t: t.float()) if self.f32 else cast
-        y = F.linear(to(x), to(self.weight))
-        return y if self.bias is None else y + to(self.bias)
+
+        def linear(x, w, b):
+            y = F.linear(to(x), to(w))
+            return y if b is None else y + to(b)
+
+        return column(self, x, linear)
 
     def macs(self, out: torch.Tensor) -> int:
         """Multiply-adds of one example whose output is ``out``."""

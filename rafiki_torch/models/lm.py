@@ -20,7 +20,15 @@ the ``seed`` knob unless parameters were loaded, windows cut on the host
 from ``epoch_rng(seed, 0)`` exactly as the reference cuts them, f32
 cross-entropy on f32 logits, AdamW under the reference's warmup-cosine
 schedule, the ``remat`` policies, and one log record per
-``steps_per_dispatch`` steps. ``predict`` and ``evaluate`` run on bf16
+``steps_per_dispatch`` steps. Its ``mesh`` (ref :145-148) is
+data-parallel over the devices of the group bound to the thread, or the
+model's device alone: the batch is rounded down to a multiple of dp (at
+least dp), each rank runs the forward and backward of its windows on its
+device (K1, then K2 and K3, on its own shard), the loss and the token
+accuracy are the whole batch's means, and one AdamW update follows.
+``evaluate`` runs each rank's windows on its device too; ``predict`` and
+generation stay on the model's device (the reference's replicated
+parameters). ``predict`` and ``evaluate`` run on bf16
 casts of the weights cached once per load; training takes the casts
 inside the graph, so the gradient reaches the f32 master weights.
 """
@@ -50,6 +58,8 @@ from ..model.torch_model import (stage_bytes_limit, stage_cache_budget,
                                  staged_token_ids)
 from ..observe import MfuMeter, metrics
 from ..ops.attention import flash_attention
+from ..parallel.data import group_mesh, rank_coord, row_blocks
+from ..parallel.mesh import Mesh, shard_variables
 from ..torchenv import DeviceLike, resolve_device
 from .transformer import _sinusoidal
 
@@ -121,6 +131,7 @@ class TorchTransformerLM(BaseModel):
         self._net: _LMNet = None
         self._bf16: Dict[str, torch.Tensor] = None
         self._pos: torch.Tensor = None   # bf16 position table
+        self._mesh: Optional[Mesh] = None
         # The attention the blocks call; a check may swap in the plain
         # version to hold the kernel's path against it.
         self.attention = flash_attention
@@ -134,6 +145,14 @@ class TorchTransformerLM(BaseModel):
             t=int(self.knobs.get("seq_len", 1024)),
             v=int(self.knobs.get("vocab_size", 32768)),
         )
+
+    @property
+    def mesh(self) -> Mesh:
+        """The data-parallel mesh over the devices of the group bound to
+        the thread, or over the model's device alone (ref :145-148)."""
+        if self._mesh is None:
+            self._mesh = group_mesh(self.device)
+        return self._mesh
 
     # --- forward ---
 
@@ -155,13 +174,15 @@ class TorchTransformerLM(BaseModel):
         return self._net.get_parameter(name).to(torch.bfloat16)
 
     def _block(self, x, w: Weights, i: int, h_heads: int,
-               kv: Optional[List[Any]] = None):
+               kv: Optional[List[Any]] = None, g: Optional[Weights] = None):
         """One transformer block. ``kv``, when given, receives this
         layer's ``(k, v)`` rows, (B, T, d) bf16, before the heads split:
-        the generative prefill stores them in its page pool."""
+        the generative prefill stores them in its page pool. ``g`` gives
+        the f32 norm gains (the master weights by default)."""
         p = f"blocks.{i}."
+        g = g or self._net.get_parameter
         b, t, d = x.shape
-        h = _layer_norm(x, self._net.blocks[i].ln1).to(torch.bfloat16)
+        h = _layer_norm(x, g(p + "ln1")).to(torch.bfloat16)
         q, k, v = F.linear(h, w(p + "qkv.weight")).split(d, dim=-1)
         if kv is not None:
             kv.append((k, v))
@@ -173,15 +194,17 @@ class TorchTransformerLM(BaseModel):
         o = self.attention(heads(q), heads(k), heads(v), causal=True)
         o = o.transpose(1, 2).reshape(b, t, d)
         x = x + F.linear(o, w(p + "proj.weight")).to(x.dtype)
-        h = _layer_norm(x, self._net.blocks[i].ln2).to(torch.bfloat16)
+        h = _layer_norm(x, g(p + "ln2")).to(torch.bfloat16)
         h = F.gelu(F.linear(h, w(p + "w1.weight")), approximate="tanh")
         return x + F.linear(h, w(p + "w2.weight")).to(x.dtype)
 
     def _logits(self, ids: torch.Tensor, w: Weights,
-                remat: str = "none") -> torch.Tensor:
-        """The forward both paths share: (B, T) int64 ids on the model's
-        device -> (B, T, V) f32 logits, the blocks under a ``remat``
-        policy (the reference's ``remat`` knob):
+                remat: str = "none", g: Optional[Weights] = None
+                ) -> torch.Tensor:
+        """The forward both paths share: (B, T) int64 ids on the device
+        of ``w``'s weights -> (B, T, V) f32 logits, the norm gains from
+        ``g`` (the master weights by default), the blocks under a
+        ``remat`` policy (the reference's ``remat`` knob):
 
         - ``"none"`` keeps every activation for the backward;
         - ``"full"`` keeps each block's input only and reruns the block;
@@ -200,12 +223,13 @@ class TorchTransformerLM(BaseModel):
                                       use_reentrant=False, **extra)
         else:
             raise ValueError(f"unknown remat policy {remat!r}")
+        g = g or self._net.get_parameter
         x = w("embed")[ids] * torch.tensor(math.sqrt(s["d"]),
                                            dtype=torch.bfloat16)
-        x = x + self._pos[None, :ids.shape[1]]
+        x = x + self._pos[None, :ids.shape[1]].to(x.device)
         for i in range(len(self._net.blocks)):
-            x = block(x, w, i, s["h"])
-        x = _layer_norm(x, self._net.lnf).to(torch.bfloat16)
+            x = block(x, w, i, s["h"], g=g)
+        x = _layer_norm(x, g("lnf")).to(torch.bfloat16)
         # Tied unembedding: logits in f32 for a stable softmax.
         return (x @ w("embed").T).float()
 
@@ -225,6 +249,32 @@ class TorchTransformerLM(BaseModel):
         loss = F.cross_entropy(logits.flatten(0, 1), tgt.flatten())
         acc = (logits.detach().argmax(-1) == tgt).float().mean()
         return loss, acc
+
+    def _mesh_loss(self, win: torch.Tensor):
+        """``_loss`` over the mesh's dp ranks (ref :299, :308): each rank
+        runs the forward, and so the backward, on its rows of the
+        windows on its device, from its copies of the master weights
+        (``shard_variables``: replicated, so the ranks' gradients add up
+        in each weight's ``.grad``); the loss and the token accuracy are
+        the whole batch's means, summed on the model's device."""
+        mesh = self.mesh
+        remat = str(self.knobs.get("remat", "dots"))
+        placed = shard_variables(dict(self._net.named_parameters()), mesh)
+        sums = []
+        for i, (lo, hi) in enumerate(row_blocks(win.shape[0],
+                                                mesh.shape["dp"])):
+            c = rank_coord(i)
+            w = win[lo:hi].to(mesh.device(c), non_blocking=True)
+            logits = self._logits(
+                w[:, :-1], lambda n, c=c: placed[n].at(c).to(torch.bfloat16),
+                remat, lambda n, c=c: placed[n].at(c))
+            tgt = w[:, 1:]
+            loss = F.cross_entropy(logits.flatten(0, 1), tgt.flatten(),
+                                   reduction="sum")
+            hits = (logits.detach().argmax(-1) == tgt).sum().float()
+            sums.append(torch.stack([loss, hits]).to(self.device))
+        total = torch.stack(sums).sum(0) / (win.shape[0] * (win.shape[1] - 1))
+        return total[0], total[1].detach()
 
     def _flops_per_step(self, b: int) -> float:
         """Analytic train-step FLOPs (fwd+bwd), as the reference counts
@@ -278,7 +328,9 @@ class TorchTransformerLM(BaseModel):
             raise ValueError(
                 f"token dataset has {ds.size} ids but seq_len={t} needs at "
                 f"least {t + 2} (one full input+target window)")
-        b = int(self.knobs.get("batch_size", 8))
+        dp = self.mesh.shape["dp"]
+        # A multiple of dp, at least dp (ref :259-260).
+        b = max(dp, (int(self.knobs.get("batch_size", 8)) // dp) * dp)
         steps = int(self.knobs.get("train_steps", 100))
         if self.knobs.get("quick_train", False):
             steps = min(steps, int(self.knobs.get("trial_steps", 30)))
@@ -299,12 +351,13 @@ class TorchTransformerLM(BaseModel):
         # unknown, so no chip_util and no MFU gauge.
         meter = MfuMeter(self._flops_per_step(b)
                          if self.device.type == "cuda" else None,
-                         device=self.device)
+                         n_devices=self.mesh.size, device=self.device)
         mlabels = metrics.bound_labels()
         mfu_gauge = metrics.registry().gauge(
             "rafiki_tpu_train_mfu_ratio",
             "Model-FLOPs-utilization of the trial's chip group "
             "(published per epoch)")
+        loss_of = self._loss if self.mesh.size == 1 else self._mesh_loss
         rng = epoch_rng(int(self.knobs.get("seed", 0)), 0)
         hi = max(1, ds.size - (t + 1))
         done = 0
@@ -320,7 +373,7 @@ class TorchTransformerLM(BaseModel):
                 for group in opt.param_groups:
                     group["lr"] = schedule(done + i)
                 opt.zero_grad(set_to_none=True)
-                loss, acc = self._loss(wins[i])
+                loss, acc = loss_of(wins[i])
                 loss.backward()
                 opt.step()
                 sums += torch.stack([loss.detach(), acc])
@@ -345,8 +398,31 @@ class TorchTransformerLM(BaseModel):
         the reference computes it (ref :380-418), on the windows of
         ``_eval_windows``."""
         wins = self._eval_windows(dataset_path)
+        if self.mesh.size > 1:
+            return float(self._mesh_hits(wins)) / wins[:, 1:].numel()
         logits = self._forward(wins[:, :-1])
         return float((logits.argmax(-1) == wins[:, 1:]).float().mean())
+
+    @torch.no_grad()
+    def _mesh_hits(self, wins: torch.Tensor) -> torch.Tensor:
+        """Next-token hits of ``wins`` over the mesh's dp ranks: each
+        rank's windows through the forward on its device, on copies of
+        the cached casts (the reference's replicated parameters)."""
+        mesh = self.mesh
+        bf16 = self._weights()
+        hits = []
+        for i, (lo, hi) in enumerate(row_blocks(wins.shape[0],
+                                                mesh.shape["dp"])):
+            if lo == hi:
+                continue
+            dev = mesh.device(rank_coord(i))
+            w = wins[lo:hi].to(dev, non_blocking=True)
+            logits = self._logits(
+                w[:, :-1], lambda n, d=dev: bf16[n].to(d), "none",
+                lambda n, d=dev: self._net.get_parameter(n).to(d))
+            hits.append((logits.argmax(-1) == w[:, 1:]).sum().to(
+                self.device))
+        return torch.stack(hits).sum()
 
     def _eval_windows(self, dataset_path: str) -> torch.Tensor:
         """``evaluate``'s (n_win, T + 1) int64 windows on the device:

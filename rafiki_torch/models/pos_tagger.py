@@ -5,7 +5,10 @@ The counterpart of ``rafiki_tpu/models/pos_tagger.py:37-289``: the same
 knob config; tokens hashed into the vocabulary (``hash_token_ids``) and
 padded or cut to ``max_len``; ``Embed``, a forward and a backward
 ``OptimizedLSTMCell`` over the padded row, their outputs concatenated
-and a ``Dense`` to the tags, all in f32. flax's forward ``RNN`` runs
+and a ``Dense`` to the tags, all in f32. Its ``mesh`` (ref :83-86) is
+data-parallel over the devices of the group bound to the thread, or the
+model's device alone; each rank runs its rows through its replica on its
+device and the logits are gathered for the loss (ref :160-180). flax's forward ``RNN`` runs
 over every position of the row, padding included (``seq_lengths`` only
 picks its final carry, which the tagger does not read). The backward one
 is ``RNN(reverse=True, keep_order=True)``: ``flip_sequences`` reverses
@@ -21,9 +24,10 @@ on the device once; each epoch's order ``epoch_rng(seed,
 epoch).permutation(size)``, a short last batch filled by ``np.resize``;
 the loss the cross-entropy masked by each sentence's length (plus
 what ``train_logits`` adds, the transformer's MoE term), token accuracy
-alike, one log record an epoch; the batch and each predict bucket a
-multiple of ``batch_multiple()`` (the transformer's data-parallel
-ranks); the lr schedule over
+alike, one log record an epoch; the batch a multiple of
+``batch_multiple()`` (the data-parallel ranks) and the predict buckets
+doubling from ``predict_multiple()`` (the same, but 1 for the BiLSTM,
+as the reference's); the lr schedule over
 ``schedule_total_epochs`` when given and checkpoint resume under
 ``checkpoint_dir`` (``loop_ckpt``, ref :147, :181-183); ``predict``
 returns each sentence's per-token tag distributions, cut to its length,
@@ -49,6 +53,8 @@ from ..model.logger import logger
 from ..model.loop_ckpt import (LoopCheckpointer, TrainState, epoch_rng,
                                schedule_epochs)
 from ..model.optim import ScheduledOptimizer, scheduled_adam
+from ..parallel.data import group_mesh, mesh_apply
+from ..parallel.mesh import Mesh
 from ..torchenv import DeviceLike, resolve_device
 from .layers import Dense, Embed, lecun_normal_
 
@@ -98,6 +104,10 @@ class _CorpusTagger(BaseModel):
         """What a batch's size must be a multiple of: a model split over
         data-parallel ranks gives their count."""
         return 1
+
+    def predict_multiple(self) -> int:
+        """The smallest predict bucket; buckets double from it."""
+        return self.batch_multiple()
 
     # --- Plumbing ---
 
@@ -212,7 +222,7 @@ class _CorpusTagger(BaseModel):
         for s in range(0, len(sentences), PREDICT_CHUNK):
             chunk, lens = ids[s:s + PREDICT_CHUNK], lengths[s:s + PREDICT_CHUNK]
             n = chunk.shape[0]
-            bucket = self.batch_multiple()
+            bucket = self.predict_multiple()
             while bucket < n:
                 bucket *= 2
             if n < bucket:
@@ -342,6 +352,25 @@ class TorchPosTagger(_CorpusTagger):
             "seed": FixedKnob(0),
         }
 
+    def __init__(self, **knobs: Any):
+        super().__init__(**knobs)
+        self._mesh: Optional[Mesh] = None
+
+    @property
+    def mesh(self) -> Mesh:
+        """The data-parallel mesh over the devices of the group bound to
+        the thread, or over the model's device alone (ref :83-86)."""
+        if self._mesh is None:
+            self._mesh = group_mesh(self.device)
+        return self._mesh
+
+    def batch_multiple(self) -> int:
+        return self.mesh.shape["dp"]
+
+    def predict_multiple(self) -> int:
+        # Powers of two from 1, as the reference's (ref :250-252).
+        return 1
+
     def create_module(self, n_tags: int) -> nn.Module:
         return _BiLstm(int(self.knobs.get("vocab_size", 16384)),
                        int(self.knobs.get("embed_dim", 64)),
@@ -349,7 +378,16 @@ class TorchPosTagger(_CorpusTagger):
                        seed=int(self.knobs.get("seed", 0)))
 
     def logits(self, net, ids, lengths, step=None):
-        return net(ids, lengths)
+        """On the model's device, or each dp rank's rows through its
+        replica of ``net`` on its device (ref :160-180), the logits
+        gathered here."""
+        if self.mesh.size == 1:
+            return net(ids, lengths)
+        return mesh_apply(
+            self.mesh, net, ids.shape[0],
+            lambda dev, lo, hi: (ids[lo:hi].to(dev, non_blocking=True),
+                                 lengths[lo:hi].to(dev, non_blocking=True)),
+            self.device)
 
     def create_optimizer(self, params, total_steps: int):
         """``optax.adam(cosine_decay_schedule(lr, total, alpha=0.01))``

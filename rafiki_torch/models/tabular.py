@@ -13,7 +13,11 @@ resume under ``checkpoint_dir`` (``loop_ckpt``, ref :125, :161).
 ``train`` accepts ``shared_params`` and ignores it, as the reference
 does: a trial starts from the model's own initialisation.
 ``evaluate`` is accuracy or R²; ``predict`` gives class probabilities or
-one float a row, from batches padded to a power of two.
+one float a row, from batches padded to a power of two. The ``mesh``
+(ref :76-79) is data-parallel over the devices of the group bound to the
+thread, or the model's device alone: the batch is rounded down to a
+multiple of dp (at least dp) and each rank runs its rows through its
+replica of the MLP on its device, the loss the whole batch's mean.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from ..model.logger import logger
 from ..model.loop_ckpt import (LoopCheckpointer, TrainState, epoch_rng,
                                schedule_epochs)
 from ..model.optim import scheduled_adam
+from ..parallel.data import group_mesh, mesh_apply
+from ..parallel.mesh import Mesh
 from ..torchenv import DeviceLike, resolve_device
 from .layers import Dense
 
@@ -76,6 +82,25 @@ class _TabBase(BaseModel):
         self.device = resolve_device(device)
         self._net: Optional[_Mlp] = None
         self._meta: Dict[str, Any] = {}
+        self._mesh: Optional[Mesh] = None
+
+    @property
+    def mesh(self) -> Mesh:
+        """The data-parallel mesh over the devices of the group bound to
+        the thread, or over the model's device alone (ref :76-79)."""
+        if self._mesh is None:
+            self._mesh = group_mesh(self.device)
+        return self._mesh
+
+    def _apply(self, net: _Mlp, x: torch.Tensor) -> torch.Tensor:
+        """``net`` on the rows of ``x``: on the model's device, or each
+        dp rank's rows through its replica on its device (ref :160), the
+        outputs gathered here."""
+        if self.mesh.size == 1:
+            return net(x)
+        return mesh_apply(self.mesh, net, x.shape[0],
+                          lambda dev, lo, hi: (x[lo:hi].to(
+                              dev, non_blocking=True),), self.device)
 
     def _new_net(self) -> _Mlp:
         hidden = [int(self.knobs.get("hidden", 64))] \
@@ -116,8 +141,10 @@ class _TabBase(BaseModel):
         x = torch.from_numpy(self._standardize(ds.features)).to(dev)
         y = torch.from_numpy(targets).to(dev)
 
-        batch_size = max(1, min(int(self.knobs.get("batch_size", 64)),
-                                ds.size))
+        dp = self.mesh.shape["dp"]
+        # A multiple of dp, at least dp (ref :117-118).
+        batch_size = min(int(self.knobs.get("batch_size", 64)), ds.size)
+        batch_size = max(dp, (batch_size // dp) * dp)
         max_epochs = int(self.knobs.get("max_epochs", 20))
         if self.knobs.get("quick_train", False):
             max_epochs = min(max_epochs,
@@ -142,7 +169,7 @@ class _TabBase(BaseModel):
             for s in range(steps):
                 sel = order_d[s]
                 opt.zero_grad()
-                out = net(x[sel])
+                out = self._apply(net, x[sel])
                 if self.regression:
                     loss = torch.mean((out[:, 0] - y[sel]) ** 2)
                 else:
@@ -171,7 +198,7 @@ class _TabBase(BaseModel):
         if n < bucket:
             x = np.concatenate([x, np.zeros((bucket - n, x.shape[1]),
                                             x.dtype)])
-        out = net(torch.from_numpy(x).to(self.device))
+        out = self._apply(net, torch.from_numpy(x).to(self.device))
         out = out[:, 0] if self.regression else torch.softmax(out, -1)
         return out[:n].cpu().numpy()
 

@@ -64,8 +64,8 @@ from ..ops.attention import (default_attention, ring_attention,
                              ulysses_attention)
 from ..ops.moe import switch_moe
 from ..ops.pipeline import pipeline_apply
-from ..parallel.chips import ChipGroup
-from ..parallel.mesh import Mesh, build_mesh, shard_variables
+from ..parallel.data import group_mesh
+from ..parallel.mesh import Mesh, shard_variables
 from ..utils.hashing import M32, mix32
 from . import layers
 from .layers import Dense, Embed, LayerNorm, lecun_normal_
@@ -364,9 +364,7 @@ class TorchTransformerTagger(_CorpusTagger):
                 if n_layers % pp != 0:
                     raise ValueError(f"pipeline_parallel ({pp}) must "
                                      f"divide n_layers ({n_layers})")
-            group = ChipGroup.bound()
-            devices = group.devices() if group is not None else [self.device]
-            self._mesh = build_mesh(devices, sp=sp, ep=ep, pp=pp)
+            self._mesh = group_mesh(self.device, sp=sp, ep=ep, pp=pp)
         return self._mesh
 
     def batch_multiple(self) -> int:
