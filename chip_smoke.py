@@ -8,10 +8,15 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 It imports nothing of JAX or of ``rafiki_tpu``. In order it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds every kernel of the port from ``rafiki_torch/ops/csrc`` (one
+2. analysis phase: runs the port's static-analysis suite,
+   ``python -m rafiki_torch.analysis --json``, in a subprocess over the
+   tree the script runs from, requires exit 0 and no new finding, and
+   prints the findings by code and by status (waived, baselined), the
+   files scanned and the seconds;
+3. builds every kernel of the port from ``rafiki_torch/ops/csrc`` (one
    ``nvcc`` per source, in parallel) and prints the build time and each
    kernel's registers and spills;
-3. kernel phase, forward: runs K1 (``flash_fwd.cu``) against its plain
+4. kernel phase, forward: runs K1 (``flash_fwd.cu``) against its plain
    PyTorch version ``flash_attention_reference`` on the card at the
    flagship shape and at ragged, cross, ``kv_mask``, f32 and small-head
    shapes (f32 also at the int8 ViT shape, at Tq > Tkv causal and at
@@ -22,7 +27,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    wgmma, mma.sync), the plain version and, as a yardstick only,
    ``torch.nn.functional.scaled_dot_product_attention``, and the host's
    cost of one K1 launch of each variant;
-4. kernel phase, backward: runs K2 (``flash_bwd_dq.cu``) and K3
+5. kernel phase, backward: runs K2 (``flash_bwd_dq.cu``) and K3
    (``flash_bwd_dkv.cu``) against their plain versions at the flagship
    train shape (8, 16, 2048, 2048, 128) and at ragged, cross causal,
    ``kv_mask`` (one example fully padded), head_dim 80 and f32 shapes:
@@ -39,7 +44,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    the f32 causal shape (2, 4, 500, 500, 128) as CUDA graphs, in turns
    with ``torch.autograd.grad`` of ``scaled_dot_product_attention`` in
    f32, beside their plain versions and f32 bounds;
-5. train phase: trains ``TorchTransformerLM`` at flagship width
+6. train phase: trains ``TorchTransformerLM`` at flagship width
    (d_model 2048, 16 heads of 128, 8 layers, seq_len 2048, vocab 32768,
    batch 8, ``remat`` "dots", initialised on the card from the ``seed``
    knob) for 16 steps, two chunks of 8, on a synthetic Markov token
@@ -51,7 +56,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    per second, ``chip_util`` and
    peak memory; profiles one step; and holds one step's loss and
    gradients against the same step on ``flash_attention_plain``;
-6. serve phase: serves the trained parameters (``dump_parameters()``)
+7. serve phase: serves the trained parameters (``dump_parameters()``)
    through ``InferenceWorker`` and the predictor's ``POST /predict`` on
    a local port, checks every score, times a window of some hundreds of
    scored queries sent by several clients at once, checks that the K1
@@ -62,7 +67,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    query with an id past the vocabulary, which must answer nan without
    launching K1, after which the worker must score a known query exactly
    as before and its model must still generate;
-7. generate phase, on the trained parameters: builds the paged-KV
+8. generate phase, on the trained parameters: builds the paged-KV
    engine (``make_generator``, the decode step captured as a CUDA graph)
    and checks (1) greedy decoding against the full forward (K1) over the
    same prefix at every step, (2) one prefill per bucket from 32 to 4096
@@ -83,7 +88,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    on for the two windows, the registry's ``rafiki_tpu_lm_*`` family must
    count the tokens streamed, one TTFT a request, the scheduler's decode
    dispatches and its preemptions;
-8. automl phase, Rafiki's own loop on ``TorchFeedForward``: writes the
+9. automl phase, Rafiki's own loop on ``TorchFeedForward``: writes the
    synthetic image set at fashion-MNIST's split sizes and shape (60,000
    train and 10,000 val images of 28×28×1, 10 classes), runs a
    ``RandomAdvisor`` search of 4 trials through ``TrialRunner`` on the
@@ -101,7 +106,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    own, (c) the card's probabilities match the CPU plain path's for the
    same parameters, (d) a params file written on the card loads back
    bit for bit, (e) K1, K2 and K3 did not launch in the phase;
-9. platform phase, Rafiki's platform driven as a user drives it: a
+10. platform phase, Rafiki's platform driven as a user drives it: a
    ``LocalPlatform`` on its default device (CUDA) with the admin REST
    service, and ``Client`` over HTTP. (a) The quickstart's flow on
    ``TorchFeedForward`` on a freshly made copy of the automl phase's set:
@@ -130,7 +135,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    the admin's ``GET /trace/<id>``, the admin's and the predictor's
    ``GET /metrics`` parse with the serving families, and the admin's
    stats route is the predictor's ``/stats``;
-10. zoo phase, BASELINE configs 2 and 3 on the synthetic set at
+11. zoo phase, BASELINE configs 2 and 3 on the synthetic set at
    CIFAR-10's split sizes and image shape (50,000 train and 10,000 val
    images of 32×32×3, 10 classes): (a) ``TorchDenseNet`` at DenseNet-121's
    full width trains one epoch (steps/s, images/s, ``chip_util``, peak
@@ -150,7 +155,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    ENAS trials behind one predictor
    (served = the members' mean, a 256-request window); (e) K1, K2 and K3
    not launched in the phase;
-11. ensemble phase, BASELINE config 4 as the reference serves a bin:
+12. ensemble phase, BASELINE config 4 as the reference serves a bin:
    (a) 4 DenseNet-121 members (the zoo phase's trained one and three
    from seeds) in one bin behind ``BusInferenceWorker``, the predictor
    and ``Client``: a window of 256 single-image requests from 8 clients
@@ -178,7 +183,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    and bursts of 64 raw clients of 16 images: 429s with
    ``Retry-After``, no 5xx, ``/stats`` ``rejected`` equal to the
    clients' 429s, and a ``Client.predict`` answered after its retry;
-12. zoo2 phase, the rest of the zoo on the zoo phase's synthetic set
+13. zoo2 phase, the rest of the zoo on the zoo phase's synthetic set
    (made once, in the zoo phase) and on sets cut from the Penn Treebank
    WSJ POS split's and UCI Adult's sizes: (a) ``TorchViT`` at the
    reference's widths (d_model 128, 4 heads of 32, patch 4: 65 tokens,
@@ -219,7 +224,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    ``TorchTabMlpClf``, ``TorchTabMlpReg`` and ``TorchPosTagger`` one
    trial each through ``test_model_class`` on the card, served through
    ``POST /predict``, no K1-K3 launch;
-13. lifecycle phase, the serving lifecycle on zoo2 (b)'s 4 ViT trials
+14. lifecycle phase, the serving lifecycle on zoo2 (b)'s 4 ViT trials
    (nothing retrained): written as COMPLETED trials into a
    ``LocalPlatform``'s stores (CUDA, admin REST service), with the edge
    cache, confidence tiering (threshold: the median softmax margin of
@@ -245,7 +250,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    admitted requests and device seconds; (f) the pipelined worker
    drained under load: every request answered, the worker STOPPED. The
    phase must take at most 90 s;
-14. tenants phase, BASELINE config 5 through the observability plane: a
+15. tenants phase, BASELINE config 5 through the observability plane: a
    ``LocalPlatform`` on the card with trace tail sampling on
    (``RAFIKI_TPU_TRACE_TAIL_SAMPLE`` 0.25), exemplars on and
    ``RAFIKI_TPU_TRACE_DIR`` set; two users submit together, through
@@ -268,7 +273,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    verdict line each in ``trace_verdicts.jsonl``, ``GET /trace/<id>``
    with spans for a kept trace and none for a dropped one, every
    exemplar of ``GET /metrics?exemplars=1`` naming a kept trace;
-15. processes phase, the node as processes on the one card, every
+16. processes phase, the node as processes on the one card, every
    Python child started with jax made unimportable (a ``sitecustomize``
    on its ``PYTHONPATH``, which also prints at its exit the child's
    K1-K3 launches and whether it loaded or built each kernel library):
@@ -294,7 +299,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    answering (d)'s single queries bit for bit, none alive after
    ``destroy_service``. No child outlives the phase; the children load
    the kernels and build none; the phase must take at most 100 s;
-16. cluster phase, the fault plane and the cluster serving fabric over
+17. cluster phase, the fault plane and the cluster serving fabric over
    TCP brokers in this process, with zoo2 (b)'s ViT trials (the
    reference's widths, 6 blocks) served from ``LocalPlatform``s: (a)
    with the fabric off and no fault plan, a deployed bin and its
@@ -325,7 +330,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    then ``http.error:route=/predict,n=1``, exactly one 503; (g) memory
    bus push+pop operations a second, disarmed against armed with no
    rules (a record, no limit). The phase must take at most 90 s;
-17. autoscale phase, the serving control loop on the card, with zoo2
+18. autoscale phase, the serving control loop on the card, with zoo2
    (b)'s best ViT trial (6 blocks) served from ``LocalPlatform``s built
    through ``NodeConfig``: (a) with the autoscaler off and no SLO rules,
    a deployed bin and its frontend register no ``rafiki_tpu_autoscale_*``
@@ -350,7 +355,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    actions printed beside the live ones (a record, no limit); (f)
    ``python -m rafiki_torch.capacity score --trace ramp`` exits 0, and
    1 under a degraded policy. The phase must take at most 75 s;
-18. operator phase, the operator and data surface over HTTP to one
+19. operator phase, the operator and data surface over HTTP to one
    ``LocalPlatform`` on the card: (a) zoo2's first 8,192 train images
    and its 1,024 val images uploaded as ``.npz`` files with
    ``Client.create_dataset``, listed by ``GET /datasets?task=``, a
@@ -368,7 +373,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    ``GET /`` serves the dashboard and every request the page makes
    answers non-404; (f) ``chip_utilization`` above 0 while the job ran
    and 0 after. The phase must take at most 60 s;
-19. search phase, checkpoint resume and the trial pipeline: ViT trials
+20. search phase, checkpoint resume and the trial pipeline: ViT trials
    at zoo2 (b)'s widths on 4,096 of the operator phase's images (16
    steps of 256 an epoch). (a) Two uninterrupted 3-epoch runs set the
    card's run-to-run spread; a ``TrialRunner`` trial under
@@ -393,7 +398,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    2 layers, ``kv_mask``): a 1-epoch rung then the 2-epoch rung resumed
    ends within two uninterrupted runs' distance. K1-K3 launch on wgmma
    throughout. The phase must take at most 60 s;
-20. data phase, data staging and real data: (a) ``TorchPosTagger`` and
+21. data phase, data staging and real data: (a) ``TorchPosTagger`` and
    ``TorchTransformerTagger`` trained on the bundled English corpus
    (``prepare_bundled_pos_corpus``, 679 hand-tagged sentences) through
    ``rafiki_torch.accuracy_parity``'s corpus rows, with the reference's
@@ -425,7 +430,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    from the stream, the three logits bit for bit equal, and so their
    cross-entropy and accuracy, K1 8 a forward, all wgmma. The phase
    must take at most 60 s;
-21. parallel phase, the mesh and intra-trial parallelism: the
+22. parallel phase, the mesh and intra-trial parallelism: the
    transformer tagger at the widest point of its knob space (d_model
    256, 8 heads of 32, 6 layers, max_len 512, batch 64, vocab 16384,
    dropout 0) on a corpus of 64 sentences of 256-512 tokens, on a mesh
@@ -446,7 +451,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    dp row's whole Ulysses forward (the re-chunks' copies and K1). It
    prints the mesh's entries and the number of distinct cards (1). The
    phase must take at most 60 s;
-22. dp phase, data and tensor parallelism of the other families on a
+23. dp phase, data and tensor parallelism of the other families on a
    mesh of 4 entries that all name the one card, bound to the thread as
    a worker binds its group, each against the single device on the same
    weights and data: (a) the flagship LM at full width (batch 8 over dp
@@ -471,7 +476,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    against a single-device load of its parameters. It prints each
    part's losses, step seconds and launches. The phase must take at
    most 90 s;
-23. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
+24. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
    ``library_covers`` names the kernels whose work one library call does,
    ``platform_launches``, ``zoo_launches``, ``ensemble_launches``,
    ``zoo2_launches``, ``lifecycle_launches``, ``tenants_launches``,
@@ -502,6 +507,7 @@ import faulthandler
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -10099,6 +10105,26 @@ def data_row(data, kernel):
                 mask=data["kernels"]["mask"])
 
 
+def analysis_phase():
+    """The port's static-analysis suite over this checkout: exit 0 and
+    no new finding."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "rafiki_torch.analysis", "--json",
+         "--root", root], cwd=root, capture_output=True, text=True,
+        timeout=600)
+    secs = time.perf_counter() - t0
+    check(out.returncode == 0, f"rafiki_torch.analysis exited "
+          f"{out.returncode}: {out.stdout[-2000:]}{out.stderr[-2000:]}")
+    report = json.loads(out.stdout)
+    check(report["new"] == 0, f"{report['new']} new analysis findings")
+    counts = {c: n for c, n in report["counts_per_code"].items() if n}
+    print(f"analysis: {report['files']} files, {sum(counts.values())} "
+          f"findings by code {counts}, by status {report['by_status']}, "
+          f"new {report['new']}, {secs:.1f} s", flush=True)
+
+
 def timed(name, fn, *args):
     """``fn(*args)``, printing the phase's own seconds."""
     t0 = time.perf_counter()
@@ -10132,6 +10158,7 @@ def main() -> int:
     try:
         card = card_line()
         print(card, flush=True)
+        timed("analysis", analysis_phase)
         secs = _build.build_all()
         print(f"build: kernels built in {secs:.1f} s", flush=True)
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):

@@ -542,11 +542,13 @@ class Admin:
                     f"and inside a packed bin; promotion cannot "
                     f"target that mix")
         if multi_rows:
+            # rta: disable=RTA105 deliberate, as the reference: holding _promote_lock across the restack wait is what serializes concurrent promotes of one trial (two at once could both pass the already-served check)
             result = self._restack_packed_bins(
                 job, trial_id, replace_trial_id, multi_rows,
                 register_timeout)
             self._invalidate_predictor_cache(job)
             return result
+        # rta: disable=RTA105 deliberate, as the reference: holding _promote_lock across the registration wait IS the double-allocation fix (two promotes at once could both pass the already-served check)
         swap = self.services.swap_inference_worker(
             inference_job_id, trial_id,
             replace_service_ids=[w["service_id"] for w in old_rows],
@@ -572,6 +574,7 @@ class Admin:
         confirmed are restacked back and the promote raises."""
         inference_job_id = job["id"]
         cache = Cache(self.services.serving_bus())
+        # rta: disable=RTA105 deliberate: the restack runs under promote_trial's _promote_lock, which serializes concurrent promotes of one bin
         info = cache.running_worker_info(inference_job_id)
         not_stacked = [w["service_id"] for w in multi_rows
                        if not (info.get(w["service_id"]) or {})
@@ -585,12 +588,14 @@ class Admin:
                 f"replace the whole bin (stacked workers restack in "
                 f"place)")
         for w in multi_rows:
+            # rta: disable=RTA105 deliberate: the restack marker is sent under promote_trial's _promote_lock, which serializes concurrent promotes of one bin
             cache.send_restack(w["service_id"], replace_trial_id, trial_id)
         deadline = time.monotonic() + register_timeout
         pending = {w["service_id"] for w in multi_rows}
         confirmed: List[str] = []
         while pending:
             if time.monotonic() >= deadline:
+                # rta: disable=RTA105 deliberate: the rollback must finish under _promote_lock, or a concurrent promote could target the bin mid-rollback
                 self._rollback_restacks(cache, confirmed, trial_id,
                                         replace_trial_id, job)
                 raise RuntimeError(
@@ -608,6 +613,7 @@ class Admin:
                     pending.discard(sid)
                     confirmed.append(sid)
             if pending:
+                # rta: disable=RTA102 deliberate, as the reference: the registration-confirm poll must complete under _promote_lock or a concurrent promote could double-target the bin mid-swap
                 time.sleep(0.1)
         _log.info("promoted trial %s into inference job %s by restacking "
                   "%d packed worker(s) (replaced %s in place)", trial_id,

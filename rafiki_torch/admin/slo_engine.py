@@ -135,6 +135,7 @@ class SloEngine:
         """Drop every SLO series (objective/job/bin/tenant labels churn
         with deployments; a stopped engine must not leak them into
         every future scrape) and stop the webhook sender."""
+        # rta: disable=RTA106 monotonic one-way bool (False -> True once) read by the sender loop — the documented benign flag case
         self._closed = True
         self._webhook_wake.set()
         t = self._webhook_thread
@@ -431,6 +432,7 @@ class SloEngine:
             except OSError:
                 _log.warning("alert log write failed", exc_info=True)
         if self.webhook_url and not self._closed:
+            # rta: disable=RTA106 deque.append/popleft are GIL-atomic (single producer, single consumer; bounded maxlen drops oldest) — the documented benign case
             self._webhook_q.append(dict(entry))
             self._webhook_wake.set()
             if self._webhook_thread is None or \

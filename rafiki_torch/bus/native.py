@@ -139,6 +139,7 @@ def serve_broker(host: str = "127.0.0.1", port: int = 0, *,
 
     def _mark(backend: str) -> None:
         if metrics.metrics_enabled():
+            # rta: disable=RTA301 backend is one of two fixed broker kinds, set once per process
             metrics.registry().gauge(
                 "rafiki_tpu_bus_broker_info",
                 "1 for the broker backend this process started"

@@ -99,8 +99,8 @@ class EnvVars:
     bus a service in a process of its own opens; ``LOG_DIR`` the shared
     log directory; ``NODE_ID`` the node that placed it.
     ``METRICS_ADDR`` is set by a service process itself, to the address
-    its metrics server bound. The device a service process runs on is
-    ``torchenv.PLATFORM_ENV``."""
+    its metrics server bound. ``PLATFORM`` is the device type a service
+    process runs on (``torchenv.PLATFORM_ENV``)."""
 
     SERVICE_ID = "RAFIKI_TPU_SERVICE_ID"
     SERVICE_TYPE = "RAFIKI_TPU_SERVICE_TYPE"
@@ -115,3 +115,4 @@ class EnvVars:
     LOG_DIR = "RAFIKI_TPU_LOG_DIR"
     METRICS_ADDR = "RAFIKI_TPU_METRICS_ADDR"
     NODE_ID = "RAFIKI_TPU_NODE_ID"
+    PLATFORM = "RAFIKI_TPU_PLATFORM"

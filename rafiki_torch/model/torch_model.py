@@ -709,7 +709,8 @@ class PredictRunners:
             return runner(x)
 
     def clear(self) -> None:
-        self.runners.clear()
+        with self._lock:
+            self.runners.clear()
 
 
 def staged_chunk(buf: np.ndarray, n: int, shape,

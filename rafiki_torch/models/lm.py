@@ -388,6 +388,7 @@ class TorchTransformerLM(BaseModel):
             mfu = meter.mfu
             util = {"chip_util": round(mfu, 6)} if mfu is not None else {}
             if mfu is not None:  # the reference publishes it a chunk
+                # rta: disable=RTA301 bound trial= labels; TrialRunner removes them at trial end (worker/runner.py)
                 mfu_gauge.set(mfu, **mlabels)
             logger.log(step=done, loss=loss_acc[0], token_acc=loss_acc[1],
                        **util)

@@ -351,6 +351,7 @@ class LMGenerator:
     def _run_decode(self) -> Tuple[torch.Tensor, torch.Tensor]:
         if self._graph is not None:
             self._graph.replay()
+            # rta: disable=RTA402 the engine's one reader, step(), copies both tensors to the host (.cpu()) before any later replay; a clone would add two device copies to every decode step
             return self._out
         return self._decode(*self._decode_args())
 

@@ -114,6 +114,7 @@ def _families() -> Optional[Dict[str, Any]]:
     attribution (or metrics) is off — no family registered, zero
     series, one None check per account call."""
     global _state
+    # rta: disable=RTA101 double-checked init: the bare read is the fast path; the write re-checks under _lock
     s = _state
     if s is None:
         with _lock:

@@ -58,6 +58,7 @@ _lock = threading.Lock()
 
 def _family() -> Tuple:
     global _state
+    # rta: disable=RTA101 double-checked init: the bare read is the fast path; the write re-checks under _lock
     s = _state
     if s is None:
         with _lock:
@@ -141,6 +142,7 @@ def count_decode_dispatch(n: int = 1) -> None:
 def count_prefill(cached: bool, n: int = 1) -> None:
     c = _family()[4]
     if c is not None and n > 0:
+        # rta: disable=RTA301 mode is the fixed run|cached vocabulary; the family is gated on RAFIKI_TPU_SERVING_GENERATE and deliberately immortal while on
         c.inc(n, mode="cached" if cached else "run")
 
 

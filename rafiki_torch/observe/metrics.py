@@ -58,6 +58,7 @@ def exemplars_enabled() -> bool:
     (``RAFIKI_TPU_METRICS_EXEMPLARS``, default off), rendered
     OpenMetrics-style in the exposition. Resolved once per process."""
     global _exemplars_flag
+    # rta: disable=RTA101 double-checked init: the bare read is the fast path; the write re-checks under _exemplars_lock
     flag = _exemplars_flag
     if flag is None:
         with _exemplars_lock:
@@ -158,6 +159,7 @@ class Gauge(Counter):
             self._values[key] = self._values.get(key, 0.0) + n
 
     def dec(self, n: float = 1.0, **labels: str) -> None:
+        # rta: disable=RTA301 registry plumbing: labels pass through; series lifecycle belongs to callers
         self.inc(-n, **labels)
 
 
@@ -559,6 +561,7 @@ def serve_metrics(host: str = "0.0.0.0", port: int = 0,
     from ..utils.service import JsonHttpServer
 
     server = JsonHttpServer(
+        # rta: disable=RTA702 exporter liveness stub for scrapers; /metrics is the real surface
         [("GET", "/", lambda params, body, ctx: (200, {"status": "ok"}))],
         host=host, port=port, name=name)
     return server.start()

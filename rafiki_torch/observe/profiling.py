@@ -80,26 +80,26 @@ def trial_trace_dir(trial_id: str) -> Optional[str]:
 PROFILER_LOCK = threading.Lock()
 
 
-def _counter(name: str, help: str):
+def _trial_counter():
     from . import metrics
 
-    return metrics.registry().counter(name, help)
-
-
-def _trial_counter():
-    return _counter("rafiki_tpu_trial_traces_total",
-                    "Per-trial trace sessions (event=start|busy: skipped "
-                    "for a busy profiler)")
+    return metrics.registry().counter(
+        "rafiki_tpu_trial_traces_total",
+        "Per-trial trace sessions (event=start|busy: skipped for a busy "
+        "profiler)")
 
 
 def _profile_counter():
-    return _counter("rafiki_tpu_profile_sessions_total",
-                    "On-demand device profile sessions "
-                    "(event=start|busy|stop)")
+    from . import metrics
+
+    return metrics.registry().counter(
+        "rafiki_tpu_profile_sessions_total",
+        "On-demand device profile sessions (event=start|busy|stop)")
 
 
 def _count(counter, event: str) -> None:
     try:
+        # rta: disable=RTA301 event is the fixed start|busy|stop vocabulary of the two profiler families; process-global, deliberately immortal
         counter().inc(event=event)
     except Exception:  # metrics must never fail a session
         pass

@@ -72,6 +72,7 @@ def configure(log_dir: Optional[str]) -> None:
 
 
 def configured() -> bool:
+    # rta: disable=RTA101 lock-free liveness probe; a reference read is GIL-atomic
     return _log_dir is not None
 
 
@@ -163,6 +164,7 @@ class _Recorder:
                 if self._file is None or self._file.closed:
                     os.makedirs(os.path.dirname(self._path) or ".",
                                 exist_ok=True)
+                    # rta: disable=RTA102 the sink lock guards the handle itself; the lazy open is the bind it serializes (trace._write_lines idiom)
                     self._file = open(self._path, "a", encoding="utf-8")
                 self._file.write(line)
                 self._file.flush()
@@ -213,6 +215,7 @@ def _recorder() -> Optional[_Recorder]:
     """Resolve the env gate ONCE (attribution's ``_families`` shape):
     the off path after resolution is a tuple-load and a None check."""
     global _state
+    # rta: disable=RTA101 double-checked init: the bare read is the fast path; the write re-checks under _lock
     s = _state
     if s is None:
         with _lock:

@@ -243,9 +243,11 @@ class PredictorService:
         self.stats = ServingStats(
             service=_label or f"local-{uuid.uuid4().hex[:4]}")
         self._http = JsonHttpServer([
+            # rta: disable=RTA702 liveness probe for supervisors/load-balancers, not in-tree code
             ("GET", "/", self._health),
             ("GET", "/stats", self._stats),
             ("POST", "/predict", self._predict),
+            # rta: disable=RTA702 streamed generation is driven by external clients (tests hit it raw); no SDK wrapper yet
             ("POST", "/generate", self._generate),
             ("POST", "/cache/invalidate", self._cache_invalidate),
             ("GET", "/cache/peek", self._cache_peek),
@@ -405,6 +407,7 @@ class PredictorService:
         if self.edge_cache is not None:
             self.edge_cache.close()
         if self._m_fabric is not None:
+            # rta: disable=RTA106 handle bound once in for_job and never rebound; remove()/inc() lock internally — a late fabric event racing stop-time series removal is benign
             self._m_fabric.remove(service=self.stats.service)
         for name in ("rafiki_tpu_http_request_seconds",
                      "rafiki_tpu_http_requests_total"):

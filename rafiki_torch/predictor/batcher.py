@@ -213,6 +213,7 @@ class MicroBatcher:
         with fairness on, when ``client``'s share of it is. ``tenant``
         is the hashed attribution key, ``record`` the request's open
         workload record."""
+        # rta: disable=RTA101 unlocked fast-path peek; start() re-checks under _cond
         if not self._started:
             self.start()
         n = len(queries)
@@ -281,6 +282,7 @@ class MicroBatcher:
         lo, hi = self.fill_window_min, self.fill_window_max
         if lo >= hi:
             return lo  # pinned: a fixed window
+        # rta: disable=RTA101 benign torn read (docstring): stale float sizes ONE window
         dt = self._dt_ewma
         if dt is None:
             return lo

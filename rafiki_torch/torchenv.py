@@ -16,13 +16,15 @@ from typing import Any, Iterator, Mapping, Optional, Union
 
 import torch
 
+from .constants import EnvVars
+
 DeviceLike = Union[str, torch.device, None]
 
 #: The device type a service process runs on, ``cuda`` or ``cpu``: the
 #: reference's resolved-platform variable, which its children honour.
 #: A ``ServicesManager`` writes its node's device type into every
 #: service's environment.
-PLATFORM_ENV = "RAFIKI_TPU_PLATFORM"
+PLATFORM_ENV = EnvVars.PLATFORM
 
 
 def env_device(env: Optional[Mapping[str, str]] = None) -> torch.device:

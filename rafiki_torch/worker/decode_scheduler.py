@@ -61,7 +61,8 @@ class DecodeScheduler:
         self.stop_flag = threading.Event()
         # _cv guards _pending: appended by submit, drained by the loop
         # thread. Everything else in here — engine, _live, the
-        # counters — is written by the loop thread only.
+        # counters — is written by the loop thread only; the counters
+        # under _stats_lock, so stats() reads one consistent snapshot.
         self._cv = threading.Condition()
         self._pending: "deque[Dict[str, Any]]" = deque()
         # seq_id -> stream state (query_id, next frame index, tokens
@@ -143,7 +144,8 @@ class DecodeScheduler:
                 if eng.resident():
                     self._step_once()
             except Exception:
-                self.errors_total += 1
+                with self._stats_lock:
+                    self.errors_total += 1
                 _log.exception("decode scheduler %s: lap failed; "
                                "continuing", self.worker_id)
                 time.sleep(0.05)
@@ -178,7 +180,8 @@ class DecodeScheduler:
                 temperature=req["temperature"], seed=req["seed"],
                 eos=req["eos"], seq_id=req["seq_id"])
         except Exception:
-            self.errors_total += 1
+            with self._stats_lock:
+                self.errors_total += 1
             _log.exception("decode scheduler %s: admit failed",
                            self.worker_id)
             self._error_frame(req["query_id"], "admission failed")
@@ -268,7 +271,8 @@ class DecodeScheduler:
             frame["finish"] = fin
             frame["n_tokens"] = st["n_sent"]
             del self._live[sid]
-            self.served_total += 1
+            with self._stats_lock:
+                self.served_total += 1
         self.frames.send_token_frame(st["query_id"], self.worker_id,
                                      frame)
 
@@ -276,7 +280,8 @@ class DecodeScheduler:
         st = self._live.pop(sid, None)
         if st is None:
             return
-        self.served_total += 1
+        with self._stats_lock:
+            self.served_total += 1
         self.frames.send_token_frame(
             st["query_id"], self.worker_id,
             {"seq": st["frame"], "tok": [], "done": True,

@@ -616,6 +616,7 @@ class BusInferenceWorker:
         """The hard stop: the serve loop exits at its next pop and the
         worker dies without marking its row or unregistering (a burst
         already in flight still completes)."""
+        # rta: disable=RTA106 monotonic one-way bool (False -> True once) read by the serve loop after it exits — the documented benign flag case
         self.hard_killed = True
         self.stop_flag.set()
         if self._thread is not None:
