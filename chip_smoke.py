@@ -281,7 +281,7 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    the child; (b) ``python -m rafiki_torch serve --bus tcp://...`` and,
    through ``Client``, a ViT job of 4 trials at the reference's widths
    (6 blocks, batch 256, one epoch) on the synthetic CIFAR-10-shaped
-   set cut to 8,192 + 1,024 images, with ``RAFIKI_TPU_TRACE_DIR`` set;
+   set cut to 4,096 + 1,024 images, with ``RAFIKI_TPU_TRACE_DIR`` set;
    (c) ``python -m rafiki_torch join --train-job``: it exits 0 having
    attached 1 worker, every trial COMPLETED, the trials' workers on two
    nodes, a join node's trial trace naming K1's, K2's and K3's wgmma
@@ -396,8 +396,16 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    books balanced, and a 2-trial worker's close forgets the proposal it
    prefetched; (e) the transformer tagger (d_model 256, 4 heads of 64,
    2 layers, ``kv_mask``): a 1-epoch rung then the 2-epoch rung resumed
-   ends within two uninterrupted runs' distance. K1-K3 launch on wgmma
-   throughout. The phase must take at most 60 s;
+   ends within two uninterrupted runs' distance; (f) the persist tail's
+   ``ParamStore`` write-behind on against
+   ``RAFIKI_TPU_PARAMS_WRITE_BEHIND=0``: 3 one-epoch ViT trials a mode
+   through a ``TrialRunner`` whose tail runs on the trial thread, each
+   warm-starting from the last save, the seconds of ``save`` on that
+   thread, the gaps between trials and the warm starts served from a
+   pending save's memory printed, then one trial's file saved again from
+   tensors on the card with the switch on and off, the three files byte
+   for byte equal. K1-K3 launch on wgmma throughout. The phase must take
+   at most 60 s;
 21. data phase, data staging and real data: (a) ``TorchPosTagger`` and
    ``TorchTransformerTagger`` trained on the bundled English corpus
    (``prepare_bundled_pos_corpus``, 679 hand-tagged sentences) through
@@ -476,18 +484,33 @@ It imports nothing of JAX or of ``rafiki_tpu``. In order it:
    against a single-device load of its parameters. It prints each
    part's losses, step seconds and launches. The phase must take at
    most 90 s;
-24. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
+24. dist phase, a node over two processes on the one card
+   (``rafiki_torch.parallel.dist``, gloo, since the ranks share the
+   card): (a) two ``python -m rafiki_torch serve --coordinator
+   127.0.0.1:<free port> --num-processes 2 --process-id {0,1}``
+   children each report ``GLOBAL 2 LOCAL 1, backend gloo``, serve their
+   admin and stop on SIGTERM with exit 0; (b) two children, one dp rank
+   each, train the flagship LM at full width (batch 8 over dp 2) for 2
+   steps from the seeded weights and then ViT at zoo2 (a)'s widths for
+   one step on 256 images, as a step every process runs, while this
+   process runs the same on the one-process dp-2 mesh (two entries on
+   the card): the losses within ``TOL_STEP_LOSS``, the parameters within
+   ``TOL_PAR_STEP`` of the update (and whether bit for bit), K1-K3 a
+   process 2·2·8, 2·8 and 2·8 for the LM and 12, 6, 6 for ViT, all
+   wgmma. The phase must take at most 90 s;
+25. prints each phase's seconds, a ``{"kernels": [...]}`` line, in which
    ``library_covers`` names the kernels whose work one library call does,
    ``platform_launches``, ``zoo_launches``, ``ensemble_launches``,
    ``zoo2_launches``, ``lifecycle_launches``, ``tenants_launches``,
    ``processes_launches``, ``cluster_launches``, ``autoscale_launches``,
    ``operator_launches``, ``search_launches``, ``data_launches``,
-   ``parallel_launches`` and ``dp_launches`` the platform, zoo,
-   ensemble, zoo2, lifecycle, tenants, processes, cluster, autoscale,
-   operator, search, data, parallel and dp phases' launches (the
-   platform's, zoo2's, lifecycle's, tenants', the processes' children's,
-   the cluster, the autoscale, the operator, the search, the data, the
-   parallel and the dp phases' counted in ``launches`` too; ``processes_trace_events``
+   ``parallel_launches``, ``dp_launches`` and ``dist_launches`` the
+   platform, zoo, ensemble, zoo2, lifecycle, tenants, processes,
+   cluster, autoscale, operator, search, data, parallel, dp and dist
+   phases' launches (the platform's, zoo2's, lifecycle's, tenants', the
+   processes' children's, the cluster, the autoscale, the operator, the
+   search, the data, the parallel, the dp and the dist phases' (its two
+   children's) counted in ``launches`` too; ``processes_trace_events``
    each kernel's events in the join node's trial trace), K2's and K3's
    ``f32`` their f32 variants' numbers, ``zoo2_shapes`` each kernel's
    numbers at the ViT and tagger shapes, ``data_shape`` at the real
@@ -870,8 +893,8 @@ TENANT_MAX_S = 150.0
 # primary (`serve --bus tcp://...`) and `join` children: the train one
 # takes part of a ViT job of 4 trials at the reference's widths (d_model
 # 128, 4 heads of 32, patch 4: 65 tokens, 6 blocks, batch 256, one
-# epoch) on the zoo phases' synthetic CIFAR-10-shaped set cut to 8,192
-# + 1,024 images (32 steps an epoch), with every trial traced; the
+# epoch) on the zoo phases' synthetic CIFAR-10-shaped set cut to 4,096
+# + 1,024 images (16 steps an epoch), with every trial traced; the
 # inference one adds a replica of the 2 best trials' bin, which 8
 # clients then load with 256 single-image requests through the
 # predictor over the TCP bus. The broker is then killed and restarted
@@ -885,7 +908,7 @@ TENANT_MAX_S = 150.0
 # its PYTHONPATH), and reports its K1-K3 launches, the device memory its
 # allocator reserved at most, and whether it loaded or built each
 # kernel library when it exits.
-PROC_DATA = {"n_train": 8192, "n_val": 1024, "image_shape": (32, 32, 3),
+PROC_DATA = {"n_train": 4096, "n_val": 1024, "image_shape": (32, 32, 3),
              "n_classes": 10, "name": "cifar10-proc"}
 PROC_TRIALS = 4
 PROC_DEPLOY = 2
@@ -1073,6 +1096,8 @@ SEARCH_CORPUS = {"n_train": 1024, "n_val": 256, "vocab": 20000,
 SEARCH_WAIT_S = 120.0
 SEARCH_MAX_S = 60.0
 SEARCH_KNOBS = {"learning_rate": 1e-3, "weight_decay": 1e-4}
+# (f) ViT trials a run of the persist tail, write-behind on and off.
+SEARCH_WB_TRIALS = 3
 SEARCH_VIT_SOURCE = """
 from rafiki_torch.model import FixedKnob, IntegerKnob
 from rafiki_torch.models import TorchViT
@@ -1236,6 +1261,19 @@ class DpViT(TorchViT):
                    max_epochs=FixedKnob(1))
         return cfg
 """
+
+
+# The dist phase: a node over two processes on the one card (gloo: the
+# ranks share it). (a) Two `serve` children joined at one coordinator
+# report the group and stop on SIGTERM; (b) two children, one dp rank
+# each, train the flagship LM at full width (batch 8 over dp 2) for 2
+# steps from the seeded weights and ViT at zoo2 (a)'s widths for one
+# step on DIST_VIT_TRAIN images; each against the one-process dp-2 mesh
+# on the card (the losses within TOL_STEP_LOSS, the parameters within
+# TOL_PAR_STEP of the update). The phase must take at most DIST_MAX_S.
+DIST_VIT_TRAIN = 256
+DIST_CHILD_S = 75.0
+DIST_MAX_S = 90.0
 
 
 class SmokeFailure(Exception):
@@ -2873,13 +2911,18 @@ def automl_phase(torch, np, attn, card):
               f"images, card vs CPU plain path: max |diff| {diff:.3e} "
               f"(tolerance {TOL_PROB})", flush=True)
 
-        # (d) A params file written on the card loads back bit-exactly.
+        # (d) A params file written on the card (by the store's
+        # write-behind: the dump's leaves are tensors there) loads back
+        # bit-exactly; a 0-d entry comes back as shape (1,), as from the
+        # reference's store.
         dumped = on_card.dump_parameters()
         pid = params.save(dumped, session_id="roundtrip")
         back = params.load(pid)
+        dumped = host_tree(dumped)
         check(set(back) == set(dumped) and all(
             back[k].dtype == np.asarray(dumped[k]).dtype
-            and np.array_equal(back[k], dumped[k]) for k in dumped),
+            and np.array_equal(back[k], np.asarray(dumped[k]).reshape(
+                back[k].shape)) for k in dumped),
             "a params file written on the card did not load back exactly")
         again = TorchFeedForward(device="cuda", **best_knobs)
         again.load_parameters(back)
@@ -3441,7 +3484,7 @@ def zoo_densenet(torch, np, card, train, val, tmp):
             twin.train(small_tr)
         finally:
             torch_model.WARMUP_STEPS = saved
-        runs.append(twin.dump_parameters())
+        runs.append(host_tree(twin.dump_parameters()))
         twin.destroy()
     a, b = runs
     check(set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a),
@@ -3487,7 +3530,7 @@ def zoo_densenet(torch, np, card, train, val, tmp):
             "peak_gb": peak_gb, "val_acc": acc, "step_ms": step_ms,
             "busy_share": (prof[1] / 1e3 / step_ms) if prof else None,
             "logit_diff": diff, "loss": [loss0, ep["loss"], loss1],
-            "params": dumped}
+            "params": host_tree(dumped)}
 
 
 def zoo_search(meta, params, model, cls, train, val, n_trials, advisor,
@@ -3634,9 +3677,23 @@ def zoo_phase(torch, np, attn, card, data_dir=None):
         check(isinstance(advisor, EnasAdvisor),
               f"make_advisor chose {type(advisor).__name__} for ENAS")
         h0 = entropy(np, advisor.arch_probs())
-        job, rows, search_s = zoo_search(meta, params, en_model, en_cls,
-                                         search_train, search_val,
-                                         ENAS_TRIALS, advisor, "zoo-enas")
+        # Warm starts the store served from a pending save's memory
+        # (the trial's dump, tensors on the card, not yet flushed).
+        from_memory = [0]
+        real_mem = params.get_in_memory
+
+        def in_memory(pid):
+            got = real_mem(pid)
+            from_memory[0] += got is not None
+            return got
+
+        params.get_in_memory = in_memory
+        try:
+            job, rows, search_s = zoo_search(
+                meta, params, en_model, en_cls, search_train, search_val,
+                ENAS_TRIALS, advisor, "zoo-enas")
+        finally:
+            params.get_in_memory = real_mem
         h1 = entropy(np, advisor.arch_probs())
         check(len(rows) == ENAS_TRIALS and all(
             r["status"] == TrialStatus.COMPLETED for r in rows),
@@ -3677,11 +3734,14 @@ def zoo_phase(torch, np, attn, card, data_dir=None):
               f"tensors, 1 final retraining trial {best['no']}'s arch from "
               f"scratch on the single path, {n_single} tensors) in "
               f"{search_s:.2f} s: {ENAS_TRIALS * 3600 / search_s:.1f} "
-              f"trials/hour; controller entropy {h0:.4f} nats before, "
+              f"trials/hour; warm starts served from a pending save's "
+              f"memory (the write-behind) {from_memory[0]} of "
+              f"{len(search) - 1}; controller entropy {h0:.4f} nats before, "
               f"{h1:.4f} after; check took {time.perf_counter() - t0:.1f} s "
               f"on {card}", flush=True)
         out["enas"] = {"search_s": search_s,
                        "trials_per_hour": ENAS_TRIALS * 3600 / search_s,
+                       "warm_from_memory": from_memory[0],
                        "entropy": [h0, h1],
                        "scores": [r["score"] for r in rows]}
 
@@ -8334,9 +8394,19 @@ def operator_phase(torch, np, attn, card, zoo2):
     return out
 
 
+def host_tree(params):
+    """A parameter dict with its tensors read back to numpy, one packed
+    pull a (device, dtype) group: an image-zoo dump's leaves are float32
+    tensors on the card."""
+    from rafiki_torch.parallel import device_get_tree
+
+    return device_get_tree(dict(params))
+
+
 def param_dist(np, a, b):
     """The largest |a - b| over two parameter dicts' tensors (``_meta``
     entries left out)."""
+    a, b = host_tree(a), host_tree(b)
     return max(float(np.abs(np.asarray(a[k], np.float64)
                             - np.asarray(b[k], np.float64)).max())
                for k in a if not k.startswith("_"))
@@ -8722,6 +8792,10 @@ def search_phase(torch, np, attn, card, zoo2):
               f"launched {tl[:3]} times, all wgmma; (e) took "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         out.update(tagger_spread=tspread, tagger_dist=tdist)
+
+        # (f) The persist tail's write-behind, on against off.
+        out["write_behind"] = search_write_behind(
+            torch, np, tmp.name, vit_cls, train, val, card)
     finally:
         if plat is not None:
             plat.shutdown()
@@ -8740,6 +8814,120 @@ def search_phase(torch, np, attn, card, zoo2):
           f"on wgmma; phase took {phase_s:.1f} s on {card}", flush=True)
     out.update(launches=launches[:3], phase_s=phase_s)
     return out
+
+def search_write_behind(torch, np, root, vit_cls, train, val, card):
+    """The search phase's (f): SEARCH_WB_TRIALS one-epoch ViT trials
+    through a TrialRunner whose persist tail runs inline on the trial
+    thread, each warm-starting from the last save (GLOBAL_RECENT), with
+    the ParamStore's write-behind on and then off
+    (RAFIKI_TPU_PARAMS_WRITE_BEHIND=0): the seconds of ``save`` on the
+    trial thread, the gaps between trials, the warm starts served from
+    a pending save's memory; then one trial's file saved again from
+    tensors on the card with the switch on and off, the three files
+    byte for byte equal. Returns the numbers."""
+    import os
+    import statistics
+
+    from rafiki_torch.advisor.base import Proposal
+    from rafiki_torch.constants import ParamsType, TrialStatus
+    from rafiki_torch.store import MetaStore, ParamStore
+    from rafiki_torch.worker.runner import TrialRunner
+
+    class Proposed:
+        def feedback(self, p, score):
+            pass
+
+        def forget(self, p):
+            pass
+
+    t0 = time.perf_counter()
+    knobs = vit_cls.validate_knobs(dict(SEARCH_KNOBS, max_epochs=1))
+    res, stores = {}, {}
+    for mode in ("on", "off"):
+        os.environ["RAFIKI_TPU_PARAMS_WRITE_BEHIND"] = \
+            "1" if mode == "on" else "0"
+        meta = MetaStore(os.path.join(root, f"wb-{mode}.db"))
+        params = ParamStore(os.path.join(root, f"wb-{mode}-params"))
+        saves, memory = [], [0]
+        real_save, real_mem = params.save, params.get_in_memory
+
+        def timed_save(p, _real=real_save, _saves=saves, **kw):
+            t = time.perf_counter()
+            pid = _real(p, **kw)
+            _saves.append(time.perf_counter() - t)
+            return pid
+
+        def in_memory(pid, _real=real_mem, _memory=memory):
+            got = _real(pid)
+            _memory[0] += got is not None
+            return got
+
+        params.save, params.get_in_memory = timed_save, in_memory
+        runner = TrialRunner(vit_cls, Proposed(), train, val, meta, params,
+                             f"search-wb-{mode}", device="cuda")
+        rows = [runner.run_one(Proposal(
+            trial_no=i + 1, knobs=dict(knobs),
+            params_type=ParamsType.GLOBAL_RECENT))
+            for i in range(SEARCH_WB_TRIALS)]
+        params.flush()
+        check(all(r["status"] == TrialStatus.COMPLETED for r in rows),
+              f"(f) write-behind {mode}: trials "
+              f"{[(r['status'], r.get('error')) for r in rows]}")
+        spans = []
+        for r in rows:
+            recs = trial_records(meta, r["id"])
+            spans.append((min(x["time"] for x in recs),
+                          max(x["time"] for x in recs
+                              if x["type"] == "values"
+                              and "epoch" in x["values"])))
+        gaps = [b[0] - a[1] for a, b in zip(spans, spans[1:])]
+        warm = [trial_warm_starts(meta, r["id"]) for r in rows[1:]]
+        check(all(w and w[0] > 0 for w in warm),
+              f"(f) write-behind {mode}: warm starts {warm}")
+        res[mode] = {"save_s": saves, "gap_s": gaps, "memory": memory[0],
+                     "params_id": rows[-1]["params_id"]}
+        stores[mode] = (meta, params)
+    # One trial's file, saved again from tensors on the card with the
+    # switch on (the writer thread) and off: three files, one content.
+    on_params = stores["on"][1]
+    del on_params.save, on_params.get_in_memory  # the class's own again
+    host = on_params.load(res["on"]["params_id"])
+    tree = {k: v if k.startswith("_meta/") else torch.from_numpy(
+        np.array(v, copy=True)).to("cuda") for k, v in host.items()}
+    blobs = []
+    with open(on_params._path(res["on"]["params_id"]), "rb") as f:
+        blobs.append(f.read())
+    for flag in ("1", "0"):
+        os.environ["RAFIKI_TPU_PARAMS_WRITE_BEHIND"] = flag
+        pid = on_params.save(tree, session_id="wb-bytes")
+        on_params.flush()
+        with open(on_params._path(pid), "rb") as f:
+            blobs.append(f.read())
+    os.environ.pop("RAFIKI_TPU_PARAMS_WRITE_BEHIND", None)
+    check(blobs[0] == blobs[1] == blobs[2],
+          f"(f) the files differ: {[len(b) for b in blobs]} bytes")
+    for meta, params in stores.values():
+        params.close()
+        meta.close()
+    for mode in ("on", "off"):
+        r = res[mode]
+        print(f"search: (f) write-behind {mode}: {SEARCH_WB_TRIALS} "
+              f"one-epoch ViT trials, the persist tail inline on the "
+              f"trial thread, each warm-starting GLOBAL_RECENT: save "
+              f"{statistics.median(r['save_s']) * 1e3:.3f} ms median "
+              f"(each {[round(x * 1e3, 3) for x in r['save_s']]} ms); "
+              f"gap from a trial's last epoch to the next trial's start "
+              f"{statistics.median(r['gap_s']):.4f} s median (each "
+              f"{[round(x, 4) for x in r['gap_s']]}); warm starts served "
+              f"from a pending save's memory {r['memory']} of "
+              f"{SEARCH_WB_TRIALS - 1}", flush=True)
+    print(f"search: (f) a trial's file and the same parameters saved "
+          f"again from tensors on the card with write-behind on and off: "
+          f"3 files of {len(blobs[0])} bytes, byte for byte equal; (f) "
+          f"took {time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    return {m: {k: v for k, v in r.items() if k != "params_id"}
+            for m, r in res.items()}
+
 
 def staged_digests(torch, np):
     """{key: sha-256 of the tensor's bytes} of every staging-cache
@@ -10125,6 +10313,331 @@ def analysis_phase():
           f"new {report['new']}, {secs:.1f} s", flush=True)
 
 
+def dist_knobs():
+    """The dist phase's LM knobs: the flagship at full width, two steps,
+    one record each."""
+    from rafiki_torch.models import TorchTransformerLM
+
+    return dict(TorchTransformerLM.validate_knobs(FLAGSHIP), train_steps=2,
+                steps_per_dispatch=1)
+
+
+def dist_train(torch, attn, cls, knobs, path, rank=None):
+    """One of the dist phase's runs: ``cls(**knobs)`` trained on
+    ``path`` under the group bound by the caller, from seeded weights
+    (the LM draws its own from its seed knob, the image zoo from torch's
+    seed). Returns (the model, its records' losses, the initial
+    parameters, its launches, seconds)."""
+    from rafiki_torch.model.bridge import dense_to_jax_tensors
+
+    torch.manual_seed(SEED)
+    m = cls(device="cuda", **knobs)
+    start = {}
+    if hasattr(m, "_init_params"):
+        m._install(m._init_params())
+        start = {k: v.detach().clone()
+                 for k, v in m._net.state_dict().items()}
+    else:
+        real_new_net = m._new_net
+
+        def new_net(*args, **kw):
+            net = real_new_net(*args, **kw)
+            start.update(host_tree(dense_to_jax_tensors(net.state_dict())))
+            return net
+
+        m._new_net = new_net
+    torch.cuda.synchronize()
+    reset_launch_counts(attn)
+    t0 = time.perf_counter()
+    _, recs = dp_records(m.train, path)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = launch_counts(attn)
+    return m, [r["loss"] for r in recs if "loss" in r], start, got, secs
+
+
+def dist_child(rank, port, root, lm_path, vit_path):
+    """One process of the dist phase's node (``python -c``): joins the
+    group at ``127.0.0.1:port`` as process ``rank`` of 2, binds a group
+    over the global list (dp 2, one rank here) and, as a step every
+    process runs, trains the LM and then ViT (``dist_train``); rank 0
+    writes the LM's parameters (raw float32, in ``sorted`` order) and
+    ViT's (``.npz``) under ``root``. Prints ``dist: child {...}``."""
+    import numpy as np
+    import torch
+
+    from rafiki_torch.model import torch_model
+    from rafiki_torch.models import TorchTransformerLM, TorchViT
+    from rafiki_torch.ops import _build
+    from rafiki_torch.ops import attention as attn
+    from rafiki_torch.parallel import ChipGroup, dist
+
+    node = dist.initialize(f"127.0.0.1:{port}", 2, rank)
+    rec = {"rank": rank, "global": len(node.devices),
+           "local": len(node.local), "backend": node.backend}
+    torch_model.WARMUP_STEPS = 10 ** 9
+    ChipGroup(indices=(0, 1)).bind_to_thread()
+    try:
+        with dist.every_process():
+            m, loss, _, got, secs = dist_train(
+                torch, attn, TorchTransformerLM, dist_knobs(), lm_path)
+            rec.update(lm_loss=loss, lm_launches=list(got), lm_s=secs,
+                       lm_dp=m.mesh.shape["dp"],
+                       lm_spans=m.mesh.spans_processes,
+                       lm_local_ranks=m.mesh.local_ranks())
+            if rank == 0:
+                state = m._net.state_dict()
+                with open(os.path.join(root, "lm_params.bin"), "wb") as f:
+                    for k in sorted(state):
+                        state[k].detach().float().cpu().numpy().tofile(f)
+            m.destroy()
+            torch.cuda.empty_cache()
+            v, vloss, _, vgot, vsecs = dist_train(
+                torch, attn, TorchViT, dict(ZOO2_VIT), vit_path)
+            rec.update(vit_loss=vloss, vit_launches=list(vgot),
+                       vit_s=vsecs, vit_dp=v.mesh.shape["dp"])
+            if rank == 0:
+                np.savez(os.path.join(root, "vit_params.npz"),
+                         **host_tree(v.dump_parameters()))
+            v.destroy()
+    finally:
+        ChipGroup.unbind_thread()
+        dist.shutdown()
+    rec["kernels"] = _build.kernel_origins()
+    rec["jax"] = "jax" in sys.modules
+    print("dist: child " + json.dumps(rec), flush=True)
+
+
+def dist_phase(torch, np, attn, card):
+    """A node over two processes on the one card: (a) two ``python -m
+    rafiki_torch serve --coordinator ... --num-processes 2
+    --process-id i`` children report GLOBAL 2 LOCAL 1 and gloo and stop
+    on SIGTERM; (b) two children train the flagship LM (2 steps) and
+    ViT (1 step) at dp 2, one rank each, held against the one-process
+    dp-2 mesh on the card, K1-K3 per process as the mesh predicts, all
+    wgmma. Returns the phase's numbers and the children's launches."""
+    import signal
+    import socket
+    import subprocess
+
+    from rafiki_torch.datasets import (make_synthetic_image_dataset,
+                                       make_synthetic_token_dataset)
+    from rafiki_torch.model import torch_model
+    from rafiki_torch.models import TorchTransformerLM, TorchViT
+    from rafiki_torch.parallel.chips import ChipGroup
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    env.pop("RAFIKI_TPU_PLATFORM", None)
+    out = {}
+
+    def free_port():
+        with socket.socket() as s_:
+            s_.bind(("127.0.0.1", 0))
+            return s_.getsockname()[1]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as root:
+        knobs = dist_knobs()
+        n_l, depth = knobs["n_layers"], ZOO2_VIT["depth"]
+        lm_path, _ = make_synthetic_token_dataset(
+            os.path.join(root, "lm"), n_train=DP_LM_IDS, n_val=1 << 12,
+            vocab_size=knobs["vocab_size"], seed=SEED)
+        vit_path, _ = make_synthetic_image_dataset(
+            os.path.join(root, "vit"), n_train=DIST_VIT_TRAIN, n_val=64,
+            image_shape=(32, 32, 3), n_classes=10, seed=SEED)
+
+        # (a) The serve pair.
+        t0 = time.perf_counter()
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "rafiki_torch", "serve", "--workdir",
+             os.path.join(root, f"serve{i}"), "--port", "0",
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+             "--process-id", str(i), "--log-level", "warning"],
+            cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for i in range(2)]
+        lines = [[], []]
+        readers = [threading.Thread(
+            target=lambda p=p, o=o: o.extend(x.rstrip() for x in p.stdout),
+            daemon=True) for p, o in zip(procs, lines)]
+        for r in readers:
+            r.start()
+        try:
+            deadline = time.monotonic() + DIST_CHILD_S
+            while not all(any("rafiki-tpu admin on" in x for x in o)
+                          for o in lines):
+                check(time.monotonic() < deadline
+                      and all(p.poll() is None for p in procs),
+                      f"(a) the serve children did not come up: "
+                      f"{[o[-20:] for o in lines]}")
+                time.sleep(0.05)
+            up_s = time.perf_counter() - t0
+            for p in procs:
+                p.send_signal(signal.SIGTERM)
+            for p in procs:
+                p.wait(timeout=DIST_CHILD_S)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for r in readers:
+                r.join(timeout=10)
+        groups = []
+        for i, p in enumerate(procs):
+            grp = [x for x in lines[i] if "process group:" in x]
+            check(p.returncode == 0 and grp and
+                  f"process {i} of 2, GLOBAL 2 LOCAL 1, backend gloo"
+                  in grp[0] and "shutting down..." in lines[i],
+                  f"(a) serve child {i} exited {p.returncode}: "
+                  f"{lines[i][-20:]}")
+            groups.append(grp[0])
+        print(f"dist: (a) two `python -m rafiki_torch serve --coordinator "
+              f"127.0.0.1:{port} --num-processes 2 --process-id i` "
+              f"children: {groups}; both admins up {up_s:.2f} s after the "
+              f"start, both stopped on SIGTERM with exit 0 (the group "
+              f"left at shutdown); (a) took {time.perf_counter() - t0:.1f}"
+              f" s", flush=True)
+
+        # (b) The LM and ViT over dp 2 across the two processes.
+        t0 = time.perf_counter()
+        port = free_port()
+        logs = [open(os.path.join(root, f"child{i}.log"), "w")
+                for i in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; "
+             f"chip_smoke.dist_child({i}, {port}, {root!r}, {lm_path!r}, "
+             f"{vit_path!r})"],
+            cwd=here, env=env, stdout=logs[i], stderr=subprocess.STDOUT)
+            for i in range(2)]
+        # Meanwhile, the one-process dp-2 mesh of two entries on the card
+        # (checks: their launches are not the main path's).
+        saved = torch_model.WARMUP_STEPS
+        torch_model.WARMUP_STEPS = 10 ** 9
+        group = ChipGroup(indices=(0, 0))
+        group.bind_to_thread()
+        try:
+            with uncounted(attn):
+                m1, loss1, p0, _, s1 = dist_train(
+                    torch, attn, TorchTransformerLM, knobs, lm_path)
+                p1 = {k: v.detach().clone()
+                      for k, v in m1._net.state_dict().items()}
+                m1.destroy()
+                torch.cuda.empty_cache()
+                v1, vloss1, vstart, _, vs1 = dist_train(
+                    torch, attn, TorchViT, dict(ZOO2_VIT), vit_path)
+                vp1 = host_tree(v1.dump_parameters())
+                v1.destroy()
+        finally:
+            ChipGroup.unbind_thread()
+            torch_model.WARMUP_STEPS = saved
+        try:
+            for p in procs:
+                p.wait(timeout=max(
+                    1.0, DIST_CHILD_S - (time.perf_counter() - t0)))
+        finally:
+            for p, f in zip(procs, logs):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                f.close()
+        outs = []
+        for i in range(2):
+            with open(os.path.join(root, f"child{i}.log")) as f:
+                outs.append(f.read())
+        recs = []
+        for i, (p, text) in enumerate(zip(procs, outs)):
+            got = [x for x in text.splitlines()
+                   if x.startswith("dist: child ")]
+            check(p.returncode == 0 and len(got) == 1,
+                  f"(b) child {i} exited {p.returncode}: "
+                  f"{text.splitlines()[-30:]}")
+            recs.append(json.loads(got[0][len("dist: child "):]))
+        pd = {}
+        flat = np.fromfile(os.path.join(root, "lm_params.bin"), np.float32)
+        off = 0
+        for k in sorted(p1):
+            n = p1[k].numel()
+            pd[k] = torch.from_numpy(flat[off:off + n]).view(p1[k].shape)
+            off += n
+        check(off == flat.size, f"(b) the LM's file holds {flat.size} "
+              f"floats, the model {off}")
+        rel = dp_rel(torch, p0, p1, pd, list(p1))
+        same = all(torch.equal(pd[k].to("cuda"), p1[k]) for k in p1)
+        del flat, pd, p0, p1
+        torch.cuda.empty_cache()
+        vpd = dict(np.load(os.path.join(root, "vit_params.npz")))
+        vkeys = [k for k in vp1 if not k.startswith("_meta/")]
+        check(sorted(vstart) == sorted(vkeys),
+              f"(b) ViT's start {len(vstart)} tensors, its dump "
+              f"{len(vkeys)}")
+        vrel = dp_rel(torch, vstart, vp1, vpd, vkeys)
+        vsame = all(np.array_equal(vpd[k], vp1[k]) for k in vkeys)
+        pred = [2 * 2 * n_l, 2 * n_l, 2 * n_l]
+        vpred = [2 * depth, depth, depth]
+        for r in recs:
+            check(r["global"] == 2 and r["local"] == 1
+                  and r["backend"] == "gloo" and r["lm_dp"] == 2
+                  and r["lm_spans"] and r["vit_dp"] == 2 and not r["jax"],
+                  f"(b) child {r['rank']}: {r}")
+            check(r["lm_launches"][:3] == pred
+                  and r["lm_launches"][3:] == r["lm_launches"][:3],
+                  f"(b) child {r['rank']}'s LM launched K1-K3 "
+                  f"{r['lm_launches']}, predicted {pred} all wgmma")
+            check(r["vit_launches"][:3] == vpred
+                  and r["vit_launches"][3:] == r["vit_launches"][:3],
+                  f"(b) child {r['rank']}'s ViT launched K1-K3 "
+                  f"{r['vit_launches']}, predicted {vpred} all wgmma")
+            check(len(r["lm_loss"]) == len(loss1) == 2 and all(
+                abs(a - b) <= TOL_STEP_LOSS
+                for a, b in zip(r["lm_loss"], loss1))
+                and len(r["vit_loss"]) == len(vloss1) == 1
+                and abs(r["vit_loss"][0] - vloss1[0]) <= TOL_STEP_LOSS,
+                f"(b) child {r['rank']}'s losses LM {r['lm_loss']} ViT "
+                f"{r['vit_loss']} against {loss1} and {vloss1}")
+        check(rel <= TOL_PAR_STEP and vrel <= TOL_PAR_STEP,
+              f"(b) the parameters across the processes {rel:.3e} (LM) "
+              f"and {vrel:.3e} (ViT) of the update off the one-process "
+              f"mesh's")
+        print(f"dist: (b) two children, one dp rank each (process group "
+              f"{recs[0]['backend']}, GLOBAL 2 LOCAL 1 in each, no jax), "
+              f"the flagship LM (d_model 2048, 16 heads of 128, {n_l} "
+              f"layers, seq_len 2048, batch 8 over dp 2: 4 windows a rank) "
+              f"from the seeded weights, two steps through train: losses "
+              f"{[r['lm_loss'] for r in recs]} against the one-process dp-2 "
+              f"mesh's {loss1}; parameters {rel:.3e} of the update off "
+              f"(tolerance {TOL_PAR_STEP}; bit for bit: {same}); K1-K3 a "
+              f"process {[r['lm_launches'][:3] for r in recs]} = 2 steps x "
+              f"(2 x {n_l}, {n_l}, {n_l}), all wgmma; the train call "
+              f"{[round(r['lm_s'], 3) for r in recs]} s a process (its "
+              f"gradients summed through gloo, staged on the host), "
+              f"{s1:.3f} s for the one-process mesh", flush=True)
+        print(f"dist: (b) ViT (d_model 128, 4 heads of 32, {depth} blocks, "
+              f"batch 256 over dp 2) one step on {DIST_VIT_TRAIN} images "
+              f"across the processes: loss {[r['vit_loss'] for r in recs]}"
+              f" against {vloss1}; parameters {vrel:.3e} of the update "
+              f"off (bit for bit: {vsame}); K1-K3 a process "
+              f"{[r['vit_launches'][:3] for r in recs]} (6 in the MFU "
+              f"probe's forward, 6 in the step's, 6 and 6 in its "
+              f"backward), all wgmma; the train call "
+              f"{[round(r['vit_s'], 3) for r in recs]} s a process, "
+              f"{vs1:.3f} s for the one-process mesh; (b) took "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    launches = [sum(r["lm_launches"][i] + r["vit_launches"][i]
+                    for r in recs) for i in range(3)]
+    phase_s = time.perf_counter() - t_phase
+    check(phase_s <= DIST_MAX_S, f"the dist phase took {phase_s:.1f} s")
+    print(f"dist: K1, K2 and K3 launched {launches} times in the two "
+          f"processes' runs, all wgmma; phase took {phase_s:.1f} s",
+          flush=True)
+    out.update(launches=launches, phase_s=phase_s, lm_rel=rel,
+               lm_bitwise=same, vit_bitwise=vsame,
+               lm_loss=recs[0]["lm_loss"], lm_loss_single=loss1,
+               lm_s=[r["lm_s"] for r in recs], lm_s_single=s1)
+    return out
+
+
 def timed(name, fn, *args):
     """``fn(*args)``, printing the phase's own seconds."""
     t0 = time.perf_counter()
@@ -10205,6 +10718,7 @@ def main() -> int:
                      params)
         par = timed("parallel", parallel_phase, torch, np, attn, card)
         dp = timed("dp", dp_phase, torch, np, attn, card, params)
+        dist = timed("dist", dist_phase, torch, np, attn, card)
     except Exception:
         traceback.print_exc()
         return 1
@@ -10218,7 +10732,8 @@ def main() -> int:
                        + procs["launches"][0] + clus["launches"][0]
                        + scale["launches"][0] + oper["launches"][0]
                        + search["launches"][0] + data["launches"][0]
-                       + par["launches"][0] + dp["launches"][0]),
+                       + par["launches"][0] + dp["launches"][0]
+                       + dist["launches"][0]),
              generate_launches=gen_launches,
              platform_launches=plat_launches[0],
              zoo_launches=zoo["launches"][0],
@@ -10235,6 +10750,7 @@ def main() -> int:
              data_launches=data["launches"][0],
              parallel_launches=par["launches"][0],
              dp_launches=dp["launches"][0],
+             dist_launches=dist["launches"][0],
              parallel_shape=data_row(par, "K1"),
              zoo2_shapes=zoo2_rows(zoo2, "K1"),
              data_shape=data_row(data, "K1"),
@@ -10249,7 +10765,7 @@ def main() -> int:
                        + clus["launches"][1] + scale["launches"][1]
                        + oper["launches"][1] + search["launches"][1]
                        + data["launches"][1] + par["launches"][1]
-                       + dp["launches"][1]),
+                       + dp["launches"][1] + dist["launches"][1]),
              platform_launches=plat_launches[1],
              zoo_launches=zoo["launches"][1],
              ensemble_launches=ens["launches"][1],
@@ -10265,6 +10781,7 @@ def main() -> int:
              data_launches=data["launches"][1],
              parallel_launches=par["launches"][1],
              dp_launches=dp["launches"][1],
+             dist_launches=dist["launches"][1],
              parallel_shape=data_row(par, "K2"),
              zoo2_shapes=zoo2_rows(zoo2, "K2"),
              data_shape=data_row(data, "K2"), **k2),
@@ -10277,7 +10794,7 @@ def main() -> int:
                        + clus["launches"][2] + scale["launches"][2]
                        + oper["launches"][2] + search["launches"][2]
                        + data["launches"][2] + par["launches"][2]
-                       + dp["launches"][2]),
+                       + dp["launches"][2] + dist["launches"][2]),
              platform_launches=plat_launches[2],
              zoo_launches=zoo["launches"][2],
              ensemble_launches=ens["launches"][2],
@@ -10293,6 +10810,7 @@ def main() -> int:
              data_launches=data["launches"][2],
              parallel_launches=par["launches"][2],
              dp_launches=dp["launches"][2],
+             dist_launches=dist["launches"][2],
              parallel_shape=data_row(par, "K3"),
              zoo2_shapes=zoo2_rows(zoo2, "K3"),
              data_shape=data_row(data, "K3"), **k3)]}), flush=True)

@@ -21,9 +21,12 @@ job is done (or at ``--timeout``), stopping what it launched.
 A node runs on CUDA; ``RAFIKI_TPU_PLATFORM=cpu`` runs it, and the
 service processes it spawns, on the CPU (the tests). Without a card and
 without that, it raises. ``--coordinator``, ``--num-processes`` and
-``--process-id`` are parsed and checked as the reference's, and refused
-when given: a node spanning several processes is multi-GPU work
-(ROADMAP.md, queue 1 item 8).
+``--process-id`` (all three, or none) make ``serve`` one process of a
+node over several (ref :54-60): it joins the process group
+(``parallel.dist.initialize``) before the platform is built, so the chip
+allocator sizes from the global device list, prints
+``rafiki-tpu process group: process I of N, GLOBAL G LOCAL L, backend
+B``, and leaves the group at shutdown.
 """
 
 from __future__ import annotations
@@ -67,11 +70,6 @@ def _serve(args: argparse.Namespace) -> None:
         bus_uri=args.bus, log_level=args.log_level,
         coordinator=args.coordinator or None,
         num_processes=args.num_processes, process_id=args.process_id)
-    if cfg.coordinator:
-        raise SystemExit(
-            "--coordinator/--num-processes/--process-id: a node over "
-            "several processes is not ported yet (multi-GPU, ROADMAP.md "
-            "queue 1 item 8); run serve without them")
     cfg.apply_env()
     logging.basicConfig(
         level=getattr(logging, cfg.log_level.upper()),
@@ -82,21 +80,36 @@ def _serve(args: argparse.Namespace) -> None:
     device = env_device()
     print(_platform_line(device), flush=True)
 
-    from .platform import LocalPlatform
+    # A node over several processes: every process runs serve with the
+    # same coordinator; the group forms before the platform, whose chip
+    # allocator then sizes from the global device list (ref :54-60).
+    from .parallel import dist
 
-    platform = LocalPlatform.from_config(cfg, http=True, device=device)
-    app = platform.app
-    print(f"rafiki-tpu admin on http://{app.host}:{app.port} "
-          f"(workdir={platform.workdir})", flush=True)
-
-    stop = threading.Event()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: stop.set())
+    if cfg.coordinator:
+        node = dist.initialize(cfg.coordinator, cfg.num_processes,
+                               cfg.process_id)
+        print(f"rafiki-tpu process group: process {node.process_index} "
+              f"of {node.num_processes}, GLOBAL {len(node.devices)} "
+              f"LOCAL {len(node.local)}, backend {node.backend}",
+              flush=True)
     try:
-        stop.wait()
+        from .platform import LocalPlatform
+
+        platform = LocalPlatform.from_config(cfg, http=True, device=device)
+        app = platform.app
+        print(f"rafiki-tpu admin on http://{app.host}:{app.port} "
+              f"(workdir={platform.workdir})", flush=True)
+
+        stop = threading.Event()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            signal.signal(sig, lambda *_: stop.set())
+        try:
+            stop.wait()
+        finally:
+            print("shutting down...", flush=True)
+            platform.shutdown()
     finally:
-        print("shutting down...", flush=True)
-        platform.shutdown()
+        dist.shutdown()
 
 
 def _join(args: argparse.Namespace) -> None:
@@ -213,11 +226,11 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--log-level", default=None)
     serve.add_argument("--coordinator", default=None,
                        help="coordinator host:port of a node over several "
-                            "processes (not ported yet)")
+                            "processes (process 0 listens there)")
     serve.add_argument("--num-processes", type=int, default=None,
-                       help="processes of the node (not ported yet)")
+                       help="processes of the node")
     serve.add_argument("--process-id", type=int, default=None,
-                       help="this process's rank (not ported yet)")
+                       help="this process's rank")
     serve.set_defaults(fn=_serve)
 
     join = sub.add_parser(

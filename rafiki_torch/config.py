@@ -13,8 +13,8 @@ Fields:
 - the node's own: ``workdir``, ``port``, ``n_chips``, ``bus_uri``,
   ``supervise_interval``, ``log_level``, ``trace_dir`` (per-trial
   device traces), and ``coordinator``, ``num_processes`` and
-  ``process_id``, which the ``serve`` CLI parses and refuses for now
-  (multi-GPU, ROADMAP queue 1 item 8);
+  ``process_id``, which make ``serve`` one process of a node over
+  several (``parallel.dist.initialize``, before the platform is built);
 - placement and leases: ``chip_share`` (the time-sliced tier for a
   job's first worker; the reference reads ``RAFIKI_TPU_CHIP_SHARE``
   without a field), ``max_chip_share``, ``node_lease`` and
@@ -58,7 +58,8 @@ Fields:
 - the trial loop's: ``checkpoint_trials`` (``RAFIKI_TPU_CKPT``, the
   runner's crash-resume checkpoints, off by default),
   ``advisor_prefetch`` (the train worker's ``PrefetchAdvisor``, on by
-  default) and the residency caches' ``dataset_cache_bytes`` (the host
+  default), ``params_write_behind`` (the ``ParamStore``'s writer thread,
+  on by default, read a save) and the residency caches' ``dataset_cache_bytes`` (the host
   dataset cache), ``stage_cache_bytes`` (the device staging cache) and
   ``stage_bytes`` (the largest set staged whole), each read per call
   by its cache.
@@ -251,6 +252,9 @@ class NodeConfig:
     checkpoint_trials: bool = False
     # Train workers compute the next proposal while a trial trains.
     advisor_prefetch: bool = True
+    # ParamStore write-behind: save() returns before the file is on disk
+    # (store/params.py). Off = synchronous saves.
+    params_write_behind: bool = True
     # The host dataset cache: parsed sets stay resident across trials,
     # keyed by (path, mtime, size), a byte-budget LRU. 0 disables it.
     dataset_cache_bytes: int = 1 << 30
@@ -529,6 +533,9 @@ class NodeConfig:
             os.environ.pop(self.env_name("checkpoint_trials"), None)
         os.environ[self.env_name("advisor_prefetch")] = \
             "1" if self.advisor_prefetch else "0"
+        # The ParamStore reads the write-behind switch a save.
+        os.environ[self.env_name("params_write_behind")] = \
+            "1" if self.params_write_behind else "0"
         # The dataset and staging caches read their budgets per call.
         os.environ[self.env_name("dataset_cache_bytes")] = \
             str(self.dataset_cache_bytes)

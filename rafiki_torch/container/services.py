@@ -185,11 +185,17 @@ def main() -> None:
                 log.warning("metrics server on port %s unavailable; "
                             "continuing without", metrics_port,
                             exc_info=True)
-    service = build_service(env)
+    ctx = SystemContext.from_env(env)
+    service = build_service(env, ctx)
     stop = getattr(service, "stop", None)
     if stop is not None:
         signal.signal(signal.SIGTERM, lambda *_: stop())
-    service.run()
+    try:
+        service.run()
+    finally:
+        # The params store's write-behind thread is a daemon: a save
+        # still pending would die with the process.
+        ctx.params.flush()
 
 
 if __name__ == "__main__":

@@ -155,27 +155,6 @@ def _lstm_from_jax(params: Params) -> Dict[str, torch.Tensor]:
             for k, v in state.items()}
 
 
-def _lstm_to_jax(state: Dict[str, np.ndarray]) -> Params:
-    """The inverse of ``_lstm_from_jax``; ``bias_ih`` must be zero (the
-    reference has no input-gate bias)."""
-    out: Params = {}
-    for key in state:
-        if not key.endswith(".weight_ih"):
-            continue
-        name = key[:-len(".weight_ih")]
-        cell = "params/" + name.replace(".", "/")
-        if np.any(state[f"{name}.bias_ih"]):
-            raise ValueError(f"{name}'s bias_ih is not zero")
-        for prefix in ("i", "h"):
-            mat = state[f"{name}.weight_{prefix}h"]
-            for g, block in zip(_GATES, np.split(mat, 4)):
-                out[f"{cell}/{prefix}{g}/kernel"] = np.array(block.T,
-                                                             copy=True)
-        for g, b in zip(_GATES, np.split(state[f"{name}.bias_hh"], 4)):
-            out[f"{cell}/h{g}/bias"] = np.array(b, copy=True)
-    return out
-
-
 def dense_from_jax(params: Params) -> Dict[str, torch.Tensor]:
     """Reference flat ``params/...`` and ``batch_stats/...`` dict -> the
     port's ``state_dict`` (CPU, float32). ``_meta/...`` entries are
@@ -194,18 +173,11 @@ def dense_from_jax(params: Params) -> Dict[str, torch.Tensor]:
 
 def dense_to_jax(state: Dict[str, torch.Tensor]) -> Params:
     """The port's ``state_dict`` -> the reference flat dict (host numpy,
-    float32)."""
-    host = {k: t.detach().to("cpu", torch.float32).numpy()
-            for k, t in state.items()}
-    out = _lstm_to_jax(host)
-    for key, a in host.items():
-        if key.rsplit(".", 1)[-1] in _LSTM_NAMES:
-            continue
-        name, perm = jax_name(key, a.ndim)
-        if perm is not None:
-            a = a.transpose(perm)
-        out[name] = np.array(a, copy=True)
-    return out
+    float32): ``dense_to_jax_tensors``, read back in one packed pull."""
+    from ..parallel.transfer import device_get_tree
+
+    return device_get_tree(dense_to_jax_tensors(
+        {k: t.detach().float() for k, t in state.items()}))
 
 
 def dense_from_jax_tensors(flat: Dict[str, torch.Tensor]
@@ -220,16 +192,78 @@ def dense_from_jax_tensors(flat: Dict[str, torch.Tensor]
     return state
 
 
+def _lstm_to_jax_tensors(state: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``_lstm_from_jax``, on tensors where they lie:
+    views of the stacked gate matrices, transposed, and of the hidden
+    biases; ``bias_ih`` must be zero (the reference has no input-gate
+    bias)."""
+    out: Dict[str, torch.Tensor] = {}
+    for key in state:
+        if not key.endswith(".weight_ih"):
+            continue
+        name = key[:-len(".weight_ih")]
+        cell = "params/" + name.replace(".", "/")
+        if bool(state[f"{name}.bias_ih"].any()):
+            raise ValueError(f"{name}'s bias_ih is not zero")
+        for prefix in ("i", "h"):
+            mat = state[f"{name}.weight_{prefix}h"]
+            for g, block in zip(_GATES, mat.chunk(4)):
+                out[f"{cell}/{prefix}{g}/kernel"] = block.T
+        for g, b in zip(_GATES, state[f"{name}.bias_hh"].chunk(4)):
+            out[f"{cell}/h{g}/bias"] = b
+    return out
+
+
+def dense_to_jax_tensors(state: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``dense_from_jax_tensors``: the port's
+    ``state_dict`` in the reference's flat names and layouts, on the
+    tensors' own devices, with no copy but the permutations' views
+    (``dense_to_jax`` without the host pull). A caller that keeps the
+    result past a write to the module copies first
+    (``TorchModel.dump_parameters``)."""
+    out = _lstm_to_jax_tensors(state)
+    for key, t in state.items():
+        if key.rsplit(".", 1)[-1] in _LSTM_NAMES:
+            continue
+        name, perm = jax_name(key, t.dim())
+        out[name] = t.permute(perm) if perm is not None else t
+    return out
+
+
+def dense_state(params: Params) -> Dict[str, torch.Tensor]:
+    """A flat reference dict whose leaves are host arrays, tensors, or
+    both -> the port's ``state_dict``: host leaves through
+    ``dense_from_jax``, tensor leaves by ``dense_from_jax_tensors`` as
+    float32 views where they lie (an LSTM cell's gate tensors go
+    through the host). ``load_state_dict`` copies from the result, so
+    the module never shares a tensor leaf's storage."""
+    tensors = {k: v for k, v in params.items()
+               if isinstance(v, torch.Tensor) and not k.startswith("_meta/")
+               and not _is_gate(k)}
+    host = {k: v for k, v in params.items() if k not in tensors}
+    if any(isinstance(v, torch.Tensor) for v in host.values()):
+        from ..parallel.transfer import device_get_tree
+        host = device_get_tree(host)
+    state = dense_from_jax(host)
+    state.update(dense_from_jax_tensors(
+        {k: v.detach().float() for k, v in tensors.items()}))
+    return state
+
+
 def overlay_params(module: torch.nn.Module, params: Params) -> int:
     """Warm start (the reference's ``_merge_shared``): load into
     ``module`` the leaves of the flat ``params`` whose names and shapes
-    match its own; returns how many it took."""
-    own = dense_to_jax(module.state_dict())
+    match its own; returns how many it took. Leaves may be host arrays
+    or tensors (a pending save's in-memory tree): each is copied into
+    the module's own tensors, never shared."""
+    own = dense_to_jax_tensors(module.state_dict())
     take = {k: v for k, v in params.items()
             if not k.startswith("_") and k in own
             and tuple(own[k].shape) == tuple(np.shape(v))}
     if take:
-        module.load_state_dict(dense_from_jax(take), strict=False)
+        module.load_state_dict(dense_state(take), strict=False)
     return len(take)
 
 

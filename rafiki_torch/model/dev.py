@@ -105,9 +105,12 @@ test_model_class.__test__ = False  # type: ignore[attr-defined]
 def _check_params(params: Params) -> None:
     assert isinstance(params, dict) and params, \
         "dump_parameters() must return a non-empty dict"
-    for k, v in params.items():
+    # Leaves may be tensors on the card (TorchModel's dump): one packed
+    # readback, as the reference's np.asarray pulls its device arrays.
+    from ..parallel.transfer import device_get_tree
+
+    for k, arr in device_get_tree(dict(params)).items():
         assert isinstance(k, str), f"param key {k!r} is not str"
-        arr = np.asarray(v)
         assert arr.dtype != object, f"param {k!r} is not a numeric ndarray"
 
 

@@ -113,14 +113,14 @@ from torch.func import functional_call
 from ..observe import MfuMeter, metrics
 from ..observe import phases as _phases
 from ..parallel.data import (group_mesh, mesh_apply, place_leaves,
-                             rank_coord, replica, row_blocks)
+                             rank_coord, replica, row_blocks, sum_grads)
 from ..parallel.mesh import Mesh
 from ..torchenv import (DeviceLike, graph_capture, resolve_device,
                         side_stream)
 from ..utils.hashing import M32, mix32
 from .base import BaseModel, Params
-from .bridge import (dense_from_jax, dense_from_jax_tensors, dense_to_jax,
-                     overlay_params)
+from .bridge import (dense_from_jax_tensors, dense_state, dense_to_jax,
+                     dense_to_jax_tensors, overlay_params)
 from .dataset import (ByteBudgetLRU, ImageDataset, dataset_fingerprint,
                       env_bytes, load_image_dataset)
 from .logger import logger
@@ -228,8 +228,11 @@ def staged_dataset_arrays(dataset_path: str, ds: ImageDataset,
 
 
 def mesh_devices(mesh: Mesh) -> List[torch.device]:
-    """The distinct devices a mesh's entries name, in entry order."""
-    return list(dict.fromkeys(mesh.devices.flat))
+    """The distinct devices of this process that a mesh's entries name,
+    in entry order (on a mesh over several processes, the local
+    ones)."""
+    return [d for d in dict.fromkeys(mesh.devices.flat)
+            if isinstance(d, torch.device)]
 
 
 def staged_mesh_arrays(dataset_path: str, ds: ImageDataset, mesh: Mesh
@@ -377,6 +380,7 @@ class _TrainSteps:
                                           self.step_no).float()
         loss = F.cross_entropy(logits, y)
         loss.backward()
+        sum_grads(self.model.mesh, self.net.parameters())
         acc = (logits.detach().argmax(-1) == y).float().mean()
         self.sums.add_(torch.stack([loss.detach(), acc]))
         self.row.add_(1)
@@ -875,8 +879,10 @@ class TorchModel(BaseModel):
         the eval-mode forwards (no rank writes, none sums)."""
         mesh = self.mesh
         placed = place_leaves(dict(net.named_parameters()), mesh)
-        return [replica(net, placed, rank_coord(i))
-                for i in range(mesh.shape["dp"])]
+        reps: List[Optional[nn.Module]] = [None] * mesh.shape["dp"]
+        for i in mesh.local_ranks():
+            reps[i] = replica(net, placed, rank_coord(i))
+        return reps
 
     def _train_logits(self, net: nn.Module,
                       images: Dict[torch.device, torch.Tensor],
@@ -1433,12 +1439,24 @@ class TorchModel(BaseModel):
     # --- BaseModel: parameters ---
 
     def dump_parameters(self) -> Params:
-        out = dense_to_jax(self._require_net().state_dict())
+        """The parameters in the reference's flat layout, as float32
+        tensors on the model's device (ref :1363-1374, which passes its
+        device arrays through): the ``ParamStore``'s write-behind, or a
+        consumer's ``parallel.device_get_tree``, decides when they cross
+        to the host. Each leaf is a copy made on the device, a snapshot
+        that a later in-place step or ``destroy`` cannot change; the
+        ``_meta`` entries are host arrays."""
+        with torch.no_grad():
+            state = {k: v.detach().to(torch.float32, copy=True)
+                     for k, v in self._require_net().state_dict().items()}
+        out: Params = dict(dense_to_jax_tensors(state))
         out["_meta/n_classes"] = np.asarray(self._meta["n_classes"])
         out["_meta/image_shape"] = np.asarray(self._meta["image_shape"])
         return out
 
     def load_parameters(self, params: Params) -> None:
+        """Load a flat tree of host arrays or tensors (an in-memory
+        dump): the new net copies every leaf."""
         meta_n = params.get("_meta/n_classes")
         meta_shape = params.get("_meta/image_shape")
         if meta_n is None or meta_shape is None:
@@ -1446,7 +1464,7 @@ class TorchModel(BaseModel):
         # A 0-d array may come back as shape (1,); accept both.
         net = self._new_net(int(np.asarray(meta_n).reshape(-1)[0]),
                             [int(x) for x in np.asarray(meta_shape)])
-        net.load_state_dict(dense_from_jax(params))
+        net.load_state_dict(dense_state(params))
         self._net = net.eval()
         self._invalidate_compiled()
 

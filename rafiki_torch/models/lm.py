@@ -58,7 +58,8 @@ from ..model.torch_model import (stage_bytes_limit, stage_cache_budget,
                                  staged_token_ids)
 from ..observe import MfuMeter, metrics
 from ..ops.attention import flash_attention
-from ..parallel.data import group_mesh, rank_coord, row_blocks
+from ..parallel.data import (gather_ranks, group_mesh, rank_coord,
+                             row_blocks, sum_grads)
 from ..parallel.mesh import Mesh, shard_variables
 from ..torchenv import DeviceLike, resolve_device
 from .transformer import _sinusoidal
@@ -260,9 +261,10 @@ class TorchTransformerLM(BaseModel):
         mesh = self.mesh
         remat = str(self.knobs.get("remat", "dots"))
         placed = shard_variables(dict(self._net.named_parameters()), mesh)
+        blocks = row_blocks(win.shape[0], mesh.shape["dp"])
         sums = []
-        for i, (lo, hi) in enumerate(row_blocks(win.shape[0],
-                                                mesh.shape["dp"])):
+        for i in mesh.local_ranks():
+            lo, hi = blocks[i]
             c = rank_coord(i)
             w = win[lo:hi].to(mesh.device(c), non_blocking=True)
             logits = self._logits(
@@ -273,7 +275,10 @@ class TorchTransformerLM(BaseModel):
                                    reduction="sum")
             hits = (logits.detach().argmax(-1) == tgt).sum().float()
             sums.append(torch.stack([loss, hits]).to(self.device))
-        total = torch.stack(sums).sum(0) / (win.shape[0] * (win.shape[1] - 1))
+        # Across processes, every rank's sums in rank order (what follows
+        # is computed alike in every process).
+        total = gather_ranks(mesh, blocks, torch.stack(sums)).sum(0) / (
+            win.shape[0] * (win.shape[1] - 1))
         return total[0], total[1].detach()
 
     def _flops_per_step(self, b: int) -> float:
@@ -375,6 +380,7 @@ class TorchTransformerLM(BaseModel):
                 opt.zero_grad(set_to_none=True)
                 loss, acc = loss_of(wins[i])
                 loss.backward()
+                sum_grads(self.mesh, self._net.parameters())
                 opt.step()
                 sums += torch.stack([loss.detach(), acc])
             done += k
@@ -412,8 +418,9 @@ class TorchTransformerLM(BaseModel):
         mesh = self.mesh
         bf16 = self._weights()
         hits = []
-        for i, (lo, hi) in enumerate(row_blocks(wins.shape[0],
-                                                mesh.shape["dp"])):
+        blocks = row_blocks(wins.shape[0], mesh.shape["dp"])
+        for i in mesh.local_ranks():
+            lo, hi = blocks[i]
             if lo == hi:
                 continue
             dev = mesh.device(rank_coord(i))
@@ -423,7 +430,7 @@ class TorchTransformerLM(BaseModel):
                 lambda n, d=dev: self._net.get_parameter(n).to(d))
             hits.append((logits.argmax(-1) == w[:, 1:]).sum().to(
                 self.device))
-        return torch.stack(hits).sum()
+        return gather_ranks(mesh, blocks, torch.stack(hits)).sum()
 
     def _eval_windows(self, dataset_path: str) -> torch.Tensor:
         """``evaluate``'s (n_win, T + 1) int64 windows on the device:

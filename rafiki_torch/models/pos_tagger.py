@@ -53,7 +53,7 @@ from ..model.logger import logger
 from ..model.loop_ckpt import (LoopCheckpointer, TrainState, epoch_rng,
                                schedule_epochs)
 from ..model.optim import ScheduledOptimizer, scheduled_adam
-from ..parallel.data import group_mesh, mesh_apply
+from ..parallel.data import group_mesh, mesh_apply, sum_grads
 from ..parallel.mesh import Mesh
 from ..torchenv import DeviceLike, resolve_device
 from .layers import Dense, Embed, lecun_normal_
@@ -196,6 +196,7 @@ class _CorpusTagger(BaseModel):
                 if extra is not None:
                     loss = loss + extra
                 loss.backward()
+                sum_grads(self.mesh, net.parameters())
                 opt.step()
                 acc = ((out.detach().argmax(-1) == y).float() * mask).sum() / n
                 sums += torch.stack([loss.detach(), acc])

@@ -38,7 +38,7 @@ from ..model.logger import logger
 from ..model.loop_ckpt import (LoopCheckpointer, TrainState, epoch_rng,
                                schedule_epochs)
 from ..model.optim import scheduled_adam
-from ..parallel.data import group_mesh, mesh_apply
+from ..parallel.data import group_mesh, mesh_apply, sum_grads
 from ..parallel.mesh import Mesh
 from ..torchenv import DeviceLike, resolve_device
 from .layers import Dense
@@ -175,6 +175,7 @@ class _TabBase(BaseModel):
                 else:
                     loss = F.cross_entropy(out, y[sel])
                 loss.backward()
+                sum_grads(self.mesh, net.parameters())
                 opt.step()
                 total += loss.detach()
             logger.log(epoch=epoch, loss=float(total) / steps)

@@ -64,7 +64,8 @@ from ..ops.attention import (default_attention, ring_attention,
                              ulysses_attention)
 from ..ops.moe import switch_moe
 from ..ops.pipeline import pipeline_apply
-from ..parallel.data import group_mesh
+from ..parallel import dist
+from ..parallel.data import gather_ranks, group_mesh
 from ..parallel.mesh import Mesh, shard_variables
 from ..utils.hashing import M32, mix32
 from . import layers
@@ -364,7 +365,15 @@ class TorchTransformerTagger(_CorpusTagger):
                 if n_layers % pp != 0:
                     raise ValueError(f"pipeline_parallel ({pp}) must "
                                      f"divide n_layers ({n_layers})")
-            self._mesh = group_mesh(self.device, sp=sp, ep=ep, pp=pp)
+            mesh = group_mesh(self.device, sp=sp, ep=ep, pp=pp)
+            if mesh.spans_processes and (sp > 1 or ep > 1 or pp > 1
+                                         or experts > 0):
+                raise dist.CrossProcessAxisError(
+                    "the transformer tagger runs only its dp mode over "
+                    "several processes: sequence_parallel, "
+                    "expert_parallel, pipeline_parallel and moe_experts "
+                    "across processes are ROADMAP queue 1 item 8 (e)")
+            self._mesh = mesh
         return self._mesh
 
     def batch_multiple(self) -> int:
@@ -478,7 +487,7 @@ class TorchTransformerTagger(_CorpusTagger):
                                   layer, (origin[0], origin[1], n_t))
 
         grid = []
-        for i in range(dp):
+        for i in mesh.local_ranks():
             row = []
             for j in range(sp):
                 c = (i, 0, 0, j, 0)
@@ -514,7 +523,9 @@ class TorchTransformerTagger(_CorpusTagger):
             rows.append(torch.cat(outs, dim=1))
         if aux is not None:
             aux = aux.to(self.device)
-        return torch.cat(rows, dim=0), aux
+        # Over several processes (dp only), every process's rows.
+        return gather_ranks(mesh, [(0, b)] * dp, torch.stack(rows)).flatten(
+            0, 1), aux
 
     def _mesh_layer(self, blk: _EncoderBlock,
                     get: Callable[[Tuple[int, ...], str], torch.Tensor],

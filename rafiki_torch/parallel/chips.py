@@ -15,7 +15,10 @@ entries on one card, the counterpart of the reference tests' virtual
 devices. The allocator hands out distinct chips only.
 
 The allocator counts the node's CUDA devices and raises when there is
-none: it never reports a card it does not have. A platform asked to run
+none: it never reports a card it does not have. In a node over several
+processes (``parallel.dist``) a group's indices and the allocator's
+count are of the global device list, every process's devices in process
+order, as the reference's are of ``jax.devices()``. A platform asked to run
 on the CPU (the tests) gives the allocator its chip count, each chip
 then being the host's CPU.
 
@@ -40,10 +43,11 @@ from __future__ import annotations
 import os
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from . import dist
 from ..constants import EnvVars
 from ..torchenv import PLATFORM_ENV, DeviceLike, resolve_device
 
@@ -67,15 +71,38 @@ class ChipGroup:
     @property
     def device(self) -> torch.device:
         """The device the group's worker runs on: its first card, or the
-        CPU for a group of a platform run on the CPU."""
-        if self.device_type == "cpu":
-            return torch.device("cpu")
-        return torch.device(self.device_type, self.indices[0])
+        CPU for a group of a platform run on the CPU. In a node over
+        several processes, a group that holds another process's device
+        raises ``NotAddressableError``, unless the thread runs a step
+        that every process runs (``dist.every_process``): there it is
+        the group's first local device."""
+        if not dist.is_initialized():
+            if self.device_type == "cpu":
+                return torch.device("cpu")
+            return torch.device(self.device_type, self.indices[0])
+        entries = self.devices()
+        local = [d for d in entries if dist.is_local(d)]
+        if len(local) != len(entries) and not dist.in_every_process():
+            remote = next(d for d in entries if not dist.is_local(d))
+            raise dist.NotAddressableError(
+                f"chip group {self.name or self.indices} holds {remote}, "
+                f"which this process (process {dist.process_index()}) "
+                "cannot address outside a step that every process runs")
+        if not local:
+            raise dist.NotAddressableError(
+                f"chip group {self.name or self.indices} holds no device "
+                f"of process {dist.process_index()}")
+        return local[0]
 
-    def devices(self) -> List[torch.device]:
+    def devices(self) -> List[Any]:
         """The group's devices in group order, one an index: CUDA
         devices, or the CPU once an index for a group of a platform run
-        on the CPU. ``device`` is the first of them."""
+        on the CPU. In a node over several processes an index is one of
+        the global list (``dist.devices()``, ref :44-48), and another
+        process's entry is a ``dist.RemoteDevice``."""
+        if dist.is_initialized():
+            everyone = dist.devices()
+            return [everyone[i] for i in self.indices]
         if self.device_type == "cpu":
             return [torch.device("cpu")] * len(self.indices)
         return [torch.device(self.device_type, i) for i in self.indices]
@@ -122,11 +149,15 @@ class ChipGroup:
 
     @staticmethod
     def current() -> "ChipGroup":
-        """``bound()``, else every CUDA device of the node (raises
+        """``bound()``, else every device of the node: the global list
+        in a node over several processes, else every CUDA device (raises
         without a card, as ``resolve_device`` does)."""
         group = ChipGroup.bound()
         if group is not None:
             return group
+        if dist.is_initialized():
+            return ChipGroup(indices=tuple(range(dist.device_count())),
+                             device_type=dist.local_devices()[0].type)
         resolve_device("cuda")
         return ChipGroup(indices=tuple(range(torch.cuda.device_count())))
 
@@ -153,7 +184,17 @@ class ChipAllocator:
                  device: DeviceLike = None):
         dev = resolve_device(device)
         self.device_type = dev.type
-        if dev.type == "cuda":
+        if dist.is_initialized():
+            # The global device list, as the reference's jax.devices()
+            # after jax.distributed.initialize (ref :164-172).
+            have = dist.device_count()
+            if n_chips is None:
+                n_chips = have
+            elif n_chips > have:
+                raise ValueError(f"{n_chips} chips asked for; this node "
+                                 f"has {have} devices over "
+                                 f"{dist.process_count()} processes")
+        elif dev.type == "cuda":
             have = torch.cuda.device_count()
             if n_chips is None:
                 n_chips = have

@@ -21,14 +21,24 @@ through the copies autograd carries back (``Placed``).
   (``layers.column``), the reference's all-gather of the activations.
   Any other split leaf is gathered whole. A layer that needs the whole
   batch's sums (``needs_dp_sum``: ``layers.BatchNorm``) gets ``dp_sum``
-  and, on rank 0 alone, ``dp_writer``, the one rank that writes its
-  running statistics.
+  and, on rank 0 alone (across processes, on each process's first
+  rank), ``dp_writer``, the one rank that writes its running
+  statistics.
 - ``run_ranks`` runs the ranks' calls: one after the other, or, for a
   module whose layers sum over the ranks (``lockstep``), each in a
   thread of its own, meeting at every such sum, as
   ``torch.nn.DataParallel`` runs its replicas. A thread runs on the
   caller's current stream of each card and in its grad mode, so a
   capture or a side stream of the caller takes the ranks' work too.
+
+Across processes (a mesh over the global device list, ``parallel.dist``)
+every process runs the same step on its own dp ranks: ``mesh_apply``
+runs the local ranks and joins the processes' outputs in row order
+(``dist.gather_rows``); ``DpSum`` adds the local partials, then the
+processes', all in rank order (``dist.ordered_sum``), so its value is
+the one-process mesh's bit for bit; ``sum_grads`` sums the parameters'
+gradients over the processes after the backward, where in one process
+the ranks' copies add them up in each leaf's ``.grad``.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ import torch
 from torch import nn
 
 from ..model.bridge import jax_name
+from . import dist
 from .chips import ChipGroup
 from .mesh import (DP_AXIS, TP_AXIS, Mesh, Placed, Sharding, Spec,
                    build_mesh, param_spec)
@@ -55,10 +66,35 @@ def group_mesh(device: torch.device, **axes: int) -> Mesh:
     labels live there."""
     group = ChipGroup.bound()
     devices = group.devices() if group is not None else [device]
-    if devices[0] != device:
+    local = [d for d in devices if dist.is_local(d)]
+    if not local:
+        raise dist.NotAddressableError(
+            f"the group {devices} holds no device of this process")
+    if local[0] != device:
         raise ValueError(f"the model's device {device} is not its "
-                         f"group's first, {devices[0]}")
+                         f"group's first, {local[0]}")
     return build_mesh(devices, **axes)
+
+
+def gather_ranks(mesh: Mesh, blocks: Sequence[Tuple[int, int]],
+                 local: torch.Tensor) -> torch.Tensor:
+    """``local`` stacks this process's dp ranks' values, one a rank with
+    rows in ``blocks``: on a mesh over several processes, every such
+    rank's in rank order (``dist.gather_rows``), else ``local``."""
+    if not mesh.spans_processes:
+        return local
+    counts = [0] * dist.process_count()
+    for i, (lo, hi) in enumerate(blocks):
+        counts[mesh.rank_owner(i)] += int(lo < hi)
+    return dist.gather_rows(local, counts)
+
+
+def sum_grads(mesh: Mesh, params) -> None:
+    """After a backward on a mesh over several processes, sum the
+    parameters' gradients over the processes (``dist.sum_grads``); a
+    no-op on a mesh of one process."""
+    if mesh.spans_processes:
+        dist.sum_grads(params)
 
 
 def rank_coord(i: int, t: int = 0) -> Tuple[int, ...]:
@@ -179,7 +215,10 @@ def replica(net: nn.Module, placed: Dict[str, Placed],
             if buf is not None:
                 rep._buffers[k] = buf.to(home, non_blocking=True)
         if dp_sum is not None and getattr(mod, "needs_dp_sum", False):
-            rep.__dict__.update(dp_sum=dp_sum, dp_writer=coord[0] == 0)
+            # The process's first rank writes the running statistics
+            # (rank 0's buffers are the module's own).
+            rep.__dict__.update(dp_sum=dp_sum,
+                                dp_writer=coord[0] == mesh.local_ranks()[0])
         reps[id(mod)] = rep
     return reps[id(net)]
 
@@ -188,20 +227,33 @@ class DpSum:
     """The all-reduce of ``n`` ranks in lockstep: ``rank(i)`` is rank
     ``i``'s ``dp_sum``, which waits for every rank's partial and gives
     their sum in rank order on the caller's device, so every rank holds
-    the same value."""
+    the same value. With ``cross``, the ``n`` ranks are this process's
+    share of a mesh over several processes: local rank 0 adds every
+    process's partials in rank order (``dist.ordered_sum``) and the
+    local ranks read its total."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, cross: bool = False):
         self.slots: List[Optional[torch.Tensor]] = [None] * n
         self.barrier = threading.Barrier(n)
+        self.cross = cross
+        self.total: Optional[torch.Tensor] = None
 
     def rank(self, i: int) -> Callable[[torch.Tensor], torch.Tensor]:
         def dp_sum(t: torch.Tensor) -> torch.Tensor:
             self.slots[i] = t
             self.barrier.wait()
-            total = None
-            for s in self.slots:
-                s = s.to(t.device, non_blocking=True)
-                total = s if total is None else total + s
+            if self.cross:
+                if i == 0:
+                    self.total = dist.ordered_sum(torch.stack(
+                        [s.to(t.device, non_blocking=True)
+                         for s in self.slots]))
+                self.barrier.wait()
+                total = self.total.to(t.device, non_blocking=True)
+            else:
+                total = None
+                for s in self.slots:
+                    s = s.to(t.device, non_blocking=True)
+                    total = s if total is None else total + s
             # Every rank has read the slots before any writes again.
             self.barrier.wait()
             return total
@@ -221,7 +273,7 @@ def run_ranks(fns: Sequence[Callable[[], Any]],
         return [fn() for fn in fns]
     grad = torch.is_grad_enabled()
     streams = [torch.cuda.current_stream(d) for d in dict.fromkeys(devices)
-               if d.type == "cuda"]
+               if dist.is_local(d) and d.type == "cuda"]
     out: List[Any] = [None] * len(fns)
     errors: List[BaseException] = []
 
@@ -261,23 +313,29 @@ def mesh_apply(mesh: Mesh, net: nn.Module, n: int,
     the rows ``row_blocks(n, dp)[i]``, its inputs ``inputs(device, lo,
     hi)`` made on its device, through its ``replica`` of ``net`` (built
     here on ``place_leaves`` of ``net``'s parameters, unless
-    ``replicas`` are given) with ``kwargs(device)``; the
-    outputs are joined on ``home`` in row order. A rank without rows is
-    skipped. A train-mode ``net`` whose layers sum over the ranks runs
-    them in lockstep."""
+    ``replicas`` are given: one a dp rank, None for another process's)
+    with ``kwargs(device)``; the outputs are joined on ``home`` in row
+    order. A rank without rows is skipped. A train-mode ``net`` whose
+    layers sum over the ranks runs them in lockstep. On a mesh over
+    several processes this process runs its own ranks and the outputs
+    of every process are joined (``dist.gather_rows``)."""
     dp = mesh.shape[DP_AXIS]
     blocks = row_blocks(n, dp)
+    ranks = mesh.local_ranks()
+    cross = mesh.spans_processes
     lockstep = needs_lockstep(net)
     if lockstep and any(lo == hi for lo, hi in blocks):
         raise ValueError(f"{n} rows leave a rank of {dp} without rows")
-    sync = DpSum(dp) if lockstep else None
+    sync = DpSum(len(ranks), cross) if lockstep else None
     if replicas is None:
         placed = place_leaves(dict(net.named_parameters()), mesh)
-        replicas = [replica(net, placed, rank_coord(i),
-                            None if sync is None else sync.rank(i))
-                    for i in range(dp)]
+        replicas = [None] * dp
+        for j, i in enumerate(ranks):
+            replicas[i] = replica(net, placed, rank_coord(i),
+                                  None if sync is None else sync.rank(j))
     fns = []
-    for i, (lo, hi) in enumerate(blocks):
+    for i in ranks:
+        lo, hi = blocks[i]
         if lo == hi:
             continue
         dev = mesh.device(rank_coord(i))
@@ -289,4 +347,10 @@ def mesh_apply(mesh: Mesh, net: nn.Module, n: int,
 
         fns.append(fn)
     outs = run_ranks(fns, sync, list(mesh.devices.flat))
-    return torch.cat(outs) if len(outs) > 1 else outs[0]
+    mine = torch.cat(outs) if len(outs) > 1 else outs[0]
+    if not cross:
+        return mine
+    counts = [0] * dist.process_count()
+    for i, (lo, hi) in enumerate(blocks):
+        counts[mesh.rank_owner(i)] += hi - lo
+    return dist.gather_rows(mine, counts)

@@ -7,8 +7,8 @@ expert stack over ``ep`` (``ops.moe``), sequence shards over ``sp``
 (``ops.attention.ring_attention`` and ``ulysses_attention``), and large
 kernels' output features over ``tp``.
 
-The port has one controller, as the reference has, and no process
-groups. A mesh is an object array of ``torch.device``s; a placed tensor
+In one process the port has one controller, as the reference has. A
+mesh is an object array of ``torch.device``s; a placed tensor
 is its per-coordinate shards (``Placed``), each on its mesh device; a
 collective is a copy between mesh devices (``Tensor.to``, which autograd
 carries back). A replicated leaf stays one tensor: each coordinate's
@@ -20,14 +20,25 @@ reference tests' virtual devices: on one card, ``build_mesh([cuda:0] *
 4, sp=2)`` runs two data-parallel pairs of sequence shards. There,
 ``.to`` returns the tensor itself, and nothing writes in place to a
 shard another rank reads.
+
+In a node over several processes (``parallel.dist``) a mesh is built
+over entries of the global device list: another process's entry is a
+``dist.RemoteDevice``. Every process builds the same mesh and runs the
+same step, each on its local coordinates (``Mesh.local_ranks``); a
+``Placed`` cuts only local coordinates. Only ``dp`` may cross
+processes: each dp rank's (pp, ep, sp, tp) block must lie in one
+process, in process order (``dist.CrossProcessAxisError`` otherwise,
+ROADMAP queue 1 item 8 (e)).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from . import dist
 
 DP_AXIS = "dp"
 PP_AXIS = "pp"
@@ -59,13 +70,36 @@ class Mesh:
     def size(self) -> int:
         return int(self.devices.size)
 
-    def device(self, coord: Sequence[int]) -> torch.device:
-        """The device at ``coord``, one index an axis of ``AXES``."""
+    def device(self, coord: Sequence[int]) -> Any:
+        """The device at ``coord``, one index an axis of ``AXES``: a
+        ``torch.device``, or another process's ``dist.RemoteDevice``."""
         return self.devices[tuple(coord)]
 
     def distinct(self) -> int:
         """How many distinct devices the mesh's entries name."""
         return len(set(self.devices.flat))
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether some entry is another process's."""
+        return any(not dist.is_local(d) for d in self.devices.flat)
+
+    def rank_owner(self, i: int) -> int:
+        """The process that dp rank ``i``'s block lies on."""
+        return dist.owner(self.devices[i].flat[0])
+
+    def local_ranks(self) -> List[int]:
+        """The dp ranks whose blocks lie on this process: all of them in
+        one process."""
+        return [i for i in range(self.shape[DP_AXIS])
+                if dist.is_local(self.devices[i].flat[0])]
+
+    def process_ranks(self) -> List[int]:
+        """How many dp ranks each process holds, in process order."""
+        counts = [0] * dist.process_count()
+        for i in range(self.shape[DP_AXIS]):
+            counts[self.rank_owner(i)] += 1
+        return counts
 
     def __repr__(self) -> str:
         return (f"Mesh({', '.join(f'{a}={n}' for a, n in self.shape.items())}"
@@ -83,7 +117,8 @@ def build_mesh(devices: Sequence[Any], tp: int = 1, sp: int = 1, ep: int = 1,
     dp = n / (pp * ep * sp * tp). ``tp`` varies fastest, then ``sp``
     (ring neighbours are adjacent in device order), then ``ep`` and
     ``pp`` (ref :44-71)."""
-    devices = [torch.device(d) for d in devices]
+    devices = [d if isinstance(d, dist.RemoteDevice) else torch.device(d)
+               for d in devices]
     n = len(devices)
     if n == 0 or n % (tp * sp * ep * pp) != 0:
         raise ValueError(f"{n} devices not divisible by pp*ep*sp*tp="
@@ -94,8 +129,30 @@ def build_mesh(devices: Sequence[Any], tp: int = 1, sp: int = 1, ep: int = 1,
         arr = np.empty(n, dtype=object)
         arr[:] = devices
         mesh = Mesh(arr.reshape(n // (pp * ep * sp * tp), pp, ep, sp, tp))
+        if mesh.spans_processes:
+            _check_processes(mesh, dict(tp=tp, sp=sp, ep=ep, pp=pp))
         _MESH_CACHE[key] = mesh
     return mesh
+
+
+def _check_processes(mesh: Mesh, axes: Dict[str, int]) -> None:
+    """A mesh over several processes: each dp rank's block in one
+    process, the ranks in process order, as many on each process."""
+    owners = []
+    for i in range(mesh.shape[DP_AXIS]):
+        block = {dist.owner(d) for d in mesh.devices[i].flat}
+        if len(block) > 1:
+            crossing = [a for a, k in axes.items() if k > 1]
+            raise dist.CrossProcessAxisError(
+                f"the mesh's {'/'.join(crossing)} axis would cross "
+                f"processes {sorted(block)}: only dp spans processes "
+                "(sp, ep, pp and tp across processes are ROADMAP queue 1 "
+                "item 8 (e))")
+        owners.append(block.pop())
+    if owners != sorted(owners) or len(set(mesh.process_ranks())) != 1:
+        raise ValueError(f"dp ranks on processes {owners}: a mesh over "
+                         "several processes takes the same number of dp "
+                         "ranks from each, in process order")
 
 
 class Placed:
@@ -123,6 +180,10 @@ class Placed:
     def at(self, coord: Sequence[int]) -> torch.Tensor:
         idx = self.index(coord)
         dev = self.mesh.device(coord)
+        if not dist.is_local(dev):
+            raise dist.NotAddressableError(
+                f"coordinate {tuple(coord)} lies on {dev}: a process cuts "
+                "only its own coordinates")
         key = (tuple((s.start, s.stop) for s in idx), dev)
         shard = self._shards.get(key)
         if shard is None:

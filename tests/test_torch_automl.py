@@ -208,6 +208,7 @@ def test_param_files_interchange(tmp_path, writer):
                               **TorchFeedForward.validate_knobs(KNOBS))
         tm.load_parameters(p)
         pid = ours.save(tm.dump_parameters(), session_id="s")
+        ours.flush()  # the dump's tensors take the write-behind
         path = os.path.join(ours.params_dir, f"{pid}.safetensors")
         loaded = st_load_file(path)
         # The reference's store reads the same file.

@@ -92,6 +92,7 @@ def test_importing_the_port_loads_no_jax():
                 "rafiki_torch.datasets.prep", "rafiki_torch.model.sklearn_model",
                 "rafiki_torch.models.sk", "rafiki_torch.accuracy_parity",
                 "rafiki_torch.parallel.mesh", "rafiki_torch.parallel.transfer",
+                "rafiki_torch.parallel.dist",
                 "rafiki_torch.ops.moe", "rafiki_torch.ops.pipeline",
                 "rafiki_torch.parallelism_tour"):
         assert mod in mods, mod

@@ -163,14 +163,46 @@ def test_the_cli_parses_as_the_reference(argv, monkeypatch, capsys):
     assert got[0] == got[1]
 
 
-def test_serve_refuses_a_node_over_several_processes():
+def test_serve_flags_initialize_a_node_over_several_processes(
+        monkeypatch, tmp_path):
     """The multi-process triple parses as the reference's, and ``serve``
-    then refuses it, naming the ROADMAP item, before it starts
-    anything."""
-    with pytest.raises(SystemExit) as e:
-        pmain.main(["serve", "--coordinator", "127.0.0.1:1",
-                    "--num-processes", "2", "--process-id", "0"])
-    assert "queue 1 item 8" in str(e.value.code)
+    joins the process group with it before the platform is built (ref
+    :54-60), and leaves the group when the platform goes, as the
+    reference's ``jax.distributed.initialize`` comes first.
+    (``tests/test_torch_dist.py`` runs a real pair.)"""
+    from rafiki_torch import platform as pplatform
+    from rafiki_torch.parallel import dist
+
+    calls = []
+
+    class _Node:
+        process_index, num_processes, backend = 1, 2, "gloo"
+        devices, local = ["a", "b"], ["b"]
+
+    def fake_init(coordinator, num_processes, process_id):
+        calls.append(("init", coordinator, num_processes, process_id))
+        return _Node()
+
+    def fake_platform(*args, **kwargs):
+        calls.append(("platform", dist.is_initialized()))
+        raise RuntimeError("stop before serving")
+
+    monkeypatch.setattr(dist, "initialize", fake_init)
+    monkeypatch.setattr(dist, "shutdown", lambda: calls.append(("down",)))
+    monkeypatch.setattr(pplatform.LocalPlatform, "from_config",
+                        staticmethod(fake_platform))
+    monkeypatch.setenv("RAFIKI_TPU_PLATFORM", "cpu")
+    saved = dict(os.environ)  # serve's apply_env exports the config
+    try:
+        with pytest.raises(RuntimeError, match="stop before serving"):
+            pmain.main(["serve", "--workdir", str(tmp_path), "--port", "0",
+                        "--coordinator", "127.0.0.1:1", "--num-processes",
+                        "2", "--process-id", "1"])
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    assert calls == [("init", "127.0.0.1:1", 2, 1), ("platform", False),
+                     ("down",)]
 
 
 # --- The fields of the fault plane, the cluster fabric, observability,
@@ -183,7 +215,8 @@ NEW_FIELDS = ["serving_pipeline", "generate_page_size",
               "cluster_locality_boost", "metrics", "trace_sample",
               "trace_max_mb", "trace_retain_segments", "trace_retain_mb",
               "trace_tail_sample", "trace_tail_slow_ms",
-              "metrics_exemplars", "checkpoint_trials", "advisor_prefetch"]
+              "metrics_exemplars", "checkpoint_trials", "advisor_prefetch",
+              "params_write_behind"]
 
 
 @pytest.mark.parametrize("field", NEW_FIELDS)
@@ -226,6 +259,8 @@ def _new_outcome(cls, env, overrides):
       "RAFIKI_TPU_GENERATE_MAX_NEW": "64"}, {}),
     ({"RAFIKI_TPU_CLUSTER_FABRIC": "auto"}, {}),
     ({"RAFIKI_TPU_CKPT": "1", "RAFIKI_TPU_ADVISOR_PREFETCH": "0"}, {}),
+    ({"RAFIKI_TPU_PARAMS_WRITE_BEHIND": "0"}, {}),
+    ({"RAFIKI_TPU_PARAMS_WRITE_BEHIND": "maybe"}, {}),
     ({"RAFIKI_TPU_CKPT": "auto"}, {}),
     ({"RAFIKI_TPU_CKPT": "off", "RAFIKI_TPU_ADVISOR_PREFETCH": "yes"},
      {"checkpoint_trials": True}),
@@ -261,7 +296,8 @@ NEW_EXPORTED = ["RAFIKI_TPU_SERVING_PIPELINE", "RAFIKI_TPU_FAULT_PLAN",
                 "RAFIKI_TPU_GENERATE_POOL_PAGES",
                 "RAFIKI_TPU_GENERATE_DECODE_BATCH",
                 "RAFIKI_TPU_GENERATE_MAX_NEW", "RAFIKI_TPU_CKPT",
-                "RAFIKI_TPU_ADVISOR_PREFETCH"]
+                "RAFIKI_TPU_ADVISOR_PREFETCH",
+                "RAFIKI_TPU_PARAMS_WRITE_BEHIND"]
 
 
 @pytest.mark.parametrize("overrides", [
@@ -271,7 +307,8 @@ NEW_EXPORTED = ["RAFIKI_TPU_SERVING_PIPELINE", "RAFIKI_TPU_FAULT_PLAN",
          "metrics": False, "metrics_exemplars": True,
          "trace_sample": 0.1, "trace_tail_sample": 0.5,
          "trace_retain_segments": 2, "generate_max_new": 32,
-         "checkpoint_trials": True, "advisor_prefetch": False},
+         "checkpoint_trials": True, "advisor_prefetch": False,
+         "params_write_behind": False},
     {"serving_pipeline": False, "trace_tail_sample": 1.0}])
 def test_new_fields_round_trip_through_apply_env(overrides):
     saved = dict(os.environ)

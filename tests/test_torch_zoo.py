@@ -519,6 +519,7 @@ def test_parameter_files_interchange_both_ways(cifar_like, tmp_path,
     # The port's file -> JAX, bit for bit the same tensors.
     tstore2 = ParamStore(str(tmp_path / "torch"))
     pid2 = tstore2.save(tm.dump_parameters(), session_id="s")
+    tstore2.flush()  # the dump's tensors take the write-behind
     jm2 = jcls(**jcls.validate_knobs(knobs))
     back = JaxParamStore(str(tmp_path / "torch")).load(pid2)
     jm2.load_parameters(back)
